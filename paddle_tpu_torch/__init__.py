@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``paddle_tpu``, for NVIDIA Hopper (H100).
+
+The port grows slice by slice beside the JAX package, which stays the
+reference.  This slice holds the paged-KV serving engine
+(:mod:`.serving`) and the three hand-written CUDA kernels it runs
+(:mod:`.ops.paged_attention`, :mod:`.ops.quant_kernels`).
+
+Importing the package loads torch, numpy and the standard library only:
+no JAX, nothing from ``paddle_tpu``, and no kernel is built until a
+CUDA tensor first reaches a kernel wrapper.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,19 @@
+"""Kernels of the port: each a CUDA kernel for Hopper with its plain
+PyTorch version beside it (:mod:`.paged_attention`, :mod:`.quant_kernels`)."""
+from . import paged_attention as _paged_attention
+from . import quant_kernels as _quant_kernels
+
+__all__ = ["KERNELS", "reset_launch_counts"]
+
+#: every kernel wrapper of the port, by name
+KERNELS = {
+    "paged_attention": _paged_attention.paged_attention,
+    "paged_attention_int8": _paged_attention.paged_attention_int8,
+    "w8a16_matmul": _quant_kernels.w8a16_matmul,
+}
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0

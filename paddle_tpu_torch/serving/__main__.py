@@ -1,0 +1,85 @@
+"""``python -m paddle_tpu_torch.serving --spec '{...}'``: serve a decoder
+with random weights over HTTP, with the drain/deadline/watchdog
+lifecycle.
+
+Builds the engine on the card (``--device cpu`` runs the plain PyTorch
+path), binds the stdlib front end, publishes the bound endpoint to
+``--port-file`` (atomic write), installs the SIGTERM graceful-drain
+handler (exit 143), and serves until told to stop.  Serve settings come
+from the ``PT_SERVE_*`` environment (:class:`.engine.ServeConfig`).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import threading
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch.serving",
+        description="serve a decoder over HTTP with drain/deadline/"
+                    "watchdog resilience")
+    ap.add_argument("--spec", required=True,
+                    help="ModelSpec JSON, e.g. '{\"vocab_size\": 50304, "
+                         "\"hidden\": 1024, \"layers\": 24, \"heads\": 16, "
+                         "\"max_seq_len\": 2048}'")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a GPU)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="0 = ephemeral (published via --port-file)")
+    ap.add_argument("--port-file", default=None,
+                    help="publish host:port here once bound")
+    ap.add_argument("--request-timeout", type=float, default=120.0)
+    ap.add_argument("--drain-budget", type=float, default=None,
+                    help="SIGTERM drain budget; default "
+                         "ServeConfig.drain_s / PT_SERVE_DRAIN_S")
+    return ap.parse_args(argv)
+
+
+def _publish_endpoint(path, host, port):
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w", encoding="ascii") as f:
+        f.write(f"{host}:{port}")
+    os.replace(tmp, path)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+    from . import ModelSpec, ServeConfig, ServingEngine, init_params
+    from .http import ServeHTTPServer, install_drain_handler
+
+    spec = ModelSpec.from_dict(json.loads(args.spec))
+    engine = ServingEngine(spec, init_params(spec, args.seed, args.device),
+                           ServeConfig.from_env(), device=args.device)
+    server = ServeHTTPServer(engine, host=args.host, port=args.port,
+                             request_timeout=args.request_timeout).start()
+    install_drain_handler(server, budget_s=args.drain_budget)
+    if args.port_file:
+        _publish_endpoint(args.port_file, server.host, server.port)
+    logging.getLogger("paddle_tpu_torch.serving").info(
+        "serving pid=%d on http://%s:%d", os.getpid(), server.host,
+        server.port)
+
+    # hold until a signal takes us down: SIGTERM drains (exit 143)
+    hold = threading.Event()
+    try:
+        while not hold.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,380 @@
+"""Serving engine: bucketed prefill/decode over a paged KV pool.
+
+The counterpart of ``paddle_tpu/serving/engine.py``.  PyTorch runs
+eagerly, so there is no ahead-of-time compile: at construction the
+engine runs every prefill and decode bucket once (the warm-up), which
+builds and loads the CUDA kernels and gives cuBLAS its handles before
+the first request.  The bucket ladder stays: it fixes the padded shapes,
+and so the matrix-product algorithm of each bucket, which the
+continuous-batching bit-identity contract needs.
+
+KV state is updated in place: the steps write the pool tensors, which
+the engine never rebinds.
+
+The fp32 path is meant to be fp32: on a CUDA device the engine turns
+TF32 off for matrix products and cuDNN.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from dataclasses import asdict, dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .kv_cache import NULL_PAGE, PagePool, kv_page_budget
+from .model import ModelSpec, decode_step, params_from_numpy, prefill_step
+
+PRECISIONS = ("fp32", "bf16", "int8")
+
+logger = logging.getLogger("paddle_tpu_torch.serving")
+
+__all__ = ["ServeConfig", "ServingEngine", "PRECISIONS"]
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v else default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v else default
+
+
+def _env_buckets(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
+    v = os.environ.get(name)
+    if not v:
+        return tuple(default)
+    return tuple(int(x) for x in v.replace(";", ",").split(",") if x.strip())
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Engine shape/capacity configuration.
+
+    Every field has an env override (read by :meth:`from_env`):
+
+      PT_SERVE_BUCKETS          decode batch ladder, e.g. "2,4,8,16"
+      PT_SERVE_PREFILL_BUCKETS  prompt seq ladder, e.g. "16,32,64"
+      PT_SERVE_KV_PAGES         total pool pages (incl. null page)
+      PT_SERVE_PAGE_SIZE        tokens per page
+      PT_SERVE_MAX_INFLIGHT     admission cap (queued + active)
+      PT_SERVE_MAX_NEW_TOKENS   default generation length
+      PT_SERVE_EOS_ID           stop token (<0: length-bounded only)
+      PT_SERVE_DEADLINE_MS      server-default request deadline (0 = none)
+      PT_SERVE_MAX_QUEUE        bounded admission queue (0 = unbounded)
+      PT_SERVE_DRAIN_S          graceful-drain budget on SIGTERM
+      PT_SERVE_PRECISION        serve numerics: fp32 | bf16 | int8
+
+    ``kv_pages`` is denominated in fp32 pages (a byte budget): lower
+    precisions get more physical pages for the same spend
+    (:func:`.kv_cache.kv_page_budget`).
+    """
+
+    decode_buckets: Tuple[int, ...] = (2, 4, 8, 16)
+    prefill_buckets: Tuple[int, ...] = (16, 32, 64)
+    kv_pages: int = 128
+    page_size: int = 16
+    max_inflight: int = 64
+    max_new_tokens: int = 32
+    eos_id: int = -1          # <0: never stops early (length-bounded)
+    deadline_ms: float = 0.0  # server default; 0 = no deadline
+    max_queue: int = 256      # bounded queue; 0 = unbounded
+    drain_s: float = 10.0     # SIGTERM drain budget (seconds)
+    precision: str = "fp32"   # fp32 | bf16 | int8
+
+    @classmethod
+    def from_env(cls, **overrides) -> "ServeConfig":
+        base = cls(
+            decode_buckets=_env_buckets(
+                "PT_SERVE_BUCKETS", cls.decode_buckets),
+            prefill_buckets=_env_buckets(
+                "PT_SERVE_PREFILL_BUCKETS", cls.prefill_buckets),
+            kv_pages=_env_int("PT_SERVE_KV_PAGES", cls.kv_pages),
+            page_size=_env_int("PT_SERVE_PAGE_SIZE", cls.page_size),
+            max_inflight=_env_int("PT_SERVE_MAX_INFLIGHT",
+                                  cls.max_inflight),
+            max_new_tokens=_env_int("PT_SERVE_MAX_NEW_TOKENS",
+                                    cls.max_new_tokens),
+            eos_id=_env_int("PT_SERVE_EOS_ID", cls.eos_id),
+            deadline_ms=_env_float("PT_SERVE_DEADLINE_MS",
+                                   cls.deadline_ms),
+            max_queue=_env_int("PT_SERVE_MAX_QUEUE", cls.max_queue),
+            drain_s=_env_float("PT_SERVE_DRAIN_S", cls.drain_s),
+            precision=os.environ.get("PT_SERVE_PRECISION") or cls.precision,
+        )
+        return base.replace(**overrides) if overrides else base
+
+    def replace(self, **kw) -> "ServeConfig":
+        d = asdict(self)
+        d.update(kw)
+        d["decode_buckets"] = tuple(d["decode_buckets"])
+        d["prefill_buckets"] = tuple(d["prefill_buckets"])
+        return ServeConfig(**d)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = asdict(self)
+        d["decode_buckets"] = list(self.decode_buckets)
+        d["prefill_buckets"] = list(self.prefill_buckets)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ServeConfig":
+        names = set(cls.__dataclass_fields__)
+        kw = {k: v for k, v in d.items() if k in names}
+        for key in ("decode_buckets", "prefill_buckets"):
+            if key in kw:
+                kw[key] = tuple(int(x) for x in kw[key])
+        return cls(**kw)
+
+    def normalized(self, spec: ModelSpec) -> "ServeConfig":
+        """Clamp the ladders to what the model/pool can serve.
+
+        Decode buckets are clamped to >= 2: a batch-1 matrix product may
+        take a matrix-vector path with another reduction order, and the
+        bit-identity contract across batch compositions holds only for
+        matmul-shaped batches.  A solo sequence decodes in a 2-bucket
+        with a null padding row instead.
+        """
+        dec = sorted({max(2, int(b)) for b in self.decode_buckets})
+        pre = sorted({int(s) for s in self.prefill_buckets
+                      if int(s) <= spec.max_seq_len})
+        if not pre:
+            pre = [spec.max_seq_len]
+        if self.page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"precision {self.precision!r} not in {PRECISIONS}")
+        return self.replace(decode_buckets=tuple(dec),
+                            prefill_buckets=tuple(pre))
+
+
+_KV_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
+
+
+class ServingEngine:
+    """Bucketed steps + paged KV pool + swappable weights.
+
+    ``device`` defaults to ``cuda`` and raises when there is no GPU;
+    pass ``device="cpu"`` to run the plain PyTorch path.  The request
+    path (scheduler / HTTP) calls :meth:`prefill` and :meth:`decode`
+    with numpy inputs.
+    """
+
+    def __init__(self, spec: ModelSpec, params, config: ServeConfig = None,
+                 *, device=None, weights_step: Optional[int] = None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.config = (config or ServeConfig.from_env()).normalized(spec)
+        self.max_pages_per_seq = -(-spec.max_seq_len // self.config.page_size)
+        prec = self.config.precision
+        self.pool = PagePool(
+            layers=spec.layers,
+            pages=kv_page_budget(self.config.kv_pages, prec, spec.head_dim),
+            page_size=self.config.page_size, heads=spec.heads,
+            head_dim=spec.head_dim, dtype=_KV_DTYPE[prec],
+            scale_pages=(prec == "int8"), device=self.device)
+        self._params = self._prepare_params(params)
+        self._weights_step = weights_step
+        self._weights_lock = threading.Lock()
+        # no compiles happen on a request path in eager PyTorch; the key
+        # stays in /healthz for the clients that read it
+        self.unexpected_compiles = 0
+        self.compiled_programs = 0
+        self._warmup()
+        from .scheduler import ContinuousScheduler
+        self.scheduler = ContinuousScheduler(self)
+
+    def _prepare_params(self, params):
+        """Carry an incoming weight dict onto the device at the engine's
+        precision.
+
+        int8: deterministic inline quantization (same weights, same
+        bytes); an already-quantized dict passes through.  bf16: every
+        float leaf cast.  fp32: as given.
+        """
+        prec = self.config.precision
+        params = params_from_numpy(
+            params, self.device,
+            dtype=torch.bfloat16 if prec == "bf16" else None)
+        if prec == "int8":
+            from . import quant as _quant
+            if not _quant.is_quantized_params(params):
+                params = _quant.quantize_params(params, self.spec)
+        return params
+
+    def _warmup(self) -> None:
+        """Run every bucket once, so the kernels are built and loaded and
+        the first request pays no lazy initialisation.  Warm-up traffic
+        writes only the null page."""
+        maxp = self.max_pages_per_seq
+        for s in self.config.prefill_buckets:
+            self._prefill_padded(np.zeros((s,), np.int32), 1,
+                                 np.zeros((maxp,), np.int32))
+        for b in self.config.decode_buckets:
+            self._decode_padded(np.zeros((b,), np.int32),
+                                np.zeros((b,), np.int32),
+                                np.zeros((b, maxp), np.int32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.compiled_programs = (len(self.config.prefill_buckets)
+                                  + len(self.config.decode_buckets))
+        logger.info("serve buckets warmed: prefill %s, decode %s",
+                    list(self.config.prefill_buckets),
+                    list(self.config.decode_buckets))
+
+    def close(self) -> None:
+        """Stop the scheduler's background loop, if one runs."""
+        self.scheduler.stop()
+
+    # -- request path ---------------------------------------------------------
+
+    def prefill_bucket_for(self, n: int) -> int:
+        for s in self.config.prefill_buckets:
+            if n <= s:
+                return s
+        raise ValueError(
+            f"prompt length {n} exceeds largest prefill bucket "
+            f"{self.config.prefill_buckets[-1]}")
+
+    def decode_bucket_for(self, n: int) -> int:
+        for b in self.config.decode_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"{n} active sequences exceed largest decode bucket "
+            f"{self.config.decode_buckets[-1]}")
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _prefill_padded(self, padded, n, page_table):
+        with self._weights_lock:
+            params = self._params
+        *_, nxt, _ = prefill_step(
+            self.spec, params, self.pool.k_flat, self.pool.v_flat,
+            self._tensor(padded), n, self._tensor(page_table), page_size=self.config.page_size,
+            **self._scale_kw())
+        return nxt
+
+    def _decode_padded(self, tok, pos, pt):
+        with self._weights_lock:
+            params = self._params
+        *_, nxt, _ = decode_step(
+            self.spec, params, self.pool.k_flat, self.pool.v_flat,
+            self._tensor(tok),
+            self._tensor(pos), self._tensor(pt),
+            page_size=self.config.page_size, **self._scale_kw())
+        return nxt
+
+    def _scale_kw(self):
+        if self.pool.scale_pages:
+            return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
+        return {}
+
+    def prefill(self, tokens: Sequence[int], page_table: np.ndarray) -> int:
+        """Run one prompt; returns the first generated token."""
+        n = len(tokens)
+        s = self.prefill_bucket_for(n)
+        padded = np.zeros((s,), np.int32)
+        padded[:n] = np.asarray(tokens, np.int32)
+        nxt = self._prefill_padded(padded, n,
+                                   np.asarray(page_table, np.int32))
+        return int(nxt)
+
+    def decode(self, tokens: np.ndarray, positions: np.ndarray,
+               page_tables: np.ndarray) -> np.ndarray:
+        """One decode step over ``n`` active rows, padded to a bucket.
+
+        Padding rows carry position 0 and the all-null page table, so
+        their K/V writes land in the null page.
+        """
+        n = tokens.shape[0]
+        b = self.decode_bucket_for(max(n, 1))
+        maxp = self.max_pages_per_seq
+        tok = np.zeros((b,), np.int32)
+        pos = np.zeros((b,), np.int32)
+        pt = np.full((b, maxp), NULL_PAGE, np.int32)
+        tok[:n] = tokens
+        pos[:n] = positions
+        pt[:n] = page_tables
+        nxt = self._decode_padded(tok, pos, pt)
+        return nxt.cpu().numpy()[:n]
+
+    # -- weights ------------------------------------------------------------
+
+    @property
+    def weights_step(self) -> Optional[int]:
+        return self._weights_step
+
+    def install_weights(self, params, step: Optional[int] = None) -> None:
+        """Swap to a new weight generation between steps.
+
+        The names and shapes must match the served ones; incoming
+        weights pass through the engine's precision conversion first.
+        """
+        params = self._prepare_params(params)
+        if set(params) != set(self._params):
+            raise ValueError("weight swap changes the parameter names")
+        for name, a in self._params.items():
+            if a.shape != params[name].shape:
+                raise ValueError(f"weight swap changes the shape of {name}: "
+                                 f"{tuple(params[name].shape)} vs "
+                                 f"{tuple(a.shape)}")
+        with self._weights_lock:
+            self._params = params
+            self._weights_step = step
+        logger.info("weights swapped to generation step=%s", step)
+
+    # -- convenience / health ----------------------------------------------
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: Optional[int] = None) -> List[List[int]]:
+        """Synchronous batch generate through the continuous-batching
+        scheduler (submits all, drains the loop)."""
+        streams = [self.scheduler.submit(p, max_new_tokens=max_new_tokens)
+                   for p in prompts]
+        self.scheduler.drain()
+        # the drain above already emptied the loop; the bound is a
+        # backstop so a wedged stream can never hang the caller forever
+        return [st.result(timeout=300.0) for st in streams]
+
+    def healthz(self) -> Dict[str, Any]:
+        sched = getattr(self, "scheduler", None)
+        draining = bool(sched is not None and sched.draining)
+        hang = bool(sched is not None and sched.hang_detected)
+        try:
+            self.pool.check_consistency()
+            kv_consistent = True
+        except AssertionError:
+            kv_consistent = False
+        h = {
+            # degraded while draining (load balancers must stop routing
+            # here), on a tripped hang watchdog, or a page-pool
+            # invariant violation
+            "ok": (self.unexpected_compiles == 0 and not draining
+                   and not hang and kv_consistent),
+            "draining": draining,
+            "hang_detected": hang,
+            "kv_consistent": kv_consistent,
+            "unexpected_compiles": self.unexpected_compiles,
+            "compiled_programs": self.compiled_programs,
+            "precision": self.config.precision,
+            "decode_buckets": list(self.config.decode_buckets),
+            "prefill_buckets": list(self.config.prefill_buckets),
+            "weights_step": self._weights_step,
+            "kv": self.pool.snapshot(),
+        }
+        if sched is not None:
+            h.update(sched.snapshot())
+        return h

@@ -1,0 +1,224 @@
+"""Parity of the PyTorch port's kernel modules with the JAX package, on
+the CPU.
+
+The same numpy inputs (from a seed) go through the JAX function and its
+``paddle_tpu_torch`` counterpart.  On the CPU the port's wrappers run
+their plain PyTorch versions; the CUDA kernels themselves are held
+against those on the card by ``chip_smoke.py``.
+
+Tolerances:
+ - paged attention (fp32 and int8 pages): atol = rtol = 2e-5, the JAX
+   package's own tolerance between its interpret-mode kernel and its
+   reference (only the order of the f32 sums differs);
+ - w8a16: atol 1e-5 against ``w8a16_matmul_reference`` (an f32 product
+   of the same int8 values; the interpret-mode kernel is not the oracle,
+   its own bit-identity test fails on this tree);
+ - quantizers: identical bytes and scales.
+"""
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import paged_attention as jpa
+from paddle_tpu.ops import quant_kernels as jqk
+from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.ops import quant_kernels as tqk
+
+B, H, D, PS, MAXP = 3, 2, 8, 4, 5
+# row 0 has one live slot, row 1 a partly filled second page, row 2 a
+# full fifth page; every row's table has dead pages past its length
+LENGTHS = np.array([1, 7, 20], np.int32)
+
+
+def _paged_inputs(seed):
+    rng = np.random.RandomState(seed)
+    pages = 1 + B * MAXP
+    q = rng.randn(B, H, D).astype(np.float32)
+    k = rng.randn(pages, PS, H, D).astype(np.float32)
+    v = rng.randn(pages, PS, H, D).astype(np.float32)
+    tables = rng.permutation(np.arange(1, pages))[:B * MAXP] \
+        .reshape(B, MAXP).astype(np.int32)
+    return q, k, v, tables
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_paged_attention_matches_jax(seed):
+    q, k, v, tables = _paged_inputs(seed)
+    jargs = [jnp.asarray(a) for a in (q, k, v, tables, LENGTHS)]
+    kernel = jpa.paged_attention(*jargs, use_pallas=True, interpret=True)
+    ref = jpa.paged_attention_reference(*jargs)
+    out = tpa.paged_attention(*_t(q, k, v, tables, LENGTHS))
+    assert out.dtype == torch.float32 and out.shape == (B, H, D)
+    for want in (kernel, ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_paged_attention_int8_matches_jax(seed):
+    q, k, v, tables = _paged_inputs(seed)
+    kq, ks = (np.asarray(a) for a in jqk.quantize_kv(jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in jqk.quantize_kv(jnp.asarray(v)))
+    jargs = [jnp.asarray(a) for a in (q, kq, vq, ks, vs, tables, LENGTHS)]
+    kernel = jpa.paged_attention_int8(*jargs, use_pallas=True,
+                                      interpret=True)
+    ref = jpa.paged_attention_int8_reference(*jargs)
+    out = tpa.paged_attention_int8(*_t(q, kq, vq, ks, vs, tables, LENGTHS))
+    for want in (kernel, ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+def test_paged_attention_bf16_rounds_weights_like_jax():
+    q, k, v, tables = _paged_inputs(5)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = jpa.paged_attention_reference(*bf, jnp.asarray(tables),
+                                         jnp.asarray(LENGTHS))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = tpa.paged_attention(tq, tk, tv, *_t(tables, LENGTHS))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 64), (7, 64, 32), (2, 3, 16, 96)])
+def test_w8a16_matches_jax_reference(shape):
+    rng = np.random.RandomState(sum(shape))
+    *lead, k, n = shape
+    x = rng.randn(*lead, k).astype(np.float32)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    wq, sc = (np.asarray(a) for a in jqk.quantize_weight(jnp.asarray(w),
+                                                         axis=1))
+    want = jqk.w8a16_matmul_reference(jnp.asarray(x), jnp.asarray(wq),
+                                      jnp.asarray(sc))
+    out = tqk.w8a16_matmul(*_t(x, wq, sc))
+    assert out.shape == tuple(lead) + (n,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_quantize_weight_bytes_match_jax(axis):
+    rng = np.random.RandomState(6)
+    w = (rng.randn(24, 40) * 0.1).astype(np.float32)
+    w[:, 3] = 0.0                      # an all-zero column
+    w[5, :] = 0.0                      # and an all-zero row
+    w[0, 0] = 2.5 * (np.abs(w).max())  # a clipped outlier channel
+    jq, js = jqk.quantize_weight(jnp.asarray(w), axis=axis)
+    tq, ts = tqk.quantize_weight(torch.from_numpy(w), axis=axis)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(
+        tqk.dequantize_weight(tq, ts, axis=axis).numpy(),
+        np.asarray(jqk.dequantize_weight(jq, js, axis=axis)), rtol=0, atol=0)
+
+
+def test_quantize_kv_bytes_match_jax():
+    rng = np.random.RandomState(7)
+    x = rng.randn(3, 9, 2, 8).astype(np.float32)
+    x[0, 0, 1] = 0.0                   # an all-zero (token, head) row
+    # exact halves: round-half-to-even must agree
+    x[1, 1, 0] = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.25, 127.0],
+                          np.float32)
+    jq, js = jqk.quantize_kv(jnp.asarray(x))
+    tq, ts = tqk.quantize_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tqk.dequantize_kv(tq, ts).numpy(),
+                                  np.asarray(jqk.dequantize_kv(jq, js)))
+
+
+# -- the dispatch rule: CPU -> plain version, CUDA -> kernel, never both --
+
+class _FakeCuda(types.SimpleNamespace):
+    """Stands in for a CUDA tensor: only ``device`` and ``shape`` are
+    read before the dispatch decision."""
+
+
+def _cuda_like(shape):
+    return _FakeCuda(device=torch.device("cuda", 0), shape=shape)
+
+
+def _forbid(*a, **k):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+def test_cuda_tensor_never_reaches_plain_paged_attention(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tpa, "paged_attention_reference", _forbid)
+    monkeypatch.setattr(tpa, "paged_attention_int8_reference", _forbid)
+    monkeypatch.setattr(tpa, "_launch",
+                        lambda *a: calls.append(a[4] is not None) or "out")
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention_int8.launches)
+    q = _cuda_like((2, 2, 8))
+    assert tpa.paged_attention(q, q, q, q, q) == "out"
+    assert tpa.paged_attention_int8(q, q, q, q, q, q, q) == "out"
+    assert calls == [False, True]
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention_int8.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+
+
+def test_cuda_tensor_never_reaches_plain_w8a16(monkeypatch):
+    monkeypatch.setattr(tqk, "w8a16_matmul_reference", _forbid)
+    seen = []
+    monkeypatch.setattr(tqk, "_launch",
+                        lambda x2, w, s: seen.append(x2.shape)
+                        or torch.zeros(x2.shape[0], w.shape[1]))
+    before = tqk.w8a16_matmul.launches
+    # a tensor on any device but the CPU takes the kernel path
+    x = torch.zeros(2, 3, 32, device="meta")
+    out = tqk.w8a16_matmul(x, torch.zeros(32, 64, dtype=torch.int8),
+                           torch.ones(64))
+    assert seen == [(6, 32)] and out.shape == (2, 3, 64)
+    assert tqk.w8a16_matmul.launches == before + 1
+
+
+def test_cpu_tensor_takes_plain_version_without_counting(monkeypatch):
+    monkeypatch.setattr(tpa, "_launch", _forbid)
+    monkeypatch.setattr(tqk, "_launch", _forbid)
+    before = {n: f.launches for n, f in (
+        ("pa", tpa.paged_attention), ("w", tqk.w8a16_matmul))}
+    q, k, v, tables = _paged_inputs(8)
+    tpa.paged_attention(*_t(q, k, v, tables, LENGTHS))
+    tqk.w8a16_matmul(torch.zeros(2, 32), torch.zeros(32, 32,
+                                                     dtype=torch.int8),
+                     torch.ones(32))
+    assert tpa.paged_attention.launches == before["pa"]
+    assert tqk.w8a16_matmul.launches == before["w"]
+
+
+def test_kernel_launchers_refuse_non_cuda_tensors():
+    meta = torch.zeros(2, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tpa._launch(meta, meta, meta, None, None, meta, meta, 1.0)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tqk._launch(torch.zeros(2, 32, device="meta"),
+                    torch.zeros(32, 32, dtype=torch.int8), torch.ones(32))
+
+
+def test_w8a16_bf16_activations_match_jax_reference():
+    # bf16 x: widened to f32 for the product, the output rounded back to
+    # bf16; the f32 sums may differ in order only, so at most one bf16
+    # rounding step apart
+    rng = np.random.RandomState(8)
+    x = rng.randn(5, 64).astype(np.float32)
+    w = (rng.randn(64, 96) * 0.05).astype(np.float32)
+    wq, sc = (np.asarray(a) for a in jqk.quantize_weight(jnp.asarray(w),
+                                                         axis=1))
+    want = jqk.w8a16_matmul_reference(jnp.asarray(x, jnp.bfloat16),
+                                      jnp.asarray(wq), jnp.asarray(sc))
+    xt, wt, st = _t(x, wq, sc)
+    out = tqk.w8a16_matmul(xt.to(torch.bfloat16), wt, st)
+    assert out.dtype == torch.bfloat16 and out.shape == (5, 96)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2)

@@ -1,0 +1,263 @@
+"""The PyTorch port as a package: import hygiene, device rules, the page
+pool, the scheduler's admission control and the HTTP front end, on the
+CPU at a small width."""
+import json
+import re
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu.distributed import exit_codes as jax_exit_codes
+from paddle_tpu.serving import kv_cache as jax_kv_cache
+from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch.distributed import exit_codes
+from paddle_tpu_torch.serving import (EngineSaturated, KVPoolExhausted,
+                                      ModelSpec, NULL_PAGE, PagePool,
+                                      ServeConfig, ServingEngine, init_params)
+from paddle_tpu_torch.serving.http import DRAIN_EXIT_CODE, ServeHTTPServer
+from paddle_tpu_torch.serving.kv_cache import kv_page_budget
+from paddle_tpu_torch.serving.scheduler import WATCHDOG_EXIT_CODE
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "paddle_tpu_torch"
+SPEC = ModelSpec(vocab_size=64, hidden=32, layers=2, heads=2, max_seq_len=64)
+CFG = ServeConfig(decode_buckets=(4,), prefill_buckets=(16,), kv_pages=32,
+                  page_size=4, max_inflight=16, max_new_tokens=8)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return init_params(SPEC, seed=0, device="cpu")
+
+
+# -- hygiene -------------------------------------------------------------------
+
+def test_importing_every_module_loads_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import paddle_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(len(names), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]"
+    assert int(count) >= 12  # ops, serving and their submodules
+
+
+def test_package_sources_name_no_jax_and_no_reference_module():
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) >= 12
+    for path in sources:
+        text = path.read_text()
+        assert not re.search(r"^\s*(import|from)\s+jax", text, re.M), path
+        assert not re.search(r"\bpaddle_tpu\.", text), path
+        assert not re.search(r"^\s*(import|from)\s+paddle_tpu\b(?!_torch)",
+                             text, re.M), path
+
+
+def test_exit_codes_and_page_budget_match_the_reference():
+    assert exit_codes.EXIT_WATCHDOG == jax_exit_codes.EXIT_WATCHDOG == 70
+    assert exit_codes.EXIT_DRAIN == jax_exit_codes.EXIT_DRAIN == 143
+    assert WATCHDOG_EXIT_CODE == 70 and DRAIN_EXIT_CODE == 143
+    for prec in ("fp32", "bf16", "int8"):
+        for pages, hd in ((128, 16), (1024, 64), (7, 8)):
+            assert (kv_page_budget(pages, prec, hd)
+                    == jax_kv_cache.kv_page_budget(pages, prec, hd))
+
+
+# -- device rules --------------------------------------------------------------
+
+def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch,
+                                                                params):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(SPEC, params, CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagePool(layers=1, pages=4, page_size=4, heads=1, head_dim=4)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+# -- page pool -------------------------------------------------------------------
+
+def _pool(pages=8, page_size=4, **kw):
+    return PagePool(layers=1, pages=pages, page_size=page_size, heads=1,
+                    head_dim=4, device="cpu", **kw)
+
+
+def test_pool_alloc_free_reuse_and_double_free():
+    pool = _pool(pages=8)
+    a = pool.alloc(3)
+    assert len(set(a)) == 3 and NULL_PAGE not in a
+    pool.free(a)
+    assert set(pool.alloc(3)) == set(a)  # LIFO reuse
+    with pytest.raises(ValueError):
+        pool.free([NULL_PAGE])
+    small = _pool(pages=4)
+    got = small.alloc(3)
+    with pytest.raises(KVPoolExhausted):
+        small.alloc(1)
+    small.free(got)
+    with pytest.raises(ValueError):
+        small.free([got[0]])
+    small.check_consistency(expect_all_free=True)
+
+
+def test_pool_reservations_gate_admission():
+    pool = _pool(pages=8)  # 7 usable
+    assert pool.can_admit(7) and not pool.can_admit(8)
+    pool.reserve(5)
+    assert pool.headroom() == 2
+    with pytest.raises(KVPoolExhausted):
+        pool.reserve(3)
+    got = pool.alloc(2, reserved=True)  # draws the promise down
+    assert pool.headroom() == 2
+    with pytest.raises(KVPoolExhausted):
+        pool.alloc(3)                   # unreserved: promised pages are off
+    pool.free(got)
+    pool.release_reservation(3)
+    assert pool.headroom() == 7
+    pool.check_consistency(expect_all_free=True)
+    assert pool.null_padded_table([3, 5], 4).tolist() == [3, 5, 0, 0]
+
+
+def test_int8_pool_has_scale_pools_on_the_device():
+    pool = _pool(dtype=torch.int8, scale_pages=True)
+    assert pool.k_flat.dtype == torch.int8
+    assert pool.k_scale.shape == (1, 8 * 4, 1)
+    assert pool.snapshot()["dtype"] == "int8"
+
+
+# -- scheduler admission ----------------------------------------------------------
+
+def test_saturation_raises_engine_saturated(params):
+    eng = ServingEngine(SPEC, params, CFG.replace(max_inflight=3),
+                        device="cpu")
+    streams = [eng.scheduler.submit([1, 2], max_new_tokens=2)
+               for _ in range(3)]
+    with pytest.raises(EngineSaturated):
+        eng.scheduler.submit([1, 2], max_new_tokens=2)
+    eng.scheduler.drain()
+    assert all(len(st.result(timeout=30)) == 2 for st in streams)
+    eng.pool.check_consistency(expect_all_free=True)
+
+
+def test_kv_headroom_blocks_admission_until_pages_return(params):
+    eng = ServingEngine(SPEC, params, CFG.replace(kv_pages=8), device="cpu")
+    # worst case per request: ceil((6+8)/4) = 4 of 7 usable pages
+    s1 = eng.scheduler.submit([1, 2, 3, 4, 5, 6], max_new_tokens=8)
+    s2 = eng.scheduler.submit([1, 2, 3, 4, 5, 6], max_new_tokens=8)
+    eng.scheduler.step()
+    snap = eng.scheduler.snapshot()
+    assert snap["active_sequences"] == 1 and snap["queue_depth"] == 1
+    assert snap["refused_kv"] >= 1
+    eng.scheduler.drain()
+    assert s1.result(timeout=30) == s2.result(timeout=30)
+    assert eng.pool.snapshot()["used_pages"] == 0
+
+
+def test_out_of_ladder_requests_refused(params):
+    eng = ServingEngine(SPEC, params, CFG, device="cpu")
+    for bad in ([], [SPEC.vocab_size + 5], list(range(1, 40))):
+        with pytest.raises(ValueError):
+            eng.scheduler.submit(bad)
+
+
+def test_serve_config_env_and_ladder_clamp(monkeypatch):
+    monkeypatch.setenv("PT_SERVE_BUCKETS", "1,8")
+    monkeypatch.setenv("PT_SERVE_PRECISION", "int8")
+    cfg = ServeConfig.from_env()
+    assert cfg.decode_buckets == (1, 8) and cfg.precision == "int8"
+    assert ServeConfig.from_dict(cfg.to_dict()) == cfg
+    norm = cfg.replace(prefill_buckets=(16, 4096)).normalized(SPEC)
+    assert norm.decode_buckets == (2, 8)
+    assert norm.prefill_buckets == (16,)
+    with pytest.raises(ValueError):
+        cfg.replace(precision="fp8").normalized(SPEC)
+
+
+# -- HTTP front end ----------------------------------------------------------------
+
+def _post(url, payload):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_http_generate_healthz_and_cancel(params):
+    eng = ServingEngine(SPEC, params, CFG, device="cpu")
+    srv = ServeHTTPServer(eng, port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read())["ok"]
+        status, out = _post(base + "/v1/generate",
+                            {"tokens": [1, 2, 3], "max_new_tokens": 4})
+        assert status == 200 and len(out["tokens"]) == 4
+        assert out["tokens"] == eng.generate([[1, 2, 3]],
+                                             max_new_tokens=4)[0]
+        status, out = _post(base + "/v1/cancel", {"request_id": 10 ** 9})
+        assert status == 200 and out["cancelled"] is False
+        for path in ("/v1/generate", "/v1/cancel"):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                _post(base + path, {"tokens": "nope"})
+            assert ei.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(base + "/metrics", timeout=30)
+        assert ei.value.code == 404
+    finally:
+        srv.stop()
+
+
+def test_http_saturation_returns_429(params):
+    eng = ServingEngine(SPEC, params, CFG.replace(max_inflight=1),
+                        device="cpu")
+    srv = ServeHTTPServer(eng, port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    hold = threading.Event()
+    orig_step = eng.scheduler.step
+
+    def slow_step():
+        hold.wait(5.0)
+        return orig_step()
+
+    eng.scheduler.step = slow_step
+    first = threading.Thread(target=lambda: _post(
+        base + "/v1/generate", {"tokens": [1, 2], "max_new_tokens": 2}))
+    try:
+        first.start()
+        for _ in range(100):
+            if eng.scheduler.snapshot()["submitted"]:
+                break
+            threading.Event().wait(0.05)
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + "/v1/generate",
+                  {"tokens": [3, 4], "max_new_tokens": 2})
+        assert ei.value.code == 429
+        assert ei.value.headers["Retry-After"] == "1"
+    finally:
+        hold.set()
+        first.join(timeout=30)
+        eng.scheduler.step = orig_step
+        srv.stop()
+    assert not first.is_alive()
