@@ -10,8 +10,9 @@ line is printed:
  2. build    every CUDA kernel of the port from ``paddle_tpu_torch/csrc``
              with nvcc for sm_90a; build seconds and ptxas' report.
  3. kernels  each kernel against its plain PyTorch version on the card at
-             the serve shapes of ``gpt_345m`` (hidden 1024, 16 heads of
-             64, page size 16, 128 pages per sequence): max abs error
+             the shapes of its path at ``gpt_345m`` width (serving: 16
+             heads of 64, page size 16, 128 pages per sequence; training:
+             LayerNorm over 4096 rows of 1024): max abs error
              against the stated tolerance, times with CUDA events (median
              of 30 after warm-up, L2 flushed before each launch), and the
              least time the card could take (bytes over 3.35 TB/s or
@@ -24,6 +25,16 @@ line is printed:
              counter is set to 0 just before ``generate`` and read just
              after; the join/leave contract (solo == inside the batch).
  6. http     one ``/v1/generate`` and one ``/healthz`` over the fp32 engine.
+ 7. train    the training step of ``bench.py::bench_gpt`` on the card:
+             first a small width (gpt_tiny, f32, dropout 0) against the
+             same weights' 3-step loss trajectory on the CPU; then
+             attention at S = 512 must raise (the flash kernels' range,
+             not ported yet); then gpt_345m at full width and depth
+             (batch 16 x seq 256, AMP O2 bf16, AdamW with f32 masters,
+             recompute, dropout 0.1) for 8 steps on a fixed batch, the
+             kernel counters set to 0 just before and read just after:
+             every loss finite, the last below the first, the LayerNorm
+             launches per step as the model's structure implies.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -32,6 +43,7 @@ it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -54,16 +66,27 @@ PAGE_SIZE = 16
 TOL = {"f32": 2e-5, "int8": 2e-5, "bf16": 2e-2}
 MODEL_TOL = {"fp32": 1e-4, "int8": 1e-2}
 
+LN_TOL = {"f32": dict(abs=1e-5, rel_dw_db=1e-4),
+          "bf16": dict(abs=2e-2, rel=2e-2)}   # |err| <= abs + rel * |ref|
+TRAIN_TOL = 1e-4                            # card vs CPU loss, f32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 8
+
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/paged_attention.py:144",
     "paged_attention_int8": "paddle_tpu/ops/paged_attention.py:303",
     "w8a16_matmul": "paddle_tpu/ops/quant_kernels.py:132",
+    "layer_norm_fwd": "paddle_tpu/ops/fused_kernels.py:198",
+    "layer_norm_bwd": "paddle_tpu/ops/fused_kernels.py:245",
 }
 SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "paged_attention_int8": "paddle_tpu_torch/csrc/paged_attention.cu",
     "w8a16_matmul": "paddle_tpu_torch/csrc/w8a16.cu",
+    "layer_norm_fwd": "paddle_tpu_torch/csrc/layer_norm.cu",
+    "layer_norm_bwd": "paddle_tpu_torch/csrc/layer_norm.cu",
 }
+SERVE_KERNELS = ("paged_attention", "paged_attention_int8", "w8a16_matmul")
+TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
 
 
 def log(*args):
@@ -227,7 +250,104 @@ def phase_kernels(timer):
         ops = [_w8a16_operands(gen, 16, kk, nn, torch.bfloat16)]
         rows.append(_w8a16_entry(timer, ops, f"bf16 x, M=16 K={kk} N={nn}",
                                  TOL["bf16"]))
+
+    # the training step's LayerNorm: batch 16 x seq 256 rows of hidden
+    # 1024, bf16 under O2 (the main path) and f32
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype)
+        results.setdefault("layer_norm_fwd", []).append(fwd)
+        results.setdefault("layer_norm_bwd", []).append(bwd)
     return results
+
+
+def _ln_err(out, want, tag, rel_to_max=False):
+    """Max abs error and whether it is within the tolerance: bf16
+    ``abs + rel * |ref|`` per element; f32 abs, or relative to the
+    largest |ref| for the row sums dw and db."""
+    err = (out.float() - want.float()).abs()
+    finite = bool(torch.isfinite(out.float()).all())
+    if tag == "bf16":
+        t = LN_TOL["bf16"]
+        ok = bool((err <= t["abs"] + t["rel"] * want.float().abs()).all())
+    elif rel_to_max:
+        ok = err.max().item() <= (LN_TOL["f32"]["rel_dw_db"]
+                                  * want.float().abs().max().item())
+    else:
+        ok = err.max().item() <= LN_TOL["f32"]["abs"]
+    return err.max().item(), finite and ok
+
+
+def _layer_norm_entries(timer, gen, tag, dtype):
+    """The LayerNorm kernels against their plain versions at (4096, 1024):
+    errors on y, dx, dw and db, dw and db bit-identical over two runs,
+    and the kernel, plain and library times."""
+    from paddle_tpu_torch.ops.fused_kernels import (
+        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+        layer_norm_fwd_reference)
+    rows, d, eps = TRAIN_BATCH * TRAIN_SEQ, GPT_345M["hidden"], 1e-5
+    x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 2 + 0.5
+         ).to(dtype)
+    w = (1 + 0.3 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+    b = (0.2 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+    y, mean, rstd = layer_norm_fwd(x, w, b, eps)
+    y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, w, b, eps)
+    grads = layer_norm_bwd(g, x, w, mean, rstd)
+    again = layer_norm_bwd(g, x, w, mean, rstd)
+    grads_ref = layer_norm_bwd_reference(g, x, w, mean, rstd)
+    torch.cuda.synchronize()
+    errs = {"y": _ln_err(y, y_ref, tag), "mean": _ln_err(mean, mean_ref, tag),
+            "rstd": _ln_err(rstd, rstd_ref, tag),
+            "dx": _ln_err(grads[0], grads_ref[0], tag),
+            "dw": _ln_err(grads[1], grads_ref[1], tag, rel_to_max=True),
+            "db": _ln_err(grads[2], grads_ref[2], tag, rel_to_max=True)}
+    same_bits = torch.equal(grads[1], again[1]) and torch.equal(grads[2],
+                                                                again[2])
+    es = x.element_size()
+    fwd_bytes = 2 * rows * d * es + 2 * d * es + 2 * rows * 4
+    bwd_bytes = 3 * rows * d * es + 3 * d * es + 2 * rows * 4
+    fwd_bound = bound_ms(fwd_bytes, 8.0 * rows * d, torch.float32)
+    bwd_bound = bound_ms(bwd_bytes, 12.0 * rows * d, torch.float32)
+    lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [d], w, b,
+                                                          eps)[1:]
+    times = {
+        "fwd": timer(lambda: layer_norm_fwd(x, w, b, eps)),
+        "fwd_plain": timer(lambda: layer_norm_fwd_reference(x, w, b, eps)),
+        "fwd_lib": timer(lambda: torch.nn.functional.layer_norm(
+            x, (d,), w, b, eps)),
+        "bwd": timer(lambda: layer_norm_bwd(g, x, w, mean, rstd)),
+        "bwd_plain": timer(lambda: layer_norm_bwd_reference(g, x, w, mean,
+                                                            rstd)),
+        "bwd_lib": timer(lambda: torch.ops.aten.native_layer_norm_backward(
+            g, x, [d], lib_mean, lib_rstd, w, b, [True, True, True])),
+    }
+    tol = LN_TOL[tag]
+    log(f"[kernel] layer_norm[{tag}] ({rows}, {d}): max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (tol {tol}); dw/db bit-identical over two runs: {same_bits}; "
+        f"fwd kernel {times['fwd']:.4f} ms plain {times['fwd_plain']:.4f} "
+        f"library(F.layer_norm) {times['fwd_lib']:.4f} bound "
+        f"{fwd_bound[0]:.4f} ({fwd_bound[1]}); bwd kernel {times['bwd']:.4f} "
+        f"ms plain {times['bwd_plain']:.4f} library(native_layer_norm_"
+        f"backward) {times['bwd_lib']:.4f} bound {bwd_bound[0]:.4f} "
+        f"({bwd_bound[1]})")
+    bad = [k for k, (_, ok) in errs.items() if not ok]
+    if bad or not same_bits:
+        raise AssertionError(f"layer_norm[{tag}] disagrees with its plain "
+                             f"version on {bad}, or dw/db differ between "
+                             f"runs (bit-identical: {same_bits})")
+    fwd = dict(variant=tag, max_abs_err=errs["y"][0],
+               errors={k: errs[k][0] for k in ("y", "mean", "rstd")},
+               tol=tol, ms=times["fwd"], plain_ms=times["fwd_plain"],
+               bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+               library_ms=times["fwd_lib"])
+    bwd = dict(variant=tag, max_abs_err=max(errs[k][0] for k in
+                                            ("dx", "dw", "db")),
+               errors={k: errs[k][0] for k in ("dx", "dw", "db")},
+               bit_identical=same_bits, tol=tol, ms=times["bwd"],
+               plain_ms=times["bwd_plain"], bound_ms=bwd_bound[0],
+               bound_by=bwd_bound[1], library_ms=times["bwd_lib"])
+    return fwd, bwd
 
 
 def _w8a16_operands(gen, m, k, n, x_dtype):
@@ -416,8 +536,8 @@ def phase_serve(smi):
             engine.close()
             del engine
             torch.cuda.empty_cache()
-    for name, n in launches.items():
-        if n == 0:
+    for name in SERVE_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serve path")
     return fp32_engine, launches, prompts
@@ -447,6 +567,123 @@ def phase_http(engine, prompt):
         engine.close()
 
 
+def phase_train(smi):
+    """The training path on the card: card against CPU at a small width,
+    the S = 512 refusal, then 8 steps of gpt_345m (the main path)."""
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.incubate.models import (GPTForCausalLM, gpt_345m,
+                                                  gpt_tiny)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.train import build_train_step, make_batch
+
+    # same weights, f32, dropout 0: the 3-step loss trajectory
+    cfg = gpt_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                   use_recompute=True)
+    steps = {dev: build_train_step(cfg, device=dev, seed=1, amp_o2=False)
+             for dev in ("cpu", DEVICE)}
+    steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
+    ids, labels = make_batch(cfg, 4, 64, seed=1, device="cpu")
+    traj = {dev: [st(ids.to(dev), labels.to(dev)).item() for _ in range(3)]
+            for dev, st in steps.items()}
+    err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
+    log(f"[train] gpt_tiny f32 3-step loss, card {traj[DEVICE]} vs CPU "
+        f"{traj['cpu']}: max diff {err:.3e} (tol {TRAIN_TOL:.0e})")
+    if not err <= TRAIN_TOL:
+        raise AssertionError(f"train: card and CPU trajectories differ by "
+                             f"{err}")
+    del steps
+
+    # attention at the flash kernels' lengths raises on the card
+    long_cfg = dataclasses.replace(gpt_tiny(),
+                                   max_position_embeddings=F.FLASH_MIN_SEQ)
+    model = GPTForCausalLM(long_cfg, generator=make_generator(0, DEVICE))
+    ids, _ = make_batch(long_cfg, 1, F.FLASH_MIN_SEQ, device=DEVICE)
+    try:
+        model(ids, generator=make_generator(0, DEVICE))
+    except NotImplementedError as e:
+        log(f"[train] S={F.FLASH_MIN_SEQ} on the card raises: {e}")
+    else:
+        raise AssertionError(f"train: attention ran at S="
+                             f"{F.FLASH_MIN_SEQ} on the card")
+    del model
+
+    # the main path: gpt_345m, batch 16 x seq 256, O2 bf16, recompute
+    cfg = gpt_345m(use_recompute=True, max_position_embeddings=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    step = build_train_step(cfg, device=DEVICE, seed=0)
+    ids, labels = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in step.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())   # waits for the card
+        times.append(time.perf_counter() - t0)
+    launches = {name: KERNELS[name].launches for name in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    layers = cfg.num_layers
+    # per step: 2 per block and the final one, the blocks' 2 again in the
+    # backward pass's recompute; one backward each
+    want = {"layer_norm_fwd": TRAIN_STEPS * (4 * layers + 1),
+            "layer_norm_bwd": TRAIN_STEPS * (2 * layers + 1)}
+    log(f"[train] gpt_345m ({n_params} parameters) batch {TRAIN_BATCH} x "
+        f"seq {TRAIN_SEQ}, O2 bf16, AdamW, recompute: losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(t * 1e3, 2) for t in times]}; median step (2..{TRAIN_STEPS}) "
+        f"{med * 1e3:.2f} ms, {tokens / med:.1f} tokens/s; first step "
+        f"{times[0] * 1e3:.1f} ms; build {build_s:.2f} s; peak memory "
+        f"{peak_gb:.2f} GB; launches {launches} | {smi}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss not finite and falling: {losses}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times in {TRAIN_STEPS} steps, want {n}")
+    _profile_train_step(step, ids, labels, med, smi)
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
+    """Where a gpt_345m step's time goes: device time summed over the
+    step's kernels under ``torch.profiler``, its share of the median
+    step wall time, device operations per step, the largest kernels, and
+    the LayerNorm kernels' share."""
+    from paddle_tpu_torch.serving.profile import _device_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step(ids, labels).item()
+    torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("train: the profiler recorded no device time")
+    busy_ms = sum(_device_us(e) for e in kernels) / steps / 1e3
+    ops = sum(e.count for e in kernels) / steps
+    ln = [e for e in kernels if "ln_fwd_kernel" in e.key
+          or "ln_bwd_kernel" in e.key or "ln_bwd_reduce_kernel" in e.key]
+    ln_ms = sum(_device_us(e) for e in ln) / steps / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:8] + ln
+    log(f"[train] profile of {steps} gpt_345m steps: device busy "
+        f"{busy_ms:.3f} ms per step, {busy_ms / (step_s * 1e3):.3f} of the "
+        f"median step wall {step_s * 1e3:.2f} ms; {ops:.0f} device ops per "
+        f"step; LayerNorm kernels {ln_ms:.3f} ms per step | {smi}")
+    for e in top:
+        log(f"    {_device_us(e) / steps / 1e3:8.3f} ms {e.count / steps:6.0f}"
+            f" calls  {e.key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -462,6 +699,11 @@ def main() -> int:
     phase_model()
     engine, launches, prompts = phase_serve(smi)
     phase_http(engine, prompts[0][:64])
+    del engine
+    torch.cuda.empty_cache()
+    train_launches = phase_train(smi)
+    for name in TRAIN_KERNELS:
+        launches[name] = train_launches[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]

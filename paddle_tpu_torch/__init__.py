@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of ``paddle_tpu``, for NVIDIA Hopper (H100).
 
 The port grows slice by slice beside the JAX package, which stays the
-reference.  This slice holds the paged-KV serving engine
-(:mod:`.serving`) and the three hand-written CUDA kernels it runs
-(:mod:`.ops.paged_attention`, :mod:`.ops.quant_kernels`).
+reference.  It holds the paged-KV serving engine (:mod:`.serving`) with
+its three hand-written CUDA kernels (:mod:`.ops.paged_attention`,
+:mod:`.ops.quant_kernels`), and the GPT training step (:mod:`.train`,
+:mod:`.incubate.models`) with its LayerNorm kernels
+(:mod:`.ops.fused_kernels`).
 
 Importing the package loads torch, numpy and the standard library only:
 no JAX, nothing from ``paddle_tpu``, and no kernel is built until a

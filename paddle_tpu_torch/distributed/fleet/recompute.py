@@ -1,0 +1,43 @@
+"""Activation recompute per block (the counterpart of
+``paddle_tpu/distributed/fleet/recompute.py`` under its default policy,
+``jax.checkpoint`` with nothing saved inside the block).
+
+``torch.utils.checkpoint`` keeps only the block's inputs and reruns the
+block in the backward pass.  It restores the default CPU and CUDA
+generators for the rerun, but the port's dropouts draw from the run's
+own generator (:mod:`...framework.random`), so the rerun would draw new
+masks and the gradients would silently belong to another forward.  So
+:func:`recompute` snapshots that generator's state before the block and
+replays it for the rerun, leaving the generator where the forward left
+it: recompute on and off give the same loss and gradients, as
+``jax.checkpoint`` does by replaying a key.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ...framework.random import replay
+
+__all__ = ["recompute"]
+
+
+def recompute(function: Callable, *args,
+              generator: Optional[torch.Generator] = None):
+    """``function(*args, generator=generator)``, keeping only ``args`` for
+    the backward pass, which reruns it with ``generator`` replayed."""
+    snapshot = None if generator is None else generator.get_state()
+    ran = False
+
+    def run(*inputs):
+        nonlocal ran
+        if not ran or snapshot is None:
+            ran = True
+            return function(*inputs, generator=generator)
+        with replay(generator, snapshot):
+            return function(*inputs, generator=generator)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)

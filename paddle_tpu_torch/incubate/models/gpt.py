@@ -1,0 +1,227 @@
+"""GPT for causal language modelling (the counterpart of
+``paddle_tpu/incubate/models/gpt.py`` with ``tensor_parallel=False``).
+
+Parameter names and layouts are the JAX model's
+(``gpt.embeddings.word_embeddings.weight``,
+``gpt.layers.0.attn.qkv_proj.weight`` ``(hidden, 3 * hidden)``, ...), so
+its weights load by name (:func:`params_from_numpy`).  What the JAX
+model computes, kept here:
+
+ - learned positions; pre-LN decoder blocks; tanh GELU; the LM head tied
+   to the word embedding (``x @ word_embeddings.weight.T``);
+ - the QKV projection interleaved per head: its output reshapes to
+   ``(B, S, heads, 3 * head_dim)`` and q, k and v are slices of the last
+   axis, not three hidden-wide thirds;
+ - ``fc2`` drawn with ``std / sqrt(2 * num_layers)``;
+ - with ``use_recompute`` each decoder block is recomputed in the
+   backward pass, its dropout masks replayed.
+
+Not ported: tensor parallelism, rotary positions, an untied head, the
+pipeline adapter, attention masks other than causal.  Every dropout
+draws from the generator passed to ``forward``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ...distributed.fleet import recompute
+from ...distributed.fleet.meta_parallel import ParallelCrossEntropy
+from ...nn import Dropout, Embedding, LayerNorm, Linear
+from ...nn import functional as F
+from ...nn.initializer import Normal
+
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m",
+           "params_from_numpy"]
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 2048
+    num_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 0       # 0 -> 4 * hidden
+    max_position_embeddings: int = 2048
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    layer_norm_epsilon: float = 1e-5
+    use_recompute: bool = False
+
+    def __post_init__(self):
+        if self.intermediate_size == 0:
+            self.intermediate_size = 4 * self.hidden_size
+
+
+class GPTAttention(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = h // self.num_heads
+        init = Normal(std=cfg.initializer_range)
+        self.qkv_proj = Linear(h, 3 * h, init, generator=generator)
+        self.out_proj = Linear(h, h, init, generator=generator)
+        self.attn_dropout_p = cfg.attention_probs_dropout_prob
+
+    def forward(self, x, generator=None):
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x).reshape(b, s, self.num_heads,
+                                       3 * self.head_dim)
+        hd = self.head_dim
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        out = F.scaled_dot_product_attention(
+            q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
+            training=self.training, generator=generator)
+        return self.out_proj(out.reshape(b, s, self.num_heads * hd))
+
+
+class GPTMLP(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+        super().__init__()
+        init = Normal(std=cfg.initializer_range)
+        out_init = Normal(
+            std=cfg.initializer_range / math.sqrt(2 * cfg.num_layers))
+        self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, init,
+                          generator=generator)
+        self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size, out_init,
+                          generator=generator)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=True))
+
+
+class GPTDecoderLayer(torch.nn.Module):
+    """Pre-LN decoder block."""
+
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+        super().__init__()
+        eps = cfg.layer_norm_epsilon
+        self.ln1 = LayerNorm(cfg.hidden_size, eps, generator=generator)
+        self.attn = GPTAttention(cfg, generator)
+        self.ln2 = LayerNorm(cfg.hidden_size, eps, generator=generator)
+        self.mlp = GPTMLP(cfg, generator)
+        self.dropout1 = Dropout(cfg.hidden_dropout_prob)
+        self.dropout2 = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, x, generator=None):
+        x = x + self.dropout1(self.attn(self.ln1(x), generator), generator)
+        return x + self.dropout2(self.mlp(self.ln2(x)), generator)
+
+
+class GPTEmbeddings(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+        super().__init__()
+        init = Normal(std=cfg.initializer_range)
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         init, generator=generator)
+        self.position_embeddings = Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, init,
+            generator=generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, position_ids=None, generator=None):
+        x = self.word_embeddings(input_ids)
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None, :]
+        x = x + self.position_embeddings(position_ids)
+        return self.dropout(x, generator)
+
+
+class GPTModel(torch.nn.Module):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+        super().__init__()
+        self.config = cfg
+        self.embeddings = GPTEmbeddings(cfg, generator)
+        self.layers = torch.nn.ModuleList(
+            [GPTDecoderLayer(cfg, generator) for _ in range(cfg.num_layers)])
+        self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                                  generator=generator)
+        self.use_recompute = cfg.use_recompute
+
+    def forward(self, input_ids, position_ids=None, generator=None):
+        x = self.embeddings(input_ids, position_ids, generator)
+        for layer in self.layers:
+            if self.use_recompute:
+                x = recompute(layer, x, generator=generator)
+            else:
+                x = layer(x, generator)
+        return self.final_ln(x)
+
+
+class GPTForCausalLM(torch.nn.Module):
+    """GPT with the LM head tied to the word embedding.
+
+    Parameters are drawn from ``generator``, on its device, in f32.
+    """
+
+    def __init__(self, cfg: GPTConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.config = cfg
+        self.gpt = GPTModel(cfg, generator)
+
+    def forward(self, input_ids, position_ids=None, generator=None):
+        x = self.gpt(input_ids, position_ids, generator)
+        w = self.gpt.embeddings.word_embeddings.weight
+        return torch.matmul(x, w.t())
+
+
+class GPTPretrainingCriterion(torch.nn.Module):
+    """Mean causal-LM loss over every token, in the logits' dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, logits, labels):
+        return self.ce(logits, labels).reshape(-1).mean()
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    return GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                     num_attention_heads=4, max_position_embeddings=128, **kw)
+
+
+def gpt_345m(**kw) -> GPTConfig:
+    return GPTConfig(hidden_size=1024, num_layers=24, num_attention_heads=16,
+                     **kw)
+
+
+def _as_numpy(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype.kind not in "biuf":   # bf16 from ml_dtypes: widen exactly
+        a = a.astype(np.float32)
+    return a
+
+
+def params_from_numpy(model: torch.nn.Module,
+                      arrays: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """Copy ``arrays`` (the JAX model's parameters as numpy arrays, by
+    name) into ``model`` in place, cast to each parameter's dtype and
+    device.  Names must match exactly and shapes must agree; raises
+    ``ValueError`` otherwise.  Returns ``model``."""
+    named = dict(model.named_parameters())
+    missing = sorted(set(named) - set(arrays))
+    extra = sorted(set(arrays) - set(named))
+    if missing or extra:
+        raise ValueError(f"parameter names differ: missing {missing}, "
+                         f"unexpected {extra}")
+    loaded = {}
+    for name, p in named.items():
+        a = _as_numpy(arrays[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)} does not "
+                             f"match the model's {tuple(p.shape)}")
+        loaded[name] = torch.from_numpy(np.array(a))
+    with torch.no_grad():
+        for name, p in named.items():
+            p.copy_(loaded[name])
+    return model
+

@@ -1,0 +1,7 @@
+"""Layers, functionals and initializers of the training path
+(the counterpart of ``paddle_tpu/nn`` for the GPT step)."""
+from . import functional, initializer
+from .layer import Dropout, Embedding, LayerNorm, Linear
+
+__all__ = ["functional", "initializer", "Dropout", "Embedding", "LayerNorm",
+           "Linear"]

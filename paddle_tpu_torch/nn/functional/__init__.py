@@ -1,0 +1,8 @@
+"""Functionals of the training path."""
+from .activation import gelu
+from .common import (FLASH_MIN_SEQ, dropout, embedding, linear,
+                     scaled_dot_product_attention)
+from .norm import layer_norm
+
+__all__ = ["FLASH_MIN_SEQ", "dropout", "embedding", "gelu", "layer_norm",
+           "linear", "scaled_dot_product_attention"]

@@ -1,0 +1,80 @@
+"""Linear, dropout, embedding and attention of the training path (the
+counterpart of ``paddle_tpu/nn/functional/common.py``).
+
+ - :func:`linear`: ``x @ W + b`` with the weight in ``(in, out)`` layout.
+ - :func:`dropout`: ``upscale_in_train``; the mask is drawn from an
+   explicit ``torch.Generator`` (:mod:`...framework.random`).
+ - :func:`scaled_dot_product_attention`: the JAX package's plain softmax
+   attention, which it runs below ``flash_min_seq`` (512,
+   ``paddle_tpu/framework/flags.py``).  From 512 on the JAX package takes
+   its Pallas flash kernels, which the port has not written yet: on a
+   CUDA tensor the call raises there rather than run the plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["FLASH_MIN_SEQ", "linear", "dropout", "embedding",
+           "scaled_dot_product_attention"]
+
+#: sequence length from which attention belongs to the flash kernels
+FLASH_MIN_SEQ = 512
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight + bias``; weight ``(in, out)``."""
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Zero each element with probability ``p`` and scale the rest by
+    ``1 / (1 - p)``; the identity when not training or ``p == 0``.  The
+    mask draws from ``generator``, which training with ``p > 0`` needs."""
+    if not training or p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training needs the run's generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def embedding(x, weight):
+    """Rows of ``weight`` at the ids ``x``."""
+    return torch.nn.functional.embedding(x, weight)
+
+
+def scaled_dot_product_attention(query, key, value, dropout_p=0.0,
+                                 is_causal=False, training=True,
+                                 generator=None):
+    """Softmax attention over ``(B, S, H, D)`` q, k and v (paddle's
+    layout): scores in the input dtype scaled by ``1/sqrt(D)``, an
+    upper-triangle ``-inf`` mask when causal, softmax in f32 cast back to
+    the input dtype, dropout on the probabilities, then the product with v.
+
+    Raises ``NotImplementedError`` for a CUDA tensor with ``S >= 512``:
+    that is the flash kernels' range.
+    """
+    s = query.shape[1]
+    if query.device.type != "cpu" and s >= FLASH_MIN_SEQ:
+        raise NotImplementedError(
+            f"attention at S={s} >= {FLASH_MIN_SEQ} runs the flash-attention "
+            "kernels (forward, dq, dk/dv), which the port has not written "
+            "yet; the plain attention is not run in their place")
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if is_causal:
+        keep = torch.ones(logits.shape[-2:], dtype=torch.bool,
+                          device=logits.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    probs = torch.softmax(logits.float(), dim=-1).to(query.dtype)
+    probs = dropout(probs, dropout_p, training, generator)
+    return torch.matmul(probs, v).transpose(1, 2)

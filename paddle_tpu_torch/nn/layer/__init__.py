@@ -1,0 +1,5 @@
+"""Layers of the training path."""
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm
+
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear"]

@@ -1,5 +1,7 @@
 """Kernels of the port: each a CUDA kernel for Hopper with its plain
-PyTorch version beside it (:mod:`.paged_attention`, :mod:`.quant_kernels`)."""
+PyTorch version beside it (:mod:`.paged_attention`, :mod:`.quant_kernels`,
+:mod:`.fused_kernels`)."""
+from . import fused_kernels as _fused_kernels
 from . import paged_attention as _paged_attention
 from . import quant_kernels as _quant_kernels
 
@@ -10,6 +12,8 @@ KERNELS = {
     "paged_attention": _paged_attention.paged_attention,
     "paged_attention_int8": _paged_attention.paged_attention_int8,
     "w8a16_matmul": _quant_kernels.w8a16_matmul,
+    "layer_norm_fwd": _fused_kernels.layer_norm_fwd,
+    "layer_norm_bwd": _fused_kernels.layer_norm_bwd,
 }
 
 

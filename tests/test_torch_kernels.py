@@ -13,7 +13,10 @@ Tolerances:
  - w8a16: atol 1e-5 against ``w8a16_matmul_reference`` (an f32 product
    of the same int8 values; the interpret-mode kernel is not the oracle,
    its own bit-identity test fails on this tree);
- - quantizers: identical bytes and scales.
+ - quantizers: identical bytes and scales;
+ - LayerNorm (y, dx, dw, db) against the interpret-mode Pallas kernel and
+   its ``jax.vjp``: 1e-5 in f32 (the sums run in another order), 2e-2
+   absolute and relative in bf16 (one bf16 rounding of the outputs).
 """
 import types
 
@@ -22,8 +25,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from paddle_tpu.ops import fused_kernels as jfk
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.ops import quant_kernels as jqk
+from paddle_tpu_torch.ops import fused_kernels as tfk
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import quant_kernels as tqk
 
@@ -222,3 +229,80 @@ def test_w8a16_bf16_activations_match_jax_reference():
     assert out.dtype == torch.bfloat16 and out.shape == (5, 96)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(want, np.float32), atol=2e-2)
+
+
+# -- LayerNorm -------------------------------------------------------------
+
+LN_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+          "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def _ln_inputs(rows, d, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(rows, d) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.3 * rng.randn(d)).astype(np.float32)
+    b = (0.2 * rng.randn(d)).astype(np.float32)
+    g = rng.randn(rows, d).astype(np.float32)
+    return x, w, b, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128)])
+def test_layer_norm_and_grads_match_jax_kernel(rows, d, dtype):
+    x, w, b, g = _ln_inputs(rows, d, d + rows)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx, jw, jb, jg = (jnp.asarray(a, jdt) for a in (x, w, b, g))
+    jy, vjp = jax.vjp(lambda *a: jfk.fused_layer_norm(*a, interpret=True),
+                      jx, jw, jb)
+    jgrads = vjp(jg)
+
+    tdt = getattr(torch, dtype)
+    tx, tw, tb = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (x, w, b))
+    ty = tfk.fused_layer_norm(tx, tw, tb, 1e-5)
+    ty.backward(torch.from_numpy(g).to(tdt))
+    assert ty.dtype == tdt
+    for got, want in zip((ty, tx.grad, tw.grad, tb.grad), (jy, *jgrads)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **LN_TOL[dtype])
+
+
+def test_cuda_tensor_never_reaches_plain_layer_norm(monkeypatch):
+    monkeypatch.setattr(tfk, "layer_norm_fwd_reference", _forbid)
+    monkeypatch.setattr(tfk, "layer_norm_bwd_reference", _forbid)
+    monkeypatch.setattr(tfk, "_launch_fwd",
+                        lambda x, w, b, eps: ("y", "mean", "rstd"))
+    monkeypatch.setattr(tfk, "_launch_bwd",
+                        lambda g, x, w, m, r: ("dx", "dw", "db"))
+    before = (tfk.layer_norm_fwd.launches, tfk.layer_norm_bwd.launches)
+    x = _cuda_like((4, 8))
+    assert tfk.layer_norm_fwd(x, x, x) == ("y", "mean", "rstd")
+    assert tfk.layer_norm_bwd(x, x, x, x, x) == ("dx", "dw", "db")
+    assert (tfk.layer_norm_fwd.launches,
+            tfk.layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_cpu_layer_norm_takes_plain_version_without_counting(monkeypatch):
+    monkeypatch.setattr(tfk, "_launch_fwd", _forbid)
+    monkeypatch.setattr(tfk, "_launch_bwd", _forbid)
+    before = (tfk.layer_norm_fwd.launches, tfk.layer_norm_bwd.launches)
+    x, w, b, g = _t(*_ln_inputs(5, 16, 0))
+    x.requires_grad_()
+    tfk.fused_layer_norm(x, w, b).backward(g)
+    assert x.grad is not None
+    assert (tfk.layer_norm_fwd.launches,
+            tfk.layer_norm_bwd.launches) == before
+
+
+def test_layer_norm_launchers_refuse_what_the_kernel_does_not_take():
+    meta = torch.zeros(4, 16, device="meta")
+    vec = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tfk._launch_fwd(meta, vec, vec, 1e-5)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tfk._launch_bwd(meta, meta, vec, vec, vec)
+    with pytest.raises(ValueError, match="2-D"):
+        tfk.fused_layer_norm(torch.zeros(2, 3, 4), torch.ones(4),
+                             torch.zeros(4))
