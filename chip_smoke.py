@@ -12,7 +12,10 @@ line is printed:
  3. kernels  each kernel against its plain PyTorch version on the card at
              the shapes of its path at ``gpt_345m`` width (serving: 16
              heads of 64, page size 16, 128 pages per sequence; training:
-             LayerNorm over 4096 rows of 1024): max abs error
+             LayerNorm over 16384 rows of 1024, flash attention at
+             batch 16 x 1024 tokens x 16 heads of 64, causal, dropout
+             0.1, read in place from the QKV projection's output, then f32
+             and the other head sizes at small shapes): max abs error
              against the stated tolerance, times with CUDA events (median
              of 30 after warm-up, L2 flushed before each launch), and the
              least time the card could take (bytes over 3.35 TB/s or
@@ -23,18 +26,25 @@ line is printed:
              random weights from seed 0) at fp32, bf16 and int8: 32
              prompts of 16..500 tokens, 32 new tokens each; every kernel
              counter is set to 0 just before ``generate`` and read just
-             after; the join/leave contract (solo == inside the batch).
+             after; the join/leave contract (solo == inside the batch);
+             then, at bf16, one prompt decoded inside a batch of 16
+             (bucket 16) and alone (bucket 2), each decode step split
+             into its stages, reporting the first stage whose row differs
+             bit for bit between the two.
  6. http     one ``/v1/generate`` and one ``/healthz`` over the fp32 engine.
  7. train    the training step of ``bench.py::bench_gpt`` on the card:
              first a small width (gpt_tiny, f32, dropout 0) against the
-             same weights' 3-step loss trajectory on the CPU; then
-             attention at S = 512 must raise (the flash kernels' range,
-             not ported yet); then gpt_345m at full width and depth
-             (batch 16 x seq 256, AMP O2 bf16, AdamW with f32 masters,
-             recompute, dropout 0.1) for 8 steps on a fixed batch, the
-             kernel counters set to 0 just before and read just after:
-             every loss finite, the last below the first, the LayerNorm
-             launches per step as the model's structure implies.
+             same weights' 3-step loss trajectory on the CPU, at
+             sequence 64 (plain attention) and at 512 (the flash
+             kernels); then the main path, gpt_345m at full width and
+             depth (batch 16 x seq 1024, AMP O2 bf16, AdamW with f32
+             masters, recompute, dropout 0.1) for 8 steps on a fixed
+             batch, the kernel counters set to 0 just before and read
+             just after: every loss finite, the last below the first,
+             the LayerNorm and flash launches per step as the model's
+             structure implies, peak memory, and a profile of where the
+             device time goes; then the same step at sequence 256, which
+             must launch no flash kernel.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -69,7 +79,13 @@ MODEL_TOL = {"fp32": 1e-4, "int8": 1e-2}
 LN_TOL = {"f32": dict(abs=1e-5, rel_dw_db=1e-4),
           "bf16": dict(abs=2e-2, rel=2e-2)}   # |err| <= abs + rel * |ref|
 TRAIN_TOL = 1e-4                            # card vs CPU loss, f32
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
+SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
+# flash attention: f32 out and lse, f32 gradients; bf16 |err| <= abs + rel *
+# |ref| (one bf16 rounding of outputs that reach |x| ~ 10)
+FLASH_TOL = {"f32": dict(abs=2e-5, grad=1e-4),
+             "bf16": dict(abs=TOL["bf16"], rel=TOL["bf16"])}
+FLASH_DROPOUT, FLASH_SEED = 0.1, 20250917
 
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/paged_attention.py:144",
@@ -77,6 +93,9 @@ REPLACES = {
     "w8a16_matmul": "paddle_tpu/ops/quant_kernels.py:132",
     "layer_norm_fwd": "paddle_tpu/ops/fused_kernels.py:198",
     "layer_norm_bwd": "paddle_tpu/ops/fused_kernels.py:245",
+    "flash_fwd": "paddle_tpu/ops/pallas_ops.py:233",
+    "flash_bwd_dq": "paddle_tpu/ops/pallas_ops.py:396",
+    "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:418",
 }
 SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -84,9 +103,13 @@ SOURCES = {
     "w8a16_matmul": "paddle_tpu_torch/csrc/w8a16.cu",
     "layer_norm_fwd": "paddle_tpu_torch/csrc/layer_norm.cu",
     "layer_norm_bwd": "paddle_tpu_torch/csrc/layer_norm.cu",
+    "flash_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
 }
 SERVE_KERNELS = ("paged_attention", "paged_attention_int8", "w8a16_matmul")
-TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd") + FLASH_KERNELS
 
 
 def log(*args):
@@ -251,13 +274,166 @@ def phase_kernels(timer):
         rows.append(_w8a16_entry(timer, ops, f"bf16 x, M=16 K={kk} N={nn}",
                                  TOL["bf16"]))
 
-    # the training step's LayerNorm: batch 16 x seq 256 rows of hidden
+    # the training step's LayerNorm: batch 16 x seq 1024 rows of hidden
     # 1024, bf16 under O2 (the main path) and f32
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype)
         results.setdefault("layer_norm_fwd", []).append(fwd)
         results.setdefault("layer_norm_bwd", []).append(bwd)
+
+    # flash attention: the main path's shape first (bf16, batch 16 x 1024,
+    # 16 heads of 64, causal, dropout), timed with its library yardstick;
+    # then f32 and the other head sizes, a ragged length and no mask
+    heads, hd = GPT_345M["heads"], GPT_345M["hidden"] // GPT_345M["heads"]
+    shapes = [("bf16", (TRAIN_BATCH, TRAIN_SEQ, heads, hd), True, True),
+              ("f32", (2, 512, 4, 64), True, False),
+              ("f32", (2, 512, 4, 32), True, False),
+              ("f32", (2, 512, 4, 128), True, False),
+              ("f32", (1, 700, 3, 64), False, False),
+              ("bf16", (2, 512, 4, 32), True, False),
+              ("bf16", (2, 512, 4, 128), True, False),
+              ("bf16", (1, 700, 3, 64), False, False)]
+    for tag, shape, causal, timed in shapes:
+        for name, row in _flash_entries(timer, gen, tag, shape, causal,
+                                        timed).items():
+            results.setdefault(name, []).append(row)
     return results
+
+
+def _flash_err(out, want, tag, key):
+    """Max abs error and whether it is within ``FLASH_TOL``."""
+    err = (out.float() - want.float()).abs()
+    finite = bool(torch.isfinite(out.float()).all())
+    t = FLASH_TOL[tag]
+    if tag == "bf16":
+        ok = bool((err <= t["abs"] + t["rel"] * want.float().abs()).all())
+    else:
+        ok = err.max().item() <= (t["abs"] if key in ("out", "lse")
+                                  else t["grad"])
+    return err.max().item(), finite and ok
+
+
+def _flash_entries(timer, gen, tag, shape, causal, timed):
+    """The three flash kernels against their plain versions on one shape:
+    q, k and v read in place from one ``(B, S, H, 3 * D)`` tensor as the
+    model's QKV projection gives them, dropout ``FLASH_DROPOUT`` with a
+    fixed seed; every kernel fed the same inputs as its plain version
+    (the backward ones the kernel forward's lse and one delta); dq, dk
+    and dv bit-identical over two runs.  ``timed``: kernel, plain and
+    library times and the bounds."""
+    from paddle_tpu_torch.ops import pallas_ops as po
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    b, s, h, d = shape
+    qkv = torch.randn(b, s, h, 3 * d, generator=gen, device=DEVICE).to(dtype)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    do = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dtype)
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
+    opts = dict(causal=causal, sm_scale=1.0 / math.sqrt(d),
+                dropout_p=FLASH_DROPOUT)
+    out, lse = po.flash_fwd(q, k, v, seed, **opts)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (q, k, v, do, lse, delta, seed)
+    dq = po.flash_bwd_dq(*bwd_args, **opts)
+    dk, dv = po.flash_bwd_dkv(*bwd_args, **opts)
+    dq2 = po.flash_bwd_dq(*bwd_args, **opts)
+    dk2, dv2 = po.flash_bwd_dkv(*bwd_args, **opts)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    ref_opts = dict(opts, seed=seed)
+    out_ref, lse_ref = po.mha_reference(qt, kt, vt, **ref_opts)
+    dq_ref = po.mha_dq_reference(qt, kt, vt, dot, lse, delta, **ref_opts)
+    dk_ref, dv_ref = po.mha_dkv_reference(qt, kt, vt, dot, lse, delta,
+                                          **ref_opts)
+    torch.cuda.synchronize()
+    errs = {"out": _flash_err(out, out_ref.transpose(1, 2), tag, "out"),
+            "lse": _flash_err(lse, lse_ref, tag, "lse"),
+            "dq": _flash_err(dq, dq_ref.transpose(1, 2), tag, "dq"),
+            "dk": _flash_err(dk, dk_ref.transpose(1, 2), tag, "dk"),
+            "dv": _flash_err(dv, dv_ref.transpose(1, 2), tag, "dv")}
+    same_bits = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                 and torch.equal(dv, dv2))
+    del out_ref, dq_ref, dk_ref, dv_ref
+    variant = (f"{tag} B={b} S={s} H={h} D={d} "
+               f"{'causal' if causal else 'full'} dropout {FLASH_DROPOUT}")
+    log(f"[kernel] flash[{variant}]: max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
+        f"{same_bits}")
+    bad = [k for k, (_, ok) in errs.items() if not ok]
+    if bad or not same_bits:
+        raise AssertionError(f"flash[{variant}] disagrees with its plain "
+                             f"versions on {bad}, or dq/dk/dv differ between "
+                             f"runs (bit-identical: {same_bits})")
+    rows = {"flash_fwd": dict(variant=variant, max_abs_err=max(
+                errs["out"][0], errs["lse"][0]),
+                errors={k: errs[k][0] for k in ("out", "lse")}),
+            "flash_bwd_dq": dict(variant=variant, max_abs_err=errs["dq"][0],
+                                 bit_identical=same_bits),
+            "flash_bwd_dkv": dict(variant=variant, max_abs_err=max(
+                errs["dk"][0], errs["dv"][0]),
+                errors={k: errs[k][0] for k in ("dk", "dv")},
+                bit_identical=same_bits)}
+    for row in rows.values():
+        row.update(tol=FLASH_TOL[tag], ms=None, plain_ms=None, bound_ms=None,
+                   bound_by=None, library_ms=None)
+    if not timed:
+        return rows
+
+    # bounds: each input read once, each output written once; the products
+    # over the (query, key) pairs this mask keeps
+    es, n, bh = q.element_size(), b * s * h * d, b * h
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    stats = bh * s * 4
+    work = {"flash_fwd": (4 * n * es + stats, 2 * 2.0 * pairs * d),
+            "flash_bwd_dq": (5 * n * es + 2 * stats, 3 * 2.0 * pairs * d),
+            "flash_bwd_dkv": (6 * n * es + 2 * stats, 4 * 2.0 * pairs * d)}
+    for name, (nbytes, flops) in work.items():
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound_ms(
+            nbytes, flops, dtype)
+    times = {
+        "flash_fwd": timer(lambda: po.flash_fwd(q, k, v, seed, **opts)),
+        "flash_bwd_dq": timer(lambda: po.flash_bwd_dq(*bwd_args, **opts)),
+        "flash_bwd_dkv": timer(lambda: po.flash_bwd_dkv(*bwd_args, **opts)),
+    }
+    plain = {
+        "flash_fwd": timer(lambda: po.mha_reference(qt, kt, vt, **ref_opts),
+                           iters=5),
+        "flash_bwd_dq": timer(lambda: po.mha_dq_reference(
+            qt, kt, vt, dot, lse, delta, **ref_opts), iters=5),
+        "flash_bwd_dkv": timer(lambda: po.mha_dkv_reference(
+            qt, kt, vt, dot, lse, delta, **ref_opts), iters=5),
+    }
+    lib_fwd, lib_bwd = _sdpa_times(timer, q, k, v, do, causal)
+    for name in rows:
+        rows[name].update(ms=times[name], plain_ms=plain[name],
+                          library_ms=lib_fwd if name == "flash_fwd"
+                          else lib_bwd)
+    log(f"[kernel] flash[{variant}] times: "
+        + "; ".join(f"{name} kernel {times[name]:.4f} ms plain "
+                    f"{plain[name]:.4f} ms bound {rows[name]['bound_ms']:.4f}"
+                    f" ms ({rows[name]['bound_by']})" for name in rows)
+        + f"; library (SDPA flash backend, causal, dropout 0) forward "
+        f"{lib_fwd:.4f} ms, backward (dq, dk and dv in one, forward+backward"
+        f" less forward) {lib_bwd:.4f} ms")
+    return rows
+
+
+def _sdpa_times(timer, q, k, v, do, causal):
+    """The library yardstick: ``scaled_dot_product_attention`` on its
+    flash backend, dropout 0, on contiguous ``(B, H, S, D)`` copies; the
+    forward, and the backward as forward+backward less the forward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_() for x in (qc, kc, vc)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd_bwd():
+        out = sdpa(*leaves, is_causal=causal)
+        torch.autograd.grad(out, leaves, doc)
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd = timer(lambda: sdpa(qc, kc, vc, is_causal=causal))
+        both = timer(fwd_bwd)
+    return fwd, both - fwd
 
 
 def _ln_err(out, want, tag, rel_to_max=False):
@@ -540,7 +716,113 @@ def phase_serve(smi):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serve path")
-    return fp32_engine, launches, prompts
+    return fp32_engine, launches, prompts, params
+
+
+def _decode_stages(spec, p, k_flat, v_flat, tokens, positions, tables):
+    """``decode_step`` of the serving model at bf16, split into its
+    stages: yields ``(stage, tensor)`` in the order the step runs them,
+    each tensor with the batch on its first axis; writes the pools as the
+    step does."""
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+    from paddle_tpu_torch.serving import model as M
+    b, cdt = tokens.shape[0], p["embed"].dtype
+    positions = positions.to(torch.int32)
+    dest = M._flat_dest(tables, positions, PAGE_SIZE)
+    pages = (k_flat.shape[1] // PAGE_SIZE, PAGE_SIZE, spec.heads,
+             spec.head_dim)
+    h = p["embed"][tokens.long()] + p["pos"][positions.long()]
+    yield "embedding", h
+    for i in range(spec.layers):
+        x = M._ln(h, p[f"h{i}.ln1.w"], p[f"h{i}.ln1.b"]).to(cdt)
+        yield f"layer {i} ln1", x
+        q, k, v = (M._matmul(p, f"h{i}.attn.{w}", x).reshape(
+            b, spec.heads, spec.head_dim) for w in ("wq", "wk", "wv"))
+        yield f"layer {i} qkv products", torch.cat([q, k, v], -1)
+        M._write_kv(k_flat, v_flat, None, None, i, dest, k, v)
+        o = paged_attention(q, k_flat[i].view(pages), v_flat[i].view(pages),
+                            tables, positions + 1)
+        yield f"layer {i} paged attention (port kernel)", o
+        a = M._matmul(p, f"h{i}.attn.wo", o.reshape(b, spec.hidden))
+        yield f"layer {i} out_proj", a
+        h = h + a
+        x2 = M._ln(h, p[f"h{i}.ln2.w"], p[f"h{i}.ln2.b"]).to(cdt)
+        yield f"layer {i} ln2", x2
+        f1 = M._matmul(p, f"h{i}.mlp.w1", x2) + p[f"h{i}.mlp.b1"]
+        yield f"layer {i} mlp fc1", f1
+        g = torch.nn.functional.gelu(f1, approximate="tanh")
+        f2 = M._matmul(p, f"h{i}.mlp.w2", g) + p[f"h{i}.mlp.b2"]
+        yield f"layer {i} mlp fc2", f2
+        h = h + f2
+    hf = M._ln(h, p["lnf.w"], p["lnf.b"]).to(cdt)
+    yield "final ln", hf
+    logits = hf @ p["embed"].T
+    yield "logits", logits
+    yield "next token", torch.argmax(logits, dim=-1)
+
+
+def phase_bucket_stages(params, prompts):
+    """Where bf16 join/leave across decode buckets breaks.  A bf16 engine
+    (gpt_345m, the serve phase's weights) generates 16 prompts together
+    (decode bucket 16), then the first one alone (bucket 2); every decode
+    step of that prompt also runs split into its stages
+    (:func:`_decode_stages`, whose logits must equal the step's).  Prints
+    the first step and stage at which the prompt's row differs bit for
+    bit between the two runs, or that none does; fails when that stage is
+    the port's own kernel (paged attention), whose sums must not depend
+    on the batch."""
+    from paddle_tpu_torch.serving import (ModelSpec, ServeConfig,
+                                          ServingEngine)
+    from paddle_tpu_torch.serving import engine as E
+    spec = ModelSpec(**GPT_345M)
+    cfg = ServeConfig(decode_buckets=(2, 4, 8, 16),
+                      prefill_buckets=(64, 128, 256, 512), kv_pages=1024,
+                      page_size=PAGE_SIZE, max_inflight=64,
+                      max_new_tokens=32, precision="bf16")
+    engine = ServingEngine(spec, params, cfg, device=DEVICE)
+    record = []
+    step_fn = E.decode_step
+
+    def staged(sp, p, k_flat, v_flat, tokens, positions, tables, **kw):
+        stages = list(_decode_stages(sp, p, k_flat.clone(), v_flat.clone(),
+                                     tokens, positions, tables))
+        out = step_fn(sp, p, k_flat, v_flat, tokens, positions, tables, **kw)
+        if not torch.equal(stages[-2][1], out[-1]):
+            raise AssertionError("the staged decode step is not decode_step")
+        record.append((tokens.shape[0], [(n, t[0].clone())
+                                         for n, t in stages]))
+        return out
+
+    E.decode_step = staged
+    try:
+        batched = engine.generate(prompts[:16], max_new_tokens=32)
+        runs = {16: record[:31]}
+        record.clear()
+        solo = engine.generate(prompts[:1], max_new_tokens=32)
+        runs[2] = record[:31]
+    finally:
+        E.decode_step = step_fn
+        engine.close()
+    if {b for b, _ in runs[16]} != {16} or {b for b, _ in runs[2]} != {2}:
+        raise AssertionError("the bucket runs did not decode in buckets 16 "
+                             "and 2")
+    first = None
+    for i, ((_, big), (_, small)) in enumerate(zip(runs[16], runs[2])):
+        for (name, x), (_, y) in zip(big, small):
+            if not torch.equal(x, y):
+                diff = (x.float() - y.float()).abs().max().item()
+                first = (f"decode step {i + 1}, {name} (max abs difference "
+                         f"{diff:.3e})")
+                break
+        if first:
+            break
+    log(f"[serve] bf16 prompt 0 in bucket 16 vs alone in bucket 2: tokens "
+        f"{'equal' if solo[0] == batched[0] else 'differ'}; first stage whose "
+        f"row differs bit for bit: {first}")
+    if first is not None and "port kernel" in first:
+        raise AssertionError(f"the port's kernel depends on the bucket: "
+                             f"{first}")
+    return first
 
 
 def phase_http(engine, prompt):
@@ -568,52 +850,63 @@ def phase_http(engine, prompt):
 
 
 def phase_train(smi):
-    """The training path on the card: card against CPU at a small width,
-    the S = 512 refusal, then 8 steps of gpt_345m (the main path)."""
-    from paddle_tpu_torch.framework.random import make_generator
-    from paddle_tpu_torch.incubate.models import (GPTForCausalLM, gpt_345m,
-                                                  gpt_tiny)
+    """The training path on the card: card against CPU at a small width
+    (plain attention at sequence 64, the flash kernels at 512), then 8
+    steps of gpt_345m at sequence 1024 (the main path), then a few at
+    sequence 256, below the flash lengths."""
+    from paddle_tpu_torch.incubate.models import gpt_tiny
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
     from paddle_tpu_torch.train import build_train_step, make_batch
 
-    # same weights, f32, dropout 0: the 3-step loss trajectory
-    cfg = gpt_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                   use_recompute=True)
-    steps = {dev: build_train_step(cfg, device=dev, seed=1, amp_o2=False)
-             for dev in ("cpu", DEVICE)}
-    steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
-    ids, labels = make_batch(cfg, 4, 64, seed=1, device="cpu")
-    traj = {dev: [st(ids.to(dev), labels.to(dev)).item() for _ in range(3)]
-            for dev, st in steps.items()}
-    err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
-    log(f"[train] gpt_tiny f32 3-step loss, card {traj[DEVICE]} vs CPU "
-        f"{traj['cpu']}: max diff {err:.3e} (tol {TRAIN_TOL:.0e})")
-    if not err <= TRAIN_TOL:
-        raise AssertionError(f"train: card and CPU trajectories differ by "
-                             f"{err}")
-    del steps
+    # same weights, f32, dropout 0: the 3-step loss trajectory, below and
+    # at the flash lengths (the position table widened to 512)
+    for seq in (64, F.FLASH_MIN_SEQ):
+        cfg = dataclasses.replace(
+            gpt_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     use_recompute=True), max_position_embeddings=max(seq, 128))
+        steps = {dev: build_train_step(cfg, device=dev, seed=1, amp_o2=False)
+                 for dev in ("cpu", DEVICE)}
+        steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
+        ids, labels = make_batch(cfg, 4, seq, seed=1, device="cpu")
+        reset_launch_counts()
+        traj = {dev: [st(ids.to(dev), labels.to(dev)).item()
+                      for _ in range(3)] for dev, st in steps.items()}
+        flash = {n: KERNELS[n].launches for n in FLASH_KERNELS}
+        err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
+        log(f"[train] gpt_tiny seq {seq} f32 3-step loss, card {traj[DEVICE]} "
+            f"vs CPU {traj['cpu']}: max diff {err:.3e} (tol {TRAIN_TOL:.0e}); "
+            f"flash launches on the card {flash}")
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"train seq {seq}: card and CPU trajectories "
+                                 f"differ by {err}")
+        want = 0 if seq < F.FLASH_MIN_SEQ else 3 * cfg.num_layers
+        if flash["flash_bwd_dq"] != want:
+            raise AssertionError(f"train seq {seq}: flash dq launched "
+                                 f"{flash['flash_bwd_dq']} times, want {want}")
+        del steps
 
-    # attention at the flash kernels' lengths raises on the card
-    long_cfg = dataclasses.replace(gpt_tiny(),
-                                   max_position_embeddings=F.FLASH_MIN_SEQ)
-    model = GPTForCausalLM(long_cfg, generator=make_generator(0, DEVICE))
-    ids, _ = make_batch(long_cfg, 1, F.FLASH_MIN_SEQ, device=DEVICE)
-    try:
-        model(ids, generator=make_generator(0, DEVICE))
-    except NotImplementedError as e:
-        log(f"[train] S={F.FLASH_MIN_SEQ} on the card raises: {e}")
-    else:
-        raise AssertionError(f"train: attention ran at S="
-                             f"{F.FLASH_MIN_SEQ} on the card")
-    del model
+    launches = _train_run(smi, TRAIN_SEQ, TRAIN_STEPS, profile=True)
+    short = _train_run(smi, SHORT_SEQ, SHORT_STEPS, profile=False)
+    if any(short[n] for n in FLASH_KERNELS):
+        raise AssertionError(f"train seq {SHORT_SEQ}: flash kernels launched "
+                             f"below the flash lengths: {short}")
+    return launches
 
-    # the main path: gpt_345m, batch 16 x seq 256, O2 bf16, recompute
-    cfg = gpt_345m(use_recompute=True, max_position_embeddings=TRAIN_SEQ)
+
+def _train_run(smi, seq, n_steps, profile):
+    """gpt_345m, batch 16 x ``seq``, O2 bf16, recompute, dropout 0.1, for
+    ``n_steps`` on a fixed batch; the kernel counters set to 0 just before
+    and read just after.  Checks finite, falling losses and the launches
+    per step; returns the launch counts."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = gpt_345m(use_recompute=True, max_position_embeddings=seq)
     t0 = time.perf_counter()
     step = build_train_step(cfg, device=DEVICE, seed=0)
-    ids, labels = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
-                             device=DEVICE)
+    ids, labels = make_batch(cfg, TRAIN_BATCH, seq, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in step.params.values())
@@ -621,33 +914,42 @@ def phase_train(smi):
     losses, times = [], []
     torch.cuda.synchronize()
     reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         t0 = time.perf_counter()
         losses.append(step(ids, labels).item())   # waits for the card
         times.append(time.perf_counter() - t0)
     launches = {name: KERNELS[name].launches for name in KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * seq
     layers = cfg.num_layers
-    # per step: 2 per block and the final one, the blocks' 2 again in the
-    # backward pass's recompute; one backward each
-    want = {"layer_norm_fwd": TRAIN_STEPS * (4 * layers + 1),
-            "layer_norm_bwd": TRAIN_STEPS * (2 * layers + 1)}
+    # per step: LayerNorm 2 per block and the final one, the blocks' 2
+    # again in the backward pass's recompute, one backward each; flash
+    # one forward per block and again in the recompute, one dq and one
+    # dk/dv per block
+    flash = seq >= F.FLASH_MIN_SEQ
+    per_step = {"layer_norm_fwd": 4 * layers + 1,
+                "layer_norm_bwd": 2 * layers + 1,
+                "flash_fwd": 2 * layers if flash else 0,
+                "flash_bwd_dq": layers if flash else 0,
+                "flash_bwd_dkv": layers if flash else 0}
     log(f"[train] gpt_345m ({n_params} parameters) batch {TRAIN_BATCH} x "
-        f"seq {TRAIN_SEQ}, O2 bf16, AdamW, recompute: losses "
+        f"seq {seq}, O2 bf16, AdamW, recompute: losses "
         f"{[round(v, 4) for v in losses]}; step ms "
-        f"{[round(t * 1e3, 2) for t in times]}; median step (2..{TRAIN_STEPS}) "
+        f"{[round(t * 1e3, 2) for t in times]}; median step (2..{n_steps}) "
         f"{med * 1e3:.2f} ms, {tokens / med:.1f} tokens/s; first step "
         f"{times[0] * 1e3:.1f} ms; build {build_s:.2f} s; peak memory "
         f"{peak_gb:.2f} GB; launches {launches} | {smi}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss not finite and falling: {losses}")
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f"train: {name} launched {launches[name]} "
-                                 f"times in {TRAIN_STEPS} steps, want {n}")
-    _profile_train_step(step, ids, labels, med, smi)
+        raise AssertionError(f"train seq {seq}: loss not finite and falling: "
+                             f"{losses}")
+    for name, n in per_step.items():
+        if launches[name] != n_steps * n:
+            raise AssertionError(f"train seq {seq}: {name} launched "
+                                 f"{launches[name]} times in {n_steps} steps, "
+                                 f"want {n_steps * n}")
+    if profile:
+        _profile_train_step(step, ids, labels, med, smi)
     del step
     torch.cuda.empty_cache()
     return launches
@@ -657,7 +959,7 @@ def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
     """Where a gpt_345m step's time goes: device time summed over the
     step's kernels under ``torch.profiler``, its share of the median
     step wall time, device operations per step, the largest kernels, and
-    the LayerNorm kernels' share."""
+    the LayerNorm and flash kernels' shares."""
     from paddle_tpu_torch.serving.profile import _device_us
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -671,14 +973,23 @@ def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
         raise AssertionError("train: the profiler recorded no device time")
     busy_ms = sum(_device_us(e) for e in kernels) / steps / 1e3
     ops = sum(e.count for e in kernels) / steps
-    ln = [e for e in kernels if "ln_fwd_kernel" in e.key
-          or "ln_bwd_kernel" in e.key or "ln_bwd_reduce_kernel" in e.key]
-    ln_ms = sum(_device_us(e) for e in ln) / steps / 1e3
-    top = sorted(kernels, key=_device_us, reverse=True)[:8] + ln
+    mine = {"LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel",
+                          "ln_bwd_reduce_kernel"),
+            "flash": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel")}
+    shares, own = [], []
+    for label, names in mine.items():
+        es = [e for e in kernels if any(n in e.key for n in names)]
+        ms = sum(_device_us(e) for e in es) / steps / 1e3
+        shares.append(f"{label} kernels {ms:.3f} ms per step "
+                      f"({ms / busy_ms:.3f} of device time)")
+        own += es
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    top += [e for e in own if e not in top]
     log(f"[train] profile of {steps} gpt_345m steps: device busy "
         f"{busy_ms:.3f} ms per step, {busy_ms / (step_s * 1e3):.3f} of the "
         f"median step wall {step_s * 1e3:.2f} ms; {ops:.0f} device ops per "
-        f"step; LayerNorm kernels {ln_ms:.3f} ms per step | {smi}")
+        f"step; {'; '.join(shares)} | {smi}")
     for e in top:
         log(f"    {_device_us(e) / steps / 1e3:8.3f} ms {e.count / steps:6.0f}"
             f" calls  {e.key[:100]}")
@@ -697,7 +1008,9 @@ def main() -> int:
     results = phase_kernels(timer)
     del timer
     phase_model()
-    engine, launches, prompts = phase_serve(smi)
+    engine, launches, prompts, params = phase_serve(smi)
+    phase_bucket_stages(params, prompts)
+    del params
     phase_http(engine, prompts[0][:64])
     del engine
     torch.cuda.empty_cache()

@@ -1,0 +1,780 @@
+// Flash attention forward, dq and dk/dv for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels `_fwd_kernel`, `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` (paddle_tpu/ops/pallas_ops.py, launched at the
+// pallas_call sites in `_fwd` and `_bwd`), for the variant the training
+// step runs: fixed length (q_len == kv_len), causal or not, attention
+// dropout on or off.  q, k, v and do are (B, S, H, D) with any strides of
+// B, S and H and unit stride in D (the slices of the QKV projection are
+// read in place); out, dq, dk and dv are written (B, S, H, D) contiguous;
+// lse and delta are f32 (B * H, S).
+//
+//   forward   s = q k^T * scale, masked; online softmax per row: m, l (the
+//             UNdropped sum), acc += (p o keep / (1 - r)) v
+//             out = acc / l (l == 0 -> 1), lse = m + log(l)
+//   dq        p = exp(s - lse), dp = do v^T, dp o keep / (1 - r)
+//             ds = p o (dp - delta), dq = scale * ds k
+//   dk/dv     p~ = p o keep / (1 - r), dv = p~^T do
+//             ds = p o (dp o keep / (1 - r) - delta), dk = scale * ds^T q
+//
+// The dropout keep mask is a hash of the element's GLOBAL (bh, q, k)
+// coordinates (`_tile_keep_mask`), so the three kernels regenerate the
+// same mask whatever their tiling.  bf16 operands feed the products with
+// f32 sums; p, p~ and ds are cast to the other operand's type before
+// their products, as the TPU kernel does.  f32 inputs take the CUDA cores
+// (no TF32).  Where the TPU kernel computes exp(x) and divides by
+// (1 - r), these take exp2 of x * log2(e) and multiply by 1 / (1 - r) in
+// f32: the same values within a few units in the last place.
+//
+// What bounds it: at (B * H, S, D) = (256, 1024, 64) bf16 causal the
+// forward does 34 GFLOP over 134 MB, the backward 120 GFLOP over 369 MB,
+// so the tensor cores, not the memory, set the bound.  The design is the
+// simple one: one block of 4 warps per 64-row tile, each warp owning 16
+// rows; the other operand's 64-row tiles staged in shared memory in two
+// buffers, the next tile's copy (cp.async) in flight while the current one
+// is used; the products by `mma.sync` m16n8k16 with ldmatrix fragment
+// loads (bf16) or by FMAs in the same fragment layout (f32); the scores
+// and the online softmax in registers, the masks applied only to tiles on
+// the causal diagonal or at the ragged end.  wgmma, TMA and warp
+// specialisation are for a later version.
+//
+// Deterministic sums: as the TPU grid, dq takes one block per (bh, q tile)
+// walking the k tiles, dk/dv one block per (bh, k tile) walking the q
+// tiles.  No atomics, so dq, dk and dv are the same bits on every run.
+// Tiles wholly above the causal diagonal are skipped.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 64;        // rows of a block's own tile
+constexpr int kCols = 64;        // rows of the other operand's tile
+constexpr int kWarps = 4;        // 16 own rows per warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kNT = kCols / 8;   // n-tiles of 8 columns in a score tile
+constexpr float kNegInf = -1e30f;   // the running max before any key
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  void* out;      // forward: out; dq: dq; dk/dv: dk
+  void* out2;     // dk/dv: dv
+  float* lse;     // forward writes it, the backward reads it
+  const float* delta;
+  const int32_t* seed;
+  long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
+  int B, H, S;
+  float scale;
+  uint32_t threshold;  // keep when (hash >> 8) >= threshold
+  float inv_keep;      // 1 / (1 - p_drop), rounded to f32
+  int dropout;
+  int causal;
+};
+
+// elements in a padded row of a shared tile: 16 bytes more than the data,
+// so the fragment reads of 8 consecutive rows fall in different banks
+template <typename T, int D>
+__host__ __device__ constexpr int ld() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// the dropout hash; `hs` is the block's part, seed ^ (bh * 0x9E3779B1)
+__device__ __forceinline__ bool keep_elem(uint32_t hs, uint32_t row,
+                                          uint32_t col, uint32_t threshold) {
+  uint32_t h = row * 0x000193E9u + col;
+  h ^= hs;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 15;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 15;
+  return (h >> 8) >= threshold;
+}
+
+// ---------------------------------------------------------------------------
+// tiles in shared memory, copied with cp.async
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// starts the copy of rows [row0, row0 + 64) of one (b, h) slice into a
+// padded shared tile; rows past S become zero.  16-byte copies: D *
+// sizeof(T) and the strides are multiples of 16 bytes (the wrapper checks).
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* base,
+                                          long long row_stride, int row0,
+                                          int S) {
+  constexpr int LD = ld<T, D>();
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * kVec;
+    const bool in = row0 + r < S;
+    cp_async16(dst + r * LD + c,
+               base + static_cast<long long>(in ? row0 + r : 0) * row_stride +
+                   c,
+               in);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the two products, in the m16n8 accumulator layout of mma.sync: lane
+// (g, t) = (lane / 4, lane % 4) holds, of each 8-column n-tile, rows g and
+// g + 8 at columns 2t and 2t + 1: c[0], c[1] on row g, c[2], c[3] on g + 8
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (kTrans: each matrix transposed on the way)
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// s[i][j] = sum_d A[i][d] * B[j][d]: A the warp's 16 rows, B 64 rows, both
+// padded shared tiles.  Sums in f32.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[kNT][4],
+                                       const __nv_bfloat16* A,
+                                       const __nv_bfloat16* B) {
+  constexpr int LD = ld<__nv_bfloat16, D>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];   // rows 0-7 / 8-15 by columns 0-7 / 8-15 of the k16 slab
+    ldsm_x4<false>(a, A + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      uint32_t b[4];   // n-tiles 2np and 2np + 1, k 0-7 and 8-15 each
+      ldsm_x4<false>(b, B + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kc * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[kNT][4], const float* A,
+                                       const float* B) {
+  constexpr int LD = ld<float, D>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A + g * LD + d);
+    const float4 a1 = *reinterpret_cast<const float4*>(A + (g + 8) * LD + d);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            B + (n * 8 + 2 * t + e) * LD + d);
+        s[n][e] = fmaf(a0.x, b.x, s[n][e]);
+        s[n][e] = fmaf(a0.y, b.y, s[n][e]);
+        s[n][e] = fmaf(a0.z, b.z, s[n][e]);
+        s[n][e] = fmaf(a0.w, b.w, s[n][e]);
+        s[n][2 + e] = fmaf(a1.x, b.x, s[n][2 + e]);
+        s[n][2 + e] = fmaf(a1.y, b.y, s[n][2 + e]);
+        s[n][2 + e] = fmaf(a1.z, b.z, s[n][2 + e]);
+        s[n][2 + e] = fmaf(a1.w, b.w, s[n][2 + e]);
+      }
+    }
+  }
+}
+
+// o[i][n] += sum_j p[i][j] * V[j][n]: p the warp's (16, 64) scores in
+// accumulator layout, cast to V's type first; V a padded (64, D) tile.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
+                                           const float (&p)[kNT][4],
+                                           const __nv_bfloat16* V) {
+  constexpr int LD = ld<__nv_bfloat16, D>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kc = 0; kc < kCols / 16; ++kc) {
+    // the accumulator layout of two n-tiles is the A layout of one k16
+    const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                           pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                           pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                           pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];   // d-tiles 2dp and 2dp + 1, k 0-7 and 8-15 each
+      ldsm_x4<true>(b, V + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           dp * 16 + (lane >> 4) * 8);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
+                                           const float (&p)[kNT][4],
+                                           const float* V) {
+  constexpr int LD = ld<float, D>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    // p[g][j] and p[g + 8][j] live in lane (g, (j % 8) / 2)
+    const int src = g * 4 + ((j & 7) >> 1);
+    const float p0 = __shfl_sync(kFull, p[j >> 3][j & 1], src);
+    const float p1 = __shfl_sync(kFull, p[j >> 3][2 + (j & 1)], src);
+    const float* v = V + j * LD + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const float2 w = *reinterpret_cast<const float2*>(v + dn * 8);
+      o[dn][0] = fmaf(p0, w.x, o[dn][0]);
+      o[dn][1] = fmaf(p0, w.y, o[dn][1]);
+      o[dn][2] = fmaf(p1, w.x, o[dn][2]);
+      o[dn][3] = fmaf(p1, w.y, o[dn][3]);
+    }
+  }
+}
+
+// (16, D) accumulator rows -> rows of a contiguous (B, S, H, D) output
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&o)[D / 8][4],
+                                           int row, int S, int H, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (row + 8 * half >= S) continue;
+    float* dst = out + static_cast<long long>(row + 8 * half) * H * D;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<float2*>(dst + dn * 8 + 2 * t) =
+          make_float2(o[dn][2 * half] * mul, o[dn][2 * half + 1] * mul);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&o)[D / 8][4],
+                                           int row, int S, int H, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (row + 8 * half >= S) continue;
+    __nv_bfloat16* dst = out + static_cast<long long>(row + 8 * half) * H * D;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[dn][2 * half] * mul,
+                                o[dn][2 * half + 1] * mul);
+  }
+}
+
+// column (within the tile) and row offset (0 or 8) of accumulator element e
+// of n-tile n
+__device__ __forceinline__ int col_of(int n, int e) {
+  return n * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+__device__ __forceinline__ int row_of(int e) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+
+// -inf where the mask drops an element of the warp's score tile: element
+// (r0 + row, c0 + col) is a (query, key) pair, or with kKeyRows a (key,
+// query) pair; it stays when key < S and query < S and, if causal,
+// key <= query
+template <bool kKeyRows>
+__device__ __forceinline__ void mask_tile(float (&s)[kNT][4], int r0, int c0,
+                                          int S, int causal) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + row_of(e), col = c0 + col_of(n, e);
+      const int key = kKeyRows ? row : col, query = kKeyRows ? col : row;
+      if (key >= S || query >= S || (causal && key > query))
+        s[n][e] = -CUDART_INF_F;
+    }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* slice(const void* p, const long long* st,
+                                          int b, int h) {
+  return static_cast<const T*>(p) + b * st[0] + h * st[2];
+}
+
+__device__ __forceinline__ uint32_t block_hash(const Args& a, int bh) {
+  return a.dropout ? static_cast<uint32_t>(*a.seed) ^ (bh * 0x9E3779B1u) : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (64-row q tile, bh)
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const Args a) {
+  constexpr int LD = ld<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sKV = sQ + kRows * LD;   // two buffers of (K, V)
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = q0 + warp * 16;
+  const uint32_t hs = block_hash(a, bh);
+  const float sl2 = a.scale * kLog2e;
+
+  const T* kb = slice<T>(a.k, a.st[1], b, h);
+  const T* vb = slice<T>(a.v, a.st[2], b, h);
+  const int kv_end = a.causal ? min(a.S, q0 + kRows) : a.S;
+  const int tiles = (kv_end + kCols - 1) / kCols;
+  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.S);
+  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.S);
+  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.S);
+  cp_async_commit();
+
+  // m in log2 units: the running max of s * scale * log2(e)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kCols;
+    if (t + 1 < tiles) {
+      T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
+      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.S);
+      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* sK = sKV + (t & 1) * 2 * kCols * LD;
+    const T* sV = sK + kCols * LD;
+
+    float s[kNT][4];
+    scores<D>(s, sQ + warp * 16 * LD, sK);
+    if ((a.causal && k0 + kCols > q0) || k0 + kCols > a.S)
+      mask_tile<false>(s, r0, k0, a.S, a.causal);
+    float mcur[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mcur[e >> 1] = fmaxf(mcur[e >> 1], s[n][e]);
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mnew = fmaxf(m[i], quad_max(mcur[i]) * sl2);
+      alpha[i] = exp2f(m[i] - mnew);
+      m[i] = mnew;
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, -m[e >> 1]));
+        rsum[e >> 1] += p;
+        if (a.dropout)
+          p = keep_elem(hs, r0 + row_of(e), k0 + col_of(n, e), a.threshold)
+                  ? p * a.inv_keep
+                  : 0.f;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      o[dn][2] *= alpha[1];
+      o[dn][3] *= alpha[1];
+    }
+    accumulate<D>(o, s, sV);
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+
+  float lsafe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lsafe[i] = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    o[dn][0] /= lsafe[0];
+    o[dn][1] /= lsafe[0];
+    o[dn][2] /= lsafe[1];
+    o[dn][3] /= lsafe[1];
+  }
+  T* out = static_cast<T*>(a.out) +
+           ((static_cast<long long>(b) * a.S) * a.H + h) * D;
+  store_rows<D>(out, o, r0 + g, a.S, a.H, 1.f);
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row < a.S)
+        a.lse[static_cast<long long>(bh) * a.S + row] =
+            m[i] * kLn2 + logf(lsafe[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: one block per (64-row q tile, bh), walking the k tiles
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const Args a) {
+  constexpr int LD = ld<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + kRows * LD;
+  T* sKV = sDO + kRows * LD;   // two buffers of (K, V)
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = q0 + warp * 16;
+  const uint32_t hs = block_hash(a, bh);
+  const float sl2 = a.scale * kLog2e;
+
+  const T* kb = slice<T>(a.k, a.st[1], b, h);
+  const T* vb = slice<T>(a.v, a.st[2], b, h);
+  const int kv_end = a.causal ? min(a.S, q0 + kRows) : a.S;
+  const int tiles = (kv_end + kCols - 1) / kCols;
+  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.S);
+  load_tile<T, D>(sDO, slice<T>(a.dout, a.st[3], b, h), a.st[3][1], q0, a.S);
+  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.S);
+  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.S);
+  cp_async_commit();
+  float lse2[2], delta[2];   // lse in log2 units
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    const long long idx = static_cast<long long>(bh) * a.S + row;
+    lse2[i] = row < a.S ? a.lse[idx] * kLog2e : 0.f;
+    delta[i] = row < a.S ? a.delta[idx] : 0.f;
+  }
+  float dq[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kCols;
+    if (t + 1 < tiles) {
+      T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
+      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.S);
+      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* sK = sKV + (t & 1) * 2 * kCols * LD;
+    const T* sV = sK + kCols * LD;
+
+    float p[kNT][4], dp[kNT][4];
+    scores<D>(p, sQ + warp * 16 * LD, sK);
+    scores<D>(dp, sDO + warp * 16 * LD, sV);
+    if ((a.causal && k0 + kCols > q0) || k0 + kCols > a.S)
+      mask_tile<false>(p, r0, k0, a.S, a.causal);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(fmaf(p[n][e], sl2, -lse2[e >> 1]));
+        float dpe = dp[n][e];
+        if (a.dropout)
+          dpe = keep_elem(hs, r0 + row_of(e), k0 + col_of(n, e), a.threshold)
+                    ? dpe * a.inv_keep
+                    : 0.f;
+        p[n][e] = pe * (dpe - delta[e >> 1]);   // ds
+      }
+    accumulate<D>(dq, p, sK);
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+  T* out = static_cast<T*>(a.out) +
+           ((static_cast<long long>(b) * a.S) * a.H + h) * D;
+  store_rows<D>(out, dq, r0 + g, a.S, a.H, a.scale);
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: one block per (64-key tile, bh), walking the q tiles; every score
+// tile is transposed (rows are keys, columns queries)
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const Args a) {
+  constexpr int LD = ld<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kRows * LD;
+  T* sQD = sV + kRows * LD;   // two buffers of (Q, dO)
+  // two buffers of (lse in log2 units, delta), kCols each
+  float* sStats = reinterpret_cast<float*>(sQD + 4 * kCols * LD);
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = k0 + warp * 16;
+  const uint32_t hs = block_hash(a, bh);
+  const float sl2 = a.scale * kLog2e;
+
+  const T* qb = slice<T>(a.q, a.st[0], b, h);
+  const T* dob = slice<T>(a.dout, a.st[3], b, h);
+  // the q tiles that reach this key tile: from the diagonal on when causal
+  const int first = a.causal ? k0 : 0;
+  const int tiles = (a.S - first + kCols - 1) / kCols;
+  auto stage = [&](int buf, int q0) {
+    T* dst = sQD + buf * 2 * kCols * LD;
+    load_tile<T, D>(dst, qb, a.st[0][1], q0, a.S);
+    load_tile<T, D>(dst + kCols * LD, dob, a.st[3][1], q0, a.S);
+    float* st = sStats + buf * 2 * kCols;
+    for (int i = threadIdx.x; i < kCols; i += kThreads) {
+      const bool in = q0 + i < a.S;
+      const long long idx = static_cast<long long>(bh) * a.S + q0 + i;
+      st[i] = in ? a.lse[idx] * kLog2e : 0.f;
+      st[kCols + i] = in ? a.delta[idx] : 0.f;
+    }
+  };
+  load_tile<T, D>(sK, slice<T>(a.k, a.st[1], b, h), a.st[1][1], k0, a.S);
+  load_tile<T, D>(sV, slice<T>(a.v, a.st[2], b, h), a.st[2][1], k0, a.S);
+  stage(0, first);
+  cp_async_commit();
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
+    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = first + t * kCols;
+    if (t + 1 < tiles) {
+      stage((t + 1) & 1, q0 + kCols);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* sQ = sQD + (t & 1) * 2 * kCols * LD;
+    const T* sDO = sQ + kCols * LD;
+    const float* sLse2 = sStats + (t & 1) * 2 * kCols;
+    const float* sDelta = sLse2 + kCols;
+
+    // p, then dv += p~^T do; then dp and ds, dk += ds^T q (p~ and dp are
+    // never live together)
+    float p[kNT][4];
+    uint32_t kept = 0xffffffffu;   // bit 4n + e: element (n, e) is kept
+    scores<D>(p, sK + warp * 16 * LD, sQ);
+    if ((a.causal && q0 < k0 + kRows) || q0 + kCols > a.S)
+      mask_tile<true>(p, r0, q0, a.S, a.causal);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = col_of(n, e);
+        p[n][e] = exp2f(fmaf(p[n][e], sl2, -sLse2[c]));
+        if (a.dropout && !keep_elem(hs, q0 + c, r0 + row_of(e), a.threshold))
+          kept &= ~(1u << (4 * n + e));
+      }
+    {
+      float pt[kNT][4];   // p~, the dropped probabilities
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pt[n][e] = !a.dropout ? p[n][e]
+                     : (kept >> (4 * n + e)) & 1u ? p[n][e] * a.inv_keep
+                                                  : 0.f;
+      accumulate<D>(dv, pt, sDO);
+    }
+    float dp[kNT][4];
+    scores<D>(dp, sV + warp * 16 * LD, sDO);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dpe = dp[n][e];
+        if (a.dropout)
+          dpe = (kept >> (4 * n + e)) & 1u ? dpe * a.inv_keep : 0.f;
+        p[n][e] = p[n][e] * (dpe - sDelta[col_of(n, e)]);   // ds
+      }
+    accumulate<D>(dk, p, sQ);
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+  const long long base = ((static_cast<long long>(b) * a.S) * a.H + h) * D;
+  store_rows<D>(static_cast<T*>(a.out) + base, dk, r0 + g, a.S, a.H, a.scale);
+  store_rows<D>(static_cast<T*>(a.out2) + base, dv, r0 + g, a.S, a.H, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+template <typename T, int D>
+cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
+  constexpr int LD = ld<T, D>();
+  const size_t tile = static_cast<size_t>(kRows) * LD * sizeof(T);
+  void (*kern)(const Args);
+  size_t smem;
+  if (which == kFwd) {
+    kern = flash_fwd_kernel<T, D>;
+    smem = 5 * tile;   // Q, two (K, V)
+  } else if (which == kDq) {
+    kern = flash_bwd_dq_kernel<T, D>;
+    smem = 6 * tile;   // Q, dO, two (K, V)
+  } else {
+    kern = flash_bwd_dkv_kernel<T, D>;
+    smem = 6 * tile + 4 * kCols * sizeof(float);   // K, V, two (Q, dO, stats)
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.S + kRows - 1) / kRows, a.B * a.H);
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int which, int d, const Args& a, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch<T, 32>(which, a, stream);
+    case 64: return launch<T, 64>(which, a, stream);
+    case 128: return launch<T, 128>(which, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(int which, const void* q, const void* k, const void* v,
+        const void* dout, void* out, void* out2, float* lse,
+        const float* delta, const void* seed, const long long* strides,
+        int B, int H, int S, int D, float scale, int threshold,
+        float inv_keep, int causal, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.out = out; a.out2 = out2; a.lse = lse; a.delta = delta;
+  a.seed = static_cast<const int32_t*>(seed);
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
+  a.B = B; a.H = H; a.S = S;
+  a.scale = scale;
+  a.threshold = static_cast<uint32_t>(threshold);
+  a.inv_keep = inv_keep;
+  a.dropout = seed != nullptr;
+  a.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = dtype == 0 ? launch_d<float>(which, D, a, s)
+                                   : launch_d<__nv_bfloat16>(which, D, a, s);
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// strides: (b, s, h) of q, k, v and do, 12 int64 values (do's unused by the
+// forward).  seed: a device int32, or null for no dropout.
+extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
+                             void* out, void* lse, const void* seed,
+                             const long long* strides, int B, int H, int S,
+                             int D, float scale, int threshold,
+                             float inv_keep, int causal, int dtype,
+                             void* stream) {
+  return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
+             nullptr, seed, strides, B, H, S, D, scale, threshold, inv_keep,
+             causal, dtype, stream);
+}
+
+extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, const void* seed,
+                                const long long* strides, int B, int H, int S,
+                                int D, float scale, int threshold,
+                                float inv_keep, int causal, int dtype,
+                                void* stream) {
+  return run(kDq, q, k, v, dout, dq, nullptr,
+             const_cast<float*>(static_cast<const float*>(lse)),
+             static_cast<const float*>(delta), seed, strides, B, H, S, D,
+             scale, threshold, inv_keep, causal, dtype, stream);
+}
+
+extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 const void* seed, const long long* strides,
+                                 int B, int H, int S, int D, float scale,
+                                 int threshold, float inv_keep, int causal,
+                                 int dtype, void* stream) {
+  return run(kDkv, q, k, v, dout, dk, dv,
+             const_cast<float*>(static_cast<const float*>(lse)),
+             static_cast<const float*>(delta), seed, strides, B, H, S, D,
+             scale, threshold, inv_keep, causal, dtype, stream);
+}
+
+extern "C" const char* ptt_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}

@@ -2,7 +2,8 @@
 from .activation import gelu
 from .common import (FLASH_MIN_SEQ, dropout, embedding, linear,
                      scaled_dot_product_attention)
+from .flash_attention import flash_attention
 from .norm import layer_norm
 
-__all__ = ["FLASH_MIN_SEQ", "dropout", "embedding", "gelu", "layer_norm",
-           "linear", "scaled_dot_product_attention"]
+__all__ = ["FLASH_MIN_SEQ", "dropout", "embedding", "flash_attention",
+           "gelu", "layer_norm", "linear", "scaled_dot_product_attention"]

@@ -5,16 +5,18 @@ counterpart of ``paddle_tpu/nn/functional/common.py``).
  - :func:`dropout`: ``upscale_in_train``; the mask is drawn from an
    explicit ``torch.Generator`` (:mod:`...framework.random`).
  - :func:`scaled_dot_product_attention`: the JAX package's plain softmax
-   attention, which it runs below ``flash_min_seq`` (512,
-   ``paddle_tpu/framework/flags.py``).  From 512 on the JAX package takes
-   its Pallas flash kernels, which the port has not written yet: on a
-   CUDA tensor the call raises there rather than run the plain version.
+   attention below ``flash_min_seq`` (512,
+   ``paddle_tpu/framework/flags.py``); from 512 on the flash kernels
+   (:func:`...ops.pallas_ops.flash_attention`), as the JAX package takes
+   its Pallas kernels there.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ...ops import pallas_ops
 
 __all__ = ["FLASH_MIN_SEQ", "linear", "dropout", "embedding",
            "scaled_dot_product_attention"]
@@ -55,19 +57,20 @@ def scaled_dot_product_attention(query, key, value, dropout_p=0.0,
                                  is_causal=False, training=True,
                                  generator=None):
     """Softmax attention over ``(B, S, H, D)`` q, k and v (paddle's
-    layout): scores in the input dtype scaled by ``1/sqrt(D)``, an
-    upper-triangle ``-inf`` mask when causal, softmax in f32 cast back to
-    the input dtype, dropout on the probabilities, then the product with v.
+    layout).
 
-    Raises ``NotImplementedError`` for a CUDA tensor with ``S >= 512``:
-    that is the flash kernels' range.
+    From ``S >= FLASH_MIN_SEQ`` on every device: flash attention, whose
+    kernels run on a CUDA tensor and whose plain versions run on a CPU
+    tensor (dropout by the coordinate hash, its seed drawn from
+    ``generator``).  Below it: scores in the input dtype scaled by
+    ``1/sqrt(D)``, an upper-triangle ``-inf`` mask when causal, softmax in
+    f32 cast back to the input dtype, dropout on the probabilities, then
+    the product with v.
     """
-    s = query.shape[1]
-    if query.device.type != "cpu" and s >= FLASH_MIN_SEQ:
-        raise NotImplementedError(
-            f"attention at S={s} >= {FLASH_MIN_SEQ} runs the flash-attention "
-            "kernels (forward, dq, dk/dv), which the port has not written "
-            "yet; the plain attention is not run in their place")
+    if query.shape[1] >= FLASH_MIN_SEQ:
+        return pallas_ops.flash_attention(
+            query, key, value, causal=is_causal,
+            dropout_p=dropout_p if training else 0.0, generator=generator)
     scale = 1.0 / math.sqrt(query.shape[-1])
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale

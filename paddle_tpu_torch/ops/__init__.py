@@ -1,8 +1,9 @@
 """Kernels of the port: each a CUDA kernel for Hopper with its plain
 PyTorch version beside it (:mod:`.paged_attention`, :mod:`.quant_kernels`,
-:mod:`.fused_kernels`)."""
+:mod:`.fused_kernels`, :mod:`.pallas_ops`)."""
 from . import fused_kernels as _fused_kernels
 from . import paged_attention as _paged_attention
+from . import pallas_ops as _pallas_ops
 from . import quant_kernels as _quant_kernels
 
 __all__ = ["KERNELS", "reset_launch_counts"]
@@ -14,6 +15,9 @@ KERNELS = {
     "w8a16_matmul": _quant_kernels.w8a16_matmul,
     "layer_norm_fwd": _fused_kernels.layer_norm_fwd,
     "layer_norm_bwd": _fused_kernels.layer_norm_bwd,
+    "flash_fwd": _pallas_ops.flash_fwd,
+    "flash_bwd_dq": _pallas_ops.flash_bwd_dq,
+    "flash_bwd_dkv": _pallas_ops.flash_bwd_dkv,
 }
 
 

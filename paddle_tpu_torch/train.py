@@ -1,6 +1,6 @@
 """The GPT training step of ``bench.py::bench_gpt``, and a CLI that runs it.
 
-    python -m paddle_tpu_torch.train --model gpt_345m --batch 16 --seq 256 --steps 8
+    python -m paddle_tpu_torch.train --model gpt_345m --batch 16 --seq 1024 --steps 8
     python -m paddle_tpu_torch.train --model gpt_tiny --batch 2 --seq 64 --steps 4 --device cpu
 
 The step: ``GPTForCausalLM`` (recompute per block, dropout 0.1 on the
@@ -96,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=sorted(CONFIGS), default="gpt_345m")
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")

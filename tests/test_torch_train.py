@@ -285,18 +285,6 @@ def test_cross_entropy_matches_jax_with_ignored_labels(dtype):
     assert got[0, 1, 0] == 0 and got[1, 4, 0] == 0
 
 
-def test_attention_raises_on_a_card_tensor_at_flash_lengths():
-    q = torch.zeros(1, F.FLASH_MIN_SEQ, 2, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        F.scaled_dot_product_attention(q, q, q, is_causal=True)
-    short = torch.zeros(1, F.FLASH_MIN_SEQ - 1, 2, 8, device="meta")
-    out = F.scaled_dot_product_attention(short, short, short, is_causal=True)
-    assert out.shape == short.shape
-    # the CPU runs the plain attention at every length
-    x = torch.randn(1, F.FLASH_MIN_SEQ, 2, 8)
-    assert F.scaled_dot_product_attention(x, x, x).shape == x.shape
-
-
 def test_dropout_needs_the_generator_and_scales_kept_values():
     x = torch.ones(4096)
     with pytest.raises(ValueError, match="generator"):
