@@ -15,7 +15,11 @@ line is printed:
              LayerNorm over 16384 rows of 1024, flash attention at
              batch 16 x 1024 tokens x 16 heads of 64, causal, dropout
              0.1, read in place from the QKV projection's output, then f32
-             and the other head sizes at small shapes): max abs error
+             and the other head sizes at small shapes) and at
+             ``bert_base`` width (LayerNorm with a residual over 4096 rows
+             of 768; softmax cross-entropy over the MLM head's (4096,
+             30528) logits with 84% of the rows ignored and over the NSP
+             head's (32, 2), then ragged vocabularies): max abs error
              against the stated tolerance, times with CUDA events (median
              of 30 after warm-up, L2 flushed before each launch), and the
              least time the card could take (bytes over 3.35 TB/s or
@@ -45,6 +49,23 @@ line is printed:
              structure implies, peak memory, and a profile of where the
              device time goes; then the same step at sequence 256, which
              must launch no flash kernel.
+ 8. bert     the BERT pretraining step (MLM + NSP) on the card: first
+             ``bert_tiny`` (f32, dropout 0) against the same weights'
+             3-step loss trajectory on the CPU, at sequence 64 with a
+             padding mask and at 512 (the flash kernels); then
+             ``bert_base`` at 32 x 128, O2 bf16, dropout 0, 3 steps on
+             the kernels against the same steps with the LayerNorm and
+             cross-entropy wrappers replaced by their plain versions on
+             the card (a loss rise after Adam's first, unwarmed step is
+             the model's if both show it); then the main
+             path of this slice, ``bert_base`` at full width and depth
+             (batch 32 x seq 128, AMP O2 bf16, AdamW with f32 masters,
+             dropout 0.1, no recompute, 20 MLM targets a sequence) for 8
+             steps, the counters set to 0 just before and read just after:
+             losses finite, the cross-entropy and LayerNorm (residual
+             included) launches per step as the model implies, no flash,
+             peak memory and a profile; then 2 steps at batch 8 x 512,
+             which must run the flash kernels, non-causal, in each layer.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -79,8 +100,19 @@ MODEL_TOL = {"fp32": 1e-4, "int8": 1e-2}
 LN_TOL = {"f32": dict(abs=1e-5, rel_dw_db=1e-4),
           "bf16": dict(abs=2e-2, rel=2e-2)}   # |err| <= abs + rel * |ref|
 TRAIN_TOL = 1e-4                            # card vs CPU loss, f32
+# bert_base O2 bf16 on the kernels vs on their plain versions: relative
+# loss difference (bf16 rounds in other places, through 12 layers)
+BERT_PLAIN_TOL = 5e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8        # phase-1 pretraining
+BERT_LONG_BATCH, BERT_LONG_SEQ, BERT_LONG_STEPS = 8, 512, 2   # phase 2
+BERT_HIDDEN, BERT_HEADS, BERT_VOCAB = 768, 12, 30528
+MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
+# softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
+# within 1e-6 in f32, within one bf16 step of the plain version's f32
+# result rounded to bf16
+XENT_TOL = {"loss": 1e-5, "f32": 1e-6, "bf16": "1 ulp"}
 # flash attention: f32 out and lse, f32 gradients; bf16 |err| <= abs + rel *
 # |ref| (one bf16 rounding of outputs that reach |x| ~ 10)
 FLASH_TOL = {"f32": dict(abs=2e-5, grad=1e-4),
@@ -96,6 +128,8 @@ REPLACES = {
     "flash_fwd": "paddle_tpu/ops/pallas_ops.py:233",
     "flash_bwd_dq": "paddle_tpu/ops/pallas_ops.py:396",
     "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:418",
+    "softmax_xent_fwd": "paddle_tpu/ops/fused_kernels.py:445",
+    "softmax_xent_bwd": "paddle_tpu/ops/fused_kernels.py:476",
 }
 SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -106,10 +140,14 @@ SOURCES = {
     "flash_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "softmax_xent_fwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
+    "softmax_xent_bwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
 }
 SERVE_KERNELS = ("paged_attention", "paged_attention_int8", "w8a16_matmul")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd") + FLASH_KERNELS
+LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
+XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_bwd")
+TRAIN_KERNELS = LN_KERNELS + FLASH_KERNELS
 
 
 def log(*args):
@@ -277,15 +315,48 @@ def phase_kernels(timer):
     # the training step's LayerNorm: batch 16 x seq 1024 rows of hidden
     # 1024, bf16 under O2 (the main path) and f32
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype)
+        fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype,
+                                       TRAIN_BATCH * TRAIN_SEQ,
+                                       GPT_345M["hidden"], 1e-5)
         results.setdefault("layer_norm_fwd", []).append(fwd)
         results.setdefault("layer_norm_bwd", []).append(bwd)
+    # BERT's post-LN blocks: LayerNorm of x + residual over batch 32 x
+    # seq 128 rows of hidden 768, eps 1e-12, bf16 and f32; then bf16
+    # without a residual, as BERT's embeddings and MLM head run it
+    for tag, dtype, residual in (("bf16", torch.bfloat16, True),
+                                 ("f32", torch.float32, True),
+                                 ("bf16", torch.bfloat16, False)):
+        fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype,
+                                       BERT_BATCH * BERT_SEQ, BERT_HIDDEN,
+                                       1e-12, residual=residual)
+        results["layer_norm_fwd"].append(fwd)
+        results["layer_norm_bwd"].append(bwd)
+
+    # softmax cross-entropy: the MLM head's logits (bf16 under O2, timed,
+    # first), then f32, smoothing, the NSP head and ragged vocabularies
+    mlm_rows = BERT_BATCH * BERT_SEQ
+    shapes = [("bf16", mlm_rows, BERT_VOCAB, 0.0, MLM_IGNORED, True),
+              ("bf16", mlm_rows, BERT_VOCAB, 0.1, MLM_IGNORED, False),
+              ("f32", mlm_rows, BERT_VOCAB, 0.0, MLM_IGNORED, False),
+              ("f32", mlm_rows, BERT_VOCAB, 0.1, MLM_IGNORED, False),
+              ("bf16", BERT_BATCH, 2, 0.0, 0.0, True),
+              ("bf16", mlm_rows, 30522, 0.0, MLM_IGNORED, False),
+              ("f32", 37, 1000, 0.1, 0.25, False),
+              ("bf16", 37, 1000, 0.0, 0.25, False)]
+    for tag, rows, v, smoothing, ignored, timed in shapes:
+        for name, row in _xent_entries(timer, gen, tag, rows, v, smoothing,
+                                       ignored, timed).items():
+            results.setdefault(name, []).append(row)
+        torch.cuda.empty_cache()
 
     # flash attention: the main path's shape first (bf16, batch 16 x 1024,
     # 16 heads of 64, causal, dropout), timed with its library yardstick;
-    # then f32 and the other head sizes, a ragged length and no mask
+    # then BERT's at 8 x 512 (12 heads of 64, no mask), f32 and the other
+    # head sizes, a ragged length and no mask
     heads, hd = GPT_345M["heads"], GPT_345M["hidden"] // GPT_345M["heads"]
     shapes = [("bf16", (TRAIN_BATCH, TRAIN_SEQ, heads, hd), True, True),
+              ("bf16", (BERT_LONG_BATCH, BERT_LONG_SEQ, BERT_HEADS,
+                        BERT_HIDDEN // BERT_HEADS), False, False),
               ("f32", (2, 512, 4, 64), True, False),
               ("f32", (2, 512, 4, 32), True, False),
               ("f32", (2, 512, 4, 128), True, False),
@@ -453,24 +524,28 @@ def _ln_err(out, want, tag, rel_to_max=False):
     return err.max().item(), finite and ok
 
 
-def _layer_norm_entries(timer, gen, tag, dtype):
-    """The LayerNorm kernels against their plain versions at (4096, 1024):
-    errors on y, dx, dw and db, dw and db bit-identical over two runs,
-    and the kernel, plain and library times."""
+def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
+                        residual=False):
+    """The LayerNorm kernels against their plain versions at ``(rows,
+    d)``, with or without a residual: errors on y, dx, dw and db (and,
+    through the autograd function, the residual's gradient, which must be
+    dx itself), dw and db bit-identical over two runs, and the kernel,
+    plain and library times (the library on ``x + r`` with a residual)."""
     from paddle_tpu_torch.ops.fused_kernels import (
-        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
-        layer_norm_fwd_reference)
-    rows, d, eps = TRAIN_BATCH * TRAIN_SEQ, GPT_345M["hidden"], 1e-5
+        fused_layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
+        layer_norm_fwd, layer_norm_fwd_reference)
     x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 2 + 0.5
          ).to(dtype)
     w = (1 + 0.3 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
     b = (0.2 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
     g = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
-    y, mean, rstd = layer_norm_fwd(x, w, b, eps)
-    y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, w, b, eps)
-    grads = layer_norm_bwd(g, x, w, mean, rstd)
-    again = layer_norm_bwd(g, x, w, mean, rstd)
-    grads_ref = layer_norm_bwd_reference(g, x, w, mean, rstd)
+    r = (torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+         if residual else None)
+    y, mean, rstd = layer_norm_fwd(x, w, b, eps, r)
+    y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, w, b, eps, r)
+    grads = layer_norm_bwd(g, x, w, mean, rstd, r)
+    again = layer_norm_bwd(g, x, w, mean, rstd, r)
+    grads_ref = layer_norm_bwd_reference(g, x, w, mean, rstd, r)
     torch.cuda.synchronize()
     errs = {"y": _ln_err(y, y_ref, tag), "mean": _ln_err(mean, mean_ref, tag),
             "rstd": _ln_err(rstd, rstd_ref, tag),
@@ -479,51 +554,201 @@ def _layer_norm_entries(timer, gen, tag, dtype):
             "db": _ln_err(grads[2], grads_ref[2], tag, rel_to_max=True)}
     same_bits = torch.equal(grads[1], again[1]) and torch.equal(grads[2],
                                                                 again[2])
-    es = x.element_size()
-    fwd_bytes = 2 * rows * d * es + 2 * d * es + 2 * rows * 4
-    bwd_bytes = 3 * rows * d * es + 3 * d * es + 2 * rows * 4
+    if residual:
+        leaves = [t.detach().requires_grad_() for t in (x, w, b, r)]
+        fused_layer_norm(*leaves[:3], eps, residual=leaves[3]).backward(g)
+        torch.cuda.synchronize()
+        errs["dr"] = _ln_err(leaves[3].grad, grads_ref[0], tag)
+        same_bits = same_bits and torch.equal(leaves[3].grad, leaves[0].grad)
+        del leaves
+    es, nin = x.element_size(), 3 if residual else 2   # x (r) in, y out
+    fwd_bytes = nin * rows * d * es + 2 * d * es + 2 * rows * 4
+    bwd_bytes = (nin + 1) * rows * d * es + 3 * d * es + 2 * rows * 4
     fwd_bound = bound_ms(fwd_bytes, 8.0 * rows * d, torch.float32)
     bwd_bound = bound_ms(bwd_bytes, 12.0 * rows * d, torch.float32)
-    lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [d], w, b,
+    xr = x + r if residual else x
+    lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(xr, [d], w, b,
                                                           eps)[1:]
     times = {
-        "fwd": timer(lambda: layer_norm_fwd(x, w, b, eps)),
-        "fwd_plain": timer(lambda: layer_norm_fwd_reference(x, w, b, eps)),
+        "fwd": timer(lambda: layer_norm_fwd(x, w, b, eps, r)),
+        "fwd_plain": timer(lambda: layer_norm_fwd_reference(x, w, b, eps,
+                                                            r)),
         "fwd_lib": timer(lambda: torch.nn.functional.layer_norm(
-            x, (d,), w, b, eps)),
-        "bwd": timer(lambda: layer_norm_bwd(g, x, w, mean, rstd)),
-        "bwd_plain": timer(lambda: layer_norm_bwd_reference(g, x, w, mean,
-                                                            rstd)),
+            x + r if residual else x, (d,), w, b, eps)),
+        "bwd": timer(lambda: layer_norm_bwd(g, x, w, mean, rstd, r)),
+        "bwd_plain": timer(lambda: layer_norm_bwd_reference(
+            g, x, w, mean, rstd, r)),
         "bwd_lib": timer(lambda: torch.ops.aten.native_layer_norm_backward(
-            g, x, [d], lib_mean, lib_rstd, w, b, [True, True, True])),
+            g, xr, [d], lib_mean, lib_rstd, w, b, [True, True, True])),
     }
     tol = LN_TOL[tag]
-    log(f"[kernel] layer_norm[{tag}] ({rows}, {d}): max_abs_err "
+    variant = f"{tag}{' residual' if residual else ''} ({rows}, {d})"
+    lib = "F.layer_norm(x + r)" if residual else "F.layer_norm"
+    log(f"[kernel] layer_norm[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-        + f" (tol {tol}); dw/db bit-identical over two runs: {same_bits}; "
+        + f" (tol {tol}); dw/db bit-identical over two runs"
+        f"{', dr is dx' if residual else ''}: {same_bits}; "
         f"fwd kernel {times['fwd']:.4f} ms plain {times['fwd_plain']:.4f} "
-        f"library(F.layer_norm) {times['fwd_lib']:.4f} bound "
-        f"{fwd_bound[0]:.4f} ({fwd_bound[1]}); bwd kernel {times['bwd']:.4f} "
-        f"ms plain {times['bwd_plain']:.4f} library(native_layer_norm_"
-        f"backward) {times['bwd_lib']:.4f} bound {bwd_bound[0]:.4f} "
-        f"({bwd_bound[1]})")
+        f"library({lib}) {times['fwd_lib']:.4f} bound "
+        f"{fwd_bound[0]:.4f} ({fwd_bound[1]}, {fwd_bytes / 1e6:.1f} MB); "
+        f"bwd kernel {times['bwd']:.4f} ms plain {times['bwd_plain']:.4f} "
+        f"library(native_layer_norm_backward) {times['bwd_lib']:.4f} bound "
+        f"{bwd_bound[0]:.4f} ({bwd_bound[1]}, {bwd_bytes / 1e6:.1f} MB)")
     bad = [k for k, (_, ok) in errs.items() if not ok]
     if bad or not same_bits:
-        raise AssertionError(f"layer_norm[{tag}] disagrees with its plain "
-                             f"version on {bad}, or dw/db differ between "
-                             f"runs (bit-identical: {same_bits})")
-    fwd = dict(variant=tag, max_abs_err=errs["y"][0],
+        raise AssertionError(f"layer_norm[{variant}] disagrees with its "
+                             f"plain version on {bad}, or dw/db (or dr) "
+                             f"differ between runs (bit-identical: "
+                             f"{same_bits})")
+    fwd = dict(variant=variant, max_abs_err=errs["y"][0],
                errors={k: errs[k][0] for k in ("y", "mean", "rstd")},
                tol=tol, ms=times["fwd"], plain_ms=times["fwd_plain"],
                bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                library_ms=times["fwd_lib"])
-    bwd = dict(variant=tag, max_abs_err=max(errs[k][0] for k in
-                                            ("dx", "dw", "db")),
-               errors={k: errs[k][0] for k in ("dx", "dw", "db")},
+    bwd_keys = ("dx", "dw", "db") + (("dr",) if residual else ())
+    bwd = dict(variant=variant, max_abs_err=max(errs[k][0]
+                                                for k in bwd_keys),
+               errors={k: errs[k][0] for k in bwd_keys},
                bit_identical=same_bits, tol=tol, ms=times["bwd"],
                plain_ms=times["bwd_plain"], bound_ms=bwd_bound[0],
                bound_by=bwd_bound[1], library_ms=times["bwd_lib"])
     return fwd, bwd
+
+
+def _bf16_steps(got, want32):
+    """|got - round_bf16(want32)| in units of one bf16 step at that value
+    (8 significand bits; the smallest normal's step at 0)."""
+    want = want32.to(torch.bfloat16).float()
+    _, e = torch.frexp(want)
+    step = torch.ldexp(torch.ones_like(want), e - 8)
+    step = torch.where(want == 0, torch.full_like(want, 2.0 ** -133), step)
+    return ((got.float() - want).abs() / step).max().item()
+
+
+def _xent_inputs(gen, rows, v, dtype, ignored):
+    """Logits (about N(0, 4), a few spikes), labels with ``ignored`` of
+    the rows at -100 and one past the vocabulary, an f32 output
+    gradient."""
+    x = torch.randn(rows, v, generator=gen, device=DEVICE) * 2
+    x[::97, ::13] += 8.0
+    lab = torch.randint(0, v, (rows,), generator=gen, device=DEVICE)
+    drop = torch.rand(rows, generator=gen, device=DEVICE) < ignored
+    lab = torch.where(drop, torch.full_like(lab, -100), lab)
+    lab[min(3, rows - 1)] = v + 3
+    g = torch.randn(rows, generator=gen, device=DEVICE)
+    return x.to(dtype), lab, g
+
+
+def _xent_entries(timer, gen, tag, rows, v, smoothing, ignored, timed):
+    """The cross-entropy kernels against their plain versions at ``(rows,
+    v)``: loss and lse relative to max(1, |ref|), dx (f32 absolute, bf16
+    in steps of the plain version's rounded f32 result), every output
+    bit-identical over two calls.  ``timed``: kernel, plain and library
+    times and the bounds, the backward's counting only the logits of the
+    rows it must read (ignored rows need none)."""
+    from paddle_tpu_torch.ops.fused_kernels import (
+        softmax_xent_bwd, softmax_xent_bwd_reference, softmax_xent_fwd,
+        softmax_xent_fwd_reference)
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    x, lab64, g = _xent_inputs(gen, rows, v, dtype, ignored)
+    lab = lab64.to(torch.int32)
+    opts = (-100, smoothing)
+    loss, lse = softmax_xent_fwd(x, lab, *opts)
+    loss2, lse2 = softmax_xent_fwd(x, lab, *opts)
+    dx = softmax_xent_bwd(g, x, lab, lse, *opts)
+    dx2 = softmax_xent_bwd(g, x, lab, lse, *opts)
+    loss_ref, lse_ref = softmax_xent_fwd_reference(x, lab, *opts)
+    dx_ref = softmax_xent_bwd_reference(g, x.float(), lab, lse, *opts)
+    torch.cuda.synchronize()
+    errs, oks = {}, {}
+    for key, got, want in (("loss", loss, loss_ref), ("lse", lse, lse_ref)):
+        err = (got - want).abs()
+        errs[key] = err.max().item()
+        oks[key] = bool((err <= XENT_TOL["loss"] * torch.clamp(
+            want.abs(), min=1.0)).all())
+    errs["dx"] = (dx.float() - dx_ref).abs().max().item()
+    if tag == "bf16":
+        errs["dx_bf16_steps"] = _bf16_steps(dx, dx_ref)
+        oks["dx"] = errs["dx_bf16_steps"] <= 1.0
+    else:
+        oks["dx"] = errs["dx"] <= XENT_TOL["f32"]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (loss, lse, dx))
+    same_bits = (torch.equal(loss, loss2) and torch.equal(lse, lse2)
+                 and torch.equal(dx, dx2))
+    n_valid = int((lab != -100).sum().item())
+    variant = (f"{tag} ({rows}, {v}) smoothing {smoothing} ignored "
+               f"{rows - n_valid}/{rows}")
+    log(f"[kernel] softmax_xent[{variant}]: max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {XENT_TOL}); bit-identical over two calls: {same_bits}")
+    bad = [k for k, ok in oks.items() if not ok]
+    if bad or not finite or not same_bits:
+        raise AssertionError(f"softmax_xent[{variant}] disagrees with its "
+                             f"plain version on {bad} (finite {finite}), or "
+                             f"differs between calls ({same_bits})")
+    rows_out = {
+        "softmax_xent_fwd": dict(variant=variant, max_abs_err=max(
+            errs["loss"], errs["lse"]), errors={k: errs[k] for k in
+                                                ("loss", "lse")}),
+        "softmax_xent_bwd": dict(variant=variant, max_abs_err=errs["dx"],
+                                 errors={k: v for k, v in errs.items()
+                                         if k.startswith("dx")}),
+    }
+    for row in rows_out.values():
+        row.update(tol=XENT_TOL, bit_identical=same_bits, ms=None,
+                   plain_ms=None, bound_ms=None, bound_by=None,
+                   library_ms=None)
+    if not timed:
+        return rows_out
+
+    es, n = x.element_size(), rows * v
+    stats = 4 * rows                                 # one int32/f32 a row
+    fwd_bytes = n * es + 3 * stats                   # x, labels; loss, lse
+    bwd_bytes = n_valid * v * es + n * es + 3 * stats   # read, dx, lab/lse/g
+    dense_bwd = 2 * n * es + 3 * stats
+    fwd_bound = bound_ms(fwd_bytes, 5.0 * n, torch.float32)
+    bwd_bound = bound_ms(bwd_bytes, 5.0 * n_valid * v, torch.float32)
+    ce = torch.nn.functional.cross_entropy
+    xl = x.detach().requires_grad_()
+    gl = g.to(dtype)
+    # the library takes no label past the vocabulary: clip it, as the
+    # kernels do for the target logit
+    lab_lib = torch.where(lab64 == -100, lab64, lab64.clamp(max=v - 1))
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(ce(xl, lab_lib, reduction="none"), xl, gl)
+
+    times = {
+        "fwd": timer(lambda: softmax_xent_fwd(x, lab, *opts)),
+        "fwd_plain": timer(lambda: softmax_xent_fwd_reference(x, lab,
+                                                              *opts)),
+        "fwd_lib": timer(lambda: ce(x, lab_lib, reduction="none")),
+        "bwd": timer(lambda: softmax_xent_bwd(g, x, lab, lse, *opts)),
+        "bwd_plain": timer(lambda: softmax_xent_bwd_reference(
+            g, x, lab, lse, *opts)),
+        "both_lib": timer(lib_fwd_bwd),
+    }
+    times["bwd_lib"] = times["both_lib"] - times["fwd_lib"]
+    log(f"[kernel] softmax_xent[{variant}] times: fwd kernel "
+        f"{times['fwd']:.4f} ms plain {times['fwd_plain']:.4f} "
+        f"library(F.cross_entropy, reduction none) {times['fwd_lib']:.4f} "
+        f"bound {fwd_bound[0]:.4f} ({fwd_bound[1]}, {fwd_bytes / 1e6:.1f} "
+        f"MB); bwd kernel {times['bwd']:.4f} ms plain "
+        f"{times['bwd_plain']:.4f} library(forward+backward less forward) "
+        f"{times['bwd_lib']:.4f} bound {bwd_bound[0]:.4f} ({bwd_bound[1]}, "
+        f"{bwd_bytes / 1e6:.1f} MB: the {n_valid} valid rows read, dx "
+        f"written; reading every row: {dense_bwd / 1e6:.1f} MB, "
+        f"{dense_bwd / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    for name, key in (("softmax_xent_fwd", "fwd"),
+                      ("softmax_xent_bwd", "bwd")):
+        bnd = fwd_bound if key == "fwd" else bwd_bound
+        rows_out[name].update(ms=times[key], plain_ms=times[key + "_plain"],
+                              library_ms=times[key + "_lib"],
+                              bound_ms=bnd[0], bound_by=bnd[1])
+    rows_out["softmax_xent_bwd"]["bound_ms_reading_every_row"] = (
+        dense_bwd / HBM_BYTES_PER_S * 1e3)
+    return rows_out
 
 
 def _w8a16_operands(gen, m, k, n, x_dtype):
@@ -949,23 +1174,24 @@ def _train_run(smi, seq, n_steps, profile):
                                  f"{launches[name]} times in {n_steps} steps, "
                                  f"want {n_steps * n}")
     if profile:
-        _profile_train_step(step, ids, labels, med, smi)
+        _profile_train_step(step, ids, labels, med, smi, "gpt_345m")
     del step
     torch.cuda.empty_cache()
     return launches
 
 
-def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
-    """Where a gpt_345m step's time goes: device time summed over the
+def _profile_train_step(step, inputs, targets, step_s, smi, model,
+                        steps=2):
+    """Where a training step's time goes: device time summed over the
     step's kernels under ``torch.profiler``, its share of the median
     step wall time, device operations per step, the largest kernels, and
-    the LayerNorm and flash kernels' shares."""
+    the port's kernels' shares (LayerNorm, flash, cross-entropy)."""
     from paddle_tpu_torch.serving.profile import _device_us
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            step(ids, labels).item()
+            step(inputs, targets).item()
     torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -976,7 +1202,8 @@ def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
     mine = {"LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel",
                           "ln_bwd_reduce_kernel"),
             "flash": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkv_kernel")}
+                      "flash_bwd_dkv_kernel"),
+            "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel")}
     shares, own = [], []
     for label, names in mine.items():
         es = [e for e in kernels if any(n in e.key for n in names)]
@@ -986,13 +1213,174 @@ def _profile_train_step(step, ids, labels, step_s, smi, steps=2):
         own += es
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     top += [e for e in own if e not in top]
-    log(f"[train] profile of {steps} gpt_345m steps: device busy "
+    log(f"[train] profile of {steps} {model} steps: device busy "
         f"{busy_ms:.3f} ms per step, {busy_ms / (step_s * 1e3):.3f} of the "
         f"median step wall {step_s * 1e3:.2f} ms; {ops:.0f} device ops per "
         f"step; {'; '.join(shares)} | {smi}")
     for e in top:
         log(f"    {_device_us(e) / steps / 1e3:8.3f} ms {e.count / steps:6.0f}"
             f" calls  {e.key[:100]}")
+
+
+def phase_bert(smi):
+    """The BERT pretraining path on the card: card against CPU at a small
+    width (a padding mask at sequence 64, the flash kernels at 512), then
+    8 steps of bert_base at 32 x 128 (the main path), then 2 at 8 x 512.
+    Returns the main path's launch counts and the 512 run's."""
+    from paddle_tpu_torch.incubate.models import bert_tiny
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        make_bert_batch)
+
+    # same weights, f32, dropout 0: the 3-step loss trajectory with a
+    # padding mask (plain attention) and at the flash lengths
+    for seq, padded in ((64, True), (F.FLASH_MIN_SEQ, False)):
+        cfg = dataclasses.replace(
+            bert_tiny(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0),
+            max_position_embeddings=max(seq, 128))
+        steps = {dev: build_bert_pretrain_step(cfg, device=dev, seed=1,
+                                               amp_o2=False)
+                 for dev in ("cpu", DEVICE)}
+        steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
+        inputs, targets = make_bert_batch(cfg, 4, seq, seed=1, device="cpu",
+                                          padded=padded)
+        reset_launch_counts()
+        traj = {}
+        for dev, st in steps.items():
+            on = ({k: v.to(dev) for k, v in inputs.items()},
+                  {k: v.to(dev) for k, v in targets.items()})
+            traj[dev] = [st(*on).item() for _ in range(3)]
+        counts = {n: KERNELS[n].launches for n in XENT_KERNELS
+                  + FLASH_KERNELS}
+        err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
+        log(f"[bert] bert_tiny seq {seq}{' padding mask' if padded else ''} "
+            f"f32 3-step loss, card {traj[DEVICE]} vs CPU {traj['cpu']}: max "
+            f"diff {err:.3e} (tol {TRAIN_TOL:.0e}); launches on the card "
+            f"{counts}")
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"bert seq {seq}: card and CPU trajectories "
+                                 f"differ by {err}")
+        flash = 0 if padded else 3 * cfg.num_layers
+        want = {"softmax_xent_fwd": 6, "softmax_xent_bwd": 6,
+                **{n: flash for n in FLASH_KERNELS}}
+        if counts != want:
+            raise AssertionError(f"bert seq {seq}: launches {counts}, want "
+                                 f"{want}")
+        del steps
+
+    _bert_kernels_vs_plain()
+    main = _bert_run(smi, BERT_BATCH, BERT_SEQ, BERT_STEPS, profile=True)
+    long = _bert_run(smi, BERT_LONG_BATCH, BERT_LONG_SEQ, BERT_LONG_STEPS,
+                     profile=False)
+    return main, long
+
+
+def _bert_kernels_vs_plain(n_steps=3):
+    """bert_base at the main path's shape, O2 bf16, dropout 0: the loss
+    trajectory on the kernels, then from the same weights with the
+    LayerNorm and cross-entropy wrappers replaced by their plain versions
+    (on the card's tensors); relative difference within
+    ``BERT_PLAIN_TOL``."""
+    from paddle_tpu_torch.incubate.models import bert_base
+    from paddle_tpu_torch.ops import fused_kernels as fk
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        make_bert_batch)
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    inputs, targets = make_bert_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0,
+                                      device=DEVICE)
+    names = ("layer_norm_fwd", "layer_norm_bwd", "softmax_xent_fwd",
+             "softmax_xent_bwd")
+    kernels = {n: getattr(fk, n) for n in names}
+    traj = {}
+    try:
+        for mode in ("kernels", "plain"):
+            for n in names:
+                setattr(fk, n, kernels[n] if mode == "kernels"
+                        else getattr(fk, n + "_reference"))
+            step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0)
+            traj[mode] = [step(inputs, targets).item()
+                          for _ in range(n_steps)]
+            del step
+            torch.cuda.empty_cache()
+    finally:
+        for n in names:
+            setattr(fk, n, kernels[n])
+    err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernels"],
+                                                  traj["plain"]))
+    log(f"[bert] bert_base {BERT_BATCH} x {BERT_SEQ} O2 bf16 dropout 0, "
+        f"{n_steps}-step loss on the kernels {traj['kernels']} vs their "
+        f"plain versions {traj['plain']}: max relative diff {err:.3e} (tol "
+        f"{BERT_PLAIN_TOL:.0e})")
+    if not err <= BERT_PLAIN_TOL:
+        raise AssertionError(f"bert_base: the kernels' trajectory differs "
+                             f"from the plain versions' by {err}")
+
+
+def _bert_run(smi, batch, seq, n_steps, profile):
+    """bert_base, ``batch`` x ``seq``, O2 bf16, dropout 0.1, no recompute,
+    for ``n_steps`` on a fixed batch; the kernel counters set to 0 just
+    before and read just after.  Checks finite losses and the launches
+    per step; returns the launch counts (residual LayerNorm launches
+    under ``layer_norm_*.residual``)."""
+    from paddle_tpu_torch.incubate.models import bert_base
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        make_bert_batch)
+    cfg = bert_base()
+    t0 = time.perf_counter()
+    step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0)
+    inputs, targets = make_bert_batch(cfg, batch, seq, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in step.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        losses.append(step(inputs, targets).item())   # waits for the card
+        times.append(time.perf_counter() - t0)
+    launches = {name: KERNELS[name].launches for name in KERNELS}
+    for name in LN_KERNELS:
+        launches[name + ".residual"] = KERNELS[name].residual_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times[1:])
+    layers = cfg.num_layers
+    # per step: LayerNorm after the embeddings and in the MLM head, two
+    # with a residual per block, one backward each; the MLM and the NSP
+    # loss; flash one forward, one dq and one dk/dv per block from 512 on
+    flash = layers if seq >= F.FLASH_MIN_SEQ else 0
+    per_step = {"layer_norm_fwd": 2 * layers + 2,
+                "layer_norm_bwd": 2 * layers + 2,
+                "layer_norm_fwd.residual": 2 * layers,
+                "layer_norm_bwd.residual": 2 * layers,
+                "softmax_xent_fwd": 2, "softmax_xent_bwd": 2,
+                **{n: flash for n in FLASH_KERNELS}}
+    log(f"[bert] bert_base ({n_params} parameters) batch {batch} x seq "
+        f"{seq}, O2 bf16, AdamW, dropout 0.1, no recompute: losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(t * 1e3, 2) for t in times]}; median step (2..{n_steps}) "
+        f"{med * 1e3:.2f} ms, {batch / med:.1f} sequences/s, "
+        f"{batch * seq / med:.1f} tokens/s; first step {times[0] * 1e3:.1f} "
+        f"ms; build {build_s:.2f} s; peak memory {peak_gb:.2f} GB; launches "
+        f"{ {n: launches[n] for n in per_step} } | {smi}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bert {batch} x {seq}: loss not finite: "
+                             f"{losses}")
+    for name, n in per_step.items():
+        if launches[name] != n_steps * n:
+            raise AssertionError(f"bert {batch} x {seq}: {name} launched "
+                                 f"{launches[name]} times in {n_steps} "
+                                 f"steps, want {n_steps * n}")
+    if profile:
+        _profile_train_step(step, inputs, targets, med, smi, "bert_base")
+    del step
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1015,14 +1403,37 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     train_launches = phase_train(smi)
+    bert_launches, bert_long = phase_bert(smi)
+    # each kernel's launches on its paths' runs: the GPT step for
+    # LayerNorm and flash, the BERT step for LayerNorm (its residual
+    # variant) and cross-entropy, the BERT step at 512 for flash
+    by_path = {name: {} for name in results}
     for name in TRAIN_KERNELS:
-        launches[name] = train_launches[name]
+        by_path[name][f"gpt_345m {TRAIN_BATCH}x{TRAIN_SEQ}"] = \
+            train_launches[name]
+    for name in LN_KERNELS + XENT_KERNELS:
+        by_path[name][f"bert_base {BERT_BATCH}x{BERT_SEQ}"] = \
+            bert_launches[name]
+    for name in LN_KERNELS:
+        by_path[name][f"bert_base {BERT_BATCH}x{BERT_SEQ} residual"] = \
+            bert_launches[name + ".residual"]
+    for name in FLASH_KERNELS:
+        by_path[name][f"bert_base {BERT_LONG_BATCH}x{BERT_LONG_SEQ}"] = \
+            bert_long[name]
+    for name in SERVE_KERNELS:
+        by_path[name]["serve"] = launches[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]
+        paths = by_path[name]
+        # launches: the count of the kernel's first main path (GPT for
+        # LayerNorm and flash, BERT 32 x 128 for cross-entropy); every
+        # path's count is in launches_by_path
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": next(iter(paths.values())),
+            "launches_by_path": paths,
             "max_abs_err": top["max_abs_err"],
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas kernels `_ln_fwd_kernel` and `_ln_bwd_kernel`
 // (paddle_tpu/ops/fused_kernels.py, launched at the pallas_call sites in
-// `_ln_pallas_fwd` and `_ln_pallas_bwd`), for the variant the training
-// step runs: affine (w, b), no residual, x, w and b all f32 or all bf16.
+// `_ln_pallas_fwd` and `_ln_pallas_bwd`), for the variants the training
+// steps run: affine (w, b), x, w and b all f32 or all bf16, without a
+// residual (GPT's pre-LN blocks) or with one (BERT's post-LN blocks).
+// With a residual r (x's dtype and shape) the kernels normalize x + r,
+// summed in f32 as the TPU kernel does and never stored: the backward
+// reads x and r again, and the residual's gradient is dx.
 //
 //   forward   mean = E[x], var = max(E[x^2] - mean^2, 0)   (one pass, f32)
 //             rstd = rsqrt(var + eps)
@@ -91,9 +95,9 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool RES>
 __global__ void __launch_bounds__(kThreads) ln_fwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ w,
     const T* __restrict__ b, T* __restrict__ y, float* __restrict__ mean_out,
     float* __restrict__ rstd_out, int rows, int d, float eps) {
   const int lane = threadIdx.x % 32;
@@ -108,6 +112,12 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_kernel(
     const int col = c * kChunk + lane * VEC;
     if (col < d) {
       load8(x + base + col, v[c]);
+      if (RES) {
+        float rv[VEC];
+        load8(r + base + col, rv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) v[c][i] += rv[i];
+      }
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         s1 += v[c][i];
@@ -140,10 +150,11 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_kernel(
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool RES>
 __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
     const T* __restrict__ g, const T* __restrict__ x,
-    const T* __restrict__ w, const float* __restrict__ mean,
+    const T* __restrict__ r, const T* __restrict__ w,
+    const float* __restrict__ mean,
     const float* __restrict__ rstd, T* __restrict__ dx,
     float* __restrict__ dw_part, float* __restrict__ db_part, int rows,
     int d) {
@@ -170,6 +181,12 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
       if (col < d) {
         float xv[VEC], gv[VEC], wv[VEC];
         load8(x + base + col, xv);
+        if (RES) {
+          float rv[VEC];
+          load8(r + base + col, rv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) xv[i] += rv[i];
+        }
         load8(g + base + col, gv);
         load8(w + col, wv);
 #pragma unroll
@@ -263,23 +280,26 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_reduce_kernel(
   }
 }
 
-template <typename T, int NC>
-void fwd(const void* x, const void* w, const void* b, void* y, void* mean,
-         void* rstd, int rows, int d, float eps, cudaStream_t s) {
+template <typename T, int NC, bool RES>
+void fwd(const void* x, const void* r, const void* w, const void* b, void* y,
+         void* mean, void* rstd, int rows, int d, float eps, cudaStream_t s) {
   const int grid = (rows + kWarps - 1) / kWarps;
-  ln_fwd_kernel<T, NC><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  ln_fwd_kernel<T, NC, RES><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(y),
       static_cast<float*>(mean), static_cast<float*>(rstd), rows, d, eps);
 }
 
-template <typename T, int NC>
-void bwd(const void* g, const void* x, const void* w, const void* mean,
-         const void* rstd, void* dx, void* dw, void* db, void* dw_part,
-         void* db_part, int rows, int d, int nparts, cudaStream_t s) {
-  ln_bwd_kernel<T, NC><<<nparts, kThreads, 0, s>>>(
+template <typename T, int NC, bool RES>
+void bwd(const void* g, const void* x, const void* r, const void* w,
+         const void* mean, const void* rstd, void* dx, void* dw, void* db,
+         void* dw_part, void* db_part, int rows, int d, int nparts,
+         cudaStream_t s) {
+  ln_bwd_kernel<T, NC, RES><<<nparts, kThreads, 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const T*>(w), static_cast<const float*>(mean),
+      static_cast<const T*>(r), static_cast<const T*>(w),
+      static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<T*>(dx),
       static_cast<float*>(dw_part), static_cast<float*>(db_part), rows, d);
   ln_bwd_reduce_kernel<T><<<(d + 31) / 32, kThreads, 0, s>>>(
@@ -287,77 +307,100 @@ void bwd(const void* g, const void* x, const void* w, const void* mean,
       static_cast<T*>(dw), static_cast<T*>(db), nparts, d);
 }
 
-template <typename T>
-int fwd_dispatch(const void* x, const void* w, const void* b, void* y,
-                 void* mean, void* rstd, int rows, int d, float eps,
+template <typename T, bool RES>
+int fwd_dispatch(const void* x, const void* r, const void* w, const void* b,
+                 void* y, void* mean, void* rstd, int rows, int d, float eps,
                  cudaStream_t s) {
   switch ((d + kChunk - 1) / kChunk) {
-    case 1: fwd<T, 1>(x, w, b, y, mean, rstd, rows, d, eps, s); break;
-    case 2: fwd<T, 2>(x, w, b, y, mean, rstd, rows, d, eps, s); break;
-    case 3: fwd<T, 3>(x, w, b, y, mean, rstd, rows, d, eps, s); break;
-    case 4: fwd<T, 4>(x, w, b, y, mean, rstd, rows, d, eps, s); break;
+    case 1: fwd<T, 1, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
+    case 2: fwd<T, 2, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
+    case 3: fwd<T, 3, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
+    case 4: fwd<T, 4, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_dispatch(const void* g, const void* x, const void* w,
+template <typename T, bool RES>
+int bwd_dispatch(const void* g, const void* x, const void* r, const void* w,
                  const void* mean, const void* rstd, void* dx, void* dw,
                  void* db, void* dw_part, void* db_part, int rows, int d,
                  int nparts, cudaStream_t s) {
   switch ((d + kChunk - 1) / kChunk) {
-    case 1: bwd<T, 1>(g, x, w, mean, rstd, dx, dw, db, dw_part, db_part,
-                      rows, d, nparts, s); break;
-    case 2: bwd<T, 2>(g, x, w, mean, rstd, dx, dw, db, dw_part, db_part,
-                      rows, d, nparts, s); break;
-    case 3: bwd<T, 3>(g, x, w, mean, rstd, dx, dw, db, dw_part, db_part,
-                      rows, d, nparts, s); break;
-    case 4: bwd<T, 4>(g, x, w, mean, rstd, dx, dw, db, dw_part, db_part,
-                      rows, d, nparts, s); break;
+    case 1: bwd<T, 1, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
+                           db_part, rows, d, nparts, s); break;
+    case 2: bwd<T, 2, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
+                           db_part, rows, d, nparts, s); break;
+    case 3: bwd<T, 3, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
+                           db_part, rows, d, nparts, s); break;
+    case 4: bwd<T, 4, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
+                           db_part, rows, d, nparts, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int fwd_res(const void* x, const void* r, const void* w, const void* b,
+            void* y, void* mean, void* rstd, int rows, int d, float eps,
+            cudaStream_t s) {
+  return r ? fwd_dispatch<T, true>(x, r, w, b, y, mean, rstd, rows, d, eps, s)
+           : fwd_dispatch<T, false>(x, r, w, b, y, mean, rstd, rows, d, eps,
+                                    s);
+}
+
+template <typename T>
+int bwd_res(const void* g, const void* x, const void* r, const void* w,
+            const void* mean, const void* rstd, void* dx, void* dw, void* db,
+            void* dw_part, void* db_part, int rows, int d, int nparts,
+            cudaStream_t s) {
+  return r ? bwd_dispatch<T, true>(g, x, r, w, mean, rstd, dx, dw, db,
+                                   dw_part, db_part, rows, d, nparts, s)
+           : bwd_dispatch<T, false>(g, x, r, w, mean, rstd, dx, dw, db,
+                                    dw_part, db_part, rows, d, nparts, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, b and y alike).  The caller
+// dtype: 0 = float32, 1 = bfloat16 (x, r, w, b and y alike).  The caller
 // guarantees rows > 0, 0 < d <= 1024, d % 8 == 0 and 16-byte aligned
-// rows.  mean and rstd are f32 (rows,).
-extern "C" int ptt_layer_norm_fwd(const void* x, const void* w,
-                                  const void* b, void* y, void* mean,
-                                  void* rstd, int rows, int d, float eps,
-                                  int dtype, void* stream) {
+// rows.  r is the residual, or null for none.  mean and rstd are f32
+// (rows,).
+extern "C" int ptt_layer_norm_fwd(const void* x, const void* r,
+                                  const void* w, const void* b, void* y,
+                                  void* mean, void* rstd, int rows, int d,
+                                  float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d > kMaxD || d % VEC != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return fwd_dispatch<float>(x, w, b, y, mean, rstd, rows, d, eps, s);
+    return fwd_res<float>(x, r, w, b, y, mean, rstd, rows, d, eps, s);
   if (dtype == 1)
-    return fwd_dispatch<__nv_bfloat16>(x, w, b, y, mean, rstd, rows, d, eps,
-                                       s);
+    return fwd_res<__nv_bfloat16>(x, r, w, b, y, mean, rstd, rows, d, eps,
+                                  s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dx in x's dtype; dw and db (d,) in w's dtype, summed in f32.  dw_part
+// dx in x's dtype (also the residual's gradient); dw and db (d,) in w's
+// dtype, summed in f32.  r is the forward's residual, or null.  dw_part
 // and db_part are f32 scratch of nparts * d each; nparts is the grid of
 // the row pass (1 <= nparts).
 extern "C" int ptt_layer_norm_bwd(const void* g, const void* x,
-                                  const void* w, const void* mean,
-                                  const void* rstd, void* dx, void* dw,
-                                  void* db, void* dw_part, void* db_part,
-                                  int rows, int d, int nparts, int dtype,
+                                  const void* r, const void* w,
+                                  const void* mean, const void* rstd,
+                                  void* dx, void* dw, void* db,
+                                  void* dw_part, void* db_part, int rows,
+                                  int d, int nparts, int dtype,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d > kMaxD || d % VEC != 0 || nparts < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return bwd_dispatch<float>(g, x, w, mean, rstd, dx, dw, db, dw_part,
-                               db_part, rows, d, nparts, s);
+    return bwd_res<float>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
+                          db_part, rows, d, nparts, s);
   if (dtype == 1)
-    return bwd_dispatch<__nv_bfloat16>(g, x, w, mean, rstd, dx, dw, db,
-                                       dw_part, db_part, rows, d, nparts, s);
+    return bwd_res<__nv_bfloat16>(g, x, r, w, mean, rstd, dx, dw, db,
+                                  dw_part, db_part, rows, d, nparts, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

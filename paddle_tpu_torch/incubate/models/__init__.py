@@ -1,8 +1,16 @@
-"""Models of the port: GPT (:mod:`.gpt`)."""
+"""Models of the port: BERT (:mod:`.bert`) and GPT (:mod:`.gpt`).
+:func:`params_from_numpy` loads either from the JAX model's weights."""
+from .bert import (BertConfig, BertForPretraining,
+                   BertForSequenceClassification, BertModel,
+                   BertPretrainingCriterion, bert_base, bert_large,
+                   bert_tiny)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
                   GPTPretrainingCriterion, gpt_345m, gpt_tiny,
                   params_from_numpy)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
+__all__ = ["BertConfig", "BertForPretraining",
+           "BertForSequenceClassification", "BertModel",
+           "BertPretrainingCriterion", "bert_base", "bert_large",
+           "bert_tiny", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "GPTPretrainingCriterion", "gpt_345m", "gpt_tiny",
            "params_from_numpy"]

@@ -1,5 +1,5 @@
 """Layers, functionals and initializers of the training path
-(the counterpart of ``paddle_tpu/nn`` for the GPT step)."""
+(the counterpart of ``paddle_tpu/nn`` for the GPT and BERT steps)."""
 from . import functional, initializer
 from .layer import Dropout, Embedding, LayerNorm, Linear
 

@@ -4,12 +4,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu"]
+__all__ = ["gelu", "tanh"]
 
 
 def gelu(x, approximate: bool = False):
-    """GELU; ``approximate=True`` is the tanh form
+    """GELU: the erf form by default (BERT's), or with
+    ``approximate=True`` the tanh form
     ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))`` that GPT's MLP
     uses (``jax.nn.gelu(approximate=True)``)."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    """Elementwise tanh (BERT's pooler)."""
+    return torch.tanh(x)

@@ -6,7 +6,8 @@ counterpart of ``paddle_tpu/nn/functional/common.py``).
    explicit ``torch.Generator`` (:mod:`...framework.random`).
  - :func:`scaled_dot_product_attention`: the JAX package's plain softmax
    attention below ``flash_min_seq`` (512,
-   ``paddle_tpu/framework/flags.py``); from 512 on the flash kernels
+   ``paddle_tpu/framework/flags.py``) or with an ``attn_mask``; from 512
+   on without a mask the flash kernels
    (:func:`...ops.pallas_ops.flash_attention`), as the JAX package takes
    its Pallas kernels there.
 """
@@ -53,21 +54,23 @@ def embedding(x, weight):
     return torch.nn.functional.embedding(x, weight)
 
 
-def scaled_dot_product_attention(query, key, value, dropout_p=0.0,
-                                 is_causal=False, training=True,
-                                 generator=None):
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
     """Softmax attention over ``(B, S, H, D)`` q, k and v (paddle's
-    layout).
+    layout), with an optional ``attn_mask`` broadcast against the
+    ``(B, H, S, S)`` scores: a bool mask keeps the scores where it is
+    True (``-inf`` elsewhere), any other is added in the scores' dtype.
 
-    From ``S >= FLASH_MIN_SEQ`` on every device: flash attention, whose
-    kernels run on a CUDA tensor and whose plain versions run on a CPU
-    tensor (dropout by the coordinate hash, its seed drawn from
-    ``generator``).  Below it: scores in the input dtype scaled by
-    ``1/sqrt(D)``, an upper-triangle ``-inf`` mask when causal, softmax in
-    f32 cast back to the input dtype, dropout on the probabilities, then
-    the product with v.
+    From ``S >= FLASH_MIN_SEQ`` without a mask, on every device: flash
+    attention, whose kernels run on a CUDA tensor and whose plain
+    versions run on a CPU tensor (dropout by the coordinate hash, its seed
+    drawn from ``generator``).  Otherwise: scores in the input dtype
+    scaled by ``1/sqrt(D)``, an upper-triangle ``-inf`` mask when causal,
+    then the mask, softmax in f32 cast back to the input dtype, dropout on
+    the probabilities, then the product with v.
     """
-    if query.shape[1] >= FLASH_MIN_SEQ:
+    if attn_mask is None and query.shape[1] >= FLASH_MIN_SEQ:
         return pallas_ops.flash_attention(
             query, key, value, causal=is_causal,
             dropout_p=dropout_p if training else 0.0, generator=generator)
@@ -78,6 +81,11 @@ def scaled_dot_product_attention(query, key, value, dropout_p=0.0,
         keep = torch.ones(logits.shape[-2:], dtype=torch.bool,
                           device=logits.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(query.dtype)
     probs = dropout(probs, dropout_p, training, generator)
     return torch.matmul(probs, v).transpose(1, 2)

@@ -4,9 +4,13 @@
 Every call goes to :func:`..ops.fused_kernels.fused_layer_norm`: the CUDA
 kernel pair on the card, its plain version on the CPU.  The JAX package
 takes its Pallas kernel on the TPU and an XLA fallback elsewhere; the
-port has no fallback.  Only the affine variant without a residual is
-ported: the residual and no-affine variants are reached through the
-fusion pass, which is not ported yet.
+port has no fallback.  The affine variant is ported, with and without a
+``residual`` added before the statistics: GPT's pre-LN blocks call it
+without one, BERT's post-LN blocks (``BertLayer``) with one.  Like the
+kernel, and unlike the JAX package's XLA path (which adds the residual
+in x's dtype first), the port adds the residual in f32.  The no-affine
+variant (no weight or no bias) is not ported: of the JAX package's own
+callers only the fusion pass uses it.
 """
 from __future__ import annotations
 
@@ -17,9 +21,10 @@ from ...ops.fused_kernels import fused_layer_norm
 __all__ = ["layer_norm"]
 
 
-def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5):
-    """Normalize over the trailing ``normalized_shape`` axes; f32
-    statistics, output in x's dtype."""
+def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5,
+               residual=None):
+    """Normalize ``x`` (or ``x + residual``, same shape) over the trailing
+    ``normalized_shape`` axes; f32 statistics, output in x's dtype."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     if weight is None or bias is None:
@@ -27,6 +32,8 @@ def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5):
             "layer_norm without weight or bias is the fusion pass's "
             "variant, not ported yet")
     d = math.prod(normalized_shape)
+    if residual is not None:
+        residual = residual.reshape(-1, d).contiguous()
     y = fused_layer_norm(x.reshape(-1, d).contiguous(), weight.reshape(d),
-                         bias.reshape(d), epsilon)
+                         bias.reshape(d), epsilon, residual)
     return y.reshape(x.shape)

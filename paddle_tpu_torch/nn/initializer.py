@@ -1,5 +1,6 @@
 """Parameter initializers of the training path (the counterpart of
-``paddle_tpu/nn/initializer/``, ``Normal`` and ``Constant``).
+``paddle_tpu/nn/initializer/``: ``Normal``, ``XavierNormal`` and
+``Constant``).
 
 An initializer is called with the parameter's shape and the run's
 generator and returns an f32 tensor on the generator's device; layers
@@ -7,9 +8,11 @@ build their parameters from it, so a model is drawn from one seed.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["Normal", "Constant"]
+__all__ = ["Normal", "XavierNormal", "Constant"]
 
 
 class Normal:
@@ -21,6 +24,21 @@ class Normal:
     def __call__(self, shape, generator: torch.Generator) -> torch.Tensor:
         return (torch.randn(tuple(shape), generator=generator,
                             device=generator.device) * self.std + self.mean)
+
+
+class XavierNormal:
+    """Gaussian draws with deviation ``sqrt(2 / (fan_in + fan_out))``;
+    a 2-D ``(in, out)`` shape has fans ``in`` and ``out``, a 1-D one its
+    length for both (the JAX package's ``_fans``)."""
+
+    def __call__(self, shape, generator: torch.Generator) -> torch.Tensor:
+        shape = tuple(shape)
+        if len(shape) not in (1, 2):
+            raise NotImplementedError(f"XavierNormal of a {len(shape)}-D "
+                                      f"shape is not ported")
+        fan_in, fan_out = shape[0], shape[-1]
+        return Normal(std=math.sqrt(2.0 / (fan_in + fan_out)))(shape,
+                                                               generator)
 
 
 class Constant:

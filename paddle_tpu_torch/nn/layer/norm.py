@@ -11,8 +11,8 @@ __all__ = ["LayerNorm"]
 
 
 class LayerNorm(torch.nn.Module):
-    """LayerNorm over the trailing ``normalized_shape`` axes, through the
-    fused LayerNorm kernels."""
+    """LayerNorm over the trailing ``normalized_shape`` axes, of ``x`` or
+    of ``x + residual``, through the fused LayerNorm kernels."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, *, generator):
         super().__init__()
@@ -25,6 +25,6 @@ class LayerNorm(torch.nn.Module):
         self.bias = torch.nn.Parameter(
             Constant(0.0)(self._normalized_shape, generator))
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         return F.layer_norm(x, self._normalized_shape, self.weight,
-                            self.bias, self._epsilon)
+                            self.bias, self._epsilon, residual=residual)

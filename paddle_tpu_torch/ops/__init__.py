@@ -15,6 +15,8 @@ KERNELS = {
     "w8a16_matmul": _quant_kernels.w8a16_matmul,
     "layer_norm_fwd": _fused_kernels.layer_norm_fwd,
     "layer_norm_bwd": _fused_kernels.layer_norm_bwd,
+    "softmax_xent_fwd": _fused_kernels.softmax_xent_fwd,
+    "softmax_xent_bwd": _fused_kernels.softmax_xent_bwd,
     "flash_fwd": _pallas_ops.flash_fwd,
     "flash_bwd_dq": _pallas_ops.flash_bwd_dq,
     "flash_bwd_dkv": _pallas_ops.flash_bwd_dkv,
@@ -22,6 +24,9 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0 (``launches``, and
+    ``residual_launches`` where a wrapper has it)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "residual_launches"):
+            fn.residual_launches = 0

@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paged_attention", "w8a16", "layer_norm", "flash_attention")
+SOURCES = ("paged_attention", "w8a16", "layer_norm", "flash_attention",
+           "softmax_xent")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,17 +1,22 @@
-"""The GPT training step of ``bench.py::bench_gpt``, and a CLI that runs it.
+"""The GPT training step of ``bench.py::bench_gpt`` and the BERT
+pretraining step (MLM + NSP), and a CLI that runs either.
 
     python -m paddle_tpu_torch.train --model gpt_345m --batch 16 --seq 1024 --steps 8
+    python -m paddle_tpu_torch.train --model bert_base --batch 32 --seq 128 --steps 8
     python -m paddle_tpu_torch.train --model gpt_tiny --batch 2 --seq 64 --steps 4 --device cpu
 
-The step: ``GPTForCausalLM`` (recompute per block, dropout 0.1 on the
-hidden states and the attention probabilities), AMP O2 in bf16, the
-causal-LM loss in f32, the backward pass, and ``AdamW(1e-4)`` with f32
-master weights and weight decay 0.01 on every parameter.  Token ids and
-labels come from ``np.random.RandomState(0)``; one generator seeded with
-0 draws the weights and then every dropout mask.  The CLI
-prints each step's loss and time, then the median step time and
-tokens per second.  It runs on ``cuda`` unless ``--device cpu`` is
-given, and raises when there is no GPU.
+The GPT step: ``GPTForCausalLM`` (recompute per block), the causal-LM
+loss.  The BERT step: ``BertForPretraining`` (no recompute) and
+``BertPretrainingCriterion`` on a phase-1-style masked batch
+(:func:`make_bert_batch`).  Both: dropout 0.1 on the hidden states and
+the attention probabilities, AMP O2 in bf16, the loss in f32, the
+backward pass, and ``AdamW(1e-4)`` with f32 master weights and weight
+decay 0.01 on every parameter.  Batches come from
+``np.random.RandomState(0)``; one generator seeded with 0 draws the
+weights and then every dropout mask.  The CLI prints each step's loss
+and time, then the median step time, sequences and tokens per second.
+It runs on ``cuda`` unless ``--device cpu`` is given, and raises when
+there is no GPU.
 """
 from __future__ import annotations
 
@@ -27,20 +32,30 @@ import torch
 from .amp import decorate
 from .device import resolve_device
 from .framework.random import make_generator
-from .incubate.models import (GPTConfig, GPTForCausalLM,
-                              GPTPretrainingCriterion, gpt_345m, gpt_tiny)
+from .incubate.models import (BertConfig, BertForPretraining,
+                              BertPretrainingCriterion, GPTConfig,
+                              GPTForCausalLM, GPTPretrainingCriterion,
+                              bert_base, bert_tiny, gpt_345m, gpt_tiny)
 from .optimizer import AdamW, Optimizer
 
-__all__ = ["TrainStep", "build_train_step", "make_batch", "main"]
+__all__ = ["TrainStep", "build_train_step", "make_batch",
+           "build_bert_pretrain_step", "make_bert_batch", "main"]
 
-CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m}
+CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
+           "bert_tiny": bert_tiny, "bert_base": bert_base}
+#: the CLI's batch and sequence when none is given: bench_gpt's, and
+#: BERT's phase-1 pretraining shape (bench.py's BERT_SEQ)
+DEFAULT_SHAPE = {"gpt": (16, 1024), "bert": (32, 128)}
+MASK_TOKEN = 103                 # [MASK] in BERT's uncased vocabulary
+MAX_PREDICTIONS = 20             # MLM targets per sequence, phase 1
 
 
 class TrainStep:
     """One optimizer step: loss of ``model`` on a batch, its gradients,
     and the optimizer's update of every parameter, in place.  The
     optimizer state lives in ``self.state``; ``generator`` feeds every
-    dropout."""
+    dropout.  The criterion takes the model's outputs (all of them, when
+    the model returns a tuple), then the targets."""
 
     def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
                  optimizer: Optimizer, generator: torch.Generator):
@@ -52,11 +67,21 @@ class TrainStep:
             model.named_parameters())
         self.state = optimizer.init_state_tree(self.params)
 
-    def __call__(self, ids: torch.Tensor, labels: torch.Tensor
-                 ) -> torch.Tensor:
-        """Run the step; returns the f32 loss (before the update)."""
-        logits = self.model(ids, generator=self.generator)
-        loss = self.criterion(logits, labels).float()
+    def __call__(self, inputs, targets) -> torch.Tensor:
+        """Run the step on the model's ``inputs`` and the criterion's
+        ``targets``, each one tensor (GPT's ids and labels) or a dict of
+        keyword arguments (:func:`make_bert_batch`); returns the f32
+        loss (before the update)."""
+        if isinstance(inputs, dict):
+            out = self.model(**inputs, generator=self.generator)
+        else:
+            out = self.model(inputs, generator=self.generator)
+        out = out if isinstance(out, tuple) else (out,)
+        if isinstance(targets, dict):
+            loss = self.criterion(*out, **targets)
+        else:
+            loss = self.criterion(*out, targets)
+        loss = loss.float()
         loss.backward()
         grads = {n: p.grad for n, p in self.params.items()}
         self.optimizer.apply_gradients_tree(self.params, grads, self.state)
@@ -90,43 +115,112 @@ def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
     return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
 
 
+def build_bert_pretrain_step(cfg: BertConfig, *, device=None, seed: int = 0,
+                             amp_o2: bool = True) -> TrainStep:
+    """The BERT pretraining step for ``cfg`` on ``device`` (``cuda``
+    unless the CPU is asked for): weights from ``seed``, bf16 O2 unless
+    ``amp_o2`` is false (f32 then), ``AdamW(1e-4, multi_precision=True)``."""
+    gen = make_generator(seed, device)
+    model = BertForPretraining(cfg, generator=gen)
+    if amp_o2:
+        decorate(model, level="O2", dtype="bfloat16")
+    return TrainStep(model, BertPretrainingCriterion(),
+                     AdamW(learning_rate=1e-4, multi_precision=True), gen)
+
+
+def make_bert_batch(cfg: BertConfig, batch: int, seq: int, seed: int = 0,
+                    device=None, *, padded: bool = False):
+    """A fixed masked-LM batch from ``np.random.RandomState(seed)``:
+    ``(inputs, targets)``, the keyword arguments of
+    ``BertForPretraining`` and of ``BertPretrainingCriterion``.
+
+    Ids are uniform over the vocabulary.  ``MAX_PREDICTIONS`` positions
+    of each sequence are MLM targets: their labels are the original ids
+    (every other label is -100), their input ids become ``MASK_TOKEN``,
+    their ``masked_lm_weights`` 1 (0 elsewhere).  Token types are 0 on
+    the first half of the sequence and 1 on the second; NSP labels are
+    uniform in {0, 1}.  Sequences are full length with no attention mask,
+    as packed pretraining data is, unless ``padded``: then each has a
+    length uniform in ``[seq // 2, seq]``, a ``(B, T)`` padding mask, and
+    targets only inside its length."""
+    rng = np.random.RandomState(seed)
+    dev = resolve_device(device)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    lengths = (rng.randint(seq // 2, seq + 1, batch) if padded
+               else np.full(batch, seq))
+    labels = np.full((batch, seq), -100, np.int64)
+    weights = np.zeros((batch, seq), np.float32)
+    for row, n in enumerate(lengths):
+        pos = rng.choice(n, min(MAX_PREDICTIONS, n), replace=False)
+        labels[row, pos] = ids[row, pos]
+        ids[row, pos] = MASK_TOKEN
+        weights[row, pos] = 1.0
+    token_types = np.zeros((batch, seq), np.int64)
+    token_types[:, seq // 2:] = 1
+    nsp = rng.randint(0, 2, batch).astype(np.int64)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    inputs = {"input_ids": t(ids), "token_type_ids": t(token_types)}
+    if padded:
+        inputs["attention_mask"] = t(
+            (np.arange(seq)[None, :] < lengths[:, None]).astype(np.float32))
+    targets = {"masked_lm_labels": t(labels),
+               "next_sentence_labels": t(nsp),
+               "masked_lm_weights": t(weights)}
+    return inputs, targets
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.train", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=sorted(CONFIGS), default="gpt_345m")
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="16 for GPT, 32 for BERT by default")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="1024 for GPT, 128 for BERT by default")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    # bench_gpt sizes the position table to the sequence at gpt_345m
-    pos = {"max_position_embeddings": args.seq} \
-        if args.model == "gpt_345m" else {}
-    cfg = CONFIGS[args.model](use_recompute=True, **pos)
-    step = build_train_step(cfg, device=dev)
-    ids, labels = make_batch(cfg, args.batch, args.seq, device=dev)
+    family = args.model.split("_")[0]
+    batch = args.batch or DEFAULT_SHAPE[family][0]
+    seq = args.seq or DEFAULT_SHAPE[family][1]
+    if family == "gpt":
+        # bench_gpt sizes the position table to the sequence at gpt_345m
+        pos = {"max_position_embeddings": seq} \
+            if args.model == "gpt_345m" else {}
+        cfg = CONFIGS[args.model](use_recompute=True, **pos)
+        step = build_train_step(cfg, device=dev)
+        inputs, targets = make_batch(cfg, batch, seq, device=dev)
+        what = "recompute"
+    else:
+        cfg = CONFIGS[args.model]()
+        step = build_bert_pretrain_step(cfg, device=dev)
+        inputs, targets = make_bert_batch(cfg, batch, seq, device=dev)
+        what = "MLM + NSP, no recompute"
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{args.model} on {name}: batch {args.batch} x seq {args.seq}, "
+    print(f"{args.model} on {name}: batch {batch} x seq {seq}, "
           f"{sum(p.numel() for p in step.params.values())} parameters, "
-          f"AMP O2 bf16, AdamW(1e-4), recompute", flush=True)
+          f"AMP O2 bf16, AdamW(1e-4), {what}", flush=True)
     times, losses = [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        loss = step(ids, labels).item()    # .item() waits for the card
+        loss = step(inputs, targets).item()   # .item() waits for the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
         print(f"step {i + 1} loss {loss:.6f} {times[-1] * 1e3:.2f} ms",
               flush=True)
     med = statistics.median(times[1:] if len(times) > 1 else times)
     print(json.dumps({"model": args.model, "device": name,
-                      "batch": args.batch, "seq": args.seq,
-                      "losses": losses, "median_step_ms": med * 1e3,
-                      "tokens_per_s": args.batch * args.seq / med}),
-          flush=True)
+                      "batch": batch, "seq": seq, "losses": losses,
+                      "median_step_ms": med * 1e3,
+                      "sequences_per_s": batch / med,
+                      "tokens_per_s": batch * seq / med}), flush=True)
     return 0
 
 

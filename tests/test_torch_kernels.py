@@ -17,6 +17,10 @@ Tolerances:
  - LayerNorm (y, dx, dw, db) against the interpret-mode Pallas kernel and
    its ``jax.vjp``: 1e-5 in f32 (the sums run in another order), 2e-2
    absolute and relative in bf16 (one bf16 rounding of the outputs).
+   With a residual (y, dx, dr, dw, db) the same, against the
+   interpret-mode kernel in both dtypes: it adds the residual in f32 as
+   the port does, where the JAX package's XLA ``F.layer_norm`` adds it in
+   x's dtype first.
 """
 import types
 
@@ -27,9 +31,12 @@ import torch
 
 import jax
 
+import paddle_tpu as pt
 from paddle_tpu.ops import fused_kernels as jfk
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.ops import quant_kernels as jqk
+from paddle_tpu.tensor import Tensor
+from paddle_tpu_torch.nn.functional import norm as tnorm
 from paddle_tpu_torch.ops import fused_kernels as tfk
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import quant_kernels as tqk
@@ -146,12 +153,22 @@ def test_quantize_kv_bytes_match_jax():
 # -- the dispatch rule: CPU -> plain version, CUDA -> kernel, never both --
 
 class _FakeCuda(types.SimpleNamespace):
-    """Stands in for a CUDA tensor: only ``device`` and ``shape`` are
-    read before the dispatch decision."""
+    """Stands in for a CUDA tensor: its device, shape and dtype, and the
+    few members the launchers' checks read before the dispatch decision."""
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
 
 
-def _cuda_like(shape):
-    return _FakeCuda(device=torch.device("cuda", 0), shape=shape)
+def _cuda_like(shape, dtype=torch.bfloat16):
+    return _FakeCuda(device=torch.device("cuda", 0), shape=shape,
+                     dtype=dtype)
 
 
 def _forbid(*a, **k):
@@ -273,15 +290,20 @@ def test_cuda_tensor_never_reaches_plain_layer_norm(monkeypatch):
     monkeypatch.setattr(tfk, "layer_norm_fwd_reference", _forbid)
     monkeypatch.setattr(tfk, "layer_norm_bwd_reference", _forbid)
     monkeypatch.setattr(tfk, "_launch_fwd",
-                        lambda x, w, b, eps: ("y", "mean", "rstd"))
+                        lambda x, w, b, eps, res: ("y", "mean", "rstd"))
     monkeypatch.setattr(tfk, "_launch_bwd",
-                        lambda g, x, w, m, r: ("dx", "dw", "db"))
-    before = (tfk.layer_norm_fwd.launches, tfk.layer_norm_bwd.launches)
+                        lambda g, x, w, m, rs, res: ("dx", "dw", "db"))
+    fwd, bwd = tfk.layer_norm_fwd, tfk.layer_norm_bwd
+    before = (fwd.launches, bwd.launches, fwd.residual_launches,
+              bwd.residual_launches)
     x = _cuda_like((4, 8))
     assert tfk.layer_norm_fwd(x, x, x) == ("y", "mean", "rstd")
     assert tfk.layer_norm_bwd(x, x, x, x, x) == ("dx", "dw", "db")
-    assert (tfk.layer_norm_fwd.launches,
-            tfk.layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert tfk.layer_norm_fwd(x, x, x, 1e-5, x) == ("y", "mean", "rstd")
+    assert tfk.layer_norm_bwd(x, x, x, x, x, x) == ("dx", "dw", "db")
+    assert (fwd.launches, bwd.launches, fwd.residual_launches,
+            bwd.residual_launches) == (before[0] + 2, before[1] + 2,
+                                       before[2] + 1, before[3] + 1)
 
 
 def test_cpu_layer_norm_takes_plain_version_without_counting(monkeypatch):
@@ -306,3 +328,51 @@ def test_layer_norm_launchers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="2-D"):
         tfk.fused_layer_norm(torch.zeros(2, 3, 4), torch.ones(4),
                              torch.zeros(4))
+
+
+def test_layer_norm_launchers_refuse_a_residual_the_kernel_does_not_take():
+    x, w = _cuda_like((4, 16)), _cuda_like((16,))
+    tfk._check(x, w, w, residual=_cuda_like((4, 16)))   # what it takes
+    with pytest.raises(ValueError, match="x's shape"):
+        tfk._check(x, w, w, residual=_cuda_like((4, 8)))
+    with pytest.raises(ValueError, match="does not match x"):
+        tfk._check(x, w, w, residual=_cuda_like((4, 16), torch.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128)])
+def test_residual_layer_norm_and_grads_match_jax_kernel(rows, d, dtype):
+    x, w, b, g = _ln_inputs(rows, d, d + rows + 1)
+    r = np.random.RandomState(rows).randn(rows, d).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx, jw, jb, jr, jg = (jnp.asarray(a, jdt) for a in (x, w, b, r, g))
+    jy, vjp = jax.vjp(lambda xx, ww, bb, rr: jfk.fused_layer_norm(
+        xx, ww, bb, residual=rr, interpret=True), jx, jw, jb, jr)
+    jgrads = vjp(jg)
+
+    tdt = getattr(torch, dtype)
+    tx, tw, tb, tr = (torch.from_numpy(a).to(tdt).requires_grad_()
+                      for a in (x, w, b, r))
+    ty = tfk.fused_layer_norm(tx, tw, tb, 1e-5, residual=tr)
+    ty.backward(torch.from_numpy(g).to(tdt))
+    for got, want in zip((ty, tx.grad, tw.grad, tb.grad, tr.grad),
+                         (jy, *jgrads)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **LN_TOL[dtype])
+    # the residual's gradient is dx itself when the dtypes agree
+    assert torch.equal(tx.grad, tr.grad)
+
+
+def test_residual_layer_norm_matches_jax_functional_in_f32():
+    # in f32 the JAX package's XLA F.layer_norm (its CPU path) adds the
+    # residual exactly as the kernel does, so it is an oracle too
+    x, w, b, _ = _ln_inputs(12, 64, 5)
+    r = np.random.RandomState(6).randn(12, 64).astype(np.float32)
+    want = pt.nn.functional.layer_norm(
+        Tensor(jnp.asarray(x)), 64, Tensor(jnp.asarray(w)),
+        Tensor(jnp.asarray(b)), 1e-5, residual=Tensor(jnp.asarray(r)))
+    got = tnorm.layer_norm(*_t(x), 64, *_t(w, b), 1e-5, residual=_t(r)[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._data), **LN_TOL[
+        "float32"])
