@@ -19,11 +19,19 @@ line is printed:
              ``bert_base`` width (LayerNorm with a residual over 4096 rows
              of 768; softmax cross-entropy over the MLM head's (4096,
              30528) logits with 84% of the rows ignored and over the NSP
-             head's (32, 2), then ragged vocabularies): max abs error
-             against the stated tolerance, times with CUDA events (median
-             of 30 after warm-up, L2 flushed before each launch), and the
-             least time the card could take (bytes over 3.35 TB/s or
-             operations over the peak for their type).
+             head's (32, 2), then ragged vocabularies); flash at cross
+             lengths (kv_len != q_len) and padded head sizes (48, 96);
+             LayerNorm without weight and bias; the fusion pass's block
+             kernels at the shapes of its paths (LayerNorm + matmul at
+             gpt_345m's (8192, 1024) @ (1024, 3072) and BERT's tied
+             decoder, (4096, 768) @ a transposed (30528, 768) table;
+             matmul + bias + gelu at (8192, 1024) @ (1024, 4096), tanh, and
+             BERT's (4096, 768) @ (768, 3072), erf) in bf16, then f32 and
+             the other options at small shapes: max abs error against the
+             stated tolerance, times with CUDA events (median of 30 after
+             warm-up, L2 flushed before each launch), and the least time
+             the card could take (bytes over 3.35 TB/s or operations over
+             the peak for their type).
  4. model    prefill + decode logits on the card against the same steps
              on the CPU, at a small width, fp32 and int8.
  5. serve    ``ServingEngine`` on cuda at the gpt_345m widths (24 layers,
@@ -66,6 +74,22 @@ line is printed:
              included) launches per step as the model implies, no flash,
              peak memory and a profile; then 2 steps at batch 8 x 512,
              which must run the flash kernels, non-causal, in each layer.
+             Phases 7 and 8 run with the fusion pass off, as PRs 3-5
+             measured them.
+ 9. fusion   the fusion pass on (``paddle_tpu_torch.ops.fusion_pass``):
+             first gpt_tiny and bert_tiny (f32, dropout 0) against the
+             same weights' 3-step loss trajectories on the CPU; then
+             bench_gpt's headline step, gpt_345m at batch 8 x 1024 with
+             recompute off (AMP O2 bf16, AdamW with f32 masters, dropout
+             0.1) for 8 steps: the rewrites the pass reports, the block
+             kernels' (LayerNorm + matmul, matmul + bias + gelu),
+             LayerNorm and flash launches per step as the model implies,
+             losses finite and falling, peak memory and a profile; then 3
+             steps with the pass on against 3 with it off from the same
+             weights at dropout 0 (where the attention clusters are
+             rewritten too); then the same step with the pass on and off
+             in turns, timed; then bert_base at 32 x 128 with the pass
+             on, 8 steps, its rewrites and launches per step.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -103,6 +127,15 @@ TRAIN_TOL = 1e-4                            # card vs CPU loss, f32
 # bert_base O2 bf16 on the kernels vs on their plain versions: relative
 # loss difference (bf16 rounds in other places, through 12 layers)
 BERT_PLAIN_TOL = 5e-3
+# the fusion pass on vs off, gpt_345m 8 x 1024 O2 bf16, dropout 0: relative
+# loss difference (the block kernels add the bias and take gelu on the f32
+# sum where the unfused step rounds to bf16 first; 24 layers)
+FUSION_TOL = 5e-3
+FUSED_BATCH, FUSED_STEPS, FUSED_CMP_STEPS = 8, 8, 3     # bench_gpt's rung
+# the block kernels against their plain versions: max |err| within this
+# share of max |ref| (f32: sums in another order; bf16: about 2.5 bf16
+# steps of the largest output, one rounding of h and of the output)
+BLOCK_TOL = {"f32": 1e-4, "bf16": 1e-2}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8        # phase-1 pretraining
@@ -130,6 +163,8 @@ REPLACES = {
     "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:418",
     "softmax_xent_fwd": "paddle_tpu/ops/fused_kernels.py:445",
     "softmax_xent_bwd": "paddle_tpu/ops/fused_kernels.py:476",
+    "ln_matmul": "paddle_tpu/ops/fused_kernels.py:792",
+    "matmul_bias_gelu": "paddle_tpu/ops/fused_kernels.py:965",
 }
 SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -142,12 +177,15 @@ SOURCES = {
     "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
     "softmax_xent_fwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
     "softmax_xent_bwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
+    "ln_matmul": "paddle_tpu_torch/csrc/block_gemm.cu",
+    "matmul_bias_gelu": "paddle_tpu_torch/csrc/block_gemm.cu",
 }
 SERVE_KERNELS = ("paged_attention", "paged_attention_int8", "w8a16_matmul")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_bwd")
 TRAIN_KERNELS = LN_KERNELS + FLASH_KERNELS
+BLOCK_KERNELS = ("ln_matmul", "matmul_bias_gelu")
 
 
 def log(*args):
@@ -368,7 +406,250 @@ def phase_kernels(timer):
         for name, row in _flash_entries(timer, gen, tag, shape, causal,
                                         timed).items():
             results.setdefault(name, []).append(row)
+    # cross lengths (q_len != kv_len, the causal diagonal aligned to the
+    # end, a q_len past kv_len leaving rows with no key) and head sizes the
+    # wrapper pads (48 to 64, 96 to 128)
+    shapes = [(tag, shape, causal, kv)
+              for tag in ("bf16", "f32")
+              for shape, causal, kv in (((2, 128, 4, 64), True, 640),
+                                        ((2, 128, 4, 64), False, 640),
+                                        ((1, 200, 2, 64), True, 72),
+                                        ((1, 40, 2, 48), True, 72),
+                                        ((2, 512, 4, 48), True, None),
+                                        ((2, 300, 4, 96), False, None),
+                                        ((2, 128, 4, 96), True, 640))]
+    for tag, shape, causal, kv in shapes:
+        for name, row in _flash_entries(timer, gen, tag, shape, causal,
+                                        False, kv_len=kv).items():
+            results[name].append(row)
+
+    # LayerNorm without weight and bias (the fusion pass's matches reach it)
+    for tag, dtype, rows, d in (("bf16", torch.bfloat16, 4096, 768),
+                                ("f32", torch.float32, 1000, 96)):
+        fwd, bwd = _layer_norm_no_affine(gen, tag, dtype, rows, d, 1e-12)
+        results["layer_norm_fwd"].append(fwd)
+        results["layer_norm_bwd"].append(bwd)
+
+    # the fusion pass's block kernels: the four shapes of this slice's
+    # paths in bf16, timed, then the MLM transform's product, f32 at small
+    # shapes (the tied decoder's transposed weight included), both gelu
+    # forms, no residual / no LayerNorm affine / no bias
+    h, bh = GPT_345M["hidden"], BERT_HIDDEN
+    gpt_rows, bert_rows = FUSED_BATCH * TRAIN_SEQ, BERT_BATCH * BERT_SEQ
+    lnmm = [("bf16", gpt_rows, h, 3 * h, dict(timed=True)),
+            ("bf16", bert_rows, bh, BERT_VOCAB,
+             dict(eps=1e-12, strided=True, timed=True)),
+            ("f32", 100, 96, 200, dict(residual=True)),
+            ("f32", 100, 96, 200, dict(strided=True, ln_affine=False,
+                                       bias=False)),
+            ("f32", 37, 1024, 136, dict(residual=True, strided=True)),
+            ("bf16", 100, 96, 200, dict(residual=True, ln_affine=False)),
+            ("bf16", 37, 768, 264, dict(strided=True, bias=False))]
+    for tag, rows, k, n, kw in lnmm:
+        results.setdefault("ln_matmul", []).append(
+            _ln_matmul_entry(timer, gen, tag, rows, k, n, **kw))
+        torch.cuda.empty_cache()
+    mbg = [("bf16", gpt_rows, h, 4 * h, dict(approximate=True, timed=True)),
+           ("bf16", bert_rows, bh, 4 * bh,
+            dict(approximate=False, timed=True)),
+           ("bf16", bert_rows, bh, bh, dict(approximate=False)),
+           ("f32", 100, 96, 200, dict(approximate=True)),
+           ("f32", 100, 96, 200, dict(approximate=False, bias=False)),
+           ("f32", 37, 64, 136, dict(approximate=True, strided=True)),
+           ("bf16", 100, 96, 200, dict(approximate=True, strided=True,
+                                       bias=False))]
+    for tag, rows, k, n, kw in mbg:
+        results.setdefault("matmul_bias_gelu", []).append(
+            _mbg_entry(timer, gen, tag, rows, k, n, **kw))
+        torch.cuda.empty_cache()
     return results
+
+
+def _gemm_weight(gen, k, n, dtype, strided):
+    """A (k, n) weight: a Linear's contiguous tensor, or (``strided``) the
+    transposed view of an (n, k) table, read in place as BERT's tied
+    decoder reads the word embeddings."""
+    if strided:
+        return (torch.randn(n, k, generator=gen, device=DEVICE) * 0.05
+                ).to(dtype).t()
+    return (torch.randn(k, n, generator=gen, device=DEVICE) * 0.05).to(dtype)
+
+
+def _block_err(got, want, tag):
+    """Max abs error, and whether it is within ``BLOCK_TOL`` of max|ref|."""
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    return err, finite and err <= BLOCK_TOL[tag] * want.float().abs().max(
+        ).item()
+
+
+def _block_row(variant, err, same_bits, tag):
+    return dict(variant=variant, max_abs_err=err, tol=BLOCK_TOL[tag],
+                bit_identical=same_bits, ms=None, plain_ms=None,
+                bound_ms=None, bound_by=None, library_ms=None)
+
+
+def _ln_matmul_entry(timer, gen, tag, rows, k, n, *, eps=1e-5,
+                     residual=False, ln_affine=True, bias=True,
+                     strided=False, timed=False):
+    """The LayerNorm + matmul kernel against its plain version at ``(rows,
+    k) @ (k, n)``, bit-identical over two calls; ``timed``: kernel, plain
+    and library (``F.layer_norm`` then ``F.linear``, two calls) times and
+    the bound."""
+    from paddle_tpu_torch.ops.fused_kernels import (ln_matmul,
+                                                    ln_matmul_reference)
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    x = (torch.randn(rows, k, generator=gen, device=DEVICE) * 2 + 0.5
+         ).to(dtype)
+    r = (torch.randn(rows, k, generator=gen, device=DEVICE).to(dtype)
+         if residual else None)
+    lw = lb = None
+    if ln_affine:
+        lw = (1 + 0.3 * torch.randn(k, generator=gen, device=DEVICE)
+              ).to(dtype)
+        lb = (0.2 * torch.randn(k, generator=gen, device=DEVICE)).to(dtype)
+    w = _gemm_weight(gen, k, n, dtype, strided)
+    b = ((0.1 * torch.randn(n, generator=gen, device=DEVICE)).to(dtype)
+         if bias else None)
+    args = (x, w, lw, lb, b, r, eps)
+    y, again = ln_matmul(*args), ln_matmul(*args)
+    want = ln_matmul_reference(*args)
+    torch.cuda.synchronize()
+    err, ok = _block_err(y, want, tag)
+    same_bits = torch.equal(y, again)
+    variant = (f"{tag} ({rows}, {k}) @ ({k}, {n})"
+               f"{' W a transposed view' if strided else ''}"
+               f"{' residual' if residual else ''}"
+               f"{'' if ln_affine else ' no LayerNorm affine'}"
+               f"{'' if bias else ' no bias'} eps {eps}")
+    log(f"[kernel] ln_matmul[{variant}]: max_abs_err {err:.3e} (tol "
+        f"{BLOCK_TOL[tag]} x max|ref| {want.float().abs().max().item():.3f})"
+        f"; bit-identical over two calls: {same_bits}")
+    if not ok or not same_bits:
+        raise AssertionError(f"ln_matmul[{variant}] disagrees with its plain "
+                             f"version ({err}) or differs between calls "
+                             f"({same_bits})")
+    row = _block_row(variant, err, same_bits, tag)
+    if not timed:
+        return row
+    es = x.element_size()
+    nbytes = ((rows * k * (2 if residual else 1) + k * n + rows * n) * es
+              + (2 * k + n) * es)
+    bound = bound_ms(nbytes, 2.0 * rows * k * n, dtype)
+    wl = w.t()                   # F.linear's (n, k)
+    fn = torch.nn.functional
+
+    def library():
+        return fn.linear(fn.layer_norm(x + r if residual else x, (k,), lw, lb,
+                                       eps), wl, b)
+
+    row.update(ms=timer(lambda: ln_matmul(*args)),
+               plain_ms=timer(lambda: ln_matmul_reference(*args), iters=5),
+               library_ms=timer(library), bound_ms=bound[0],
+               bound_by=bound[1])
+    log(f"[kernel] ln_matmul[{variant}] times: kernel {row['ms']:.4f} ms "
+        f"plain {row['plain_ms']:.4f} ms library (F.layer_norm, F.linear: "
+        f"two calls) {row['library_ms']:.4f} ms bound {bound[0]:.4f} ms "
+        f"({bound[1]}, {2.0 * rows * k * n / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return row
+
+
+def _mbg_entry(timer, gen, tag, rows, k, n, *, approximate, bias=True,
+               strided=False, timed=False):
+    """The matmul + bias + gelu kernel against its plain version at
+    ``(rows, k) @ (k, n)``: y and the stored pre-activation z,
+    bit-identical over two calls; ``timed``: kernel, plain and library
+    (``F.linear`` then ``F.gelu``, two calls) times and the bound."""
+    from paddle_tpu_torch.ops.fused_kernels import (
+        matmul_bias_gelu, matmul_bias_gelu_reference)
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    x = torch.randn(rows, k, generator=gen, device=DEVICE).to(dtype)
+    w = _gemm_weight(gen, k, n, dtype, strided)
+    b = ((0.1 * torch.randn(n, generator=gen, device=DEVICE)).to(dtype)
+         if bias else None)
+    args = (x, w, b, approximate)
+    (y, z), (y2, z2) = matmul_bias_gelu(*args), matmul_bias_gelu(*args)
+    y_ref, z_ref = matmul_bias_gelu_reference(*args)
+    torch.cuda.synchronize()
+    (err_y, ok_y), (err_z, ok_z) = (_block_err(y, y_ref, tag),
+                                    _block_err(z, z_ref, tag))
+    same_bits = torch.equal(y, y2) and torch.equal(z, z2)
+    form = "tanh" if approximate else "erf"
+    variant = (f"{tag} ({rows}, {k}) @ ({k}, {n}) {form}"
+               f"{' W a transposed view' if strided else ''}"
+               f"{'' if bias else ' no bias'}")
+    log(f"[kernel] matmul_bias_gelu[{variant}]: max_abs_err y {err_y:.3e} z "
+        f"{err_z:.3e} (tol {BLOCK_TOL[tag]} x max|ref|); bit-identical over "
+        f"two calls: {same_bits}")
+    if not (ok_y and ok_z and same_bits):
+        raise AssertionError(f"matmul_bias_gelu[{variant}] disagrees with its "
+                             f"plain version (y {err_y}, z {err_z}) or "
+                             f"differs between calls ({same_bits})")
+    row = _block_row(variant, max(err_y, err_z), same_bits, tag)
+    row["errors"] = {"y": err_y, "z": err_z}
+    if not timed:
+        return row
+    es = x.element_size()
+    nbytes = (rows * k + k * n + n + 2 * rows * n) * es
+    bound = bound_ms(nbytes, 2.0 * rows * k * n, dtype)
+    wl = w.t()
+    fn = torch.nn.functional
+
+    def library():
+        return fn.gelu(fn.linear(x, wl, b), approximate=form.replace(
+            "erf", "none"))
+
+    row.update(ms=timer(lambda: matmul_bias_gelu(*args)),
+               plain_ms=timer(lambda: matmul_bias_gelu_reference(*args),
+                              iters=5),
+               library_ms=timer(library), bound_ms=bound[0],
+               bound_by=bound[1])
+    log(f"[kernel] matmul_bias_gelu[{variant}] times: kernel "
+        f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+        f"(F.linear, F.gelu: two calls) {row['library_ms']:.4f} ms bound "
+        f"{bound[0]:.4f} ms ({bound[1]}, {2.0 * rows * k * n / 1e9:.1f} "
+        f"GFLOP, {nbytes / 1e6:.1f} MB)")
+    return row
+
+
+def _layer_norm_no_affine(gen, tag, dtype, rows, d, eps):
+    """The LayerNorm kernels with no weight and no bias against their plain
+    versions: y, mean, rstd, dx and db (dw is None), dx and db
+    bit-identical over two runs."""
+    from paddle_tpu_torch.ops.fused_kernels import (
+        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+        layer_norm_fwd_reference)
+    x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 2 + 0.5
+         ).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+    y, mean, rstd = layer_norm_fwd(x, None, None, eps)
+    y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, None, None, eps)
+    dx, dw, db = layer_norm_bwd(g, x, None, mean, rstd)
+    dx2, _, db2 = layer_norm_bwd(g, x, None, mean, rstd)
+    dx_ref, _, db_ref = layer_norm_bwd_reference(g, x, None, mean, rstd)
+    torch.cuda.synchronize()
+    errs = {"y": _ln_err(y, y_ref, tag), "mean": _ln_err(mean, mean_ref, tag),
+            "rstd": _ln_err(rstd, rstd_ref, tag),
+            "dx": _ln_err(dx, dx_ref, tag),
+            "db": _ln_err(db, db_ref, tag, rel_to_max=True)}
+    same_bits = torch.equal(dx, dx2) and torch.equal(db, db2) and dw is None
+    variant = f"{tag} no affine ({rows}, {d})"
+    log(f"[kernel] layer_norm[{variant}]: max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (tol {LN_TOL[tag]}); dx/db bit-identical over two runs, dw None:"
+        f" {same_bits}")
+    bad = [k for k, (_, ok) in errs.items() if not ok]
+    if bad or not same_bits:
+        raise AssertionError(f"layer_norm[{variant}] disagrees with its plain "
+                             f"version on {bad} or differs between runs "
+                             f"({same_bits})")
+    fwd = dict(variant=variant, max_abs_err=errs["y"][0], tol=LN_TOL[tag],
+               ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+               library_ms=None)
+    bwd = dict(fwd, max_abs_err=max(errs["dx"][0], errs["db"][0]),
+               bit_identical=same_bits)
+    return fwd, bwd
 
 
 def _flash_err(out, want, tag, key):
@@ -384,19 +665,27 @@ def _flash_err(out, want, tag, key):
     return err.max().item(), finite and ok
 
 
-def _flash_entries(timer, gen, tag, shape, causal, timed):
+def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None):
     """The three flash kernels against their plain versions on one shape:
     q, k and v read in place from one ``(B, S, H, 3 * D)`` tensor as the
-    model's QKV projection gives them, dropout ``FLASH_DROPOUT`` with a
-    fixed seed; every kernel fed the same inputs as its plain version
-    (the backward ones the kernel forward's lse and one delta); dq, dk
-    and dv bit-identical over two runs.  ``timed``: kernel, plain and
-    library times and the bounds."""
+    model's QKV projection gives them (with ``kv_len``: q alone, k and v
+    from one ``(B, kv_len, H, 2 * D)`` tensor), dropout ``FLASH_DROPOUT``
+    with a fixed seed; every kernel fed the same inputs as its plain
+    version (the backward ones the kernel forward's lse and one delta);
+    dq, dk and dv bit-identical over two runs.  ``timed``: kernel, plain
+    and library times and the bounds."""
     from paddle_tpu_torch.ops import pallas_ops as po
     dtype = torch.bfloat16 if tag == "bf16" else torch.float32
     b, s, h, d = shape
-    qkv = torch.randn(b, s, h, 3 * d, generator=gen, device=DEVICE).to(dtype)
-    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    if kv_len is None:
+        qkv = torch.randn(b, s, h, 3 * d, generator=gen, device=DEVICE
+                          ).to(dtype)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    else:
+        q = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dtype)
+        kv = torch.randn(b, kv_len, h, 2 * d, generator=gen, device=DEVICE
+                         ).to(dtype)
+        k, v = kv[..., :d], kv[..., d:]
     do = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dtype)
     seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
     opts = dict(causal=causal, sm_scale=1.0 / math.sqrt(d),
@@ -423,8 +712,9 @@ def _flash_entries(timer, gen, tag, shape, causal, timed):
     same_bits = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
                  and torch.equal(dv, dv2))
     del out_ref, dq_ref, dk_ref, dv_ref
-    variant = (f"{tag} B={b} S={s} H={h} D={d} "
-               f"{'causal' if causal else 'full'} dropout {FLASH_DROPOUT}")
+    variant = (f"{tag} B={b} S={s}{'' if kv_len is None else f' kv={kv_len}'}"
+               f" H={h} D={d} {'causal' if causal else 'full'} dropout "
+               f"{FLASH_DROPOUT}")
     log(f"[kernel] flash[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
         + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
@@ -1090,7 +1380,8 @@ def phase_train(smi):
         cfg = dataclasses.replace(
             gpt_tiny(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                      use_recompute=True), max_position_embeddings=max(seq, 128))
-        steps = {dev: build_train_step(cfg, device=dev, seed=1, amp_o2=False)
+        steps = {dev: build_train_step(cfg, device=dev, seed=1, amp_o2=False,
+                                       fusion=False)
                  for dev in ("cpu", DEVICE)}
         steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
         ids, labels = make_batch(cfg, 4, seq, seed=1, device="cpu")
@@ -1130,7 +1421,7 @@ def _train_run(smi, seq, n_steps, profile):
     from paddle_tpu_torch.train import build_train_step, make_batch
     cfg = gpt_345m(use_recompute=True, max_position_embeddings=seq)
     t0 = time.perf_counter()
-    step = build_train_step(cfg, device=DEVICE, seed=0)
+    step = build_train_step(cfg, device=DEVICE, seed=0, fusion=False)
     ids, labels = make_batch(cfg, TRAIN_BATCH, seq, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1203,10 +1494,14 @@ def _profile_train_step(step, inputs, targets, step_s, smi, model,
                           "ln_bwd_reduce_kernel"),
             "flash": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel"),
-            "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel")}
+            "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel"),
+            "LayerNorm + matmul": ("ln_matmul_kernel",),
+            "matmul + bias + gelu": ("mm_gelu_kernel",)}
     shares, own = [], []
     for label, names in mine.items():
         es = [e for e in kernels if any(n in e.key for n in names)]
+        if not es:
+            continue
         ms = sum(_device_us(e) for e in es) / steps / 1e3
         shares.append(f"{label} kernels {ms:.3f} ms per step "
                       f"({ms / busy_ms:.3f} of device time)")
@@ -1241,7 +1536,7 @@ def phase_bert(smi):
                       attention_probs_dropout_prob=0.0),
             max_position_embeddings=max(seq, 128))
         steps = {dev: build_bert_pretrain_step(cfg, device=dev, seed=1,
-                                               amp_o2=False)
+                                               amp_o2=False, fusion=False)
                  for dev in ("cpu", DEVICE)}
         steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
         inputs, targets = make_bert_batch(cfg, 4, seq, seed=1, device="cpu",
@@ -1299,7 +1594,8 @@ def _bert_kernels_vs_plain(n_steps=3):
             for n in names:
                 setattr(fk, n, kernels[n] if mode == "kernels"
                         else getattr(fk, n + "_reference"))
-            step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0)
+            step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0,
+                                            fusion=False)
             traj[mode] = [step(inputs, targets).item()
                           for _ in range(n_steps)]
             del step
@@ -1331,7 +1627,7 @@ def _bert_run(smi, batch, seq, n_steps, profile):
                                         make_bert_batch)
     cfg = bert_base()
     t0 = time.perf_counter()
-    step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0)
+    step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0, fusion=False)
     inputs, targets = make_bert_batch(cfg, batch, seq, seed=0, device=DEVICE)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1383,6 +1679,295 @@ def _bert_run(smi, batch, seq, n_steps, profile):
     return launches
 
 
+# -- phase 9: the fusion pass --------------------------------------------------
+
+def phase_fusion(smi):
+    """The fusion pass on: card against CPU at small widths, then
+    bench_gpt's headline step (gpt_345m, 8 x 1024, no recompute) and its
+    pass-on vs pass-off comparison, then bert_base at 32 x 128.  Returns
+    the launch counts of the GPT and the BERT runs."""
+    from paddle_tpu_torch.incubate.models import bert_tiny, gpt_tiny
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        build_train_step, make_batch,
+                                        make_bert_batch)
+    if not fp.fusion_enabled():
+        raise AssertionError("phase 9 needs the fusion pass: PT_FUSION_PASS "
+                             "turns it off")
+    # same weights, f32, dropout 0, pass on: the 3-step loss trajectory
+    no_drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    small = (("gpt_tiny", gpt_tiny(**no_drop), build_train_step,
+              lambda c, dev: make_batch(c, 4, 64, seed=1, device=dev),
+              {"ln_matmul": 2, "matmul_bias_gelu": 2}),
+             ("bert_tiny", bert_tiny(**no_drop), build_bert_pretrain_step,
+              lambda c, dev: make_bert_batch(c, 4, 64, seed=1, device=dev),
+              {"ln_matmul": 1, "matmul_bias_gelu": 3}))
+    for name, cfg, build, batch, per_step in small:
+        steps = {dev: build(cfg, device=dev, seed=1, amp_o2=False,
+                            fusion=True) for dev in ("cpu", DEVICE)}
+        steps[DEVICE].model.load_state_dict(steps["cpu"].model.state_dict())
+        inputs, targets = batch(cfg, "cpu")
+        reset_launch_counts()
+        traj = {}
+        for dev, st in steps.items():
+            if isinstance(inputs, dict):
+                on = ({k: v.to(dev) for k, v in inputs.items()},
+                      {k: v.to(dev) for k, v in targets.items()})
+            else:
+                on = (inputs.to(dev), targets.to(dev))
+            traj[dev] = [st(*on).item() for _ in range(3)]
+        counts = {n: KERNELS[n].launches for n in BLOCK_KERNELS}
+        err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
+        log(f"[fusion] {name} seq 64 f32 pass on, 3-step loss, card "
+            f"{traj[DEVICE]} vs CPU {traj['cpu']}: max diff {err:.3e} (tol "
+            f"{TRAIN_TOL:.0e}); block kernel launches on the card {counts}")
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"fusion {name}: card and CPU trajectories "
+                                 f"differ by {err}")
+        want = {n: 3 * c for n, c in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"fusion {name}: launches {counts}, want "
+                                 f"{want}")
+        del steps
+
+    gpt = _fused_gpt_run(smi)
+    _fused_gpt_on_vs_off()
+    _fused_gpt_ab(smi)
+    bert = _fused_bert_run(smi)
+    return gpt, bert
+
+
+def _run_steps(step, inputs, targets, n_steps):
+    """``n_steps`` of ``step`` with every kernel counter set to 0 just
+    before and read just after: (losses, step times, launch counts,
+    peak GB)."""
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        losses.append(step(inputs, targets).item())   # waits for the card
+        times.append(time.perf_counter() - t0)
+    launches = {name: KERNELS[name].launches for name in KERNELS}
+    for name in LN_KERNELS:
+        launches[name + ".residual"] = KERNELS[name].residual_launches
+    return losses, times, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_counts(what, launches, per_step, n_steps):
+    for name, n in per_step.items():
+        if launches[name] != n_steps * n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times in {n_steps} steps, want "
+                                 f"{n_steps * n}")
+
+
+def _check_rewrites(what, want):
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    got = fp.summary()
+    if got["rewrites"] != want or got["traces"] != 1 or got["fallbacks"]:
+        raise AssertionError(f"{what}: the pass reports {got}, want one "
+                             f"trace rewriting {want}")
+    return got
+
+
+def _fused_gpt_run(smi):
+    """bench_gpt's headline step: gpt_345m at batch 8 x 1024, recompute
+    off, O2 bf16, AdamW, dropout 0.1, the fusion pass on, 8 steps on a
+    fixed batch.  Checks the rewrites, the launches per step, finite and
+    falling losses; returns the launch counts."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    step = build_train_step(cfg, device=DEVICE, seed=0, fusion=True)
+    ids, labels = make_batch(cfg, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fp.reset_stats()
+    losses, times, launches, peak_gb = _run_steps(step, ids, labels,
+                                                  FUSED_STEPS)
+    layers = cfg.num_layers
+    rewrites = _check_rewrites("gpt_345m fused", {
+        "ln_matmul": layers, "matmul_bias_gelu": layers,
+        "layer_norm": layers, "residual_ln": 1})
+    med = statistics.median(times[1:])
+    tokens = FUSED_BATCH * TRAIN_SEQ
+    # per step: ln1 + qkv and fc1 + gelu per block in the block kernels;
+    # LayerNorm: ln2 per block and the final one (with the last block's
+    # residual), the blocks' ln1 again in the LayerNorm + matmul backward,
+    # one backward each; flash once per block, no recompute
+    per_step = {"ln_matmul": layers, "matmul_bias_gelu": layers,
+                "layer_norm_fwd": 2 * layers + 1,
+                "layer_norm_bwd": 2 * layers + 1,
+                "layer_norm_fwd.residual": 1, "layer_norm_bwd.residual": 1,
+                **{n: layers for n in FLASH_KERNELS}}
+    log(f"[fusion] gpt_345m batch {FUSED_BATCH} x seq {TRAIN_SEQ}, O2 bf16, "
+        f"AdamW, dropout 0.1, no recompute, fusion pass on ({rewrites}): "
+        f"losses {[round(v, 4) for v in losses]}; step ms "
+        f"{[round(t * 1e3, 2) for t in times]}; median step "
+        f"(2..{FUSED_STEPS}) {med * 1e3:.2f} ms, {tokens / med:.1f} "
+        f"tokens/s; first step {times[0] * 1e3:.1f} ms; build {build_s:.2f} "
+        f"s; peak memory {peak_gb:.2f} GB; launches "
+        f"{ {n: launches[n] for n in per_step} } | {smi}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt_345m fused: loss not finite and falling: "
+                             f"{losses}")
+    _check_counts("gpt_345m fused", launches, per_step, FUSED_STEPS)
+    _profile_train_step(step, ids, labels, med, smi, "gpt_345m fused")
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fused_gpt_on_vs_off():
+    """gpt_345m at 8 x 1024, no recompute, O2 bf16, dropout 0: 3 steps
+    with the pass on against 3 with it off, from the same weights; the
+    attention clusters are rewritten too at dropout 0.  Relative loss
+    difference within ``FUSION_TOL``."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ,
+                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = make_batch(cfg, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    traj, launches = {}, {}
+    for fusion in (True, False):
+        fp.reset_stats()
+        step = build_train_step(cfg, device=DEVICE, seed=0, fusion=fusion)
+        traj[fusion], _, launches[fusion], _ = _run_steps(
+            step, ids, labels, FUSED_CMP_STEPS)
+        if fusion:
+            layers = cfg.num_layers
+            rewrites = _check_rewrites("gpt_345m fused, dropout 0", {
+                "attention_block": layers, "ln_matmul": layers,
+                "matmul_bias_gelu": layers, "layer_norm": layers,
+                "residual_ln": 1})
+        del step
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) / abs(b) for a, b in zip(traj[True], traj[False]))
+    blocks = {n: (launches[True][n], launches[False][n])
+              for n in BLOCK_KERNELS + FLASH_KERNELS}
+    log(f"[fusion] gpt_345m {FUSED_BATCH} x {TRAIN_SEQ} O2 bf16 dropout 0, "
+        f"{FUSED_CMP_STEPS}-step loss with the pass on {traj[True]} vs off "
+        f"{traj[False]}: max relative diff {err:.3e} (tol {FUSION_TOL:.0e}); "
+        f"rewrites {rewrites['rewrites']}; launches on / off {blocks}")
+    if not err <= FUSION_TOL:
+        raise AssertionError(f"gpt_345m: the pass on and off differ by {err}")
+    if any(launches[False][n] for n in BLOCK_KERNELS) or any(
+            launches[True][n] != FUSED_CMP_STEPS * cfg.num_layers
+            for n in BLOCK_KERNELS + FLASH_KERNELS):
+        raise AssertionError(f"gpt_345m on vs off: launches {blocks}")
+
+
+def _clocks():
+    """The card's SM clock (MHz), power draw (W) and temperature (C)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return tuple(float(v) for v in out.split(","))
+
+
+def _fused_gpt_ab(smi, turns=(True, False, False, True) * 2, turn_steps=2):
+    """The headline step with the pass on and off, same weights and
+    dropout draws, in alternating turns of ``turn_steps`` steps after two
+    untimed steps of each: the median step of each in one call on one
+    card, and the card's clock, power and temperature after each turn."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    ids, labels = make_batch(cfg, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    steps = {fusion: build_train_step(cfg, device=DEVICE, seed=0,
+                                      fusion=fusion)
+             for fusion in (True, False)}
+    times = {True: [], False: []}
+    for fusion in (True, False):
+        for _ in range(2):
+            steps[fusion](ids, labels).item()
+    clocks = []
+    for fusion in turns:
+        for _ in range(turn_steps):
+            t0 = time.perf_counter()
+            steps[fusion](ids, labels).item()   # waits for the card
+            times[fusion].append(time.perf_counter() - t0)
+        clocks.append(_clocks())
+    med = {f: statistics.median(t) * 1e3 for f, t in times.items()}
+    sm, watts, temp = (sorted(c[i] for c in clocks) for i in range(3))
+    log(f"[fusion] gpt_345m {FUSED_BATCH} x {TRAIN_SEQ}, no recompute, "
+        f"dropout 0.1, turns {'/'.join('on' if t else 'off' for t in turns)}"
+        f" of {turn_steps} steps: median step with the pass on "
+        f"{med[True]:.2f} ms ({FUSED_BATCH * TRAIN_SEQ / med[True] * 1e3:.1f}"
+        f" tokens/s), off {med[False]:.2f} ms "
+        f"({FUSED_BATCH * TRAIN_SEQ / med[False] * 1e3:.1f} tokens/s); on / "
+        f"off {med[True] / med[False]:.3f}; step ms on "
+        f"{[round(t * 1e3, 2) for t in times[True]]} off "
+        f"{[round(t * 1e3, 2) for t in times[False]]}; after each turn SM "
+        f"clock {sm[0]:.0f}-{sm[-1]:.0f} MHz, power {watts[0]:.0f}-"
+        f"{watts[-1]:.0f} W, {temp[0]:.0f}-{temp[-1]:.0f} C | {smi}")
+    del steps
+    torch.cuda.empty_cache()
+
+
+def _fused_bert_run(smi):
+    """bert_base at 32 x 128, O2 bf16, AdamW, dropout 0.1, no recompute,
+    the fusion pass on, 8 steps on a fixed batch: the rewrites, the
+    launches per step, finite losses, a profile; returns the launch
+    counts."""
+    from paddle_tpu_torch.incubate.models import bert_base
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        make_bert_batch)
+    cfg = bert_base()
+    step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0, fusion=True)
+    inputs, targets = make_bert_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0,
+                                      device=DEVICE)
+    fp.reset_stats()
+    losses, times, launches, peak_gb = _run_steps(step, inputs, targets,
+                                                  BERT_STEPS)
+    layers = cfg.num_layers
+    # the embeddings' add (word + position + token type, all (B, T, H))
+    # feeds only their LayerNorm, so it is absorbed as a residual, as the
+    # JAX matcher absorbs it on this batch
+    rewrites = _check_rewrites("bert_base fused", {
+        "residual_ln": 2 * layers + 1, "matmul_bias_gelu": layers + 1,
+        "ln_matmul": 1})
+    med = statistics.median(times[1:])
+    # per step: fc1 + gelu per block and the MLM transform; the MLM
+    # LayerNorm + tied decoder; LayerNorm: two per block and the
+    # embeddings', with a residual, and the MLM one again in the block
+    # kernel's backward, one backward each; the MLM and NSP losses
+    per_step = {"ln_matmul": 1, "matmul_bias_gelu": layers + 1,
+                "layer_norm_fwd": 2 * layers + 2,
+                "layer_norm_bwd": 2 * layers + 2,
+                "layer_norm_fwd.residual": 2 * layers + 1,
+                "layer_norm_bwd.residual": 2 * layers + 1,
+                "softmax_xent_fwd": 2, "softmax_xent_bwd": 2,
+                **{n: 0 for n in FLASH_KERNELS}}
+    log(f"[fusion] bert_base batch {BERT_BATCH} x seq {BERT_SEQ}, O2 bf16, "
+        f"AdamW, dropout 0.1, fusion pass on ({rewrites}): losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(t * 1e3, 2) for t in times]}; median step "
+        f"(2..{BERT_STEPS}) {med * 1e3:.2f} ms, {BERT_BATCH / med:.1f} "
+        f"sequences/s, {BERT_BATCH * BERT_SEQ / med:.1f} tokens/s; peak "
+        f"memory {peak_gb:.2f} GB; launches "
+        f"{ {n: launches[n] for n in per_step} } | {smi}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bert_base fused: loss not finite: {losses}")
+    _check_counts("bert_base fused", launches, per_step, BERT_STEPS)
+    _profile_train_step(step, inputs, targets, med, smi, "bert_base fused")
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -1404,6 +1989,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(smi)
     bert_launches, bert_long = phase_bert(smi)
+    fused_gpt, fused_bert = phase_fusion(smi)
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -1422,13 +2008,21 @@ def main() -> int:
             bert_long[name]
     for name in SERVE_KERNELS:
         by_path[name]["serve"] = launches[name]
+    # the fusion pass's paths: the block kernels' first is the GPT one
+    for name in BLOCK_KERNELS + TRAIN_KERNELS:
+        by_path[name][f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} fused"] = \
+            fused_gpt[name]
+    for name in BLOCK_KERNELS + LN_KERNELS + XENT_KERNELS:
+        by_path[name][f"bert_base {BERT_BATCH}x{BERT_SEQ} fused"] = \
+            fused_bert[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]
         paths = by_path[name]
         # launches: the count of the kernel's first main path (GPT for
-        # LayerNorm and flash, BERT 32 x 128 for cross-entropy); every
-        # path's count is in launches_by_path
+        # LayerNorm and flash, BERT 32 x 128 for cross-entropy, GPT 8 x
+        # 1024 fused for the block kernels); every path's count is in
+        # launches_by_path
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

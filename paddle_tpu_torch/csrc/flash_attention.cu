@@ -2,12 +2,16 @@
 //
 // Replaces the Pallas kernels `_fwd_kernel`, `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (paddle_tpu/ops/pallas_ops.py, launched at the
-// pallas_call sites in `_fwd` and `_bwd`), for the variant the training
-// step runs: fixed length (q_len == kv_len), causal or not, attention
-// dropout on or off.  q, k, v and do are (B, S, H, D) with any strides of
+// pallas_call sites in `_fwd` and `_bwd`), for fixed lengths: q_len Sq and
+// kv_len Sk, equal or not, causal or not (the causal diagonal aligned to
+// the end: query i keeps key j when j <= i + Sk - Sq, as `_key_mask`),
+// attention dropout on or off, D in {32, 64, 128} (the wrapper pads other
+// head sizes up to the next one, as the TPU wrapper pads to 128 lanes).
+// q and do are (B, Sq, H, D), k and v (B, Sk, H, D), with any strides of
 // B, S and H and unit stride in D (the slices of the QKV projection are
-// read in place); out, dq, dk and dv are written (B, S, H, D) contiguous;
-// lse and delta are f32 (B * H, S).
+// read in place); out and dq are written (B, Sq, H, D) contiguous, dk and
+// dv (B, Sk, H, D); lse and delta are f32 (B * H, Sq).  A query row with
+// no key to keep gets out 0 and lse -1e30, as the plain version.
 //
 //   forward   s = q k^T * scale, masked; online softmax per row: m, l (the
 //             UNdropped sum), acc += (p o keep / (1 - r)) v
@@ -70,7 +74,8 @@ struct Args {
   const float* delta;
   const int32_t* seed;
   long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
-  int B, H, S;
+  int B, H, Sq, Sk;
+  int off;             // the causal diagonal's offset, Sk - Sq
   float scale;
   uint32_t threshold;  // keep when (hash >> 8) >= threshold
   float inv_keep;      // 1 / (1 - p_drop), rounded to f32
@@ -116,7 +121,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // starts the copy of rows [row0, row0 + 64) of one (b, h) slice into a
-// padded shared tile; rows past S become zero.  16-byte copies: D *
+// padded shared tile; rows past S (Sq or Sk) become zero.  16-byte copies: D *
 // sizeof(T) and the strides are multiples of 16 bytes (the wrapper checks).
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* base,
@@ -328,20 +333,27 @@ __device__ __forceinline__ int row_of(int e) {
 
 // -inf where the mask drops an element of the warp's score tile: element
 // (r0 + row, c0 + col) is a (query, key) pair, or with kKeyRows a (key,
-// query) pair; it stays when key < S and query < S and, if causal,
-// key <= query
+// query) pair; it stays when key < Sk and query < Sq and, if causal,
+// key <= query + off
 template <bool kKeyRows>
 __device__ __forceinline__ void mask_tile(float (&s)[kNT][4], int r0, int c0,
-                                          int S, int causal) {
+                                          const Args& a) {
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + row_of(e), col = c0 + col_of(n, e);
       const int key = kKeyRows ? row : col, query = kKeyRows ? col : row;
-      if (key >= S || query >= S || (causal && key > query))
+      if (key >= a.Sk || query >= a.Sq || (a.causal && key > query + a.off))
         s[n][e] = -CUDART_INF_F;
     }
+}
+
+// the k tiles a q tile starting at q0 walks: up to its last row's diagonal
+// when causal (none when that lies before key 0)
+__device__ __forceinline__ int kv_tiles(const Args& a, int q0) {
+  const int end = a.causal ? min(a.Sk, q0 + kRows + a.off) : a.Sk;
+  return end > 0 ? (end + kCols - 1) / kCols : 0;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -383,11 +395,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* kb = slice<T>(a.k, a.st[1], b, h);
   const T* vb = slice<T>(a.v, a.st[2], b, h);
-  const int kv_end = a.causal ? min(a.S, q0 + kRows) : a.S;
-  const int tiles = (kv_end + kCols - 1) / kCols;
-  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.S);
-  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.S);
-  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.S);
+  const int tiles = kv_tiles(a, q0);
+  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.Sq);
+  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.Sk);
+  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.Sk);
   cp_async_commit();
 
   // m in log2 units: the running max of s * scale * log2(e)
@@ -400,8 +411,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = t * kCols;
     if (t + 1 < tiles) {
       T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
-      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.S);
-      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.S);
+      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.Sk);
+      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -413,8 +424,8 @@ __global__ void __launch_bounds__(kThreads)
 
     float s[kNT][4];
     scores<D>(s, sQ + warp * 16 * LD, sK);
-    if ((a.causal && k0 + kCols > q0) || k0 + kCols > a.S)
-      mask_tile<false>(s, r0, k0, a.S, a.causal);
+    if ((a.causal && k0 + kCols > q0 + a.off) || k0 + kCols > a.Sk)
+      mask_tile<false>(s, r0, k0, a);
     float mcur[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
@@ -452,6 +463,7 @@ __global__ void __launch_bounds__(kThreads)
     accumulate<D>(o, s, sV);
     __syncthreads();   // this buffer is refilled two tiles on
   }
+  cp_async_wait<0>();   // no tile at all: the first copies are still out
 
   float lsafe[2];
 #pragma unroll
@@ -464,15 +476,15 @@ __global__ void __launch_bounds__(kThreads)
     o[dn][3] /= lsafe[1];
   }
   T* out = static_cast<T*>(a.out) +
-           ((static_cast<long long>(b) * a.S) * a.H + h) * D;
-  store_rows<D>(out, o, r0 + g, a.S, a.H, 1.f);
+           ((static_cast<long long>(b) * a.Sq) * a.H + h) * D;
+  store_rows<D>(out, o, r0 + g, a.Sq, a.H, 1.f);
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r0 + g + 8 * i;
-      if (row < a.S)
-        a.lse[static_cast<long long>(bh) * a.S + row] =
-            m[i] * kLn2 + logf(lsafe[i]);
+      if (row < a.Sq)
+        a.lse[static_cast<long long>(bh) * a.Sq + row] =
+            l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
     }
   }
 }
@@ -498,20 +510,20 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* kb = slice<T>(a.k, a.st[1], b, h);
   const T* vb = slice<T>(a.v, a.st[2], b, h);
-  const int kv_end = a.causal ? min(a.S, q0 + kRows) : a.S;
-  const int tiles = (kv_end + kCols - 1) / kCols;
-  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.S);
-  load_tile<T, D>(sDO, slice<T>(a.dout, a.st[3], b, h), a.st[3][1], q0, a.S);
-  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.S);
-  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.S);
+  const int tiles = kv_tiles(a, q0);
+  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.Sq);
+  load_tile<T, D>(sDO, slice<T>(a.dout, a.st[3], b, h), a.st[3][1], q0,
+                  a.Sq);
+  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.Sk);
+  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.Sk);
   cp_async_commit();
   float lse2[2], delta[2];   // lse in log2 units
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
-    const long long idx = static_cast<long long>(bh) * a.S + row;
-    lse2[i] = row < a.S ? a.lse[idx] * kLog2e : 0.f;
-    delta[i] = row < a.S ? a.delta[idx] : 0.f;
+    const long long idx = static_cast<long long>(bh) * a.Sq + row;
+    lse2[i] = row < a.Sq ? a.lse[idx] * kLog2e : 0.f;
+    delta[i] = row < a.Sq ? a.delta[idx] : 0.f;
   }
   float dq[D / 8][4];
 #pragma unroll
@@ -521,8 +533,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = t * kCols;
     if (t + 1 < tiles) {
       T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
-      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.S);
-      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.S);
+      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.Sk);
+      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -535,8 +547,8 @@ __global__ void __launch_bounds__(kThreads)
     float p[kNT][4], dp[kNT][4];
     scores<D>(p, sQ + warp * 16 * LD, sK);
     scores<D>(dp, sDO + warp * 16 * LD, sV);
-    if ((a.causal && k0 + kCols > q0) || k0 + kCols > a.S)
-      mask_tile<false>(p, r0, k0, a.S, a.causal);
+    if ((a.causal && k0 + kCols > q0 + a.off) || k0 + kCols > a.Sk)
+      mask_tile<false>(p, r0, k0, a);
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -552,9 +564,10 @@ __global__ void __launch_bounds__(kThreads)
     accumulate<D>(dq, p, sK);
     __syncthreads();   // this buffer is refilled two tiles on
   }
+  cp_async_wait<0>();
   T* out = static_cast<T*>(a.out) +
-           ((static_cast<long long>(b) * a.S) * a.H + h) * D;
-  store_rows<D>(out, dq, r0 + g, a.S, a.H, a.scale);
+           ((static_cast<long long>(b) * a.Sq) * a.H + h) * D;
+  store_rows<D>(out, dq, r0 + g, a.Sq, a.H, a.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -581,23 +594,24 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* qb = slice<T>(a.q, a.st[0], b, h);
   const T* dob = slice<T>(a.dout, a.st[3], b, h);
-  // the q tiles that reach this key tile: from the diagonal on when causal
-  const int first = a.causal ? k0 : 0;
-  const int tiles = (a.S - first + kCols - 1) / kCols;
+  // the q rows that reach this key tile: from its first key's diagonal on
+  // when causal
+  const int first = a.causal ? max(0, k0 - a.off) : 0;
+  const int tiles = first < a.Sq ? (a.Sq - first + kCols - 1) / kCols : 0;
   auto stage = [&](int buf, int q0) {
     T* dst = sQD + buf * 2 * kCols * LD;
-    load_tile<T, D>(dst, qb, a.st[0][1], q0, a.S);
-    load_tile<T, D>(dst + kCols * LD, dob, a.st[3][1], q0, a.S);
+    load_tile<T, D>(dst, qb, a.st[0][1], q0, a.Sq);
+    load_tile<T, D>(dst + kCols * LD, dob, a.st[3][1], q0, a.Sq);
     float* st = sStats + buf * 2 * kCols;
     for (int i = threadIdx.x; i < kCols; i += kThreads) {
-      const bool in = q0 + i < a.S;
-      const long long idx = static_cast<long long>(bh) * a.S + q0 + i;
+      const bool in = q0 + i < a.Sq;
+      const long long idx = static_cast<long long>(bh) * a.Sq + q0 + i;
       st[i] = in ? a.lse[idx] * kLog2e : 0.f;
       st[kCols + i] = in ? a.delta[idx] : 0.f;
     }
   };
-  load_tile<T, D>(sK, slice<T>(a.k, a.st[1], b, h), a.st[1][1], k0, a.S);
-  load_tile<T, D>(sV, slice<T>(a.v, a.st[2], b, h), a.st[2][1], k0, a.S);
+  load_tile<T, D>(sK, slice<T>(a.k, a.st[1], b, h), a.st[1][1], k0, a.Sk);
+  load_tile<T, D>(sV, slice<T>(a.v, a.st[2], b, h), a.st[2][1], k0, a.Sk);
   stage(0, first);
   cp_async_commit();
   float dk[D / 8][4], dv[D / 8][4];
@@ -627,8 +641,8 @@ __global__ void __launch_bounds__(kThreads)
     float p[kNT][4];
     uint32_t kept = 0xffffffffu;   // bit 4n + e: element (n, e) is kept
     scores<D>(p, sK + warp * 16 * LD, sQ);
-    if ((a.causal && q0 < k0 + kRows) || q0 + kCols > a.S)
-      mask_tile<true>(p, r0, q0, a.S, a.causal);
+    if ((a.causal && q0 + a.off < k0 + kRows) || q0 + kCols > a.Sq)
+      mask_tile<true>(p, r0, q0, a);
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
@@ -663,9 +677,11 @@ __global__ void __launch_bounds__(kThreads)
     accumulate<D>(dk, p, sQ);
     __syncthreads();   // this buffer is refilled two tiles on
   }
-  const long long base = ((static_cast<long long>(b) * a.S) * a.H + h) * D;
-  store_rows<D>(static_cast<T*>(a.out) + base, dk, r0 + g, a.S, a.H, a.scale);
-  store_rows<D>(static_cast<T*>(a.out2) + base, dv, r0 + g, a.S, a.H, 1.f);
+  cp_async_wait<0>();
+  const long long base = ((static_cast<long long>(b) * a.Sk) * a.H + h) * D;
+  store_rows<D>(static_cast<T*>(a.out) + base, dk, r0 + g, a.Sk, a.H,
+                a.scale);
+  store_rows<D>(static_cast<T*>(a.out2) + base, dv, r0 + g, a.Sk, a.H, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -693,7 +709,8 @@ cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kRows - 1) / kRows, a.B * a.H);
+  const int rows = which == kDkv ? a.Sk : a.Sq;
+  const dim3 grid((rows + kRows - 1) / kRows, a.B * a.H);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -711,9 +728,9 @@ cudaError_t launch_d(int which, int d, const Args& a, cudaStream_t stream) {
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, void* out, void* out2, float* lse,
         const float* delta, const void* seed, const long long* strides,
-        int B, int H, int S, int D, float scale, int threshold,
+        int B, int H, int Sq, int Sk, int D, float scale, int threshold,
         float inv_keep, int causal, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535 ||
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -722,7 +739,7 @@ int run(int which, const void* q, const void* k, const void* v,
   a.seed = static_cast<const int32_t*>(seed);
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
-  a.B = B; a.H = H; a.S = S;
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.off = Sk - Sq;
   a.scale = scale;
   a.threshold = static_cast<uint32_t>(threshold);
   a.inv_keep = inv_keep;
@@ -737,42 +754,43 @@ int run(int which, const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides: (b, s, h) of q, k, v and do, 12 int64 values (do's unused by the
-// forward).  seed: a device int32, or null for no dropout.
+// forward).  Sq: q's (and do's) length, Sk: k's and v's.  seed: a device
+// int32, or null for no dropout.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seed,
-                             const long long* strides, int B, int H, int S,
-                             int D, float scale, int threshold,
+                             const long long* strides, int B, int H, int Sq,
+                             int Sk, int D, float scale, int threshold,
                              float inv_keep, int causal, int dtype,
                              void* stream) {
   return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
-             nullptr, seed, strides, B, H, S, D, scale, threshold, inv_keep,
-             causal, dtype, stream);
+             nullptr, seed, strides, B, H, Sq, Sk, D, scale, threshold,
+             inv_keep, causal, dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, const void* seed,
-                                const long long* strides, int B, int H, int S,
-                                int D, float scale, int threshold,
-                                float inv_keep, int causal, int dtype,
-                                void* stream) {
+                                const long long* strides, int B, int H,
+                                int Sq, int Sk, int D, float scale,
+                                int threshold, float inv_keep, int causal,
+                                int dtype, void* stream) {
   return run(kDq, q, k, v, dout, dq, nullptr,
              const_cast<float*>(static_cast<const float*>(lse)),
-             static_cast<const float*>(delta), seed, strides, B, H, S, D,
-             scale, threshold, inv_keep, causal, dtype, stream);
+             static_cast<const float*>(delta), seed, strides, B, H, Sq, Sk,
+             D, scale, threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
                                  const void* seed, const long long* strides,
-                                 int B, int H, int S, int D, float scale,
-                                 int threshold, float inv_keep, int causal,
-                                 int dtype, void* stream) {
+                                 int B, int H, int Sq, int Sk, int D,
+                                 float scale, int threshold, float inv_keep,
+                                 int causal, int dtype, void* stream) {
   return run(kDkv, q, k, v, dout, dk, dv,
              const_cast<float*>(static_cast<const float*>(lse)),
-             static_cast<const float*>(delta), seed, strides, B, H, S, D,
-             scale, threshold, inv_keep, causal, dtype, stream);
+             static_cast<const float*>(delta), seed, strides, B, H, Sq, Sk,
+             D, scale, threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" const char* ptt_error_string(int status) {

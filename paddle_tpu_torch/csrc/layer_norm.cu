@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas kernels `_ln_fwd_kernel` and `_ln_bwd_kernel`
 // (paddle_tpu/ops/fused_kernels.py, launched at the pallas_call sites in
-// `_ln_pallas_fwd` and `_ln_pallas_bwd`), for the variants the training
-// steps run: affine (w, b), x, w and b all f32 or all bf16, without a
-// residual (GPT's pre-LN blocks) or with one (BERT's post-LN blocks).
+// `_ln_pallas_fwd` and `_ln_pallas_bwd`): x, w and b all f32 or all
+// bf16, affine or not (w and b may each be null: no scale, no shift, as
+// the fusion pass's matches give them), without a residual (GPT's pre-LN
+// blocks) or with one (BERT's post-LN blocks).
 // With a residual r (x's dtype and shape) the kernels normalize x + r,
 // summed in f32 as the TPU kernel does and never stored: the backward
 // reads x and r again, and the residual's gradient is dx.
@@ -66,6 +67,18 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
     const float2 f = __bfloat1622float2(h[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
+  }
+}
+
+// w[col .. col + 7], or `fill` for a null w (the no-affine variant)
+template <typename T>
+__device__ __forceinline__ void load_or(const T* w, int col, float fill,
+                                        float (&v)[VEC]) {
+  if (w) {
+    load8(w + col, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = fill;
   }
 }
 
@@ -136,8 +149,8 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_kernel(
     const int col = c * kChunk + lane * VEC;
     if (col < d) {
       float wv[VEC], bv[VEC], o[VEC];
-      load8(w + col, wv);
-      load8(b + col, bv);
+      load_or(w, col, 1.f, wv);
+      load_or(b, col, 0.f, bv);
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
         o[i] = (v[c][i] - mean) * rstd * wv[i] + bv[i];
@@ -188,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
           for (int i = 0; i < VEC; ++i) xv[i] += rv[i];
         }
         load8(g + base + col, gv);
-        load8(w + col, wv);
+        load_or(w, col, 1.f, wv);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           xh[c][i] = (xv[i] - mu) * rs;
@@ -275,8 +288,8 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_reduce_kernel(
       s += sw[k][cx];
       t += sb[k][cx];
     }
-    store1(dw + col, s);
-    store1(db + col, t);
+    if (dw) store1(dw + col, s);
+    if (db) store1(db + col, t);
   }
 }
 
@@ -364,8 +377,8 @@ int bwd_res(const void* g, const void* x, const void* r, const void* w,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, r, w, b and y alike).  The caller
 // guarantees rows > 0, 0 < d <= 1024, d % 8 == 0 and 16-byte aligned
-// rows.  r is the residual, or null for none.  mean and rstd are f32
-// (rows,).
+// rows.  r is the residual, or null for none; w and b may be null (scale 1,
+// shift 0).  mean and rstd are f32 (rows,).
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* r,
                                   const void* w, const void* b, void* y,
                                   void* mean, void* rstd, int rows, int d,
@@ -382,7 +395,8 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* r,
 }
 
 // dx in x's dtype (also the residual's gradient); dw and db (d,) in w's
-// dtype, summed in f32.  r is the forward's residual, or null.  dw_part
+// dtype, summed in f32, each skipped when null.  r is the forward's
+// residual, or null; w may be null (then dy = g).  dw_part
 // and db_part are f32 scratch of nparts * d each; nparts is the grid of
 // the row pass (1 <= nparts).
 extern "C" int ptt_layer_norm_bwd(const void* g, const void* x,

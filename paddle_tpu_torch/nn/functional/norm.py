@@ -8,9 +8,9 @@ port has no fallback.  The affine variant is ported, with and without a
 ``residual`` added before the statistics: GPT's pre-LN blocks call it
 without one, BERT's post-LN blocks (``BertLayer``) with one.  Like the
 kernel, and unlike the JAX package's XLA path (which adds the residual
-in x's dtype first), the port adds the residual in f32.  The no-affine
-variant (no weight or no bias) is not ported: of the JAX package's own
-callers only the fusion pass uses it.
+in x's dtype first), the port adds the residual in f32.  ``weight`` and
+``bias`` may each be None (no scale, no shift): the kernels' no-affine
+variant, which the fusion pass's matches also reach.
 """
 from __future__ import annotations
 
@@ -27,13 +27,11 @@ def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5,
     ``normalized_shape`` axes; f32 statistics, output in x's dtype."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
-    if weight is None or bias is None:
-        raise NotImplementedError(
-            "layer_norm without weight or bias is the fusion pass's "
-            "variant, not ported yet")
     d = math.prod(normalized_shape)
     if residual is not None:
         residual = residual.reshape(-1, d).contiguous()
-    y = fused_layer_norm(x.reshape(-1, d).contiguous(), weight.reshape(d),
-                         bias.reshape(d), epsilon, residual)
+    y = fused_layer_norm(x.reshape(-1, d).contiguous(),
+                         None if weight is None else weight.reshape(d),
+                         None if bias is None else bias.reshape(d), epsilon,
+                         residual)
     return y.reshape(x.shape)

@@ -17,6 +17,8 @@ KERNELS = {
     "layer_norm_bwd": _fused_kernels.layer_norm_bwd,
     "softmax_xent_fwd": _fused_kernels.softmax_xent_fwd,
     "softmax_xent_bwd": _fused_kernels.softmax_xent_bwd,
+    "ln_matmul": _fused_kernels.ln_matmul,
+    "matmul_bias_gelu": _fused_kernels.matmul_bias_gelu,
     "flash_fwd": _pallas_ops.flash_fwd,
     "flash_bwd_dq": _pallas_ops.flash_bwd_dq,
     "flash_bwd_dkv": _pallas_ops.flash_bwd_dkv,

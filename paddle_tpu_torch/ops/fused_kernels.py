@@ -1,13 +1,13 @@
-"""Fused LayerNorm and softmax cross-entropy: plain PyTorch and CUDA
-kernel pairs.
+"""Fused LayerNorm, softmax cross-entropy and the fusion pass's block
+kernels: plain PyTorch and CUDA kernel pairs.
 
-The counterpart of two parts of ``paddle_tpu/ops/fused_kernels.py``.
+The counterpart of ``paddle_tpu/ops/fused_kernels.py``.
 
 **LayerNorm** (``fused_layer_norm``, its custom VJP ``_ln`` and
-``layer_norm_reference``): an affine ``(x, w, b)`` over a 2-D
-``(rows, d)`` view, with or without a ``residual`` added before the
-statistics, x, w and b all f32 or all bf16.  Arithmetic of the TPU
-kernel, kept by both versions here:
+``layer_norm_reference``): ``(x, w, b)`` over a 2-D ``(rows, d)`` view,
+with or without a ``residual`` added before the statistics, w and b
+each optional (the no-affine variant), all f32 or all bf16.  Arithmetic
+of the TPU kernel, kept by both versions here:
 
  - with a residual the kernels normalize ``x + r``, summed in f32 and
    never stored; the backward reads x and r again to rebuild it;
@@ -35,20 +35,43 @@ kernel, kept by both versions here:
    onehot - ls / V)`` (the last term only when ``ls > 0``), 0 on ignored
    rows, stored in x's dtype.  Labels get no gradient.
 
+**LayerNorm + matmul** (``fused_ln_matmul``, the custom VJP ``_lnmm``,
+``ln_matmul_reference``): ``LayerNorm(x (+ r)) @ W (+ bias)``, W ``(d,
+n)`` read in place by its strides (a Linear's weight, or a table's
+transposed view).  The LayerNorm's arithmetic as above, its output h
+**rounded to x's dtype** before the product, f32 sums, the bias added in
+f32, the result in x's dtype.  The backward (``_lnmm_bwd``) recomputes
+h, mean and rstd with the LayerNorm forward kernel, takes ``dW = h^T g``,
+``dh = g W^T`` and the bias's f32 column sum with ``torch.matmul`` and
+reductions, and dx, the LayerNorm's dw and db with the LayerNorm
+backward kernel; the residual's gradient is dx.
+
+**Matmul + bias + gelu** (``fused_matmul_bias_gelu``, ``_mbg``,
+``matmul_bias_gelu_reference``): ``z = x @ W (+ bias)`` summed in f32,
+``y = gelu(z)`` on the f32 sum in the tanh or the erf form
+(``_gelu_f32``); the kernel stores y and z, both in x's dtype.  The
+backward (``_mbg_bwd``) takes gelu' at the saved z in f32, then the
+product's gradients with ``torch.matmul``.
+
 For each kernel:
 
  - ``*_reference``: the plain version.  Tests and ``chip_smoke.py`` hold
    the kernels against it; no CUDA path calls it.
  - :func:`layer_norm_fwd` / :func:`layer_norm_bwd` /
-   :func:`softmax_xent_fwd` / :func:`softmax_xent_bwd`: the CUDA kernels
-   of ``csrc/layer_norm.cu`` and ``csrc/softmax_xent.cu`` on CUDA
-   tensors, the plain versions on CPU tensors, and nothing else.  Each
-   counts its launches in ``.launches``; the LayerNorm wrappers count
-   their residual launches again in ``.residual_launches``.
- - :func:`fused_layer_norm` / :func:`fused_softmax_xent`: the
-   ``torch.autograd.Function``s that tie them: the forward saves the
-   statistics (mean and rstd, or lse), the backward runs the backward
-   wrapper.
+   :func:`softmax_xent_fwd` / :func:`softmax_xent_bwd` /
+   :func:`ln_matmul` / :func:`matmul_bias_gelu`: the CUDA kernels of
+   ``csrc/layer_norm.cu``, ``csrc/softmax_xent.cu`` and
+   ``csrc/block_gemm.cu`` on CUDA tensors, the plain versions on CPU
+   tensors, and nothing else.  Each counts its launches in
+   ``.launches``; the LayerNorm wrappers count their residual launches
+   again in ``.residual_launches``.
+ - :func:`fused_layer_norm` / :func:`fused_softmax_xent` /
+   :func:`fused_ln_matmul` / :func:`fused_matmul_bias_gelu`: the
+   ``torch.autograd.Function``s that tie them: the forward saves what
+   the backward reads (the statistics, lse, or the pre-activation z),
+   the backward runs the backward wrappers.
+ - :func:`fused_attention_block`: the attention cluster as the flash
+   kernels (:mod:`.pallas_ops`) at every length.
 """
 from __future__ import annotations
 
@@ -61,7 +84,10 @@ from . import _build
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
            "fused_softmax_xent", "softmax_xent_fwd", "softmax_xent_bwd",
-           "softmax_xent_fwd_reference", "softmax_xent_bwd_reference"]
+           "softmax_xent_fwd_reference", "softmax_xent_bwd_reference",
+           "fused_ln_matmul", "ln_matmul", "ln_matmul_reference",
+           "fused_matmul_bias_gelu", "matmul_bias_gelu",
+           "matmul_bias_gelu_reference", "fused_attention_block"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,34 +115,48 @@ def _ln_input(x, residual):
     return xv if residual is None else xv + residual.float()
 
 
-def layer_norm_fwd_reference(x, weight, bias, epsilon=1e-5, residual=None):
-    """Plain forward of ``x (+ residual)``: ``(y, mean, rstd)`` with the
-    kernel's one-pass f32 statistics; ``y`` in x's dtype, mean and rstd
-    f32 ``(rows,)``."""
+def _ln_affine(x, weight, bias, epsilon, residual):
+    """``(x (+ residual) - mean) * rstd (* weight) (+ bias)`` in f32, with
+    the kernel's one-pass f32 statistics: ``(h, mean, rstd)``, mean and
+    rstd ``(rows, 1)``."""
     d = x.shape[-1]
     xv = _ln_input(x, residual)
     mean = xv.sum(-1, keepdim=True) / d
     var = torch.clamp(torch.square(xv).sum(-1, keepdim=True) / d
                       - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + epsilon)
-    y = (xv - mean) * rstd * weight.float() + bias.float()
+    h = (xv - mean) * rstd
+    if weight is not None:
+        h = h * weight.float()
+    if bias is not None:
+        h = h + bias.float()
+    return h, mean, rstd
+
+
+def layer_norm_fwd_reference(x, weight, bias, epsilon=1e-5, residual=None):
+    """Plain forward of ``x (+ residual)``: ``(y, mean, rstd)`` with the
+    kernel's one-pass f32 statistics; ``y`` in x's dtype, mean and rstd
+    f32 ``(rows,)``.  ``weight`` and ``bias`` may each be None (no
+    scale, no shift)."""
+    y, mean, rstd = _ln_affine(x, weight, bias, epsilon, residual)
     return y.to(x.dtype), mean[:, 0], rstd[:, 0]
 
 
 def layer_norm_bwd_reference(g, x, weight, mean, rstd, residual=None):
     """Plain backward: ``(dx, dw, db)``; dx in x's dtype (it is also the
     residual's gradient), dw and db summed over rows in f32 and cast to
-    w's dtype."""
+    w's dtype (x's without a weight).  Without a weight ``dy = g`` and
+    dw is None; the caller drops db when the forward had no bias."""
     d = x.shape[-1]
     gv = g.float()
     xhat = (_ln_input(x, residual) - mean[:, None]) * rstd[:, None]
-    dy = gv * weight.float()
+    dy = gv if weight is None else gv * weight.float()
     c1 = dy.sum(-1, keepdim=True) / d
     c2 = (dy * xhat).sum(-1, keepdim=True) / d
     dx = (dy - c1 - xhat * c2) * rstd[:, None]
-    dw = (gv * xhat).sum(0)
-    db = gv.sum(0)
-    return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
+    wdt = x.dtype if weight is None else weight.dtype
+    dw = None if weight is None else (gv * xhat).sum(0).to(wdt)
+    return dx.to(x.dtype), dw, gv.sum(0).to(wdt)
 
 
 def _require(cond, msg, kernel="layer_norm"):
@@ -136,7 +176,8 @@ def _check(x, weight, *same, residual=None):
     """What both kernels take: CUDA, x, weight, ``same`` (bias, or g) and
     the residual (if any) of one dtype (f32 or bf16), contiguous and
     16-byte aligned, x ``(rows, d)`` with ``0 < d <= 1024`` and
-    ``d % 8 == 0``, weight ``(d,)``, the residual of x's shape."""
+    ``d % 8 == 0``, weight ``(d,)``, the residual of x's shape.  A None
+    weight or bias is the no-affine variant."""
     dev = x.device
     _require(dev.type == "cuda", f"x is on {dev}, not a CUDA device")
     _require(x.dim() == 2, f"x must be 2-D (rows, d), got {tuple(x.shape)}")
@@ -145,12 +186,14 @@ def _check(x, weight, *same, residual=None):
     rows, d = x.shape
     _require(0 < d <= _MAX_D and d % 8 == 0,
              f"d={d} must be a multiple of 8 in (0, {_MAX_D}]")
-    _require(weight.shape == (d,), f"weight must be ({d},)")
+    _require(weight is None or weight.shape == (d,), f"weight must be ({d},)")
     if residual is not None:
         _require(residual.shape == x.shape, f"the residual must have x's "
                  f"shape {tuple(x.shape)}, got {tuple(residual.shape)}")
         same = (*same, residual)
     for t in (x, weight, *same):
+        if t is None:
+            continue
         _require(t.device == dev, "all inputs must be on one CUDA device")
         _require(t.is_contiguous(), "inputs must be contiguous")
         _require(t.dtype == x.dtype, f"{t.dtype} does not match x {x.dtype}")
@@ -160,7 +203,7 @@ def _check(x, weight, *same, residual=None):
 
 def _launch_fwd(x, weight, bias, epsilon, residual=None):
     dev, rows, d = _check(x, weight, bias, residual=residual)
-    _require(bias.shape == (d,), f"bias must be ({d},)")
+    _require(bias is None or bias.shape == (d,), f"bias must be ({d},)")
     y = torch.empty_like(x)
     mean = torch.empty(rows, dtype=torch.float32, device=dev)
     rstd = torch.empty(rows, dtype=torch.float32, device=dev)
@@ -168,7 +211,7 @@ def _launch_fwd(x, weight, bias, epsilon, residual=None):
         return y, mean, rstd
     lib = _build.load("layer_norm", _SIGNATURES)
     status = lib.ptt_layer_norm_fwd(
-        x.data_ptr(), _ptr(residual), weight.data_ptr(), bias.data_ptr(),
+        x.data_ptr(), _ptr(residual), _ptr(weight), _ptr(bias),
         y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, d,
         float(epsilon), _DTYPE_CODE[x.dtype], _stream(dev))
     _build.check(lib, status, "layer_norm_fwd")
@@ -184,16 +227,17 @@ def _launch_bwd(g, x, weight, mean, rstd, residual=None):
                  f"mean and rstd must be contiguous float32 ({rows},) on "
                  f"{dev}")
     dx = torch.empty_like(x)
-    dw = torch.empty_like(weight)
-    db = torch.empty_like(weight)
+    wdt = x.dtype if weight is None else weight.dtype
+    dw = None if weight is None else torch.empty(d, dtype=wdt, device=dev)
+    db = torch.empty(d, dtype=wdt, device=dev)
     if rows == 0:
-        return dx, dw.zero_(), db.zero_()
+        return dx, None if dw is None else dw.zero_(), db.zero_()
     nparts = min(-(-rows // _ROWS_PER_BLOCK), _BWD_MAX_BLOCKS)
     parts = torch.empty((2, nparts, d), dtype=torch.float32, device=dev)
     lib = _build.load("layer_norm", _SIGNATURES)
     status = lib.ptt_layer_norm_bwd(
-        g.data_ptr(), x.data_ptr(), _ptr(residual), weight.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        g.data_ptr(), x.data_ptr(), _ptr(residual), _ptr(weight),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dw),
         db.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, d,
         nparts, _DTYPE_CODE[x.dtype], _stream(dev))
     _build.check(lib, status, "layer_norm_bwd")
@@ -249,13 +293,14 @@ class _LayerNorm(torch.autograd.Function):
         dx, dw, db = layer_norm_bwd(g.contiguous(), x, weight, mean, rstd,
                                     residual)
         dr = None if residual is None else dx.to(residual.dtype)
-        return dx, dw, db, dr, None
+        return dx, dw, db if ctx.needs_input_grad[2] else None, dr, None
 
 
-def fused_layer_norm(x, weight, bias, epsilon=1e-5, residual=None):
+def fused_layer_norm(x, weight=None, bias=None, epsilon=1e-5, residual=None):
     """LayerNorm over the last axis of a 2-D ``(rows, d)`` x, or of ``x +
     residual`` (summed in f32, never stored), with gradients for x,
-    weight, bias and the residual; output in x's dtype."""
+    weight, bias and the residual; output in x's dtype.  ``weight`` and
+    ``bias`` may each be None (the no-affine variant)."""
     if x.dim() != 2:
         raise ValueError(f"fused_layer_norm expects 2-D input, got "
                          f"{tuple(x.shape)}")
@@ -422,3 +467,266 @@ def fused_softmax_xent(logits, labels, *, ignore_index=-100,
     labels = labels.reshape(logits.shape[0]).to(torch.int32).contiguous()
     return _SoftmaxXent.apply(logits.contiguous(), labels, int(ignore_index),
                               float(label_smoothing))
+
+
+# -- the fusion pass's block kernels -------------------------------------------
+
+_GEMM_SIGNATURES = {
+    "ptt_ln_matmul": (_P,) * 7 + (_I, _I, _I, ctypes.c_longlong,
+                                  ctypes.c_longlong, ctypes.c_float, _I, _P),
+    "ptt_matmul_bias_gelu": (_P,) * 5 + (_I, _I, _I, ctypes.c_longlong,
+                                         ctypes.c_longlong, _I, _I, _P),
+}
+_SQRT_2_OVER_PI = 0.7978845608028654
+_TANH_CUBIC = 0.044715
+_SQRT_HALF = 0.7071067811865476
+
+
+def _gelu_f32(z, approximate):
+    """gelu of an f32 tensor, the tanh form or the erf form, as the TPU
+    kernel's ``_gelu_f32`` writes them."""
+    if approximate:
+        inner = _SQRT_2_OVER_PI * (z + _TANH_CUBIC * z * z * z)
+        return 0.5 * z * (1.0 + torch.tanh(inner))
+    return 0.5 * z * (1.0 + torch.erf(z * _SQRT_HALF))
+
+
+def ln_matmul_reference(x, weight, ln_weight=None, ln_bias=None, bias=None,
+                        residual=None, epsilon=1e-5):
+    """Plain ``LayerNorm(x (+ residual)) @ weight (+ bias)`` with the
+    kernel's arithmetic: the sum and the one-pass statistics in f32, the
+    LayerNorm output h rounded to x's dtype, an f32 product, the bias
+    added in f32, the result in x's dtype.  x ``(rows, d)``, weight
+    ``(d, n)``."""
+    h, _, _ = _ln_affine(x, ln_weight, ln_bias, epsilon, residual)
+    acc = torch.matmul(h.to(x.dtype).float(), weight.float())
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(x.dtype)
+
+
+def matmul_bias_gelu_reference(x, weight, bias=None, approximate=True):
+    """Plain ``(gelu(z), z)`` with ``z = x @ weight (+ bias)`` summed in
+    f32, gelu taken on the f32 sum; both in x's dtype (z is what the
+    backward reads)."""
+    z = torch.matmul(x.float(), weight.float())
+    if bias is not None:
+        z = z + bias.float()
+    return _gelu_f32(z, approximate).to(x.dtype), z.to(x.dtype)
+
+
+def _check_gemm(x, weight, bias, *more, max_k=None, kernel):
+    """What the block kernels take: CUDA, x ``(rows, k)`` contiguous, the
+    weight ``(k, n)`` with unit stride along n or along k (a transposed
+    view is read in place), the bias ``(n,)`` and ``more`` (the
+    LayerNorm's weight and bias, the residual) of one dtype (f32 or
+    bf16), 16-byte aligned; k a multiple of 8 (at most ``max_k``), n of
+    16 bytes.  Returns ``(rows, k, n, sw_k, sw_n)``."""
+    def req(cond, msg):
+        _require(cond, msg, kernel)
+
+    dev = x.device
+    req(dev.type == "cuda", f"x is on {dev}, not a CUDA device")
+    req(x.dim() == 2 and weight.dim() == 2,
+        f"x and weight must be 2-D, got {tuple(x.shape)} and "
+        f"{tuple(weight.shape)}")
+    req(x.dtype in _DTYPE_CODE, f"dtype {x.dtype} not in (float32, bfloat16)")
+    rows, k = x.shape
+    n = weight.shape[1]
+    vec = 16 // x.element_size()
+    req(weight.shape[0] == k, f"weight {tuple(weight.shape)} does not take "
+        f"x's {k} columns")
+    req(k % 8 == 0 and n % vec == 0 and (max_k is None or k <= max_k),
+        f"k={k} must be a multiple of 8{f' up to {max_k}' if max_k else ''}"
+        f" and n={n} of {vec}")
+    req(rows < 2 ** 31 and 0 < k and 0 < n and -(-rows // 32) <= 65535,
+        f"{rows} rows is out of range")
+    sw_k, sw_n = weight.stride()
+    req((sw_n == 1 and sw_k % vec == 0) or (sw_k == 1 and sw_n % vec == 0),
+        f"weight strides {weight.stride()} need unit stride along k or n "
+        f"and 16-byte aligned rows")
+    req(x.is_contiguous(), "x must be contiguous")
+    for t in (x, weight, bias, *more):
+        if t is None:
+            continue
+        req(t.device == dev, "all inputs must be on one CUDA device")
+        req(t.dtype == x.dtype, f"{t.dtype} does not match x {x.dtype}")
+        req(t.data_ptr() % 16 == 0, "inputs must be 16-byte aligned")
+    for t in (bias, *more[:2]):
+        if t is not None:
+            req(t.is_contiguous() and t.dim() == 1,
+                "the biases and LayerNorm weights must be contiguous 1-D")
+    req(bias is None or bias.shape == (n,), f"bias must be ({n},)")
+    return rows, k, n, sw_k, sw_n
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its start is not 16-byte aligned (as
+    the reference pads its inputs)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon):
+    x, residual = _aligned(x), _aligned(residual)
+    rows, k, n, sw_k, sw_n = _check_gemm(
+        x, weight, bias, ln_weight, ln_bias, residual, max_k=_MAX_D,
+        kernel="ln_matmul")
+    for t, what in ((ln_weight, "the LayerNorm weight"),
+                    (ln_bias, "the LayerNorm bias")):
+        _require(t is None or t.shape == (k,), f"{what} must be ({k},)",
+                 "ln_matmul")
+    _require(residual is None or (residual.shape == x.shape
+                                  and residual.is_contiguous()),
+             f"the residual must be contiguous {tuple(x.shape)}", "ln_matmul")
+    y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return y
+    lib = _build.load("block_gemm", _GEMM_SIGNATURES)
+    status = lib.ptt_ln_matmul(
+        x.data_ptr(), _ptr(residual), _ptr(ln_weight), _ptr(ln_bias),
+        weight.data_ptr(), _ptr(bias), y.data_ptr(), rows, k, n, sw_k, sw_n,
+        float(epsilon), _DTYPE_CODE[x.dtype], _stream(x.device))
+    _build.check(lib, status, "ln_matmul")
+    return y
+
+
+def _launch_matmul_bias_gelu(x, weight, bias, approximate):
+    x = _aligned(x)
+    rows, k, n, sw_k, sw_n = _check_gemm(x, weight, bias,
+                                         kernel="matmul_bias_gelu")
+    y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(y)
+    if rows == 0:
+        return y, z
+    lib = _build.load("block_gemm", _GEMM_SIGNATURES)
+    status = lib.ptt_matmul_bias_gelu(
+        x.data_ptr(), weight.data_ptr(), _ptr(bias), y.data_ptr(),
+        z.data_ptr(), rows, k, n, sw_k, sw_n, int(bool(approximate)),
+        _DTYPE_CODE[x.dtype], _stream(x.device))
+    _build.check(lib, status, "matmul_bias_gelu")
+    return y, z
+
+
+def ln_matmul(x, weight, ln_weight=None, ln_bias=None, bias=None,
+              residual=None, epsilon=1e-5):
+    """``LayerNorm(x (+ residual)) @ weight (+ bias)`` of a ``(rows, d)``
+    x and a ``(d, n)`` weight: ``(rows, n)`` in x's dtype.  The CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors;
+    ``ln_matmul.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return ln_matmul_reference(x, weight, ln_weight, ln_bias, bias,
+                                   residual, epsilon)
+    out = _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual,
+                            epsilon)
+    ln_matmul.launches += 1
+    return out
+
+
+ln_matmul.launches = 0
+
+
+def matmul_bias_gelu(x, weight, bias=None, approximate=True):
+    """``(gelu(z), z)``, ``z = x @ weight (+ bias)``, of a ``(rows, k)`` x
+    and a ``(k, n)`` weight, both in x's dtype.  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors;
+    ``matmul_bias_gelu.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return matmul_bias_gelu_reference(x, weight, bias, approximate)
+    out = _launch_matmul_bias_gelu(x, weight, bias, approximate)
+    matmul_bias_gelu.launches += 1
+    return out
+
+
+matmul_bias_gelu.launches = 0
+
+
+class _LnMatmul(torch.autograd.Function):
+    """Forward: the LayerNorm + matmul kernel.  Backward (``_lnmm_bwd``):
+    h, mean and rstd recomputed by the LayerNorm forward kernel (no
+    ``(rows, d)`` activation kept), the product's gradients by
+    ``torch.matmul`` with f32 sums, dx and the LayerNorm's dw, db by the
+    LayerNorm backward kernel; the residual's gradient is dx."""
+
+    @staticmethod
+    def forward(ctx, x, weight, ln_weight, ln_bias, bias, residual, epsilon):
+        y = ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon)
+        ctx.save_for_backward(x, weight, ln_weight, ln_bias, residual)
+        ctx.epsilon = epsilon
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, ln_weight, ln_bias, residual = ctx.saved_tensors
+        g = g.contiguous()
+        h, mean, rstd = layer_norm_fwd(x, ln_weight, ln_bias, ctx.epsilon,
+                                       residual)
+        dw = torch.matmul(h.t(), g).to(weight.dtype)
+        dmb = (None if ctx.bias_dtype is None
+               else g.sum(0, dtype=torch.float32).to(ctx.bias_dtype))
+        dh = torch.matmul(g, weight.t()).to(x.dtype)
+        dx, dlw, dlb = layer_norm_bwd(dh, x, ln_weight, mean, rstd, residual)
+        dr = None if residual is None else dx.to(residual.dtype)
+        return (dx, dw, dlw, dlb if ln_bias is not None else None, dmb, dr,
+                None)
+
+
+class _MatmulBiasGelu(torch.autograd.Function):
+    """Forward: the matmul + bias + gelu kernel, which also stores the
+    pre-activation z.  Backward (``_mbg_bwd``): ``dz = g * gelu'(z)`` at the
+    saved z, in f32 and rounded once to x's dtype (PyTorch's elementwise
+    ``gelu_backward``, one pass), then the product's gradients by
+    ``torch.matmul``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, approximate):
+        y, z = matmul_bias_gelu(x, weight, bias, approximate)
+        ctx.save_for_backward(x, weight, z)
+        ctx.approximate = approximate
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, z = ctx.saved_tensors
+        dz = torch.ops.aten.gelu_backward(
+            g.to(z.dtype), z, approximate="tanh" if ctx.approximate else "none")
+        dx = torch.matmul(dz, weight.t()).to(x.dtype)
+        dw = torch.matmul(x.t(), dz).to(weight.dtype)
+        db = (None if ctx.bias_dtype is None
+              else dz.sum(0, dtype=torch.float32).to(ctx.bias_dtype))
+        return dx, dw, db, None
+
+
+def fused_ln_matmul(x, weight, ln_weight=None, ln_bias=None, bias=None,
+                    residual=None, *, epsilon=1e-5):
+    """(residual +) LayerNorm + matmul (+ bias) as one kernel launch,
+    with gradients for every tensor: x ``(rows, d)``, weight ``(d, n)``
+    (a transposed view is read in place), the rest optional; returns
+    ``(rows, n)`` in x's dtype."""
+    if x.dim() != 2 or weight.dim() != 2:
+        raise ValueError(f"fused_ln_matmul expects 2-D x and weight, got "
+                         f"{tuple(x.shape)} @ {tuple(weight.shape)}")
+    if residual is not None:
+        residual = residual.contiguous()
+    return _LnMatmul.apply(x.contiguous(), weight, ln_weight, ln_bias, bias,
+                           residual, float(epsilon))
+
+
+def fused_matmul_bias_gelu(x, weight, bias=None, *, approximate=True):
+    """``gelu(x @ weight + bias)`` with the activation on the f32 sum, as
+    one kernel launch, with gradients for x, weight and bias: x ``(rows,
+    k)``, weight ``(k, n)``; returns ``(rows, n)`` in x's dtype."""
+    if x.dim() != 2 or weight.dim() != 2:
+        raise ValueError(f"fused_matmul_bias_gelu expects 2-D x and weight, "
+                         f"got {tuple(x.shape)} @ {tuple(weight.shape)}")
+    return _MatmulBiasGelu.apply(x.contiguous(), weight, bias,
+                                 bool(approximate))
+
+
+def fused_attention_block(q, k, v, *, causal=False):
+    """The attention score, softmax and weighted-sum cluster as the flash
+    kernels ((B, H, S, D) layout, :func:`.pallas_ops.mha`, scale
+    ``1 / sqrt(D)``), at every length."""
+    from .pallas_ops import mha
+    return mha(q, k, v, causal=causal)

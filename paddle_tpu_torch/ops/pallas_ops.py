@@ -2,16 +2,20 @@
 
 The counterpart of the fixed-length part of ``paddle_tpu/ops/pallas_ops.py``
 (``_fwd``, ``_bwd``, the custom VJP ``_flash``, ``mha`` and
-``flash_attention``), for the variant the training step runs:
-``q_len == kv_len``, causal or not, attention dropout on or off.  The
-``seq_lens``, ``causal_shift`` and lse-cotangent variants (varlen and
-ring attention) are not ported.
+``flash_attention``) for fixed lengths: ``q_len`` and ``kv_len`` equal or
+not, causal or not, attention dropout on or off, any head size up to 128
+(the kernels take 32, 64 and 128; the wrappers zero-pad the others up to
+the next, as the TPU wrapper pads to 128 lanes, and slice the results
+back).  The ``seq_lens``, ``causal_shift`` and lse-cotangent variants
+(varlen and ring attention) are not ported.
 
 Arithmetic of the TPU kernels, kept by both versions here:
 
  - scores ``s = q k^T * scale`` with f32 sums, masked to -1e30 (causal:
    key ``<= query``); ``lse = m + log(l)`` in f32, where ``l`` sums the
    undropped ``p = exp(s - m)`` and a row with ``l == 0`` divides by 1;
+ - causal keeps key ``j`` for query ``i`` when ``j <= i + kv_len -
+   q_len``: the diagonal aligned to the end (``_key_mask``);
  - dropout keeps an element when a hash of its global ``(bh, q, k)``
    coordinates passes the threshold (:func:`keep_mask`) and scales the
    kept ``p`` by ``1 / (1 - p_drop)`` in the numerator only;
@@ -53,7 +57,7 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_TAIL = (_P, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P)
+_TAIL = (_P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P)
 _SIGNATURES = {
     "ptt_flash_fwd": (_P,) * 6 + _TAIL,
     "ptt_flash_bwd_dq": (_P,) * 8 + _TAIL,
@@ -207,32 +211,51 @@ def _require(cond, msg):
 
 
 def _check(q, k, v, *more):
-    """What the kernels take: q, k, v (and ``more``) on one CUDA device,
-    one dtype (f32 or bf16), one shape ``(B, S, H, D)`` with D in
-    (32, 64, 128), unit stride in D, 16-byte aligned rows.  Returns
-    ``(B, S, H, D)`` and the 12 strides (b, s, h of q, k, v and the
-    fourth tensor)."""
+    """What the kernels take: q, k, v (and ``more``, do) on one CUDA
+    device, one dtype (f32 or bf16); q (and do) ``(B, Sq, H, D)``, k and v
+    ``(B, Sk, H, D)`` with D in (32, 64, 128), unit stride in D, 16-byte
+    aligned rows.  Returns ``(B, Sq, Sk, H, D)`` and the 12 strides (b, s,
+    h of q, k, v and the fourth tensor)."""
     dev = q.device
     _require(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
-    _require(q.dim() == 4, f"q must be (B, S, H, D), got {tuple(q.shape)}")
+    _require(q.dim() == 4 and k.dim() == 4,
+             f"q and k must be (B, S, H, D), got {tuple(q.shape)} and "
+             f"{tuple(k.shape)}")
     _require(q.dtype in _DTYPE_CODE,
              f"dtype {q.dtype} not in (float32, bfloat16)")
-    b, s, h, d = q.shape
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     _require(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
     _require(b * h <= 65535, f"B * H = {b * h} > 65535")
+    _require(sq > 0 and sk > 0, "q_len and kv_len must be positive")
     vec = 16 // q.element_size()
-    for t in (q, k, v, *more):
+    for t, want in ((q, q.shape), (k, (b, sk, h, d)), (v, (b, sk, h, d)),
+                    *((t, q.shape) for t in more)):
         _require(t.device == dev, "all inputs must be on one CUDA device")
         _require(t.dtype == q.dtype, f"{t.dtype} does not match q {q.dtype}")
-        _require(t.shape == q.shape, f"shape {tuple(t.shape)} is not q's "
-                 f"{tuple(q.shape)} (q_len must equal kv_len)")
+        _require(t.shape == want, f"shape {tuple(t.shape)} is not "
+                 f"{tuple(want)} (k and v share kv_len, do is q's shape)")
         _require(t.stride(3) == 1, "the head dim must have unit stride")
         _require(t.data_ptr() % 16 == 0 and all(
             st % vec == 0 for st in t.stride()[:3]),
             "rows must be 16-byte aligned")
     strides = [st for t in (q, k, v, *more) for st in t.stride()[:3]]
     strides += [0] * (12 - len(strides))
-    return (b, s, h, d), (ctypes.c_longlong * 12)(*strides)
+    return (b, sq, sk, h, d), (ctypes.c_longlong * 12)(*strides)
+
+
+def _padded(*ts):
+    """``ts`` with the head dim zero-padded to the next size the kernels
+    take (the reference pads to 128 lanes): zero columns add nothing to
+    the scores, and the outputs' extra columns are sliced off.  D > 128
+    raises."""
+    d = ts[0].shape[-1]
+    dp = next((n for n in _HEAD_DIMS if n >= d), None)
+    _require(dp is not None, f"head dim {d} > {_HEAD_DIMS[-1]} is not "
+             f"supported")
+    if dp == d:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, dp - d)) for t in ts)
 
 
 def _seed_ptr(seed, dropout_p, dev):
@@ -246,8 +269,8 @@ def _seed_ptr(seed, dropout_p, dev):
 
 def _tail(shape, strides, *, causal, sm_scale, dropout_p, dtype, dev):
     """The C entries' shared trailing arguments, from ``strides`` on."""
-    b, s, h, d = shape
-    return (strides, b, h, s, d, float(sm_scale),
+    b, sq, sk, h, d = shape
+    return (strides, b, h, sq, sk, d, float(sm_scale),
             int(dropout_p * (1 << 24)),
             1.0 / (1.0 - dropout_p) if dropout_p < 1.0 else 0.0,
             int(bool(causal)), _DTYPE_CODE[dtype],
@@ -260,17 +283,19 @@ def _run(entry, args, tail, what):
 
 
 def _launch_fwd(q, k, v, seed, causal, sm_scale, dropout_p):
+    d = q.shape[-1]
+    q, k, v = _padded(q, k, v)
     shape, strides = _check(q, k, v)
-    b, s, h, d = shape
-    out = torch.empty(shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    b, sq, _, h, dp = shape
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     sp = _seed_ptr(seed, dropout_p, q.device)
     _run("ptt_flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(), sp),
          _tail(shape, strides, causal=causal, sm_scale=sm_scale,
                dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
          "flash_fwd")
-    return out, lse
+    return out[..., :d], lse
 
 
 def _check_stats(q, *stats):
@@ -283,9 +308,11 @@ def _check_stats(q, *stats):
 
 
 def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p):
+    d = q.shape[-1]
+    q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    dq = torch.empty(shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     sp = _seed_ptr(seed, dropout_p, q.device)
     _run("ptt_flash_bwd_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               do.data_ptr(), lse.data_ptr(),
@@ -293,14 +320,16 @@ def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p):
          _tail(shape, strides, causal=causal, sm_scale=sm_scale,
                dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
          "flash_bwd_dq")
-    return dq
+    return dq[..., :d]
 
 
 def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p):
+    d = q.shape[-1]
+    q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    dk = torch.empty(shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     sp = _seed_ptr(seed, dropout_p, q.device)
     _run("ptt_flash_bwd_dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                do.data_ptr(), lse.data_ptr(),
@@ -309,7 +338,7 @@ def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p):
          _tail(shape, strides, causal=causal, sm_scale=sm_scale,
                dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
          "flash_bwd_dkv")
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def _bhsd(*ts):

@@ -1,17 +1,21 @@
 """The GPT training step of ``bench.py::bench_gpt`` and the BERT
 pretraining step (MLM + NSP), and a CLI that runs either.
 
+    python -m paddle_tpu_torch.train --model gpt_345m --batch 8 --seq 1024 --no-recompute
     python -m paddle_tpu_torch.train --model gpt_345m --batch 16 --seq 1024 --steps 8
     python -m paddle_tpu_torch.train --model bert_base --batch 32 --seq 128 --steps 8
     python -m paddle_tpu_torch.train --model gpt_tiny --batch 2 --seq 64 --steps 4 --device cpu
 
-The GPT step: ``GPTForCausalLM`` (recompute per block), the causal-LM
-loss.  The BERT step: ``BertForPretraining`` (no recompute) and
-``BertPretrainingCriterion`` on a phase-1-style masked batch
-(:func:`make_bert_batch`).  Both: dropout 0.1 on the hidden states and
-the attention probabilities, AMP O2 in bf16, the loss in f32, the
-backward pass, and ``AdamW(1e-4)`` with f32 master weights and weight
-decay 0.01 on every parameter.  Batches come from
+The GPT step: ``GPTForCausalLM`` (recompute per block unless
+``--no-recompute``), the causal-LM loss.  The BERT step:
+``BertForPretraining`` (no recompute) and ``BertPretrainingCriterion`` on
+a phase-1-style masked batch (:func:`make_bert_batch`).  Both: dropout
+0.1 on the hidden states and the attention probabilities, AMP O2 in
+bf16, the loss in f32, the backward pass, and ``AdamW(1e-4)`` with f32
+master weights and weight decay 0.01 on every parameter.  The fusion
+pass (:mod:`.ops.fusion_pass`) rewrites the model's clusters to the block
+kernels unless ``--no-fusion`` or ``PT_FUSION_PASS=0``, as the JAX
+package applies it to bench's GPT step, captured steps and hapi.  Batches come from
 ``np.random.RandomState(0)``; one generator seeded with 0 draws the
 weights and then every dropout mask.  The CLI prints each step's loss
 and time, then the median step time, sequences and tokens per second.
@@ -36,6 +40,7 @@ from .incubate.models import (BertConfig, BertForPretraining,
                               BertPretrainingCriterion, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
                               bert_base, bert_tiny, gpt_345m, gpt_tiny)
+from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
 __all__ = ["TrainStep", "build_train_step", "make_batch",
@@ -55,11 +60,18 @@ class TrainStep:
     and the optimizer's update of every parameter, in place.  The
     optimizer state lives in ``self.state``; ``generator`` feeds every
     dropout.  The criterion takes the model's outputs (all of them, when
-    the model returns a tuple), then the targets."""
+    the model returns a tuple), then the targets.  With ``fusion`` (by
+    default when ``fusion_enabled()``) the model runs under the fusion
+    pass (``self.model`` is the wrapped module, on the same
+    parameters)."""
 
     def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
-                 optimizer: Optimizer, generator: torch.Generator):
-        self.model = model.train()
+                 optimizer: Optimizer, generator: torch.Generator, *,
+                 fusion: Optional[bool] = None):
+        model.train()
+        if fusion is None:
+            fusion = fusion_enabled()
+        self.model = wrap(model) if fusion else model
         self.criterion = criterion
         self.optimizer = optimizer
         self.generator = generator
@@ -91,17 +103,19 @@ class TrainStep:
 
 
 def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
-                     amp_o2: bool = True) -> TrainStep:
+                     amp_o2: bool = True,
+                     fusion: Optional[bool] = None) -> TrainStep:
     """bench_gpt's step for ``cfg`` on ``device`` (``cuda`` unless the
     CPU is asked for): weights from ``seed``, bf16 O2 unless ``amp_o2``
-    is false (f32 then), ``AdamW(1e-4, multi_precision=True)``."""
+    is false (f32 then), ``AdamW(1e-4, multi_precision=True)``, the
+    fusion pass as ``fusion`` says (:class:`TrainStep`)."""
     gen = make_generator(seed, device)
     model = GPTForCausalLM(cfg, generator=gen)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
     return TrainStep(model, GPTPretrainingCriterion(),
                      AdamW(learning_rate=1e-4, multi_precision=True),
-                     gen)
+                     gen, fusion=fusion)
 
 
 def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
@@ -116,16 +130,19 @@ def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
 
 
 def build_bert_pretrain_step(cfg: BertConfig, *, device=None, seed: int = 0,
-                             amp_o2: bool = True) -> TrainStep:
+                             amp_o2: bool = True,
+                             fusion: Optional[bool] = None) -> TrainStep:
     """The BERT pretraining step for ``cfg`` on ``device`` (``cuda``
     unless the CPU is asked for): weights from ``seed``, bf16 O2 unless
-    ``amp_o2`` is false (f32 then), ``AdamW(1e-4, multi_precision=True)``."""
+    ``amp_o2`` is false (f32 then), ``AdamW(1e-4, multi_precision=True)``,
+    the fusion pass as ``fusion`` says (:class:`TrainStep`)."""
     gen = make_generator(seed, device)
     model = BertForPretraining(cfg, generator=gen)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
     return TrainStep(model, BertPretrainingCriterion(),
-                     AdamW(learning_rate=1e-4, multi_precision=True), gen)
+                     AdamW(learning_rate=1e-4, multi_precision=True), gen,
+                     fusion=fusion)
 
 
 def make_bert_batch(cfg: BertConfig, batch: int, seq: int, seed: int = 0,
@@ -184,7 +201,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--recompute", action=argparse.BooleanOptionalAction,
+                    default=True, help="GPT: recompute each block in the "
+                    "backward pass (default on; bench_gpt's headline run "
+                    "at batch 8 has it off)")
+    ap.add_argument("--fusion", action=argparse.BooleanOptionalAction,
+                    default=None, help="the fusion pass (default: on "
+                    "unless PT_FUSION_PASS=0)")
     args = ap.parse_args(argv)
+    fusion = fusion_enabled() if args.fusion is None else args.fusion
 
     dev = resolve_device(args.device)
     family = args.model.split("_")[0]
@@ -194,15 +219,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # bench_gpt sizes the position table to the sequence at gpt_345m
         pos = {"max_position_embeddings": seq} \
             if args.model == "gpt_345m" else {}
-        cfg = CONFIGS[args.model](use_recompute=True, **pos)
-        step = build_train_step(cfg, device=dev)
+        cfg = CONFIGS[args.model](use_recompute=args.recompute, **pos)
+        step = build_train_step(cfg, device=dev, fusion=fusion)
         inputs, targets = make_batch(cfg, batch, seq, device=dev)
-        what = "recompute"
+        what = "recompute" if args.recompute else "no recompute"
     else:
         cfg = CONFIGS[args.model]()
-        step = build_bert_pretrain_step(cfg, device=dev)
+        step = build_bert_pretrain_step(cfg, device=dev, fusion=fusion)
         inputs, targets = make_bert_batch(cfg, batch, seq, device=dev)
         what = "MLM + NSP, no recompute"
+    what += f", fusion pass {'on' if fusion else 'off'}"
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"{args.model} on {name}: batch {batch} x seq {seq}, "
           f"{sum(p.numel() for p in step.params.values())} parameters, "
@@ -217,7 +243,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               flush=True)
     med = statistics.median(times[1:] if len(times) > 1 else times)
     print(json.dumps({"model": args.model, "device": name,
-                      "batch": batch, "seq": seq, "losses": losses,
+                      "batch": batch, "seq": seq, "fusion": fusion,
+                      "losses": losses,
                       "median_step_ms": med * 1e3,
                       "sequences_per_s": batch / med,
                       "tokens_per_s": batch * seq / med}), flush=True)

@@ -180,10 +180,12 @@ def test_adamw_trajectory_matches_jax(jax_short, o2):
     inputs, targets = _batch(S, seed=1)
     jm = _Jax(S, o2=True) if o2 else jax_short
     jlosses, jparams, jstate = jm.trajectory(inputs, targets)
+    # the JAX side runs without its fusion pass: so does the port here
+    # (tests/test_torch_fusion.py holds the step with the pass on)
     step = train.TrainStep(_port(jm.f32, S, o2=o2),
                            BertPretrainingCriterion(),
                            AdamW(learning_rate=LR, multi_precision=True),
-                           make_generator(0, "cpu"))
+                           make_generator(0, "cpu"), fusion=False)
     losses = [step(_torch(inputs), _torch(targets)).item()
               for _ in range(STEPS)]
     np.testing.assert_allclose(losses, jlosses, atol=2e-2 if o2 else 1e-5)
@@ -220,9 +222,12 @@ def test_kernel_calls_per_step(jax_short, monkeypatch):
                        ("xent_bwd", "softmax_xent_bwd_reference")):
         monkeypatch.setattr(tfk, name, xent(kind, getattr(tfk, name)))
     inputs, targets = _batch(S)
+    # the step as slice 4 built it, without the fusion pass (its counts
+    # with the pass are in tests/test_torch_fusion.py)
     step = train.TrainStep(_port(jax_short.f32, S),
                            BertPretrainingCriterion(),
-                           AdamW(learning_rate=LR), make_generator(0, "cpu"))
+                           AdamW(learning_rate=LR), make_generator(0, "cpu"),
+                           fusion=False)
     step(_torch(inputs), _torch(targets))
     layers = 2
     # the embeddings' and the MLM head's LayerNorm, then two with a

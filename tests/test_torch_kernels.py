@@ -153,22 +153,33 @@ def test_quantize_kv_bytes_match_jax():
 # -- the dispatch rule: CPU -> plain version, CUDA -> kernel, never both --
 
 class _FakeCuda(types.SimpleNamespace):
-    """Stands in for a CUDA tensor: its device, shape and dtype, and the
-    few members the launchers' checks read before the dispatch decision."""
+    """Stands in for a CUDA tensor: its device, shape, dtype and strides
+    (contiguous unless given), and the few members the launchers' checks
+    read before the dispatch decision."""
 
     def dim(self):
         return len(self.shape)
 
     def is_contiguous(self):
-        return True
+        return self.strides is None
 
     def data_ptr(self):
         return 0
 
+    def element_size(self):
+        return torch.empty((), dtype=self.dtype).element_size()
 
-def _cuda_like(shape, dtype=torch.bfloat16):
-    return _FakeCuda(device=torch.device("cuda", 0), shape=shape,
-                     dtype=dtype)
+    def stride(self, i=None):
+        st = self.strides
+        if st is None:
+            st = tuple(int(np.prod(self.shape[j + 1:]))
+                       for j in range(len(self.shape)))
+        return st if i is None else st[i]
+
+
+def _cuda_like(shape, dtype=torch.bfloat16, strides=None):
+    return _FakeCuda(device=torch.device("cuda", 0), shape=tuple(shape),
+                     dtype=dtype, strides=strides)
 
 
 def _forbid(*a, **k):
@@ -376,3 +387,121 @@ def test_residual_layer_norm_matches_jax_functional_in_f32():
     got = tnorm.layer_norm(*_t(x), 64, *_t(w, b), 1e-5, residual=_t(r)[0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want._data), **LN_TOL[
         "float32"])
+
+
+# -- LayerNorm without weight and bias, and the block kernels' dispatch -----
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", ["none", "weight", "bias"])
+def test_no_affine_layer_norm_and_grads_match_jax_kernel(dtype, affine):
+    # the variant the fusion pass's matches reach (weight and/or bias None)
+    x, w, b, g = _ln_inputs(37, 96, 11)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    w = w if affine == "weight" else None
+    b = b if affine == "bias" else None
+    jargs = [jnp.asarray(a, jdt) for a in (x, w, b) if a is not None]
+
+    def jfn(xx, *rest):
+        it = iter(rest)
+        return jfk.fused_layer_norm(xx, next(it) if w is not None else None,
+                                    next(it) if b is not None else None,
+                                    interpret=True)
+
+    jy, vjp = jax.vjp(jfn, *jargs)
+    jgrads = vjp(jnp.asarray(g, jdt))
+    targs = [torch.from_numpy(a).to(tdt).requires_grad_()
+             for a in (x, w, b) if a is not None]
+    it = iter(targs[1:])
+    ty = tfk.fused_layer_norm(targs[0], next(it) if w is not None else None,
+                              next(it) if b is not None else None, 1e-5)
+    ty.backward(torch.from_numpy(g).to(tdt))
+    for got, want in zip((ty, *(t.grad for t in targs)), (jy, *jgrads)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **LN_TOL[dtype])
+
+
+def test_no_affine_layer_norm_functional_and_check():
+    x, _, _, _ = _ln_inputs(6, 32, 3)
+    got = tnorm.layer_norm(_t(x)[0], 32, None, None)
+    want = tfk.layer_norm_fwd_reference(_t(x)[0], torch.ones(32),
+                                        torch.zeros(32))[0]
+    assert torch.equal(got, want)
+    xc = _cuda_like((4, 16))
+    assert tfk._check(xc, None, None)[1:] == (4, 16)
+
+
+def test_cuda_tensor_never_reaches_plain_block_kernels(monkeypatch):
+    monkeypatch.setattr(tfk, "ln_matmul_reference", _forbid)
+    monkeypatch.setattr(tfk, "matmul_bias_gelu_reference", _forbid)
+    monkeypatch.setattr(tfk, "_launch_ln_matmul", lambda *a: "y")
+    monkeypatch.setattr(tfk, "_launch_matmul_bias_gelu",
+                        lambda *a: ("y", "z"))
+    before = (tfk.ln_matmul.launches, tfk.matmul_bias_gelu.launches)
+    x = _cuda_like((4, 16))
+    assert tfk.ln_matmul(x, x) == "y"
+    assert tfk.matmul_bias_gelu(x, x) == ("y", "z")
+    assert (tfk.ln_matmul.launches, tfk.matmul_bias_gelu.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_cpu_block_kernels_take_plain_versions_without_counting(monkeypatch):
+    monkeypatch.setattr(tfk, "_launch_ln_matmul", _forbid)
+    monkeypatch.setattr(tfk, "_launch_matmul_bias_gelu", _forbid)
+    before = (tfk.ln_matmul.launches, tfk.matmul_bias_gelu.launches)
+    x, w = torch.randn(5, 16, requires_grad=True), torch.randn(16, 24)
+    (tfk.fused_ln_matmul(x, w).sum()
+     + tfk.fused_matmul_bias_gelu(x, w).sum()).backward()
+    assert x.grad is not None
+    assert (tfk.ln_matmul.launches, tfk.matmul_bias_gelu.launches) == before
+
+
+def test_block_kernel_checks_take_what_the_kernels_take():
+    x, vec = _cuda_like((64, 96)), _cuda_like((200,))
+    # a Linear weight (k, n), n contiguous, and a table's transposed view
+    assert tfk._check_gemm(x, _cuda_like((96, 200)), vec,
+                           kernel="t") == (64, 96, 200, 200, 1)
+    view = _cuda_like((96, 200), strides=(1, 96))
+    assert tfk._check_gemm(x, view, vec, kernel="t") == (64, 96, 200, 1, 96)
+    assert tfk._check_gemm(x, view, None, _cuda_like((96,)), None,
+                           _cuda_like((64, 96)), max_k=1024,
+                           kernel="t")[:3] == (64, 96, 200)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("meta", "not a CUDA device"),
+    ("dtype", "does not match x"),
+    ("k", "multiple of 8"),
+    ("n", "multiple of 8"),
+    ("max_k", "up to 64"),
+    ("strides", "unit stride"),
+    ("shape", "does not take"),
+    ("bias", r"bias must be \(200,\)"),
+    ("x_view", "contiguous"),
+])
+def test_block_kernel_checks_raise_on_what_the_kernels_do_not_take(case,
+                                                                    match):
+    x, w, b = _cuda_like((64, 96)), _cuda_like((96, 200)), _cuda_like((200,))
+    kw = {}
+    if case == "meta":
+        x = torch.zeros(64, 96, device="meta")
+    elif case == "dtype":
+        b = _cuda_like((200,), torch.float32)
+    elif case == "k":
+        x, w = _cuda_like((64, 92)), _cuda_like((92, 200))
+    elif case == "n":
+        w, b = _cuda_like((96, 196)), _cuda_like((196,))
+    elif case == "max_k":
+        kw["max_k"] = 64
+    elif case == "strides":
+        w = _cuda_like((96, 200), strides=(400, 2))
+    elif case == "shape":
+        w = _cuda_like((64, 200))
+    elif case == "bias":
+        b = _cuda_like((100,))
+    elif case == "x_view":
+        x = _cuda_like((64, 96), strides=(192, 1))
+    with pytest.raises(ValueError, match=match):
+        tfk._check_gemm(x, w, b, kernel="t", **kw)
