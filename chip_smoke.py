@@ -21,6 +21,17 @@ line is printed:
              30528) logits with 84% of the rows ignored and over the NSP
              head's (32, 2), then ragged vocabularies); flash at cross
              lengths (kv_len != q_len) and padded head sizes (48, 96);
+             flash with ``seq_lens``, with ``causal_shift`` (one shift
+             leaving rows no key, one leaving every row none), with an lse
+             cotangent folded into delta, and at head sizes 160 (padded to
+             256) and 256, bf16 and f32; the packed varlen kernels at
+             bench_packed's sequences (8 packed causal sequences of
+             64..1024 tokens, 16 heads of 64, bf16, dropout 0 (timed, with
+             PyTorch's ``varlen_attn`` as the library yardstick where this
+             torch has it, else SDPA on the padded batch) and 0.1), then
+             f32, cross lengths with rows that see no key, sequences of
+             length 0, no mask, head sizes 48 and 256 and other
+             ``block_q``/``block_k`` for the dropout hash's layout;
              LayerNorm without weight and bias; the fusion pass's block
              kernels at the shapes of its paths (LayerNorm + matmul at
              gpt_345m's (8192, 1024) @ (1024, 3072) and BERT's tied
@@ -90,6 +101,17 @@ line is printed:
              rewritten too); then the same step with the pass on and off
              in turns, timed; then bert_base at 32 x 128 with the pass
              on, 8 steps, its rewrites and launches per step.
+10. packed   ``bench.py::bench_packed`` on the port:
+             ``F.flash_attn_unpadded`` over the 8 packed causal sequences
+             of 64..1024 tokens (3392 tokens, 16 heads of 64, bf16),
+             forward and backward, 10 iterations updating q by dq * 1e-3,
+             the counters set to 0 just before and read just after (rows
+             4-6 once each an iteration, no row 1-3), against the same
+             tokens through the padded flash kernels at (8, 1024, 16, 64):
+             out and dq on the valid rows, ms an iteration, tokens/s, the
+             padded / packed ratio, each side's device busy time, the
+             host's time to build and upload the packed layout; then 2
+             iterations at dropout 0.1 with the run's generator.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -99,6 +121,8 @@ it.
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import itertools
 import json
 import math
 import statistics
@@ -151,6 +175,11 @@ XENT_TOL = {"loss": 1e-5, "f32": 1e-6, "bf16": "1 ulp"}
 FLASH_TOL = {"f32": dict(abs=2e-5, grad=1e-4),
              "bf16": dict(abs=TOL["bf16"], rel=TOL["bf16"])}
 FLASH_DROPOUT, FLASH_SEED = 0.1, 20250917
+# bench.py::bench_packed: 8 packed causal sequences of 64..1024 tokens (3392
+# against 8 x 1024 padded), gpt_345m's attention (16 heads of 64), bf16
+PACKED_LENS = [64, 128, 896, 256, 1024, 192, 512, 320]
+PACKED_HEADS, PACKED_HD, PACKED_ITERS = 16, 64, 10
+PACKED_PATH = "packed 8 seqs 64..1024"
 
 REPLACES = {
     "paged_attention": "paddle_tpu/ops/paged_attention.py:144",
@@ -161,6 +190,9 @@ REPLACES = {
     "flash_fwd": "paddle_tpu/ops/pallas_ops.py:233",
     "flash_bwd_dq": "paddle_tpu/ops/pallas_ops.py:396",
     "flash_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:418",
+    "flash_packed_fwd": "paddle_tpu/ops/pallas_ops.py:930",
+    "flash_packed_bwd_dq": "paddle_tpu/ops/pallas_ops.py:978",
+    "flash_packed_bwd_dkv": "paddle_tpu/ops/pallas_ops.py:1005",
     "softmax_xent_fwd": "paddle_tpu/ops/fused_kernels.py:445",
     "softmax_xent_bwd": "paddle_tpu/ops/fused_kernels.py:476",
     "ln_matmul": "paddle_tpu/ops/fused_kernels.py:792",
@@ -175,6 +207,9 @@ SOURCES = {
     "flash_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_packed_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_packed_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_packed_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
     "softmax_xent_fwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
     "softmax_xent_bwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
     "ln_matmul": "paddle_tpu_torch/csrc/block_gemm.cu",
@@ -182,6 +217,8 @@ SOURCES = {
 }
 SERVE_KERNELS = ("paged_attention", "paged_attention_int8", "w8a16_matmul")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PACKED_KERNELS = ("flash_packed_fwd", "flash_packed_bwd_dq",
+                  "flash_packed_bwd_dkv")
 LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_bwd")
 TRAIN_KERNELS = LN_KERNELS + FLASH_KERNELS
@@ -422,6 +459,8 @@ def phase_kernels(timer):
         for name, row in _flash_entries(timer, gen, tag, shape, causal,
                                         False, kv_len=kv).items():
             results[name].append(row)
+    _flash_variant_rows(timer, gen, results)
+    _packed_rows(timer, gen, results)
 
     # LayerNorm without weight and bias (the fusion pass's matches reach it)
     for tag, dtype, rows, d in (("bf16", torch.bfloat16, 4096, 768),
@@ -665,15 +704,18 @@ def _flash_err(out, want, tag, key):
     return err.max().item(), finite and ok
 
 
-def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None):
+def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
+                   seq_lens=None, causal_shift=None, dlse=False):
     """The three flash kernels against their plain versions on one shape:
     q, k and v read in place from one ``(B, S, H, 3 * D)`` tensor as the
     model's QKV projection gives them (with ``kv_len``: q alone, k and v
     from one ``(B, kv_len, H, 2 * D)`` tensor), dropout ``FLASH_DROPOUT``
     with a fixed seed; every kernel fed the same inputs as its plain
     version (the backward ones the kernel forward's lse and one delta);
-    dq, dk and dv bit-identical over two runs.  ``timed``: kernel, plain
-    and library times and the bounds."""
+    dq, dk and dv bit-identical over two runs.  ``seq_lens`` (a list) and
+    ``causal_shift`` (an int) are the masks' variants, passed as int32
+    tensors on the card; ``dlse`` folds a random lse cotangent into delta.
+    ``timed``: kernel, plain and library times and the bounds."""
     from paddle_tpu_torch.ops import pallas_ops as po
     dtype = torch.bfloat16 if tag == "bf16" else torch.float32
     b, s, h, d = shape
@@ -690,8 +732,17 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None):
     seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
     opts = dict(causal=causal, sm_scale=1.0 / math.sqrt(d),
                 dropout_p=FLASH_DROPOUT)
+    if seq_lens is not None:
+        opts["seq_lens"] = torch.tensor(seq_lens, dtype=torch.int32,
+                                        device=DEVICE)
+    if causal_shift is not None:
+        opts["causal_shift"] = torch.tensor(causal_shift, dtype=torch.int32,
+                                            device=DEVICE)
     out, lse = po.flash_fwd(q, k, v, seed, **opts)
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+    if dlse:
+        delta = delta - torch.randn(b, h, s, generator=gen, device=DEVICE)
+    delta = delta.contiguous()
     bwd_args = (q, k, v, do, lse, delta, seed)
     dq = po.flash_bwd_dq(*bwd_args, **opts)
     dk, dv = po.flash_bwd_dkv(*bwd_args, **opts)
@@ -714,7 +765,10 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None):
     del out_ref, dq_ref, dk_ref, dv_ref
     variant = (f"{tag} B={b} S={s}{'' if kv_len is None else f' kv={kv_len}'}"
                f" H={h} D={d} {'causal' if causal else 'full'} dropout "
-               f"{FLASH_DROPOUT}")
+               f"{FLASH_DROPOUT}"
+               + ("" if seq_lens is None else f" seq_lens {seq_lens}")
+               + ("" if causal_shift is None else f" shift {causal_shift}")
+               + (" lse cotangent" if dlse else ""))
     log(f"[kernel] flash[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
         + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
@@ -795,6 +849,240 @@ def _sdpa_times(timer, q, k, v, do, causal):
         fwd = timer(lambda: sdpa(qc, kc, vc, is_causal=causal))
         both = timer(fwd_bwd)
     return fwd, both - fwd
+
+
+def _flash_variant_rows(timer, gen, results):
+    """Rows 1-3 with the masks' variants (``seq_lens``, ``causal_shift``,
+    one shift leaving every row of a tile no key), an lse cotangent, and
+    head sizes 160 (padded to 256) and 256, in bf16 and f32."""
+    shapes = [((2, 512, 4, 64), True, dict(seq_lens=[300, 512])),
+              ((2, 256, 4, 64), False, dict(seq_lens=[0, 200])),
+              ((1, 256, 4, 64), True, dict(kv_len=384, causal_shift=100)),
+              ((1, 256, 4, 64), True, dict(causal_shift=-100)),
+              ((1, 128, 2, 64), True, dict(causal_shift=-200)),
+              ((2, 512, 4, 64), True, dict(dlse=True)),
+              ((1, 200, 2, 160), True, dict(kv_len=264)),
+              ((2, 256, 2, 256), True, dict(dlse=True)),
+              ((1, 130, 2, 256), False, dict(seq_lens=[77]))]
+    for tag in ("bf16", "f32"):
+        for shape, causal, kw in shapes:
+            for name, row in _flash_entries(timer, gen, tag, shape, causal,
+                                            False, **kw).items():
+                results[name].append(row)
+
+
+def _kept_pairs(lq, lk, causal):
+    """(query, key) pairs one sequence pair keeps: all, or those on and
+    below the bottom-right diagonal."""
+    if not causal:
+        return lq * lk
+    return sum(max(0, min(lk, i + lk - lq + 1)) for i in range(lq))
+
+
+def _packed_rows(timer, gen, results):
+    """Rows 4-6: bench_packed's sequences first (bf16, causal, dropout 0,
+    timed with the library's yardstick, then dropout 0.1), then small
+    sets: f32, cross lengths (some ``len_q > len_k``, rows with no key),
+    sequences of length 0, no mask, head sizes 48 and 256, and other
+    ``block_q``/``block_k`` for the dropout hash's layout."""
+    cross_q, cross_k = [50, 7, 130, 0, 64], [20, 33, 100, 15, 64]
+    sets = [("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
+             0.0, (None, None), True),
+            ("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
+             FLASH_DROPOUT, (None, None), False)]
+    for tag in ("f32", "bf16"):
+        sets += [(tag, [37, 0, 130, 64, 5], [37, 0, 130, 64, 5], 4, 64, True,
+                  FLASH_DROPOUT, (None, None), False),
+                 (tag, cross_q, cross_k, 4, 64, True, FLASH_DROPOUT,
+                  (None, None), False),
+                 (tag, cross_q, cross_k, 4, 64, False, FLASH_DROPOUT,
+                  (128, 64), False),
+                 (tag, [100, 0, 77, 200], [100, 0, 77, 200], 2, 48, True,
+                  FLASH_DROPOUT, (64, 128), False),
+                 (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 256, True,
+                  FLASH_DROPOUT, (None, None), False)]
+    for tag, lq, lk, h, d, causal, p, blocks, timed in sets:
+        for name, row in _packed_entries(timer, gen, tag, lq, lk, h, d,
+                                         causal, p, blocks, timed).items():
+            results.setdefault(name, []).append(row)
+        torch.cuda.empty_cache()
+
+
+def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
+                    blocks, timed):
+    """The three packed kernels against their plain versions on one set of
+    sequences: q, k and v read in place from one ``(total, H, 3 * D)``
+    tensor as a QKV projection gives them (cross lengths: q alone, k and v
+    from one ``(total_k, H, 2 * D)`` tensor); every kernel fed the same
+    inputs as its plain version (the backward ones the kernel forward's lse
+    and one delta); dq, dk and dv bit-identical over two runs.  ``blocks``
+    (block_q, block_k) set the dropout hash's layout.  ``timed``: kernel,
+    plain and library times and the bounds."""
+    from paddle_tpu_torch.ops import pallas_ops as po
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    tq, tk = sum(lens_q), sum(lens_k)
+    cu_q = [0, *itertools.accumulate(lens_q)]
+    cu_k = [0, *itertools.accumulate(lens_k)]
+    if lens_q == lens_k:
+        qkv = torch.randn(tq, h, 3 * d, generator=gen, device=DEVICE
+                          ).to(dtype)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    else:
+        q = torch.randn(tq, h, d, generator=gen, device=DEVICE).to(dtype)
+        kv = torch.randn(tk, h, 2 * d, generator=gen, device=DEVICE
+                         ).to(dtype)
+        k, v = kv[..., :d], kv[..., d:]
+    do = torch.randn(tq, h, d, generator=gen, device=DEVICE).to(dtype)
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
+    bq, bk = blocks
+    layout = po.PackedLayout(cu_q, cu_k, tq, tk, block_q=bq, block_k=bk)
+    opts = dict(causal=causal, sm_scale=1.0 / math.sqrt(d), dropout_p=dropout)
+    out, lse = po.flash_packed_fwd(q, k, v, layout, seed, **opts)
+    delta = (out.float() * do.float()).sum(-1).t().contiguous()
+    bwd_args = (q, k, v, do, lse, delta)
+    dq = po.flash_packed_bwd_dq(*bwd_args, layout, seed, **opts)
+    dk, dv = po.flash_packed_bwd_dkv(*bwd_args, layout, seed, **opts)
+    dq2 = po.flash_packed_bwd_dq(*bwd_args, layout, seed, **opts)
+    dk2, dv2 = po.flash_packed_bwd_dkv(*bwd_args, layout, seed, **opts)
+    ref_opts = dict(opts, seed=seed, block_q=bq, block_k=bk)
+    out_ref, lse_ref = po.mha_packed_reference(q, k, v, cu_q, cu_k,
+                                               **ref_opts)
+    dq_ref = po.mha_packed_dq_reference(*bwd_args, cu_q, cu_k, **ref_opts)
+    dk_ref, dv_ref = po.mha_packed_dkv_reference(*bwd_args, cu_q, cu_k,
+                                                 **ref_opts)
+    torch.cuda.synchronize()
+    errs = {"out": _flash_err(out, out_ref, tag, "out"),
+            "lse": _flash_err(lse, lse_ref, tag, "lse"),
+            "dq": _flash_err(dq, dq_ref, tag, "dq"),
+            "dk": _flash_err(dk, dk_ref, tag, "dk"),
+            "dv": _flash_err(dv, dv_ref, tag, "dv")}
+    same_bits = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                 and torch.equal(dv, dv2))
+    del out_ref, dq_ref, dk_ref, dv_ref
+    variant = (f"{tag} lens {lens_q}"
+               + ("" if lens_k == lens_q else f" kv lens {lens_k}")
+               + f" H={h} D={d} {'causal' if causal else 'full'} dropout "
+               f"{dropout}"
+               + ("" if blocks == (None, None) else f" blocks {bq}/{bk}"))
+    log(f"[kernel] flash_packed[{variant}]: max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
+        f"{same_bits}")
+    bad = [k for k, (_, ok) in errs.items() if not ok]
+    if bad or not same_bits:
+        raise AssertionError(f"flash_packed[{variant}] disagrees with its "
+                             f"plain versions on {bad}, or dq/dk/dv differ "
+                             f"between runs (bit-identical: {same_bits})")
+    rows = {"flash_packed_fwd": dict(variant=variant, max_abs_err=max(
+                errs["out"][0], errs["lse"][0]),
+                errors={k: errs[k][0] for k in ("out", "lse")}),
+            "flash_packed_bwd_dq": dict(variant=variant,
+                                        max_abs_err=errs["dq"][0],
+                                        bit_identical=same_bits),
+            "flash_packed_bwd_dkv": dict(variant=variant, max_abs_err=max(
+                errs["dk"][0], errs["dv"][0]),
+                errors={k: errs[k][0] for k in ("dk", "dv")},
+                bit_identical=same_bits)}
+    for row in rows.values():
+        row.update(tol=FLASH_TOL[tag], ms=None, plain_ms=None, bound_ms=None,
+                   bound_by=None, library_ms=None)
+    if not timed:
+        return rows
+
+    # bounds: each input read once, each output written once; the products
+    # over the (query, key) pairs the masks keep, sequence by sequence
+    es, nq, nk = q.element_size(), tq * h * d, tk * h * d
+    pairs = h * sum(_kept_pairs(a, b, causal) for a, b in zip(lens_q, lens_k))
+    stats = h * tq * 4
+    work = {"flash_packed_fwd": ((2 * nq + 2 * nk) * es + stats,
+                                 2 * 2.0 * pairs * d),
+            "flash_packed_bwd_dq": ((3 * nq + 2 * nk) * es + 2 * stats,
+                                    3 * 2.0 * pairs * d),
+            "flash_packed_bwd_dkv": ((2 * nq + 4 * nk) * es + 2 * stats,
+                                     4 * 2.0 * pairs * d)}
+    for name, (nbytes, flops) in work.items():
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound_ms(
+            nbytes, flops, dtype)
+        rows[name].update(bytes=nbytes, flops=flops, kept_pairs=pairs)
+    times = {
+        "flash_packed_fwd": timer(lambda: po.flash_packed_fwd(
+            q, k, v, layout, seed, **opts)),
+        "flash_packed_bwd_dq": timer(lambda: po.flash_packed_bwd_dq(
+            *bwd_args, layout, seed, **opts)),
+        "flash_packed_bwd_dkv": timer(lambda: po.flash_packed_bwd_dkv(
+            *bwd_args, layout, seed, **opts)),
+    }
+    plain = {
+        "flash_packed_fwd": timer(lambda: po.mha_packed_reference(
+            q, k, v, cu_q, cu_k, **ref_opts), iters=5),
+        "flash_packed_bwd_dq": timer(lambda: po.mha_packed_dq_reference(
+            *bwd_args, cu_q, cu_k, **ref_opts), iters=5),
+        "flash_packed_bwd_dkv": timer(lambda: po.mha_packed_dkv_reference(
+            *bwd_args, cu_q, cu_k, **ref_opts), iters=5),
+    }
+    lib_fwd, lib_bwd, lib = _varlen_library_times(
+        timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k, causal)
+    for name in rows:
+        rows[name].update(ms=times[name], plain_ms=plain[name],
+                          library_ms=lib_fwd if name == "flash_packed_fwd"
+                          else lib_bwd, library=lib)
+    log(f"[kernel] flash_packed[{variant}] times: "
+        + "; ".join(f"{name} kernel {times[name]:.4f} ms plain "
+                    f"{plain[name]:.4f} ms bound {rows[name]['bound_ms']:.4f}"
+                    f" ms ({rows[name]['bound_by']})" for name in rows)
+        + f"; kept pairs {pairs}; library ({lib}, dropout 0) forward "
+        f"{lib_fwd:.4f} ms, backward (dq, dk and dv in one, forward+backward"
+        f" less forward) {lib_bwd:.4f} ms")
+    return rows
+
+
+def _varlen_library_times(timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k,
+                          causal):
+    """The library yardstick of the packed kernels: PyTorch's
+    ``torch.nn.attention.varlen.varlen_attn`` on the same packed data where
+    this torch has it, else ``scaled_dot_product_attention``'s flash
+    backend on the padded batch.  Returns (forward ms, backward ms as
+    forward+backward less the forward, which call was timed).  The port
+    never calls either."""
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        varlen_attn = None
+    if varlen_attn is not None:
+        params = inspect.signature(varlen_attn).parameters
+        mask = (dict(is_causal=causal) if "is_causal" in params
+                else dict(window_size=(-1, 0) if causal else (-1, -1)))
+        cq, ck = (torch.tensor(c, dtype=torch.int32, device=DEVICE)
+                  for c in (cu_q, cu_k))
+        args = (cq, ck, max(lens_q), max(lens_k))
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        leaves = [x.detach().requires_grad_() for x in (qc, kc, vc)]
+
+        def fwd_bwd():
+            out = varlen_attn(*leaves, *args, **mask)
+            torch.autograd.grad(out, leaves, do)
+        try:
+            fwd = timer(lambda: varlen_attn(qc, kc, vc, *args, **mask))
+            return fwd, timer(fwd_bwd) - fwd, (
+                f"torch.nn.attention.varlen.varlen_attn {mask}")
+        except (RuntimeError, TypeError, ValueError) as e:
+            log(f"[kernel] varlen_attn does not run here "
+                f"({str(e).splitlines()[0][:200]}); the yardstick is SDPA "
+                f"on the padded batch")
+    b, mq, mk = len(lens_q), max(lens_q), max(lens_k)
+
+    def padded(x, lens, m):
+        buf = torch.zeros((b, m) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=DEVICE)
+        at = 0
+        for i, n in enumerate(lens):
+            buf[i, :n] = x[at:at + n]
+            at += n
+        return buf
+    fwd, bwd = _sdpa_times(timer, padded(q, lens_q, mq),
+                           padded(k, lens_k, mk), padded(v, lens_k, mk),
+                           padded(do, lens_q, mq), causal)
+    return fwd, bwd, f"SDPA flash on the padded ({b}, {mq}) batch"
 
 
 def _ln_err(out, want, tag, rel_to_max=False):
@@ -1738,6 +2026,149 @@ def phase_fusion(smi):
     return gpt, bert
 
 
+def phase_packed(smi):
+    """``bench.py::bench_packed`` on the port: ``F.flash_attn_unpadded``
+    over bench_packed's 8 packed causal sequences (16 heads of 64, bf16,
+    dropout 0, ``loss = out.float().sum()``), forward and backward,
+    ``PACKED_ITERS`` iterations that update q by ``dq * 1e-3``; the same
+    tokens through the padded flash kernels at (8, 1024, 16, 64).  Checks
+    out and dq of the two on the valid rows, and the launches (the
+    counters set to 0 just before each run and read just after): rows 4-6
+    once each an iteration and no row 1-3 on the packed side, the reverse
+    on the padded side.  Then 2 iterations at dropout 0.1 with the run's
+    generator.  Returns the packed run's launch counts."""
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops import pallas_ops as po
+    lens, h, d = PACKED_LENS, PACKED_HEADS, PACKED_HD
+    b, mx, total = len(lens), max(lens), sum(lens)
+    cu = torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    qp, kp, vp = (torch.randn(total, h, d, generator=gen, device=DEVICE
+                              ).to(torch.bfloat16) for _ in range(3))
+    rows = torch.cat([torch.full((n,), i) for i, n in enumerate(lens)]
+                     ).to(DEVICE)
+    cols = torch.cat([torch.arange(n) for n in lens]).to(DEVICE)
+
+    def pad(x):
+        buf = torch.zeros((b, mx, h, d), dtype=x.dtype, device=DEVICE)
+        buf[rows, cols] = x
+        return buf
+    qb, kb, vb = pad(qp), pad(kp), pad(vp)
+    scale = 1.0 / math.sqrt(d)
+
+    def packed_fb(q, dropout=0.0, generator=None):
+        q = q.detach().requires_grad_()
+        out, _ = F.flash_attn_unpadded(q, kp, vp, cu, cu, mx, mx, scale,
+                                       dropout=dropout, causal=True,
+                                       generator=generator)
+        loss = out.float().sum()
+        return loss, out, torch.autograd.grad(loss, q)[0]
+
+    def padded_fb(q):
+        q = q.detach().requires_grad_()
+        out, _ = F.flash_attention(q, kb, vb, causal=True)
+        loss = out.float().sum()
+        return loss, out, torch.autograd.grad(loss, q)[0]
+
+    _, out_p, dq_p = packed_fb(qp)
+    _, out_b, dq_b = padded_fb(qb)
+    torch.cuda.synchronize()
+    errs = {"out": _flash_err(out_p, out_b[rows, cols], "bf16", "out"),
+            "dq": _flash_err(dq_p, dq_b[rows, cols], "bf16", "dq")}
+    log(f"[packed] {PACKED_PATH} vs the padded ({b}, {mx}, {h}, {d}) flash "
+        f"path on the valid rows: max_abs_err "
+        + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+        + f" (tol {FLASH_TOL['bf16']})")
+    if not all(ok for _, ok in errs.values()):
+        raise AssertionError(f"packed: packed and padded paths disagree on "
+                             f"the valid rows: {errs}")
+
+    def timed(fb, q0):
+        """ms an iteration over PACKED_ITERS, host clock ending in a
+        synchronize, and the launches of that run."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        q, t0 = q0, time.perf_counter()
+        for _ in range(PACKED_ITERS):
+            loss, _, dq = fb(q)
+            q = (q.float() + dq.float() * 1e-3).to(q.dtype)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / PACKED_ITERS * 1e3
+        launches = {n: KERNELS[n].launches for n in KERNELS}
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"packed: loss {loss.item()}")
+        return ms, launches
+
+    ms_packed, launches = timed(packed_fb, qp)
+    ms_padded, padded_launches = timed(padded_fb, qb)
+    want = {n: PACKED_ITERS for n in PACKED_KERNELS}
+    want.update({n: 0 for n in FLASH_KERNELS})
+    got = {n: launches[n] for n in want}
+    want_b = {n: PACKED_ITERS - want[n] for n in want}
+    got_b = {n: padded_launches[n] for n in want}
+    log(f"[packed] {PACKED_ITERS} forward+backward iterations, launches: "
+        f"packed {got}, padded {got_b}")
+    if got != want or got_b != want_b:
+        raise AssertionError(f"packed: launches packed {got} (want {want}), "
+                             f"padded {got_b} (want {want_b})")
+    log(f"[packed] {smi}: packed {ms_packed:.3f} ms an iteration "
+        f"({total / ms_packed * 1e3:.1f} tokens/s), padded {ms_padded:.3f} ms"
+        f" ({total / ms_padded * 1e3:.1f} tokens/s); padded / packed "
+        f"{ms_padded / ms_packed:.3f} (packed_varlen_speedup); {total} "
+        f"tokens against {b * mx} padded")
+
+    # the host's part the padded side lacks: cu read and checked, the hash
+    # bases and tile tables built and copied to the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PACKED_ITERS):
+        po.PackedLayout(cu, cu, total, total).tables(qp.device)
+    torch.cuda.synchronize()
+    log(f"[packed] PackedLayout and its tables on the card: "
+        f"{(time.perf_counter() - t0) / PACKED_ITERS * 1e3:.4f} ms a call "
+        f"(host clock)")
+    for label, fb, q0, ms in (("packed", packed_fb, qp, ms_packed),
+                              ("padded", padded_fb, qb, ms_padded)):
+        busy, ops, top = _device_busy(lambda: fb(q0), 3)
+        log(f"[packed] {label}: device busy {busy:.3f} ms an iteration, "
+            f"{busy / ms:.3f} of its wall time {ms:.3f} ms; {ops:.0f} device "
+            f"operations an iteration; most device time: {top}")
+
+    generator = make_generator(FLASH_SEED, DEVICE)
+    losses = [packed_fb(qp, FLASH_DROPOUT, generator)[0].item()
+              for _ in range(2)]
+    log(f"[packed] dropout {FLASH_DROPOUT} with the run's generator, 2 "
+        f"iterations: losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or losses[0] == losses[1]:
+        raise AssertionError(f"packed: dropout losses {losses} (finite, "
+                             f"and each iteration's mask its own)")
+    return launches
+
+
+def _device_busy(fn, n):
+    """Device time of ``fn`` under ``torch.profiler``, summed over its
+    kernels: (ms per call, device operations per call, the three largest
+    kernels by name and ms per call)."""
+    from paddle_tpu_torch.serving.profile import _device_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    top = sorted(kernels, key=_device_us, reverse=True)[:3]
+    return (sum(_device_us(e) for e in kernels) / n / 1e3,
+            sum(e.count for e in kernels) / n,
+            "; ".join(f"{e.key[:60]} {_device_us(e) / n / 1e3:.4f} ms"
+                      for e in top))
+
+
 def _run_steps(step, inputs, targets, n_steps):
     """``n_steps`` of ``step`` with every kernel counter set to 0 just
     before and read just after: (losses, step times, launch counts,
@@ -1990,6 +2421,7 @@ def main() -> int:
     train_launches = phase_train(smi)
     bert_launches, bert_long = phase_bert(smi)
     fused_gpt, fused_bert = phase_fusion(smi)
+    packed = phase_packed(smi)
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -2008,6 +2440,8 @@ def main() -> int:
             bert_long[name]
     for name in SERVE_KERNELS:
         by_path[name]["serve"] = launches[name]
+    for name in PACKED_KERNELS:
+        by_path[name][PACKED_PATH] = packed[name]
     # the fusion pass's paths: the block kernels' first is the GPT one
     for name in BLOCK_KERNELS + TRAIN_KERNELS:
         by_path[name][f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} fused"] = \
@@ -2021,8 +2455,8 @@ def main() -> int:
         paths = by_path[name]
         # launches: the count of the kernel's first main path (GPT for
         # LayerNorm and flash, BERT 32 x 128 for cross-entropy, GPT 8 x
-        # 1024 fused for the block kernels); every path's count is in
-        # launches_by_path
+        # 1024 fused for the block kernels, the packed phase for the packed
+        # kernels); every path's count is in launches_by_path
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -2035,6 +2469,11 @@ def main() -> int:
             "measured_at": top["variant"],
             "variants": rows,
         })
+    from paddle_tpu_torch.ops import KERNELS
+    if sorted(k["name"] for k in kernels) != sorted(KERNELS):
+        raise AssertionError(f"the kernels line lists "
+                             f"{[k['name'] for k in kernels]}, not every "
+                             f"kernel of the port: {sorted(KERNELS)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

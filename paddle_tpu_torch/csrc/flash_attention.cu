@@ -1,17 +1,34 @@
-// Flash attention forward, dq and dk/dv for Hopper (sm_90a).
+// Flash attention forward, dq and dk/dv for Hopper (sm_90a), on fixed
+// lengths or on packed varlen sequences.
 //
 // Replaces the Pallas kernels `_fwd_kernel`, `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (paddle_tpu/ops/pallas_ops.py, launched at the
-// pallas_call sites in `_fwd` and `_bwd`), for fixed lengths: q_len Sq and
-// kv_len Sk, equal or not, causal or not (the causal diagonal aligned to
-// the end: query i keeps key j when j <= i + Sk - Sq, as `_key_mask`),
-// attention dropout on or off, D in {32, 64, 128} (the wrapper pads other
-// head sizes up to the next one, as the TPU wrapper pads to 128 lanes).
-// q and do are (B, Sq, H, D), k and v (B, Sk, H, D), with any strides of
-// B, S and H and unit stride in D (the slices of the QKV projection are
-// read in place); out and dq are written (B, Sq, H, D) contiguous, dk and
-// dv (B, Sk, H, D); lse and delta are f32 (B * H, Sq).  A query row with
-// no key to keep gets out 0 and lse -1e30, as the plain version.
+// pallas_call sites in `_fwd` and `_bwd`) and, in packed mode, their varlen
+// forms `_pk_fwd_kernel`, `_pk_bwd_dq_kernel` and `_pk_bwd_dkv_kernel`
+// (launched in `_pk_fwd` and `_pk_bwd`).  Head sizes D in {32, 64, 128,
+// 256}: the wrapper pads other head sizes up to the next one, as the TPU
+// wrapper pads to 128 lanes.  Each block works on one slice:
+//
+//  - fixed lengths: one (b, h) of q and do (B, Sq, H, D) and k and v (B,
+//    Sk, H, D), with any strides of B, S and H and unit stride in D (the
+//    slices of the QKV projection are read in place).  Query i keeps key j
+//    when j < Sk and, if causal, j <= i + off, off = Sk - Sq (the diagonal
+//    aligned to the end, as `_key_mask`).  `lens` (per b, `seq_lens`) keeps
+//    keys j < lens[b] instead and makes off 0; `shift` (`causal_shift`, one
+//    int32 read on the device, never by the host) overrides off.
+//  - packed (varlen) mode: one (sequence, h) of q and do (total_q, H, D)
+//    and k and v (total_k, H, D), read in place; sequence s owns rows
+//    cu_q[s]..cu_q[s + 1] of q and cu_k[s]..cu_k[s + 1] of k, and within it
+//    the fixed-length rule holds with Sq = len_q, Sk = len_k: the causal
+//    diagonal is aligned bottom right (j <= i + len_k - len_q).  A tile
+//    table built by the wrapper names each block's (sequence, first own
+//    row), so a block only ever walks the tiles of its own sequence's band
+//    and no off-band tile is launched or visited.
+//
+// out and dq are written contiguous in q's layout, dk and dv in k's; lse
+// and delta are f32 (B * H, Sq) with fixed lengths and (H, total_q) packed.
+// A query row with no key to keep gets out 0 and lse -1e30, as the plain
+// version.
 //
 //   forward   s = q k^T * scale, masked; online softmax per row: m, l (the
 //             UNdropped sum), acc += (p o keep / (1 - r)) v
@@ -21,31 +38,47 @@
 //   dk/dv     p~ = p o keep / (1 - r), dv = p~^T do
 //             ds = p o (dp o keep / (1 - r) - delta), dk = scale * ds^T q
 //
-// The dropout keep mask is a hash of the element's GLOBAL (bh, q, k)
+// delta is rowsum(out o do) less the lse's cotangent, as the JAX `_bwd`
+// folds it; the kernels take it as given.
+//
+// The dropout keep mask is a hash of the element's (hb, row, col)
 // coordinates (`_tile_keep_mask`), so the three kernels regenerate the
-// same mask whatever their tiling.  bf16 operands feed the products with
-// f32 sums; p, p~ and ds are cast to the other operand's type before
-// their products, as the TPU kernel does.  f32 inputs take the CUDA cores
-// (no TF32).  Where the TPU kernel computes exp(x) and divides by
-// (1 - r), these take exp2 of x * log2(e) and multiply by 1 / (1 - r) in
-// f32: the same values within a few units in the last place.
+// same mask whatever their tiling.  With fixed lengths hb = b * H + h and
+// (row, col) = (i, j).  Packed, the coordinates are those of the TPU
+// kernel's block-aligned packed buffer: hb = h, row = start_q[s] + i, col =
+// start_k[s] + j, where start_q (start_k) is the exclusive cumsum of the
+// lengths rounded up to the TPU's block_q (block_k); the wrapper computes
+// them from the same block sizes as the JAX `mha_packed` and passes them
+// in `hstart`, whatever tile these kernels use.
+//
+// bf16 operands feed the products with f32 sums; p, p~ and ds are cast to
+// the other operand's type before their products, as the TPU kernel does.
+// f32 inputs take the CUDA cores (no TF32).  Where the TPU kernel computes
+// exp(x) and divides by (1 - r), these take exp2 of x * log2(e) and
+// multiply by 1 / (1 - r) in f32: the same values within a few units in the
+// last place.
 //
 // What bounds it: at (B * H, S, D) = (256, 1024, 64) bf16 causal the
 // forward does 34 GFLOP over 134 MB, the backward 120 GFLOP over 369 MB,
 // so the tensor cores, not the memory, set the bound.  The design is the
 // simple one: one block of 4 warps per 64-row tile, each warp owning 16
-// rows; the other operand's 64-row tiles staged in shared memory in two
-// buffers, the next tile's copy (cp.async) in flight while the current one
-// is used; the products by `mma.sync` m16n8k16 with ldmatrix fragment
-// loads (bf16) or by FMAs in the same fragment layout (f32); the scores
-// and the online softmax in registers, the masks applied only to tiles on
-// the causal diagonal or at the ragged end.  wgmma, TMA and warp
+// rows; the other operand's tiles (64 rows; 16 in f32 at D = 256, where
+// shared memory holds no more) staged in shared memory in two buffers, the
+// next tile's copy (cp.async) in flight while the current one is used; the
+// products by `mma.sync` m16n8k16 with ldmatrix fragment loads (bf16) or
+// by FMAs in the same fragment layout (f32); the scores and the online
+// softmax in registers, the masks applied only to tiles on the causal
+// diagonal or at a ragged end.  At D = 256 one warp's f32 accumulators
+// would take 128 registers (256 for dk and dv), so the output columns are
+// split over gridDim.z: two blocks each compute the scores (and dp) over
+// the full D and accumulate 128 columns of out, dq, dk or dv; their lse is
+// the same bits, and the first writes it.  wgmma, TMA and warp
 // specialisation are for a later version.
 //
-// Deterministic sums: as the TPU grid, dq takes one block per (bh, q tile)
-// walking the k tiles, dk/dv one block per (bh, k tile) walking the q
-// tiles.  No atomics, so dq, dk and dv are the same bits on every run.
-// Tiles wholly above the causal diagonal are skipped.
+// Deterministic sums: as the TPU grid, dq takes one block per (q tile, h)
+// walking the k tiles, dk/dv one block per (k tile, h) walking the q tiles.
+// No atomics, so dq, dk and dv are the same bits on every run.  Tiles
+// wholly above the causal diagonal are skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -54,14 +87,34 @@
 namespace {
 
 constexpr int kRows = 64;        // rows of a block's own tile
-constexpr int kCols = 64;        // rows of the other operand's tile
 constexpr int kWarps = 4;        // 16 own rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kNT = kCols / 8;   // n-tiles of 8 columns in a score tile
 constexpr float kNegInf = -1e30f;   // the running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// rows of the other operand's tile: 64, or 16 in f32 at D = 256, where two
+// buffers of 64 rows do not fit in shared memory
+template <typename T, int D>
+__host__ __device__ constexpr int other_rows() {
+  return sizeof(T) == 4 && D > 128 ? 16 : 64;
+}
+
+// output columns of one block: all of D up to 128; at D = 256 two blocks
+// (blockIdx.z) take 128 each
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? 128 : D;
+}
+
+// blocks of the forward an SM should hold: 4 in bf16 up to D = 64, where
+// shared memory allows 4 and 128 registers a thread suffice (a 140-register
+// build held 3 and took 16% longer at (16, 1024, 16, 64)); else 1, no bound
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_blocks() {
+  return sizeof(T) == 2 && D <= 64 ? 4 : 1;
+}
 
 struct Args {
   const void* q;
@@ -73,15 +126,84 @@ struct Args {
   float* lse;     // forward writes it, the backward reads it
   const float* delta;
   const int32_t* seed;
+  const int32_t* lens;    // per b: keys < lens[b] are kept, or null
+  const int32_t* shift;   // the causal offset, or null
+  const int32_t* cu_q;    // packed: first q row of each sequence (B + 1)
+  const int32_t* cu_k;    // packed: first k row of each sequence (B + 1)
+  const int32_t* hstart;  // packed: hash bases start_q (B), start_k (B)
+  const int32_t* tiles;   // packed: (sequence, first own row) per block
+  int ntiles;
   long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
-  int B, H, Sq, Sk;
-  int off;             // the causal diagonal's offset, Sk - Sq
+  int B, H, Sq, Sk;    // packed: B sequences, Sq and Sk the totals
   float scale;
   uint32_t threshold;  // keep when (hash >> 8) >= threshold
   float inv_keep;      // 1 / (1 - p_drop), rounded to f32
   int dropout;
   int causal;
 };
+
+// what one block sees: its (b, h) slice of a fixed-length batch, or its
+// (sequence, h) slice of the packed buffers
+struct Slice {
+  long long base[4];  // offsets (elements) of row 0 of q, k, v and do
+  long long qrow;     // row 0 of q in out and dq (row stride H * D)
+  long long krow;     // row 0 of k in dk and dv
+  long long stat;     // index of q row 0's lse and delta
+  int sq, sk;         // the slice's q and k rows
+  int klen;           // keys < klen are kept
+  int off;            // causal: query i keeps key j when j <= i + off
+  int r0;             // the block's first own row (q, or k for dk/dv)
+  int h;
+  uint32_t hs;        // the hash's block part, seed ^ (hb * 0x9E3779B1)
+  uint32_t hrow;      // hash row of q row 0
+  uint32_t hcol;      // hash column of key 0
+};
+
+__device__ __forceinline__ Slice slice_of(const Args& a) {
+  Slice v;
+  int hb;
+  if (a.tiles != nullptr) {
+    const int s = a.tiles[2 * blockIdx.x];
+    v.r0 = a.tiles[2 * blockIdx.x + 1];
+    v.h = hb = blockIdx.y;
+    const int q0 = a.cu_q[s], k0 = a.cu_k[s];
+    v.sq = a.cu_q[s + 1] - q0;
+    v.sk = a.cu_k[s + 1] - k0;
+    v.qrow = q0;
+    v.krow = k0;
+    v.stat = static_cast<long long>(v.h) * a.Sq + q0;
+    v.klen = v.sk;
+    v.off = v.sk - v.sq;
+    v.hrow = static_cast<uint32_t>(a.hstart[s]);
+    v.hcol = static_cast<uint32_t>(a.hstart[a.B + s]);
+    for (int i = 0; i < 4; ++i)
+      v.base[i] = static_cast<long long>(i == 1 || i == 2 ? k0 : q0) *
+                      a.st[i][1] +
+                  v.h * a.st[i][2];
+  } else {
+    hb = blockIdx.y;
+    const int b = hb / a.H;
+    v.h = hb % a.H;
+    v.r0 = blockIdx.x * kRows;
+    v.sq = a.Sq;
+    v.sk = a.Sk;
+    v.qrow = static_cast<long long>(b) * a.Sq;
+    v.krow = static_cast<long long>(b) * a.Sk;
+    v.stat = static_cast<long long>(hb) * a.Sq;
+    v.klen = a.lens != nullptr ? max(0, min(a.lens[b], a.Sk)) : a.Sk;
+    v.off = a.lens != nullptr ? 0 : a.Sk - a.Sq;
+    v.hrow = v.hcol = 0u;
+    for (int i = 0; i < 4; ++i)
+      v.base[i] = b * a.st[i][0] + v.h * a.st[i][2];
+  }
+  // clamped to +-2^30, so the sums below stay in int32; for any length
+  // below 2^30 that keeps or drops the same keys as the shift itself
+  if (a.shift != nullptr) v.off = max(-(1 << 30), min(*a.shift, 1 << 30));
+  v.hs = a.dropout ? static_cast<uint32_t>(*a.seed) ^
+                         (static_cast<uint32_t>(hb) * 0x9E3779B1u)
+                   : 0u;
+  return v;
+}
 
 // elements in a padded row of a shared tile: 16 bytes more than the data,
 // so the fragment reads of 8 consecutive rows fall in different banks
@@ -90,7 +212,7 @@ __host__ __device__ constexpr int ld() {
   return D + 16 / static_cast<int>(sizeof(T));
 }
 
-// the dropout hash; `hs` is the block's part, seed ^ (bh * 0x9E3779B1)
+// the dropout hash; `hs` is the block's part, seed ^ (hb * 0x9E3779B1)
 __device__ __forceinline__ bool keep_elem(uint32_t hs, uint32_t row,
                                           uint32_t col, uint32_t threshold) {
   uint32_t h = row * 0x000193E9u + col;
@@ -120,17 +242,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// starts the copy of rows [row0, row0 + 64) of one (b, h) slice into a
-// padded shared tile; rows past S (Sq or Sk) become zero.  16-byte copies: D *
+// starts the copy of rows [row0, row0 + R) and W columns of one slice into
+// a padded shared tile; rows past S become zero.  16-byte copies: W *
 // sizeof(T) and the strides are multiples of 16 bytes (the wrapper checks).
-template <typename T, int D>
+template <typename T, int W, int R>
 __device__ __forceinline__ void load_tile(T* dst, const T* base,
                                           long long row_stride, int row0,
                                           int S) {
-  constexpr int LD = ld<T, D>();
+  constexpr int LD = ld<T, W>();
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
+  constexpr int kPerRow = W / kVec;
+  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     const bool in = row0 + r < S;
@@ -181,23 +303,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// s[i][j] = sum_d A[i][d] * B[j][d]: A the warp's 16 rows, B 64 rows, both
-// padded shared tiles.  Sums in f32.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[kNT][4],
+// s[i][j] = sum_d A[i][d] * B[j][d]: A the warp's 16 rows, B 8 * NT rows,
+// both padded shared tiles D wide.  Sums in f32.
+template <int D, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4],
                                        const __nv_bfloat16* A,
                                        const __nv_bfloat16* B) {
   constexpr int LD = ld<__nv_bfloat16, D>();
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < NT; ++n)
     s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     uint32_t a[4];   // rows 0-7 / 8-15 by columns 0-7 / 8-15 of the k16 slab
     ldsm_x4<false>(a, A + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];   // n-tiles 2np and 2np + 1, k 0-7 and 8-15 each
       ldsm_x4<false>(b, B + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                             kc * 16 + ((lane >> 3) & 1) * 8);
@@ -207,20 +329,20 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4],
   }
 }
 
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[kNT][4], const float* A,
+template <int D, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* A,
                                        const float* B) {
   constexpr int LD = ld<float, D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < NT; ++n)
     s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     const float4 a0 = *reinterpret_cast<const float4*>(A + g * LD + d);
     const float4 a1 = *reinterpret_cast<const float4*>(A + (g + 8) * LD + d);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float4 b = *reinterpret_cast<const float4*>(
@@ -238,23 +360,23 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4], const float* A,
   }
 }
 
-// o[i][n] += sum_j p[i][j] * V[j][n]: p the warp's (16, 64) scores in
-// accumulator layout, cast to V's type first; V a padded (64, D) tile.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
-                                           const float (&p)[kNT][4],
+// o[i][n] += sum_j p[i][j] * V[j][n] over 8 * NO columns: p the warp's
+// (16, 8 * NT) scores in accumulator layout, cast to V's type first; V a
+// padded shared tile of row stride LD, from its first column used.
+template <int LD, int NO, int NT>
+__device__ __forceinline__ void accumulate(float (&o)[NO][4],
+                                           const float (&p)[NT][4],
                                            const __nv_bfloat16* V) {
-  constexpr int LD = ld<__nv_bfloat16, D>();
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int kc = 0; kc < kCols / 16; ++kc) {
+  for (int kc = 0; kc < NT / 2; ++kc) {
     // the accumulator layout of two n-tiles is the A layout of one k16
     const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
                            pack_bf16(p[2 * kc][2], p[2 * kc][3]),
                            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
                            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < NO / 2; ++dp) {
       uint32_t b[4];   // d-tiles 2dp and 2dp + 1, k 0-7 and 8-15 each
       ldsm_x4<true>(b, V + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                            dp * 16 + (lane >> 4) * 8);
@@ -264,21 +386,20 @@ __device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
   }
 }
 
-template <int D>
-__device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
-                                           const float (&p)[kNT][4],
+template <int LD, int NO, int NT>
+__device__ __forceinline__ void accumulate(float (&o)[NO][4],
+                                           const float (&p)[NT][4],
                                            const float* V) {
-  constexpr int LD = ld<float, D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
+  for (int j = 0; j < 8 * NT; ++j) {
     // p[g][j] and p[g + 8][j] live in lane (g, (j % 8) / 2)
     const int src = g * 4 + ((j & 7) >> 1);
     const float p0 = __shfl_sync(kFull, p[j >> 3][j & 1], src);
     const float p1 = __shfl_sync(kFull, p[j >> 3][2 + (j & 1)], src);
     const float* v = V + j * LD + 2 * t;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < NO; ++dn) {
       const float2 w = *reinterpret_cast<const float2*>(v + dn * 8);
       o[dn][0] = fmaf(p0, w.x, o[dn][0]);
       o[dn][1] = fmaf(p0, w.y, o[dn][1]);
@@ -288,34 +409,36 @@ __device__ __forceinline__ void accumulate(float (&o)[D / 8][4],
   }
 }
 
-// (16, D) accumulator rows -> rows of a contiguous (B, S, H, D) output
-template <int D>
-__device__ __forceinline__ void store_rows(float* out,
-                                           const float (&o)[D / 8][4],
-                                           int row, int S, int H, float mul) {
+// (16, 8 * NO) accumulator rows -> rows < S of an output whose rows are
+// `stride` elements apart
+template <int NO>
+__device__ __forceinline__ void store_rows(float* out, const float (&o)[NO][4],
+                                           int row, int S, long long stride,
+                                           float mul) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (row + 8 * half >= S) continue;
-    float* dst = out + static_cast<long long>(row + 8 * half) * H * D;
+    float* dst = out + static_cast<long long>(row + 8 * half) * stride;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
+    for (int dn = 0; dn < NO; ++dn)
       *reinterpret_cast<float2*>(dst + dn * 8 + 2 * t) =
           make_float2(o[dn][2 * half] * mul, o[dn][2 * half + 1] * mul);
   }
 }
 
-template <int D>
+template <int NO>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&o)[D / 8][4],
-                                           int row, int S, int H, float mul) {
+                                           const float (&o)[NO][4], int row,
+                                           int S, long long stride,
+                                           float mul) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (row + 8 * half >= S) continue;
-    __nv_bfloat16* dst = out + static_cast<long long>(row + 8 * half) * H * D;
+    __nv_bfloat16* dst = out + static_cast<long long>(row + 8 * half) * stride;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
+    for (int dn = 0; dn < NO; ++dn)
       *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8 + 2 * t) =
           __floats2bfloat162_rn(o[dn][2 * half] * mul,
                                 o[dn][2 * half + 1] * mul);
@@ -333,27 +456,28 @@ __device__ __forceinline__ int row_of(int e) {
 
 // -inf where the mask drops an element of the warp's score tile: element
 // (r0 + row, c0 + col) is a (query, key) pair, or with kKeyRows a (key,
-// query) pair; it stays when key < Sk and query < Sq and, if causal,
+// query) pair; it stays when key < klen and query < sq and, if causal,
 // key <= query + off
-template <bool kKeyRows>
-__device__ __forceinline__ void mask_tile(float (&s)[kNT][4], int r0, int c0,
-                                          const Args& a) {
+template <bool kKeyRows, int NT>
+__device__ __forceinline__ void mask_tile(float (&s)[NT][4], int r0, int c0,
+                                          const Slice& v, int causal) {
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + row_of(e), col = c0 + col_of(n, e);
       const int key = kKeyRows ? row : col, query = kKeyRows ? col : row;
-      if (key >= a.Sk || query >= a.Sq || (a.causal && key > query + a.off))
+      if (key >= v.klen || query >= v.sq || (causal && key > query + v.off))
         s[n][e] = -CUDART_INF_F;
     }
 }
 
-// the k tiles a q tile starting at q0 walks: up to its last row's diagonal
-// when causal (none when that lies before key 0)
-__device__ __forceinline__ int kv_tiles(const Args& a, int q0) {
-  const int end = a.causal ? min(a.Sk, q0 + kRows + a.off) : a.Sk;
-  return end > 0 ? (end + kCols - 1) / kCols : 0;
+// the C-row k tiles a q tile starting at q0 walks: up to its last row's
+// diagonal when causal (none when that lies before key 0)
+template <int C>
+__device__ __forceinline__ int kv_tiles(const Slice& v, int q0, int causal) {
+  const int end = causal ? min(v.klen, q0 + kRows + v.off) : v.klen;
+  return end > 0 ? (end + C - 1) / C : 0;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -365,70 +489,65 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-template <typename T>
-__device__ __forceinline__ const T* slice(const void* p, const long long* st,
-                                          int b, int h) {
-  return static_cast<const T*>(p) + b * st[0] + h * st[2];
-}
-
-__device__ __forceinline__ uint32_t block_hash(const Args& a, int bh) {
-  return a.dropout ? static_cast<uint32_t>(*a.seed) ^ (bh * 0x9E3779B1u) : 0u;
-}
-
 // ---------------------------------------------------------------------------
-// forward: one block per (64-row q tile, bh)
+// forward: one block per (64-row q tile, slice, column half)
 // ---------------------------------------------------------------------------
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (fwd_blocks<T, D>()))
     flash_fwd_kernel(const Args a) {
-  constexpr int LD = ld<T, D>();
+  constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
+  constexpr int LD = ld<T, D>(), LDO = ld<T, DO>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sKV = sQ + kRows * LD;   // two buffers of (K, V)
+  T* sK = sQ + kRows * LD;   // two buffers of K
+  T* sV = sK + 2 * C * LD;   // two buffers of V's DO columns from c0
 
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kRows;
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * DO;
+  const int q0 = v.r0;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const int r0 = q0 + warp * 16;
-  const uint32_t hs = block_hash(a, bh);
   const float sl2 = a.scale * kLog2e;
 
-  const T* kb = slice<T>(a.k, a.st[1], b, h);
-  const T* vb = slice<T>(a.v, a.st[2], b, h);
-  const int tiles = kv_tiles(a, q0);
-  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.Sq);
-  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.Sk);
-  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.Sk);
+  const T* kb = static_cast<const T*>(a.k) + v.base[1];
+  const T* vb = static_cast<const T*>(a.v) + v.base[2] + c0;
+  const int tiles = kv_tiles<C>(v, q0, a.causal);
+  load_tile<T, D, kRows>(sQ, static_cast<const T*>(a.q) + v.base[0],
+                         a.st[0][1], q0, v.sq);
+  if (tiles > 0) {
+    load_tile<T, D, C>(sK, kb, a.st[1][1], 0, v.sk);
+    load_tile<T, DO, C>(sV, vb, a.st[2][1], 0, v.sk);
+  }
   cp_async_commit();
 
   // m in log2 units: the running max of s * scale * log2(e)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[DO / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int dn = 0; dn < DO / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
 
   for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kCols;
+    const int k0 = t * C;
     if (t + 1 < tiles) {
-      T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
-      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.Sk);
-      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.Sk);
+      const int nb = (t + 1) & 1;
+      load_tile<T, D, C>(sK + nb * C * LD, kb, a.st[1][1], k0 + C, v.sk);
+      load_tile<T, DO, C>(sV + nb * C * LDO, vb, a.st[2][1], k0 + C, v.sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* sK = sKV + (t & 1) * 2 * kCols * LD;
-    const T* sV = sK + kCols * LD;
+    const T* tK = sK + (t & 1) * C * LD;
+    const T* tV = sV + (t & 1) * C * LDO;
 
-    float s[kNT][4];
-    scores<D>(s, sQ + warp * 16 * LD, sK);
-    if ((a.causal && k0 + kCols > q0 + a.off) || k0 + kCols > a.Sk)
-      mask_tile<false>(s, r0, k0, a);
+    float s[NT][4];
+    scores<D>(s, sQ + warp * 16 * LD, tK);
+    if ((a.causal && k0 + C > q0 + v.off) || k0 + C > v.klen)
+      mask_tile<false>(s, r0, k0, v, a.causal);
     float mcur[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         mcur[e >> 1] = fmaxf(mcur[e >> 1], s[n][e]);
@@ -440,13 +559,14 @@ __global__ void __launch_bounds__(kThreads)
       m[i] = mnew;
     }
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], sl2, -m[e >> 1]));
         rsum[e >> 1] += p;
         if (a.dropout)
-          p = keep_elem(hs, r0 + row_of(e), k0 + col_of(n, e), a.threshold)
+          p = keep_elem(v.hs, v.hrow + r0 + row_of(e),
+                        v.hcol + k0 + col_of(n, e), a.threshold)
                   ? p * a.inv_keep
                   : 0.f;
         s[n][e] = p;
@@ -454,13 +574,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < DO / 8; ++dn) {
       o[dn][0] *= alpha[0];
       o[dn][1] *= alpha[0];
       o[dn][2] *= alpha[1];
       o[dn][3] *= alpha[1];
     }
-    accumulate<D>(o, s, sV);
+    accumulate<LDO>(o, s, tV);
     __syncthreads();   // this buffer is refilled two tiles on
   }
   cp_async_wait<0>();   // no tile at all: the first copies are still out
@@ -469,204 +589,212 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 2; ++i) lsafe[i] = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < DO / 8; ++dn) {
     o[dn][0] /= lsafe[0];
     o[dn][1] /= lsafe[0];
     o[dn][2] /= lsafe[1];
     o[dn][3] /= lsafe[1];
   }
-  T* out = static_cast<T*>(a.out) +
-           ((static_cast<long long>(b) * a.Sq) * a.H + h) * D;
-  store_rows<D>(out, o, r0 + g, a.Sq, a.H, 1.f);
-  if ((threadIdx.x & 3) == 0) {
+  T* out = static_cast<T*>(a.out) + (v.qrow * a.H + v.h) * D + c0;
+  store_rows(out, o, r0 + g, v.sq, static_cast<long long>(a.H) * D, 1.f);
+  if (blockIdx.z == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r0 + g + 8 * i;
-      if (row < a.Sq)
-        a.lse[static_cast<long long>(bh) * a.Sq + row] =
-            l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
+      if (row < v.sq)
+        a.lse[v.stat + row] = l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block per (64-row q tile, bh), walking the k tiles
+// dq: one block per (64-row q tile, slice, column half), walking the k tiles
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
+  constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
   constexpr int LD = ld<T, D>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sDO = sQ + kRows * LD;
   T* sKV = sDO + kRows * LD;   // two buffers of (K, V)
 
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kRows;
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * DO;
+  const int q0 = v.r0;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const int r0 = q0 + warp * 16;
-  const uint32_t hs = block_hash(a, bh);
   const float sl2 = a.scale * kLog2e;
 
-  const T* kb = slice<T>(a.k, a.st[1], b, h);
-  const T* vb = slice<T>(a.v, a.st[2], b, h);
-  const int tiles = kv_tiles(a, q0);
-  load_tile<T, D>(sQ, slice<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.Sq);
-  load_tile<T, D>(sDO, slice<T>(a.dout, a.st[3], b, h), a.st[3][1], q0,
-                  a.Sq);
-  load_tile<T, D>(sKV, kb, a.st[1][1], 0, a.Sk);
-  load_tile<T, D>(sKV + kCols * LD, vb, a.st[2][1], 0, a.Sk);
+  const T* kb = static_cast<const T*>(a.k) + v.base[1];
+  const T* vb = static_cast<const T*>(a.v) + v.base[2];
+  const int tiles = kv_tiles<C>(v, q0, a.causal);
+  load_tile<T, D, kRows>(sQ, static_cast<const T*>(a.q) + v.base[0],
+                         a.st[0][1], q0, v.sq);
+  load_tile<T, D, kRows>(sDO, static_cast<const T*>(a.dout) + v.base[3],
+                         a.st[3][1], q0, v.sq);
+  if (tiles > 0) {
+    load_tile<T, D, C>(sKV, kb, a.st[1][1], 0, v.sk);
+    load_tile<T, D, C>(sKV + C * LD, vb, a.st[2][1], 0, v.sk);
+  }
   cp_async_commit();
   float lse2[2], delta[2];   // lse in log2 units
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
-    const long long idx = static_cast<long long>(bh) * a.Sq + row;
-    lse2[i] = row < a.Sq ? a.lse[idx] * kLog2e : 0.f;
-    delta[i] = row < a.Sq ? a.delta[idx] : 0.f;
+    lse2[i] = row < v.sq ? a.lse[v.stat + row] * kLog2e : 0.f;
+    delta[i] = row < v.sq ? a.delta[v.stat + row] : 0.f;
   }
-  float dq[D / 8][4];
+  float dq[DO / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  for (int dn = 0; dn < DO / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
 
   for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kCols;
+    const int k0 = t * C;
     if (t + 1 < tiles) {
-      T* next = sKV + ((t + 1) & 1) * 2 * kCols * LD;
-      load_tile<T, D>(next, kb, a.st[1][1], k0 + kCols, a.Sk);
-      load_tile<T, D>(next + kCols * LD, vb, a.st[2][1], k0 + kCols, a.Sk);
+      T* next = sKV + ((t + 1) & 1) * 2 * C * LD;
+      load_tile<T, D, C>(next, kb, a.st[1][1], k0 + C, v.sk);
+      load_tile<T, D, C>(next + C * LD, vb, a.st[2][1], k0 + C, v.sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* sK = sKV + (t & 1) * 2 * kCols * LD;
-    const T* sV = sK + kCols * LD;
+    const T* tK = sKV + (t & 1) * 2 * C * LD;
+    const T* tV = tK + C * LD;
 
-    float p[kNT][4], dp[kNT][4];
-    scores<D>(p, sQ + warp * 16 * LD, sK);
-    scores<D>(dp, sDO + warp * 16 * LD, sV);
-    if ((a.causal && k0 + kCols > q0 + a.off) || k0 + kCols > a.Sk)
-      mask_tile<false>(p, r0, k0, a);
+    float p[NT][4], dp[NT][4];
+    scores<D>(p, sQ + warp * 16 * LD, tK);
+    scores<D>(dp, sDO + warp * 16 * LD, tV);
+    if ((a.causal && k0 + C > q0 + v.off) || k0 + C > v.klen)
+      mask_tile<false>(p, r0, k0, v, a.causal);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = exp2f(fmaf(p[n][e], sl2, -lse2[e >> 1]));
         float dpe = dp[n][e];
         if (a.dropout)
-          dpe = keep_elem(hs, r0 + row_of(e), k0 + col_of(n, e), a.threshold)
+          dpe = keep_elem(v.hs, v.hrow + r0 + row_of(e),
+                          v.hcol + k0 + col_of(n, e), a.threshold)
                     ? dpe * a.inv_keep
                     : 0.f;
         p[n][e] = pe * (dpe - delta[e >> 1]);   // ds
       }
-    accumulate<D>(dq, p, sK);
+    accumulate<LD>(dq, p, tK + c0);
     __syncthreads();   // this buffer is refilled two tiles on
   }
   cp_async_wait<0>();
-  T* out = static_cast<T*>(a.out) +
-           ((static_cast<long long>(b) * a.Sq) * a.H + h) * D;
-  store_rows<D>(out, dq, r0 + g, a.Sq, a.H, a.scale);
+  T* out = static_cast<T*>(a.out) + (v.qrow * a.H + v.h) * D + c0;
+  store_rows(out, dq, r0 + g, v.sq, static_cast<long long>(a.H) * D,
+             a.scale);
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: one block per (64-key tile, bh), walking the q tiles; every score
-// tile is transposed (rows are keys, columns queries)
+// dk/dv: one block per (64-key tile, slice, column half), walking the q
+// tiles; every score tile is transposed (rows are keys, columns queries)
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const Args a) {
+  constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
   constexpr int LD = ld<T, D>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + kRows * LD;
   T* sQD = sV + kRows * LD;   // two buffers of (Q, dO)
-  // two buffers of (lse in log2 units, delta), kCols each
-  float* sStats = reinterpret_cast<float*>(sQD + 4 * kCols * LD);
+  // two buffers of (lse in log2 units, delta), C each
+  float* sStats = reinterpret_cast<float*>(sQD + 4 * C * LD);
 
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * kRows;
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * DO;
+  const int k0 = v.r0;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const int r0 = k0 + warp * 16;
-  const uint32_t hs = block_hash(a, bh);
   const float sl2 = a.scale * kLog2e;
 
-  const T* qb = slice<T>(a.q, a.st[0], b, h);
-  const T* dob = slice<T>(a.dout, a.st[3], b, h);
+  const T* qb = static_cast<const T*>(a.q) + v.base[0];
+  const T* dob = static_cast<const T*>(a.dout) + v.base[3];
   // the q rows that reach this key tile: from its first key's diagonal on
-  // when causal
-  const int first = a.causal ? max(0, k0 - a.off) : 0;
-  const int tiles = first < a.Sq ? (a.Sq - first + kCols - 1) / kCols : 0;
+  // when causal; none when all its keys are dropped
+  const int first = a.causal ? max(0, k0 - v.off) : 0;
+  const int tiles = k0 < v.klen && first < v.sq
+                        ? (v.sq - first + C - 1) / C
+                        : 0;
   auto stage = [&](int buf, int q0) {
-    T* dst = sQD + buf * 2 * kCols * LD;
-    load_tile<T, D>(dst, qb, a.st[0][1], q0, a.Sq);
-    load_tile<T, D>(dst + kCols * LD, dob, a.st[3][1], q0, a.Sq);
-    float* st = sStats + buf * 2 * kCols;
-    for (int i = threadIdx.x; i < kCols; i += kThreads) {
-      const bool in = q0 + i < a.Sq;
-      const long long idx = static_cast<long long>(bh) * a.Sq + q0 + i;
-      st[i] = in ? a.lse[idx] * kLog2e : 0.f;
-      st[kCols + i] = in ? a.delta[idx] : 0.f;
+    T* dst = sQD + buf * 2 * C * LD;
+    load_tile<T, D, C>(dst, qb, a.st[0][1], q0, v.sq);
+    load_tile<T, D, C>(dst + C * LD, dob, a.st[3][1], q0, v.sq);
+    float* st = sStats + buf * 2 * C;
+    for (int i = threadIdx.x; i < C; i += kThreads) {
+      const bool in = q0 + i < v.sq;
+      st[i] = in ? a.lse[v.stat + q0 + i] * kLog2e : 0.f;
+      st[C + i] = in ? a.delta[v.stat + q0 + i] : 0.f;
     }
   };
-  load_tile<T, D>(sK, slice<T>(a.k, a.st[1], b, h), a.st[1][1], k0, a.Sk);
-  load_tile<T, D>(sV, slice<T>(a.v, a.st[2], b, h), a.st[2][1], k0, a.Sk);
-  stage(0, first);
+  load_tile<T, D, kRows>(sK, static_cast<const T*>(a.k) + v.base[1],
+                         a.st[1][1], k0, v.sk);
+  load_tile<T, D, kRows>(sV, static_cast<const T*>(a.v) + v.base[2],
+                         a.st[2][1], k0, v.sk);
+  if (tiles > 0) stage(0, first);
   cp_async_commit();
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < DO / 8; ++dn) {
     dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
     dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
   }
 
   for (int t = 0; t < tiles; ++t) {
-    const int q0 = first + t * kCols;
+    const int q0 = first + t * C;
     if (t + 1 < tiles) {
-      stage((t + 1) & 1, q0 + kCols);
+      stage((t + 1) & 1, q0 + C);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* sQ = sQD + (t & 1) * 2 * kCols * LD;
-    const T* sDO = sQ + kCols * LD;
-    const float* sLse2 = sStats + (t & 1) * 2 * kCols;
-    const float* sDelta = sLse2 + kCols;
+    const T* tQ = sQD + (t & 1) * 2 * C * LD;
+    const T* tDO = tQ + C * LD;
+    const float* sLse2 = sStats + (t & 1) * 2 * C;
+    const float* sDelta = sLse2 + C;
 
     // p, then dv += p~^T do; then dp and ds, dk += ds^T q (p~ and dp are
     // never live together)
-    float p[kNT][4];
+    float p[NT][4];
     uint32_t kept = 0xffffffffu;   // bit 4n + e: element (n, e) is kept
-    scores<D>(p, sK + warp * 16 * LD, sQ);
-    if ((a.causal && q0 + a.off < k0 + kRows) || q0 + kCols > a.Sq)
-      mask_tile<true>(p, r0, q0, a);
+    scores<D>(p, sK + warp * 16 * LD, tQ);
+    if ((a.causal && q0 + v.off < k0 + kRows) || q0 + C > v.sq ||
+        k0 + kRows > v.klen)
+      mask_tile<true>(p, r0, q0, v, a.causal);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = col_of(n, e);
         p[n][e] = exp2f(fmaf(p[n][e], sl2, -sLse2[c]));
-        if (a.dropout && !keep_elem(hs, q0 + c, r0 + row_of(e), a.threshold))
+        if (a.dropout && !keep_elem(v.hs, v.hrow + q0 + c,
+                                    v.hcol + r0 + row_of(e), a.threshold))
           kept &= ~(1u << (4 * n + e));
       }
     {
-      float pt[kNT][4];   // p~, the dropped probabilities
+      float pt[NT][4];   // p~, the dropped probabilities
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           pt[n][e] = !a.dropout ? p[n][e]
                      : (kept >> (4 * n + e)) & 1u ? p[n][e] * a.inv_keep
                                                   : 0.f;
-      accumulate<D>(dv, pt, sDO);
+      accumulate<LD>(dv, pt, tDO + c0);
     }
-    float dp[kNT][4];
-    scores<D>(dp, sV + warp * 16 * LD, sDO);
+    float dp[NT][4];
+    scores<D>(dp, sV + warp * 16 * LD, tDO);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float dpe = dp[n][e];
@@ -674,14 +802,15 @@ __global__ void __launch_bounds__(kThreads)
           dpe = (kept >> (4 * n + e)) & 1u ? dpe * a.inv_keep : 0.f;
         p[n][e] = p[n][e] * (dpe - sDelta[col_of(n, e)]);   // ds
       }
-    accumulate<D>(dk, p, sQ);
+    accumulate<LD>(dk, p, tQ + c0);
     __syncthreads();   // this buffer is refilled two tiles on
   }
   cp_async_wait<0>();
-  const long long base = ((static_cast<long long>(b) * a.Sk) * a.H + h) * D;
-  store_rows<D>(static_cast<T*>(a.out) + base, dk, r0 + g, a.Sk, a.H,
-                a.scale);
-  store_rows<D>(static_cast<T*>(a.out2) + base, dv, r0 + g, a.Sk, a.H, 1.f);
+  const long long base = (v.krow * a.H + v.h) * D + c0;
+  const long long stride = static_cast<long long>(a.H) * D;
+  store_rows(static_cast<T*>(a.out) + base, dk, r0 + g, v.sk, stride,
+             a.scale);
+  store_rows(static_cast<T*>(a.out2) + base, dv, r0 + g, v.sk, stride, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -691,26 +820,29 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
-  constexpr int LD = ld<T, D>();
-  const size_t tile = static_cast<size_t>(kRows) * LD * sizeof(T);
+  constexpr int C = other_rows<T, D>(), DO = out_cols<D>();
+  constexpr size_t LD = ld<T, D>(), LDO = ld<T, DO>();
+  const size_t own = kRows * LD * sizeof(T), other = C * LD * sizeof(T);
   void (*kern)(const Args);
   size_t smem;
   if (which == kFwd) {
     kern = flash_fwd_kernel<T, D>;
-    smem = 5 * tile;   // Q, two (K, V)
+    smem = own + 2 * other + 2 * C * LDO * sizeof(T);   // Q, two (K, V)
   } else if (which == kDq) {
     kern = flash_bwd_dq_kernel<T, D>;
-    smem = 6 * tile;   // Q, dO, two (K, V)
+    smem = 2 * own + 4 * other;   // Q, dO, two (K, V)
   } else {
     kern = flash_bwd_dkv_kernel<T, D>;
-    smem = 6 * tile + 4 * kCols * sizeof(float);   // K, V, two (Q, dO, stats)
+    smem = 2 * own + 4 * other + 4 * C * sizeof(float);   // K, V, two (Q, dO, stats)
   }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int rows = which == kDkv ? a.Sk : a.Sq;
-  const dim3 grid((rows + kRows - 1) / kRows, a.B * a.H);
+  const bool packed = a.tiles != nullptr;
+  const dim3 grid(packed ? a.ntiles : (rows + kRows - 1) / kRows,
+                  packed ? a.H : a.B * a.H, D / DO);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -721,25 +853,42 @@ cudaError_t launch_d(int which, int d, const Args& a, cudaStream_t stream) {
     case 32: return launch<T, 32>(which, a, stream);
     case 64: return launch<T, 64>(which, a, stream);
     case 128: return launch<T, 128>(which, a, stream);
+    case 256: return launch<T, 256>(which, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, void* out, void* out2, float* lse,
-        const float* delta, const void* seed, const long long* strides,
-        int B, int H, int Sq, int Sk, int D, float scale, int threshold,
-        float inv_keep, int causal, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1))
+        const float* delta, const void* seed, const void* lens,
+        const void* shift, const void* cu_q, const void* cu_k,
+        const void* hstart, const void* tiles, int ntiles,
+        const long long* strides, int B, int H, int Sq, int Sk, int D,
+        float scale, int threshold, float inv_keep, int causal, int dtype,
+        void* stream) {
+  const bool packed = tiles != nullptr;
+  // lengths below 2^30 keep the masks' int32 sums from overflowing
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || Sq >= (1 << 30) ||
+      Sk >= (1 << 30) || (dtype != 0 && dtype != 1) ||
+      (packed ? (ntiles <= 0 || H > 65535 || cu_q == nullptr ||
+                 cu_k == nullptr || hstart == nullptr || lens != nullptr ||
+                 shift != nullptr)
+              : B * H > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.out = out; a.out2 = out2; a.lse = lse; a.delta = delta;
   a.seed = static_cast<const int32_t*>(seed);
+  a.lens = static_cast<const int32_t*>(lens);
+  a.shift = static_cast<const int32_t*>(shift);
+  a.cu_q = static_cast<const int32_t*>(cu_q);
+  a.cu_k = static_cast<const int32_t*>(cu_k);
+  a.hstart = static_cast<const int32_t*>(hstart);
+  a.tiles = static_cast<const int32_t*>(tiles);
+  a.ntiles = ntiles;
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
-  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.off = Sk - Sq;
+  a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk;
   a.scale = scale;
   a.threshold = static_cast<uint32_t>(threshold);
   a.inv_keep = inv_keep;
@@ -755,42 +904,62 @@ int run(int which, const void* q, const void* k, const void* v,
 
 // strides: (b, s, h) of q, k, v and do, 12 int64 values (do's unused by the
 // forward).  Sq: q's (and do's) length, Sk: k's and v's.  seed: a device
-// int32, or null for no dropout.
+// int32, or null for no dropout.  The masks, each a device pointer or null:
+// lens (B int32: keys < lens[b] kept, the causal offset 0), shift (one
+// int32: the causal offset).  Packed mode when tiles is not null: q, k, v
+// and do are (total, H, D) (their b strides unused), B counts sequences, Sq
+// and Sk are total_q and total_k, cu_q and cu_k (B + 1 int32) bound the
+// sequences, hstart (2B int32) holds the hash bases start_q then start_k,
+// and tiles (ntiles x 2 int32) names each block's (sequence, first own
+// row): q tiles for the forward and dq, k tiles for dk/dv, 64 rows each.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seed,
-                             const long long* strides, int B, int H, int Sq,
-                             int Sk, int D, float scale, int threshold,
-                             float inv_keep, int causal, int dtype,
-                             void* stream) {
+                             const void* lens, const void* shift,
+                             const void* cu_q, const void* cu_k,
+                             const void* hstart, const void* tiles,
+                             int ntiles, const long long* strides, int B,
+                             int H, int Sq, int Sk, int D, float scale,
+                             int threshold, float inv_keep, int causal,
+                             int dtype, void* stream) {
   return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
-             nullptr, seed, strides, B, H, Sq, Sk, D, scale, threshold,
-             inv_keep, causal, dtype, stream);
+             nullptr, seed, lens, shift, cu_q, cu_k, hstart, tiles, ntiles,
+             strides, B, H, Sq, Sk, D, scale, threshold, inv_keep, causal,
+             dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, const void* seed,
-                                const long long* strides, int B, int H,
-                                int Sq, int Sk, int D, float scale,
+                                const void* lens, const void* shift,
+                                const void* cu_q, const void* cu_k,
+                                const void* hstart, const void* tiles,
+                                int ntiles, const long long* strides, int B,
+                                int H, int Sq, int Sk, int D, float scale,
                                 int threshold, float inv_keep, int causal,
                                 int dtype, void* stream) {
   return run(kDq, q, k, v, dout, dq, nullptr,
              const_cast<float*>(static_cast<const float*>(lse)),
-             static_cast<const float*>(delta), seed, strides, B, H, Sq, Sk,
-             D, scale, threshold, inv_keep, causal, dtype, stream);
+             static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
+             hstart, tiles, ntiles, strides, B, H, Sq, Sk, D, scale,
+             threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
-                                 const void* seed, const long long* strides,
-                                 int B, int H, int Sq, int Sk, int D,
-                                 float scale, int threshold, float inv_keep,
-                                 int causal, int dtype, void* stream) {
+                                 const void* seed, const void* lens,
+                                 const void* shift, const void* cu_q,
+                                 const void* cu_k, const void* hstart,
+                                 const void* tiles, int ntiles,
+                                 const long long* strides, int B, int H,
+                                 int Sq, int Sk, int D, float scale,
+                                 int threshold, float inv_keep, int causal,
+                                 int dtype, void* stream) {
   return run(kDkv, q, k, v, dout, dk, dv,
              const_cast<float*>(static_cast<const float*>(lse)),
-             static_cast<const float*>(delta), seed, strides, B, H, Sq, Sk,
-             D, scale, threshold, inv_keep, causal, dtype, stream);
+             static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
+             hstart, tiles, ntiles, strides, B, H, Sq, Sk, D, scale,
+             threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" const char* ptt_error_string(int status) {

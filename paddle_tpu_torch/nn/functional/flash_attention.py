@@ -1,9 +1,13 @@
-"""``paddle.nn.functional.flash_attention`` over the port's flash kernels
-(the counterpart of ``flash_attention`` in
+"""``paddle.nn.functional.flash_attention`` and ``flash_attn_unpadded``
+over the port's flash kernels (the counterpart of
 ``paddle_tpu/nn/functional/flash_attention.py``).
 
-``flash_attn_unpadded`` (packed varlen sequences) waits for the packed
-kernels and is not ported.
+``flash_attn_unpadded`` runs packed ragged sequences through the packed
+kernels (:func:`...ops.pallas_ops.mha_packed`).  The JAX package's
+``_packed_usable`` canary and ``_padded_fallback`` are not ported: they
+keep a jitted TPU step alive when its kernel fails to lower, and here a
+kernel that fails raises.  ``check_varlen`` validates a traced ``cu``; the
+port is eager, so ``cu_seqlens`` is always validated on the host.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 from ...ops import pallas_ops
 from .common import scaled_dot_product_attention
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attn_unpadded"]
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
@@ -44,3 +48,37 @@ def _softmax_probs(query, key, causal):
                           device=logits.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
     return torch.softmax(logits.float(), dim=-1)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, *, generator=None):
+    """Packed ragged varlen attention: ``query`` is ``(total_q, H, D)``,
+    sequence ``i`` on rows ``cu_seqlens_q[i]:cu_seqlens_q[i + 1]`` (key
+    and value likewise with ``cu_seqlens_k``); returns ``(out, None)``,
+    out ``(total_q, H, D)``, differentiable in query, key and value.
+
+    Cross lengths are allowed; ``causal`` aligns each pair's diagonal
+    bottom right, the flash-attn varlen convention.  ``cu_seqlens`` are
+    read on the host and validated (raising, as the JAX function does on
+    concrete values).  Dropout in training draws its seed from
+    ``generator``.  ``return_softmax``, ``fixed_seed_offset``,
+    ``rng_name`` and ``name`` are accepted and unused, as in the JAX
+    function.
+    """
+    cu_q = pallas_ops._validate_cu(pallas_ops._host_ints(cu_seqlens_q),
+                                   query.shape[0], "cu_seqlens_q",
+                                   max_seqlen_q)
+    cu_k = pallas_ops._validate_cu(pallas_ops._host_ints(cu_seqlens_k),
+                                   key.shape[0], "cu_seqlens_k", max_seqlen_k)
+    eff = dropout if training else 0.0
+    seed = None
+    if eff > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs the run's generator")
+        seed = pallas_ops.draw_seed(generator)
+    out = pallas_ops.mha_packed(query, key, value, cu_q, cu_k, causal=causal,
+                                sm_scale=scale, dropout_p=eff, seed=seed)
+    return out, None

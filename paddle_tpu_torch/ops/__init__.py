@@ -22,6 +22,9 @@ KERNELS = {
     "flash_fwd": _pallas_ops.flash_fwd,
     "flash_bwd_dq": _pallas_ops.flash_bwd_dq,
     "flash_bwd_dkv": _pallas_ops.flash_bwd_dkv,
+    "flash_packed_fwd": _pallas_ops.flash_packed_fwd,
+    "flash_packed_bwd_dq": _pallas_ops.flash_packed_bwd_dq,
+    "flash_packed_bwd_dkv": _pallas_ops.flash_packed_bwd_dkv,
 }
 
 

@@ -404,3 +404,140 @@ def test_flash_calls_per_step_with_recompute(jax_model, monkeypatch):
     # backward pair per block
     assert calls == {"fwd": 2 * layers, "dq": layers, "dkv": layers}
     assert torch.isfinite(loss)
+
+
+# -- (h) the lse gradient, seq_lens, causal_shift, head sizes above 128 -----
+
+def _jax_mha_vjp(q, k, v, w, wl, **kw):
+    """Out, lse and the gradients of ``sum(out * w) + sum(lse * wl)``
+    through the interpret-mode JAX ``mha(return_lse=True)``."""
+    def loss(q_, k_, v_):
+        o, lse = jpo.mha(q_, k_, v_, interpret=True, block_q=32, block_k=32,
+                         return_lse=True, **kw)
+        return jnp.sum(o * w) + jnp.sum(lse * wl), (o, lse)
+
+    (_, (o, lse)), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    return np.asarray(o), np.asarray(lse), [np.asarray(g) for g in grads]
+
+
+def _port_mha_grads(q, k, v, w, wl, **kw):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o, lse = tpo.mha(*ts, return_lse=True, **kw)
+    ((o * torch.from_numpy(w)).sum()
+     + (lse * torch.from_numpy(wl)).sum()).backward()
+    return o.detach().numpy(), lse.detach().numpy(), [t.grad.numpy()
+                                                      for t in ts]
+
+
+def _assert_mha_matches(q, k, v, jkw, tkw, seed=8):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(*q.shape).astype(np.float32)
+    wl = rng.randn(*q.shape[:3]).astype(np.float32)
+    jo, jl, jg = _jax_mha_vjp(q, k, v, w, wl, **jkw)
+    to, tl, tg = _port_mha_grads(q, k, v, w, wl, **tkw)
+    np.testing.assert_allclose(to, jo, atol=2e-5, rtol=2e-5, err_msg="out")
+    np.testing.assert_allclose(tl, jl, atol=2e-5, rtol=2e-5, err_msg="lse")
+    for g, want, name in zip(tg, jg, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, want, atol=3e-4, rtol=3e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_mha_lse_gradient_matches_jax_grad(causal):
+    # the loss out.sum() + lse.sum(): the lse's cotangent folds into delta
+    q, k, v = _qkv(9, (1, 2, 16, 32))
+    ones = np.ones((1, 2, 16, 32), np.float32)
+    _assert_mha_matches(q, k, v, dict(causal=causal), dict(causal=causal))
+    jo, jl, jg = _jax_mha_vjp(q, k, v, ones, ones[..., 0], causal=causal)
+    to, tl, tg = _port_mha_grads(q, k, v, ones, ones[..., 0], causal=causal)
+    for g, want in zip(tg, jg):
+        np.testing.assert_allclose(g, want, atol=3e-4, rtol=3e-4)
+    # the lse alone has a gradient too
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tpo.mha(*ts, causal=causal, return_lse=True)[1].sum().backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in ts[:2])
+    assert float(ts[2].grad.abs().sum()) == 0.0   # lse does not see v
+
+
+@pytest.mark.parametrize("variant", [
+    dict(causal=True, seq_lens=[40, 17]),
+    dict(causal=False, seq_lens=[40, 0]),
+    dict(causal=True, causal_shift=5, kv=96),
+    dict(causal=True, causal_shift=-20),      # the first 20 rows: no key
+    dict(causal=True, causal_shift=-64),      # no row has a key
+], ids=["lens-causal", "lens-full-empty", "shift-cross", "shift-empties-rows",
+        "shift-empties-all"])
+def test_mha_seq_lens_and_causal_shift_match_jax(variant):
+    kw = dict(variant)
+    kv = kw.pop("kv", 64)
+    b = 2 if "seq_lens" in kw else 1
+    q = np.random.RandomState(10).randn(b, 2, 64, 32).astype(np.float32)
+    k, v = _qkv(11, (b, 2, kv, 32))[:2]
+    jkw, tkw = dict(kw), dict(kw)
+    if "seq_lens" in kw:
+        jkw["seq_lens"] = jnp.asarray(kw["seq_lens"], jnp.int32)
+        tkw["seq_lens"] = torch.tensor(kw["seq_lens"], dtype=torch.int32)
+    if "causal_shift" in kw:
+        jkw["causal_shift"] = jnp.int32(kw["causal_shift"])
+        tkw["causal_shift"] = torch.tensor(kw["causal_shift"],
+                                           dtype=torch.int32)
+    _assert_mha_matches(q, k, v, jkw, tkw)
+    if kw.get("causal_shift", 0) < 0:
+        out, lse = tpo.mha(*(torch.from_numpy(a) for a in (q, k, v)),
+                           return_lse=True, **tkw)
+        empty = min(-kw["causal_shift"], 64)
+        assert torch.all(out[:, :, :empty] == 0)
+        assert torch.all(lse[:, :, :empty] == -1e30)
+
+
+def test_mha_variants_refuse_what_jax_refuses():
+    q, k, v = (torch.zeros(1, 2, 16, 32) for _ in range(3))
+    kv = torch.zeros(1, 2, 24, 32)
+    with pytest.raises(ValueError, match="seq_lens requires self-attention"):
+        tpo.mha(q, kv, kv, seq_lens=[4])
+    with pytest.raises(ValueError, match="causal_shift requires causal"):
+        tpo.mha(q, k, v, causal_shift=3)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_mha_head_sizes_above_128_match_jax(d):
+    q = np.random.RandomState(12).randn(1, 2, 40, d).astype(np.float32)
+    k, v = _qkv(13, (1, 2, 72, d))[:2]
+    kw = dict(causal=True, dropout_p=0.1)
+    _assert_mha_matches(q, k, v, dict(kw, seed=_jseed(SEEDS[0])),
+                        dict(kw, seed=SEEDS[0]))
+
+
+def test_padded_pads_129_to_256_and_refuses_257():
+    for d in (129, 200, 256):
+        padded = tpo._padded(torch.ones(1, 3, 2, d), torch.ones(1, 5, 2, d))
+        assert [t.shape[-1] for t in padded] == [256, 256]
+        assert float(padded[1][..., d:].abs().sum()) == 0.0
+    with pytest.raises(ValueError, match="head dim 257 > 256"):
+        tpo._padded(torch.ones(1, 3, 2, 257))
+
+
+def test_cuda_tensor_carries_seq_lens_and_causal_shift_to_the_kernels(
+        monkeypatch):
+    seen = []
+
+    def launch(q, *a):
+        seen.append(a[-2:])
+        return (torch.empty(q.shape, device="meta"),
+                torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                            device="meta"))
+
+    for name in ("_launch_fwd", "_launch_dq", "_launch_dkv"):
+        monkeypatch.setattr(tpo, name, launch)
+    for name in ("mha_reference", "mha_dq_reference", "mha_dkv_reference"):
+        monkeypatch.setattr(tpo, name, _forbid)
+    q = _FakeCuda(device=torch.device("cuda", 0), shape=(2, 64, 2, 32))
+    lens, shift = object(), object()
+    tpo.flash_fwd(q, q, q, causal=True, seq_lens=lens, causal_shift=shift)
+    tpo.flash_bwd_dq(q, q, q, q, None, None, causal=True, seq_lens=lens,
+                     causal_shift=shift)
+    tpo.flash_bwd_dkv(q, q, q, q, None, None, causal=True, seq_lens=lens,
+                      causal_shift=shift)
+    assert seen == [(lens, shift)] * 3
