@@ -31,14 +31,29 @@ line is printed:
              torch has it, else SDPA on the padded batch) and 0.1), then
              f32, cross lengths with rows that see no key, sequences of
              length 0, no mask, head sizes 48 and 256 and other
-             ``block_q``/``block_k`` for the dropout hash's layout;
+             ``block_q``/``block_k`` for the dropout hash's layout (and
+             D 320); flash at head sizes past 256 (320 and 512, padded
+             to multiples of 128), bf16 and f32, causal and not;
+             LayerNorm at widths past its register path (2048 over the
+             gpt_1p3b step's 4096 rows, 5120 with a residual, 1003: not a
+             multiple of 8), bf16 and f32;
+             w8a16: each row at M in {1, 2, 5, 16, 17, 64, 512} the
+             same bits as alone, two calls the same bits, and M = 1 and
+             512 the bits of ``w8a16_split_reference`` (the plain model of
+             the kernel's sum order);
              LayerNorm without weight and bias; the fusion pass's block
              kernels at the shapes of its paths (LayerNorm + matmul at
              gpt_345m's (8192, 1024) @ (1024, 3072) and BERT's tied
              decoder, (4096, 768) @ a transposed (30528, 768) table;
              matmul + bias + gelu at (8192, 1024) @ (1024, 4096), tanh, and
              BERT's (4096, 768) @ (768, 3072), erf) in bf16, then f32 and
-             the other options at small shapes: max abs error against the
+             the other options at small shapes, both also at the
+             gpt_1p3b step's shapes ((4096, 2048) @ (2048, 6144) and @
+             (2048, 8192), tanh; timed), LayerNorm + matmul also at K =
+             2048 and 5120, with a transposed W at a ragged N (1000), and
+             at K = 1003 and 2050, matmul + bias + gelu at K = 1003 (both
+             zero-padded to a multiple of 8 by the wrapper): max abs
+             error against the
              stated tolerance, times with CUDA events (median of 30 after
              warm-up, L2 flushed before each launch), and the least time
              the card could take (bytes over 3.35 TB/s or operations over
@@ -100,7 +115,16 @@ line is printed:
              weights at dropout 0 (where the attention clusters are
              rewritten too); then the same step with the pass on and off
              in turns, timed; then bert_base at 32 x 128 with the pass
-             on, 8 steps, its rewrites and launches per step.
+             on, 8 steps, its rewrites and launches per step; last
+             gpt_1p3b at full width (hidden 2048, 16 heads of 128), 2
+             layers, batch 4 x 1024, O2 bf16, no recompute: one forward
+             and backward in which each call of rows 7-8 and 11-12 is
+             held against its plain version on the same inputs (phase 3's
+             tolerances), then 2 steps: its rewrites and launches per
+             step; then the same from the same weights with rows 7-8 and
+             11-12 on their plain versions: the logits and every
+             gradient, read in f32, within WIDE_TOL (relative norm) and
+             the losses within FUSION_TOL.
 10. packed   ``bench.py::bench_packed`` on the port:
              ``F.flash_attn_unpadded`` over the 8 packed causal sequences
              of 64..1024 tokens (3392 tokens, 16 heads of 64, bf16),
@@ -160,6 +184,18 @@ FUSED_BATCH, FUSED_STEPS, FUSED_CMP_STEPS = 8, 8, 3     # bench_gpt's rung
 # share of max |ref| (f32: sums in another order; bf16: about 2.5 bf16
 # steps of the largest output, one rounding of h and of the output)
 BLOCK_TOL = {"f32": 1e-4, "bf16": 1e-2}
+# gpt_1p3b at full width (hidden 2048, 16 heads of 128), depth cut to 2
+# layers: the width the port's LayerNorm and block kernels took first in
+# PR 8, at bench_gpt's sequence
+WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = 2, 4, 2
+# its first forward and backward on the kernels against the same on rows
+# 7-8 and 11-12's plain versions, read in f32: ||got - want|| / ||want||
+# for the logits and for each parameter's gradient (both sides sum in f32
+# and round to bf16 in the same places, in another order: about one bf16
+# step, 2^-8, on a share of the elements)
+WIDE_TOL = 1e-2
+# w8a16: row r of a launch of M rows has the bits of row r launched alone
+W8A16_BITS_M = (1, 2, 5, 16, 17, 64, 512)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8        # phase-1 pretraining
@@ -386,6 +422,8 @@ def phase_kernels(timer):
         ops = [_w8a16_operands(gen, 16, kk, nn, torch.bfloat16)]
         rows.append(_w8a16_entry(timer, ops, f"bf16 x, M=16 K={kk} N={nn}",
                                  TOL["bf16"]))
+    for kk, nn in layer[3:]:  # the serve engine's contract, f32 x
+        rows.append(_w8a16_rows_alone(gen, kk, nn))
 
     # the training step's LayerNorm: batch 16 x seq 1024 rows of hidden
     # 1024, bf16 under O2 (the main path) and f32
@@ -406,6 +444,19 @@ def phase_kernels(timer):
                                        1e-12, residual=residual)
         results["layer_norm_fwd"].append(fwd)
         results["layer_norm_bwd"].append(bwd)
+
+    # widths past the register path (GPT-1.3B's 2048 at its step's 4 x
+    # 1024 rows, GPT-13B's 5120 with a residual) and a d that is not a
+    # multiple of 8
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for rows, d, residual in ((WIDE_BATCH * TRAIN_SEQ, 2048, False),
+                                  (2048, 5120, True), (2048, 1003, True),
+                                  (2048, 1003, False)):
+            fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype, rows, d,
+                                           1e-5, residual=residual)
+            results["layer_norm_fwd"].append(fwd)
+            results["layer_norm_bwd"].append(bwd)
+        torch.cuda.empty_cache()
 
     # softmax cross-entropy: the MLM head's logits (bf16 under O2, timed,
     # first), then f32, smoothing, the NSP head and ragged vocabularies
@@ -459,6 +510,15 @@ def phase_kernels(timer):
         for name, row in _flash_entries(timer, gen, tag, shape, causal,
                                         False, kv_len=kv).items():
             results[name].append(row)
+    # head sizes past 256 (padded to multiples of 128: 320 to 384, and 512),
+    # bf16 and f32, causal and not
+    for tag in ("bf16", "f32"):
+        for d in (320, 512):
+            for causal in (True, False):
+                for name, row in _flash_entries(timer, gen, tag,
+                                                (2, 200, 2, d), causal,
+                                                False).items():
+                    results[name].append(row)
     _flash_variant_rows(timer, gen, results)
     _packed_rows(timer, gen, results)
 
@@ -484,6 +544,23 @@ def phase_kernels(timer):
             ("f32", 37, 1024, 136, dict(residual=True, strided=True)),
             ("bf16", 100, 96, 200, dict(residual=True, ln_affine=False)),
             ("bf16", 37, 768, 264, dict(strided=True, bias=False))]
+    # K past 1024 (h streamed by k tile): the gpt_1p3b step's ln1 + qkv
+    # (4 x 1024 rows, 2048 @ 6144: every item a run of several column
+    # tiles), timed; GPT-1.3B's 2048 and GPT-13B's 5120 with a residual, no
+    # LayerNorm affine and no bias; a transposed W at a ragged N (1000 = 3 x
+    # 256 + 232); and K = 1003 and 2050, not multiples of 8 (zero-padded by
+    # the wrapper)
+    lnmm.append(("bf16", WIDE_BATCH * TRAIN_SEQ, 2048, 3 * 2048,
+                 dict(timed=True)))
+    for tag in ("bf16", "f32"):
+        lnmm += [(tag, 300, 2048, 520, dict(residual=True, ln_affine=False,
+                                            bias=False)),
+                 (tag, 300, 5120, 520, dict(residual=True, ln_affine=False,
+                                            bias=False)),
+                 (tag, 300, 2048, 1000, dict(strided=True)),
+                 (tag, 300, 1003, 520, dict(residual=True)),
+                 (tag, 37, 1003, 1000, dict(strided=True, ln_affine=False)),
+                 (tag, 300, 2050, 520, dict(residual=True, bias=False))]
     for tag, rows, k, n, kw in lnmm:
         results.setdefault("ln_matmul", []).append(
             _ln_matmul_entry(timer, gen, tag, rows, k, n, **kw))
@@ -492,11 +569,17 @@ def phase_kernels(timer):
            ("bf16", bert_rows, bh, 4 * bh,
             dict(approximate=False, timed=True)),
            ("bf16", bert_rows, bh, bh, dict(approximate=False)),
+           # the gpt_1p3b step's fc1 + gelu, 4 x 1024 rows, 2048 @ 8192
+           ("bf16", WIDE_BATCH * TRAIN_SEQ, 2048, 4 * 2048,
+            dict(approximate=True, timed=True)),
            ("f32", 100, 96, 200, dict(approximate=True)),
            ("f32", 100, 96, 200, dict(approximate=False, bias=False)),
            ("f32", 37, 64, 136, dict(approximate=True, strided=True)),
            ("bf16", 100, 96, 200, dict(approximate=True, strided=True,
-                                       bias=False))]
+                                       bias=False)),
+           # K not a multiple of 8 (zero-padded by the wrapper)
+           ("bf16", 300, 1003, 520, dict(approximate=True)),
+           ("f32", 37, 1003, 1000, dict(approximate=False, strided=True))]
     for tag, rows, k, n, kw in mbg:
         results.setdefault("matmul_bias_gelu", []).append(
             _mbg_entry(timer, gen, tag, rows, k, n, **kw))
@@ -900,6 +983,8 @@ def _packed_rows(timer, gen, results):
                  (tag, [100, 0, 77, 200], [100, 0, 77, 200], 2, 48, True,
                   FLASH_DROPOUT, (64, 128), False),
                  (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 256, True,
+                  FLASH_DROPOUT, (None, None), False),
+                 (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 320, True,
                   FLASH_DROPOUT, (None, None), False)]
     for tag, lq, lk, h, d, causal, p, blocks, timed in sets:
         for name, row in _packed_entries(timer, gen, tag, lq, lk, h, d,
@@ -1362,7 +1447,9 @@ def _w8a16_entry(timer, ops, variant, tol):
                  for x, wq, sc, _ in ops)
     flops = sum(2.0 * x.shape[0] * x.shape[1] * wq.shape[1]
                 for x, wq, _, _ in ops)
-    t_bound, by = bound_ms(nbytes, flops, torch.float32)
+    # f32 x: f32 FMAs; bf16 x: the tensor cores' rate (int8 widens to bf16
+    # exactly), so its bound is the bytes
+    t_bound, by = bound_ms(nbytes, flops, ops[0][0].dtype)
     ms = timer(lambda: run(w8a16_matmul))
     plain = timer(lambda: run(w8a16_matmul_reference))
     lib = timer(lambda: [torch.matmul(x, wd) for x, _, _, wd in ops])
@@ -1375,6 +1462,42 @@ def _w8a16_entry(timer, ops, variant, tol):
                              f"plain version: {err} > {tol}")
     return dict(variant=variant, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain, bound_ms=t_bound, bound_by=by, library_ms=lib)
+
+
+def _w8a16_rows_alone(gen, kk, nn):
+    """The serve engine's contract on the kernel, f32 x at (K, N): row r
+    of a launch of M rows, for every M of ``W8A16_BITS_M``, has the bits of
+    row r launched alone (M = 1), and two calls give the same bits; and
+    the kernel's sums at M = 1 (the cluster's split K) and at the largest
+    M (one block over all of K) have the bits of ``w8a16_split_reference``,
+    the plain model of its sum order."""
+    from paddle_tpu_torch.ops.quant_kernels import (w8a16_matmul,
+                                                    w8a16_split_reference)
+    mmax = max(W8A16_BITS_M)
+    x, wq, sc, _ = _w8a16_operands(gen, mmax, kk, nn, torch.float32)
+    alone = torch.cat([w8a16_matmul(x[r:r + 1], wq, sc)
+                       for r in range(mmax)])
+    differ = [m for m in W8A16_BITS_M
+              if not torch.equal(w8a16_matmul(x[:m], wq, sc), alone[:m])]
+    full = w8a16_matmul(x, wq, sc)
+    again = torch.equal(full, w8a16_matmul(x, wq, sc))
+    model = w8a16_split_reference(x, wq, sc)
+    torch.cuda.synchronize()
+    off_model = [m for m, got in ((1, alone[:1]), (mmax, full))
+                 if not torch.equal(got, model[:m])]
+    variant = (f"f32 x, K={kk} N={nn}: rows at M in {W8A16_BITS_M} against "
+               f"each row alone; M = 1 and {mmax} against the split model")
+    log(f"[kernel] w8a16_matmul {variant}: M with a differing row "
+        f"{differ or 'none'}; bit-identical over two calls: {again}; M off "
+        f"the split model's bits {off_model or 'none'} (max_abs_err "
+        f"{(full - model).abs().max().item():.3e})")
+    if differ or not again or off_model:
+        raise AssertionError(f"w8a16_matmul {variant}: rows differ at M "
+                             f"{differ}, or between calls ({again}), or "
+                             f"from the split model at M {off_model}")
+    return dict(variant=variant, max_abs_err=0.0, tol=0.0,
+                bit_identical=True, ms=None, plain_ms=None, bound_ms=None,
+                bound_by=None, library_ms=None)
 
 
 def phase_model():
@@ -1779,11 +1902,13 @@ def _profile_train_step(step, inputs, targets, step_s, smi, model,
     busy_ms = sum(_device_us(e) for e in kernels) / steps / 1e3
     ops = sum(e.count for e in kernels) / steps
     mine = {"LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel",
-                          "ln_bwd_reduce_kernel"),
+                          "ln_bwd_reduce_kernel", "ln_fwd_any_kernel",
+                          "ln_bwd_dx_any_kernel", "ln_bwd_cols_any_kernel"),
             "flash": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel"),
             "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel"),
-            "LayerNorm + matmul": ("ln_matmul_kernel",),
+            "LayerNorm + matmul": ("ln_matmul_kernel", "lnmm_whole_kernel",
+                                   "lnmm_stats_kernel", "lnmm_stream_kernel"),
             "matmul + bias + gelu": ("mm_gelu_kernel",)}
     shares, own = [], []
     for label, names in mine.items():
@@ -2023,7 +2148,8 @@ def phase_fusion(smi):
     _fused_gpt_on_vs_off()
     _fused_gpt_ab(smi)
     bert = _fused_bert_run(smi)
-    return gpt, bert
+    wide = _fused_gpt_wide(smi)
+    return gpt, bert, wide
 
 
 def phase_packed(smi):
@@ -2347,6 +2473,167 @@ def _fused_gpt_ab(smi, turns=(True, False, False, True) * 2, turn_steps=2):
     torch.cuda.empty_cache()
 
 
+def _fwd_bwd_f32(step, ids, labels):
+    """One forward and backward of ``step``'s model on its generator, no
+    update: the logits and every parameter's gradient, in f32."""
+    logits = step.model(ids, generator=step.generator)
+    step.criterion(logits, labels).float().backward()
+    grads = {n: p.grad.float() for n, p in step.params.items()
+             if p.grad is not None}
+    for p in step.params.values():
+        p.grad = None
+    return logits.detach().float(), grads
+
+
+def _checked_calls(fk, names):
+    """Replace each wrapper ``names`` of ``fk`` (rows 7-8, 11-12) by one
+    that also runs its plain version on the same inputs and holds each
+    output against it within its phase-3 tolerance (``LN_TOL``,
+    ``BLOCK_TOL``).  Returns ``{name: [(max abs err, ok), ...]}``, one entry
+    per output of each call; the caller puts the wrappers back."""
+    def ln_fwd(out, want, tag):
+        return [_ln_err(o, w, tag) for o, w in zip(out, want)]
+
+    def ln_bwd(out, want, tag):
+        return [_ln_err(o, w, tag, rel_to_max=i > 0)
+                for i, (o, w) in enumerate(zip(out, want)) if w is not None]
+
+    def block(out, want, tag):
+        pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+        return [_block_err(o, w, tag) for o, w in pairs]
+
+    compare = {"layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd,
+               "ln_matmul": block, "matmul_bias_gelu": block}
+    seen = {n: [] for n in names}
+
+    def checked(name):
+        kernel = getattr(fk, name)
+        reference = getattr(fk, name + "_reference")
+
+        def fn(*args, **kw):
+            out = kernel(*args, **kw)
+            tag = "bf16" if args[0].dtype == torch.bfloat16 else "f32"
+            seen[name] += compare[name](out, reference(*args, **kw), tag)
+            return out
+        # the wrapper adds to the counters of the module name it is
+        # called by: these, while it is replaced
+        fn.launches = fn.residual_launches = 0
+        return fn
+
+    for n in names:
+        setattr(fk, n, checked(n))
+    return seen
+
+
+def _rel_norm(got, want):
+    """||got - want|| / ||want|| (the difference's norm where want is 0)."""
+    diff = (got - want).norm().item()
+    ref = want.norm().item()
+    return diff / ref if ref > 0 else diff
+
+
+def _fused_gpt_wide(smi):
+    """gpt_1p3b at full width (hidden 2048, 16 heads of 128) and
+    ``WIDE_LAYERS`` layers, batch ``WIDE_BATCH`` x ``TRAIN_SEQ``, O2 bf16,
+    AdamW, dropout 0.1, no recompute, the fusion pass on: one forward and
+    backward without an update (logits and every parameter's gradient kept
+    in f32), then ``WIDE_STEPS`` steps: the rewrites, the launches per
+    step as the model implies and finite losses.  Then the same from the
+    same weights and dropout draws with rows 7-8 and 11-12 replaced by
+    their plain versions on the card: the logits and each gradient within
+    ``WIDE_TOL`` (relative norm), the losses within ``FUSION_TOL``.
+    Returns the launch counts of the kernels' steps."""
+    from paddle_tpu_torch.incubate.models import gpt_1p3b
+    from paddle_tpu_torch.ops import fused_kernels as fk
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = dataclasses.replace(gpt_1p3b(use_recompute=False,
+                                       max_position_embeddings=TRAIN_SEQ),
+                              num_layers=WIDE_LAYERS)
+    ids, labels = make_batch(cfg, WIDE_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    names = ("layer_norm_fwd", "layer_norm_bwd", "ln_matmul",
+             "matmul_bias_gelu")
+    kernels = {n: getattr(fk, n) for n in names}
+    traj, first = {}, {}
+    try:
+        for mode in ("kernels", "plain"):
+            for n in names:
+                setattr(fk, n, kernels[n] if mode == "kernels"
+                        else getattr(fk, n + "_reference"))
+            fp.reset_stats()
+            step = build_train_step(cfg, device=DEVICE, seed=0, fusion=True)
+            if mode == "kernels":   # each call against its plain version
+                calls = _checked_calls(fk, names)
+            first[mode] = _fwd_bwd_f32(step, ids, labels)
+            for n in names:
+                setattr(fk, n, kernels[n] if mode == "kernels"
+                        else getattr(fk, n + "_reference"))
+            traj[mode], times, launches, peak_gb = _run_steps(
+                step, ids, labels, WIDE_STEPS)
+            if mode == "kernels":
+                counts, kernel_times, kernel_peak = launches, times, peak_gb
+                rewrites = _check_rewrites("gpt_1p3b fused", {
+                    "ln_matmul": WIDE_LAYERS, "matmul_bias_gelu": WIDE_LAYERS,
+                    "layer_norm": WIDE_LAYERS, "residual_ln": 1})
+            del step
+            torch.cuda.empty_cache()
+    finally:
+        for n in names:
+            setattr(fk, n, kernels[n])
+    # per step, as _fused_gpt_run: ln1 + qkv and fc1 + gelu per block;
+    # LayerNorm: ln2 per block, the final one, ln1 again in the block
+    # kernel's backward; flash once per block
+    per_step = {"ln_matmul": WIDE_LAYERS, "matmul_bias_gelu": WIDE_LAYERS,
+                "layer_norm_fwd": 2 * WIDE_LAYERS + 1,
+                "layer_norm_bwd": 2 * WIDE_LAYERS + 1,
+                "layer_norm_fwd.residual": 1, "layer_norm_bwd.residual": 1,
+                **{n: WIDE_LAYERS for n in FLASH_KERNELS}}
+    err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernels"],
+                                                  traj["plain"]))
+    per_call = {n: (len(v), max(e for e, _ in v), all(ok for _, ok in v))
+                for n, v in calls.items() if v}
+    (lg, gr), (lg_ref, gr_ref) = first["kernels"], first["plain"]
+    rel = {"logits": _rel_norm(lg, lg_ref)}
+    rel.update({n: _rel_norm(gr[n], gr_ref[n]) for n in gr_ref})
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    finite = all(bool(torch.isfinite(t).all()) for t in (lg, *gr.values()))
+    del first, lg, gr, lg_ref, gr_ref
+    log(f"[fusion] gpt_1p3b {WIDE_LAYERS} layers (hidden 2048, 16 heads of "
+        f"128), batch {WIDE_BATCH} x {TRAIN_SEQ}, O2 bf16, dropout 0.1, no "
+        f"recompute, pass on ({rewrites}): first forward and backward, each "
+        f"call of rows 7-8, 11-12 against its plain version on its inputs "
+        f"(outputs checked, max abs err, within tolerance): {per_call}; the "
+        f"same on the kernels vs plain, f32 relative norm: logits "
+        f"{rel['logits']:.3e}, gradients of {len(rel) - 1} parameters, the "
+        f"worst {[(n, float(f'{v:.3e}')) for n, v in worst]} (tol "
+        f"{WIDE_TOL:.0e}); losses on the kernels {traj['kernels']} vs plain "
+        f"{traj['plain']}: max relative diff {err:.3e} (tol "
+        f"{FUSION_TOL:.0e}); step ms "
+        f"{[round(t * 1e3, 2) for t in kernel_times]}; peak memory "
+        f"{kernel_peak:.2f} GB; launches "
+        f"{ {n: counts[n] for n in per_step} } | {smi}")
+    if not finite or not all(math.isfinite(v) for v in traj["kernels"]):
+        raise AssertionError(f"gpt_1p3b: logits, gradients or losses not "
+                             f"finite: {traj}")
+    if sorted(per_call) != sorted(names) or not all(
+            ok for _, _, ok in per_call.values()):
+        raise AssertionError(f"gpt_1p3b: a call of rows 7-8, 11-12 "
+                             f"disagrees with its plain version on its "
+                             f"inputs, or a kernel was not called: "
+                             f"{per_call}")
+    bad = {n: v for n, v in rel.items() if not v <= WIDE_TOL}
+    if bad:
+        raise AssertionError(f"gpt_1p3b: the kernels' logits or gradients "
+                             f"differ from the plain versions' beyond "
+                             f"{WIDE_TOL}: {bad}")
+    if not err <= FUSION_TOL:
+        raise AssertionError(f"gpt_1p3b: the kernels' losses differ from "
+                             f"the plain versions' by {err}")
+    _check_counts("gpt_1p3b fused", counts, per_step, WIDE_STEPS)
+    return counts
+
+
 def _fused_bert_run(smi):
     """bert_base at 32 x 128, O2 bf16, AdamW, dropout 0.1, no recompute,
     the fusion pass on, 8 steps on a fixed batch: the rewrites, the
@@ -2420,7 +2707,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(smi)
     bert_launches, bert_long = phase_bert(smi)
-    fused_gpt, fused_bert = phase_fusion(smi)
+    fused_gpt, fused_bert, fused_wide = phase_fusion(smi)
     packed = phase_packed(smi)
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
@@ -2449,6 +2736,9 @@ def main() -> int:
     for name in BLOCK_KERNELS + LN_KERNELS + XENT_KERNELS:
         by_path[name][f"bert_base {BERT_BATCH}x{BERT_SEQ} fused"] = \
             fused_bert[name]
+    for name in BLOCK_KERNELS + TRAIN_KERNELS:
+        by_path[name][f"gpt_1p3b {WIDE_LAYERS} layers "
+                      f"{WIDE_BATCH}x{TRAIN_SEQ} fused"] = fused_wide[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]

@@ -6,8 +6,9 @@
 // pallas_call sites in `_fwd` and `_bwd`) and, in packed mode, their varlen
 // forms `_pk_fwd_kernel`, `_pk_bwd_dq_kernel` and `_pk_bwd_dkv_kernel`
 // (launched in `_pk_fwd` and `_pk_bwd`).  Head sizes D in {32, 64, 128,
-// 256}: the wrapper pads other head sizes up to the next one, as the TPU
-// wrapper pads to 128 lanes.  Each block works on one slice:
+// 256}, and above 256 any multiple of 128: the wrapper pads other head
+// sizes up to the next one, as the TPU wrapper pads to 128 lanes.  Each
+// block works on one slice:
 //
 //  - fixed lengths: one (b, h) of q and do (B, Sq, H, D) and k and v (B,
 //    Sk, H, D), with any strides of B, S and H and unit stride in D (the
@@ -72,7 +73,13 @@
 // would take 128 registers (256 for dk and dv), so the output columns are
 // split over gridDim.z: two blocks each compute the scores (and dp) over
 // the full D and accumulate 128 columns of out, dq, dk or dv; their lse is
-// the same bits, and the first writes it.  wgmma, TMA and warp
+// the same bits, and the first writes it.  Above 256 (`*_wide_kernel`) not
+// even one operand's 64-row tile fits whole in shared memory beside the
+// other's in f32: the scores (and dp) run over D in 128-column slabs, each
+// slab of both operands staged in turn, and gridDim.z = D / 128 blocks each
+// accumulate 128 output columns (no model in the repo has such heads, so
+// this is the simple version: one copy in flight at a time, the operands
+// re-read from L2 once per output block).  wgmma, TMA and warp
 // specialisation are for a later version.
 //
 // Deterministic sums: as the TPU grid, dq takes one block per (q tile, h)
@@ -304,16 +311,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // s[i][j] = sum_d A[i][d] * B[j][d]: A the warp's 16 rows, B 8 * NT rows,
-// both padded shared tiles D wide.  Sums in f32.
-template <int D, int NT>
+// both padded shared tiles D wide.  Sums in f32; kAdd adds to s instead.
+template <int D, int NT, bool kAdd = false>
 __device__ __forceinline__ void scores(float (&s)[NT][4],
                                        const __nv_bfloat16* A,
                                        const __nv_bfloat16* B) {
   constexpr int LD = ld<__nv_bfloat16, D>();
   const int lane = threadIdx.x & 31;
+  if (!kAdd)
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < NT; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     uint32_t a[4];   // rows 0-7 / 8-15 by columns 0-7 / 8-15 of the k16 slab
@@ -329,14 +337,15 @@ __device__ __forceinline__ void scores(float (&s)[NT][4],
   }
 }
 
-template <int D, int NT>
+template <int D, int NT, bool kAdd = false>
 __device__ __forceinline__ void scores(float (&s)[NT][4], const float* A,
                                        const float* B) {
   constexpr int LD = ld<float, D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (!kAdd)
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < NT; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     const float4 a0 = *reinterpret_cast<const float4*>(A + g * LD + d);
@@ -813,6 +822,299 @@ __global__ void __launch_bounds__(kThreads)
   store_rows(static_cast<T*>(a.out2) + base, dv, r0 + g, v.sk, stride, 1.f);
 }
 
+
+// ---------------------------------------------------------------------------
+// wide heads: D > 256, a multiple of 128 (the wrapper pads, as the reference
+// pads to 128 lanes).  Neither operand is held whole: every score tile is a
+// contraction over D in 128-column slabs, each slab of both operands staged
+// in shared memory in turn, and each block (gridDim.z = D / 128) accumulates
+// 128 output columns.  One copy in flight at a time: the simple version.
+// ---------------------------------------------------------------------------
+constexpr int kSlab = 128;
+
+// rows of the other operand's tile (shared memory holds three slab tiles)
+template <typename T>
+__host__ __device__ constexpr int wide_rows() {
+  return sizeof(T) == 4 ? 32 : 64;
+}
+
+// s = A[a0 .. a0 + 64) . B[b0 .. b0 + C)^T over all D columns (the warp's
+// 16 rows of A), through the slab tiles sA and sB; rows past aS or bS are
+// zero.  Starts and ends with every thread past a barrier.
+template <typename T, int C>
+__device__ __forceinline__ void wide_scores(
+    float (&s)[C / 8][4], T* sA, T* sB, const T* A, long long a_stride,
+    int a0, int aS, const T* B, long long b_stride, int b0, int bS, int D) {
+  constexpr int LD = ld<T, kSlab>();
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kSlab) {
+    load_tile<T, kSlab, kRows>(sA, A + d0, a_stride, a0, aS);
+    load_tile<T, kSlab, C>(sB, B + d0, b_stride, b0, bS);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    scores<kSlab, C / 8, true>(s, sA + warp * 16 * LD, sB);
+    __syncthreads();
+  }
+}
+
+// rows [r0, r0 + C) of a 128-column slab into sB, waited for
+template <typename T, int C>
+__device__ __forceinline__ void wide_slab(T* sB, const T* base,
+                                          long long stride, int r0, int S) {
+  load_tile<T, kSlab, C>(sB, base, stride, r0, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wide_kernel(const Args a, int D) {
+  constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + kRows * LD;
+
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * kSlab;
+  const int q0 = v.r0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = q0 + warp * 16;
+  const float sl2 = a.scale * kLog2e;
+  const T* qb = static_cast<const T*>(a.q) + v.base[0];
+  const T* kb = static_cast<const T*>(a.k) + v.base[1];
+  const T* vb = static_cast<const T*>(a.v) + v.base[2] + c0;
+  const int tiles = kv_tiles<C>(v, q0, a.causal);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kSlab / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kSlab / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * C;
+    float s[NT][4];
+    wide_scores<T, C>(s, sA, sB, qb, a.st[0][1], q0, v.sq, kb, a.st[1][1], k0,
+                      v.sk, D);
+    if ((a.causal && k0 + C > q0 + v.off) || k0 + C > v.klen)
+      mask_tile<false>(s, r0, k0, v, a.causal);
+    float mcur[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mcur[e >> 1] = fmaxf(mcur[e >> 1], s[n][e]);
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mnew = fmaxf(m[i], quad_max(mcur[i]) * sl2);
+      alpha[i] = exp2f(m[i] - mnew);
+      m[i] = mnew;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, -m[e >> 1]));
+        rsum[e >> 1] += p;
+        if (a.dropout)
+          p = keep_elem(v.hs, v.hrow + r0 + row_of(e),
+                        v.hcol + k0 + col_of(n, e), a.threshold)
+                  ? p * a.inv_keep
+                  : 0.f;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
+#pragma unroll
+    for (int dn = 0; dn < kSlab / 8; ++dn) {
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      o[dn][2] *= alpha[1];
+      o[dn][3] *= alpha[1];
+    }
+    wide_slab<T, C>(sB, vb, a.st[2][1], k0, v.sk);
+    accumulate<LD>(o, s, sB);
+    __syncthreads();
+  }
+
+  float lsafe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lsafe[i] = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+  for (int dn = 0; dn < kSlab / 8; ++dn) {
+    o[dn][0] /= lsafe[0];
+    o[dn][1] /= lsafe[0];
+    o[dn][2] /= lsafe[1];
+    o[dn][3] /= lsafe[1];
+  }
+  T* out = static_cast<T*>(a.out) + (v.qrow * a.H + v.h) * D + c0;
+  store_rows(out, o, r0 + g, v.sq, static_cast<long long>(a.H) * D, 1.f);
+  if (blockIdx.z == 0 && (threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row < v.sq)
+        a.lse[v.stat + row] = l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_wide_kernel(const Args a, int D) {
+  constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + kRows * LD;
+
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * kSlab;
+  const int q0 = v.r0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = q0 + warp * 16;
+  const float sl2 = a.scale * kLog2e;
+  const T* qb = static_cast<const T*>(a.q) + v.base[0];
+  const T* kb = static_cast<const T*>(a.k) + v.base[1];
+  const T* vb = static_cast<const T*>(a.v) + v.base[2];
+  const T* dob = static_cast<const T*>(a.dout) + v.base[3];
+  const int tiles = kv_tiles<C>(v, q0, a.causal);
+  float lse2[2], delta[2];   // lse in log2 units
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    lse2[i] = row < v.sq ? a.lse[v.stat + row] * kLog2e : 0.f;
+    delta[i] = row < v.sq ? a.delta[v.stat + row] : 0.f;
+  }
+  float dq[kSlab / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kSlab / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * C;
+    float p[NT][4], dp[NT][4];
+    wide_scores<T, C>(p, sA, sB, qb, a.st[0][1], q0, v.sq, kb, a.st[1][1], k0,
+                      v.sk, D);
+    wide_scores<T, C>(dp, sA, sB, dob, a.st[3][1], q0, v.sq, vb, a.st[2][1],
+                      k0, v.sk, D);
+    if ((a.causal && k0 + C > q0 + v.off) || k0 + C > v.klen)
+      mask_tile<false>(p, r0, k0, v, a.causal);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(fmaf(p[n][e], sl2, -lse2[e >> 1]));
+        float dpe = dp[n][e];
+        if (a.dropout)
+          dpe = keep_elem(v.hs, v.hrow + r0 + row_of(e),
+                          v.hcol + k0 + col_of(n, e), a.threshold)
+                    ? dpe * a.inv_keep
+                    : 0.f;
+        p[n][e] = pe * (dpe - delta[e >> 1]);   // ds
+      }
+    wide_slab<T, C>(sB, kb + c0, a.st[1][1], k0, v.sk);
+    accumulate<LD>(dq, p, sB);
+    __syncthreads();
+  }
+  T* out = static_cast<T*>(a.out) + (v.qrow * a.H + v.h) * D + c0;
+  store_rows(out, dq, r0 + g, v.sq, static_cast<long long>(a.H) * D,
+             a.scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_wide_kernel(const Args a, int D) {
+  constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + kRows * LD;
+  float* sLse2 = reinterpret_cast<float*>(sB + C * LD);   // C each
+  float* sDelta = sLse2 + C;
+
+  const Slice v = slice_of(a);
+  const int c0 = blockIdx.z * kSlab;
+  const int k0 = v.r0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int r0 = k0 + warp * 16;
+  const float sl2 = a.scale * kLog2e;
+  const T* qb = static_cast<const T*>(a.q) + v.base[0];
+  const T* kb = static_cast<const T*>(a.k) + v.base[1];
+  const T* vb = static_cast<const T*>(a.v) + v.base[2];
+  const T* dob = static_cast<const T*>(a.dout) + v.base[3];
+  const int first = a.causal ? max(0, k0 - v.off) : 0;
+  const int tiles = k0 < v.klen && first < v.sq
+                        ? (v.sq - first + C - 1) / C
+                        : 0;
+  float dk[kSlab / 8][4], dv[kSlab / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kSlab / 8; ++dn) {
+    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
+    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = first + t * C;
+    for (int i = threadIdx.x; i < C; i += kThreads) {
+      const bool in = q0 + i < v.sq;
+      sLse2[i] = in ? a.lse[v.stat + q0 + i] * kLog2e : 0.f;
+      sDelta[i] = in ? a.delta[v.stat + q0 + i] : 0.f;
+    }
+    float p[NT][4];
+    uint32_t kept = 0xffffffffu;   // bit 4n + e: element (n, e) is kept
+    wide_scores<T, C>(p, sA, sB, kb, a.st[1][1], k0, v.sk, qb, a.st[0][1],
+                      q0, v.sq, D);
+    if ((a.causal && q0 + v.off < k0 + kRows) || q0 + C > v.sq ||
+        k0 + kRows > v.klen)
+      mask_tile<true>(p, r0, q0, v, a.causal);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = col_of(n, e);
+        p[n][e] = exp2f(fmaf(p[n][e], sl2, -sLse2[c]));
+        if (a.dropout && !keep_elem(v.hs, v.hrow + q0 + c,
+                                    v.hcol + r0 + row_of(e), a.threshold))
+          kept &= ~(1u << (4 * n + e));
+      }
+    {
+      float pt[NT][4];   // p~, the dropped probabilities
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pt[n][e] = !a.dropout ? p[n][e]
+                     : (kept >> (4 * n + e)) & 1u ? p[n][e] * a.inv_keep
+                                                  : 0.f;
+      wide_slab<T, C>(sB, dob + c0, a.st[3][1], q0, v.sq);
+      accumulate<LD>(dv, pt, sB);
+      __syncthreads();
+    }
+    float dp[NT][4];
+    wide_scores<T, C>(dp, sA, sB, vb, a.st[2][1], k0, v.sk, dob, a.st[3][1],
+                      q0, v.sq, D);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dpe = dp[n][e];
+        if (a.dropout)
+          dpe = (kept >> (4 * n + e)) & 1u ? dpe * a.inv_keep : 0.f;
+        p[n][e] = p[n][e] * (dpe - sDelta[col_of(n, e)]);   // ds
+      }
+    wide_slab<T, C>(sB, qb + c0, a.st[0][1], q0, v.sq);
+    accumulate<LD>(dk, p, sB);
+    __syncthreads();   // sB, sLse2 and sDelta are refilled next tile
+  }
+  const long long base = (v.krow * a.H + v.h) * D + c0;
+  const long long stride = static_cast<long long>(a.H) * D;
+  store_rows(static_cast<T*>(a.out) + base, dk, r0 + g, v.sk, stride,
+             a.scale);
+  store_rows(static_cast<T*>(a.out2) + base, dv, r0 + g, v.sk, stride, 1.f);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -847,6 +1149,33 @@ cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// D > 256, a multiple of 128: the slab kernels, D / 128 blocks along z
+template <typename T>
+cudaError_t launch_wide(int which, int d, const Args& a, cudaStream_t stream) {
+  constexpr int C = wide_rows<T>();
+  constexpr size_t LD = ld<T, kSlab>();
+  size_t smem = (kRows + C) * LD * sizeof(T);   // sA, sB
+  void (*kern)(const Args, int);
+  if (which == kFwd) {
+    kern = flash_fwd_wide_kernel<T>;
+  } else if (which == kDq) {
+    kern = flash_bwd_dq_wide_kernel<T>;
+  } else {
+    kern = flash_bwd_dkv_wide_kernel<T>;
+    smem += 2 * C * sizeof(float);   // lse, delta
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int rows = which == kDkv ? a.Sk : a.Sq;
+  const bool packed = a.tiles != nullptr;
+  const dim3 grid(packed ? a.ntiles : (rows + kRows - 1) / kRows,
+                  packed ? a.H : a.B * a.H, d / kSlab);
+  kern<<<grid, kThreads, smem, stream>>>(a, d);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_d(int which, int d, const Args& a, cudaStream_t stream) {
   switch (d) {
@@ -854,7 +1183,9 @@ cudaError_t launch_d(int which, int d, const Args& a, cudaStream_t stream) {
     case 64: return launch<T, 64>(which, a, stream);
     case 128: return launch<T, 128>(which, a, stream);
     case 256: return launch<T, 256>(which, a, stream);
-    default: return cudaErrorInvalidValue;
+    default:
+      return d > 256 && d % kSlab == 0 ? launch_wide<T>(which, d, a, stream)
+                                       : cudaErrorInvalidValue;
   }
 }
 

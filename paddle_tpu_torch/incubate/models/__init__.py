@@ -5,12 +5,12 @@ from .bert import (BertConfig, BertForPretraining,
                    BertPretrainingCriterion, bert_base, bert_large,
                    bert_tiny)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
-                  GPTPretrainingCriterion, gpt_345m, gpt_tiny,
-                  params_from_numpy)
+                  GPTPretrainingCriterion, gpt_13b, gpt_1p3b, gpt_345m,
+                  gpt_6p7b, gpt_tiny, params_from_numpy)
 
 __all__ = ["BertConfig", "BertForPretraining",
            "BertForSequenceClassification", "BertModel",
            "BertPretrainingCriterion", "bert_base", "bert_large",
            "bert_tiny", "GPTConfig", "GPTForCausalLM", "GPTModel",
-           "GPTPretrainingCriterion", "gpt_345m", "gpt_tiny",
-           "params_from_numpy"]
+           "GPTPretrainingCriterion", "gpt_345m", "gpt_1p3b", "gpt_6p7b",
+           "gpt_13b", "gpt_tiny", "params_from_numpy"]

@@ -194,6 +194,22 @@ def gpt_345m(**kw) -> GPTConfig:
                      **kw)
 
 
+def gpt_1p3b(**kw) -> GPTConfig:
+    """GPT-3 1.3B: hidden 2048, 24 layers, 16 heads of 128."""
+    return GPTConfig(hidden_size=2048, num_layers=24, num_attention_heads=16,
+                     **kw)
+
+
+def gpt_6p7b(**kw) -> GPTConfig:
+    return GPTConfig(hidden_size=4096, num_layers=32, num_attention_heads=32,
+                     **kw)
+
+
+def gpt_13b(**kw) -> GPTConfig:
+    return GPTConfig(hidden_size=5120, num_layers=40, num_attention_heads=40,
+                     **kw)
+
+
 def _as_numpy(a) -> np.ndarray:
     a = np.asarray(a)
     if a.dtype.kind not in "biuf":   # bf16 from ml_dtypes: widen exactly

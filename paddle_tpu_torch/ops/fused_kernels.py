@@ -104,7 +104,6 @@ _XENT_SIGNATURES = {
                              ctypes.c_float, _I, _P),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 1024            # four 256-column chunks per warp
 _ROWS_PER_BLOCK = 8      # one warp per row
 _BWD_MAX_BLOCKS = 256    # partial rows of dw/db, added in a fixed order
 
@@ -175,17 +174,16 @@ def _ptr(t):
 def _check(x, weight, *same, residual=None):
     """What both kernels take: CUDA, x, weight, ``same`` (bias, or g) and
     the residual (if any) of one dtype (f32 or bf16), contiguous and
-    16-byte aligned, x ``(rows, d)`` with ``0 < d <= 1024`` and
-    ``d % 8 == 0``, weight ``(d,)``, the residual of x's shape.  A None
-    weight or bias is the no-affine variant."""
+    16-byte aligned, x ``(rows, d)`` with any ``d > 0``, weight ``(d,)``,
+    the residual of x's shape.  A None weight or bias is the no-affine
+    variant."""
     dev = x.device
     _require(dev.type == "cuda", f"x is on {dev}, not a CUDA device")
     _require(x.dim() == 2, f"x must be 2-D (rows, d), got {tuple(x.shape)}")
     _require(x.dtype in _DTYPE_CODE,
              f"dtype {x.dtype} not in (float32, bfloat16)")
     rows, d = x.shape
-    _require(0 < d <= _MAX_D and d % 8 == 0,
-             f"d={d} must be a multiple of 8 in (0, {_MAX_D}]")
+    _require(d > 0, f"d={d} must be positive")
     _require(weight is None or weight.shape == (d,), f"weight must be ({d},)")
     if residual is not None:
         _require(residual.shape == x.shape, f"the residual must have x's "
@@ -472,8 +470,9 @@ def fused_softmax_xent(logits, labels, *, ignore_index=-100,
 # -- the fusion pass's block kernels -------------------------------------------
 
 _GEMM_SIGNATURES = {
-    "ptt_ln_matmul": (_P,) * 7 + (_I, _I, _I, ctypes.c_longlong,
-                                  ctypes.c_longlong, ctypes.c_float, _I, _P),
+    "ptt_ln_matmul": (_P,) * 7 + (_I, _I, _I, _I, ctypes.c_longlong,
+                                  ctypes.c_longlong, ctypes.c_float, _I, _P,
+                                  _P),
     "ptt_matmul_bias_gelu": (_P,) * 5 + (_I, _I, _I, ctypes.c_longlong,
                                          ctypes.c_longlong, _I, _I, _P),
 }
@@ -515,13 +514,13 @@ def matmul_bias_gelu_reference(x, weight, bias=None, approximate=True):
     return _gelu_f32(z, approximate).to(x.dtype), z.to(x.dtype)
 
 
-def _check_gemm(x, weight, bias, *more, max_k=None, kernel):
+def _check_gemm(x, weight, bias, *more, kernel):
     """What the block kernels take: CUDA, x ``(rows, k)`` contiguous, the
     weight ``(k, n)`` with unit stride along n or along k (a transposed
     view is read in place), the bias ``(n,)`` and ``more`` (the
     LayerNorm's weight and bias, the residual) of one dtype (f32 or
-    bf16), 16-byte aligned; k a multiple of 8 (at most ``max_k``), n of
-    16 bytes.  Returns ``(rows, k, n, sw_k, sw_n)``."""
+    bf16), 16-byte aligned; k a multiple of 8, n of 16 bytes.  Returns
+    ``(rows, k, n, sw_k, sw_n)``."""
     def req(cond, msg):
         _require(cond, msg, kernel)
 
@@ -536,9 +535,8 @@ def _check_gemm(x, weight, bias, *more, max_k=None, kernel):
     vec = 16 // x.element_size()
     req(weight.shape[0] == k, f"weight {tuple(weight.shape)} does not take "
         f"x's {k} columns")
-    req(k % 8 == 0 and n % vec == 0 and (max_k is None or k <= max_k),
-        f"k={k} must be a multiple of 8{f' up to {max_k}' if max_k else ''}"
-        f" and n={n} of {vec}")
+    req(k % 8 == 0 and n % vec == 0,
+        f"k={k} must be a multiple of 8 and n={n} of {vec}")
     req(rows < 2 ** 31 and 0 < k and 0 < n and -(-rows // 32) <= 65535,
         f"{rows} rows is out of range")
     sw_k, sw_n = weight.stride()
@@ -566,31 +564,62 @@ def _aligned(t):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _pad_k(t, kp, dim):
+    """``t`` with zeros after its entries along ``dim`` up to ``kp``, a
+    new contiguous tensor (None stays None)."""
+    if t is None:
+        return None
+    shape = list(t.shape)
+    shape[dim] = kp
+    out = t.new_zeros(shape)
+    out[(slice(None),) * dim + (slice(0, t.shape[dim]),)] = t
+    return out
+
+
 def _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon):
-    x, residual = _aligned(x), _aligned(residual)
-    rows, k, n, sw_k, sw_n = _check_gemm(
-        x, weight, bias, ln_weight, ln_bias, residual, max_k=_MAX_D,
-        kernel="ln_matmul")
+    kd = x.shape[-1]     # the LayerNorm's width
     for t, what in ((ln_weight, "the LayerNorm weight"),
                     (ln_bias, "the LayerNorm bias")):
-        _require(t is None or t.shape == (k,), f"{what} must be ({k},)",
+        _require(t is None or t.shape == (kd,), f"{what} must be ({kd},)",
                  "ln_matmul")
     _require(residual is None or (residual.shape == x.shape
                                   and residual.is_contiguous()),
              f"the residual must be contiguous {tuple(x.shape)}", "ln_matmul")
+    if kd % 8 and x.dim() == 2 and weight.dim() == 2 \
+            and weight.shape[0] == kd:
+        # any width: zero columns of x, the residual and the LayerNorm's
+        # weight and bias, and zero rows of W, up to a multiple of 8 add
+        # nothing to the row sums or the products; the kernel divides the
+        # statistics by kd
+        kp = -(-kd // 8) * 8
+        x, residual = _pad_k(x, kp, 1), _pad_k(residual, kp, 1)
+        ln_weight, ln_bias = _pad_k(ln_weight, kp, 0), _pad_k(ln_bias, kp, 0)
+        weight = _pad_k(weight, kp, 0)
+    x, residual = _aligned(x), _aligned(residual)
+    rows, k, n, sw_k, sw_n = _check_gemm(
+        x, weight, bias, ln_weight, ln_bias, residual, kernel="ln_matmul")
     y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     if rows == 0:
         return y
+    # bf16: the rows' mean and rstd, computed before the product
+    stats = (torch.empty((2 * rows,), dtype=torch.float32, device=x.device)
+             if x.dtype == torch.bfloat16 else None)
     lib = _build.load("block_gemm", _GEMM_SIGNATURES)
     status = lib.ptt_ln_matmul(
         x.data_ptr(), _ptr(residual), _ptr(ln_weight), _ptr(ln_bias),
-        weight.data_ptr(), _ptr(bias), y.data_ptr(), rows, k, n, sw_k, sw_n,
-        float(epsilon), _DTYPE_CODE[x.dtype], _stream(x.device))
+        weight.data_ptr(), _ptr(bias), y.data_ptr(), rows, k, kd, n, sw_k,
+        sw_n, float(epsilon), _DTYPE_CODE[x.dtype], _ptr(stats),
+        _stream(x.device))
     _build.check(lib, status, "ln_matmul")
     return y
 
 
 def _launch_matmul_bias_gelu(x, weight, bias, approximate):
+    k = x.shape[-1]
+    if k % 8 and x.dim() == 2 and weight.dim() == 2 and weight.shape[0] == k:
+        # any k: zero columns of x and zero rows of W add nothing
+        kp = -(-k // 8) * 8
+        x, weight = _pad_k(x, kp, 1), _pad_k(weight, kp, 0)
     x = _aligned(x)
     rows, k, n, sw_k, sw_n = _check_gemm(x, weight, bias,
                                          kernel="matmul_bias_gelu")

@@ -6,10 +6,10 @@ the custom VJPs ``_flash`` and ``_flash_lse``, ``mha`` and
 ``flash_attention`` for fixed lengths (``q_len`` and ``kv_len`` equal or
 not, causal or not, attention dropout on or off, ``seq_lens``,
 ``causal_shift``, a differentiable lse), and ``_pk_fwd``, ``_pk_bwd``,
-``_pk_flash`` and ``mha_packed`` for packed ragged sequences.  Head sizes
-up to 256: the kernels take 32, 64, 128 and 256, and the wrappers
-zero-pad the others up to the next, as the TPU wrapper pads to 128 lanes,
-and slice the results back.
+``_pk_flash`` and ``mha_packed`` for packed ragged sequences.  Any head size:
+the kernels take 32, 64, 128, 256 and any multiple of 128 above, and the
+wrappers zero-pad the others up to the next, as the TPU wrapper pads to
+128 lanes, and slice the results back.
 
 Arithmetic of the TPU kernels, kept by both versions here:
 
@@ -83,7 +83,8 @@ _SIGNATURES = {
     "ptt_flash_bwd_dkv": (_P,) * 9 + _MASKS + _TAIL,
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 256)   # and above 256, every multiple of 128
+_WIDE_STEP = 128
 _TILE_ROWS = 64       # rows of a kernel block's own tile (kRows in the .cu)
 _PACKED_BLOCK = 512   # the JAX mha_packed's default block_q and block_k
 
@@ -472,7 +473,8 @@ def _require(cond, msg):
 def _check(q, k, v, *more):
     """What the kernels take: q, k, v (and ``more``, do) on one CUDA
     device, one dtype (f32 or bf16); q (and do) ``(B, Sq, H, D)``, k and v
-    ``(B, Sk, H, D)`` with D in (32, 64, 128, 256), unit stride in D,
+    ``(B, Sk, H, D)`` with D in (32, 64, 128, 256) or a multiple of 128
+    above, unit stride in D,
     16-byte aligned rows (packed tensors come as ``B = 1``).  Returns
     ``(B, Sq, Sk, H, D)`` and the 12 strides (b, s, h of q, k, v and the
     fourth tensor)."""
@@ -485,7 +487,8 @@ def _check(q, k, v, *more):
              f"dtype {q.dtype} not in (float32, bfloat16)")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _require(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+    _require(d == _kernel_head_dim(d), f"head dim {d} is not one the "
+             f"kernels take ({_HEAD_DIMS} or a multiple of {_WIDE_STEP})")
     _require(b * h <= 65535, f"B * H = {b * h} > 65535")
     _require(sq > 0 and sk > 0, "q_len and kv_len must be positive")
     vec = 16 // q.element_size()
@@ -504,15 +507,20 @@ def _check(q, k, v, *more):
     return (b, sq, sk, h, d), (ctypes.c_longlong * 12)(*strides)
 
 
+def _kernel_head_dim(d):
+    """The head size the kernels run ``d`` at: the next of
+    ``_HEAD_DIMS``, or above 256 the next multiple of 128."""
+    if d > _HEAD_DIMS[-1]:
+        return -(-d // _WIDE_STEP) * _WIDE_STEP
+    return next(n for n in _HEAD_DIMS if n >= d)
+
+
 def _padded(*ts):
     """``ts`` with the head dim zero-padded to the next size the kernels
     take (the reference pads to 128 lanes): zero columns add nothing to
-    the scores, and the outputs' extra columns are sliced off.  D > 256
-    raises."""
+    the scores, and the outputs' extra columns are sliced off."""
     d = ts[0].shape[-1]
-    dp = next((n for n in _HEAD_DIMS if n >= d), None)
-    _require(dp is not None, f"head dim {d} > {_HEAD_DIMS[-1]} is not "
-             f"supported")
+    dp = _kernel_head_dim(d)
     if dp == d:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, dp - d)) for t in ts)

@@ -9,6 +9,10 @@ The counterpart of ``paddle_tpu/ops/quant_kernels.py``:
    row's stored bytes never depend on its batch neighbours).
  - :func:`w8a16_matmul_reference`: widen, one f32 product, scale after
    the sum.
+ - :func:`w8a16_split_plan` / :func:`w8a16_split_reference`: the k groups
+   the CUDA kernel sums separately (a function of K alone), and a plain
+   model of its sum order: each group an f32 chain in ascending k, the
+   groups added in order, then the scale.
  - :func:`w8a16_matmul`: the CUDA kernel ``csrc/w8a16.cu`` on CUDA
    tensors, the reference on CPU tensors, and nothing else.
 
@@ -24,7 +28,8 @@ import torch
 from . import _build
 
 __all__ = ["quantize_weight", "dequantize_weight", "quantize_kv",
-           "dequantize_kv", "w8a16_matmul", "w8a16_matmul_reference", "QMAX"]
+           "dequantize_kv", "w8a16_matmul", "w8a16_matmul_reference",
+           "w8a16_split_plan", "w8a16_split_reference", "QMAX"]
 
 # symmetric int8: [-127, 127]; -128 is never produced, so negation is
 # exact and the zero point is 0
@@ -82,6 +87,36 @@ def w8a16_matmul_reference(x, w_q, scale):
     return (acc * scale).to(x.dtype)
 
 
+W8A16_GROUPS = 8   # kGroups in csrc/w8a16.cu: one cluster block each
+
+
+def w8a16_split_plan(k):
+    """The ``(start, end)`` k ranges whose f32 sums the kernel keeps
+    apart and then adds in this order: ``W8A16_GROUPS`` equal groups of K.
+    It reads K alone (neither N nor the row count enters), so a row's sum
+    order, and its bits, never depend on the batch it shares."""
+    size = k // W8A16_GROUPS
+    return tuple((g * size, (g + 1) * size) for g in range(W8A16_GROUPS))
+
+
+def w8a16_split_reference(x, w_q, scale):
+    """A plain model of the kernel's sum order on ``(M, K)`` x: each
+    group of :func:`w8a16_split_plan` one f32 chain in ascending k (each
+    step ``x * w + acc`` rounded once, as ``fmaf``; taken through f64 here),
+    the group sums added in group order, then the scale; output in
+    ``x.dtype``.  Row-wise elementwise work only, so a row's bits never
+    depend on M."""
+    xd, wd = x.float().double(), w_q.double()   # each product exact
+    total = None
+    for lo, hi in w8a16_split_plan(xd.shape[-1]):
+        acc = torch.zeros(xd.shape[0], wd.shape[1], dtype=torch.float32,
+                          device=x.device)
+        for k in range(lo, hi):
+            acc = (xd[:, k:k + 1] * wd[k] + acc.double()).float()
+        total = acc if total is None else total + acc
+    return (total * scale).to(x.dtype)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -111,9 +146,10 @@ def _launch(x2, w_q, scale):
     n = w_q.shape[1]
     _require(scale.dtype == torch.float32 and scale.shape == (n,),
              "scale must be float32 (N,)")
-    _require(n % 32 == 0 and k % 32 == 0,
-             f"K={k} and N={n} must be multiples of 32")
-    _require(w_q.data_ptr() % 4 == 0, "w_q must be 4-byte aligned")
+    _require(n % 16 == 0 and k % 32 == 0,
+             f"K={k} must be a multiple of 32 and N={n} of 16")
+    _require(x2.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0,
+             "x and w_q must be 16-byte aligned")
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     if m == 0:
         return out
@@ -137,7 +173,10 @@ def w8a16_matmul(x, w_q, scale):
     if x.device.type == "cpu":
         return w8a16_matmul_reference(x, w_q, scale)
     lead = x.shape[:-1]
-    out = _launch(x.reshape(-1, x.shape[-1]).contiguous(), w_q, scale)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.data_ptr() % 16:   # a view off a 16-byte boundary: copy it
+        x2 = x2.clone()
+    out = _launch(x2, w_q, scale)
     w8a16_matmul.launches += 1
     return out.reshape(*lead, w_q.shape[1])
 

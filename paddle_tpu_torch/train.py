@@ -39,7 +39,8 @@ from .framework.random import make_generator
 from .incubate.models import (BertConfig, BertForPretraining,
                               BertPretrainingCriterion, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
-                              bert_base, bert_tiny, gpt_345m, gpt_tiny)
+                              bert_base, bert_tiny, gpt_13b, gpt_1p3b,
+                              gpt_345m, gpt_6p7b, gpt_tiny)
 from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
@@ -47,6 +48,7 @@ __all__ = ["TrainStep", "build_train_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "main"]
 
 CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
+           "gpt_1p3b": gpt_1p3b, "gpt_6p7b": gpt_6p7b, "gpt_13b": gpt_13b,
            "bert_tiny": bert_tiny, "bert_base": bert_base}
 #: the CLI's batch and sequence when none is given: bench_gpt's, and
 #: BERT's phase-1 pretraining shape (bench.py's BERT_SEQ)

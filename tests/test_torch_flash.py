@@ -501,7 +501,7 @@ def test_mha_variants_refuse_what_jax_refuses():
         tpo.mha(q, k, v, causal_shift=3)
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320])
 def test_mha_head_sizes_above_128_match_jax(d):
     q = np.random.RandomState(12).randn(1, 2, 40, d).astype(np.float32)
     k, v = _qkv(13, (1, 2, 72, d))[:2]
@@ -515,8 +515,8 @@ def test_padded_pads_129_to_256_and_refuses_257():
         padded = tpo._padded(torch.ones(1, 3, 2, d), torch.ones(1, 5, 2, d))
         assert [t.shape[-1] for t in padded] == [256, 256]
         assert float(padded[1][..., d:].abs().sum()) == 0.0
-    with pytest.raises(ValueError, match="head dim 257 > 256"):
-        tpo._padded(torch.ones(1, 3, 2, 257))
+    # above 256 the kernels take every multiple of 128: 257 pads to 384
+    assert tpo._padded(torch.ones(1, 3, 2, 257))[0].shape[-1] == 384
 
 
 def test_cuda_tensor_carries_seq_lens_and_causal_shift_to_the_kernels(

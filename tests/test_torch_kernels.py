@@ -275,7 +275,7 @@ def _ln_inputs(rows, d, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128)])
+@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128), (6, 2048), (6, 100)])
 def test_layer_norm_and_grads_match_jax_kernel(rows, d, dtype):
     x, w, b, g = _ln_inputs(rows, d, d + rows)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
@@ -351,7 +351,7 @@ def test_layer_norm_launchers_refuse_a_residual_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128)])
+@pytest.mark.parametrize("rows,d", [(37, 96), (40, 128), (6, 2048), (6, 100)])
 def test_residual_layer_norm_and_grads_match_jax_kernel(rows, d, dtype):
     x, w, b, g = _ln_inputs(rows, d, d + rows + 1)
     r = np.random.RandomState(rows).randn(rows, d).astype(np.float32)
@@ -466,7 +466,7 @@ def test_block_kernel_checks_take_what_the_kernels_take():
     view = _cuda_like((96, 200), strides=(1, 96))
     assert tfk._check_gemm(x, view, vec, kernel="t") == (64, 96, 200, 1, 96)
     assert tfk._check_gemm(x, view, None, _cuda_like((96,)), None,
-                           _cuda_like((64, 96)), max_k=1024,
+                           _cuda_like((64, 96)),
                            kernel="t")[:3] == (64, 96, 200)
 
 
@@ -475,7 +475,7 @@ def test_block_kernel_checks_take_what_the_kernels_take():
     ("dtype", "does not match x"),
     ("k", "multiple of 8"),
     ("n", "multiple of 8"),
-    ("max_k", "up to 64"),
+    ("rows", "out of range"),
     ("strides", "unit stride"),
     ("shape", "does not take"),
     ("bias", r"bias must be \(200,\)"),
@@ -484,7 +484,6 @@ def test_block_kernel_checks_take_what_the_kernels_take():
 def test_block_kernel_checks_raise_on_what_the_kernels_do_not_take(case,
                                                                     match):
     x, w, b = _cuda_like((64, 96)), _cuda_like((96, 200)), _cuda_like((200,))
-    kw = {}
     if case == "meta":
         x = torch.zeros(64, 96, device="meta")
     elif case == "dtype":
@@ -493,8 +492,8 @@ def test_block_kernel_checks_raise_on_what_the_kernels_do_not_take(case,
         x, w = _cuda_like((64, 92)), _cuda_like((92, 200))
     elif case == "n":
         w, b = _cuda_like((96, 196)), _cuda_like((196,))
-    elif case == "max_k":
-        kw["max_k"] = 64
+    elif case == "rows":
+        x = _cuda_like((32 * 65535 + 1, 96))
     elif case == "strides":
         w = _cuda_like((96, 200), strides=(400, 2))
     elif case == "shape":
@@ -504,4 +503,4 @@ def test_block_kernel_checks_raise_on_what_the_kernels_do_not_take(case,
     elif case == "x_view":
         x = _cuda_like((64, 96), strides=(192, 1))
     with pytest.raises(ValueError, match=match):
-        tfk._check_gemm(x, w, b, kernel="t", **kw)
+        tfk._check_gemm(x, w, b, kernel="t")

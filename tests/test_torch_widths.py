@@ -1,0 +1,237 @@
+"""The widths the port takes: LayerNorm + matmul at any hidden size, the
+card wrappers' checks at every preset width, flash attention's padding
+above head size 256, GPT's wide presets, and the w8a16 kernel's split
+plan, on the CPU in f32 at small sizes.  (LayerNorm at 2048 and 100 and
+flash at head size 320 are cases of the parity tests in
+``test_torch_kernels.py`` and ``test_torch_flash.py``.)
+
+The same numpy inputs (from a seed) go through the JAX function and its
+``paddle_tpu_torch`` counterpart; on the CPU the port's wrappers run
+their plain versions, and the CUDA kernels are held against those on the
+card by ``chip_smoke.py``.  The card's argument checks run here on
+stand-ins for CUDA tensors, with the C call stubbed.
+
+Tolerances:
+ - LayerNorm + matmul against the JAX ``ln_matmul_reference``: 1e-5
+   relative to the output's scale (an f32 product over d terms);
+ - the w8a16 split model against ``w8a16_matmul_reference``: 1e-5, and
+   identical bits for a row at every batch size.
+"""
+import dataclasses
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.incubate.models import gpt as jgpt
+from paddle_tpu.ops import fused_kernels as jfk
+from paddle_tpu_torch.incubate.models import gpt as tgpt
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import fused_kernels as tfk
+from paddle_tpu_torch.ops import pallas_ops as tpo
+from paddle_tpu_torch.ops import quant_kernels as tqk
+from paddle_tpu_torch import train
+
+# 2048: GPT-1.3B's hidden size, past the kernels' old bound of 1024;
+# 100: not a multiple of 8
+WIDTHS = [2048, 100]
+# every hidden size of the JAX package's GPT and BERT presets
+PRESET_WIDTHS = [768, 1024, 2048, 4096, 5120]
+
+
+def _ln_inputs(rows, d, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(rows, d) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.3 * rng.randn(d)).astype(np.float32)
+    b = (0.2 * rng.randn(d)).astype(np.float32)
+    g = rng.randn(rows, d).astype(np.float32)
+    r = rng.randn(rows, d).astype(np.float32)
+    return x, w, b, g, r
+
+
+# -- LayerNorm and LayerNorm + matmul at any width ---------------------------
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("d", WIDTHS)
+def test_ln_matmul_matches_jax_reference_at_any_width(d, residual):
+    x, lw, lb, _, r = _ln_inputs(5, d, d + 1)
+    rng = np.random.RandomState(d + 2)
+    w = (rng.randn(d, 24) * 0.05).astype(np.float32)
+    bias = (0.1 * rng.randn(24)).astype(np.float32)
+    res = r if residual else None
+    want = jfk.ln_matmul_reference(
+        *(None if a is None else jnp.asarray(a)
+          for a in (x, w, lw, lb, bias, res)), 1e-5)
+    targs = [None if a is None else torch.from_numpy(a)
+             for a in (x, w, lw, lb, bias, res)]
+    got = tfk.fused_ln_matmul(*targs[:5], targs[5], epsilon=1e-5)
+    scale = float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5 * scale, rtol=1e-5)
+
+
+# -- what the card's wrappers accept ------------------------------------------
+
+class _Fake(types.SimpleNamespace):
+    """Stands in for a contiguous CUDA tensor: enough for the launchers'
+    checks, their output allocation and the C call's pointers."""
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+    def element_size(self):
+        return self.dtype.itemsize
+
+    def stride(self, i=None):
+        st = tuple(int(np.prod(self.shape[j + 1:]))
+                   for j in range(len(self.shape)))
+        return st if i is None else st[i]
+
+    def __getitem__(self, i):
+        return _fake(self.shape[1:], self.dtype)
+
+    def zero_(self):
+        return self
+
+    def new_zeros(self, shape):
+        return _fake(shape, self.dtype)
+
+    def __setitem__(self, i, value):
+        pass
+
+
+def _fake(shape, dtype=torch.bfloat16):
+    return _Fake(device=torch.device("cuda", 0), shape=tuple(shape),
+                 dtype=dtype)
+
+
+@pytest.fixture
+def stub_c(monkeypatch):
+    """The launchers run to their C call: outputs are stand-ins, and the
+    library records each entry's call and reports success."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append((fn, args)) or 0
+
+    def empty(*size, dtype=None, device=None):
+        shape = size[0] if len(size) == 1 and isinstance(size[0], tuple) \
+            else size
+        return _fake(shape, dtype)
+
+    monkeypatch.setattr(_build, "load", lambda name, sig: Lib())
+    monkeypatch.setattr(tfk.torch, "empty", empty)
+    monkeypatch.setattr(tfk.torch, "empty_like",
+                        lambda t: _fake(t.shape, t.dtype))
+    monkeypatch.setattr(tfk, "_stream", lambda dev: 0)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", PRESET_WIDTHS + [1003])
+def test_layer_norm_launchers_take_every_preset_width(stub_c, d, dtype):
+    x, vec = _fake((64, d), dtype), _fake((d,), dtype)
+    tfk._launch_fwd(x, vec, vec, 1e-5, x)
+    tfk._launch_bwd(x, x, vec, _fake((64,), torch.float32),
+                    _fake((64,), torch.float32), x)
+    assert [(fn, args[8 if fn.endswith("fwd") else 12]) for fn, args
+            in stub_c] == [("ptt_layer_norm_fwd", d),
+                           ("ptt_layer_norm_bwd", d)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", PRESET_WIDTHS + [1003])
+def test_ln_matmul_launcher_takes_every_preset_width(stub_c, d, dtype):
+    """The kernel gets K padded to a multiple of 8 and the true width,
+    by which it divides the row statistics."""
+    kp, n = -(-d // 8) * 8, 3 * -(-d // 8) * 8
+    x, vec = _fake((64, d), dtype), _fake((d,), dtype)
+    w, bias = _fake((d, n), dtype), _fake((n,), dtype)
+    tfk._launch_ln_matmul(x, w, vec, vec, bias, x, 1e-5)
+    (fn, args), = stub_c
+    assert fn == "ptt_ln_matmul" and args[7:11] == (64, kp, d, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1024, 1003])
+def test_matmul_bias_gelu_launcher_pads_k_to_a_multiple_of_8(stub_c, k,
+                                                             dtype):
+    x, w, bias = _fake((64, k), dtype), _fake((k, 4096), dtype), \
+        _fake((4096,), dtype)
+    tfk._launch_matmul_bias_gelu(x, w, bias, True)
+    (fn, args), = stub_c
+    assert fn == "ptt_matmul_bias_gelu" and args[5:8] == (
+        64, -(-k // 8) * 8, 4096)
+
+
+def test_ln_matmul_pads_k_with_zeros():
+    w = torch.arange(12.0).reshape(4, 3)
+    for t, dim in ((w, 0), (w.t(), 1), (w[0], 0)):
+        got = tfk._pad_k(t, 8, dim)
+        assert got.shape[dim] == 8 and got.is_contiguous()
+        assert torch.equal(got.narrow(dim, 0, t.shape[dim]), t)
+        assert float(got.narrow(dim, t.shape[dim], 8 - t.shape[dim]).abs()
+                     .sum()) == 0.0
+    assert tfk._pad_k(None, 8, 0) is None
+
+
+# -- flash attention above head size 256 -------------------------------------
+
+def test_flash_pads_wide_heads_to_multiples_of_128():
+    for d, want in ((257, 384), (320, 384), (384, 384), (385, 512),
+                    (512, 512)):
+        padded = tpo._padded(torch.ones(1, 3, 2, d), torch.ones(1, 5, 2, d))
+        assert [t.shape[-1] for t in padded] == [want, want]
+        assert float(padded[1][..., d:].abs().sum()) == 0.0
+    q = _fake((1, 40, 2, 384))
+    assert tpo._check(q, q, q)[0] == (1, 40, 40, 2, 384)
+    with pytest.raises(ValueError, match="head dim 320"):
+        tpo._check(*[_fake((1, 40, 2, 320))] * 3)
+
+
+# -- GPT's wide presets ---------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["gpt_1p3b", "gpt_6p7b", "gpt_13b"])
+def test_wide_gpt_presets_equal_the_jax_ones(name):
+    port, ref = getattr(tgpt, name)(), getattr(jgpt, name)()
+    fields = [f.name for f in dataclasses.fields(port)]
+    assert {f: getattr(port, f) for f in fields} == \
+        {f: getattr(ref, f) for f in fields}
+    assert train.CONFIGS[name] is getattr(tgpt, name)
+    kw = getattr(tgpt, name)(use_recompute=True, hidden_dropout_prob=0.0)
+    assert (kw.use_recompute, kw.hidden_dropout_prob, kw.hidden_size) == \
+        (True, 0.0, port.hidden_size)
+
+
+# -- the w8a16 kernel's split plan ---------------------------------------------
+
+@pytest.mark.parametrize("k", [256, 1024, 4096, 96])
+def test_w8a16_split_plan_cuts_k_into_equal_groups(k):
+    plan = tqk.w8a16_split_plan(k)
+    assert len(plan) == tqk.W8A16_GROUPS
+    assert plan[0][0] == 0 and plan[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    assert len({hi - lo for lo, hi in plan}) == 1
+
+
+def test_w8a16_split_model_matches_reference_and_keeps_rows():
+    rng = np.random.RandomState(31)
+    x = torch.from_numpy(rng.randn(64, 256).astype(np.float32))
+    wq, sc = tqk.quantize_weight(
+        torch.from_numpy((rng.randn(256, 32) * 0.02).astype(np.float32)),
+        axis=1)
+    full = tqk.w8a16_split_reference(x, wq, sc)
+    np.testing.assert_allclose(full.numpy(), tqk.w8a16_matmul_reference(
+        x, wq, sc).numpy(), atol=1e-5, rtol=1e-5)
+    for m in (1, 2, 5, 16, 17):
+        assert torch.equal(tqk.w8a16_split_reference(x[:m], wq, sc),
+                           full[:m])
