@@ -14,8 +14,12 @@ line is printed:
              heads of 64, page size 16, 128 pages per sequence; training:
              LayerNorm over 16384 rows of 1024, flash attention at
              batch 16 x 1024 tokens x 16 heads of 64, causal, dropout
-             0.1, read in place from the QKV projection's output, then f32
-             and the other head sizes at small shapes) and at
+             0.1, read in place from the QKV projection's output, and
+             gpt_1p3b's 4 x 1024 x 16 heads of 128, each timed at dropout
+             0.1 and 0 against SDPA at the same dropout, then f32 and the
+             other head sizes at small shapes; every bf16 flash shape at
+             dropout 0.1 and 0, out and lse the same bits over two runs
+             as dq, dk and dv) and at
              ``bert_base`` width (LayerNorm with a residual over 4096 rows
              of 768; softmax cross-entropy over the MLM head's (4096,
              30528) logits with 84% of the rows ignored and over the NSP
@@ -26,9 +30,10 @@ line is printed:
              cotangent folded into delta, and at head sizes 160 (padded to
              256) and 256, bf16 and f32; the packed varlen kernels at
              bench_packed's sequences (8 packed causal sequences of
-             64..1024 tokens, 16 heads of 64, bf16, dropout 0 (timed, with
-             PyTorch's ``varlen_attn`` as the library yardstick where this
-             torch has it, else SDPA on the padded batch) and 0.1), then
+             64..1024 tokens, 16 heads of 64, bf16, dropout 0 and 0.1,
+             both timed, with PyTorch's ``varlen_attn`` as the library
+             yardstick where this torch has it (at 0.1 only if it takes a
+             dropout), else SDPA on the padded batch), then
              f32, cross lengths with rows that see no key, sequences of
              length 0, no mask, head sizes 48 and 256 and other
              ``block_q``/``block_k`` for the dropout hash's layout (and
@@ -476,11 +481,14 @@ def phase_kernels(timer):
         torch.cuda.empty_cache()
 
     # flash attention: the main path's shape first (bf16, batch 16 x 1024,
-    # 16 heads of 64, causal, dropout), timed with its library yardstick;
-    # then BERT's at 8 x 512 (12 heads of 64, no mask), f32 and the other
-    # head sizes, a ragged length and no mask
+    # 16 heads of 64, causal, dropout), timed with its library yardstick at
+    # the same dropout, then again at dropout 0; gpt_1p3b's (4 x 1024, 16
+    # heads of 128), timed the same way; then BERT's at 8 x 512 (12 heads
+    # of 64, no mask), f32 and the other head sizes, a ragged length and no
+    # mask.  Every bf16 shape runs at dropout FLASH_DROPOUT and 0.
     heads, hd = GPT_345M["heads"], GPT_345M["hidden"] // GPT_345M["heads"]
     shapes = [("bf16", (TRAIN_BATCH, TRAIN_SEQ, heads, hd), True, True),
+              ("bf16", (WIDE_BATCH, TRAIN_SEQ, 16, 128), True, True),
               ("bf16", (BERT_LONG_BATCH, BERT_LONG_SEQ, BERT_HEADS,
                         BERT_HIDDEN // BERT_HEADS), False, False),
               ("f32", (2, 512, 4, 64), True, False),
@@ -491,9 +499,10 @@ def phase_kernels(timer):
               ("bf16", (2, 512, 4, 128), True, False),
               ("bf16", (1, 700, 3, 64), False, False)]
     for tag, shape, causal, timed in shapes:
-        for name, row in _flash_entries(timer, gen, tag, shape, causal,
-                                        timed).items():
-            results.setdefault(name, []).append(row)
+        for p in _flash_dropouts(tag):
+            for name, row in _flash_entries(timer, gen, tag, shape, causal,
+                                            timed, dropout=p).items():
+                results.setdefault(name, []).append(row)
     # cross lengths (q_len != kv_len, the causal diagonal aligned to the
     # end, a q_len past kv_len leaving rows with no key) and head sizes the
     # wrapper pads (48 to 64, 96 to 128)
@@ -507,9 +516,11 @@ def phase_kernels(timer):
                                         ((2, 300, 4, 96), False, None),
                                         ((2, 128, 4, 96), True, 640))]
     for tag, shape, causal, kv in shapes:
-        for name, row in _flash_entries(timer, gen, tag, shape, causal,
-                                        False, kv_len=kv).items():
-            results[name].append(row)
+        for p in _flash_dropouts(tag):
+            for name, row in _flash_entries(timer, gen, tag, shape, causal,
+                                            False, kv_len=kv,
+                                            dropout=p).items():
+                results[name].append(row)
     # head sizes past 256 (padded to multiples of 128: 320 to 384, and 512),
     # bf16 and f32, causal and not
     for tag in ("bf16", "f32"):
@@ -577,6 +588,8 @@ def phase_kernels(timer):
            ("f32", 37, 64, 136, dict(approximate=True, strided=True)),
            ("bf16", 100, 96, 200, dict(approximate=True, strided=True,
                                        bias=False)),
+           # a W past 16 MB, read by groups of row blocks, transposed
+           ("bf16", 300, 2048, 8200, dict(approximate=False, strided=True)),
            # K not a multiple of 8 (zero-padded by the wrapper)
            ("bf16", 300, 1003, 520, dict(approximate=True)),
            ("f32", 37, 1003, 1000, dict(approximate=False, strided=True))]
@@ -788,12 +801,13 @@ def _flash_err(out, want, tag, key):
 
 
 def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
-                   seq_lens=None, causal_shift=None, dlse=False):
+                   seq_lens=None, causal_shift=None, dlse=False,
+                   dropout=FLASH_DROPOUT):
     """The three flash kernels against their plain versions on one shape:
     q, k and v read in place from one ``(B, S, H, 3 * D)`` tensor as the
     model's QKV projection gives them (with ``kv_len``: q alone, k and v
-    from one ``(B, kv_len, H, 2 * D)`` tensor), dropout ``FLASH_DROPOUT``
-    with a fixed seed; every kernel fed the same inputs as its plain
+    from one ``(B, kv_len, H, 2 * D)`` tensor), dropout ``dropout`` with a
+    fixed seed; every kernel fed the same inputs as its plain
     version (the backward ones the kernel forward's lse and one delta);
     dq, dk and dv bit-identical over two runs.  ``seq_lens`` (a list) and
     ``causal_shift`` (an int) are the masks' variants, passed as int32
@@ -814,7 +828,7 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
     do = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dtype)
     seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
     opts = dict(causal=causal, sm_scale=1.0 / math.sqrt(d),
-                dropout_p=FLASH_DROPOUT)
+                dropout_p=dropout)
     if seq_lens is not None:
         opts["seq_lens"] = torch.tensor(seq_lens, dtype=torch.int32,
                                         device=DEVICE)
@@ -822,6 +836,7 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
         opts["causal_shift"] = torch.tensor(causal_shift, dtype=torch.int32,
                                             device=DEVICE)
     out, lse = po.flash_fwd(q, k, v, seed, **opts)
+    out2, lse2 = po.flash_fwd(q, k, v, seed, **opts)
     delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
     if dlse:
         delta = delta - torch.randn(b, h, s, generator=gen, device=DEVICE)
@@ -843,27 +858,29 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
             "dq": _flash_err(dq, dq_ref.transpose(1, 2), tag, "dq"),
             "dk": _flash_err(dk, dk_ref.transpose(1, 2), tag, "dk"),
             "dv": _flash_err(dv, dv_ref.transpose(1, 2), tag, "dv")}
-    same_bits = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+    same_bits = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                 and torch.equal(dq, dq2) and torch.equal(dk, dk2)
                  and torch.equal(dv, dv2))
-    del out_ref, dq_ref, dk_ref, dv_ref
+    del out_ref, dq_ref, dk_ref, dv_ref, out2, lse2
     variant = (f"{tag} B={b} S={s}{'' if kv_len is None else f' kv={kv_len}'}"
                f" H={h} D={d} {'causal' if causal else 'full'} dropout "
-               f"{FLASH_DROPOUT}"
+               f"{dropout}"
                + ("" if seq_lens is None else f" seq_lens {seq_lens}")
                + ("" if causal_shift is None else f" shift {causal_shift}")
                + (" lse cotangent" if dlse else ""))
     log(f"[kernel] flash[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-        + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
-        f"{same_bits}")
+        + f" (tol {FLASH_TOL[tag]}); out/lse/dq/dk/dv bit-identical over two "
+        f"runs: {same_bits}")
     bad = [k for k, (_, ok) in errs.items() if not ok]
     if bad or not same_bits:
         raise AssertionError(f"flash[{variant}] disagrees with its plain "
-                             f"versions on {bad}, or dq/dk/dv differ between "
-                             f"runs (bit-identical: {same_bits})")
+                             f"versions on {bad}, or out/lse/dq/dk/dv differ "
+                             f"between runs (bit-identical: {same_bits})")
     rows = {"flash_fwd": dict(variant=variant, max_abs_err=max(
                 errs["out"][0], errs["lse"][0]),
-                errors={k: errs[k][0] for k in ("out", "lse")}),
+                errors={k: errs[k][0] for k in ("out", "lse")},
+                bit_identical=same_bits),
             "flash_bwd_dq": dict(variant=variant, max_abs_err=errs["dq"][0],
                                  bit_identical=same_bits),
             "flash_bwd_dkv": dict(variant=variant, max_abs_err=max(
@@ -900,7 +917,7 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
         "flash_bwd_dkv": timer(lambda: po.mha_dkv_reference(
             qt, kt, vt, dot, lse, delta, **ref_opts), iters=5),
     }
-    lib_fwd, lib_bwd = _sdpa_times(timer, q, k, v, do, causal)
+    lib_fwd, lib_bwd = _sdpa_times(timer, q, k, v, do, causal, dropout)
     for name in rows:
         rows[name].update(ms=times[name], plain_ms=plain[name],
                           library_ms=lib_fwd if name == "flash_fwd"
@@ -909,29 +926,38 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
         + "; ".join(f"{name} kernel {times[name]:.4f} ms plain "
                     f"{plain[name]:.4f} ms bound {rows[name]['bound_ms']:.4f}"
                     f" ms ({rows[name]['bound_by']})" for name in rows)
-        + f"; library (SDPA flash backend, causal, dropout 0) forward "
-        f"{lib_fwd:.4f} ms, backward (dq, dk and dv in one, forward+backward"
-        f" less forward) {lib_bwd:.4f} ms")
+        + f"; library (SDPA flash backend, {'causal' if causal else 'full'},"
+        f" dropout {dropout}, the kernels' own) forward {lib_fwd:.4f} ms, "
+        f"backward (dq, dk and dv in one, forward+backward less forward) "
+        f"{lib_bwd:.4f} ms")
     return rows
 
 
-def _sdpa_times(timer, q, k, v, do, causal):
+def _sdpa_times(timer, q, k, v, do, causal, dropout=0.0):
     """The library yardstick: ``scaled_dot_product_attention`` on its
-    flash backend, dropout 0, on contiguous ``(B, H, S, D)`` copies; the
-    forward, and the backward as forward+backward less the forward."""
+    flash backend at the kernels' dropout, on contiguous ``(B, H, S, D)``
+    copies; the forward, and the backward as forward+backward less the
+    forward."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     leaves = [x.detach().requires_grad_() for x in (qc, kc, vc)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def fwd_bwd():
-        out = sdpa(*leaves, is_causal=causal)
+        out = sdpa(*leaves, dropout_p=dropout, is_causal=causal)
         torch.autograd.grad(out, leaves, doc)
 
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        fwd = timer(lambda: sdpa(qc, kc, vc, is_causal=causal))
+        fwd = timer(lambda: sdpa(qc, kc, vc, dropout_p=dropout,
+                                 is_causal=causal))
         both = timer(fwd_bwd)
     return fwd, both - fwd
+
+
+def _flash_dropouts(tag):
+    """The dropouts a flash shape is checked at: the main path's and, in
+    bf16 (the wgmma forward's dtype), 0 as well."""
+    return (FLASH_DROPOUT, 0.0) if tag == "bf16" else (FLASH_DROPOUT,)
 
 
 def _flash_variant_rows(timer, gen, results):
@@ -949,9 +975,11 @@ def _flash_variant_rows(timer, gen, results):
               ((1, 130, 2, 256), False, dict(seq_lens=[77]))]
     for tag in ("bf16", "f32"):
         for shape, causal, kw in shapes:
-            for name, row in _flash_entries(timer, gen, tag, shape, causal,
-                                            False, **kw).items():
-                results[name].append(row)
+            for p in _flash_dropouts(tag):
+                for name, row in _flash_entries(timer, gen, tag, shape,
+                                                causal, False, dropout=p,
+                                                **kw).items():
+                    results[name].append(row)
 
 
 def _kept_pairs(lq, lk, causal):
@@ -964,7 +992,8 @@ def _kept_pairs(lq, lk, causal):
 
 def _packed_rows(timer, gen, results):
     """Rows 4-6: bench_packed's sequences first (bf16, causal, dropout 0,
-    timed with the library's yardstick, then dropout 0.1), then small
+    then dropout 0.1, each timed with the library's yardstick at the same
+    dropout where it takes one), then small
     sets: f32, cross lengths (some ``len_q > len_k``, rows with no key),
     sequences of length 0, no mask, head sizes 48 and 256, and other
     ``block_q``/``block_k`` for the dropout hash's layout."""
@@ -972,7 +1001,7 @@ def _packed_rows(timer, gen, results):
     sets = [("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
              0.0, (None, None), True),
             ("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
-             FLASH_DROPOUT, (None, None), False)]
+             FLASH_DROPOUT, (None, None), True)]
     for tag in ("f32", "bf16"):
         sets += [(tag, [37, 0, 130, 64, 5], [37, 0, 130, 64, 5], 4, 64, True,
                   FLASH_DROPOUT, (None, None), False),
@@ -1106,29 +1135,31 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
             *bwd_args, cu_q, cu_k, **ref_opts), iters=5),
     }
     lib_fwd, lib_bwd, lib = _varlen_library_times(
-        timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k, causal)
+        timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k, causal, dropout)
     for name in rows:
         rows[name].update(ms=times[name], plain_ms=plain[name],
                           library_ms=lib_fwd if name == "flash_packed_fwd"
                           else lib_bwd, library=lib)
+    lib_times = ("none at this dropout" if lib_fwd is None else
+                 f"forward {lib_fwd:.4f} ms, backward (dq, dk and dv in one, "
+                 f"forward+backward less forward) {lib_bwd:.4f} ms")
     log(f"[kernel] flash_packed[{variant}] times: "
         + "; ".join(f"{name} kernel {times[name]:.4f} ms plain "
                     f"{plain[name]:.4f} ms bound {rows[name]['bound_ms']:.4f}"
                     f" ms ({rows[name]['bound_by']})" for name in rows)
-        + f"; kept pairs {pairs}; library ({lib}, dropout 0) forward "
-        f"{lib_fwd:.4f} ms, backward (dq, dk and dv in one, forward+backward"
-        f" less forward) {lib_bwd:.4f} ms")
+        + f"; kept pairs {pairs}; library ({lib}): {lib_times}")
     return rows
 
 
 def _varlen_library_times(timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k,
-                          causal):
-    """The library yardstick of the packed kernels: PyTorch's
-    ``torch.nn.attention.varlen.varlen_attn`` on the same packed data where
-    this torch has it, else ``scaled_dot_product_attention``'s flash
-    backend on the padded batch.  Returns (forward ms, backward ms as
-    forward+backward less the forward, which call was timed).  The port
-    never calls either."""
+                          causal, dropout=0.0):
+    """The library yardstick of the packed kernels at their dropout:
+    PyTorch's ``torch.nn.attention.varlen.varlen_attn`` on the same packed
+    data where this torch has it, else ``scaled_dot_product_attention``'s
+    flash backend on the padded batch.  Returns (forward ms, backward ms as
+    forward+backward less the forward, which call was timed); the times are
+    None where ``varlen_attn`` takes no dropout and ``dropout`` > 0.  The
+    port never calls either."""
     try:
         from torch.nn.attention.varlen import varlen_attn
     except ImportError:
@@ -1137,6 +1168,11 @@ def _varlen_library_times(timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k,
         params = inspect.signature(varlen_attn).parameters
         mask = (dict(is_causal=causal) if "is_causal" in params
                 else dict(window_size=(-1, 0) if causal else (-1, -1)))
+        if dropout > 0:
+            if "dropout_p" not in params:
+                return None, None, ("torch.nn.attention.varlen.varlen_attn "
+                                    "takes no dropout")
+            mask["dropout_p"] = dropout
         cq, ck = (torch.tensor(c, dtype=torch.int32, device=DEVICE)
                   for c in (cu_q, cu_k))
         args = (cq, ck, max(lens_q), max(lens_k))
@@ -1166,8 +1202,9 @@ def _varlen_library_times(timer, q, k, v, do, cu_q, cu_k, lens_q, lens_k,
         return buf
     fwd, bwd = _sdpa_times(timer, padded(q, lens_q, mq),
                            padded(k, lens_k, mk), padded(v, lens_k, mk),
-                           padded(do, lens_q, mq), causal)
-    return fwd, bwd, f"SDPA flash on the padded ({b}, {mq}) batch"
+                           padded(do, lens_q, mq), causal, dropout)
+    return fwd, bwd, (f"SDPA flash on the padded ({b}, {mq}) batch, dropout "
+                      f"{dropout}")
 
 
 def _ln_err(out, want, tag, rel_to_max=False):
@@ -1904,12 +1941,12 @@ def _profile_train_step(step, inputs, targets, step_s, smi, model,
     mine = {"LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel",
                           "ln_bwd_reduce_kernel", "ln_fwd_any_kernel",
                           "ln_bwd_dx_any_kernel", "ln_bwd_cols_any_kernel"),
-            "flash": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkv_kernel"),
+            "flash": ("flash_fwd_kernel", "flash_fwd_wg_kernel",
+                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
             "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel"),
             "LayerNorm + matmul": ("ln_matmul_kernel", "lnmm_whole_kernel",
                                    "lnmm_stats_kernel", "lnmm_stream_kernel"),
-            "matmul + bias + gelu": ("mm_gelu_kernel",)}
+            "matmul + bias + gelu": ("mm_gelu_kernel", "mbg_kernel")}
     shares, own = [], []
     for label, names in mine.items():
         es = [e for e in kernels if any(n in e.key for n in names)]

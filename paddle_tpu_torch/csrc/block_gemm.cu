@@ -25,66 +25,76 @@
 // What bounds them: operations.  At GPT-345M's (8192, 1024) @ (1024, 3072)
 // the LayerNorm + matmul does 51.5 GFLOP over about 23 MB, 0.052 ms at the
 // bf16 tensor-core peak; BERT's tied decoder (4096, 768) @ (768, 30528)
-// 192 GFLOP.  Only `wgmma` reaches that rate on this card, fed from shared
-// memory faster than `cp.async` issued by the computing warps can fill it.
+// 192 GFLOP; the matmul + gelu at (8192, 1024) @ (1024, 4096) 68.7 GFLOP
+// and 159 MB (two outputs), 0.069 ms.  Only `wgmma` reaches that rate on
+// this card, fed from shared memory faster than `cp.async` issued by the
+// computing warps can fill it.
 //
-// ln_matmul, bf16: two kernels on one main loop.  Both run persistent
-// blocks, at most one per SM, of three warpgroups; a work item is (a row
-// block, a run of 256-column tiles), block b taking items b, b +
-// gridDim.x, ... in that fixed order, the runs as long as leave every SM
-// an item.  W comes by TMA (`cp.async.bulk.tensor`, 128-byte swizzle): one
-// producer thread copies each 64 x 256 k tile into a ring of stages, each
-// with a full and an empty mbarrier (transaction counts on the full ones).
-// A Linear weight (n contiguous) loads as four 64 x 64 panels and is read
-// by wgmma n-major; the tied decoder's transposed view (k contiguous) as
-// one 256 x 64 box, read k-major; both in place, each through its own
-// tensor map built on the host per call.  TMA fills what lies past K or N
-// with zeros: the ragged N = 30528 and any K edge need no mask.  h is the
-// LayerNorm kernel's (one warp per row, one pass, f32, each lane's sums in
-// the same order), rounded to bf16.  Each output is one thread's sum over
-// k in a fixed order: no split-K, no atomics, two calls give the same
-// bits.
+// bf16: three kernels on one main loop (`csrc/hopper.cuh` holds the PTX).
+// Each runs persistent blocks, at most one per SM, of three warpgroups; a
+// work item is (a row block, a run of column tiles), block b taking items
+// b, b + gridDim.x, ... in that fixed order (`Walk`).  W comes by TMA
+// (`cp.async.bulk.tensor`, 128-byte swizzle): one producer thread copies
+// each 64-deep k tile into a ring of stages, each with a full and an empty
+// mbarrier (transaction counts on the full ones).  A Linear weight (n
+// contiguous) loads as 64 x 64 panels and is read by wgmma n-major; the
+// tied decoder's transposed view (k contiguous) as one box, read k-major;
+// both in place, each through its own tensor map built on the host per
+// call (`w_map`).  TMA fills what lies past M, K or N with zeros: the
+// ragged N = 30528 and any K edge need no mask.  Each output is one
+// thread's sum over k in a fixed order: no split-K, no atomics, two calls
+// give the same bits.
 //
-//  - K <= 1024 (`lnmm_whole_kernel`): items of 64 rows.  All 12 warps first
-//    normalize the item's rows into shared memory, whole (64 x 1024 x 2 =
-//    128 KB at most), in wgmma's A layout: 64-column k tiles of 128-byte
-//    rows, each 16-byte chunk at chunk ^ (row % 8).  The W ring takes what
-//    is left: 3 stages at K = 1024, 4 at BERT's 768, up to 6.  Warpgroups
-//    1 and 2 consume columns 0-127 and 128-255 of each tile on the same h,
-//    wgmma m64n128k16 (64 f32 accumulators a thread), one batch kept in
-//    flight while the previous stage is released; two consumers keep the
-//    tensor cores fed where one on m64n256k16 left them idle between its
-//    batches (PERF.md).  The epilogue adds the bias in f32, rounds to bf16
-//    and stores from the registers while the producer already fills the
-//    ring with the next tile's W.  No setmaxnreg: every warp joins the
-//    LayerNorm at each item, so the roles reconverge.
-//  - K > 1024 (`lnmm_stats_kernel`, then `lnmm_stream_kernel`): h cannot
-//    be held whole.  A first kernel writes each row's mean and rstd to f32
-//    scratch from the caller; then items of 128 rows, where each of 4
-//    stages holds x's 128 x 64 k tile (TMA) beside W's.  Consumer
+//  - ln_matmul, K <= 1024 (`lnmm_whole_kernel`): items of 64 rows and runs
+//    of 256-column tiles.  All 12 warps first normalize the item's rows
+//    into shared memory, whole (64 x 1024 x 2 = 128 KB at most), in
+//    wgmma's A layout: 64-column k tiles of 128-byte rows, each 16-byte
+//    chunk at chunk ^ (row % 8); h is the LayerNorm kernel's (one warp per
+//    row, one pass, f32, each lane's sums in the same order), rounded to
+//    bf16.  The W ring takes what is left: 3 stages at K = 1024, 4 at
+//    BERT's 768, up to 6.  Warpgroups 1 and 2 consume columns 0-127 and
+//    128-255 of each tile on the same h, wgmma m64n128k16, one batch kept
+//    in flight while the previous stage is released.  No setmaxnreg: every
+//    warp joins the LayerNorm at each item, so the roles reconverge.
+//  - ln_matmul, K > 1024 (`lnmm_stats_kernel`, then `lnmm_stream_kernel`):
+//    a first kernel writes each row's mean and rstd to f32 scratch from
+//    the caller; then items of 128 rows, where each of 4 stages holds x's
+//    128 x 64 k tile beside W's 64 x 256 (`produce_x_w`).  Consumer
 //    warpgroups 1 and 2 each normalize their 64 rows of the landed x tile
-//    into h in place, (x (+ r) - mean) * rstd (* w) (+ b) rounded to bf16,
-//    while the other's products run, then issue wgmma m64n256k16 on them.
-//    `setmaxnreg` gives the consumers 232 registers and the producer 40;
-//    the roles never reconverge, and a consumer warpgroup meets itself by
-//    named barrier 1 or 2.
-//  - What bounds them (PERF.md): not the tensor cores.  At K <= 1024 each
-//    64-row block reads all of W (805 MB at GPT-345M's shape) through a
-//    ring only 3-4 stages deep beside h; W shared by a thread-block
-//    cluster (multicast) moved half the bytes out of L2 and no faster.
+//    into h in place while the other's products run, then issue wgmma
+//    m64n256k16 on them.  `setmaxnreg` gives the consumers 232 registers
+//    and the producer 40; a consumer warpgroup meets itself by named
+//    barrier 1 or 2.  What bounds it (PERF.md): not the tensor cores; W
+//    read out of L2 by every row block through a ring 3-4 stages deep.
+//  - mm_gelu (`mbg_kernel`): items of one 128 x 128 tile, 5 stages of x's
+//    and W's k tiles from the same producer loop; x goes straight from TMA
+//    to wgmma.  The epilogue is the cost to hide: it adds the bias in f32
+//    and writes z and y = gelu(z), two outputs, 64 KB a tile.  So the two
+//    consumer warpgroups take alternate items (ping-pong), each over the
+//    item's 128 rows as two m64n128k16 halves: one's epilogue runs while
+//    the other's products hold the tensor cores.  Named barriers 1 and 2
+//    give their main loops turns, so a warpgroup waits on the ring only
+//    after the other has seen its last stage (an mbarrier tells its phases
+//    apart by parity alone).  Measured (PERF.md), the epilogue first cost
+//    more than the products: 4-byte stores from the registers, and tanhf
+//    and erff, some twenty dependent instructions each.  So each
+//    warpgroup writes z, then y, as bf16 into a 32 KB tile of shared
+//    memory (the TMA store's 128-byte swizzle, conflict free) that one
+//    thread stores by TMA, and gelu is taken from the f32 sum by one
+//    ex2.approx and one fast division (`gelu_tanh_fast`, about 1e-6
+//    relative to the tanh form; `gelu_erf_fast`, erf within 1.5e-7).  A W
+//    past 16 MB (gpt_1p3b's) is walked 8 row blocks at a time (`place`),
+//    so that it is read out of L2 and not streamed through it per row
+//    block.
 //
-// ln_matmul in f32 and mm_gelu (the earlier kernels, `mma.sync`):
-//  - Output tiles of BM x BN, warps of 64 x 32 (32 x 32 in f32).  bf16
-//    products by `mma.sync` m16n8k16 with f32 accumulators and `ldmatrix`
-//    fragment loads (`.trans` for a tile of W stored n-major); f32 by FMAs
-//    in the same fragment layout (no TF32).  W (and, for mm_gelu, x)
-//    streams through shared memory in k tiles, ST in flight (cp.async);
-//    edge tiles are zero-filled and masked at the store.
-//  - ln_matmul f32: a block normalizes its 32 rows into shared memory for
-//    K <= 1024 and walks a run of column tiles on that h; above 1024 it
-//    keeps each row's mean and rstd and normalizes every k tile of h into
-//    a stage beside W's.  mm_gelu: one block per output tile.  The next
-//    version moves mm_gelu onto the wgmma main loop.
+// f32 (the earlier kernels, on the CUDA cores; no TF32): output tiles of
+// BM x BN, warps of 32 x 32, FMAs in mma.sync's m16n8 fragment layout; W
+// (and, for mm_gelu, x) streams through shared memory in k tiles, ST in
+// flight (cp.async); edge tiles are zero-filled and masked at the store.
+// ln_matmul: a block normalizes its 32 rows into shared memory for K <=
+// 1024 and walks a run of column tiles on that h; above 1024 it keeps each
+// row's mean and rstd and normalizes every k tile of h into a stage beside
+// W's.  mm_gelu: one block per output tile.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +102,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -140,8 +152,6 @@ struct Cfg {
 
 template <bool WT>
 using LnF32 = Cfg<float, 32, 128, 32, 32, 32, 4, WT>;
-template <bool WT>
-using MmBf16 = Cfg<__nv_bfloat16, 128, 128, 64, 64, 32, 3, WT>;
 template <bool WT>
 using MmF32 = Cfg<float, 64, 128, 32, 32, 32, 4, WT>;
 
@@ -204,73 +214,10 @@ __device__ __forceinline__ void load_x(typename C::T* dst, const Args& a,
 }
 
 // ---------------------------------------------------------------------------
-// the products: acc[i][j] is the m16n8 tile (i, j) of the warp's tile,
+// the f32 products: acc[i][j] is the m16n8 tile (i, j) of the warp's tile,
 // lane (g, t) = (lane / 4, lane % 4) holding rows g and g + 8 at columns
 // 2t and 2t + 1: [0], [1] on row g, [2], [3] on row g + 8
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 (kTrans: each matrix transposed on the way)
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-}
-
-// acc += A[the warp's rows][one k tile] @ W tile; A is [m][k] with
-// leading dimension la (its first row the warp's first), sW one W stage
-template <class C>
-__device__ __forceinline__ void tile_product(float (&acc)[C::MT][C::NT][4],
-                                             const __nv_bfloat16* A, int la,
-                                             const __nv_bfloat16* sW,
-                                             int wn) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk) {
-    uint32_t af[C::MT][4];
-#pragma unroll
-    for (int i = 0; i < C::MT; ++i)
-      ldsm_x4<false>(af[i], A + (i * 16 + (lane & 15)) * la + kk * 16 +
-                                (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < C::NT / 2; ++jp) {
-      uint32_t b[4];   // n-tiles 2jp and 2jp + 1, k 0-7 and 8-15 each
-      const int n = wn * C::WTN + jp * 16;
-      if (C::WT)
-        ldsm_x4<false>(b, sW + (n + (lane & 7) + (lane >> 4) * 8) * C::LDW +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x4<true>(b, sW + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  C::LDW + n + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < C::MT; ++i) {
-        mma_bf16(acc[i][2 * jp], af[i], b[0], b[1]);
-        mma_bf16(acc[i][2 * jp + 1], af[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
 template <class C>
 __device__ __forceinline__ void tile_product(float (&acc)[C::MT][C::NT][4],
                                              const float* A, int la,
@@ -305,14 +252,35 @@ __device__ __forceinline__ void tile_product(float (&acc)[C::MT][C::NT][4],
 // the epilogue
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the tanh form as z * sigmoid(2 u) = z / (1 + 2^(-2 u log2 e)), u the
+// tanh's argument: one ex2.approx and one fast division where tanhf takes
+// some twenty dependent instructions; about 1e-6 relative to the exact
+// form, and without 1 + tanh(u)'s cancellation at negative z
+__device__ __forceinline__ float gelu_tanh_fast(float z) {
+  const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
+  return __fdividef(z, 1.f + hopper::ex2(-2.885390081777927f * u));
+}
+
+// the erf form with erf(x) = 1 - t (a1 + t (a2 + ... + t a5)) e^(-x^2), t =
+// 1 / (1 + 0.3275911 |x|) (Abramowitz and Stegun 7.1.26, |error| <= 1.5e-7)
+// where erff takes a branch per range: one fast division and one ex2.approx
+__device__ __forceinline__ float gelu_erf_fast(float z) {
+  const float x = fabsf(z) * 0.7071067811865476f;
+  const float t = __fdividef(1.f, fmaf(0.3275911f, x, 1.f));
+  const float poly =
+      fmaf(fmaf(fmaf(fmaf(1.061405429f, t, -1.453152027f), t, 1.421413741f),
+                t, -0.284496736f),
+           t, 0.254829592f) *
+      t;
+  const float e = hopper::ex2(-1.4426950408889634f * x * x);
+  return 0.5f * z * (1.f + copysignf(1.f - poly * e, z));
 }
 
 // `_gelu_f32`: the tanh form or the erf form, on the f32 sum
@@ -706,6 +674,8 @@ cudaError_t ln_matmul(Args a, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 namespace wg {
 
+using namespace hopper;
+
 // both kernels: 256-column tiles, 64-deep k tiles, three warpgroups
 constexpr int BN = 256, BK = 64;
 constexpr int kThreads = 384;
@@ -720,6 +690,12 @@ constexpr int kMaxStages = 6;
 constexpr int kStreamBM = 128, kStreamStages = 4;
 constexpr int kTileX = kStreamBM * BK * 2;         // 16 KB
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// matmul + bias + gelu: items of 128 x 128, 6 stages of (x, W) k tiles
+// matmul + bias + gelu: items of 128 x 128, 5 stages of (x, W) k tiles,
+// and an output tile's buffer for each consumer warpgroup
+constexpr int kMbgBN = 128, kMbgStages = 5;
+constexpr int kTileWn = kMbgBN * BK * 2;           // 16 KB
+constexpr int kOutTile = kStreamBM * kMbgBN * 2;   // 32 KB
 
 // the W stages that fit beside h and the block's barriers: 3 at K = 1024,
 // 4 at BERT's 768, up to 6
@@ -730,181 +706,6 @@ __host__ __device__ constexpr int stages(int kt) {
   return st;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// arrive, and expect `bytes` more of the phase's copies
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// a 2-D box of the tensor map at (c0, c1), innermost first, into dst
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-// generic-proxy writes to shared memory, made visible to wgmma
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// a shared memory matrix descriptor, 128-byte swizzle: lbo and sbo in bytes
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (the m64n128 f32 accumulator, 64 a thread) += A . B for one k16
-// step: A (64 x 16) and B (16 x 128) read from shared memory through their
-// descriptors; TB = 1 reads B n-major (transposed), 0 k-major; scale_d = 0
-// overwrites d instead
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-// d (the m64n256 f32 accumulator, 128 a thread) += A . B for one k16
-// step: A (64 x 16) and B (16 x 256) read from shared memory through their
-// descriptors; TB = 1 reads B n-major (transposed), 0 k-major; scale_d = 0
-// overwrites d instead
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-}
 
 // byte offset of 16-byte chunk c (8 columns) of row r in a swizzled tile of
 // 128-byte rows
@@ -1017,19 +818,38 @@ __global__ void __launch_bounds__(256) lnmm_stats_kernel(const Args a,
   }
 }
 
-// the block's walk over its ring steps: items (a 128-row block, a run of
-// column tiles) b, b + gridDim.x, ...; each tile's k tiles in order
+// item -> (row block, run of column tiles): `group` row blocks at a time,
+// the group's items run by run, each run's row blocks in turn (group 1:
+// row block by row block).  Items next to each other in time then share
+// a run's W tiles out of L2.
+__device__ __forceinline__ void place(int item, int items, int nruns,
+                                      int group, int& rb, int& run) {
+  const int g = item / (group * nruns), first = g * group;
+  const int size = min(group, items / nruns - first);
+  const int r = item - g * group * nruns;
+  rb = first + r % size;
+  run = r / size;
+}
+
+// the block's walk over its ring steps: items (a bm-row block, a run of
+// `per` column tiles) b, b + gridDim.x, ... placed as `place` says; each
+// tile's k tiles in order
 struct Walk {
   int item, j, t, m0, j1;
   int bm;
-  int items, nruns, per, ntiles, kt;
-  __device__ void start(int first) {
-    item = first;
-    enter();
+  int items, nruns, per, ntiles, kt, group;
+  __device__ Walk(int items_, int nruns_, int per_, int ntiles_, int kt_,
+                  int bm_, int group_)
+      : bm(bm_), items(items_), nruns(nruns_), per(per_), ntiles(ntiles_),
+        kt(kt_), group(group_) {
+    item = blockIdx.x;
+    if (item < items) enter();
   }
   __device__ void enter() {
-    m0 = (item / nruns) * bm;
-    j = (item % nruns) * per;
+    int rb, run;
+    place(item, items, nruns, group, rb, run);
+    m0 = rb * bm;
+    j = run * per;
     j1 = min(ntiles, j + per);
     t = 0;
   }
@@ -1042,6 +862,49 @@ struct Walk {
     if (item < items) enter();
   }
 };
+
+// a ring of ST stages: one producer arrival fills a stage (with its copies'
+// bytes), `consumers` warp arrivals empty it
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
+                                          int ST, int consumers) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// the producer thread of the streaming kernels: each ring step's 128 x 64
+// tile of x and 64 x TBN tile of W by TMA, as soon as its stage is
+// released.  WT: W k-contiguous (a TBN x 64 box, read k-major); else n
+// contiguous (TBN / 64 panels of 64 x 64, read n-major).
+template <bool WT, int TBN>
+__device__ __forceinline__ void produce_x_w(Walk walk,
+                                            const CUtensorMap* xmap,
+                                            const CUtensorMap* wmap,
+                                            unsigned char* sA,
+                                            unsigned char* sW, uint64_t* full,
+                                            uint64_t* empty, int ST) {
+  constexpr int kTile = TBN * BK * 2;
+  for (int n = 0; !walk.done(); ++n, walk.next()) {
+    const int s = n % ST, ph = (n / ST) & 1;
+    mbar_wait(&empty[s], ph ^ 1);
+    mbar_arrive_expect(&full[s], kTileX + kTile);
+    tma_load(sA + s * kTileX, xmap, &full[s], walk.t * BK, walk.m0);
+    unsigned char* dst = sW + s * kTile;
+    if (WT) {
+      tma_load(dst, wmap, &full[s], walk.t * BK, walk.j * TBN);
+    } else {
+#pragma unroll
+      for (int p = 0; p < TBN / 64; ++p)
+        tma_load(dst + p * (kTile / (TBN / 64)), wmap, &full[s],
+                 walk.j * TBN + p * 64, walk.t * BK);
+    }
+  }
+}
 
 // K <= 1024, h whole: items of 64 rows.  WT: W k-contiguous (a 256 x 64
 // box a stage, read k-major); else n contiguous (four 64 x 64 panels, read
@@ -1062,14 +925,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x;
   const bool producer = tid < 128;
-  if (tid == 0) {
-    for (int i = 0; i < ST; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);   // each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(full, empty, ST, 8);   // each consumer warp
 
   const int ntiles = (a.N + BN - 1) / BN;
   const int per = a.tiles;
@@ -1187,46 +1043,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sStat = reinterpret_cast<float*>(empty + ST);   // mean, rstd
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int i = 0; i < ST; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);   // each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  Walk walk;
-  walk.items = items;
-  walk.nruns = nruns;
-  walk.per = a.tiles;
-  walk.ntiles = (a.N + BN - 1) / BN;
-  walk.kt = (a.K + BK - 1) / BK;
-  walk.bm = BM;
-  walk.start(blockIdx.x);
+  ring_init(full, empty, ST, 8);   // each consumer warp
+  Walk walk(items, nruns, a.tiles, (a.N + BN - 1) / BN, (a.K + BK - 1) / BK,
+            BM, 1);
 
   if (tid < 128) {
-    // the producer: one thread copies each step's x and W tiles by TMA,
-    // as soon as the consumers released the stage
+    // the producer: one thread copies each step's x and W tiles
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kProducerRegs));
-    if (tid == 0) {
-      for (int n = 0; !walk.done(); ++n, walk.next()) {
-        const int s = n % ST, ph = (n / ST) & 1;
-        mbar_wait(&empty[s], ph ^ 1);
-        mbar_arrive_expect(&full[s], kTileX + kTileW);
-        tma_load(sA + s * kTileX, &xmap, &full[s], walk.t * BK, walk.m0);
-        unsigned char* dst = sW + s * kTileW;
-        if (WT) {
-          tma_load(dst, &wmap, &full[s], walk.t * BK, walk.j * BN);
-        } else {
-#pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load(dst + p * (kTileW / 4), &wmap, &full[s],
-                     walk.j * BN + p * 64, walk.t * BK);
-        }
-      }
-    }
+    if (tid == 0)
+      produce_x_w<WT, BN>(walk, &xmap, &wmap, sA, sW, full, empty, ST);
   } else {
     // two consumer warpgroups, rows 0-63 and 64-127 of each tile: each
     // normalizes its rows of the landed x tile into h in place, then runs
@@ -1341,68 +1167,177 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links nothing but cudart)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
+// matmul + bias + gelu, bf16: items of one 128 x 128 output tile, walked as
+// the streaming kernel walks its runs (runs of one tile); the producer
+// copies x's and W's k tiles into a ring of kMbgStages.  The two consumer
+// warpgroups take alternate items (ping-pong): one's epilogue (gelu and two
+// stores) runs while the other's products hold the tensor cores.  Each
+// runs an item's 128 rows as two m64n128k16 halves (128 accumulators a
+// thread).  Their main loops take turns by named barriers 1 and 2: a
+// warpgroup waits for the ring's stages only after the other has seen its
+// last, so no wait can match a phase of the other's item (an mbarrier
+// tells phases apart by parity alone).  WT as in produce_x_w.
+template <bool WT>
+__global__ void __launch_bounds__(kThreads, 1)
+    mbg_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap ymap,
+               const __grid_constant__ CUtensorMap zmap, const Args a,
+               int items, int ntiles, int group) {
+  constexpr int BM = kStreamBM, TBN = kMbgBN, ST = kMbgStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sA = smem;                    // ST stages of x
+  unsigned char* sW = sA + ST * kTileX;        // ST stages of W
+  unsigned char* sOut = sW + ST * kTileWn;     // an output tile each
+  uint64_t* full = reinterpret_cast<uint64_t*>(sOut + 2 * kOutTile);
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x;
+  ring_init(full, empty, ST, 4);   // the consumer warpgroup's warps
+  const int kt = (a.K + BK - 1) / BK;
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid == 0)
+      produce_x_w<WT, TBN>(Walk(items, ntiles, 1, ntiles, kt, BM, group),
+                           &xmap, &wmap, sA, sW, full, empty, ST);
+    return;
   }
-  return fn;
-}
-
-// a 2-D bf16 tensor for TMA: dims (inner, outer), the outer stride in
-// elements, boxes of (box0, box1); 128-byte swizzle; what a box reads past
-// the tensor's edge is zero
-cudaError_t tensor_map(CUtensorMap* map, const void* base, long long inner,
-                       long long outer, long long stride, int box0,
-                       int box1) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box0),
-                             static_cast<cuuint32_t>(box1)};
-  const cuuint32_t estr[2] = {1u, 1u};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int cw = (tid >> 7) - 1;             // 0 or 1
+  const int ct = tid & 127;                  // thread in the warpgroup
+  const int lane = tid & 31;
+  const int row = (ct >> 5) * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.bias);
+  unsigned char* out = sOut + cw * kOutTile;
+  // this warpgroup's 128 threads
+  auto wg_bar = [&]() { bar_sync(3 + cw, 128); };
+  // acc into `out` in bf16, as two panels of 64 columns with the TMA
+  // store's 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)):
+  // conflict free, a warp's 8 rows of one chunk falling in 8 bank groups
+  auto put = [&](const float (&v)[2][64]) {
+#pragma unroll
+    for (int j8 = 0; j8 < TBN / 8; ++j8)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = h * 64 + row + 8 * half;
+          store2(reinterpret_cast<__nv_bfloat16*>(
+                     out + (j8 / 8) * (kOutTile / 2) +
+                     r * 128 + (((j8 % 8) ^ (r & 7)) << 4) + cq * 2),
+                 v[h][j8 * 4 + 2 * half], v[h][j8 * 4 + 2 * half + 1]);
+        }
+    fence_async_shared();
+    wg_bar();
+  };
+  // one thread stores the buffer's two panels to (m0, n0) by TMA
+  auto send = [&](const CUtensorMap* map, int m0, int n0) {
+    if (ct == 0) {
+      tma_store(map, out, n0, m0);
+      tma_store(map, out + kOutTile / 2, n0 + 64, m0);
+      tma_store_commit();
+    }
+  };
+  // ... and, before the buffer is written again, waits for them to read it
+  auto drain = [&]() {
+    if (ct == 0) tma_store_wait<true>();
+    wg_bar();
+  };
+  // the block's items are blockIdx.x + i gridDim.x, i < nb; this
+  // warpgroup takes i = cw, cw + 2, ..., whose k tiles are ring steps i kt
+  // .. i kt + kt - 1.  Warpgroup 0 runs its main loop first; each lets the
+  // other's start after its own, but for the block's last item (so every
+  // arrival is waited for).
+  const int nb = (items - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  if (cw == 1) bar_arrive(1, 256);
+  for (int i = cw; i < nb; i += 2) {
+    const int item = blockIdx.x + i * gridDim.x;
+    int rb, tile;
+    place(item, items, ntiles, group, rb, tile);
+    const int m0 = rb * BM, n0 = tile * TBN;
+    float acc[2][64];   // rows 0-63 and 64-127 of the tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[h][e] = 0.f;
+    int prev = -1;
+    bar_sync(1 + cw, 256);   // this warpgroup's turn
+    for (int t = 0; t < kt; ++t) {
+      const int n = i * kt + t, s = n % ST, ph = (n / ST) & 1;
+      mbar_wait(&full[s], ph);
+      if (t == kt - 1 && i + 1 < nb) bar_arrive(2 - cw, 256);
+      const unsigned char* tA = sA + s * kTileX;
+      const unsigned char* tW = sW + s * kTileWn;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = WT ? desc(tW + kk * 32, 16, 1024)
+                               : desc(tW + kk * 16 * 128, kTileWn / 2, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_m64n128k16<WT ? 0 : 1>(
+              acc[h], desc(tA + h * (kTileX / 2) + kk * 32, 16, 1024), db,
+              t > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous step's products are done
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    // epilogue: accumulator element (j8, e) of half h is row h 64 + `row`
+    // (+ 8 for e >= 2), column j8 * 8 + cq (+ 1 for odd e).  z = acc +
+    // bias goes out first; gelu is taken while TMA reads z's buffer.
+#pragma unroll
+    for (int j8 = 0; j8 < TBN / 8; ++j8) {
+      const int col = n0 + j8 * 8 + cq;   // N is even: col + 1 < N too
+      const float b0 = bias && col < a.N ? __bfloat162float(bias[col]) : 0.f;
+      const float b1 = bias && col < a.N ? __bfloat162float(bias[col + 1])
+                                         : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          acc[h][j8 * 4 + 2 * half] += b0;
+          acc[h][j8 * 4 + 2 * half + 1] += b1;
+        }
+    }
+    drain();   // this warpgroup's last item's y has been read
+    put(acc);
+    send(&zmap, m0, n0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        acc[h][e] = a.approximate ? gelu_tanh_fast(acc[h][e])
+                                  : gelu_erf_fast(acc[h][e]);
+    drain();
+    put(acc);
+    send(&ymap, m0, n0);
+  }
+  if (ct == 0) tma_store_wait<false>();
 }
 
 template <bool WT>
-cudaError_t w_map(CUtensorMap* map, const Args& a) {
-  // W (K, N) n contiguous: 64 x 64 panels; k contiguous, as (N, K): 64 x
-  // 256 boxes
-  return WT ? tensor_map(map, a.w, a.K, a.N, a.sw_n, BK, BN)
+cudaError_t w_map(CUtensorMap* map, const Args& a, int bn) {
+  return WT ? tensor_map(map, a.w, a.K, a.N, a.sw_n, BK, bn)
             : tensor_map(map, a.w, a.N, a.K, a.sw_k, 64, BK);
 }
 
 template <bool WT>
 cudaError_t launch_whole(Args a, cudaStream_t stream) {
   CUtensorMap wmap;
-  cudaError_t e = w_map<WT>(&wmap, a);
+  cudaError_t e = w_map<WT>(&wmap, a, BN);
   if (e != cudaSuccess) return e;
   const int sms = sm_count(&e);
   if (e != cudaSuccess) return e;
@@ -1431,7 +1366,7 @@ cudaError_t launch_stream(Args a, float* stats, cudaStream_t stream) {
   CUtensorMap xmap, wmap;
   // x (M, K): 64 x 128 boxes
   cudaError_t e = tensor_map(&xmap, a.x, a.K, a.M, a.K, BK, kStreamBM);
-  if (e == cudaSuccess) e = w_map<WT>(&wmap, a);
+  if (e == cudaSuccess) e = w_map<WT>(&wmap, a, BN);
   if (e != cudaSuccess) return e;
   const int sms = sm_count(&e);
   if (e != cudaSuccess) return e;
@@ -1461,6 +1396,43 @@ cudaError_t ln_matmul_bf16(const Args& a, float* stats, cudaStream_t s) {
     return wt ? launch_whole<true>(a, s) : launch_whole<false>(a, s);
   return wt ? launch_stream<true>(a, stats, s)
             : launch_stream<false>(a, stats, s);
+}
+
+template <bool WT>
+cudaError_t launch_mbg(Args a, cudaStream_t stream) {
+  CUtensorMap xmap, wmap, ymap, zmap;
+  // x (M, K): 64 x 128 boxes; y and z (M, N): 64 x 128 boxes
+  cudaError_t e = tensor_map(&xmap, a.x, a.K, a.M, a.K, BK, kStreamBM);
+  if (e == cudaSuccess) e = w_map<WT>(&wmap, a, kMbgBN);
+  if (e == cudaSuccess)
+    e = tensor_map(&ymap, a.y, a.N, a.M, a.N, 64, kStreamBM);
+  if (e == cudaSuccess)
+    e = tensor_map(&zmap, a.z, a.N, a.M, a.N, 64, kStreamBM);
+  if (e != cudaSuccess) return e;
+  const int sms = sm_count(&e);
+  if (e != cudaSuccess) return e;
+  const int ntiles = (a.N + kMbgBN - 1) / kMbgBN;
+  const int items = (a.M + kStreamBM - 1) / kStreamBM * ntiles;
+  // W past 16 MB (gpt_1p3b's 2048 x 8192) is read out of L2 by groups of 8
+  // row blocks: row by row, every row block would stream all of W through
+  // L2 beside x; at GPT-345M's and BERT's 8 MB and less, row by row is as
+  // fast or faster (PERF.md)
+  const int group = 2ll * a.K * a.N > (16ll << 20) ? 8 : 1;
+  const size_t smem = 1024 + static_cast<size_t>(kMbgStages) *
+                                 (kTileX + kTileWn) +
+                      2 * kOutTile + 2 * kMbgStages * sizeof(uint64_t);
+  auto kern = mbg_kernel<WT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<std::min(items, sms), kThreads, smem, stream>>>(
+      xmap, wmap, ymap, zmap, a, items, ntiles, group);
+  return cudaGetLastError();
+}
+
+cudaError_t mm_gelu_bf16(const Args& a, cudaStream_t s) {
+  return a.sw_k == 1 && a.sw_n != 1 ? launch_mbg<true>(a, s)
+                                    : launch_mbg<false>(a, s);
 }
 
 }  // namespace wg
@@ -1524,7 +1496,7 @@ extern "C" int ptt_matmul_bias_gelu(const void* x, const void* w,
   if (dtype == 0)
     e = wt ? mm_gelu<MmF32<true>>(a, s) : mm_gelu<MmF32<false>>(a, s);
   else
-    e = wt ? mm_gelu<MmBf16<true>>(a, s) : mm_gelu<MmBf16<false>>(a, s);
+    e = wg::mm_gelu_bf16(a, s);
   return static_cast<int>(e);
 }
 

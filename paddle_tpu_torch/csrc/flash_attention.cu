@@ -61,26 +61,55 @@
 //
 // What bounds it: at (B * H, S, D) = (256, 1024, 64) bf16 causal the
 // forward does 34 GFLOP over 134 MB, the backward 120 GFLOP over 369 MB,
-// so the tensor cores, not the memory, set the bound.  The design is the
-// simple one: one block of 4 warps per 64-row tile, each warp owning 16
-// rows; the other operand's tiles (64 rows; 16 in f32 at D = 256, where
-// shared memory holds no more) staged in shared memory in two buffers, the
-// next tile's copy (cp.async) in flight while the current one is used; the
-// products by `mma.sync` m16n8k16 with ldmatrix fragment loads (bf16) or
-// by FMAs in the same fragment layout (f32); the scores and the online
-// softmax in registers, the masks applied only to tiles on the causal
-// diagonal or at a ragged end.  At D = 256 one warp's f32 accumulators
-// would take 128 registers (256 for dk and dv), so the output columns are
-// split over gridDim.z: two blocks each compute the scores (and dp) over
-// the full D and accumulate 128 columns of out, dq, dk or dv; their lse is
-// the same bits, and the first writes it.  Above 256 (`*_wide_kernel`) not
-// even one operand's 64-row tile fits whole in shared memory beside the
+// so the tensor cores, not the memory, set the bound.  With dropout the
+// forward also hashes every kept (query, key) pair, about 8 integer
+// operations each (1.1 G at that shape): at the CUDA cores' integer rate,
+// the same order of time as the products at the tensor cores' peak.
+//
+// The forward in bf16 on fixed lengths at D 64 and 128 (`wg::
+// flash_fwd_wg_kernel`, FlashAttention-3's design): persistent blocks, one
+// per SM, of three warpgroups, walking 128-row q tiles in pairs.  A
+// producer thread copies each tile's Q into one of two buffers and its
+// 128-key tiles of K and V into a ring of 2 stages by TMA (4-D tensor
+// maps over q, k and v as they lie, the slices of the QKV projection read
+// in place; rows past S come in as zeros), so the next tile's copies run
+// under this one's last products and its epilogue.  Consumer warpgroups 0
+// and 1 own 64 q rows each: S = Q K^T by wgmma m64n128k16 from shared
+// memory, O += P V by wgmma with P from registers (rounded to bf16) and V
+// read MN-major; the online softmax, the masks (on diagonal and ragged
+// tiles only) and the dropout hash stay in registers while the other
+// warpgroup's products run, the two issuing in turns by named barriers;
+// each issues the next tile's S with the last tile's P V, so its own
+// softmax overlaps them too.  `setmaxnreg` gives the consumers 232
+// registers.  Two choices the card's times decided (PERF.md): a slice's q
+// tiles go to neighbouring blocks, paired long with short (as much causal
+// work a pair), so its K and V come from L2 and not once per q tile from
+// memory; and dropout is a template argument, so each element's keep test
+// is a select in one straight run of code, not a branch that splits the
+// softmax into one block per element.
+//
+// Every other case (f32, D 32 and 256, the wide heads, packed mode, and
+// dq and dk/dv everywhere) runs the mma.sync kernels: one block of 4
+// warps per 64-row tile, each warp owning 16 rows; the other operand's
+// tiles (64 rows; 16 in f32 at D = 256, where shared memory holds no
+// more) staged in shared memory in two buffers, the next tile's copy
+// (cp.async) in flight while the current one is used; the products by
+// `mma.sync` m16n8k16 with ldmatrix fragment loads (bf16) or by FMAs in
+// the same fragment layout (f32); the scores and the online softmax in
+// registers, the masks applied only to tiles on the causal diagonal or at
+// a ragged end.  At D = 256 one warp's f32 accumulators would take 128
+// registers (256 for dk and dv), so the output columns are split over
+// gridDim.z: two blocks each compute the scores (and dp) over the full D
+// and accumulate 128 columns of out, dq, dk or dv; their lse is the same
+// bits, and the first writes it.  Above 256 (`*_wide_kernel`) not even
+// one operand's 64-row tile fits whole in shared memory beside the
 // other's in f32: the scores (and dp) run over D in 128-column slabs, each
-// slab of both operands staged in turn, and gridDim.z = D / 128 blocks each
-// accumulate 128 output columns (no model in the repo has such heads, so
-// this is the simple version: one copy in flight at a time, the operands
-// re-read from L2 once per output block).  wgmma, TMA and warp
-// specialisation are for a later version.
+// slab of both operands staged in turn, and gridDim.z = D / 128 blocks
+// each accumulate 128 output columns (no model in the repo has such heads,
+// so this is the simple version: one copy in flight at a time, the
+// operands re-read from L2 once per output block).  The dropout hash is
+// over global coordinates, so the backward's 64-row tiles regenerate the
+// forward's 128-row mask bit for bit.
 //
 // Deterministic sums: as the TPU grid, dq takes one block per (q tile, h)
 // walking the k tiles, dk/dv one block per (k tile, h) walking the q tiles.
@@ -90,6 +119,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -166,49 +199,59 @@ struct Slice {
   uint32_t hcol;      // hash column of key 0
 };
 
-__device__ __forceinline__ Slice slice_of(const Args& a) {
-  Slice v;
-  int hb;
-  if (a.tiles != nullptr) {
-    const int s = a.tiles[2 * blockIdx.x];
-    v.r0 = a.tiles[2 * blockIdx.x + 1];
-    v.h = hb = blockIdx.y;
-    const int q0 = a.cu_q[s], k0 = a.cu_k[s];
-    v.sq = a.cu_q[s + 1] - q0;
-    v.sk = a.cu_k[s + 1] - k0;
-    v.qrow = q0;
-    v.krow = k0;
-    v.stat = static_cast<long long>(v.h) * a.Sq + q0;
-    v.klen = v.sk;
-    v.off = v.sk - v.sq;
-    v.hrow = static_cast<uint32_t>(a.hstart[s]);
-    v.hcol = static_cast<uint32_t>(a.hstart[a.B + s]);
-    for (int i = 0; i < 4; ++i)
-      v.base[i] = static_cast<long long>(i == 1 || i == 2 ? k0 : q0) *
-                      a.st[i][1] +
-                  v.h * a.st[i][2];
-  } else {
-    hb = blockIdx.y;
-    const int b = hb / a.H;
-    v.h = hb % a.H;
-    v.r0 = blockIdx.x * kRows;
-    v.sq = a.Sq;
-    v.sk = a.Sk;
-    v.qrow = static_cast<long long>(b) * a.Sq;
-    v.krow = static_cast<long long>(b) * a.Sk;
-    v.stat = static_cast<long long>(hb) * a.Sq;
-    v.klen = a.lens != nullptr ? max(0, min(a.lens[b], a.Sk)) : a.Sk;
-    v.off = a.lens != nullptr ? 0 : a.Sk - a.Sq;
-    v.hrow = v.hcol = 0u;
-    for (int i = 0; i < 4; ++i)
-      v.base[i] = b * a.st[i][0] + v.h * a.st[i][2];
-  }
+// the hash's block part and the causal offset's override, once the slice
+// is known
+__device__ __forceinline__ void finish_slice(Slice& v, const Args& a,
+                                             int hb) {
   // clamped to +-2^30, so the sums below stay in int32; for any length
   // below 2^30 that keeps or drops the same keys as the shift itself
   if (a.shift != nullptr) v.off = max(-(1 << 30), min(*a.shift, 1 << 30));
   v.hs = a.dropout ? static_cast<uint32_t>(*a.seed) ^
                          (static_cast<uint32_t>(hb) * 0x9E3779B1u)
                    : 0u;
+}
+
+// fixed lengths: slice hb = b * H + h, the block's first own row r0
+__device__ __forceinline__ Slice fixed_slice(const Args& a, int hb, int r0) {
+  Slice v;
+  const int b = hb / a.H;
+  v.h = hb % a.H;
+  v.r0 = r0;
+  v.sq = a.Sq;
+  v.sk = a.Sk;
+  v.qrow = static_cast<long long>(b) * a.Sq;
+  v.krow = static_cast<long long>(b) * a.Sk;
+  v.stat = static_cast<long long>(hb) * a.Sq;
+  v.klen = a.lens != nullptr ? max(0, min(a.lens[b], a.Sk)) : a.Sk;
+  v.off = a.lens != nullptr ? 0 : a.Sk - a.Sq;
+  v.hrow = v.hcol = 0u;
+  for (int i = 0; i < 4; ++i) v.base[i] = b * a.st[i][0] + v.h * a.st[i][2];
+  finish_slice(v, a, hb);
+  return v;
+}
+
+__device__ __forceinline__ Slice slice_of(const Args& a) {
+  if (a.tiles == nullptr)
+    return fixed_slice(a, blockIdx.y, blockIdx.x * kRows);
+  Slice v;
+  const int s = a.tiles[2 * blockIdx.x];
+  v.r0 = a.tiles[2 * blockIdx.x + 1];
+  v.h = blockIdx.y;
+  const int q0 = a.cu_q[s], k0 = a.cu_k[s];
+  v.sq = a.cu_q[s + 1] - q0;
+  v.sk = a.cu_k[s + 1] - k0;
+  v.qrow = q0;
+  v.krow = k0;
+  v.stat = static_cast<long long>(v.h) * a.Sq + q0;
+  v.klen = v.sk;
+  v.off = v.sk - v.sq;
+  v.hrow = static_cast<uint32_t>(a.hstart[s]);
+  v.hcol = static_cast<uint32_t>(a.hstart[a.B + s]);
+  for (int i = 0; i < 4; ++i)
+    v.base[i] = static_cast<long long>(i == 1 || i == 2 ? k0 : q0) *
+                    a.st[i][1] +
+                v.h * a.st[i][2];
+  finish_slice(v, a, v.h);
   return v;
 }
 
@@ -219,16 +262,19 @@ __host__ __device__ constexpr int ld() {
   return D + 16 / static_cast<int>(sizeof(T));
 }
 
-// the dropout hash; `hs` is the block's part, seed ^ (hb * 0x9E3779B1)
-__device__ __forceinline__ bool keep_elem(uint32_t hs, uint32_t row,
-                                          uint32_t col, uint32_t threshold) {
-  uint32_t h = row * 0x000193E9u + col;
+// the dropout hash; `hs` is the block's part, seed ^ (hb * 0x9E3779B1),
+// and h the element's, row * 0x193E9 + col.  An element is kept when
+// (hash >> 8) >= threshold.
+__device__ __forceinline__ uint32_t drop_hash(uint32_t hs, uint32_t h) {
   h ^= hs;
   h *= 0x85EBCA6Bu;
   h ^= h >> 15;
   h *= 0xC2B2AE35u;
-  h ^= h >> 15;
-  return (h >> 8) >= threshold;
+  return h ^ (h >> 15);
+}
+__device__ __forceinline__ bool keep_elem(uint32_t hs, uint32_t row,
+                                          uint32_t col, uint32_t threshold) {
+  return (drop_hash(hs, row * 0x000193E9u + col) >> 8) >= threshold;
 }
 
 // ---------------------------------------------------------------------------
@@ -1116,12 +1162,418 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// forward on wgmma and TMA: bf16, fixed lengths, D 64 or 128
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kBM = 128;         // q rows of a block, 64 a consumer warpgroup
+constexpr int kBN = 128;         // keys of a K or V tile
+constexpr int kThreads = 384;    // a producer and two consumer warpgroups
+constexpr int kPanel = 128 * 128;   // 128 rows of 64 bf16 columns, bytes
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// shared memory, bytes from a 1024-aligned base: two Q buffers, the K
+// stages, the V stages (each a tile of 128 rows as D / 64 panels), then
+// the barriers.  Stages of K and of V: 4 at D = 64, 2 at D = 128 (192 KB).
+template <int D>
+struct Layout {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kTile = D / 64 * kPanel;
+  static constexpr int Q = 0, K = 2 * kTile, V = K + kStages * kTile;
+  static constexpr int BAR = V + kStages * kTile;
+  static constexpr int kBytes = BAR + (4 + 4 * kStages) * 8;
+};
+
+// q, k or v as (B, S, H, D) with unit D stride, copied in boxes of 64
+// columns x 128 rows of one (b, h): the TMA map's dims are D, then S, H
+// and B in the order of their strides (a dim of extent 1 takes any
+// stride); `perm` packs the positions (1-3) of S, H and B, 2 bits each
+struct BshdMap {
+  CUtensorMap map;
+  int perm;
+};
+
+inline cudaError_t bshd_map(BshdMap* m, const void* base, int B, int S,
+                            int H, int D, const long long* st /* b, s, h */) {
+  long long n[3] = {S, H, B}, stride[3] = {st[1], st[2], st[0]};
+  long long top = D;
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1) top = std::max(top, stride[i]);
+  for (int i = 0; i < 3; ++i)
+    if (n[i] == 1) stride[i] = top;
+  int order[3] = {0, 1, 2};   // S, H, B by stride
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j)
+      std::swap(order[j], order[j - 1]);
+  long long dims[4] = {D}, strides[3];
+  int box[4] = {64};
+  m->perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = n[order[i]];
+    strides[i] = stride[order[i]];
+    box[i + 1] = order[i] == 0 ? kBM : 1;
+    m->perm |= (i + 1) << (2 * order[i]);
+  }
+  return tensor_map_nd(&m->map, base, 4, dims, strides, box);
+}
+
+// rows [s0, s0 + 128) and columns [d0, d0 + 64) of (b, h) into dst
+__device__ __forceinline__ void tma_bshd(void* dst, const CUtensorMap* map,
+                                         int perm, uint64_t* bar, int d0,
+                                         int s0, int h, int b) {
+  const int ps = perm & 3, ph = (perm >> 2) & 3;
+  auto at = [&](int pos) { return ps == pos ? s0 : ph == pos ? h : b; };
+  tma_load_4d(dst, map, bar, d0, at(1), at(2), at(3));
+}
+
+// S = Q K^T over the block's keys k0 .. k0 + 127 (m64n128, 64 a thread):
+// Q and K k-major, each a D / 64 panels of 128-byte rows
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[64],
+                                           const unsigned char* sQ,
+                                           const unsigned char* tK) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int at = (kk / 4) * kPanel + (kk % 4) * 32;
+    wgmma_m64n128k16<0>(s, desc(sQ + at, 16, 1024), desc(tK + at, 16, 1024),
+                        kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P (64 x 128 keys) from registers, V (128 keys x D) in shared
+// memory, D contiguous (MN-major, D / 64 panels)
+__device__ __forceinline__ void pv_product(float (&o)[32],
+                                           const uint32_t (&p)[8][4],
+                                           const unsigned char* tV) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_rs_m64n64k16<1>(o, p[kk], desc(tV + kk * 16 * 128, kPanel, 1024),
+                          1);
+  wgmma_commit();
+}
+__device__ __forceinline__ void pv_product(float (&o)[64],
+                                           const uint32_t (&p)[8][4],
+                                           const unsigned char* tV) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_rs_m64n128k16<1>(o, p[kk], desc(tV + kk * 16 * 128, kPanel, 1024),
+                           1);
+  wgmma_commit();
+}
+
+// Persistent blocks, at most one per SM, of three warpgroups; the work
+// units are pairs of 128-row q tiles of one b * h (`item`), block b taking
+// units b, b + gridDim.x, ...  A producer thread copies each
+// item's Q into one of two buffers and its 128-key tiles of K and V into a
+// ring of kStages that runs on across items, by TMA; consumer warpgroups 0
+// and 1 own q rows 0-63 and 64-127 and walk the same key tiles.  Per tile
+// a consumer issues S = Q K^T for it and O += P V for the tile before (P,
+// rounded to bf16, from registers), then takes the softmax and the dropout
+// of S while both run: the two warpgroups issue their products in turns
+// (named barriers 1 and 2), so one's softmax overlaps the other's
+// products.  The online softmax is flash_fwd_kernel's, element for element
+// (exp2 by ex2.approx; the dropped p's 1 / (1 - r) applied to O once, at
+// the end): wgmma's accumulator layout is mma.sync's per warp (warp w of a
+// warpgroup holds its rows 16 w .. 16 w + 15).  DROP: dropout on, a
+// template argument so that the per-element keep test is a select in one
+// straight run of code, not a branch around each element's hash.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const Args a, int perms, int units) {
+  using L = Layout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::BAR);   // 2 each
+  uint64_t* qempty = qfull + 2;
+  uint64_t* kfull = qempty + 2;
+  uint64_t* kempty = kfull + kStages;
+  uint64_t* vfull = kempty + kStages;
+  uint64_t* vempty = vfull + kStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], 8);   // each consumer warp
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&kfull[i], 1);
+      mbar_init(&vfull[i], 1);
+      mbar_init(&kempty[i], 8);
+      mbar_init(&vempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // unit u: slice u / np and its q tiles nq - 1 - p and p (p = u % np),
+  // the longer first: as much causal work in every unit, and a slice's
+  // units on neighbouring blocks, which share its K and V through L2.
+  // Item `which` of u: its key tiles, or -1 for an odd nq's middle tile
+  // taken a second time.
+  const int nq = (a.Sq + kBM - 1) / kBM, np = (nq + 1) / 2;
+  auto item = [&](int u, int which, int& q0, Slice& v) {
+    const int pp = u % np, tile = which == 0 ? nq - 1 - pp : pp;
+    if (which == 1 && tile == nq - 1 - pp) return -1;
+    q0 = tile * kBM;
+    v = fixed_slice(a, u / np, q0);
+    const int end = a.causal ? min(v.klen, q0 + kBM + v.off) : v.klen;
+    return end > 0 ? (end + kBN - 1) / kBN : 0;
+  };
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid != 0) return;
+    const int qp = perms & 63, kp = (perms >> 6) & 63, vp = perms >> 12;
+    int n = 0, qn = 0;   // ring steps and Q loads so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int which = 0; which < 2; ++which) {
+        int q0;
+        Slice v;
+        const int tiles = item(u, which, q0, v);
+        if (tiles <= 0) continue;
+        const int b = u / np / a.H, qb = qn & 1;
+        mbar_wait(&qempty[qb], ((qn >> 1) & 1) ^ 1);
+        mbar_arrive_expect(&qfull[qb], L::kTile);
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p)
+          tma_bshd(smem + L::Q + qb * L::kTile + p * kPanel, &qmap, qp,
+                   &qfull[qb], p * 64, q0, v.h, b);
+        ++qn;
+        for (int t = 0; t < tiles; ++t, ++n) {
+          const int stg = n % kStages, ph = ((n / kStages) & 1) ^ 1;
+          mbar_wait(&kempty[stg], ph);
+          mbar_arrive_expect(&kfull[stg], L::kTile);
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p)
+            tma_bshd(smem + L::K + stg * L::kTile + p * kPanel, &kmap, kp,
+                     &kfull[stg], p * 64, t * kBN, v.h, b);
+          mbar_wait(&vempty[stg], ph);
+          mbar_arrive_expect(&vfull[stg], L::kTile);
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p)
+            tma_bshd(smem + L::V + stg * L::kTile + p * kPanel, &vmap, vp,
+                     &vfull[stg], p * 64, t * kBN, v.h, b);
+        }
+      }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int cw = (tid >> 7) - 1;             // 0 or 1
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = cw * 64 + ((tid & 127) >> 5) * 16;   // the warp's rows
+  const float sl2 = a.scale * kLog2e;
+  // (hash >> 8) >= threshold as hash >= 256 threshold: at p_drop = 1 that
+  // wraps to 0 and keeps every element, but 1 / (1 - r) is then 0
+  const uint32_t keep256 = a.threshold << 8;
+  // the products are issued in turns: this warpgroup's, then the other's
+  auto turn = [&]() { bar_sync(1 + cw, 256); };
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float o[D / 2];
+  float s[kBN / 2];     // (8-column group j8, element e) at s[4 j8 + e]
+  uint32_t p[kBN / 16][4];
+  int n = 0, qn = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int which = 0; which < 2; ++which) {
+      int q0;
+      Slice v;
+      const int tiles = item(u, which, q0, v);
+      if (tiles < 0) continue;
+      const int qw = q0 + cw * 64, r0 = q0 + wr;
+      // m in log2 units: the running max of s * scale * log2(e)
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      // the hash's row part of this thread's two rows, and their first key's
+      const uint32_t hrow[2] = {(v.hrow + r0 + g) * 0x000193E9u + v.hcol +
+                                    2 * tq,
+                                (v.hrow + r0 + g + 8) * 0x000193E9u + v.hcol +
+                                    2 * tq};
+
+      // s = the masked scores of the tile at key k0 -> p (kept, not yet
+      // scaled by 1 / (1 - r)); m and l updated, alpha rescales O
+      auto softmax = [&](int k0, float (&alpha)[2]) {
+        if ((a.causal && k0 + kBN > qw + v.off) || k0 + kBN > v.klen)
+#pragma unroll
+          for (int j8 = 0; j8 < kBN / 8; ++j8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int query = r0 + g + 8 * (e >> 1);
+              const int key = k0 + j8 * 8 + 2 * tq + (e & 1);
+              if (key >= v.klen || query >= v.sq ||
+                  (a.causal && key > query + v.off))
+                s[4 * j8 + e] = -CUDART_INF_F;
+            }
+        float mcur[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i)
+          mcur[(i >> 1) & 1] = fmaxf(mcur[(i >> 1) & 1], s[i]);
+        float rsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float mnew = fmaxf(m[i], quad_max(mcur[i]) * sl2);
+          alpha[i] = ex2(m[i] - mnew);
+          m[i] = mnew;
+        }
+#pragma unroll
+        for (int j8 = 0; j8 < kBN / 8; ++j8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pe = ex2(fmaf(s[4 * j8 + e], sl2, -m[e >> 1]));
+            rsum[e >> 1] += pe;
+            if (DROP)
+              pe = drop_hash(v.hs, hrow[e >> 1] + k0 + j8 * 8 + (e & 1)) >=
+                           keep256
+                       ? pe
+                       : 0.f;
+            s[4 * j8 + e] = pe;
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
+      };
+      // s -> P: two 8-column groups of the accumulator are one k16 step of A
+      auto to_p = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      };
+      auto pass = [&](int t) {   // warpgroup 1 hands back all but its last
+        if (cw == 0 || t + 1 < tiles) bar_arrive(2 - cw, 256);
+      };
+
+      if (tiles > 0) {
+        const int qb = qn & 1;
+        const unsigned char* sQ =
+            smem + L::Q + qb * L::kTile + cw * (kPanel / 2);
+        mbar_wait(&qfull[qb], (qn >> 1) & 1);
+        if (cw == 1) bar_arrive(1, 256);   // warpgroup 0 goes first
+        float alpha[2];
+        int stg = n % kStages;
+        mbar_wait(&kfull[stg], (n / kStages) & 1);
+        turn();
+        qk_product<D>(s, sQ, smem + L::K + stg * L::kTile);
+        pass(0);
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(&kempty[stg]);
+        softmax(0, alpha);
+        to_p();
+        for (int t = 1; t < tiles; ++t) {
+          const int pn = n + t - 1, pst = pn % kStages;
+          stg = (n + t) % kStages;
+          mbar_wait(&kfull[stg], ((n + t) / kStages) & 1);
+          turn();
+          qk_product<D>(s, sQ, smem + L::K + stg * L::kTile);
+          mbar_wait(&vfull[pst], (pn / kStages) & 1);
+          pv_product(o, p, smem + L::V + pst * L::kTile);
+          pass(t);
+          wgmma_wait<1>();   // S is in
+          fence_regs(s);
+          release(&kempty[stg]);
+          softmax(t * kBN, alpha);
+          wgmma_wait<0>();   // so is O += P V of the tile before
+          fence_regs(o);
+          fence_regs(p);
+          release(&vempty[pst]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+          to_p();
+        }
+        const int pn = n + tiles - 1, pst = pn % kStages;
+        mbar_wait(&vfull[pst], (pn / kStages) & 1);
+        pv_product(o, p, smem + L::V + pst * L::kTile);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        release(&vempty[pst]);
+        release(&qempty[qb]);
+        n += tiles;
+        ++qn;
+      }
+
+      // out = O / l (times 1 / (1 - r) with dropout); a row with no key: 0
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        inv[i] = (DROP ? a.inv_keep : 1.f) / (l[i] == 0.f ? 1.f : l[i]);
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                           (v.qrow * a.H + v.h) * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= v.sq) continue;
+        __nv_bfloat16* dst = out + static_cast<long long>(row) * a.H * D;
+#pragma unroll
+        for (int j8 = 0; j8 < D / 8; ++j8)
+          *reinterpret_cast<__nv_bfloat162*>(dst + j8 * 8 + 2 * tq) =
+              __floats2bfloat162_rn(o[4 * j8 + 2 * half] * inv[half],
+                                    o[4 * j8 + 2 * half + 1] * inv[half]);
+        if (tq == 0)
+          a.lse[v.stat + row] =
+              l[half] == 0.f ? kNegInf : m[half] * kLn2 + logf(l[half]);
+      }
+    }
+}
+
+template <int D>
+cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
+  BshdMap maps[3];
+  const void* base[3] = {a.q, a.k, a.v};
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 3 && e == cudaSuccess; ++i)
+    e = bshd_map(&maps[i], base[i], a.B, i == 0 ? a.Sq : a.Sk, a.H, D,
+                 a.st[i]);
+  if (e != cudaSuccess) return e;
+  const int perms = maps[0].perm | maps[1].perm << 6 | maps[2].perm << 12;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int units = a.B * a.H * (((a.Sq + kBM - 1) / kBM + 1) / 2);
+  const size_t smem = 1024 + Layout<D>::kBytes;
+  auto kern = a.dropout ? flash_fwd_wg_kernel<D, true>
+                        : flash_fwd_wg_kernel<D, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<std::min(units, sms), kThreads, smem, stream>>>(
+      maps[0].map, maps[1].map, maps[2].map, a, perms, units);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
+  // the forward in bf16 on fixed lengths at D 64 and 128: wgmma and TMA
+  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
+    if (which == kFwd && a.tiles == nullptr)
+      return wg::launch_fwd<D>(a, stream);
   constexpr int C = other_rows<T, D>(), DO = out_cols<D>();
   constexpr size_t LD = ld<T, D>(), LDO = ld<T, DO>();
   const size_t own = kRows * LD * sizeof(T), other = C * LD * sizeof(T);

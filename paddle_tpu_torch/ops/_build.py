@@ -5,8 +5,9 @@ library with a plain C interface and loaded with :mod:`ctypes`.  A file
 that includes no PyTorch header builds in seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes.
 
- - The library name carries a digest of the source and the flags, so a
-   changed source is rebuilt and an unchanged one is reused.
+ - The library name carries a digest of the source, the shared headers
+   (``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
+   unchanged one is reused.
  - The output goes to ``paddle_tpu_torch/_build/`` (git-ignored),
    written to a temporary name and renamed into place.
  - A failed compile raises with nvcc's output; nothing falls back.
@@ -55,6 +56,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

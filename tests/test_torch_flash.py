@@ -75,6 +75,18 @@ def test_keep_mask_equals_the_jax_tile_mask(seed, p_drop):
                 jnp.int32(seed), bh, qi, ki, bq, bk, p_drop))
                 for ki in range(256 // bk)] for qi in range(256 // bq)]
             np.testing.assert_array_equal(np.block(tiles), want)
+        # the contract of the wgmma forward (128-row q tiles) and the dq
+        # and dk/dv kernels (64-row tiles): a 128-row tile's mask is the
+        # JAX one at block_q 128 and two 64-row ones stacked
+        for qi in range(2):
+            whole = np.asarray(jpo._tile_keep_mask(
+                jnp.int32(seed), bh, qi, 0, 128, 256, p_drop))
+            halves = np.concatenate([np.asarray(jpo._tile_keep_mask(
+                jnp.int32(seed), bh, 2 * qi + j, 0, 64, 256, p_drop))
+                for j in range(2)])
+            np.testing.assert_array_equal(want[128 * qi:128 * (qi + 1)],
+                                          whole)
+            np.testing.assert_array_equal(halves, whole)
         assert abs(want.mean() - (1 - p_drop)) < 0.01
 
 

@@ -75,14 +75,19 @@ def test_ln_matmul_matches_jax_reference_at_any_width(d, residual):
 # -- what the card's wrappers accept ------------------------------------------
 
 class _Fake(types.SimpleNamespace):
-    """Stands in for a contiguous CUDA tensor: enough for the launchers'
-    checks, their output allocation and the C call's pointers."""
+    """Stands in for a CUDA tensor, contiguous unless given ``strides``:
+    enough for the launchers' checks, their output allocation and the C
+    call's pointers."""
 
     def dim(self):
         return len(self.shape)
 
     def is_contiguous(self):
-        return True
+        return getattr(self, "strides", None) in (None, self._packed())
+
+    def _packed(self):
+        return tuple(int(np.prod(self.shape[j + 1:]))
+                     for j in range(len(self.shape)))
 
     def data_ptr(self):
         return 0
@@ -91,8 +96,7 @@ class _Fake(types.SimpleNamespace):
         return self.dtype.itemsize
 
     def stride(self, i=None):
-        st = tuple(int(np.prod(self.shape[j + 1:]))
-                   for j in range(len(self.shape)))
+        st = getattr(self, "strides", None) or self._packed()
         return st if i is None else st[i]
 
     def __getitem__(self, i):
@@ -108,9 +112,10 @@ class _Fake(types.SimpleNamespace):
         pass
 
 
-def _fake(shape, dtype=torch.bfloat16):
+def _fake(shape, dtype=torch.bfloat16, strides=None):
     return _Fake(device=torch.device("cuda", 0), shape=tuple(shape),
-                 dtype=dtype)
+                 dtype=dtype, strides=None if strides is None
+                 else tuple(strides))
 
 
 @pytest.fixture
@@ -173,6 +178,23 @@ def test_matmul_bias_gelu_launcher_pads_k_to_a_multiple_of_8(stub_c, k,
         64, -(-k // 8) * 8, 4096)
 
 
+@pytest.mark.parametrize("k", [1024, 1003])
+def test_bf16_matmul_bias_gelu_takes_a_transposed_weight(stub_c, k):
+    """The transposed view of an (N, K) table reaches the bf16 kernel read
+    in place (its own strides, k contiguous); at K = 1003 the wrapper's
+    zero-padded copy, 1008 rows, n contiguous."""
+    n = 4096
+    x, bias = _fake((64, k)), _fake((n,))
+    w = _fake((k, n), strides=(1, k))
+    tfk._launch_matmul_bias_gelu(x, w, bias, True)
+    (fn, args), = stub_c
+    kp = -(-k // 8) * 8
+    assert fn == "ptt_matmul_bias_gelu"
+    assert args[5:10] == ((64, kp, n, 1, k) if k == kp else
+                          (64, kp, n, n, 1))
+    assert args[11] == 1   # bfloat16
+
+
 def test_ln_matmul_pads_k_with_zeros():
     w = torch.arange(12.0).reshape(4, 3)
     for t, dim in ((w, 0), (w.t(), 1), (w[0], 0)):
@@ -196,6 +218,23 @@ def test_flash_pads_wide_heads_to_multiples_of_128():
     assert tpo._check(q, q, q)[0] == (1, 40, 40, 2, 384)
     with pytest.raises(ValueError, match="head dim 320"):
         tpo._check(*[_fake((1, 40, 2, 320))] * 3)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_flash_fwd_reads_qkv_slices_in_place(stub_c, monkeypatch, d):
+    """q, k and v as the slices of one (B, S, H, 3 D) projection: the C
+    entry gets their strides unchanged (the wgmma forward's tensor maps
+    read them in place) and the unpadded head size."""
+    monkeypatch.setattr(tpo.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    b, s, h = 2, 1024, 16
+    st = (s * h * 3 * d, h * 3 * d, 3 * d, 1)
+    q, k, v = (_fake((b, s, h, d), strides=st) for _ in range(3))
+    tpo._launch_fwd(q, k, v, None, True, d ** -0.5, 0.0)
+    (fn, args), = stub_c
+    assert fn == "ptt_flash_fwd"
+    assert list(args[13]) == [*st[:3]] * 3 + [0, 0, 0]
+    assert args[14:19] == (b, h, s, s, d) and args[-3:-1] == (1, 1)
 
 
 # -- GPT's wide presets ---------------------------------------------------------
