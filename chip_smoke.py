@@ -19,7 +19,9 @@ line is printed:
              0.1 and 0 against SDPA at the same dropout, then f32 and the
              other head sizes at small shapes; every bf16 flash shape at
              dropout 0.1 and 0, out and lse the same bits over two runs
-             as dq, dk and dv) and at
+             as dq, dk and dv: at D 64 and 128 with fixed lengths the
+             wgmma forward, dq and dk/dv kernels, elsewhere the mma.sync
+             ones) and at
              ``bert_base`` width (LayerNorm with a residual over 4096 rows
              of 768; softmax cross-entropy over the MLM head's (4096,
              30528) logits with 84% of the rows ignored and over the NSP
@@ -86,7 +88,10 @@ line is printed:
              just after: every loss finite, the last below the first,
              the LayerNorm and flash launches per step as the model's
              structure implies, peak memory, and a profile of where the
-             device time goes; then the same step at sequence 256, which
+             device time goes (the flash forward's and backward's shares
+             apart; every flash backward call on the wgmma dq and dk/dv
+             kernels, none on the mma.sync ones); then the same step at
+             sequence 256, which
              must launch no flash kernel.
  8. bert     the BERT pretraining step (MLM + NSP) on the card: first
              ``bert_tiny`` (f32, dropout 0) against the same weights'
@@ -115,7 +120,8 @@ line is printed:
              0.1) for 8 steps: the rewrites the pass reports, the block
              kernels' (LayerNorm + matmul, matmul + bias + gelu),
              LayerNorm and flash launches per step as the model implies,
-             losses finite and falling, peak memory and a profile; then 3
+             losses finite and falling, peak memory and a profile (the
+             flash backward on the wgmma kernels, as in phase 7); then 3
              steps with the pass on against 3 with it off from the same
              weights at dropout 0 (where the attention clusters are
              rewritten too); then the same step with the pass on and off
@@ -146,6 +152,14 @@ Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
 is present, and when run without the ``paddle_tpu_torch`` package beside
 it.
+
+    python3 chip_smoke.py --ab-flash A B
+
+times the flash kernels built from two sources in turns instead (each of
+the directories A and B holds a ``flash_attention.cu`` and its
+``hopper.cuh``, say a parent commit's ``paddle_tpu_torch/csrc`` unpacked
+beside this one): rows 2-3 at the timed bf16 shapes, the f32 kernels and
+rows 4-6 on bench_packed, at dropout 0.1 and 0 (``flash_ab``).
 """
 from __future__ import annotations
 
@@ -264,6 +278,31 @@ LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_bwd")
 TRAIN_KERNELS = LN_KERNELS + FLASH_KERNELS
 BLOCK_KERNELS = ("ln_matmul", "matmul_bias_gelu")
+# every CUDA kernel (each ``__global__`` function of
+# ``paddle_tpu_torch/csrc/*.cu``) under the share of a step's device time
+# the profiles report it in; a profile finds a kernel by its name in the
+# profiler's key, so a kernel missing here drops out of those shares
+PROFILE_KERNELS = {
+    "LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
+                  "ln_fwd_any_kernel", "ln_bwd_dx_any_kernel",
+                  "ln_bwd_cols_any_kernel"),
+    "flash forward": ("flash_fwd_kernel", "flash_fwd_wg_kernel",
+                      "flash_fwd_wide_kernel"),
+    "flash backward": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                       "flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel",
+                       "flash_bwd_dq_wide_kernel",
+                       "flash_bwd_dkv_wide_kernel"),
+    "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel"),
+    "LayerNorm + matmul": ("ln_matmul_kernel", "lnmm_whole_kernel",
+                           "lnmm_stats_kernel", "lnmm_stream_kernel"),
+    "matmul + bias + gelu": ("mm_gelu_kernel", "mbg_kernel"),
+    "paged attention": ("paged_attention_kernel",),
+    "w8a16": ("w8a16_kernel", "w8a16_split_kernel"),
+}
+# the flash backward's kernels on the GPT steps (bf16, fixed lengths, D =
+# 64): the wgmma ones, and not the mma.sync ones
+WG_FLASH_BWD = ("flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel")
+MMA_FLASH_BWD = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def log(*args):
@@ -956,7 +995,7 @@ def _sdpa_times(timer, q, k, v, do, causal, dropout=0.0):
 
 def _flash_dropouts(tag):
     """The dropouts a flash shape is checked at: the main path's and, in
-    bf16 (the wgmma forward's dtype), 0 as well."""
+    bf16 (the wgmma kernels' dtype), 0 as well."""
     return (FLASH_DROPOUT, 0.0) if tag == "bf16" else (FLASH_DROPOUT,)
 
 
@@ -1913,18 +1952,22 @@ def _train_run(smi, seq, n_steps, profile):
                                  f"{launches[name]} times in {n_steps} steps, "
                                  f"want {n_steps * n}")
     if profile:
-        _profile_train_step(step, ids, labels, med, smi, "gpt_345m")
+        _profile_train_step(step, ids, labels, med, smi, "gpt_345m",
+                            flash_bwd=layers)
     del step
     torch.cuda.empty_cache()
     return launches
 
 
 def _profile_train_step(step, inputs, targets, step_s, smi, model,
-                        steps=2):
+                        steps=2, flash_bwd=None):
     """Where a training step's time goes: device time summed over the
     step's kernels under ``torch.profiler``, its share of the median
     step wall time, device operations per step, the largest kernels, and
-    the port's kernels' shares (LayerNorm, flash, cross-entropy)."""
+    the port's kernels' shares (``PROFILE_KERNELS``: LayerNorm, the flash
+    forward and backward, ...).  ``flash_bwd``: the flash backward's calls
+    a step, checked to be the wgmma kernels' (``WG_FLASH_BWD``), none of
+    them the mma.sync ones."""
     from paddle_tpu_torch.serving.profile import _device_us
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1938,17 +1981,8 @@ def _profile_train_step(step, inputs, targets, step_s, smi, model,
         raise AssertionError("train: the profiler recorded no device time")
     busy_ms = sum(_device_us(e) for e in kernels) / steps / 1e3
     ops = sum(e.count for e in kernels) / steps
-    mine = {"LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel",
-                          "ln_bwd_reduce_kernel", "ln_fwd_any_kernel",
-                          "ln_bwd_dx_any_kernel", "ln_bwd_cols_any_kernel"),
-            "flash": ("flash_fwd_kernel", "flash_fwd_wg_kernel",
-                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-            "cross-entropy": ("xent_fwd_kernel", "xent_bwd_kernel"),
-            "LayerNorm + matmul": ("ln_matmul_kernel", "lnmm_whole_kernel",
-                                   "lnmm_stats_kernel", "lnmm_stream_kernel"),
-            "matmul + bias + gelu": ("mm_gelu_kernel", "mbg_kernel")}
     shares, own = [], []
-    for label, names in mine.items():
+    for label, names in PROFILE_KERNELS.items():
         es = [e for e in kernels if any(n in e.key for n in names)]
         if not es:
             continue
@@ -1965,6 +1999,14 @@ def _profile_train_step(step, inputs, targets, step_s, smi, model,
     for e in top:
         log(f"    {_device_us(e) / steps / 1e3:8.3f} ms {e.count / steps:6.0f}"
             f" calls  {e.key[:100]}")
+    if flash_bwd is not None:
+        calls = {n: sum(e.count for e in kernels if n in e.key) / steps
+                 for n in WG_FLASH_BWD + MMA_FLASH_BWD}
+        want = {n: flash_bwd if n in WG_FLASH_BWD else 0 for n in calls}
+        log(f"[train] {model}: flash backward calls a step {calls}")
+        if calls != want:
+            raise AssertionError(f"{model}: flash backward calls a step "
+                                 f"{calls}, want {want}")
 
 
 def phase_bert(smi):
@@ -2413,7 +2455,8 @@ def _fused_gpt_run(smi):
         raise AssertionError(f"gpt_345m fused: loss not finite and falling: "
                              f"{losses}")
     _check_counts("gpt_345m fused", launches, per_step, FUSED_STEPS)
-    _profile_train_step(step, ids, labels, med, smi, "gpt_345m fused")
+    _profile_train_step(step, ids, labels, med, smi, "gpt_345m fused",
+                        flash_bwd=layers)
     del step
     torch.cuda.empty_cache()
     return launches
@@ -2723,12 +2766,112 @@ def _fused_bert_run(smi):
     return launches
 
 
+def _flash_ab_cases(gen):
+    """What ``flash_ab`` times: rows 2-3 at the timed bf16 shapes, the f32
+    kernels at (4, 1024, 16, 64), rows 4-6 on bench_packed's sequences,
+    each causal at dropout 0.1 and 0; (name, call) pairs."""
+    from paddle_tpu_torch.ops import pallas_ops as po
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
+    cases = []
+    for tag, (b, s, h, d) in (("bf16", (16, 1024, 16, 64)),
+                              ("bf16", (4, 1024, 16, 128)),
+                              ("f32", (4, 1024, 16, 64))):
+        dt = torch.bfloat16 if tag == "bf16" else torch.float32
+        qkv = torch.randn(b, s, h, 3 * d, generator=gen, device=DEVICE).to(dt)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        do = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dt)
+        for p in (FLASH_DROPOUT, 0.0):
+            o = dict(causal=True, sm_scale=1.0 / math.sqrt(d), dropout_p=p)
+            out, lse = po.flash_fwd(q, k, v, seed, **o)
+            a = (q, k, v, do, lse, po._delta(out, do), seed)
+            name = f"{tag} {(b, s, h, d)} dropout {p}"
+            if tag == "f32":
+                cases.append((f"{name} fwd", lambda q=q, k=k, v=v, o=o:
+                              po.flash_fwd(q, k, v, seed, **o)))
+            cases.append((f"{name} dq", lambda a=a, o=o:
+                          po.flash_bwd_dq(*a, **o)))
+            cases.append((f"{name} dkv", lambda a=a, o=o:
+                          po.flash_bwd_dkv(*a, **o)))
+    tq, h, d = sum(PACKED_LENS), PACKED_HEADS, PACKED_HD
+    cu = [0, *itertools.accumulate(PACKED_LENS)]
+    qkv = torch.randn(tq, h, 3 * d, generator=gen, device=DEVICE).bfloat16()
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    do = torch.randn(tq, h, d, generator=gen, device=DEVICE).bfloat16()
+    layout = po.PackedLayout(cu, cu, tq, tq)
+    for p in (FLASH_DROPOUT, 0.0):
+        o = dict(causal=True, sm_scale=1.0 / math.sqrt(d), dropout_p=p)
+        out, lse = po.flash_packed_fwd(q, k, v, layout, seed, **o)
+        delta = (out.float() * do.float()).sum(-1).t().contiguous()
+        a = (q, k, v, do, lse, delta, layout, seed)
+        name = f"packed {PACKED_PATH} dropout {p}"
+        cases.append((f"{name} fwd", lambda o=o: po.flash_packed_fwd(
+            q, k, v, layout, seed, **o)))
+        cases.append((f"{name} dq", lambda a=a, o=o:
+                      po.flash_packed_bwd_dq(*a, **o)))
+        cases.append((f"{name} dkv", lambda a=a, o=o:
+                      po.flash_packed_bwd_dkv(*a, **o)))
+    return cases
+
+
+def flash_ab(dirs, smi, rounds=2):
+    """The flash kernels of two sources timed in turns on one card:
+    ``dirs`` (a, b) each hold a ``flash_attention.cu`` and its
+    ``hopper.cuh`` (say a parent's ``paddle_tpu_torch/csrc`` and this
+    tree's); both are built with ``_build.NVCC_FLAGS``, and each case of
+    ``_flash_ab_cases`` is timed through the port's wrappers in the order
+    a, b, b, a, ``rounds`` times over.  Prints each case's times."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import pallas_ops as po
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, d in enumerate(dirs):
+        lib = out_dir / f"libflash_attention_{i}.so"
+        procs.append((subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+             f"{d}/flash_attention.cu"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib))
+    libs = []
+    for proc, lib in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"flash_ab: nvcc failed:\n{out}")
+        cdll = ctypes.CDLL(str(lib))
+        for fn, argtypes in po._SIGNATURES.items():
+            getattr(cdll, fn).argtypes = list(argtypes)
+            getattr(cdll, fn).restype = ctypes.c_int
+        cdll.ptt_error_string.argtypes = [ctypes.c_int]
+        cdll.ptt_error_string.restype = ctypes.c_char_p
+        libs.append(cdll)
+    timer = Timer()
+    cases = _flash_ab_cases(torch.Generator(device=DEVICE).manual_seed(0))
+    times = {name: ([], []) for name, _ in cases}
+    load = _build.load
+    try:
+        for which in (0, 1, 1, 0) * rounds:
+            _build.load = lambda name, sigs, lib=libs[which]: lib
+            for name, fn in cases:
+                times[name][which].append(timer(fn))
+    finally:
+        _build.load = load
+    log(f"[ab] a = {dirs[0]}, b = {dirs[1]} | {smi}")
+    for name, (ta, tb) in times.items():
+        log(f"[ab] {name}: a {statistics.median(ta):.4f} ms "
+            f"{[round(t, 4) for t in ta]}, b {statistics.median(tb):.4f} ms "
+            f"{[round(t, 4) for t in tb]}")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
               "and has no CPU mode", file=sys.stderr)
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--ab-flash"]:
+        flash_ab(sys.argv[2:4], phase_card())
+        return 0
     t_start = time.perf_counter()
     smi = phase_card()
     phase_build()

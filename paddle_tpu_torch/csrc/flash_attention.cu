@@ -88,8 +88,18 @@
 // is a select in one straight run of code, not a branch that splits the
 // softmax into one block per element.
 //
-// Every other case (f32, D 32 and 256, the wide heads, packed mode, and
-// dq and dk/dv everywhere) runs the mma.sync kernels: one block of 4
+// dq and dk/dv in bf16 on fixed lengths at D 64 and 128 (`wg::
+// flash_bwd_dq_wg_kernel`, `wg::flash_bwd_dkv_wg_kernel`) take the same
+// blocks: a producer copying tiles by TMA into a ring, two consumer
+// warpgroups of 64 rows each (q rows for dq, keys for dk/dv) computing S
+// and dP by wgmma from shared memory and dS in registers, which feeds dQ
+// += dS K (or dV += P~^T dO and dK += dS^T Q) as wgmma's A operand.  Each
+// keeps the rule below: one block sums a row tile's gradient over the
+// other operand's tiles in order, so each recomputes S and dP (seven
+// products where an atomic dq would need five).
+//
+// Every other case (f32, D 32 and 256, the wide heads, packed mode) runs
+// the mma.sync kernels, dropout a template argument there too: one block of 4
 // warps per 64-row tile, each warp owning 16 rows; the other operand's
 // tiles (64 rows; 16 in f32 at D = 256, where shared memory holds no
 // more) staged in shared memory in two buffers, the next tile's copy
@@ -547,7 +557,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------------------------------------
 // forward: one block per (64-row q tile, slice, column half)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads, (fwd_blocks<T, D>()))
     flash_fwd_kernel(const Args a) {
   constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
@@ -619,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, (fwd_blocks<T, D>()))
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], sl2, -m[e >> 1]));
         rsum[e >> 1] += p;
-        if (a.dropout)
+        if (DROP)
           p = keep_elem(v.hs, v.hrow + r0 + row_of(e),
                         v.hcol + k0 + col_of(n, e), a.threshold)
                   ? p * a.inv_keep
@@ -665,7 +675,7 @@ __global__ void __launch_bounds__(kThreads, (fwd_blocks<T, D>()))
 // ---------------------------------------------------------------------------
 // dq: one block per (64-row q tile, slice, column half), walking the k tiles
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
   constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
@@ -731,7 +741,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const float pe = exp2f(fmaf(p[n][e], sl2, -lse2[e >> 1]));
         float dpe = dp[n][e];
-        if (a.dropout)
+        if (DROP)
           dpe = keep_elem(v.hs, v.hrow + r0 + row_of(e),
                           v.hcol + k0 + col_of(n, e), a.threshold)
                     ? dpe * a.inv_keep
@@ -751,7 +761,7 @@ __global__ void __launch_bounds__(kThreads)
 // dk/dv: one block per (64-key tile, slice, column half), walking the q
 // tiles; every score tile is transposed (rows are keys, columns queries)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const Args a) {
   constexpr int C = other_rows<T, D>(), NT = C / 8, DO = out_cols<D>();
@@ -831,9 +841,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int c = col_of(n, e);
         p[n][e] = exp2f(fmaf(p[n][e], sl2, -sLse2[c]));
-        if (a.dropout && !keep_elem(v.hs, v.hrow + q0 + c,
-                                    v.hcol + r0 + row_of(e), a.threshold))
-          kept &= ~(1u << (4 * n + e));
+        if (DROP)
+          kept &= keep_elem(v.hs, v.hrow + q0 + c, v.hcol + r0 + row_of(e),
+                            a.threshold)
+                      ? ~0u
+                      : ~(1u << (4 * n + e));
       }
     {
       float pt[NT][4];   // p~, the dropped probabilities
@@ -841,7 +853,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          pt[n][e] = !a.dropout ? p[n][e]
+          pt[n][e] = !DROP ? p[n][e]
                      : (kept >> (4 * n + e)) & 1u ? p[n][e] * a.inv_keep
                                                   : 0.f;
       accumulate<LD>(dv, pt, tDO + c0);
@@ -853,7 +865,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float dpe = dp[n][e];
-        if (a.dropout)
+        if (DROP)
           dpe = (kept >> (4 * n + e)) & 1u ? dpe * a.inv_keep : 0.f;
         p[n][e] = p[n][e] * (dpe - sDelta[col_of(n, e)]);   // ds
       }
@@ -916,7 +928,7 @@ __device__ __forceinline__ void wide_slab(T* sB, const T* base,
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_wide_kernel(const Args a, int D) {
   constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
@@ -966,7 +978,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], sl2, -m[e >> 1]));
         rsum[e >> 1] += p;
-        if (a.dropout)
+        if (DROP)
           p = keep_elem(v.hs, v.hrow + r0 + row_of(e),
                         v.hcol + k0 + col_of(n, e), a.threshold)
                   ? p * a.inv_keep
@@ -1009,7 +1021,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_wide_kernel(const Args a, int D) {
   constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
@@ -1054,7 +1066,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const float pe = exp2f(fmaf(p[n][e], sl2, -lse2[e >> 1]));
         float dpe = dp[n][e];
-        if (a.dropout)
+        if (DROP)
           dpe = keep_elem(v.hs, v.hrow + r0 + row_of(e),
                           v.hcol + k0 + col_of(n, e), a.threshold)
                     ? dpe * a.inv_keep
@@ -1070,7 +1082,7 @@ __global__ void __launch_bounds__(kThreads)
              a.scale);
 }
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_wide_kernel(const Args a, int D) {
   constexpr int C = wide_rows<T>(), NT = C / 8, LD = ld<T, kSlab>();
@@ -1121,9 +1133,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int c = col_of(n, e);
         p[n][e] = exp2f(fmaf(p[n][e], sl2, -sLse2[c]));
-        if (a.dropout && !keep_elem(v.hs, v.hrow + q0 + c,
-                                    v.hcol + r0 + row_of(e), a.threshold))
-          kept &= ~(1u << (4 * n + e));
+        if (DROP)
+          kept &= keep_elem(v.hs, v.hrow + q0 + c, v.hcol + r0 + row_of(e),
+                            a.threshold)
+                      ? ~0u
+                      : ~(1u << (4 * n + e));
       }
     {
       float pt[NT][4];   // p~, the dropped probabilities
@@ -1131,7 +1145,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          pt[n][e] = !a.dropout ? p[n][e]
+          pt[n][e] = !DROP ? p[n][e]
                      : (kept >> (4 * n + e)) & 1u ? p[n][e] * a.inv_keep
                                                   : 0.f;
       wide_slab<T, C>(sB, dob + c0, a.st[3][1], q0, v.sq);
@@ -1146,7 +1160,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float dpe = dp[n][e];
-        if (a.dropout)
+        if (DROP)
           dpe = (kept >> (4 * n + e)) & 1u ? dpe * a.inv_keep : 0.f;
         p[n][e] = p[n][e] * (dpe - sDelta[col_of(n, e)]);   // ds
       }
@@ -1186,17 +1200,19 @@ struct Layout {
   static constexpr int kBytes = BAR + (4 + 4 * kStages) * 8;
 };
 
-// q, k or v as (B, S, H, D) with unit D stride, copied in boxes of 64
-// columns x 128 rows of one (b, h): the TMA map's dims are D, then S, H
-// and B in the order of their strides (a dim of extent 1 takes any
-// stride); `perm` packs the positions (1-3) of S, H and B, 2 bits each
+// q, k, v or do as (B, S, H, D) with unit D stride, copied in boxes of 64
+// columns x `rows` rows (128, or the backward's 64-row q tiles) of one (b,
+// h): the TMA map's dims are D, then S, H and B in the order of their
+// strides (a dim of extent 1 takes any stride); `perm` packs the
+// positions (1-3) of S, H and B, 2 bits each
 struct BshdMap {
   CUtensorMap map;
   int perm;
 };
 
 inline cudaError_t bshd_map(BshdMap* m, const void* base, int B, int S,
-                            int H, int D, const long long* st /* b, s, h */) {
+                            int H, int D, const long long* st /* b, s, h */,
+                            int rows = kBM) {
   long long n[3] = {S, H, B}, stride[3] = {st[1], st[2], st[0]};
   long long top = D;
   for (int i = 0; i < 3; ++i)
@@ -1213,13 +1229,13 @@ inline cudaError_t bshd_map(BshdMap* m, const void* base, int B, int S,
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = n[order[i]];
     strides[i] = stride[order[i]];
-    box[i + 1] = order[i] == 0 ? kBM : 1;
+    box[i + 1] = order[i] == 0 ? rows : 1;
     m->perm |= (i + 1) << (2 * order[i]);
   }
   return tensor_map_nd(&m->map, base, 4, dims, strides, box);
 }
 
-// rows [s0, s0 + 128) and columns [d0, d0 + 64) of (b, h) into dst
+// rows [s0, s0 + rows) and columns [d0, d0 + 64) of (b, h) into dst
 __device__ __forceinline__ void tma_bshd(void* dst, const CUtensorMap* map,
                                          int perm, uint64_t* bar, int d0,
                                          int s0, int h, int b) {
@@ -1228,47 +1244,78 @@ __device__ __forceinline__ void tma_bshd(void* dst, const CUtensorMap* map,
   tma_load_4d(dst, map, bar, d0, at(1), at(2), at(3));
 }
 
-// S = Q K^T over the block's keys k0 .. k0 + 127 (m64n128, 64 a thread):
-// Q and K k-major, each a D / 64 panels of 128-byte rows
-template <int D>
-__device__ __forceinline__ void qk_product(float (&s)[64],
+// S = Q K^T over the N rows of K (m64nN, N / 2 a thread): Q's 64 rows
+// and K k-major, each D / 64 panels of 128-byte rows, Q's panels kPanel
+// bytes apart (a 128-row tile's), K's PK
+template <int D, int N = kBN, int PK = kPanel>
+__device__ __forceinline__ void qk_product(float (&s)[N / 2],
                                            const unsigned char* sQ,
                                            const unsigned char* tK) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int at = (kk / 4) * kPanel + (kk % 4) * 32;
-    wgmma_m64n128k16<0>(s, desc(sQ + at, 16, 1024), desc(tK + at, 16, 1024),
-                        kk > 0);
+    const int bt = (kk / 4) * PK + (kk % 4) * 32;
+    if constexpr (N == 128)
+      wgmma_m64n128k16<0>(s, desc(sQ + at, 16, 1024),
+                          desc(tK + bt, 16, 1024), kk > 0);
+    else
+      wgmma_m64n64k16<0>(s, desc(sQ + at, 16, 1024), desc(tK + bt, 16, 1024),
+                         kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V: P (64 x 128 keys) from registers, V (128 keys x D) in shared
-// memory, D contiguous (MN-major, D / 64 panels)
+// O += P V: P (64 x 16 KS keys) from registers, V (16 KS keys x D) in
+// shared memory, D contiguous (MN-major, D / 64 panels PV bytes apart)
+template <int PV = kPanel, int KS>
 __device__ __forceinline__ void pv_product(float (&o)[32],
-                                           const uint32_t (&p)[8][4],
+                                           const uint32_t (&p)[KS][4],
                                            const unsigned char* tV) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_rs_m64n64k16<1>(o, p[kk], desc(tV + kk * 16 * 128, kPanel, 1024),
-                          1);
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs_m64n64k16<1>(o, p[kk], desc(tV + kk * 16 * 128, PV, 1024), 1);
   wgmma_commit();
 }
+template <int PV = kPanel, int KS>
 __device__ __forceinline__ void pv_product(float (&o)[64],
-                                           const uint32_t (&p)[8][4],
+                                           const uint32_t (&p)[KS][4],
                                            const unsigned char* tV) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_rs_m64n128k16<1>(o, p[kk], desc(tV + kk * 16 * 128, kPanel, 1024),
-                           1);
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs_m64n128k16<1>(o, p[kk], desc(tV + kk * 16 * 128, PV, 1024), 1);
   wgmma_commit();
 }
 
+// The work units of the persistent kernels: unit u is slice u / np and two
+// of its n 128-row tiles, n - 1 - p, then p (p = u % np, np = (n + 1) /
+// 2): as much causal work in every unit, and a slice's units on
+// neighbouring blocks, which share its other operand through L2; an odd
+// n's middle tile is taken once.  Returns the tile, or -1 for the middle
+// one's repeat.
+__device__ __forceinline__ int unit_tile(int u, int which, int n) {
+  const int np = (n + 1) / 2, pp = u % np;
+  if (which == 1 && pp == n - 1 - pp) return -1;
+  return which == 0 ? n - 1 - pp : pp;
+}
+
+// item `which` of unit u over the nq q tiles: the tile's first row q0, its
+// slice v and the 128-key tiles it walks (up to its last row's diagonal
+// when causal), or -1 when there is no item
+__device__ __forceinline__ int q_item(const Args& a, int nq, int u, int which,
+                                      int& q0, Slice& v) {
+  const int tile = unit_tile(u, which, nq);
+  if (tile < 0) return -1;
+  q0 = tile * kBM;
+  v = fixed_slice(a, u / ((nq + 1) / 2), q0);
+  const int end = a.causal ? min(v.klen, q0 + kBM + v.off) : v.klen;
+  return end > 0 ? (end + kBN - 1) / kBN : 0;
+}
+
 // Persistent blocks, at most one per SM, of three warpgroups; the work
-// units are pairs of 128-row q tiles of one b * h (`item`), block b taking
+// units are pairs of 128-row q tiles of one b * h (`q_item`), block b taking
 // units b, b + gridDim.x, ...  A producer thread copies each
 // item's Q into one of two buffers and its 128-key tiles of K and V into a
 // ring of kStages that runs on across items, by TMA; consumer warpgroups 0
@@ -1317,20 +1364,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // unit u: slice u / np and its q tiles nq - 1 - p and p (p = u % np),
-  // the longer first: as much causal work in every unit, and a slice's
-  // units on neighbouring blocks, which share its K and V through L2.
-  // Item `which` of u: its key tiles, or -1 for an odd nq's middle tile
-  // taken a second time.
+  // units of q tiles (q_item), the longer first
   const int nq = (a.Sq + kBM - 1) / kBM, np = (nq + 1) / 2;
-  auto item = [&](int u, int which, int& q0, Slice& v) {
-    const int pp = u % np, tile = which == 0 ? nq - 1 - pp : pp;
-    if (which == 1 && tile == nq - 1 - pp) return -1;
-    q0 = tile * kBM;
-    v = fixed_slice(a, u / np, q0);
-    const int end = a.causal ? min(v.klen, q0 + kBM + v.off) : v.klen;
-    return end > 0 ? (end + kBN - 1) / kBN : 0;
-  };
 
   if (tid < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
@@ -1342,7 +1377,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int which = 0; which < 2; ++which) {
         int q0;
         Slice v;
-        const int tiles = item(u, which, q0, v);
+        const int tiles = q_item(a, nq, u, which, q0, v);
         if (tiles <= 0) continue;
         const int b = u / np / a.H, qb = qn & 1;
         mbar_wait(&qempty[qb], ((qn >> 1) & 1) ^ 1);
@@ -1394,7 +1429,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int which = 0; which < 2; ++which) {
       int q0;
       Slice v;
-      const int tiles = item(u, which, q0, v);
+      const int tiles = q_item(a, nq, u, which, q0, v);
       if (tiles < 0) continue;
       const int qw = q0 + cw * 64, r0 = q0 + wr;
       // m in log2 units: the running max of s * scale * log2(e)
@@ -1561,6 +1596,609 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward on wgmma and TMA: bf16, fixed lengths, D 64 or 128
+// ---------------------------------------------------------------------------
+
+// dq's shared memory, bytes from a 1024-aligned base: the Q and dO
+// buffers (two at D = 64, one at D = 128), the K stages, the V stages
+// (128 rows each, D / 64 panels), then the barriers: 192 KB either way
+template <int D>
+struct DqLayout {
+  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kTile = D / 64 * kPanel;
+  static constexpr int Q = 0, DO = kQBufs * kTile, K = 2 * kQBufs * kTile;
+  static constexpr int V = K + kStages * kTile, BAR = V + kStages * kTile;
+  static constexpr int kBytes = BAR + (4 * kQBufs + 4 * kStages) * 8;
+};
+
+// dk/dv's: K and V of the key tile (two buffers at D = 64, one at 128),
+// then a ring of kStages q tiles of kQT = 64 rows: Q, dO, and their rows'
+// lse (log2 units) and delta in f32, then the barriers (197 KB at D = 64,
+// 194 KB at 128).  64-row q tiles keep S^T and dP^T at 32 registers each:
+// at D = 128 dK and dV take 64 each beside them, and at D = 64 there is
+// room to hold a tile's products in flight (a first version of 128-row
+// tiles, waiting on each product, took 1.2x this one's time; PERF.md).
+template <int D>
+struct DkvLayout {
+  static constexpr int kQT = 64;
+  static constexpr int kKBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages = D == 64 ? 8 : 4;
+  static constexpr int kKTile = D / 64 * kPanel;        // 128 keys
+  static constexpr int kQPanel = kQT * 128;             // kQT rows, 64 cols
+  static constexpr int kQTile = D / 64 * kQPanel;
+  static constexpr int K = 0, V = kKBufs * kKTile, Q = 2 * kKBufs * kKTile;
+  static constexpr int DO = Q + kStages * kQTile;
+  static constexpr int ST = DO + kStages * kQTile;      // 2 kQT floats each
+  static constexpr int BAR = ST + kStages * 2 * kQT * 4;
+  static constexpr int kBytes = BAR + (2 * kKBufs + 2 * kStages) * 8;
+};
+
+// Row 2 on Hopper.  Persistent blocks, at most one per SM, of three
+// warpgroups walking units of two 128-row q tiles of one slice, paired
+// long with short as the forward's.  A producer thread copies each q
+// tile's Q and dO and the 128-key tiles of K and V into a ring (K and V
+// with barriers of their own), by TMA over 4-D maps of q, k, v and do as
+// they lie.  Consumer warpgroups 0 and 1 own q rows 0-63 and 64-127: per
+// key tile S = Q K^T and dP = dO V^T by wgmma from shared memory, then, in
+// registers, P = 2^(S scale log2 e - lse2) (masks on diagonal and ragged
+// tiles only) while dP is still in flight, dS = P (select(keep, dP / (1 -
+// r), 0) - delta) rounded to bf16 in the accumulator layout (which is
+// wgmma's A layout), and dQ += dS K by wgmma with A from registers and K
+// read MN-major, left in flight over the next tile's S and dP at D = 64.
+// The key tiles are walked in order and dQ summed in f32 in registers: no
+// atomics, the same bits every run.  DROP as the forward's.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap dmap,
+                           const Args a, int perms, int units) {
+  using L = DqLayout<D>;
+  constexpr int kStages = L::kStages, kQBufs = L::kQBufs;
+  // dQ += dS K held in flight over the next key tile's S and dP: at D =
+  // 64, where registers hold dS beside them (at 128 it is waited for)
+  constexpr bool kHold = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* qempty = qfull + kQBufs;
+  uint64_t* kfull = qempty + kQBufs;
+  uint64_t* kempty = kfull + kStages;
+  uint64_t* vfull = kempty + kStages;
+  uint64_t* vempty = vfull + kStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], 8);   // each consumer warp
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&kfull[i], 1);
+      mbar_init(&vfull[i], 1);
+      mbar_init(&kempty[i], 8);
+      mbar_init(&vempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // units of q tiles (q_item), the longer first
+  const int nq = (a.Sq + kBM - 1) / kBM, np = (nq + 1) / 2;
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid != 0) return;
+    const int qp = perms & 63, kp = (perms >> 6) & 63;
+    const int vp = (perms >> 12) & 63, dp = perms >> 18;
+    int n = 0, qn = 0;   // ring steps and q tiles so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int which = 0; which < 2; ++which) {
+        int q0;
+        Slice v;
+        const int tiles = q_item(a, nq, u, which, q0, v);
+        if (tiles <= 0) continue;
+        const int b = u / np / a.H, qb = qn % kQBufs;
+        mbar_wait(&qempty[qb], ((qn / kQBufs) & 1) ^ 1);
+        mbar_arrive_expect(&qfull[qb], 2 * L::kTile);
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p) {
+          tma_bshd(smem + L::Q + qb * L::kTile + p * kPanel, &qmap, qp,
+                   &qfull[qb], p * 64, q0, v.h, b);
+          tma_bshd(smem + L::DO + qb * L::kTile + p * kPanel, &dmap, dp,
+                   &qfull[qb], p * 64, q0, v.h, b);
+        }
+        ++qn;
+        for (int t = 0; t < tiles; ++t, ++n) {
+          const int stg = n % kStages, ph = ((n / kStages) & 1) ^ 1;
+          mbar_wait(&kempty[stg], ph);
+          mbar_arrive_expect(&kfull[stg], L::kTile);
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p)
+            tma_bshd(smem + L::K + stg * L::kTile + p * kPanel, &kmap, kp,
+                     &kfull[stg], p * 64, t * kBN, v.h, b);
+          mbar_wait(&vempty[stg], ph);
+          mbar_arrive_expect(&vfull[stg], L::kTile);
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p)
+            tma_bshd(smem + L::V + stg * L::kTile + p * kPanel, &vmap, vp,
+                     &vfull[stg], p * 64, t * kBN, v.h, b);
+        }
+      }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int cw = (tid >> 7) - 1;             // 0 or 1
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = cw * 64 + ((tid & 127) >> 5) * 16;   // the warp's rows
+  const float sl2 = a.scale * kLog2e;
+  const uint32_t keep256 = a.threshold << 8;   // as the forward's
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float dq[D / 2];
+  float s[kBN / 2], dp[kBN / 2];   // (8-column group j8, e) at [4 j8 + e]
+  uint32_t ds[kBN / 16][4];
+  int n = 0, qn = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int which = 0; which < 2; ++which) {
+      int q0;
+      Slice v;
+      const int tiles = q_item(a, nq, u, which, q0, v);
+      if (tiles < 0) continue;
+      const int qw = q0 + cw * 64, r0 = q0 + wr;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+      if (tiles > 0) {
+        const int qb = qn % kQBufs;
+        const unsigned char* sQ =
+            smem + L::Q + qb * L::kTile + cw * (kPanel / 2);
+        const unsigned char* sDO =
+            smem + L::DO + qb * L::kTile + cw * (kPanel / 2);
+        // this thread's two rows: lse in log2 units, delta, and the hash's
+        // row part with its first key's column
+        float lse2[2], delta[2];
+        uint32_t hrow[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = r0 + g + 8 * i;
+          lse2[i] = row < v.sq ? a.lse[v.stat + row] * kLog2e : 0.f;
+          delta[i] = row < v.sq ? a.delta[v.stat + row] : 0.f;
+          hrow[i] = (v.hrow + row) * 0x000193E9u + v.hcol + 2 * tq;
+        }
+        mbar_wait(&qfull[qb], (qn / kQBufs) & 1);
+        for (int t = 0; t < tiles; ++t) {
+          const int stg = (n + t) % kStages, ph = ((n + t) / kStages) & 1;
+          const int k0 = t * kBN;
+          const unsigned char* tK = smem + L::K + stg * L::kTile;
+          mbar_wait(&kfull[stg], ph);
+          qk_product<D>(s, sQ, tK);
+          mbar_wait(&vfull[stg], ph);
+          qk_product<D>(dp, sDO, smem + L::V + stg * L::kTile);
+          wgmma_wait<1>();   // S is in (and a held dQ += dS K)
+          fence_regs(s);
+          if (kHold) {
+            fence_regs(dq);
+            fence_regs(ds);
+            if (t > 0) release(&kempty[(n + t - 1) % kStages]);
+          }
+          if ((a.causal && k0 + kBN > qw + v.off) || k0 + kBN > v.klen)
+#pragma unroll
+            for (int j8 = 0; j8 < kBN / 8; ++j8)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int query = r0 + g + 8 * (e >> 1);
+                const int key = k0 + j8 * 8 + 2 * tq + (e & 1);
+                if (key >= v.klen || query >= v.sq ||
+                    (a.causal && key > query + v.off))
+                  s[4 * j8 + e] = -CUDART_INF_F;
+              }
+          // P in place while dP is in flight
+#pragma unroll
+          for (int i = 0; i < kBN / 2; ++i)
+            s[i] = ex2(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
+          wgmma_wait<0>();   // dP is in
+          fence_regs(dp);
+          release(&vempty[stg]);
+          // dS = P (select(keep, dP / (1 - r), 0) - delta), one k16 step
+          // (two 8-column groups) at a time, rounded to bf16 at once
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+            for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+              const int e = i & 3, col = (i >> 2) * 8 + (e & 1);
+              float dpe = dp[i];
+              if (DROP)
+                dpe = drop_hash(v.hs, hrow[e >> 1] + k0 + col) >= keep256
+                          ? dpe * a.inv_keep
+                          : 0.f;
+              s[i] *= dpe - delta[e >> 1];
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              ds[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          }
+          pv_product(dq, ds, tK);   // dQ += dS K, K read MN-major
+          if (!kHold) {
+            wgmma_wait<0>();
+            fence_regs(dq);
+            fence_regs(ds);
+            release(&kempty[stg]);
+          }
+        }
+        if (kHold) {
+          wgmma_wait<0>();
+          fence_regs(dq);
+          fence_regs(ds);
+          release(&kempty[(n + tiles - 1) % kStages]);
+        }
+        release(&qempty[qb]);
+        n += tiles;
+        ++qn;
+      }
+
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                           (v.qrow * a.H + v.h) * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= v.sq) continue;
+        __nv_bfloat16* dst = out + static_cast<long long>(row) * a.H * D;
+#pragma unroll
+        for (int j8 = 0; j8 < D / 8; ++j8)
+          *reinterpret_cast<__nv_bfloat162*>(dst + j8 * 8 + 2 * tq) =
+              __floats2bfloat162_rn(dq[4 * j8 + 2 * half] * a.scale,
+                                    dq[4 * j8 + 2 * half + 1] * a.scale);
+      }
+    }
+}
+
+// Row 3 on Hopper.  The same blocks walking units of two 128-key tiles of
+// one slice (the longer first when causal: a key tile's q tiles start at
+// its diagonal).  The producer warp copies each key tile's K and V once,
+// and each kQT-row q tile of Q and dO into a ring by TMA, its lanes
+// writing the tile's lse (log2 units) and delta beside them (loaded before
+// the wait for a free stage: with the loads after it, the producer set the
+// kernel's pace at D = 64).  Consumer
+// warpgroups 0 and 1 own keys 0-63 and 64-127: per q tile S^T = K Q^T and
+// dP^T = V dO^T by wgmma from shared memory; then in registers P^T (the
+// lse by column), the keep bits from the hash over (query, key), P~^T =
+// select(keep, P^T / (1 - r), 0) and dS^T = P^T (select(keep, dP^T / (1 -
+// r), 0) - delta), both rounded to bf16, then dV += P~^T dO and dK += dS^T
+// Q by wgmma with A from registers and dO and Q read MN-major.  At D = 64
+// the products overlap the registers' work: P^T is made while dP^T runs,
+// dS^T while dV runs, and dV and dK stay in flight over the next q tile's
+// S^T and dP^T.  dK (times scale) and dV are stored at the end: the q
+// tiles are walked in order, no atomics, the same bits every run.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const Args a, int perms, int units) {
+  using L = DkvLayout<D>;
+  constexpr int kStages = L::kStages, kKBufs = L::kKBufs, QT = L::kQT;
+  static_assert(QT / 2 <= 32, "a thread's keep bits fill one word");
+  // at D = 64 products are held in flight: dP^T while P^T is made, dV
+  // while dS^T is, a q tile's dV and dK over the next tile's S^T and dP^T;
+  // at D = 128, where dK and dV take twice the registers, each product is
+  // waited for (holding dV alone there measured 8% slower)
+  constexpr bool kHold = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* kvempty = kvfull + kKBufs;
+  uint64_t* qfull = kvempty + kKBufs;
+  uint64_t* qempty = qfull + kStages;
+  float* stats = reinterpret_cast<float*>(smem + L::ST);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kKBufs; ++i) {
+      mbar_init(&kvfull[i], 1);
+      mbar_init(&kvempty[i], 8);   // each consumer warp
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&qfull[i], 32);    // each producer lane
+      mbar_init(&qempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // units of key tiles (unit_tile); item `which` of unit u: its q tiles
+  // from `first`, or -1 when there is none
+  const int nk = (a.Sk + kBN - 1) / kBN, np = (nk + 1) / 2;
+  auto item = [&](int u, int which, int& k0, int& first, Slice& v) {
+    const int tile = unit_tile(u, which, nk);
+    if (tile < 0) return -1;
+    k0 = (nk - 1 - tile) * kBN;   // the key tile with the most q tiles first
+    v = fixed_slice(a, u / np, k0);
+    first = a.causal ? max(0, k0 - v.off) : 0;
+    return k0 < v.klen && first < v.sq ? (v.sq - first + QT - 1) / QT : 0;
+  };
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid >= 32) return;
+    const int qp = perms & 63, kp = (perms >> 6) & 63;
+    const int vp = (perms >> 12) & 63, dp = perms >> 18;
+    int n = 0, kn = 0;   // ring steps and key tiles so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int which = 0; which < 2; ++which) {
+        int k0, first;
+        Slice v;
+        const int tiles = item(u, which, k0, first, v);
+        if (tiles <= 0) continue;
+        const int b = u / np / a.H, kb = kn % kKBufs;
+        mbar_wait(&kvempty[kb], ((kn / kKBufs) & 1) ^ 1);
+        if (tid == 0) {
+          mbar_arrive_expect(&kvfull[kb], 2 * L::kKTile);
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p) {
+            tma_bshd(smem + L::K + kb * L::kKTile + p * kPanel, &kmap, kp,
+                     &kvfull[kb], p * 64, k0, v.h, b);
+            tma_bshd(smem + L::V + kb * L::kKTile + p * kPanel, &vmap, vp,
+                     &kvfull[kb], p * 64, k0, v.h, b);
+          }
+        }
+        ++kn;
+        for (int t = 0; t < tiles; ++t, ++n) {
+          const int stg = n % kStages, q0 = first + t * QT;
+          // the tile's rows' lse (log2 units) and delta, loaded before the
+          // wait for a free stage
+          float ls[QT / 32], dl[QT / 32];
+#pragma unroll
+          for (int j = 0; j < QT / 32; ++j) {
+            const int row = q0 + tid + 32 * j;
+            ls[j] = row < v.sq ? a.lse[v.stat + row] * kLog2e : 0.f;
+            dl[j] = row < v.sq ? a.delta[v.stat + row] : 0.f;
+          }
+          mbar_wait(&qempty[stg], ((n / kStages) & 1) ^ 1);
+          float* st = stats + stg * 2 * QT;
+#pragma unroll
+          for (int j = 0; j < QT / 32; ++j) {
+            st[tid + 32 * j] = ls[j];
+            st[QT + tid + 32 * j] = dl[j];
+          }
+          if (tid == 0) {
+            mbar_arrive_expect(&qfull[stg], 2 * L::kQTile);
+#pragma unroll
+            for (int p = 0; p < D / 64; ++p) {
+              tma_bshd(smem + L::Q + stg * L::kQTile + p * L::kQPanel, &qmap,
+                       qp, &qfull[stg], p * 64, q0, v.h, b);
+              tma_bshd(smem + L::DO + stg * L::kQTile + p * L::kQPanel,
+                       &dmap, dp, &qfull[stg], p * 64, q0, v.h, b);
+            }
+          } else {
+            mbar_arrive(&qfull[stg]);
+          }
+        }
+      }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int cw = (tid >> 7) - 1;             // 0 or 1
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = cw * 64 + ((tid & 127) >> 5) * 16;   // the warp's keys
+  const float sl2 = a.scale * kLog2e;
+  const uint32_t keep256 = a.threshold << 8;   // as the forward's
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float dk[D / 2], dv[D / 2];
+  float s[QT / 2], dp[QT / 2];   // (8-column group j8, e) at [4 j8 + e]
+  uint32_t pa[QT / 16][4], da[QT / 16][4];
+  int n = 0, kn = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int which = 0; which < 2; ++which) {
+      int k0, first;
+      Slice v;
+      const int tiles = item(u, which, k0, first, v);
+      if (tiles < 0) continue;
+      const int kw = k0 + cw * 64, r0 = k0 + wr;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      if (tiles > 0) {
+        const int kb = kn % kKBufs;
+        const unsigned char* sK =
+            smem + L::K + kb * L::kKTile + cw * (kPanel / 2);
+        const unsigned char* sV =
+            smem + L::V + kb * L::kKTile + cw * (kPanel / 2);
+        // the hash's column part of this thread's two keys
+        const uint32_t hkey[2] = {v.hcol + r0 + g, v.hcol + r0 + g + 8};
+        mbar_wait(&kvfull[kb], (kn / kKBufs) & 1);
+        for (int t = 0; t < tiles; ++t) {
+          const int stg = (n + t) % kStages, ph = ((n + t) / kStages) & 1;
+          const int q0 = first + t * QT;
+          const unsigned char* tQ = smem + L::Q + stg * L::kQTile;
+          const unsigned char* tDO = smem + L::DO + stg * L::kQTile;
+          const float* sLse2 = stats + stg * 2 * QT;
+          const float* sDelta = sLse2 + QT;
+          mbar_wait(&qfull[stg], ph);
+          qk_product<D, QT, L::kQPanel>(s, sK, tQ);     // S^T = K Q^T
+          qk_product<D, QT, L::kQPanel>(dp, sV, tDO);   // dP^T = V dO^T
+          if (kHold) {
+            wgmma_wait<1>();   // S^T is in, and the last tile's dV and dK
+            fence_regs(dv);
+            fence_regs(dk);
+            fence_regs(pa);
+            fence_regs(da);
+            if (t > 0) release(&qempty[(n + t - 1) % kStages]);
+          } else {
+            wgmma_wait<0>();   // S^T and dP^T are in
+            fence_regs(dp);
+          }
+          fence_regs(s);
+          if ((a.causal && kw + 64 > q0 + v.off) || q0 + QT > v.sq ||
+              kw + 64 > v.klen)
+#pragma unroll
+            for (int j8 = 0; j8 < QT / 8; ++j8)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = r0 + g + 8 * (e >> 1);
+                const int query = q0 + j8 * 8 + 2 * tq + (e & 1);
+                if (key >= v.klen || query >= v.sq ||
+                    (a.causal && key > query + v.off))
+                  s[4 * j8 + e] = -CUDART_INF_F;
+              }
+          // P^T in place, its keep bits (bit i: element i kept, the hash
+          // over (query, key); this thread's first query's row part hq),
+          // and P~^T rounded to bf16 for dV += P~^T dO
+          const uint32_t hq = (v.hrow + q0 + 2 * tq) * 0x000193E9u;
+          uint32_t kept = 0u;
+#pragma unroll
+          for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+            for (int j8 = 2 * kk; j8 < 2 * kk + 2; ++j8) {
+              const float2 l2 =
+                  *reinterpret_cast<const float2*>(sLse2 + j8 * 8 + 2 * tq);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * j8 + e;
+                s[i] = ex2(fmaf(s[i], sl2, -(e & 1 ? l2.y : l2.x)));
+                if (DROP)
+                  kept |= (drop_hash(v.hs, hq + (j8 * 8 + (e & 1)) *
+                                                    0x000193E9u +
+                                               hkey[e >> 1]) >= keep256
+                               ? 1u
+                               : 0u)
+                          << i;
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float pt[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int i = 8 * kk + 2 * r + c;
+                pt[c] = !DROP ? s[i]
+                        : (kept >> i) & 1u ? s[i] * a.inv_keep
+                                           : 0.f;
+              }
+              pa[kk][r] = pack_bf16(pt[0], pt[1]);
+            }
+          }
+          if (kHold) {
+            pv_product<L::kQPanel>(dv, pa, tDO);   // dV += P~^T dO
+            wgmma_wait<1>();   // dP^T is in; dV may still run
+            fence_regs(dp);
+          }
+          // dS^T = P^T (select(keep, dP^T / (1 - r), 0) - delta) -> bf16
+#pragma unroll
+          for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+            for (int j8 = 2 * kk; j8 < 2 * kk + 2; ++j8) {
+              const float2 dl =
+                  *reinterpret_cast<const float2*>(sDelta + j8 * 8 + 2 * tq);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * j8 + e;
+                float dpe = dp[i];
+                if (DROP) dpe = (kept >> i) & 1u ? dpe * a.inv_keep : 0.f;
+                dp[i] = s[i] * (dpe - (e & 1 ? dl.y : dl.x));
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              da[kk][r] =
+                  pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+          }
+          if (!kHold) pv_product<L::kQPanel>(dv, pa, tDO);
+          pv_product<L::kQPanel>(dk, da, tQ);    // dK += dS^T Q
+          if (!kHold) {
+            wgmma_wait<0>();
+            fence_regs(dv);
+            fence_regs(dk);
+            fence_regs(pa);
+            fence_regs(da);
+            release(&qempty[stg]);
+          }
+        }
+        if (kHold) {
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+          release(&qempty[(n + tiles - 1) % kStages]);
+        }
+        release(&kvempty[kb]);
+        n += tiles;
+        ++kn;
+      }
+
+      const long long base = (v.krow * a.H + v.h) * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= v.sk) continue;
+        const long long at = base + static_cast<long long>(row) * a.H * D;
+        __nv_bfloat16* dst_k = static_cast<__nv_bfloat16*>(a.out) + at;
+        __nv_bfloat16* dst_v = static_cast<__nv_bfloat16*>(a.out2) + at;
+#pragma unroll
+        for (int j8 = 0; j8 < D / 8; ++j8) {
+          *reinterpret_cast<__nv_bfloat162*>(dst_k + j8 * 8 + 2 * tq) =
+              __floats2bfloat162_rn(dk[4 * j8 + 2 * half] * a.scale,
+                                    dk[4 * j8 + 2 * half + 1] * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dst_v + j8 * 8 + 2 * tq) =
+              __floats2bfloat162_rn(dv[4 * j8 + 2 * half],
+                                    dv[4 * j8 + 2 * half + 1]);
+        }
+      }
+    }
+}
+
+template <int D>
+cudaError_t launch_bwd(bool dkv, const Args& a, cudaStream_t stream) {
+  BshdMap maps[4];
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+    const bool kv = i == 1 || i == 2;
+    e = bshd_map(&maps[i], base[i], a.B, kv ? a.Sk : a.Sq, a.H, D, a.st[i],
+                 dkv && !kv ? DkvLayout<D>::kQT : kBM);
+  }
+  if (e != cudaSuccess) return e;
+  const int perms = maps[0].perm | maps[1].perm << 6 | maps[2].perm << 12 |
+                    maps[3].perm << 18;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((dkv ? a.Sk : a.Sq) + kBM - 1) / kBM;
+  const int units = a.B * a.H * ((tiles + 1) / 2);
+  const size_t smem =
+      1024 + (dkv ? DkvLayout<D>::kBytes : DqLayout<D>::kBytes);
+  auto kern = dkv ? (a.dropout ? flash_bwd_dkv_wg_kernel<D, true>
+                               : flash_bwd_dkv_wg_kernel<D, false>)
+                  : (a.dropout ? flash_bwd_dq_wg_kernel<D, true>
+                               : flash_bwd_dq_wg_kernel<D, false>);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<std::min(units, sms), kThreads, smem, stream>>>(
+      maps[0].map, maps[1].map, maps[2].map, maps[3].map, a, perms, units);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -1570,23 +2208,27 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
-  // the forward in bf16 on fixed lengths at D 64 and 128: wgmma and TMA
+  // bf16 on fixed lengths at D 64 and 128: wgmma and TMA
   if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
-    if (which == kFwd && a.tiles == nullptr)
-      return wg::launch_fwd<D>(a, stream);
+    if (a.tiles == nullptr)
+      return which == kFwd ? wg::launch_fwd<D>(a, stream)
+                           : wg::launch_bwd<D>(which == kDkv, a, stream);
   constexpr int C = other_rows<T, D>(), DO = out_cols<D>();
   constexpr size_t LD = ld<T, D>(), LDO = ld<T, DO>();
   const size_t own = kRows * LD * sizeof(T), other = C * LD * sizeof(T);
+  const bool drop = a.dropout;
   void (*kern)(const Args);
   size_t smem;
   if (which == kFwd) {
-    kern = flash_fwd_kernel<T, D>;
+    kern = drop ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
     smem = own + 2 * other + 2 * C * LDO * sizeof(T);   // Q, two (K, V)
   } else if (which == kDq) {
-    kern = flash_bwd_dq_kernel<T, D>;
+    kern = drop ? flash_bwd_dq_kernel<T, D, true>
+                : flash_bwd_dq_kernel<T, D, false>;
     smem = 2 * own + 4 * other;   // Q, dO, two (K, V)
   } else {
-    kern = flash_bwd_dkv_kernel<T, D>;
+    kern = drop ? flash_bwd_dkv_kernel<T, D, true>
+                : flash_bwd_dkv_kernel<T, D, false>;
     smem = 2 * own + 4 * other + 4 * C * sizeof(float);   // K, V, two (Q, dO, stats)
   }
   cudaError_t e = cudaFuncSetAttribute(
@@ -1607,13 +2249,17 @@ cudaError_t launch_wide(int which, int d, const Args& a, cudaStream_t stream) {
   constexpr int C = wide_rows<T>();
   constexpr size_t LD = ld<T, kSlab>();
   size_t smem = (kRows + C) * LD * sizeof(T);   // sA, sB
+  const bool drop = a.dropout;
   void (*kern)(const Args, int);
   if (which == kFwd) {
-    kern = flash_fwd_wide_kernel<T>;
+    kern = drop ? flash_fwd_wide_kernel<T, true>
+                : flash_fwd_wide_kernel<T, false>;
   } else if (which == kDq) {
-    kern = flash_bwd_dq_wide_kernel<T>;
+    kern = drop ? flash_bwd_dq_wide_kernel<T, true>
+                : flash_bwd_dq_wide_kernel<T, false>;
   } else {
-    kern = flash_bwd_dkv_wide_kernel<T>;
+    kern = drop ? flash_bwd_dkv_wide_kernel<T, true>
+                : flash_bwd_dkv_wide_kernel<T, false>;
     smem += 2 * C * sizeof(float);   // lse, delta
   }
   cudaError_t e = cudaFuncSetAttribute(

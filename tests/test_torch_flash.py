@@ -109,10 +109,20 @@ def test_mha_out_and_lse_match_jax_interpret(causal, dropout_p):
                                rtol=2e-5)
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_mha_grads_match_jax_grad_with_dropout(causal):
-    q, k, v = _qkv(2, (1, 2, 128, 32))
-    w = np.random.RandomState(3).randn(1, 2, 128, 32).astype(np.float32)
+@pytest.mark.parametrize(
+    "causal, lq, lk, d",
+    [(False, 128, 128, 32), (True, 128, 128, 32), (True, 200, 264, 64)],
+    # q 200 / kv 264: ragged for 64- and 128-row tiles, the causal
+    # diagonal across lengths (key j kept for query i when j <= i + 64)
+    ids=["full", "causal", "causal-q200-kv264-d64"])
+def test_mha_grads_match_jax_grad_with_dropout(causal, lq, lk, d):
+    if lq == lk:
+        q, k, v = _qkv(2, (1, 2, lq, d))
+    else:
+        rng = np.random.RandomState(2)
+        q = rng.randn(1, 2, lq, d).astype(np.float32)
+        k, v = (rng.randn(1, 2, lk, d).astype(np.float32) for _ in range(2))
+    w = np.random.RandomState(3).randn(1, 2, lq, d).astype(np.float32)
     seed = SEEDS[1]
 
     def jloss(q_, k_, v_):

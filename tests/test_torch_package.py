@@ -1,6 +1,7 @@
 """The PyTorch port as a package: import hygiene, device rules, the page
 pool, the scheduler's admission control and the HTTP front end, on the
 CPU at a small width."""
+import importlib.util
 import json
 import re
 import subprocess
@@ -66,6 +67,57 @@ def test_package_sources_name_no_jax_and_no_reference_module():
         assert not re.search(r"\bpaddle_tpu\.", text), path
         assert not re.search(r"^\s*(import|from)\s+paddle_tpu\b(?!_torch)",
                              text, re.M), path
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _code(path):
+    """A CUDA source without its comments."""
+    return re.sub(r"//[^\n]*", "", path.read_text())
+
+
+def _global_kernels():
+    """The name of every ``__global__`` function in the port's sources."""
+    names = []
+    for path in sorted((PKG / "csrc").glob("*.cu")):
+        text = _code(path)
+        for m in re.finditer(r"\b__global__\b", text):
+            # the first call-like name after the attributes
+            names += [i.group(1) for i in re.finditer(
+                r"\b([A-Za-z_]\w*)\s*\(", text[m.end():])
+                if not i.group(1).startswith("__")][:1]
+    return names
+
+
+def test_every_cuda_kernel_is_in_the_step_profiles_name_lists():
+    # a profile sums a kernel's device time under the first list entry
+    # found in its name: every kernel is listed, by its own name only
+    kernels = _global_kernels()
+    assert len(kernels) >= 24 and len(set(kernels)) == len(kernels)
+    assert {"flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel"} <= set(
+        kernels)
+    listed = [n for names in _chip_smoke().PROFILE_KERNELS.values()
+              for n in names]
+    assert sorted(listed) == sorted(kernels)
+    for kernel in kernels:
+        assert [n for n in listed if n in kernel] == [kernel], kernel
+
+
+def test_flash_kernels_sum_without_atomics():
+    # dq, dk and dv the same bits on every run: no atomic adds, no
+    # reductions to global memory, in the flash source or its header
+    code = {p.name: _code(p) for p in (PKG / "csrc" / "flash_attention.cu",
+                                       PKG / "csrc" / "hopper.cuh")}
+    assert "flash_bwd_dkv_wg_kernel" in code["flash_attention.cu"]
+    for name, text in code.items():
+        assert not re.search(r"\batomic\w*\s*\(", text), name
+        assert not re.search(r"\b(red|atom)\.", text), name
 
 
 def test_exit_codes_and_page_budget_match_the_reference():
