@@ -17,8 +17,9 @@ line is printed:
              0.1, read in place from the QKV projection's output, and
              gpt_1p3b's 4 x 1024 x 16 heads of 128, each timed at dropout
              0.1 and 0 against SDPA at the same dropout, then f32 and the
-             other head sizes at small shapes; every bf16 flash shape at
-             dropout 0.1 and 0, out and lse the same bits over two runs
+             other head sizes at small shapes; every flash shape (bf16
+             and f32, fixed and packed, wide heads too) at dropout 0.1
+             and 0, out and lse the same bits over two runs
              as dq, dk and dv: at D 64 and 128 with fixed lengths the
              wgmma forward, dq and dk/dv kernels, elsewhere the mma.sync
              ones) and at
@@ -152,14 +153,6 @@ Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
 is present, and when run without the ``paddle_tpu_torch`` package beside
 it.
-
-    python3 chip_smoke.py --ab-flash A B
-
-times the flash kernels built from two sources in turns instead (each of
-the directories A and B holds a ``flash_attention.cu`` and its
-``hopper.cuh``, say a parent commit's ``paddle_tpu_torch/csrc`` unpacked
-beside this one): rows 2-3 at the timed bf16 shapes, the f32 kernels and
-rows 4-6 on bench_packed, at dropout 0.1 and 0 (``flash_ab``).
 """
 from __future__ import annotations
 
@@ -230,6 +223,9 @@ XENT_TOL = {"loss": 1e-5, "f32": 1e-6, "bf16": "1 ulp"}
 FLASH_TOL = {"f32": dict(abs=2e-5, grad=1e-4),
              "bf16": dict(abs=TOL["bf16"], rel=TOL["bf16"])}
 FLASH_DROPOUT, FLASH_SEED = 0.1, 20250917
+# every flash and packed check runs at both: each kernel is built with and
+# without dropout, and a wrong keep mask shows only at the first
+FLASH_DROPOUTS = (FLASH_DROPOUT, 0.0)
 # bench.py::bench_packed: 8 packed causal sequences of 64..1024 tokens (3392
 # against 8 x 1024 padded), gpt_345m's attention (16 heads of 64), bf16
 PACKED_LENS = [64, 128, 896, 256, 1024, 192, 512, 320]
@@ -524,7 +520,7 @@ def phase_kernels(timer):
     # the same dropout, then again at dropout 0; gpt_1p3b's (4 x 1024, 16
     # heads of 128), timed the same way; then BERT's at 8 x 512 (12 heads
     # of 64, no mask), f32 and the other head sizes, a ragged length and no
-    # mask.  Every bf16 shape runs at dropout FLASH_DROPOUT and 0.
+    # mask.  Every shape runs at dropout FLASH_DROPOUT and 0.
     heads, hd = GPT_345M["heads"], GPT_345M["hidden"] // GPT_345M["heads"]
     shapes = [("bf16", (TRAIN_BATCH, TRAIN_SEQ, heads, hd), True, True),
               ("bf16", (WIDE_BATCH, TRAIN_SEQ, 16, 128), True, True),
@@ -538,7 +534,7 @@ def phase_kernels(timer):
               ("bf16", (2, 512, 4, 128), True, False),
               ("bf16", (1, 700, 3, 64), False, False)]
     for tag, shape, causal, timed in shapes:
-        for p in _flash_dropouts(tag):
+        for p in FLASH_DROPOUTS:
             for name, row in _flash_entries(timer, gen, tag, shape, causal,
                                             timed, dropout=p).items():
                 results.setdefault(name, []).append(row)
@@ -555,20 +551,18 @@ def phase_kernels(timer):
                                         ((2, 300, 4, 96), False, None),
                                         ((2, 128, 4, 96), True, 640))]
     for tag, shape, causal, kv in shapes:
-        for p in _flash_dropouts(tag):
+        for p in FLASH_DROPOUTS:
             for name, row in _flash_entries(timer, gen, tag, shape, causal,
                                             False, kv_len=kv,
                                             dropout=p).items():
                 results[name].append(row)
     # head sizes past 256 (padded to multiples of 128: 320 to 384, and 512),
-    # bf16 and f32, causal and not
-    for tag in ("bf16", "f32"):
-        for d in (320, 512):
-            for causal in (True, False):
-                for name, row in _flash_entries(timer, gen, tag,
-                                                (2, 200, 2, d), causal,
-                                                False).items():
-                    results[name].append(row)
+    # bf16 and f32, causal and not, at both dropouts
+    for tag, d, causal, p in itertools.product(
+            ("bf16", "f32"), (320, 512), (True, False), FLASH_DROPOUTS):
+        for name, row in _flash_entries(timer, gen, tag, (2, 200, 2, d),
+                                        causal, False, dropout=p).items():
+            results[name].append(row)
     _flash_variant_rows(timer, gen, results)
     _packed_rows(timer, gen, results)
 
@@ -993,12 +987,6 @@ def _sdpa_times(timer, q, k, v, do, causal, dropout=0.0):
     return fwd, both - fwd
 
 
-def _flash_dropouts(tag):
-    """The dropouts a flash shape is checked at: the main path's and, in
-    bf16 (the wgmma kernels' dtype), 0 as well."""
-    return (FLASH_DROPOUT, 0.0) if tag == "bf16" else (FLASH_DROPOUT,)
-
-
 def _flash_variant_rows(timer, gen, results):
     """Rows 1-3 with the masks' variants (``seq_lens``, ``causal_shift``,
     one shift leaving every row of a tile no key), an lse cotangent, and
@@ -1014,7 +1002,7 @@ def _flash_variant_rows(timer, gen, results):
               ((1, 130, 2, 256), False, dict(seq_lens=[77]))]
     for tag in ("bf16", "f32"):
         for shape, causal, kw in shapes:
-            for p in _flash_dropouts(tag):
+            for p in FLASH_DROPOUTS:
                 for name, row in _flash_entries(timer, gen, tag, shape,
                                                 causal, False, dropout=p,
                                                 **kw).items():
@@ -1033,7 +1021,7 @@ def _packed_rows(timer, gen, results):
     """Rows 4-6: bench_packed's sequences first (bf16, causal, dropout 0,
     then dropout 0.1, each timed with the library's yardstick at the same
     dropout where it takes one), then small
-    sets: f32, cross lengths (some ``len_q > len_k``, rows with no key),
+    sets at both dropouts, f32 and bf16: cross lengths (some ``len_q > len_k``, rows with no key),
     sequences of length 0, no mask, head sizes 48 and 256, and other
     ``block_q``/``block_k`` for the dropout hash's layout."""
     cross_q, cross_k = [50, 7, 130, 0, 64], [20, 33, 100, 15, 64]
@@ -1041,19 +1029,17 @@ def _packed_rows(timer, gen, results):
              0.0, (None, None), True),
             ("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
              FLASH_DROPOUT, (None, None), True)]
-    for tag in ("f32", "bf16"):
+    for tag, p in itertools.product(("f32", "bf16"), FLASH_DROPOUTS):
         sets += [(tag, [37, 0, 130, 64, 5], [37, 0, 130, 64, 5], 4, 64, True,
-                  FLASH_DROPOUT, (None, None), False),
-                 (tag, cross_q, cross_k, 4, 64, True, FLASH_DROPOUT,
-                  (None, None), False),
-                 (tag, cross_q, cross_k, 4, 64, False, FLASH_DROPOUT,
-                  (128, 64), False),
+                  p, (None, None), False),
+                 (tag, cross_q, cross_k, 4, 64, True, p, (None, None), False),
+                 (tag, cross_q, cross_k, 4, 64, False, p, (128, 64), False),
                  (tag, [100, 0, 77, 200], [100, 0, 77, 200], 2, 48, True,
-                  FLASH_DROPOUT, (64, 128), False),
+                  p, (64, 128), False),
                  (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 256, True,
-                  FLASH_DROPOUT, (None, None), False),
+                  p, (None, None), False),
                  (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 320, True,
-                  FLASH_DROPOUT, (None, None), False)]
+                  p, (None, None), False)]
     for tag, lq, lk, h, d, causal, p, blocks, timed in sets:
         for name, row in _packed_entries(timer, gen, tag, lq, lk, h, d,
                                          causal, p, blocks, timed).items():
@@ -2766,112 +2752,12 @@ def _fused_bert_run(smi):
     return launches
 
 
-def _flash_ab_cases(gen):
-    """What ``flash_ab`` times: rows 2-3 at the timed bf16 shapes, the f32
-    kernels at (4, 1024, 16, 64), rows 4-6 on bench_packed's sequences,
-    each causal at dropout 0.1 and 0; (name, call) pairs."""
-    from paddle_tpu_torch.ops import pallas_ops as po
-    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
-    cases = []
-    for tag, (b, s, h, d) in (("bf16", (16, 1024, 16, 64)),
-                              ("bf16", (4, 1024, 16, 128)),
-                              ("f32", (4, 1024, 16, 64))):
-        dt = torch.bfloat16 if tag == "bf16" else torch.float32
-        qkv = torch.randn(b, s, h, 3 * d, generator=gen, device=DEVICE).to(dt)
-        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-        do = torch.randn(b, s, h, d, generator=gen, device=DEVICE).to(dt)
-        for p in (FLASH_DROPOUT, 0.0):
-            o = dict(causal=True, sm_scale=1.0 / math.sqrt(d), dropout_p=p)
-            out, lse = po.flash_fwd(q, k, v, seed, **o)
-            a = (q, k, v, do, lse, po._delta(out, do), seed)
-            name = f"{tag} {(b, s, h, d)} dropout {p}"
-            if tag == "f32":
-                cases.append((f"{name} fwd", lambda q=q, k=k, v=v, o=o:
-                              po.flash_fwd(q, k, v, seed, **o)))
-            cases.append((f"{name} dq", lambda a=a, o=o:
-                          po.flash_bwd_dq(*a, **o)))
-            cases.append((f"{name} dkv", lambda a=a, o=o:
-                          po.flash_bwd_dkv(*a, **o)))
-    tq, h, d = sum(PACKED_LENS), PACKED_HEADS, PACKED_HD
-    cu = [0, *itertools.accumulate(PACKED_LENS)]
-    qkv = torch.randn(tq, h, 3 * d, generator=gen, device=DEVICE).bfloat16()
-    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-    do = torch.randn(tq, h, d, generator=gen, device=DEVICE).bfloat16()
-    layout = po.PackedLayout(cu, cu, tq, tq)
-    for p in (FLASH_DROPOUT, 0.0):
-        o = dict(causal=True, sm_scale=1.0 / math.sqrt(d), dropout_p=p)
-        out, lse = po.flash_packed_fwd(q, k, v, layout, seed, **o)
-        delta = (out.float() * do.float()).sum(-1).t().contiguous()
-        a = (q, k, v, do, lse, delta, layout, seed)
-        name = f"packed {PACKED_PATH} dropout {p}"
-        cases.append((f"{name} fwd", lambda o=o: po.flash_packed_fwd(
-            q, k, v, layout, seed, **o)))
-        cases.append((f"{name} dq", lambda a=a, o=o:
-                      po.flash_packed_bwd_dq(*a, **o)))
-        cases.append((f"{name} dkv", lambda a=a, o=o:
-                      po.flash_packed_bwd_dkv(*a, **o)))
-    return cases
-
-
-def flash_ab(dirs, smi, rounds=2):
-    """The flash kernels of two sources timed in turns on one card:
-    ``dirs`` (a, b) each hold a ``flash_attention.cu`` and its
-    ``hopper.cuh`` (say a parent's ``paddle_tpu_torch/csrc`` and this
-    tree's); both are built with ``_build.NVCC_FLAGS``, and each case of
-    ``_flash_ab_cases`` is timed through the port's wrappers in the order
-    a, b, b, a, ``rounds`` times over.  Prints each case's times."""
-    import ctypes
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import pallas_ops as po
-    out_dir = _build.BUILD_DIR / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for i, d in enumerate(dirs):
-        lib = out_dir / f"libflash_attention_{i}.so"
-        procs.append((subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-             f"{d}/flash_attention.cu"], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib))
-    libs = []
-    for proc, lib in procs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"flash_ab: nvcc failed:\n{out}")
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in po._SIGNATURES.items():
-            getattr(cdll, fn).argtypes = list(argtypes)
-            getattr(cdll, fn).restype = ctypes.c_int
-        cdll.ptt_error_string.argtypes = [ctypes.c_int]
-        cdll.ptt_error_string.restype = ctypes.c_char_p
-        libs.append(cdll)
-    timer = Timer()
-    cases = _flash_ab_cases(torch.Generator(device=DEVICE).manual_seed(0))
-    times = {name: ([], []) for name, _ in cases}
-    load = _build.load
-    try:
-        for which in (0, 1, 1, 0) * rounds:
-            _build.load = lambda name, sigs, lib=libs[which]: lib
-            for name, fn in cases:
-                times[name][which].append(timer(fn))
-    finally:
-        _build.load = load
-    log(f"[ab] a = {dirs[0]}, b = {dirs[1]} | {smi}")
-    for name, (ta, tb) in times.items():
-        log(f"[ab] {name}: a {statistics.median(ta):.4f} ms "
-            f"{[round(t, 4) for t in ta]}, b {statistics.median(tb):.4f} ms "
-            f"{[round(t, 4) for t in tb]}")
-    return times
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
               "and has no CPU mode", file=sys.stderr)
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
-    if sys.argv[1:2] == ["--ab-flash"]:
-        flash_ab(sys.argv[2:4], phase_card())
-        return 0
     t_start = time.perf_counter()
     smi = phase_card()
     phase_build()
