@@ -42,13 +42,22 @@ line is printed:
              ``block_q``/``block_k`` for the dropout hash's layout (and
              D 320); flash at head sizes past 256 (320 and 512, padded
              to multiples of 128), bf16 and f32, causal and not;
+             flash past 65535 (b, h) slices (4097 x 64 tokens x 16 heads,
+             D 64 and 32 bf16, D 64 f32) and packed past 65535 heads, at
+             both dropouts;
              LayerNorm at widths past its register path (2048 over the
              gpt_1p3b step's 4096 rows, 5120 with a residual, 1003: not a
-             multiple of 8), bf16 and f32;
+             multiple of 8; the one-pass backward, its dw and db the same
+             bits over two runs, timed beside ``native_layer_norm_backward``
+             and the bound; 12288 and 16001 with a residual, rows too wide
+             for its stages), bf16 and f32;
              w8a16: each row at M in {1, 2, 5, 16, 17, 64, 512} the
              same bits as alone, two calls the same bits, and M = 1 and
              512 the bits of ``w8a16_split_reference`` (the plain model of
-             the kernel's sum order);
+             the kernel's sum order), at (K, N) = (1024, 4096), (4096,
+             1024) and (48, 1000) (K off a multiple of 32, N off 16); K =
+             48, N = 1000 at M 16 and 512, f32 and bf16 x, and at M =
+             65535 * 64 + 1;
              LayerNorm without weight and bias; the fusion pass's block
              kernels at the shapes of its paths (LayerNorm + matmul at
              gpt_345m's (8192, 1024) @ (1024, 3072) and BERT's tied
@@ -60,7 +69,11 @@ line is printed:
              (2048, 8192), tanh; timed), LayerNorm + matmul also at K =
              2048 and 5120, with a transposed W at a ragged N (1000), and
              at K = 1003 and 2050, matmul + bias + gelu at K = 1003 (both
-             zero-padded to a multiple of 8 by the wrapper): max abs
+             zero-padded to a multiple of 8 by the wrapper); both at output
+             widths off a multiple of 16 bytes (BERT's unpadded vocabulary
+             30522 through the tied decoder's transposed view and through
+             a Linear weight, 4090, 3070) and at 2,097,121 rows, bf16 and
+             f32: max abs
              error against the
              stated tolerance, times with CUDA events (median of 30 after
              warm-up, L2 flushed before each launch), and the least time
@@ -127,8 +140,11 @@ line is printed:
              weights at dropout 0 (where the attention clusters are
              rewritten too); then the same step with the pass on and off
              in turns, timed; then bert_base at 32 x 128 with the pass
-             on, 8 steps, its rewrites and launches per step; last
-             gpt_1p3b at full width (hidden 2048, 16 heads of 128), 2
+             on, 8 steps, its rewrites and launches per step; then
+             bert_base with the unpadded uncased vocabulary (30522) at 32 x
+             128, dropout 0, 2 steps with the pass on (the tied decoder at
+             N = 30522 through the LayerNorm + matmul kernel) against 2
+             with it off; last gpt_1p3b at full width (hidden 2048, 16 heads of 128), 2
              layers, batch 4 x 1024, O2 bf16, no recompute: one forward
              and backward in which each call of rows 7-8 and 11-12 is
              held against its plain version on the same inputs (phase 3's
@@ -208,6 +224,16 @@ WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = 2, 4, 2
 WIDE_TOL = 1e-2
 # w8a16: row r of a launch of M rows has the bits of row r launched alone
 W8A16_BITS_M = (1, 2, 5, 16, 17, 64, 512)
+# shapes the card once refused: w8a16 at K off a multiple of 32 and N off a
+# multiple of 16, and past 65535 of the prefill route's 64-row blocks
+W8A16_ODD_K, W8A16_ODD_N, W8A16_MANY_ROWS = 48, 1000, 65535 * 64 + 1
+# the block kernels past 65535 of the f32 kernels' 32-row blocks
+BLOCK_MANY_ROWS = 65535 * 32 + 1
+# flash past 65535 slices: 4097 x 16 = 65552 (b, h) slices of 64 tokens;
+# packed, 65540 heads
+FLASH_MANY_SLICES, PACKED_MANY_HEADS = (4097, 64, 16), 65540
+# BERT's unpadded uncased vocabulary (incubate/models/bert.py names it)
+BERT_UNPADDED_VOCAB, BERT_VOCAB_STEPS = 30522, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8        # phase-1 pretraining
@@ -279,9 +305,9 @@ BLOCK_KERNELS = ("ln_matmul", "matmul_bias_gelu")
 # the profiles report it in; a profile finds a kernel by its name in the
 # profiler's key, so a kernel missing here drops out of those shares
 PROFILE_KERNELS = {
-    "LayerNorm": ("ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel",
-                  "ln_fwd_any_kernel", "ln_bwd_dx_any_kernel",
-                  "ln_bwd_cols_any_kernel"),
+    "LayerNorm forward": ("ln_fwd_kernel", "ln_fwd_any_kernel"),
+    "LayerNorm backward": ("ln_bwd_kernel", "ln_bwd_reduce_kernel",
+                           "ln_bwd_one_pass_kernel"),
     "flash forward": ("flash_fwd_kernel", "flash_fwd_wg_kernel",
                       "flash_fwd_wide_kernel"),
     "flash backward": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -464,6 +490,24 @@ def phase_kernels(timer):
                                  TOL["bf16"]))
     for kk, nn in layer[3:]:  # the serve engine's contract, f32 x
         rows.append(_w8a16_rows_alone(gen, kk, nn))
+    # any K and N: a hidden size off a multiple of 32 (48, which the wrapper
+    # pads to 64 columns of x) and an output width off a multiple of 16
+    # (1000, the weight read by plain loads), at decode and prefill, f32 and
+    # bf16 x, with the rows-alone contract and the split model's bits; and
+    # past 65535 row blocks of the prefill route (M = 65535 * 64 + 1)
+    for m, x_dtype, tag in ((16, torch.float32, "f32"),
+                            (512, torch.float32, "f32"),
+                            (16, torch.bfloat16, "bf16")):
+        ops = [_w8a16_operands(gen, m, W8A16_ODD_K, W8A16_ODD_N, x_dtype)]
+        rows.append(_w8a16_entry(timer, ops, f"{tag} x, M={m} K={W8A16_ODD_K}"
+                                 f" N={W8A16_ODD_N}", TOL[tag]))
+    rows.append(_w8a16_rows_alone(gen, W8A16_ODD_K, W8A16_ODD_N))
+    ops = [_w8a16_operands(gen, W8A16_MANY_ROWS, W8A16_ODD_K, 40,
+                           torch.float32)]
+    rows.append(_w8a16_entry(timer, ops, f"f32 x, M={W8A16_MANY_ROWS} "
+                             f"K={W8A16_ODD_K} N=40", TOL["f32"]))
+    del ops
+    torch.cuda.empty_cache()
 
     # the training step's LayerNorm: batch 16 x seq 1024 rows of hidden
     # 1024, bf16 under O2 (the main path) and f32
@@ -487,11 +531,14 @@ def phase_kernels(timer):
 
     # widths past the register path (GPT-1.3B's 2048 at its step's 4 x
     # 1024 rows, GPT-13B's 5120 with a residual) and a d that is not a
-    # multiple of 8
+    # multiple of 8: the one-pass backward; then rows too wide for its two
+    # stages beside the column sums (read in place twice), 16-byte rows and
+    # not, with a residual
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for rows, d, residual in ((WIDE_BATCH * TRAIN_SEQ, 2048, False),
                                   (2048, 5120, True), (2048, 1003, True),
-                                  (2048, 1003, False)):
+                                  (2048, 1003, False), (300, 12288, True),
+                                  (100, 16001, True)):
             fwd, bwd = _layer_norm_entries(timer, gen, tag, dtype, rows, d,
                                            1e-5, residual=residual)
             results["layer_norm_fwd"].append(fwd)
@@ -563,12 +610,26 @@ def phase_kernels(timer):
         for name, row in _flash_entries(timer, gen, tag, (2, 200, 2, d),
                                         causal, False, dropout=p).items():
             results[name].append(row)
+    # past 65535 slices (the mma.sync kernels' old gridDim.y): 65552 (b, h)
+    # slices, bf16 at D 64 (the wgmma kernels) and D 32 (mma.sync), f32 at
+    # D 64 (mma.sync), causal, at both dropouts
+    for tag, d, p in itertools.product(("bf16", "f32"), (64, 32),
+                                       FLASH_DROPOUTS):
+        if tag == "f32" and d == 32:
+            continue
+        for name, row in _flash_entries(timer, gen, tag,
+                                        (*FLASH_MANY_SLICES, d), True, False,
+                                        dropout=p).items():
+            results[name].append(row)
+        torch.cuda.empty_cache()
     _flash_variant_rows(timer, gen, results)
     _packed_rows(timer, gen, results)
 
     # LayerNorm without weight and bias (the fusion pass's matches reach it)
     for tag, dtype, rows, d in (("bf16", torch.bfloat16, 4096, 768),
-                                ("f32", torch.float32, 1000, 96)):
+                                ("f32", torch.float32, 1000, 96),
+                                ("bf16", torch.bfloat16, 2048, 1003),
+                                ("f32", torch.float32, 300, 2048)):
         fwd, bwd = _layer_norm_no_affine(gen, tag, dtype, rows, d, 1e-12)
         results["layer_norm_fwd"].append(fwd)
         results["layer_norm_bwd"].append(bwd)
@@ -605,6 +666,17 @@ def phase_kernels(timer):
                  (tag, 300, 1003, 520, dict(residual=True)),
                  (tag, 37, 1003, 1000, dict(strided=True, ln_affine=False)),
                  (tag, 300, 2050, 520, dict(residual=True, bias=False))]
+    # output widths off a multiple of 16 bytes: BERT's unpadded vocabulary
+    # through the tied decoder's transposed view (read in place) and through
+    # a Linear weight (a zero-padded copy), FFN widths 4090 and 3070; and
+    # past 65535 of the f32 kernels' 32-row blocks
+    for tag in ("bf16", "f32"):
+        lnmm += [(tag, 300, 768, BERT_UNPADDED_VOCAB,
+                  dict(strided=True, eps=1e-12)),
+                 (tag, 300, 768, BERT_UNPADDED_VOCAB, dict(residual=True)),
+                 (tag, 300, 2048, 4090, dict(residual=True, bias=False)),
+                 (tag, 37, 1003, 3070, dict(strided=True)),
+                 (tag, BLOCK_MANY_ROWS, 16, 20, dict())]
     for tag, rows, k, n, kw in lnmm:
         results.setdefault("ln_matmul", []).append(
             _ln_matmul_entry(timer, gen, tag, rows, k, n, **kw))
@@ -626,6 +698,15 @@ def phase_kernels(timer):
            # K not a multiple of 8 (zero-padded by the wrapper)
            ("bf16", 300, 1003, 520, dict(approximate=True)),
            ("f32", 37, 1003, 1000, dict(approximate=False, strided=True))]
+    # output widths off a multiple of 16 bytes (y and z returned as views of
+    # rows 16 bytes apart), and past 65535 of the f32 kernel's row blocks
+    for tag in ("bf16", "f32"):
+        mbg += [(tag, 300, 768, BERT_UNPADDED_VOCAB,
+                 dict(approximate=False)),
+                (tag, 300, 1024, 4090, dict(approximate=True)),
+                (tag, 300, 1024, 3070, dict(approximate=True, strided=True,
+                                            bias=False)),
+                (tag, BLOCK_MANY_ROWS, 16, 20, dict(approximate=True))]
     for tag, rows, k, n, kw in mbg:
         results.setdefault("matmul_bias_gelu", []).append(
             _mbg_entry(timer, gen, tag, rows, k, n, **kw))
@@ -1040,6 +1121,9 @@ def _packed_rows(timer, gen, results):
                   p, (None, None), False),
                  (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 320, True,
                   p, (None, None), False)]
+    # more than 65535 heads (the mma.sync kernels' old gridDim.y)
+    sets += [("bf16", [40, 0, 24], [40, 0, 24], PACKED_MANY_HEADS, 64, True,
+              p, (None, None), False) for p in FLASH_DROPOUTS]
     for tag, lq, lk, h, d, causal, p, blocks, timed in sets:
         for name, row in _packed_entries(timer, gen, tag, lq, lk, h, d,
                                          causal, p, blocks, timed).items():
@@ -2213,6 +2297,7 @@ def phase_fusion(smi):
     _fused_gpt_on_vs_off()
     _fused_gpt_ab(smi)
     bert = _fused_bert_run(smi)
+    _fused_bert_unpadded_vocab()
     wide = _fused_gpt_wide(smi)
     return gpt, bert, wide
 
@@ -2642,6 +2727,11 @@ def _fused_gpt_wide(smi):
                 rewrites = _check_rewrites("gpt_1p3b fused", {
                     "ln_matmul": WIDE_LAYERS, "matmul_bias_gelu": WIDE_LAYERS,
                     "layer_norm": WIDE_LAYERS, "residual_ln": 1})
+                # where its time goes: the LayerNorm backward's share above
+                # all, every call of it on the one-pass kernel
+                _profile_train_step(step, ids, labels,
+                                    statistics.median(times), smi,
+                                    "gpt_1p3b fused")
             del step
             torch.cuda.empty_cache()
     finally:
@@ -2750,6 +2840,50 @@ def _fused_bert_run(smi):
     del step
     torch.cuda.empty_cache()
     return launches
+
+
+def _fused_bert_unpadded_vocab():
+    """bert_base with its unpadded uncased vocabulary (30522, an output
+    width off a multiple of 16 bytes for the tied decoder), 32 x 128, O2
+    bf16, AdamW, dropout 0: ``BERT_VOCAB_STEPS`` steps with the fusion
+    pass on (the MLM LayerNorm and the decoder through the LayerNorm +
+    matmul kernel at N = 30522, the table read in place) against as many
+    with it off, from the same weights; the relative loss difference
+    within ``FUSION_TOL``, and the block kernels launched only with the
+    pass on."""
+    from paddle_tpu_torch.incubate.models import bert_base
+    from paddle_tpu_torch.ops import fusion_pass as fp
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        make_bert_batch)
+    cfg = bert_base(vocab_size=BERT_UNPADDED_VOCAB, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    inputs, targets = make_bert_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0,
+                                      device=DEVICE)
+    traj, launches = {}, {}
+    for fusion in (True, False):
+        fp.reset_stats()
+        step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0,
+                                        fusion=fusion)
+        traj[fusion], _, launches[fusion], _ = _run_steps(
+            step, inputs, targets, BERT_VOCAB_STEPS)
+        del step
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) / abs(b) for a, b in zip(traj[True], traj[False]))
+    blocks = {n: (launches[True][n], launches[False][n])
+              for n in BLOCK_KERNELS}
+    want = {"ln_matmul": BERT_VOCAB_STEPS,
+            "matmul_bias_gelu": BERT_VOCAB_STEPS * (cfg.num_layers + 1)}
+    log(f"[fusion] bert_base vocab {cfg.vocab_size} batch {BERT_BATCH} x seq "
+        f"{BERT_SEQ}, O2 bf16, dropout 0, {BERT_VOCAB_STEPS}-step loss with "
+        f"the pass on {traj[True]} vs off {traj[False]}: max relative diff "
+        f"{err:.3e} (tol {FUSION_TOL:.0e}); launches on / off {blocks}")
+    if not (all(math.isfinite(v) for v in traj[True]) and err <= FUSION_TOL):
+        raise AssertionError(f"bert_base vocab {cfg.vocab_size}: the pass on "
+                             f"and off differ by {err}")
+    if any(launches[False][n] for n in BLOCK_KERNELS) or any(
+            launches[True][n] != c for n, c in want.items()):
+        raise AssertionError(f"bert_base vocab {cfg.vocab_size}: launches "
+                             f"{blocks}, want {want} with the pass on")
 
 
 def main() -> int:

@@ -4,15 +4,21 @@
 // Replaces the Pallas kernels `_lnmm_fwd_kernel` and `_mbg_fwd_kernel`
 // (paddle_tpu/ops/fused_kernels.py, launched at the pallas_call sites in
 // `_lnmm_pallas_fwd` and `_mbg_pallas_fwd`).  x is (M, K) row-major; W is
-// (K, N) with any strides, one of them 1: a Linear weight is read with n
-// contiguous, and the transposed view of a (N, K) embedding table (BERT's
-// tied decoder) with k contiguous, in place.  x, r, the LayerNorm's w and
-// b, W, the bias and the outputs are all f32 or all bf16.  K is a multiple
-// of 8; both take any width all the same, since their wrappers zero-pad x
-// (and r, w and b) by columns and W by rows up to the next multiple, and
-// ln_matmul passes the true width KD, by which the statistics divide: the
-// zeros add nothing to the row sums, and W's zero rows nothing to the
-// products.
+// (K, N) with any strides, one of them 1 and the other a multiple of 16
+// bytes: a Linear weight is read with n contiguous, and the transposed view
+// of a (N, K) embedding table (BERT's tied decoder) with k contiguous, in
+// place.  x, r, the LayerNorm's w and b, W, the bias and the outputs are
+// all f32 or all bf16.  K is a multiple of 8; both take any width all the
+// same, since their wrappers zero-pad x (and r, w and b) by columns and W
+// by rows up to the next multiple, and ln_matmul passes the true width KD,
+// by which the statistics divide: the zeros add nothing to the row sums,
+// and W's zero rows nothing to the products.  N is any width: W's loads
+// read zeros past N (TMA's fill, or cp.async's), and the stores stop at N.
+// The outputs' rows are `ldy` elements apart (N, or the wrapper's padded
+// width, which the TMA store of mm_gelu needs: 16-byte aligned rows); an
+// odd ldy takes one store per element.  M is any count below 2^31: the
+// f32 kernels fold the row blocks into gridDim.x, the bf16 ones are
+// persistent.
 //
 //   ln_matmul   s = x (+ r) in f32; mean, var = max(E[s^2] - mean^2, 0),
 //               rstd = rsqrt(var + eps) (one pass, f32, as the LayerNorm
@@ -127,6 +133,7 @@ struct Args {
   int tiles;          // ln_matmul: column tiles per block
   int KD;             // ln_matmul: the LayerNorm's width (K less its zero
                       // padding), the divisor of the row statistics
+  long long ldy;      // the row stride of y (and z), in elements, >= N
 };
 
 // a tile shape: BM x BN outputs per tile, BK-deep k tiles, ST cp.async
@@ -158,11 +165,13 @@ using MmF32 = Cfg<float, 64, 128, 32, 32, 32, 4, WT>;
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
+// 16 bytes to dst, of which the first `bytes` (0 to 16) come from src and
+// the rest are zero
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
+                                           int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
+               "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -173,6 +182,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // the (BK, BN) tile of W at (k0, n0); what lies past K or N becomes zero
+// (a copy that straddles N reads only the columns below it)
 template <class C>
 __device__ __forceinline__ void load_w(typename C::T* dst, const Args& a,
                                        int k0, int n0) {
@@ -182,9 +192,10 @@ __device__ __forceinline__ void load_w(typename C::T* dst, const Args& a,
     constexpr int per_row = C::BN / C::V;
     for (int i = threadIdx.x; i < C::BK * per_row; i += C::kThreads) {
       const int kr = i / per_row, c = (i % per_row) * C::V;
-      const bool in = k0 + kr < a.K && n0 + c < a.N;
+      const int cols = k0 + kr < a.K ? min(C::V, a.N - n0 - c) : 0;
       cp_async16(dst + kr * C::LDW + c,
-                 in ? w + (k0 + kr) * a.sw_k + (n0 + c) : w, in);
+                 cols > 0 ? w + (k0 + kr) * a.sw_k + (n0 + c) : w,
+                 cols > 0 ? cols * static_cast<int>(sizeof(T)) : 0);
     }
   } else {
     constexpr int per_row = C::BK / C::V;
@@ -192,7 +203,7 @@ __device__ __forceinline__ void load_w(typename C::T* dst, const Args& a,
       const int nr = i / per_row, c = (i % per_row) * C::V;
       const bool in = n0 + nr < a.N && k0 + c < a.K;
       cp_async16(dst + nr * C::LDW + c,
-                 in ? w + (n0 + nr) * a.sw_n + (k0 + c) : w, in);
+                 in ? w + (n0 + nr) * a.sw_n + (k0 + c) : w, in ? 16 : 0);
     }
   }
 }
@@ -209,7 +220,7 @@ __device__ __forceinline__ void load_x(typename C::T* dst, const Args& a,
     const bool in = m0 + mr < a.M && k0 + c < a.K;
     cp_async16(dst + mr * C::LDA + c,
                in ? x + static_cast<long long>(m0 + mr) * a.K + k0 + c : x,
-               in);
+               in ? 16 : 0);
   }
 }
 
@@ -252,11 +263,41 @@ __device__ __forceinline__ void tile_product(float (&acc)[C::MT][C::NT][4],
 // the epilogue
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+
+// columns col and col + 1 (col even, below N) of row m of an output with
+// rows ld elements apart: one paired store when ld is even (col + 1 is then
+// below N or in the row's padding), else one store each, below N
+template <typename T>
+__device__ __forceinline__ void store_cols(T* out, long long ld, int N, int m,
+                                           int col, float a, float b) {
+  T* p = out + static_cast<long long>(m) * ld + col;
+  if ((ld & 1) == 0) {
+    store2(p, a, b);
+  } else {
+    store1(p, a);
+    if (col + 1 < N) store1(p + 1, b);
+  }
+}
+
+// bias[col] and bias[col + 1], 0 past N or without a bias
+template <typename T>
+__device__ __forceinline__ void bias2(const T* bias, int N, int col,
+                                      float& b0, float& b1) {
+  b0 = bias && col < N ? to_f32(bias[col]) : 0.f;
+  b1 = bias && col + 1 < N ? to_f32(bias[col + 1]) : 0.f;
 }
 
 // the tanh form as z * sigmoid(2 u) = z / (1 + 2^(-2 u log2 e)), u the
@@ -304,9 +345,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[C::MT][C::NT][4],
 #pragma unroll
   for (int j = 0; j < C::NT; ++j) {
     const int col = col0 + j * 8 + 2 * t;
-    if (col >= a.N) continue;   // N is even: col + 1 < N too
-    const float b0 = bias ? to_f32(bias[col]) : 0.f;
-    const float b1 = bias ? to_f32(bias[col + 1]) : 0.f;
+    if (col >= a.N) continue;
+    float b0, b1;
+    bias2(bias, a.N, col, b0, b1);
 #pragma unroll
     for (int i = 0; i < C::MT; ++i)
 #pragma unroll
@@ -315,12 +356,12 @@ __device__ __forceinline__ void epilogue(const float (&acc)[C::MT][C::NT][4],
         if (row >= a.M) continue;
         const float v0 = acc[i][j][2 * half] + b0;
         const float v1 = acc[i][j][2 * half + 1] + b1;
-        const long long at = static_cast<long long>(row) * a.N + col;
         if (GELU) {
-          store2(y + at, gelu(v0, a.approximate), gelu(v1, a.approximate));
-          store2(z + at, v0, v1);
+          store_cols(y, a.ldy, a.N, row, col, gelu(v0, a.approximate),
+                     gelu(v1, a.approximate));
+          store_cols(z, a.ldy, a.N, row, col, v0, v1);
         } else {
-          store2(y + at, v0, v1);
+          store_cols(y, a.ldy, a.N, row, col, v0, v1);
         }
       }
   }
@@ -535,9 +576,12 @@ __global__ void __launch_bounds__(C::kThreads) ln_matmul_kernel(const Args a) {
   T* sW = reinterpret_cast<T*>(smem);   // ST stages of W
   T* sH = sW + ST * C::W_TILE;          // h, or ST stages of its k tiles
   float* sStat = reinterpret_cast<float*>(sH + ST * C::A_TILE);
-  const int m0 = blockIdx.y * C::BM;
-  const int first = blockIdx.x * a.tiles;
-  const int last = min(first + a.tiles, (a.N + C::BN - 1) / C::BN);
+  // blockIdx.x = row block * runs + run: the runs of a row block side by side
+  const int ntiles = (a.N + C::BN - 1) / C::BN;
+  const int nruns = (ntiles + a.tiles - 1) / a.tiles;
+  const int m0 = static_cast<int>(blockIdx.x / nruns) * C::BM;
+  const int first = static_cast<int>(blockIdx.x % nruns) * a.tiles;
+  const int last = min(first + a.tiles, ntiles);
   if (first >= last) return;
   const int warp = threadIdx.x >> 5, wm = warp / C::WN, wn = warp % C::WN;
 
@@ -593,7 +637,10 @@ __global__ void __launch_bounds__(C::kThreads) mm_gelu_kernel(const Args a) {
   const int kt = (a.K + C::BK - 1) / C::BK;
   T* sW = reinterpret_cast<T*>(smem);   // ST stages of W
   T* sA = sW + ST * C::W_TILE;          // ST stages of x
-  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
+  // blockIdx.x = row block * column tiles + column tile
+  const int ntiles = (a.N + C::BN - 1) / C::BN;
+  const int n0 = static_cast<int>(blockIdx.x % ntiles) * C::BN;
+  const int m0 = static_cast<int>(blockIdx.x / ntiles) * C::BM;
   const int warp = threadIdx.x >> 5, wm = warp / C::WN, wn = warp % C::WN;
 
   auto load = [&](int t) {
@@ -662,7 +709,10 @@ cudaError_t ln_matmul(Args a, cudaStream_t s) {
   const int row_blocks = (a.M + C::BM - 1) / C::BM;
   const int ntiles = (a.N + C::BN - 1) / C::BN;
   a.tiles = run_tiles(row_blocks, ntiles, sms);
-  const dim3 grid((ntiles + a.tiles - 1) / a.tiles, row_blocks);
+  const long long blocks =
+      static_cast<long long>((ntiles + a.tiles - 1) / a.tiles) * row_blocks;
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
   return stream ? launch(ln_matmul_kernel<C, true>, grid, C::kThreads, smem,
                          a, s)
                 : launch(ln_matmul_kernel<C, false>, grid, C::kThreads, smem,
@@ -1007,17 +1057,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j8 = 0; j8 < BN / 16; ++j8) {
           const int col = n0 + j8 * 8 + cq;
-          if (col >= a.N) continue;   // N is even: col + 1 < N too
-          const float b0 = bias ? __bfloat162float(bias[col]) : 0.f;
-          const float b1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
+          if (col >= a.N) continue;
+          float b0, b1;
+          bias2(bias, a.N, col, b0, b1);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int m = m0 + row + 8 * half;
             if (m >= a.M) continue;
-            *reinterpret_cast<__nv_bfloat162*>(
-                y + static_cast<long long>(m) * a.N + col) =
-                __floats2bfloat162_rn(acc[j8 * 4 + 2 * half] + b0,
-                                      acc[j8 * 4 + 2 * half + 1] + b1);
+            store_cols(y, a.ldy, a.N, m, col, acc[j8 * 4 + 2 * half] + b0,
+                       acc[j8 * 4 + 2 * half + 1] + b1);
           }
         }
       }
@@ -1150,17 +1198,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j8 = 0; j8 < BN / 8; ++j8) {
         const int cn = n0 + j8 * 8 + cq;
-        if (cn >= a.N) continue;   // N is even: cn + 1 < N too
-        const float b0 = bias ? __bfloat162float(bias[cn]) : 0.f;
-        const float b1 = bias ? __bfloat162float(bias[cn + 1]) : 0.f;
+        if (cn >= a.N) continue;
+        float b0, b1;
+        bias2(bias, a.N, cn, b0, b1);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int m = m0 + row + 8 * half;
           if (m >= a.M) continue;
-          *reinterpret_cast<__nv_bfloat162*>(
-              y + static_cast<long long>(m) * a.N + cn) =
-              __floats2bfloat162_rn(acc[j8 * 4 + 2 * half] + b0,
-                                    acc[j8 * 4 + 2 * half + 1] + b1);
+          store_cols(y, a.ldy, a.N, m, cn, acc[j8 * 4 + 2 * half] + b0,
+                     acc[j8 * 4 + 2 * half + 1] + b1);
         }
       }
     }
@@ -1300,10 +1346,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // bias goes out first; gelu is taken while TMA reads z's buffer.
 #pragma unroll
     for (int j8 = 0; j8 < TBN / 8; ++j8) {
-      const int col = n0 + j8 * 8 + cq;   // N is even: col + 1 < N too
-      const float b0 = bias && col < a.N ? __bfloat162float(bias[col]) : 0.f;
-      const float b1 = bias && col < a.N ? __bfloat162float(bias[col + 1])
-                                         : 0.f;
+      const int col = n0 + j8 * 8 + cq;
+      float b0, b1;
+      bias2(bias, a.N, col, b0, b1);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1405,9 +1450,9 @@ cudaError_t launch_mbg(Args a, cudaStream_t stream) {
   cudaError_t e = tensor_map(&xmap, a.x, a.K, a.M, a.K, BK, kStreamBM);
   if (e == cudaSuccess) e = w_map<WT>(&wmap, a, kMbgBN);
   if (e == cudaSuccess)
-    e = tensor_map(&ymap, a.y, a.N, a.M, a.N, 64, kStreamBM);
+    e = tensor_map(&ymap, a.y, a.N, a.M, a.ldy, 64, kStreamBM);
   if (e == cudaSuccess)
-    e = tensor_map(&zmap, a.z, a.N, a.M, a.N, 64, kStreamBM);
+    e = tensor_map(&zmap, a.z, a.N, a.M, a.ldy, 64, kStreamBM);
   if (e != cudaSuccess) return e;
   const int sms = sm_count(&e);
   if (e != cudaSuccess) return e;
@@ -1441,23 +1486,31 @@ template <class C>
 cudaError_t mm_gelu(const Args& a, cudaStream_t s) {
   const size_t smem =
       C::ST * (C::W_TILE + C::A_TILE) * sizeof(typename C::T);
-  const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM);
-  return launch(mm_gelu_kernel<C>, grid, C::kThreads, smem, a, s);
+  const long long blocks = static_cast<long long>((a.N + C::BN - 1) / C::BN) *
+                           ((a.M + C::BM - 1) / C::BM);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  return launch(mm_gelu_kernel<C>, dim3(static_cast<unsigned>(blocks)),
+                C::kThreads, smem, a, s);
 }
 
-bool valid(const Args& a, int dtype) {
+// K a multiple of 8; W with unit stride along n or k and its other stride a
+// multiple of 16 bytes (TMA's and cp.async's row alignment); ldy >= N, a
+// multiple of 16 bytes where the TMA store writes the outputs
+bool valid(const Args& a, int dtype, bool tma_out) {
   const int v = dtype == 0 ? 4 : 8;
-  return a.M > 0 && a.K > 0 && a.N > 0 && a.K % v == 0 && a.N % v == 0 &&
-         (a.sw_n == 1 || a.sw_k == 1) && (dtype == 0 || dtype == 1) &&
-         (a.M + 31) / 32 <= 65535;
+  return a.M > 0 && a.K > 0 && a.N > 0 && a.K % 8 == 0 &&
+         ((a.sw_n == 1 && a.sw_k % v == 0) ||
+          (a.sw_k == 1 && a.sw_n % v == 0)) &&
+         (dtype == 0 || dtype == 1) && a.ldy >= a.N &&
+         (!tma_out || a.ldy % v == 0);
 }
 
 }  // namespace
 
 // x (M, K) and r (or null) row-major; lw, lb (K,) or null; W (K, N) with
 // strides (sw_k, sw_n), one of them 1, the other a multiple of 16 bytes;
-// bias (N,) or null; y (M, N) row-major; all 16-byte aligned.  K a
-// multiple of 8 and N of 16 bytes.  KD: the LayerNorm's true width, K less
+// bias (N,) or null; y (M, N) row-major, contiguous; all 16-byte aligned.
+// K a multiple of 8, N any width.  KD: the LayerNorm's true width, K less
 // at most 7 zero columns of x, r, lw and lb (and zero rows of W) that the
 // caller padded; the statistics divide by KD.  dtype: 0 = float32, 1 =
 // bfloat16, for every tensor.
@@ -1467,8 +1520,8 @@ extern "C" int ptt_ln_matmul(const void* x, const void* r, const void* lw,
                              long long sw_k, long long sw_n, float eps,
                              int dtype, void* stats, void* stream) {
   Args a = {x, r, lw, lb, w, bias, y, nullptr, sw_k, sw_n, M, K, N, eps, 0,
-            0, KD};
-  if (!valid(a, dtype) || K % VEC != 0 || KD <= K - VEC || KD > K)
+            0, KD, N};
+  if (!valid(a, dtype, false) || KD <= K - VEC || KD > K)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wt = sw_k == 1 && sw_n != 1;
@@ -1481,15 +1534,18 @@ extern "C" int ptt_ln_matmul(const void* x, const void* r, const void* lw,
 }
 
 // x (M, K) row-major; W and bias as above; y = gelu(z) and z (M, N)
-// row-major; approximate: 1 the tanh form, 0 the erf form.
+// row-major, their rows ldy elements apart (ldy >= N; bf16: a multiple of
+// 8, for the TMA store); approximate: 1 the tanh form, 0 the erf form.
 extern "C" int ptt_matmul_bias_gelu(const void* x, const void* w,
                                     const void* bias, void* y, void* z, int M,
                                     int K, int N, long long sw_k,
-                                    long long sw_n, int approximate,
-                                    int dtype, void* stream) {
+                                    long long sw_n, long long ldy,
+                                    int approximate, int dtype,
+                                    void* stream) {
   Args a = {x, nullptr, nullptr, nullptr, w, bias, y, z, sw_k, sw_n, M, K, N,
-            0.f, approximate, 0, K};
-  if (!valid(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+            0.f, approximate, 0, K, ldy};
+  if (!valid(a, dtype, dtype == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wt = sw_k == 1 && sw_n != 1;
   cudaError_t e;

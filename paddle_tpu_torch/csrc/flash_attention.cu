@@ -183,6 +183,8 @@ struct Args {
   const int32_t* hstart;  // packed: hash bases start_q (B), start_k (B)
   const int32_t* tiles;   // packed: (sequence, first own row) per block
   int ntiles;
+  int ntx;     // mma.sync kernels: blocks per slice (row tiles, or ntiles);
+               // blockIdx.x = slice * ntx + the block's tile
   long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
   int B, H, Sq, Sk;    // packed: B sequences, Sq and Sk the totals
   float scale;
@@ -240,13 +242,18 @@ __device__ __forceinline__ Slice fixed_slice(const Args& a, int hb, int r0) {
   return v;
 }
 
+// the mma.sync kernels' block: slice blockIdx.x / ntx (b * H + h, or the
+// packed head h), tile blockIdx.x % ntx.  One grid axis holds both, so the
+// slices are not bounded by gridDim.y's 65535; the hash reads the slice
+// and the rows, not the block, so its bits do not depend on the grid.
 __device__ __forceinline__ Slice slice_of(const Args& a) {
-  if (a.tiles == nullptr)
-    return fixed_slice(a, blockIdx.y, blockIdx.x * kRows);
+  const int sl = static_cast<int>(blockIdx.x / a.ntx);
+  const int tx = static_cast<int>(blockIdx.x % a.ntx);
+  if (a.tiles == nullptr) return fixed_slice(a, sl, tx * kRows);
   Slice v;
-  const int s = a.tiles[2 * blockIdx.x];
-  v.r0 = a.tiles[2 * blockIdx.x + 1];
-  v.h = blockIdx.y;
+  const int s = a.tiles[2 * tx];
+  v.r0 = a.tiles[2 * tx + 1];
+  v.h = sl;
   const int q0 = a.cu_q[s], k0 = a.cu_k[s];
   v.sq = a.cu_q[s + 1] - q0;
   v.sk = a.cu_k[s + 1] - k0;
@@ -1584,7 +1591,10 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const int units = a.B * a.H * (((a.Sq + kBM - 1) / kBM + 1) / 2);
+  const long long nunits = static_cast<long long>(a.B) * a.H *
+                           (((a.Sq + kBM - 1) / kBM + 1) / 2);
+  if (nunits >= (1ll << 31)) return cudaErrorInvalidValue;
+  const int units = static_cast<int>(nunits);
   const size_t smem = 1024 + Layout<D>::kBytes;
   auto kern = a.dropout ? flash_fwd_wg_kernel<D, true>
                         : flash_fwd_wg_kernel<D, false>;
@@ -2184,7 +2194,10 @@ cudaError_t launch_bwd(bool dkv, const Args& a, cudaStream_t stream) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const int tiles = ((dkv ? a.Sk : a.Sq) + kBM - 1) / kBM;
-  const int units = a.B * a.H * ((tiles + 1) / 2);
+  const long long nunits =
+      static_cast<long long>(a.B) * a.H * ((tiles + 1) / 2);
+  if (nunits >= (1ll << 31)) return cudaErrorInvalidValue;
+  const int units = static_cast<int>(nunits);
   const size_t smem =
       1024 + (dkv ? DkvLayout<D>::kBytes : DqLayout<D>::kBytes);
   auto kern = dkv ? (a.dropout ? flash_bwd_dkv_wg_kernel<D, true>
@@ -2205,6 +2218,16 @@ cudaError_t launch_bwd(bool dkv, const Args& a, cudaStream_t stream) {
 // launches
 // ---------------------------------------------------------------------------
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// the mma.sync kernels' grid: x = slices * ntx (each slice's row tiles, or
+// the packed tile table, side by side), z the output column blocks
+cudaError_t slice_grid(const Args& a, int zblocks, dim3* grid) {
+  const long long blocks = static_cast<long long>(a.ntx) *
+                           (a.tiles != nullptr ? a.H : a.B * a.H);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  *grid = dim3(static_cast<unsigned>(blocks), 1, zblocks);
+  return cudaSuccess;
+}
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
@@ -2235,10 +2258,9 @@ cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int rows = which == kDkv ? a.Sk : a.Sq;
-  const bool packed = a.tiles != nullptr;
-  const dim3 grid(packed ? a.ntiles : (rows + kRows - 1) / kRows,
-                  packed ? a.H : a.B * a.H, D / DO);
+  dim3 grid;
+  e = slice_grid(a, D / DO, &grid);
+  if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -2266,10 +2288,9 @@ cudaError_t launch_wide(int which, int d, const Args& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int rows = which == kDkv ? a.Sk : a.Sq;
-  const bool packed = a.tiles != nullptr;
-  const dim3 grid(packed ? a.ntiles : (rows + kRows - 1) / kRows,
-                  packed ? a.H : a.B * a.H, d / kSlab);
+  dim3 grid;
+  e = slice_grid(a, d / kSlab, &grid);
+  if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, stream>>>(a, d);
   return cudaGetLastError();
 }
@@ -2299,10 +2320,9 @@ int run(int which, const void* q, const void* k, const void* v,
   // lengths below 2^30 keep the masks' int32 sums from overflowing
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || Sq >= (1 << 30) ||
       Sk >= (1 << 30) || (dtype != 0 && dtype != 1) ||
-      (packed ? (ntiles <= 0 || H > 65535 || cu_q == nullptr ||
-                 cu_k == nullptr || hstart == nullptr || lens != nullptr ||
-                 shift != nullptr)
-              : B * H > 65535))
+      static_cast<long long>(B) * H >= (1ll << 31) ||
+      (packed && (ntiles <= 0 || cu_q == nullptr || cu_k == nullptr ||
+                  hstart == nullptr || lens != nullptr || shift != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -2315,6 +2335,8 @@ int run(int which, const void* q, const void* k, const void* v,
   a.hstart = static_cast<const int32_t*>(hstart);
   a.tiles = static_cast<const int32_t*>(tiles);
   a.ntiles = ntiles;
+  // the q tiles (forward, dq) or k tiles (dk/dv) of a slice
+  a.ntx = packed ? ntiles : ((which == kDkv ? Sk : Sq) + kRows - 1) / kRows;
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk;

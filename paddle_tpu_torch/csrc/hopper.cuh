@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (csrc/block_gemm.cu, csrc/flash_attention.cu): mbarriers, TMA loads and
+// (csrc/block_gemm.cu, csrc/flash_attention.cu) and the LayerNorm backward
+// (csrc/layer_norm.cu): mbarriers, TMA loads (tiled and 1-D bulk) and
 // stores and their tensor maps, shared memory matrix descriptors (128-byte
 // swizzle), `wgmma` with A from shared memory or from registers, and named
 // barriers.  Inline PTX; nothing here allocates or launches.
@@ -44,6 +45,17 @@ __device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
                    "r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+// `bytes` (a multiple of 16) from src in global memory to dst in shared
+// memory, both 16-byte aligned, by TMA's 1-D bulk copy; completes on bar's
+// transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 // a 2-D box of the tensor map at (c0, c1), innermost first, into dst
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,

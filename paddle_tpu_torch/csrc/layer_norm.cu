@@ -22,38 +22,50 @@
 // 16.8 MB (x in, y out) and the backward about 25 MB (g and x in, dx
 // out), against a few f32 operations per element.  The design:
 //
-//  - One warp per row.  A lane owns 8 consecutive columns of each
+//  - Forward: one warp per row.  A lane owns 8 consecutive columns of each
 //    256-column chunk and reads them with one 16-byte load (bf16) or two
 //    (f32); for d <= 1024 (d % 8 == 0) the row stays in registers between
 //    the statistics and the output, so x is read once.  NC = ceil(d / 256)
-//    chunks.
-//  - Any other d (the JAX package takes every width: GPT-1.3B's 2048,
-//    GPT-13B's 5120, a d that is not a multiple of 8) takes the `_any`
-//    kernels: the same warp per row walks the row in chunks twice, once
-//    for the sums and once for the output (the second read mostly hits
-//    L1/L2).  A lane's sums run in the same order as the register
-//    version's, chunk by chunk, so the statistics are the same f32
-//    arithmetic.  d % 8 == 0 keeps the 16-byte loads (V = 8); any other d
-//    loads one element at a time (V = 1, 32-column chunks).
-//  - The `_any` backward cannot keep a row's column sums in registers:
-//    one kernel writes dx (two passes over the row for its two sums), a
-//    second adds g * xhat and g over a fixed slice of rows per column
-//    into the same partial rows the register version writes, and the
-//    reduce kernel below adds those in block order.
+//    chunks.  Any other d (the JAX package takes every width: GPT-1.3B's
+//    2048, GPT-13B's 5120, a d that is not a multiple of 8) takes
+//    `ln_fwd_any_kernel`: the same warp per row walks the row in chunks
+//    twice, once for the sums and once for the output (the second read
+//    mostly hits L1/L2).  A lane's sums run in the same order as the
+//    register version's, chunk by chunk, so the statistics are the same
+//    f32 arithmetic.  d % 8 == 0 keeps the 16-byte loads (V = 8); any
+//    other d loads one element at a time (V = 1, 32-column chunks).
 //  - Row sums go through a xor butterfly of shuffles, which leaves the
 //    same bits in every lane.
 //  - dw and db need a sum over all rows; the TPU kernel adds them tile by
-//    tile on a sequential grid axis.  Here each backward block walks a
-//    fixed set of rows (grid-stride, at most 256 blocks) and keeps its
-//    warps' column sums in registers; the warps store them to shared
+//    tile on a sequential grid axis.  Here each backward block sums a
+//    fixed set of rows into one f32 partial row, and `ln_bwd_reduce_kernel`
+//    adds the partial rows in block order.  No float atomics: dw and db
+//    are the same bits on every run.
+//  - Backward, d <= 1024 with d % 8 == 0 (`ln_bwd_kernel`): one warp per
+//    row, rows grid-stride over at most 256 blocks, the row in registers
+//    and each warp's column sums too; the warps store them to shared
 //    memory at once, and each thread adds the 8 warps of its columns in
-//    warp order into one partial row per block.  A second kernel adds
-//    the partial rows in block order.  No float atomics: dw and db are
-//    the same bits on every run.  (Adding the warps one after another,
-//    a barrier between each, took as long as the rest of the kernel.)
+//    warp order.  (Adding the warps one after another, a barrier between
+//    each, took as long as the rest of the kernel.)
+//  - Backward, every other d (`ln_bwd_one_pass_kernel`): g, x and r read
+//    from device memory once.  Block p owns a contiguous range of rows (a
+//    function of the row count alone, from the wrapper) and stages them in
+//    groups of up to 8 rows into a ring of 2 to 4 stages of shared memory
+//    by TMA bulk copies, the next groups in flight while one is used.  From
+//    that one copy each thread, owning fixed columns, adds g * xhat and g
+//    over the group's rows into its columns' sums, and the rows' two sums
+//    for dx; the block adds those, then dx is written from the same copy,
+//    4 columns a store where d % 4 == 0.  A row too wide for two stages (d
+//    past about 11500 in bf16 with a residual) is read in place twice,
+//    its column sums kept in the block's partial row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -121,11 +133,39 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// V consecutive elements at p (V = 8: one 16-byte access; V = 1: one element)
+// four elements at p: one 16-byte (f32) or 8-byte (bf16) access
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// V consecutive elements at p (V = 8: one 16-byte access; V = 4: one 8- or
+// 16-byte access; V = 1: one element)
 template <int V, typename T>
 __device__ __forceinline__ void loadv(const T* p, float (&v)[V]) {
   if constexpr (V == 8) {
     load8(p, v);
+  } else if constexpr (V == 4) {
+    load4(p, v);
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
@@ -145,6 +185,8 @@ template <int V, typename T>
 __device__ __forceinline__ void storev(T* p, const float (&v)[V]) {
   if constexpr (V == 8) {
     store8(p, v);
+  } else if constexpr (V == 4) {
+    store4(p, v);
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i) store1(p + i, v[i]);
@@ -358,106 +400,253 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_any_kernel(
   }
 }
 
-// any d, backward, dx: one warp per row, the row read twice (the two sums,
-// then dx)
-template <typename T, int V, bool RES>
-__global__ void __launch_bounds__(kThreads) ln_bwd_dx_any_kernel(
+// ---------------------------------------------------------------------------
+// the one-pass backward, every d the register kernel does not take
+// ---------------------------------------------------------------------------
+constexpr int kMaxG = 8;                   // rows of a staged group
+constexpr int kOneThreads = 512;           // a block's most threads
+constexpr int kOneWarps = kOneThreads / 32;
+constexpr int kMaxStages = 4;              // groups in flight, at most
+constexpr int kStageTarget = 64 * 1024;    // a stage's bytes, at most
+constexpr int kSmemMax = 232448;           // a block's most shared memory
+// dynamic shared memory: the stages' mbarriers, the row sums' [warp][row][2]
+// and their totals [2][row], then (staged) dw's and db's f32 column sums
+// and the stages, each region 16-byte aligned
+constexpr int kRedOffset = kMaxStages * 8;
+constexpr int kSumOffset = kRedOffset + kOneWarps * kMaxG * 2 * 4;
+constexpr int kAccOffset = kSumOffset + 2 * kMaxG * 4;
+
+// the stages' offset: past the column sums, 16-byte aligned
+__host__ __device__ __forceinline__ size_t stage_offset(int d) {
+  return kAccOffset + ((8 * static_cast<size_t>(d) + 15) & ~size_t(15));
+}
+
+// Block p owns rows [p * per, min((p + 1) * per, rows)) and walks them in
+// groups of G rows, in order.  STAGED: each group's rows of g, x (and r)
+// come into one of `nst` stages of shared memory by TMA bulk copies, the
+// next nst - 1 groups' in flight while this one is used, and g, x and r
+// are read from device memory once; a row is copied as the 16-byte aligned
+// span that holds it (its first element lies (row * d * sizeof(T)) % 16
+// bytes into the copy: every 16-byte chunk of a span holds a byte of the
+// tensor, so the copy reads nothing off its pages).  Otherwise (a row too
+// wide for two stages beside the column sums) the rows are read in place,
+// twice, and the column sums kept in the block's partial rows.
+//
+// Thread t owns column units t, t + blockDim.x, ... (V = 4 columns, or 1
+// where d % 4 != 0).  Pass 1, for each unit and each row of the group in
+// order: xhat = (x (+ r) - mean) * rstd and dy = g * w; the row's sums of dy
+// and dy * xhat, and the unit's column sums of g * xhat and g (mean and
+// rstd come from the forward, so the column sums need nothing of the row
+// sums).  The row sums go through a butterfly in each warp, then over the
+// warps in order (one thread a sum).  Pass 2 reads the group again and
+// writes dx.  Each column's sums run over the block's rows in order, so
+// the partial row the block writes, and dw and db after the block-order
+// reduce, are the same bits on every run: the partition reads `rows`
+// alone.  G, the rows of a group, is a template argument: a full group's
+// rows run without a test each.
+template <typename T, int V, bool RES, bool STAGED, int G>
+__global__ void __launch_bounds__(kOneThreads) ln_bwd_one_pass_kernel(
     const T* __restrict__ g, const T* __restrict__ x,
     const T* __restrict__ r, const T* __restrict__ w,
     const float* __restrict__ mean, const float* __restrict__ rstd,
-    T* __restrict__ dx, int rows, int d) {
-  constexpr int CH = 32 * V;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * d;
-  const float mu = mean[row];
-  const float rs = rstd[row];
-  // xhat and dy of V columns
-  auto terms = [&](int col, float (&xh)[V], float (&dy)[V]) {
-    float xv[V], gv[V], wv[V];
-    loadv<V>(x + base + col, xv);
-    if (RES) {
-      float rv[V];
-      loadv<V>(r + base + col, rv);
-#pragma unroll
-      for (int i = 0; i < V; ++i) xv[i] += rv[i];
+    T* __restrict__ dx, float* __restrict__ dw_part,
+    float* __restrict__ db_part, int rows, int d, int per, int slot,
+    int nst) {
+  constexpr int NA = RES ? 3 : 2;   // staged arrays: g, x (, r)
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* red = reinterpret_cast<float*>(smem + kRedOffset);
+  float* tot = reinterpret_cast<float*>(smem + kSumOffset);   // c1, c2
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int p = blockIdx.x;
+  const int r0 = p * per, r1 = min(rows, r0 + per);
+  const int ngroups = (r1 - r0 + G - 1) / G;
+  const int nunits = d / V;         // d % V == 0
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  const T* src[3] = {g, x, r};
+  float* accw;
+  float* accb;
+  unsigned char* stages = smem + stage_offset(d);
+  if (STAGED) {
+    accw = reinterpret_cast<float*>(smem + kAccOffset);
+    accb = accw + d;
+  } else {
+    accw = dw_part + static_cast<size_t>(p) * d;
+    accb = db_part + static_cast<size_t>(p) * d;
+  }
+  const float zero[V] = {};
+  for (int u = tid; u < nunits; u += blockDim.x) {
+    storev<V>(accw + u * V, zero);
+    storev<V>(accb + u * V, zero);
+  }
+
+  // thread 0: group `grp`'s rows into stage grp % nst, one bulk copy a
+  // row and array
+  auto fetch = [&](int grp) {
+    const int s = grp % nst, row0 = r0 + grp * G, n = min(G, r1 - row0);
+    uint32_t total = 0;
+    for (int i = 0; i < n; ++i) {
+      const size_t a0 = static_cast<size_t>(row0 + i) * row_bytes;
+      const size_t span =
+          ((a0 + row_bytes + 15) & ~size_t(15)) - (a0 & ~size_t(15));
+      total += NA * static_cast<uint32_t>(span);
     }
-    loadv<V>(g + base + col, gv);
-    loadv_or<V>(w, col, 1.f, wv);
+    hopper::mbar_arrive_expect(&full[s], total);
+    for (int i = 0; i < n; ++i) {
+      const size_t a0 = static_cast<size_t>(row0 + i) * row_bytes;
+      const size_t lo = a0 & ~size_t(15);
+      const size_t span = ((a0 + row_bytes + 15) & ~size_t(15)) - lo;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      xh[i] = (xv[i] - mu) * rs;
-      dy[i] = gv[i] * wv[i];
+      for (int a = 0; a < NA; ++a)
+        hopper::bulk_load(
+            stages + (static_cast<size_t>(s * G + i) * NA + a) * slot,
+            reinterpret_cast<const unsigned char*>(src[a]) + lo,
+            static_cast<uint32_t>(span), &full[s]);
     }
   };
-  float c1 = 0.f, c2 = 0.f;
-  for (int col = lane * V; col < d; col += CH) {
-    float xh[V], dy[V];
-    terms(col, xh, dy);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      c1 += dy[i];
-      c2 += dy[i] * xh[i];
+  if (STAGED) {
+    if (tid == 0) {
+      for (int i = 0; i < nst; ++i) hopper::mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
+    if (tid == 0)
+      for (int grp = 0; grp < min(nst, ngroups); ++grp) fetch(grp);
   }
-  c1 = warp_sum(c1) / d;
-  c2 = warp_sum(c2) / d;
-  for (int col = lane * V; col < d; col += CH) {
-    float xh[V], dy[V], o[V];
-    terms(col, xh, dy);
+
+  // one group of n rows from row0 (stage s): FULL (n == G, every group but
+  // perhaps a block's last) runs without a test per row
+  auto group = [&](auto full_tag, int grp, int s, int row0, int n) {
+    constexpr bool FULL = decltype(full_tag)::value;
+    // row i of array a: in the stage, or in place
+    auto at = [&](int i, int a) -> const T* {
+      const size_t a0 = static_cast<size_t>(row0 + i) * row_bytes;
+      if (STAGED)
+        return reinterpret_cast<const T*>(
+                   stages + (static_cast<size_t>(s * G + i) * NA + a) * slot) +
+               (a0 & 15) / sizeof(T);
+      return src[a] + static_cast<size_t>(row0 + i) * d;
+    };
+    float mu[G], rs[G], s1[G], s2[G];
 #pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = (dy[i] - c1 - xh[i] * c2) * rs;
-    storev<V>(dx + base + col, o);
+    for (int i = 0; i < G; ++i) {
+      const bool in = FULL || i < n;
+      mu[i] = in ? mean[row0 + i] : 0.f;
+      rs[i] = in ? rstd[row0 + i] : 0.f;
+      s1[i] = s2[i] = 0.f;
+    }
+    if (STAGED) hopper::mbar_wait(&full[s], (grp / nst) & 1);
+
+    // pass 1: the row sums, and the column sums in the block's order
+    for (int u = tid; u < nunits; u += blockDim.x) {
+      const int col = u * V;
+      float wv[V], aw[V], ab[V];
+      loadv_or<V>(w, col, 1.f, wv);
+      loadv<V>(accw + col, aw);
+      loadv<V>(accb + col, ab);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (FULL || i < n) {
+          float gv[V], xv[V];
+          loadv<V>(at(i, 0) + col, gv);
+          loadv<V>(at(i, 1) + col, xv);
+          if (RES) {
+            float rv[V];
+            loadv<V>(at(i, 2) + col, rv);
+#pragma unroll
+            for (int e = 0; e < V; ++e) xv[e] += rv[e];
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float xh = (xv[e] - mu[i]) * rs[i];
+            const float dy = gv[e] * wv[e];
+            s1[i] += dy;
+            s2[i] += dy * xh;
+            aw[e] += gv[e] * xh;
+            ab[e] += gv[e];
+          }
+        }
+      }
+      storev<V>(accw + col, aw);
+      storev<V>(accb + col, ab);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (FULL || i < n) {
+        const float a = warp_sum(s1[i]), b = warp_sum(s2[i]);
+        if (lane == 0) {
+          red[(warp * kMaxG + i) * 2] = a;
+          red[(warp * kMaxG + i) * 2 + 1] = b;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * n) {   // thread (i, k): row i's sum k over the warps
+      const int i = tid >> 1, k = tid & 1;
+      float a = 0.f;
+      for (int wp = 0; wp < nwarps; ++wp) a += red[(wp * kMaxG + i) * 2 + k];
+      tot[k * kMaxG + i] = a / d;
+    }
+    __syncthreads();
+    float c1[G], c2[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      c1[i] = tot[i];
+      c2[i] = tot[kMaxG + i];
+    }
+
+    // pass 2: dx from the same copy
+    for (int u = tid; u < nunits; u += blockDim.x) {
+      const int col = u * V;
+      float wv[V];
+      loadv_or<V>(w, col, 1.f, wv);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (FULL || i < n) {
+          float gv[V], xv[V], o[V];
+          loadv<V>(at(i, 0) + col, gv);
+          loadv<V>(at(i, 1) + col, xv);
+          if (RES) {
+            float rv[V];
+            loadv<V>(at(i, 2) + col, rv);
+#pragma unroll
+            for (int e = 0; e < V; ++e) xv[e] += rv[e];
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float xh = (xv[e] - mu[i]) * rs[i];
+            o[e] = (gv[e] * wv[e] - c1[i] - xh * c2[i]) * rs[i];
+          }
+          storev<V>(dx + static_cast<size_t>(row0 + i) * d + col, o);
+        }
+      }
+    }
+  };
+
+  for (int grp = 0; grp < ngroups; ++grp) {
+    const int s = grp % nst, row0 = r0 + grp * G, n = min(G, r1 - row0);
+    if (n == G)
+      group(std::true_type{}, grp, s, row0, n);
+    else
+      group(std::false_type{}, grp, s, row0, n);
+    __syncthreads();   // the stage and the row sums are free again
+    if (STAGED && tid == 0 && grp + nst < ngroups) fetch(grp + nst);
+  }
+
+  if (STAGED) {
+    float* pw = dw_part + static_cast<size_t>(p) * d;
+    float* pb = db_part + static_cast<size_t>(p) * d;
+    for (int u = tid; u < nunits; u += blockDim.x) {
+      float v[V];
+      loadv<V>(accw + u * V, v);
+      storev<V>(pw + u * V, v);
+      loadv<V>(accb + u * V, v);
+      storev<V>(pb + u * V, v);
+    }
   }
 }
 
-// any d, backward, dw and db: partial row p of dw_part / db_part sums rows
-// [p * per, (p + 1) * per) of g * xhat and g.  A block covers 32 columns
-// with 8 slices of those rows; slice s adds rows s, s + 8, ... in order,
-// then slice 0 adds the 8 slices in order.
-template <typename T, bool RES>
-__global__ void __launch_bounds__(kThreads) ln_bwd_cols_any_kernel(
-    const T* __restrict__ g, const T* __restrict__ x,
-    const T* __restrict__ r, const float* __restrict__ mean,
-    const float* __restrict__ rstd, float* __restrict__ dw_part,
-    float* __restrict__ db_part, int rows, int d, int per) {
-  __shared__ float sw[kSlices][32];
-  __shared__ float sb[kSlices][32];
-  const int cx = threadIdx.x % 32;
-  const int sl = threadIdx.x / 32;
-  const int col = blockIdx.x * 32 + cx;
-  const int p = blockIdx.y;
-  const int end = min(rows, (p + 1) * per);
-  float aw = 0.f, ab = 0.f;
-  if (col < d) {
-    for (int row = p * per + sl; row < end; row += kSlices) {
-      const size_t at = static_cast<size_t>(row) * d + col;
-      float xv = to_f32(x[at]);
-      if (RES) xv += to_f32(r[at]);
-      const float gv = to_f32(g[at]);
-      aw += gv * ((xv - mean[row]) * rstd[row]);
-      ab += gv;
-    }
-  }
-  sw[sl][cx] = aw;
-  sb[sl][cx] = ab;
-  __syncthreads();
-  if (sl == 0 && col < d) {
-    float s = 0.f, t = 0.f;
-#pragma unroll
-    for (int k = 0; k < kSlices; ++k) {
-      s += sw[k][cx];
-      t += sb[k][cx];
-    }
-    dw_part[static_cast<size_t>(p) * d + col] = s;
-    db_part[static_cast<size_t>(p) * d + col] = t;
-  }
-}
-
-// dw[j] = sum over the partial rows p of dw_part[p, j], likewise db.
-// A block covers 32 columns with 8 slices of partial rows; slice s adds
-// rows s, s + 8, ... in order, then slice 0 adds the 8 slices in order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ln_bwd_reduce_kernel(
     const float* __restrict__ dw_part, const float* __restrict__ db_part,
@@ -529,28 +718,72 @@ int fwd_any(const void* x, const void* r, const void* w, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V, bool RES>
-int bwd_any(const void* g, const void* x, const void* r, const void* w,
-            const void* mean, const void* rstd, void* dx, void* dw, void* db,
-            void* dw_part, void* db_part, int rows, int d, int nparts,
-            cudaStream_t s) {
-  ln_bwd_dx_any_kernel<T, V, RES><<<(rows + kWarps - 1) / kWarps, kThreads,
-                                    0, s>>>(
+// the one-pass backward: groups of G rows (a power of 2, up to 8) in
+// stages of about kStageTarget bytes, as many stages (2 to 4) as fit beside
+// the column sums, or the rows in place where two stages of one row each do
+// not; then the reduce kernel over the partial rows
+template <typename T, int V, bool RES, bool STAGED, int G>
+int bwd_one_pass(const void* g, const void* x, const void* r, const void* w,
+                 const void* mean, const void* rstd, void* dx, void* dw,
+                 void* db, void* dw_part, void* db_part, int rows, int d,
+                 int nparts, int per, int slot, int nst, size_t smem,
+                 cudaStream_t s) {
+  auto kern = ln_bwd_one_pass_kernel<T, V, RES, STAGED, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // as many threads as column units, at most 512, each taking as many
+  // units as the next
+  const int units = d / V;
+  const int waves = (units + kOneThreads - 1) / kOneThreads;
+  const int threads =
+      std::max(32, ((units + waves - 1) / waves + 31) / 32 * 32);
+  kern<<<nparts, threads, smem, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(x),
       static_cast<const T*>(r), static_cast<const T*>(w),
       static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<T*>(dx), rows, d);
-  const int per = (rows + nparts - 1) / nparts;
-  ln_bwd_cols_any_kernel<T, RES><<<dim3((d + 31) / 32, nparts), kThreads, 0,
-                                   s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const T*>(r), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<float*>(dw_part),
-      static_cast<float*>(db_part), rows, d, per);
+      static_cast<T*>(dx), static_cast<float*>(dw_part),
+      static_cast<float*>(db_part), rows, d, per, slot, nst);
   ln_bwd_reduce_kernel<T><<<(d + 31) / 32, kThreads, 0, s>>>(
       static_cast<const float*>(dw_part), static_cast<const float*>(db_part),
       static_cast<T*>(dw), static_cast<T*>(db), nparts, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, bool RES>
+int bwd_any(const void* g, const void* x, const void* r, const void* w,
+            const void* mean, const void* rstd, void* dx, void* dw, void* db,
+            void* dw_part, void* db_part, int rows, int d, int nparts,
+            int per, cudaStream_t s) {
+  constexpr int NA = RES ? 3 : 2;
+  const long long bytes = static_cast<long long>(d) * sizeof(T);
+  // a row's copy: its bytes, and 16 more where rows are not 16-byte aligned
+  const long long slot = (bytes + 15) / 16 * 16 + (bytes % 16 ? 16 : 0);
+  const long long row_stage = NA * slot;
+  const long long fixed = static_cast<long long>(stage_offset(d));
+  int G = kMaxG;
+  while (G > 1 && G * row_stage > kStageTarget) G /= 2;
+  long long nst = 0;
+  for (; G >= 1; G /= 2) {
+    nst = std::min<long long>(kMaxStages, (kSmemMax - fixed) / (G * row_stage));
+    if (nst >= 2) break;
+  }
+#define PTT_ONE_PASS(STAGED, GN)                                            \
+  bwd_one_pass<T, V, RES, STAGED, GN>(                                      \
+      g, x, r, w, mean, rstd, dx, dw, db, dw_part, db_part, rows, d, nparts, \
+      per, static_cast<int>(slot), STAGED ? static_cast<int>(nst) : 1,      \
+      STAGED ? static_cast<size_t>(fixed + nst * GN * row_stage)            \
+             : static_cast<size_t>(kAccOffset),                             \
+      s)
+  switch (nst >= 2 ? G : 0) {
+    case 8: return PTT_ONE_PASS(true, 8);
+    case 4: return PTT_ONE_PASS(true, 4);
+    case 2: return PTT_ONE_PASS(true, 2);
+    case 1: return PTT_ONE_PASS(true, 1);
+    default: return PTT_ONE_PASS(false, kMaxG);
+  }
+#undef PTT_ONE_PASS
 }
 
 template <typename T, bool RES>
@@ -575,13 +808,18 @@ template <typename T, bool RES>
 int bwd_dispatch(const void* g, const void* x, const void* r, const void* w,
                  const void* mean, const void* rstd, void* dx, void* dw,
                  void* db, void* dw_part, void* db_part, int rows, int d,
-                 int nparts, cudaStream_t s) {
-  if (d % VEC != 0)
-    return bwd_any<T, 1, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
-                              db_part, rows, d, nparts, s);
-  if (d > kMaxD)
-    return bwd_any<T, VEC, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
-                                db_part, rows, d, nparts, s);
+                 int nparts, int per, cudaStream_t s) {
+  // the one-pass kernel: 4-column units where rows are 8-byte aligned (twice
+  // the threads of 8-column ones: the kernel waits on its shared memory
+  // loads more than on its copies), else 1
+  if (d % VEC != 0 || d > kMaxD) {
+    return d % 4 == 0
+               ? bwd_any<T, 4, RES>(g, x, r, w, mean, rstd, dx, dw, db,
+                                    dw_part, db_part, rows, d, nparts, per, s)
+               : bwd_any<T, 1, RES>(g, x, r, w, mean, rstd, dx, dw, db,
+                                    dw_part, db_part, rows, d, nparts, per,
+                                    s);
+  }
   switch ((d + kChunk - 1) / kChunk) {
     case 1: bwd<T, 1, RES>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
                            db_part, rows, d, nparts, s); break;
@@ -609,11 +847,12 @@ template <typename T>
 int bwd_res(const void* g, const void* x, const void* r, const void* w,
             const void* mean, const void* rstd, void* dx, void* dw, void* db,
             void* dw_part, void* db_part, int rows, int d, int nparts,
-            cudaStream_t s) {
+            int per, cudaStream_t s) {
   return r ? bwd_dispatch<T, true>(g, x, r, w, mean, rstd, dx, dw, db,
-                                   dw_part, db_part, rows, d, nparts, s)
+                                   dw_part, db_part, rows, d, nparts, per, s)
            : bwd_dispatch<T, false>(g, x, r, w, mean, rstd, dx, dw, db,
-                                    dw_part, db_part, rows, d, nparts, s);
+                                    dw_part, db_part, rows, d, nparts, per,
+                                    s);
 }
 
 }  // namespace
@@ -638,25 +877,28 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* r,
 
 // dx in x's dtype (also the residual's gradient); dw and db (d,) in w's
 // dtype, summed in f32, each skipped when null.  r is the forward's
-// residual, or null; w may be null (then dy = g).  dw_part
-// and db_part are f32 scratch of nparts * d each; nparts is the grid of
-// the row pass (1 <= nparts).
+// residual, or null; w may be null (then dy = g).  dw_part and db_part are
+// f32 scratch of nparts * d each, one partial row per block of the row
+// pass: the register kernel's blocks take rows grid-stride; the one-pass
+// kernel's block p takes rows [p * per, (p + 1) * per) (nparts * per >=
+// rows).
 extern "C" int ptt_layer_norm_bwd(const void* g, const void* x,
                                   const void* r, const void* w,
                                   const void* mean, const void* rstd,
                                   void* dx, void* dw, void* db,
                                   void* dw_part, void* db_part, int rows,
-                                  int d, int nparts, int dtype,
+                                  int d, int nparts, int per, int dtype,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || nparts < 1)
+  if (d <= 0 || nparts < 1 || per < 1 ||
+      static_cast<long long>(nparts) * per < rows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return bwd_res<float>(g, x, r, w, mean, rstd, dx, dw, db, dw_part,
-                          db_part, rows, d, nparts, s);
+                          db_part, rows, d, nparts, per, s);
   if (dtype == 1)
     return bwd_res<__nv_bfloat16>(g, x, r, w, mean, rstd, dx, dw, db,
-                                  dw_part, db_part, rows, d, nparts, s);
+                                  dw_part, db_part, rows, d, nparts, per, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,14 +11,23 @@
 //   scale  (N,)    f32, applied after the sum (the epilogue)
 //   out    (M, N)  x's dtype
 //
+// Any M, K and N.  The wrapper zero-pads x's columns to KP, the next
+// multiple of 32 (zero columns of x against the weight's rows past K, which
+// the kernel reads as zeros, add nothing); a weight whose rows are not 16
+// bytes apart (N off a multiple of 16) is read by plain loads instead of
+// cp.async; rows and columns past M and N are masked at the store.  The
+// row blocks and column tiles share gridDim.x, so M is not bounded by
+// gridDim.y.
+//
 // What bounds it: at decode (M <= 16) the int8 weight's bytes and the f32
 // multiply-adds on it take about the same least time (a 4096 x 1024 weight:
 // 1.3 us of bytes, 2 us of f32 FMAs off the tensor cores at M = 16); at
 // prefill (M = 512) the multiply-adds.  No TF32: the f32 sums are held to
 // 2e-5 against the plain version.  The design:
 //
-//  - The sum order (the split plan) depends on K alone: K is cut into
-//    kGroups = 8 equal groups of K / 8 (a multiple of 4, since K % 32 == 0).
+//  - The sum order (the split plan) depends on K alone: KP is cut into
+//    kGroups = 8 equal groups of KP / 8 (a multiple of 4), the last ones
+//    past K summing nothing but zeros.
 //    Each output's group partial is one f32 chain, fmaf in ascending k from
 //    0; the 8 partials are added in group order, and the scale multiplies
 //    the sum.  So a row's result never depends on M, on the tile shape or on
@@ -139,12 +148,30 @@ __device__ __forceinline__ int col_of(int tn, int j) {
     return tn * C::TN + j;
 }
 
+// 16 int8 columns [c, c + 16) of weight row k into dst by plain loads,
+// zero past N or past the weight's rows (a row of N bytes, N off a
+// multiple of 16, is not 16-byte aligned for cp.async)
+__device__ __forceinline__ void w_row16(int8_t* dst, const int8_t* row,
+                                        bool in, int c, int N) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+  if (in) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (c + e < N)
+        v[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(row[c + e]))
+                    << (8 * (e % 4));
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// K: x's row width, a multiple of 32 (the wrapper's zero padding); KW: the
+// weight's rows (KW <= K), the true width
 template <class C, typename XT>
 __device__ __forceinline__ void w8a16_tile(const XT* __restrict__ x,
                                            const int8_t* __restrict__ w,
                                            const float* __restrict__ scale,
                                            XT* __restrict__ out, int M, int K,
-                                           int N) {
+                                           int KW, int N) {
   constexpr int BM = C::BM, BN = C::BN, BK = C::BK, ST = C::ST;
   constexpr int TM = C::TM, TN = C::TN, LDX = ldx<C, XT>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -152,7 +179,10 @@ __device__ __forceinline__ void w8a16_tile(const XT* __restrict__ x,
 
   const int tid = threadIdx.x;
   const int tn = tid % C::CN, tm = tid / C::CN;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // blockIdx.x = row block * column tiles + column tile
+  const int ntn = (N + BN - 1) / BN;
+  const int n0 = static_cast<int>(blockIdx.x % ntn) * BN;
+  const int m0 = static_cast<int>(blockIdx.x / ntn) * BM;
   const int kg = K / kGroups;
   // the block's k range: its cluster rank's group, or all of K
   const int kbeg = C::SPLIT ? blockIdx.z * kg : 0;
@@ -173,7 +203,8 @@ __device__ __forceinline__ void w8a16_tile(const XT* __restrict__ x,
   for (int s = 0; s < ST; ++s)
     for (int i = mrows * LDX + tid; i < BM * LDX; i += C::kThreads)
       sx(s)[i] = XT(0.f);
-  // subtile t into stage t % ST: weight rows past K read as zero
+  // subtile t into stage t % ST: weight rows past KW read as zero
+  const bool wvec = N % 16 == 0;   // weight rows 16-byte aligned
   auto load = [&](int t) {
     if (t < nt) {
       const int k0 = kbeg + t * BK;
@@ -188,9 +219,12 @@ __device__ __forceinline__ void w8a16_tile(const XT* __restrict__ x,
       int8_t* dq = sq(t % ST);
       for (int i = tid; i < BK * (BN / 16); i += C::kThreads) {
         const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
-        const bool in = k0 + r < K && n0 + c < N;
-        cp_async16(dq + r * BN + c,
-                   in ? w + static_cast<size_t>(k0 + r) * N + n0 + c : w, in);
+        const bool in = k0 + r < KW && n0 + c < N;
+        const int8_t* row = w + static_cast<size_t>(k0 + r) * N + n0;
+        if (wvec)
+          cp_async16(dq + r * BN + c, in ? row + c : w, in);
+        else
+          w_row16(dq + r * BN + c, row, in, c, N - n0);
       }
     }
     cp_async_commit();   // an empty group past the end keeps the count
@@ -313,23 +347,25 @@ template <class C, typename XT>
 __global__ void __cluster_dims__(1, 1, kGroups) __launch_bounds__(C::kThreads)
     w8a16_split_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, XT* __restrict__ out,
-                       int M, int K, int N) {
-  w8a16_tile<C, XT>(x, w, scale, out, M, K, N);
+                       int M, int K, int KW, int N) {
+  w8a16_tile<C, XT>(x, w, scale, out, M, K, KW, N);
 }
 
 template <class C, typename XT>
 __global__ void __launch_bounds__(C::kThreads)
     w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ scale, XT* __restrict__ out, int M,
-                 int K, int N) {
-  w8a16_tile<C, XT>(x, w, scale, out, M, K, N);
+                 int K, int KW, int N) {
+  w8a16_tile<C, XT>(x, w, scale, out, M, K, KW, N);
 }
 
 template <class C, typename XT>
 cudaError_t launch(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, cudaStream_t stream) {
+                   void* out, int M, int K, int KW, int N,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<C, XT>();
-  void (*kern)(const XT*, const int8_t*, const float*, XT*, int, int, int);
+  void (*kern)(const XT*, const int8_t*, const float*, XT*, int, int, int,
+               int);
   if constexpr (C::SPLIT)
     kern = w8a16_split_kernel<C, XT>;
   else
@@ -338,38 +374,41 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM,
-                  C::SPLIT ? kGroups : 1);
+  const long long blocks = static_cast<long long>((N + C::BN - 1) / C::BN) *
+                           ((M + C::BM - 1) / C::BM);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), 1, C::SPLIT ? kGroups : 1);
   kern<<<grid, C::kThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<XT*>(out), M, K, N);
+      static_cast<const float*>(scale), static_cast<XT*>(out), M, K, KW, N);
   return cudaGetLastError();
 }
 
 template <typename XT>
 cudaError_t run(const void* x, const void* w, const void* scale, void* out,
-                int M, int K, int N, cudaStream_t stream) {
-  return M <= Decode::BM ? launch<Decode, XT>(x, w, scale, out, M, K, N, stream)
-                         : launch<Prefill, XT>(x, w, scale, out, M, K, N,
-                                               stream);
+                int M, int K, int KW, int N, cudaStream_t stream) {
+  return M <= Decode::BM
+             ? launch<Decode, XT>(x, w, scale, out, M, K, KW, N, stream)
+             : launch<Prefill, XT>(x, w, scale, out, M, K, KW, N, stream);
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  The caller guarantees M > 0,
-// N % 16 == 0, K % 32 == 0 and 16-byte aligned x and w.
+// x (M, K) with K a multiple of 32 (x's zero-padded width), w (KW, N)
+// with KW <= K the weight's true rows (the sum order reads K alone), any N;
+// x_dtype: 0 = float32, 1 = bfloat16.  The caller guarantees 16-byte
+// aligned x and w.
 extern "C" int ptt_w8a16_matmul(const void* x, const void* w,
                                 const void* scale, void* out, int M, int K,
-                                int N, int x_dtype, void* stream) {
+                                int KW, int N, int x_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || K <= 0 || K % 32 != 0 || N <= 0 || N % 16 != 0 ||
-      (M + Decode::BM - 1) / Decode::BM > 65535)
+  if (M <= 0 || K <= 0 || K % 32 != 0 || KW <= 0 || KW > K || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (x_dtype == 0)
-    e = run<float>(x, w, scale, out, M, K, N, s);
+    e = run<float>(x, w, scale, out, M, K, KW, N, s);
   else if (x_dtype == 1)
-    e = run<__nv_bfloat16>(x, w, scale, out, M, K, N, s);
+    e = run<__nv_bfloat16>(x, w, scale, out, M, K, KW, N, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

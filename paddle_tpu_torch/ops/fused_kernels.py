@@ -38,7 +38,8 @@ kernel, kept by both versions here:
 **LayerNorm + matmul** (``fused_ln_matmul``, the custom VJP ``_lnmm``,
 ``ln_matmul_reference``): ``LayerNorm(x (+ r)) @ W (+ bias)``, W ``(d,
 n)`` read in place by its strides (a Linear's weight, or a table's
-transposed view).  The LayerNorm's arithmetic as above, its output h
+transposed view), at any d and n (``_gemm_weight`` says which weights
+are copied).  The LayerNorm's arithmetic as above, its output h
 **rounded to x's dtype** before the product, f32 sums, the bias added in
 f32, the result in x's dtype.  The backward (``_lnmm_bwd``) recomputes
 h, mean and rstd with the LayerNorm forward kernel, takes ``dW = h^T g``,
@@ -83,6 +84,7 @@ from . import _build
 
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
+           "ln_bwd_plan", "layer_norm_bwd_split_reference",
            "fused_softmax_xent", "softmax_xent_fwd", "softmax_xent_bwd",
            "softmax_xent_fwd_reference", "softmax_xent_bwd_reference",
            "fused_ln_matmul", "ln_matmul", "ln_matmul_reference",
@@ -95,7 +97,7 @@ _SIGNATURES = {
     "ptt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                            ctypes.c_float, _I, _P),
     "ptt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _I, _P),
+                           _I, _I, _I, _I, _P),
 }
 _XENT_SIGNATURES = {
     "ptt_softmax_xent_fwd": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
@@ -105,7 +107,10 @@ _XENT_SIGNATURES = {
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_PER_BLOCK = 8      # one warp per row
-_BWD_MAX_BLOCKS = 256    # partial rows of dw/db, added in a fixed order
+_BWD_MAX_BLOCKS = 256    # the register backward's partial rows of dw/db
+_REGISTER_MAX_D = 1024   # the register backward: d <= 1024, d % 8 == 0
+_ONE_PASS_PARTS = 128    # the one-pass backward's most partial rows
+_REDUCE_SLICES = 8       # ln_bwd_reduce_kernel's row slices (kSlices)
 
 
 def _ln_input(x, residual):
@@ -156,6 +161,59 @@ def layer_norm_bwd_reference(g, x, weight, mean, rstd, residual=None):
     wdt = x.dtype if weight is None else weight.dtype
     dw = None if weight is None else (gv * xhat).sum(0).to(wdt)
     return dx.to(x.dtype), dw, gv.sum(0).to(wdt)
+
+
+def ln_bwd_plan(rows, d):
+    """The LayerNorm backward's row partition: ``(nparts, per)``, one f32
+    partial row of dw and db per block.  The register kernel (``d <=
+    1024``, ``d % 8 == 0``) runs ``nparts = min(ceil(rows / 8), 256)``
+    blocks over the rows grid-stride; the one-pass kernel (every other d)
+    gives block p the rows ``[p * per, min((p + 1) * per, rows))``, ``per``
+    a multiple of 8 (a block's partial row of 8 bytes a column then costs
+    at most one eighth of its rows' reads), at most ``_ONE_PASS_PARTS``
+    blocks: more cost more partial rows, fewer leave SMs idle.  Both read the
+    row count (and d) alone, so dw and db have the same bits on every
+    run and every card."""
+    if d % 8 == 0 and d <= _REGISTER_MAX_D:
+        nparts = min(-(-rows // _ROWS_PER_BLOCK), _BWD_MAX_BLOCKS)
+        return nparts, -(-rows // nparts)
+    per = -(-rows // _ONE_PASS_PARTS)
+    per = -(-per // 8) * 8
+    return -(-rows // per), per
+
+
+def layer_norm_bwd_split_reference(g, x, weight, mean, rstd, residual=None):
+    """A plain model of the one-pass backward's sums of dw and db: block p
+    of :func:`ln_bwd_plan` adds ``g * xhat`` and ``g`` over its rows in
+    order into one f32 partial row; then, per column, slice s (of 8) adds
+    the partial rows s, s + 8, ... in order, and the slices are added in
+    order (``ln_bwd_reduce_kernel``).  ``(dx, dw, db)`` as
+    :func:`layer_norm_bwd_reference` returns them (dx from it)."""
+    rows, d = x.shape
+    if d % 8 == 0 and d <= _REGISTER_MAX_D:
+        raise ValueError(f"d={d} takes the register kernel, not this plan")
+    dx, _, _ = layer_norm_bwd_reference(g, x, weight, mean, rstd, residual)
+    gv = g.float()
+    xhat = (_ln_input(x, residual) - mean[:, None]) * rstd[:, None]
+    nparts, per = ln_bwd_plan(rows, d)
+    parts_w = torch.zeros(nparts, d, device=x.device)
+    parts_b = torch.zeros(nparts, d, device=x.device)
+    for p in range(nparts):
+        for row in range(p * per, min((p + 1) * per, rows)):
+            parts_w[p] = parts_w[p] + gv[row] * xhat[row]
+            parts_b[p] = parts_b[p] + gv[row]
+    sums = []
+    for parts in (parts_w, parts_b):
+        total = torch.zeros(d, device=x.device)
+        for sl in range(_REDUCE_SLICES):
+            acc = torch.zeros(d, device=x.device)
+            for p in range(sl, nparts, _REDUCE_SLICES):
+                acc = acc + parts[p]
+            total = total + acc
+        sums.append(total)
+    wdt = x.dtype if weight is None else weight.dtype
+    dw = None if weight is None else sums[0].to(wdt)
+    return dx, dw, sums[1].to(wdt)
 
 
 def _require(cond, msg, kernel="layer_norm"):
@@ -230,14 +288,14 @@ def _launch_bwd(g, x, weight, mean, rstd, residual=None):
     db = torch.empty(d, dtype=wdt, device=dev)
     if rows == 0:
         return dx, None if dw is None else dw.zero_(), db.zero_()
-    nparts = min(-(-rows // _ROWS_PER_BLOCK), _BWD_MAX_BLOCKS)
+    nparts, per = ln_bwd_plan(rows, d)
     parts = torch.empty((2, nparts, d), dtype=torch.float32, device=dev)
     lib = _build.load("layer_norm", _SIGNATURES)
     status = lib.ptt_layer_norm_bwd(
         g.data_ptr(), x.data_ptr(), _ptr(residual), _ptr(weight),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dw),
         db.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, d,
-        nparts, _DTYPE_CODE[x.dtype], _stream(dev))
+        nparts, per, _DTYPE_CODE[x.dtype], _stream(dev))
     _build.check(lib, status, "layer_norm_bwd")
     return dx, dw, db
 
@@ -474,7 +532,8 @@ _GEMM_SIGNATURES = {
                                   ctypes.c_longlong, ctypes.c_float, _I, _P,
                                   _P),
     "ptt_matmul_bias_gelu": (_P,) * 5 + (_I, _I, _I, ctypes.c_longlong,
-                                         ctypes.c_longlong, _I, _I, _P),
+                                         ctypes.c_longlong, ctypes.c_longlong,
+                                         _I, _I, _P),
 }
 _SQRT_2_OVER_PI = 0.7978845608028654
 _TANH_CUBIC = 0.044715
@@ -517,10 +576,11 @@ def matmul_bias_gelu_reference(x, weight, bias=None, approximate=True):
 def _check_gemm(x, weight, bias, *more, kernel):
     """What the block kernels take: CUDA, x ``(rows, k)`` contiguous, the
     weight ``(k, n)`` with unit stride along n or along k (a transposed
-    view is read in place), the bias ``(n,)`` and ``more`` (the
-    LayerNorm's weight and bias, the residual) of one dtype (f32 or
-    bf16), 16-byte aligned; k a multiple of 8, n of 16 bytes.  Returns
-    ``(rows, k, n, sw_k, sw_n)``."""
+    view is read in place) and its other stride a multiple of 16 bytes,
+    the bias ``(n,)`` and ``more`` (the LayerNorm's weight and bias, the
+    residual) of one dtype (f32 or bf16), 16-byte aligned; k a multiple
+    of 8, any n and any row count below 2^31.  Returns ``(rows, k, n,
+    sw_k, sw_n)``."""
     def req(cond, msg):
         _require(cond, msg, kernel)
 
@@ -535,14 +595,13 @@ def _check_gemm(x, weight, bias, *more, kernel):
     vec = 16 // x.element_size()
     req(weight.shape[0] == k, f"weight {tuple(weight.shape)} does not take "
         f"x's {k} columns")
-    req(k % 8 == 0 and n % vec == 0,
-        f"k={k} must be a multiple of 8 and n={n} of {vec}")
-    req(rows < 2 ** 31 and 0 < k and 0 < n and -(-rows // 32) <= 65535,
-        f"{rows} rows is out of range")
+    req(k % 8 == 0, f"k={k} must be a multiple of 8")
+    req(rows < 2 ** 31 and 0 < k and 0 < n < 2 ** 31,
+        f"({rows}, {k}) @ ({k}, {n}) is out of range")
     sw_k, sw_n = weight.stride()
     req((sw_n == 1 and sw_k % vec == 0) or (sw_k == 1 and sw_n % vec == 0),
         f"weight strides {weight.stride()} need unit stride along k or n "
-        f"and 16-byte aligned rows")
+        f"and the other a multiple of {vec} (16-byte aligned rows)")
     req(x.is_contiguous(), "x must be contiguous")
     for t in (x, weight, bias, *more):
         if t is None:
@@ -576,6 +635,36 @@ def _pad_k(t, kp, dim):
     return out
 
 
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def _gemm_weight(weight, kd):
+    """The ``(kd, n)`` weight as the kernels read it.  In place when it
+    has unit stride along n or k and its other stride is a multiple of
+    16 bytes (a Linear weight of such a width; the transposed view of an
+    embedding table, BERT's tied decoder, at any n).  Otherwise (k off a
+    multiple of 8, or a Linear weight whose rows are not 16 bytes apart,
+    n off a multiple of 16 bytes) a zero-padded copy, ``(kp, np)`` with
+    ``kp`` and ``np`` the next multiples of 8 and 16 bytes, returned as
+    its ``(kp, n)`` view: the zero rows add nothing to the products, and
+    the kernels read no column past n.  That copy reads and writes the
+    weight once a call (``k * n`` elements in, ``kp * np`` out)."""
+    if weight.dim() != 2 or weight.shape[0] != kd:
+        return weight    # _check_gemm names the fault
+    kp = _round_up(kd, 8)
+    vec = 16 // weight.element_size()
+    sw_k, sw_n = weight.stride()
+    if kp == kd and ((sw_n == 1 and sw_k % vec == 0)
+                     or (sw_k == 1 and sw_n % vec == 0)):
+        return weight
+    n = weight.shape[1]
+    npad = _round_up(n, vec)
+    out = weight.new_zeros((kp, npad))
+    out[:kd, :n] = weight
+    return out if npad == n else out[:, :n]
+
+
 def _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon):
     kd = x.shape[-1]     # the LayerNorm's width
     for t, what in ((ln_weight, "the LayerNorm weight"),
@@ -585,16 +674,15 @@ def _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon):
     _require(residual is None or (residual.shape == x.shape
                                   and residual.is_contiguous()),
              f"the residual must be contiguous {tuple(x.shape)}", "ln_matmul")
-    if kd % 8 and x.dim() == 2 and weight.dim() == 2 \
-            and weight.shape[0] == kd:
+    if kd % 8 and x.dim() == 2:
         # any width: zero columns of x, the residual and the LayerNorm's
         # weight and bias, and zero rows of W, up to a multiple of 8 add
         # nothing to the row sums or the products; the kernel divides the
         # statistics by kd
-        kp = -(-kd // 8) * 8
+        kp = _round_up(kd, 8)
         x, residual = _pad_k(x, kp, 1), _pad_k(residual, kp, 1)
         ln_weight, ln_bias = _pad_k(ln_weight, kp, 0), _pad_k(ln_bias, kp, 0)
-        weight = _pad_k(weight, kp, 0)
+    weight = _gemm_weight(weight, kd)
     x, residual = _aligned(x), _aligned(residual)
     rows, k, n, sw_k, sw_n = _check_gemm(
         x, weight, bias, ln_weight, ln_bias, residual, kernel="ln_matmul")
@@ -616,21 +704,26 @@ def _launch_ln_matmul(x, weight, ln_weight, ln_bias, bias, residual, epsilon):
 
 def _launch_matmul_bias_gelu(x, weight, bias, approximate):
     k = x.shape[-1]
-    if k % 8 and x.dim() == 2 and weight.dim() == 2 and weight.shape[0] == k:
+    if k % 8 and x.dim() == 2:
         # any k: zero columns of x and zero rows of W add nothing
-        kp = -(-k // 8) * 8
-        x, weight = _pad_k(x, kp, 1), _pad_k(weight, kp, 0)
+        x = _pad_k(x, _round_up(k, 8), 1)
+    weight = _gemm_weight(weight, k)
     x = _aligned(x)
     rows, k, n, sw_k, sw_n = _check_gemm(x, weight, bias,
                                          kernel="matmul_bias_gelu")
-    y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    # the TMA store writes rows 16 bytes apart: y and z are allocated at
+    # the next multiple of 16 bytes and returned as their (rows, n) views
+    ldy = _round_up(n, 16 // x.element_size())
+    y = torch.empty((rows, ldy), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y)
+    if ldy != n:
+        y, z = y[:, :n], z[:, :n]
     if rows == 0:
         return y, z
     lib = _build.load("block_gemm", _GEMM_SIGNATURES)
     status = lib.ptt_matmul_bias_gelu(
         x.data_ptr(), weight.data_ptr(), _ptr(bias), y.data_ptr(),
-        z.data_ptr(), rows, k, n, sw_k, sw_n, int(bool(approximate)),
+        z.data_ptr(), rows, k, n, sw_k, sw_n, ldy, int(bool(approximate)),
         _DTYPE_CODE[x.dtype], _stream(x.device))
     _build.check(lib, status, "matmul_bias_gelu")
     return y, z
@@ -656,8 +749,10 @@ ln_matmul.launches = 0
 
 def matmul_bias_gelu(x, weight, bias=None, approximate=True):
     """``(gelu(z), z)``, ``z = x @ weight (+ bias)``, of a ``(rows, k)`` x
-    and a ``(k, n)`` weight, both in x's dtype.  The CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors;
+    and a ``(k, n)`` weight, both in x's dtype (on the card, where n is
+    not a multiple of 16 bytes, ``(rows, n)`` views of rows padded to
+    one).  The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors;
     ``matmul_bias_gelu.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return matmul_bias_gelu_reference(x, weight, bias, approximate)

@@ -489,7 +489,7 @@ def _check(q, k, v, *more):
     sk = k.shape[1]
     _require(d == _kernel_head_dim(d), f"head dim {d} is not one the "
              f"kernels take ({_HEAD_DIMS} or a multiple of {_WIDE_STEP})")
-    _require(b * h <= 65535, f"B * H = {b * h} > 65535")
+    _require(b * h < 2 ** 31, f"B * H = {b * h} is out of range")
     _require(sq > 0 and sk > 0, "q_len and kv_len must be positive")
     vec = 16 // q.element_size()
     for t, want in ((q, q.shape), (k, (b, sk, h, d)), (v, (b, sk, h, d)),

@@ -90,13 +90,19 @@ def w8a16_matmul_reference(x, w_q, scale):
 W8A16_GROUPS = 8   # kGroups in csrc/w8a16.cu: one cluster block each
 
 
+W8A16_K_STEP = 32  # the kernel's x width: K zero-padded to a multiple
+
+
 def w8a16_split_plan(k):
     """The ``(start, end)`` k ranges whose f32 sums the kernel keeps
-    apart and then adds in this order: ``W8A16_GROUPS`` equal groups of K.
-    It reads K alone (neither N nor the row count enters), so a row's sum
-    order, and its bits, never depend on the batch it shares."""
-    size = k // W8A16_GROUPS
-    return tuple((g * size, (g + 1) * size) for g in range(W8A16_GROUPS))
+    apart and then adds in this order: ``W8A16_GROUPS`` equal groups of K
+    rounded up to a multiple of ``W8A16_K_STEP``, each cut at K (the
+    zero padding adds nothing; a group past K sums nothing).  It reads K
+    alone (neither N nor the row count enters), so a row's sum order, and
+    its bits, never depend on the batch it shares."""
+    size = -(-k // W8A16_K_STEP) * W8A16_K_STEP // W8A16_GROUPS
+    return tuple((min(g * size, k), min((g + 1) * size, k))
+                 for g in range(W8A16_GROUPS))
 
 
 def w8a16_split_reference(x, w_q, scale):
@@ -120,7 +126,7 @@ def w8a16_split_reference(x, w_q, scale):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptt_w8a16_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ptt_w8a16_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _X_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,7 +138,9 @@ def _require(cond, msg):
 
 def _launch(x2, w_q, scale):
     """Check what the kernel takes, allocate the output, launch on the
-    current stream.  Never synchronises."""
+    current stream.  Never synchronises.  Any K and N: x's columns are
+    zero-padded to the next multiple of ``W8A16_K_STEP`` (a copy of the
+    activations, not of the weight), the weight is read whole."""
     dev = x2.device
     _require(dev.type == "cuda", f"x is on {dev}, not a CUDA device")
     for t in (x2, w_q, scale):
@@ -146,8 +154,13 @@ def _launch(x2, w_q, scale):
     n = w_q.shape[1]
     _require(scale.dtype == torch.float32 and scale.shape == (n,),
              "scale must be float32 (N,)")
-    _require(n % 16 == 0 and k % 32 == 0,
-             f"K={k} must be a multiple of 32 and N={n} of 16")
+    _require(0 < k and 0 < n and m < 2 ** 31 and n < 2 ** 31,
+             f"({m}, {k}) @ ({k}, {n}) is out of range")
+    kp = -(-k // W8A16_K_STEP) * W8A16_K_STEP
+    if kp != k:
+        xp = x2.new_zeros((m, kp))
+        xp[:, :k] = x2
+        x2 = xp
     _require(x2.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0,
              "x and w_q must be 16-byte aligned")
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
@@ -156,7 +169,8 @@ def _launch(x2, w_q, scale):
     lib = _build.load("w8a16", _SIGNATURES)
     status = lib.ptt_w8a16_matmul(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, _X_CODE[x2.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        m, kp, k, n, _X_CODE[x2.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "w8a16_matmul")
     return out
 

@@ -120,6 +120,15 @@ def test_flash_kernels_sum_without_atomics():
         assert not re.search(r"\b(red|atom)\.", text), name
 
 
+def test_layer_norm_kernels_sum_without_atomics():
+    # dw and db the same bits on every run: each block's partial row, then
+    # the block-order reduce; no atomic adds in the LayerNorm source
+    code = _code(PKG / "csrc" / "layer_norm.cu")
+    assert "ln_bwd_one_pass_kernel" in code and "ln_bwd_reduce_kernel" in code
+    assert not re.search(r"\batomic\w*\s*\(", code)
+    assert not re.search(r"\b(red|atom)\.", code)
+
+
 def test_exit_codes_and_page_budget_match_the_reference():
     assert exit_codes.EXIT_WATCHDOG == jax_exit_codes.EXIT_WATCHDOG == 70
     assert exit_codes.EXIT_DRAIN == jax_exit_codes.EXIT_DRAIN == 143

@@ -11,11 +11,24 @@ their plain versions, and the CUDA kernels are held against those on the
 card by ``chip_smoke.py``.  The card's argument checks run here on
 stand-ins for CUDA tensors, with the C call stubbed.
 
+The shapes the card refused before and takes now (the block kernels at
+an output width off a multiple of 16 bytes, w8a16 at any K and N, flash
+past 65535 slices) run the launchers here to their C call, and the plain
+versions at those shapes against the JAX package's; the LayerNorm
+backward's summation plan (the row partition, each block's partial row
+of dw and db, the block-order reduce) is held against the JAX kernel in
+interpret mode.
+
 Tolerances:
- - LayerNorm + matmul against the JAX ``ln_matmul_reference``: 1e-5
-   relative to the output's scale (an f32 product over d terms);
+ - LayerNorm + matmul against the JAX ``ln_matmul_reference``, and matmul
+   + bias + gelu against ``matmul_bias_gelu_reference``: 1e-5 relative to
+   the output's scale (an f32 product over d terms);
  - the w8a16 split model against ``w8a16_matmul_reference``: 1e-5, and
-   identical bits for a row at every batch size.
+   identical bits for a row at every batch size; the port's plain w8a16
+   against the JAX one: 1e-5;
+ - the LayerNorm backward's split model against the JAX kernel's dx, dw
+   and db: 1e-5 relative to each output's scale (f32 sums over the rows
+   in another order).
 """
 import dataclasses
 import types
@@ -25,8 +38,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from paddle_tpu.incubate.models import gpt as jgpt
 from paddle_tpu.ops import fused_kernels as jfk
+from paddle_tpu.ops import quant_kernels as jqk
 from paddle_tpu_torch.incubate.models import gpt as tgpt
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import fused_kernels as tfk
@@ -100,7 +116,23 @@ class _Fake(types.SimpleNamespace):
         return st if i is None else st[i]
 
     def __getitem__(self, i):
-        return _fake(self.shape[1:], self.dtype)
+        if not isinstance(i, tuple):
+            return _fake(self.shape[1:], self.dtype)
+        # a view by slices (an Ellipsis standing for whole dims): its shape,
+        # the same strides
+        if Ellipsis in i:
+            at = i.index(Ellipsis)
+            i = (i[:at] + (slice(None),) * (len(self.shape) - len(i) + 1)
+                 + i[at + 1:])
+        i = i + (slice(None),) * (len(self.shape) - len(i))
+        shape = tuple(len(range(*sl.indices(n)))
+                      for sl, n in zip(i, self.shape))
+        return _fake(shape, self.dtype, strides=self.stride())
+
+    def unsqueeze(self, dim):
+        assert dim == 0
+        return _fake((1, *self.shape), self.dtype, strides=(
+            int(np.prod(self.shape)), *self.stride()))
 
     def zero_(self):
         return self
@@ -274,3 +306,206 @@ def test_w8a16_split_model_matches_reference_and_keeps_rows():
     for m in (1, 2, 5, 16, 17):
         assert torch.equal(tqk.w8a16_split_reference(x[:m], wq, sc),
                            full[:m])
+
+
+# -- the shapes the card refused before ------------------------------------------
+
+# BERT's unpadded uncased vocabulary, and FFN widths off a multiple of 8
+NARROW_N = [30522, 4090, 3070]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", NARROW_N)
+def test_block_launchers_take_any_output_width(stub_c, n, dtype):
+    """Rows 11-12 at an N off a multiple of 16 bytes: a Linear weight whose
+    rows are not 16 bytes apart reaches the kernels as a zero-padded copy
+    (rows ``npad`` apart, read to column n); ln_matmul's y is ``(rows, n)``
+    contiguous, matmul + bias + gelu's y and z ``(rows, n)`` views of rows
+    ``npad`` apart, as its TMA store writes them."""
+    npad = -(-n // (16 // dtype.itemsize)) * (16 // dtype.itemsize)
+    x, vec = _fake((64, 768), dtype), _fake((768,), dtype)
+    w, bias = _fake((768, n), dtype), _fake((n,), dtype)
+    y = tfk._launch_ln_matmul(x, w, vec, vec, bias, None, 1e-5)
+    yg, zg = tfk._launch_matmul_bias_gelu(x, w, bias, True)
+    (f1, a1), (f2, a2) = stub_c
+    assert f1 == "ptt_ln_matmul" and a1[7:13] == (64, 768, 768, n, npad, 1)
+    assert f2 == "ptt_matmul_bias_gelu"
+    assert a2[5:11] == (64, 768, n, npad, 1, npad)
+    assert y.shape == yg.shape == zg.shape == (64, n)
+    assert y.is_contiguous() and yg.stride() == zg.stride() == (npad, 1)
+
+
+def test_tied_decoder_at_the_uncased_vocabulary_is_read_in_place(stub_c):
+    """BERT's decoder at V = 30522: the transposed view of the (30522, 768)
+    word-embedding table reaches the bf16 kernel with its own strides (k
+    contiguous, rows 768 apart); nothing copies it."""
+    class Table(_Fake):
+        def new_zeros(self, shape):
+            raise AssertionError("the embedding table was copied")
+
+    v, h = 30522, 768
+    w = Table(device=torch.device("cuda", 0), shape=(h, v),
+              dtype=torch.bfloat16, strides=(1, h))
+    x, vec = _fake((4096, h)), _fake((h,))
+    y = tfk._launch_ln_matmul(x, w, vec, vec, _fake((v,)), None, 1e-12)
+    (fn, args), = stub_c
+    assert fn == "ptt_ln_matmul" and args[4] == 0
+    assert args[7:13] == (4096, h, h, v, 1, h) and args[14] == 1
+    assert y.shape == (4096, v) and y.is_contiguous()
+
+
+@pytest.mark.parametrize("k,n", [(48, 1000), (1024, 4096), (40, 16)])
+def test_w8a16_launcher_takes_any_k_and_n(stub_c, monkeypatch, k, n):
+    """x's columns are zero-padded to the next multiple of 32 (the
+    kernel's x width and sum order), the weight is passed whole with its
+    true K and N."""
+    monkeypatch.setattr(tqk.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    x = _fake((16, k), torch.float32)
+    out = tqk._launch(x, _fake((k, n), torch.int8),
+                      _fake((n,), torch.float32))
+    (fn, args), = stub_c
+    assert fn == "ptt_w8a16_matmul"
+    assert args[4:9] == (16, -(-k // 32) * 32, k, n, 0)
+    assert out.shape == (16, n)
+
+
+def test_flash_launchers_take_more_than_65535_slices(stub_c, monkeypatch):
+    """B * H = 4097 * 16 = 65552 fixed-length slices, and a packed batch of
+    65540 heads: the launchers pass them to the C entries, which fold the
+    slices into gridDim.x."""
+    monkeypatch.setattr(tpo.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    q = _fake((4097, 64, 16, 64))
+    tpo._launch_fwd(q, q, q, None, True, 0.125, 0.0)
+    tables = {name: _fake(shape, torch.int32) for name, shape in (
+        ("cu_q", (3,)), ("cu_k", (3,)), ("hstart", (4,)),
+        ("q_tiles", (3, 2)), ("k_tiles", (3, 2)))}
+    layout = types.SimpleNamespace(n=2, tables=lambda dev: tables)
+    qp = _fake((150, 65540, 64))
+    for launch in (tpo._launch_fwd,):
+        launch(qp, qp, qp, None, True, 0.125, 0.0, layout=layout)
+    stats = _fake((65540, 150), torch.float32)
+    tpo._launch_dq(qp, qp, qp, qp, stats, stats, None, True, 0.125, 0.0,
+                   layout=layout)
+    tpo._launch_dkv(qp, qp, qp, qp, stats, stats, None, True, 0.125, 0.0,
+                    layout=layout)
+    assert [fn for fn, _ in stub_c] == ["ptt_flash_fwd", "ptt_flash_fwd",
+                                        "ptt_flash_bwd_dq",
+                                        "ptt_flash_bwd_dkv"]
+    assert stub_c[0][1][14:19] == (4097, 16, 64, 64, 64)
+    assert stub_c[1][1][12] == 3 and stub_c[1][1][14:16] == (2, 65540)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("n", [30522])
+def test_block_plain_versions_match_jax_at_the_uncased_vocabulary(n,
+                                                                  residual):
+    """The plain versions the card's kernels are held to, at N = 30522
+    (rows 11 and 12) against the JAX package's references, f32."""
+    rng = np.random.RandomState(n)
+    k = 64
+    x, lw, lb, _, r = _ln_inputs(6, k, 7)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    bias = (0.1 * rng.randn(n)).astype(np.float32)
+    res = r if residual else None
+    t = {name: None if a is None else torch.from_numpy(a) for name, a in
+         dict(x=x, w=w, lw=lw, lb=lb, bias=bias, res=res).items()}
+    j = {name: None if a is None else jnp.asarray(a) for name, a in
+         dict(x=x, w=w, lw=lw, lb=lb, bias=bias, res=res).items()}
+    got = tfk.ln_matmul_reference(t["x"], t["w"], t["lw"], t["lb"],
+                                  t["bias"], t["res"], 1e-5)
+    want = np.asarray(jfk.ln_matmul_reference(j["x"], j["w"], j["lw"],
+                                              j["lb"], j["bias"], j["res"],
+                                              1e-5))
+    assert got.shape == (6, n)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * scale,
+                               rtol=1e-5)
+    xg = x + r if residual else x   # any input will do for the product
+    for approximate in (True, False):
+        got, _ = tfk.matmul_bias_gelu_reference(
+            torch.from_numpy(xg), t["w"], t["bias"], approximate)
+        want = np.asarray(jfk.matmul_bias_gelu_reference(
+            jnp.asarray(xg), j["w"], j["bias"], approximate))
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * scale,
+                                   rtol=1e-5)
+
+
+def test_w8a16_plain_versions_match_jax_at_any_k_and_n():
+    """w8a16 at K = 48, N = 1000 (a hidden size the int8 serve path could
+    not take on the card): the port's plain version against the JAX
+    reference, and the split model (K padded to 64: groups of 8, the last
+    two empty) against both, each row the same bits at every batch size."""
+    rng = np.random.RandomState(48)
+    x = rng.randn(20, 48).astype(np.float32)
+    w = (rng.randn(48, 1000) * 0.02).astype(np.float32)
+    wq, sc = tqk.quantize_weight(torch.from_numpy(w), axis=1)
+    jwq, jsc = jqk.quantize_weight(jnp.asarray(w), axis=1)
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    want = np.asarray(jqk.w8a16_matmul_reference(jnp.asarray(x), jwq, jsc))
+    got = tqk.w8a16_matmul_reference(torch.from_numpy(x), wq, sc)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert tqk.w8a16_split_plan(48) == ((0, 8), (8, 16), (16, 24), (24, 32),
+                                        (32, 40), (40, 48), (48, 48),
+                                        (48, 48))
+    full = tqk.w8a16_split_reference(torch.from_numpy(x), wq, sc)
+    np.testing.assert_allclose(full.numpy(), want, atol=1e-5, rtol=1e-5)
+    for m in (1, 5, 16, 17):
+        assert torch.equal(tqk.w8a16_split_reference(
+            torch.from_numpy(x[:m]), wq, sc), full[:m])
+
+
+# -- the LayerNorm backward's summation plan ------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 8, 100, 2048, 4096, 16384, 16385])
+def test_layer_norm_backward_plan_reads_rows_alone(rows):
+    """The one-pass kernel's blocks own contiguous row ranges starting at
+    multiples of 8, at most 128 of them, covering every row once; the
+    register kernel keeps its grid-stride plan."""
+    nparts, per = tfk.ln_bwd_plan(rows, 2048)
+    assert per % 8 == 0 and nparts <= 128
+    assert (nparts - 1) * per < rows <= nparts * per
+    assert tfk.ln_bwd_plan(rows, 1003) == (nparts, per)
+    reg, _ = tfk.ln_bwd_plan(rows, 1024)
+    assert reg == min(-(-rows // 8), 256)
+
+
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "no-affine"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("d", [1003, 2048, 5120])
+def test_layer_norm_backward_split_model_matches_jax_kernel(d, residual,
+                                                            affine):
+    """The one-pass backward's sum order (each block's rows in order into a
+    partial row, the partial rows in block order by 8 slices) gives the
+    JAX kernel's dx, dw and db, run in interpret mode, f32."""
+    rows = 100    # 13 blocks of 8 rows, the last with 4
+    x, w, b, g, r = _ln_inputs(rows, d, d + 3)
+    res = r if residual else None
+    jargs = [jnp.asarray(x)] + ([jnp.asarray(w), jnp.asarray(b)] if affine
+                                else [])
+    if residual:
+        fn = lambda xx, *rest: jfk.fused_layer_norm(   # noqa: E731
+            xx, *rest[:-1], residual=rest[-1], interpret=True)
+        jargs.append(jnp.asarray(r))
+    else:
+        fn = lambda *a: jfk.fused_layer_norm(*a, interpret=True)  # noqa: E731
+    _, vjp = jax.vjp(fn, *jargs)
+    jgrads = vjp(jnp.asarray(g))
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    tw = torch.from_numpy(w) if affine else None
+    tr = torch.from_numpy(r) if residual else None
+    _, mean, rstd = tfk.layer_norm_fwd_reference(
+        tx, tw, torch.from_numpy(b) if affine else None, 1e-5, tr)
+    dx, dw, db = tfk.layer_norm_bwd_split_reference(tg, tx, tw, mean, rstd,
+                                                    tr)
+    got = [dx] + ([dw, db] if affine else [])
+    for t, want in zip(got, jgrads):
+        want = np.asarray(want)
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(t.numpy(), want, atol=1e-5 * scale,
+                                   rtol=1e-5)
+    if not affine:   # db without a bias: the column sums of g
+        np.testing.assert_allclose(db.numpy(), g.sum(0), rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(g.sum(0)).max()))
