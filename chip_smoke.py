@@ -21,8 +21,8 @@ line is printed:
              and f32, fixed and packed, wide heads too) at dropout 0.1
              and 0, out and lse the same bits over two runs
              as dq, dk and dv: at D 64 and 128 with fixed lengths the
-             wgmma forward, dq and dk/dv kernels, elsewhere the mma.sync
-             ones) and at
+             wgmma forward, dq and dk/dv kernels, packed the wgmma dq and
+             dk/dv, elsewhere the mma.sync ones) and at
              ``bert_base`` width (LayerNorm with a residual over 4096 rows
              of 768; softmax cross-entropy over the MLM head's (4096,
              30528) logits with 84% of the rows ignored and over the NSP
@@ -40,8 +40,12 @@ line is printed:
              f32, cross lengths with rows that see no key, sequences of
              length 0, no mask, head sizes 48 and 256 and other
              ``block_q``/``block_k`` for the dropout hash's layout (and
-             D 320); flash at head sizes past 256 (320 and 512, padded
-             to multiples of 128), bf16 and f32, causal and not;
+             D 320), bf16 at D 128 and 64 over lengths off a multiple of
+             128, causal and full, cross and zero lengths; each packed
+             set's dq and dk/dv on the route its dtype and head size
+             take (bf16 at D 64 and 128 the wgmma kernels, checked under
+             the profiler); flash at head sizes past 256 (320 and 512,
+             padded to multiples of 128), bf16 and f32, causal and not;
              flash past 65535 (b, h) slices (4097 x 64 tokens x 16 heads,
              D 64 and 32 bf16, D 64 f32) and packed past 65535 heads, at
              both dropouts;
@@ -162,7 +166,10 @@ line is printed:
              tokens through the padded flash kernels at (8, 1024, 16, 64):
              out and dq on the valid rows, ms an iteration, tokens/s, the
              padded / packed ratio, each side's device busy time, the
-             host's time to build and upload the packed layout; then 2
+             host's time to build and upload the packed layout; under
+             the profiler the packed backward runs the wgmma dq and dk/dv
+             kernels once each an iteration and no mma.sync backward
+             kernel (their device time an iteration); then 2
              iterations at dropout 0.1 with the run's generator.
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
@@ -1101,10 +1108,13 @@ def _kept_pairs(lq, lk, causal):
 def _packed_rows(timer, gen, results):
     """Rows 4-6: bench_packed's sequences first (bf16, causal, dropout 0,
     then dropout 0.1, each timed with the library's yardstick at the same
-    dropout where it takes one), then small
-    sets at both dropouts, f32 and bf16: cross lengths (some ``len_q > len_k``, rows with no key),
-    sequences of length 0, no mask, head sizes 48 and 256, and other
-    ``block_q``/``block_k`` for the dropout hash's layout."""
+    dropout where it takes one), then small sets at both dropouts, f32
+    and bf16: cross lengths (some ``len_q > len_k``, rows with no key),
+    sequences of length 0, no mask, head sizes 48, 256 and 320 and other
+    ``block_q``/``block_k`` for the dropout hash's layout; bf16 at D 128
+    and 64 over lengths off a multiple of 128 (the wgmma backward's tiles
+    crossing into the next sequence), causal and full; past 65535 heads.
+    Each entry checks which backward kernels ran (``route``)."""
     cross_q, cross_k = [50, 7, 130, 0, 64], [20, 33, 100, 15, 64]
     sets = [("bf16", PACKED_LENS, PACKED_LENS, PACKED_HEADS, PACKED_HD, True,
              0.0, (None, None), True),
@@ -1121,6 +1131,21 @@ def _packed_rows(timer, gen, results):
                   p, (None, None), False),
                  (tag, [100, 0, 77, 200], [60, 9, 77, 230], 2, 320, True,
                   p, (None, None), False)]
+    # the wgmma backward's units at D 64 and 128: tiles of 128 rows that
+    # cross their sequence's end into the next one's rows (lengths off a
+    # multiple of 128), zero lengths on either side, len_q > len_k
+    long_q, long_k = [300, 0, 129, 517, 64, 17], [150, 40, 0, 513, 200, 3]
+    for p in FLASH_DROPOUTS:
+        sets += [("bf16", long_q, long_q, 4, 128, True, p, (None, None),
+                  False),
+                 ("bf16", long_q, long_q, 4, 128, False, p, (None, None),
+                  False),
+                 ("bf16", long_q, long_k, 4, 128, True, p, (None, None),
+                  False),
+                 ("bf16", long_q, long_k, 4, 128, False, p, (128, 64),
+                  False),
+                 ("bf16", long_q, long_k, 4, 64, True, p, (64, 128),
+                  False)]
     # more than 65535 heads (the mma.sync kernels' old gridDim.y)
     sets += [("bf16", [40, 0, 24], [40, 0, 24], PACKED_MANY_HEADS, 64, True,
               p, (None, None), False) for p in FLASH_DROPOUTS]
@@ -1165,8 +1190,24 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
     bwd_args = (q, k, v, do, lse, delta)
     dq = po.flash_packed_bwd_dq(*bwd_args, layout, seed, **opts)
     dk, dv = po.flash_packed_bwd_dkv(*bwd_args, layout, seed, **opts)
-    dq2 = po.flash_packed_bwd_dq(*bwd_args, layout, seed, **opts)
-    dk2, dv2 = po.flash_packed_bwd_dkv(*bwd_args, layout, seed, **opts)
+    second = {}
+
+    def again():
+        second["dq"] = po.flash_packed_bwd_dq(*bwd_args, layout, seed,
+                                              **opts)
+        second["dkv"] = po.flash_packed_bwd_dkv(*bwd_args, layout, seed,
+                                                **opts)
+    # the route the second run took, read off the kernels' names: bf16 at
+    # D 64 and 128 (after padding) the wgmma kernels, every other case the
+    # mma.sync ones (the wide heads their slab kernels, neither)
+    calls, _ = _flash_bwd_calls(again)
+    dq2, (dk2, dv2) = second["dq"], second["dkv"]
+    kd = po._kernel_head_dim(d)
+    route = ("wgmma" if tag == "bf16" and kd in (64, 128) else
+             "mma.sync" if kd <= 256 else "wide")
+    want_calls = {n: float(route == ("wgmma" if n in WG_FLASH_BWD else
+                                     "mma.sync"))
+                  for n in WG_FLASH_BWD + MMA_FLASH_BWD}
     ref_opts = dict(opts, seed=seed, block_q=bq, block_k=bk)
     out_ref, lse_ref = po.mha_packed_reference(q, k, v, cu_q, cu_k,
                                                **ref_opts)
@@ -1190,22 +1231,26 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
     log(f"[kernel] flash_packed[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
         + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
-        f"{same_bits}")
+        f"{same_bits}; rows 5-6 route {route}, backward kernels run "
+        f"{ {n: c for n, c in calls.items() if c} }")
     bad = [k for k, (_, ok) in errs.items() if not ok]
-    if bad or not same_bits:
+    if bad or not same_bits or calls != want_calls:
         raise AssertionError(f"flash_packed[{variant}] disagrees with its "
                              f"plain versions on {bad}, or dq/dk/dv differ "
-                             f"between runs (bit-identical: {same_bits})")
+                             f"between runs (bit-identical: {same_bits}), "
+                             f"or the backward ran {calls}, not the "
+                             f"{route} route's {want_calls}")
     rows = {"flash_packed_fwd": dict(variant=variant, max_abs_err=max(
                 errs["out"][0], errs["lse"][0]),
                 errors={k: errs[k][0] for k in ("out", "lse")}),
             "flash_packed_bwd_dq": dict(variant=variant,
                                         max_abs_err=errs["dq"][0],
-                                        bit_identical=same_bits),
+                                        bit_identical=same_bits,
+                                        route=route),
             "flash_packed_bwd_dkv": dict(variant=variant, max_abs_err=max(
                 errs["dk"][0], errs["dv"][0]),
                 errors={k: errs[k][0] for k in ("dk", "dv")},
-                bit_identical=same_bits)}
+                bit_identical=same_bits, route=route)}
     for row in rows.values():
         row.update(tol=FLASH_TOL[tag], ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None, library_ms=None)
@@ -1249,9 +1294,11 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
         rows[name].update(ms=times[name], plain_ms=plain[name],
                           library_ms=lib_fwd if name == "flash_packed_fwd"
                           else lib_bwd, library=lib)
+    bwd_ms = times["flash_packed_bwd_dq"] + times["flash_packed_bwd_dkv"]
     lib_times = ("none at this dropout" if lib_fwd is None else
                  f"forward {lib_fwd:.4f} ms, backward (dq, dk and dv in one, "
-                 f"forward+backward less forward) {lib_bwd:.4f} ms")
+                 f"forward+backward less forward) {lib_bwd:.4f} ms; rows 5 + "
+                 f"6 / the library's backward {bwd_ms / lib_bwd:.3f}")
     log(f"[kernel] flash_packed[{variant}] times: "
         + "; ".join(f"{name} kernel {times[name]:.4f} ms plain "
                     f"{plain[name]:.4f} ms bound {rows[name]['bound_ms']:.4f}"
@@ -2400,7 +2447,7 @@ def phase_packed(smi):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(PACKED_ITERS):
-        po.PackedLayout(cu, cu, total, total).tables(qp.device)
+        po.PackedLayout(cu, cu, total, total).tables(qp.device, True)
     torch.cuda.synchronize()
     log(f"[packed] PackedLayout and its tables on the card: "
         f"{(time.perf_counter() - t0) / PACKED_ITERS * 1e3:.4f} ms a call "
@@ -2411,6 +2458,15 @@ def phase_packed(smi):
         log(f"[packed] {label}: device busy {busy:.3f} ms an iteration, "
             f"{busy / ms:.3f} of its wall time {ms:.3f} ms; {ops:.0f} device "
             f"operations an iteration; most device time: {top}")
+    # rows 5-6 on the wgmma kernels: each once an iteration, and no
+    # mma.sync backward kernel
+    calls, bwd_ms = _flash_bwd_calls(lambda: packed_fb(qp), 3)
+    want_calls = {n: float(n in WG_FLASH_BWD) for n in calls}
+    log(f"[packed] the packed backward's kernels, calls an iteration: "
+        f"{calls}; their device time {bwd_ms:.4f} ms an iteration | {smi}")
+    if calls != want_calls:
+        raise AssertionError(f"packed: backward kernels {calls}, want "
+                             f"{want_calls}")
 
     generator = make_generator(FLASH_SEED, DEVICE)
     losses = [packed_fb(qp, FLASH_DROPOUT, generator)[0].item()
@@ -2423,10 +2479,9 @@ def phase_packed(smi):
     return launches
 
 
-def _device_busy(fn, n):
-    """Device time of ``fn`` under ``torch.profiler``, summed over its
-    kernels: (ms per call, device operations per call, the three largest
-    kernels by name and ms per call)."""
+def _profiled_kernels(fn, n):
+    """The device kernels of ``n`` runs of ``fn`` under ``torch.profiler``
+    (``key_averages()`` entries with device time)."""
     from paddle_tpu_torch.serving.profile import _device_us
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2434,8 +2489,28 @@ def _device_busy(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.key_averages() if _device_us(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _flash_bwd_calls(fn, n=1):
+    """The flash backward's kernels that ``n`` runs of ``fn`` launch:
+    ({name: calls a run} for ``WG_FLASH_BWD`` and ``MMA_FLASH_BWD``, their
+    device ms a run)."""
+    from paddle_tpu_torch.serving.profile import _device_us
+    names = WG_FLASH_BWD + MMA_FLASH_BWD
+    mine = [e for e in _profiled_kernels(fn, n)
+            if any(k in e.key for k in names)]
+    return ({k: sum(e.count for e in mine if k in e.key) / n for k in names},
+            sum(_device_us(e) for e in mine) / n / 1e3)
+
+
+def _device_busy(fn, n):
+    """Device time of ``fn`` under ``torch.profiler``, summed over its
+    kernels: (ms per call, device operations per call, the three largest
+    kernels by name and ms per call)."""
+    from paddle_tpu_torch.serving.profile import _device_us
+    kernels = _profiled_kernels(fn, n)
     if not kernels:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(kernels, key=_device_us, reverse=True)[:3]

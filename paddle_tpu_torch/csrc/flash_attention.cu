@@ -88,7 +88,7 @@
 // is a select in one straight run of code, not a branch that splits the
 // softmax into one block per element.
 //
-// dq and dk/dv in bf16 on fixed lengths at D 64 and 128 (`wg::
+// dq and dk/dv in bf16 at D 64 and 128, on fixed lengths and packed (`wg::
 // flash_bwd_dq_wg_kernel`, `wg::flash_bwd_dkv_wg_kernel`) take the same
 // blocks: a producer copying tiles by TMA into a ring, two consumer
 // warpgroups of 64 rows each (q rows for dq, keys for dk/dv) computing S
@@ -96,10 +96,17 @@
 // += dS K (or dV += P~^T dO and dK += dS^T Q) as wgmma's A operand.  Each
 // keeps the rule below: one block sums a row tile's gradient over the
 // other operand's tiles in order, so each recomputes S and dP (seven
-// products where an atomic dq would need five).
+// products where an atomic dq would need five).  Packed, a template
+// argument (PK) so that the fixed-length kernels compile as before, the
+// work units come from a table the wrapper builds on the host: each
+// sequence's 128-row tiles paired long with short as `unit_tile` pairs
+// them, the entries ordered by their work (the other operand's tiles they
+// walk), largest first, each entry one unit per head, dealt to the
+// persistent blocks back and forth.
 //
-// Every other case (f32, D 32 and 256, the wide heads, packed mode) runs
-// the mma.sync kernels, dropout a template argument there too: one block of 4
+// Every other case (f32, D 32 and 256, the wide heads, the packed
+// forward) runs the mma.sync kernels, dropout a template argument there
+// too: one block of 4
 // warps per 64-row tile, each warp owning 16 rows; the other operand's
 // tiles (64 rows; 16 in f32 at D = 256, where shared memory holds no
 // more) staged in shared memory in two buffers, the next tile's copy
@@ -183,6 +190,11 @@ struct Args {
   const int32_t* hstart;  // packed: hash bases start_q (B), start_k (B)
   const int32_t* tiles;   // packed: (sequence, first own row) per block
   int ntiles;
+  // the packed backward on wgmma: (sequence, first tile, second tile or
+  // -1) per entry, 128-row tiles (q tiles for dq, k tiles for dk/dv); unit
+  // u is entry u / H for head u % H
+  const int32_t* units;
+  int nunits;
   int ntx;     // mma.sync kernels: blocks per slice (row tiles, or ntiles);
                // blockIdx.x = slice * ntx + the block's tile
   long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
@@ -242,18 +254,13 @@ __device__ __forceinline__ Slice fixed_slice(const Args& a, int hb, int r0) {
   return v;
 }
 
-// the mma.sync kernels' block: slice blockIdx.x / ntx (b * H + h, or the
-// packed head h), tile blockIdx.x % ntx.  One grid axis holds both, so the
-// slices are not bounded by gridDim.y's 65535; the hash reads the slice
-// and the rows, not the block, so its bits do not depend on the grid.
-__device__ __forceinline__ Slice slice_of(const Args& a) {
-  const int sl = static_cast<int>(blockIdx.x / a.ntx);
-  const int tx = static_cast<int>(blockIdx.x % a.ntx);
-  if (a.tiles == nullptr) return fixed_slice(a, sl, tx * kRows);
+// packed: sequence s, head h, the block's first own row r0 (of the
+// sequence's q rows, or its k rows for dk/dv)
+__device__ __forceinline__ Slice packed_slice(const Args& a, int s, int h,
+                                              int r0) {
   Slice v;
-  const int s = a.tiles[2 * tx];
-  v.r0 = a.tiles[2 * tx + 1];
-  v.h = sl;
+  v.r0 = r0;
+  v.h = h;
   const int q0 = a.cu_q[s], k0 = a.cu_k[s];
   v.sq = a.cu_q[s + 1] - q0;
   v.sk = a.cu_k[s + 1] - k0;
@@ -270,6 +277,17 @@ __device__ __forceinline__ Slice slice_of(const Args& a) {
                 v.h * a.st[i][2];
   finish_slice(v, a, v.h);
   return v;
+}
+
+// the mma.sync kernels' block: slice blockIdx.x / ntx (b * H + h, or the
+// packed head h), tile blockIdx.x % ntx.  One grid axis holds both, so the
+// slices are not bounded by gridDim.y's 65535; the hash reads the slice
+// and the rows, not the block, so its bits do not depend on the grid.
+__device__ __forceinline__ Slice slice_of(const Args& a) {
+  const int sl = static_cast<int>(blockIdx.x / a.ntx);
+  const int tx = static_cast<int>(blockIdx.x % a.ntx);
+  if (a.tiles == nullptr) return fixed_slice(a, sl, tx * kRows);
+  return packed_slice(a, a.tiles[2 * tx], sl, a.tiles[2 * tx + 1]);
 }
 
 // elements in a padded row of a shared tile: 16 bytes more than the data,
@@ -1308,15 +1326,50 @@ __device__ __forceinline__ int unit_tile(int u, int which, int n) {
   return which == 0 ? n - 1 - pp : pp;
 }
 
-// item `which` of unit u over the nq q tiles: the tile's first row q0, its
-// slice v and the 128-key tiles it walks (up to its last row's diagonal
-// when causal), or -1 when there is no item
+// The packed backward's unit u: entry u / H of the unit table, for head u
+// % H, the table's entries largest work first, so that the persistent
+// blocks (`next_unit`) take every head's longest units first.  Returns
+// the entry's sequence; `tile` its tile `which` (-1: none).
+__device__ __forceinline__ int packed_unit(const Args& a, int u, int which,
+                                           int& tile) {
+  const int32_t* e = a.units + 3 * (u / a.H);
+  tile = e[1 + which];
+  return e[0];
+}
+
+// A persistent block's unit in its round r, after unit u: with fixed
+// lengths the stride b, b + gridDim.x, ... (every unit as much work);
+// packed, the units (largest first) dealt back and forth, round r from the
+// last block when r is odd, so that the blocks that took the longest
+// units in one round take the shortest in the next (on bench_packed's
+// sequences 10-12% faster than the stride, PERF.md)
+template <bool PK>
+__device__ __forceinline__ int next_unit(int u, int r) {
+  if constexpr (PK)
+    return r * gridDim.x + (r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  else
+    return u + gridDim.x;
+}
+
+// item `which` of unit u over the nq q tiles (PK: of the packed unit
+// table): the tile's first row q0, its slice v and the 128-key tiles it
+// walks (up to its last row's diagonal when causal), or -1 when there is
+// no item
+template <bool PK>
 __device__ __forceinline__ int q_item(const Args& a, int nq, int u, int which,
                                       int& q0, Slice& v) {
-  const int tile = unit_tile(u, which, nq);
-  if (tile < 0) return -1;
-  q0 = tile * kBM;
-  v = fixed_slice(a, u / ((nq + 1) / 2), q0);
+  if constexpr (PK) {
+    int tile;
+    const int s = packed_unit(a, u, which, tile);
+    if (tile < 0) return -1;
+    q0 = tile * kBM;
+    v = packed_slice(a, s, u % a.H, q0);
+  } else {
+    const int tile = unit_tile(u, which, nq);
+    if (tile < 0) return -1;
+    q0 = tile * kBM;
+    v = fixed_slice(a, u / ((nq + 1) / 2), q0);
+  }
   const int end = a.causal ? min(v.klen, q0 + kBM + v.off) : v.klen;
   return end > 0 ? (end + kBN - 1) / kBN : 0;
 }
@@ -1384,7 +1437,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int which = 0; which < 2; ++which) {
         int q0;
         Slice v;
-        const int tiles = q_item(a, nq, u, which, q0, v);
+        const int tiles = q_item<false>(a, nq, u, which, q0, v);
         if (tiles <= 0) continue;
         const int b = u / np / a.H, qb = qn & 1;
         mbar_wait(&qempty[qb], ((qn >> 1) & 1) ^ 1);
@@ -1436,7 +1489,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int which = 0; which < 2; ++which) {
       int q0;
       Slice v;
-      const int tiles = q_item(a, nq, u, which, q0, v);
+      const int tiles = q_item<false>(a, nq, u, which, q0, v);
       if (tiles < 0) continue;
       const int qw = q0 + cw * 64, r0 = q0 + wr;
       // m in log2 units: the running max of s * scale * log2(e)
@@ -1607,7 +1660,7 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// backward on wgmma and TMA: bf16, fixed lengths, D 64 or 128
+// backward on wgmma and TMA: bf16, fixed lengths or packed, D 64 or 128
 // ---------------------------------------------------------------------------
 
 // dq's shared memory, bytes from a 1024-aligned base: the Q and dO
@@ -1658,8 +1711,14 @@ struct DkvLayout {
 // wgmma's A layout), and dQ += dS K by wgmma with A from registers and K
 // read MN-major, left in flight over the next tile's S and dP at D = 64.
 // The key tiles are walked in order and dQ summed in f32 in registers: no
-// atomics, the same bits every run.  DROP as the forward's.
-template <int D, bool DROP>
+// atomics, the same bits every run.  DROP as the forward's.  PK: packed
+// sequences, the units from the unit table (`packed_unit`) and the TMA
+// maps over (1, total, H, D), a tile's rows absolute (the sequence's first
+// row plus its own).  A 128-row tile that crosses its sequence's end reads
+// the next sequence's rows, not zeros: the masks (query < sq, key < klen
+// on ragged tiles) and the stores (row < sq) keep them out, and a dQ row
+// depends on its own dS row only.
+template <int D, bool DROP, bool PK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -1707,21 +1766,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qp = perms & 63, kp = (perms >> 6) & 63;
     const int vp = (perms >> 12) & 63, dp = perms >> 18;
     int n = 0, qn = 0;   // ring steps and q tiles so far
-    for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
       for (int which = 0; which < 2; ++which) {
         int q0;
         Slice v;
-        const int tiles = q_item(a, nq, u, which, q0, v);
+        const int tiles = q_item<PK>(a, nq, u, which, q0, v);
         if (tiles <= 0) continue;
-        const int b = u / np / a.H, qb = qn % kQBufs;
+        // TMA coordinates: (row, h, b), rows absolute when packed
+        const int b = PK ? 0 : u / np / a.H, qb = qn % kQBufs;
+        const int qs = PK ? static_cast<int>(v.qrow) + q0 : q0;
+        const int ks = PK ? static_cast<int>(v.krow) : 0;
         mbar_wait(&qempty[qb], ((qn / kQBufs) & 1) ^ 1);
         mbar_arrive_expect(&qfull[qb], 2 * L::kTile);
 #pragma unroll
         for (int p = 0; p < D / 64; ++p) {
           tma_bshd(smem + L::Q + qb * L::kTile + p * kPanel, &qmap, qp,
-                   &qfull[qb], p * 64, q0, v.h, b);
+                   &qfull[qb], p * 64, qs, v.h, b);
           tma_bshd(smem + L::DO + qb * L::kTile + p * kPanel, &dmap, dp,
-                   &qfull[qb], p * 64, q0, v.h, b);
+                   &qfull[qb], p * 64, qs, v.h, b);
         }
         ++qn;
         for (int t = 0; t < tiles; ++t, ++n) {
@@ -1731,13 +1793,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int p = 0; p < D / 64; ++p)
             tma_bshd(smem + L::K + stg * L::kTile + p * kPanel, &kmap, kp,
-                     &kfull[stg], p * 64, t * kBN, v.h, b);
+                     &kfull[stg], p * 64, ks + t * kBN, v.h, b);
           mbar_wait(&vempty[stg], ph);
           mbar_arrive_expect(&vfull[stg], L::kTile);
 #pragma unroll
           for (int p = 0; p < D / 64; ++p)
             tma_bshd(smem + L::V + stg * L::kTile + p * kPanel, &vmap, vp,
-                     &vfull[stg], p * 64, t * kBN, v.h, b);
+                     &vfull[stg], p * 64, ks + t * kBN, v.h, b);
         }
       }
     return;
@@ -1758,11 +1820,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float s[kBN / 2], dp[kBN / 2];   // (8-column group j8, e) at [4 j8 + e]
   uint32_t ds[kBN / 16][4];
   int n = 0, qn = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x)
+  for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
     for (int which = 0; which < 2; ++which) {
       int q0;
       Slice v;
-      const int tiles = q_item(a, nq, u, which, q0, v);
+      const int tiles = q_item<PK>(a, nq, u, which, q0, v);
       if (tiles < 0) continue;
       const int qw = q0 + cw * 64, r0 = q0 + wr;
 #pragma unroll
@@ -1888,8 +1950,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the products overlap the registers' work: P^T is made while dP^T runs,
 // dS^T while dV runs, and dV and dK stay in flight over the next q tile's
 // S^T and dP^T.  dK (times scale) and dV are stored at the end: the q
-// tiles are walked in order, no atomics, the same bits every run.
-template <int D, bool DROP>
+// tiles are walked in order, no atomics, the same bits every run.  PK as
+// dq's, the units key tiles: queries past the sequence's end (the next
+// sequence's rows, in a q tile that crosses it) are masked on that tile
+// (query < sq), so their P^T and dS^T are 0 before dV += P~^T dO and dK +=
+// dS^T Q, and their lse and delta are read as 0.
+template <int D, bool DROP, bool PK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -1927,14 +1993,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // units of key tiles (unit_tile); item `which` of unit u: its q tiles
-  // from `first`, or -1 when there is none
+  // units of key tiles (unit_tile, or the packed unit table); item
+  // `which` of unit u: its q tiles from `first`, or -1 when there is none
   const int nk = (a.Sk + kBN - 1) / kBN, np = (nk + 1) / 2;
   auto item = [&](int u, int which, int& k0, int& first, Slice& v) {
-    const int tile = unit_tile(u, which, nk);
-    if (tile < 0) return -1;
-    k0 = (nk - 1 - tile) * kBN;   // the key tile with the most q tiles first
-    v = fixed_slice(a, u / np, k0);
+    if constexpr (PK) {
+      int tile;
+      const int s = packed_unit(a, u, which, tile);
+      if (tile < 0) return -1;
+      k0 = tile * kBN;
+      v = packed_slice(a, s, u % a.H, k0);
+    } else {
+      const int tile = unit_tile(u, which, nk);
+      if (tile < 0) return -1;
+      k0 = (nk - 1 - tile) * kBN;   // the key tile with the most q tiles first
+      v = fixed_slice(a, u / np, k0);
+    }
     first = a.causal ? max(0, k0 - v.off) : 0;
     return k0 < v.klen && first < v.sq ? (v.sq - first + QT - 1) / QT : 0;
   };
@@ -1946,22 +2020,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qp = perms & 63, kp = (perms >> 6) & 63;
     const int vp = (perms >> 12) & 63, dp = perms >> 18;
     int n = 0, kn = 0;   // ring steps and key tiles so far
-    for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
       for (int which = 0; which < 2; ++which) {
         int k0, first;
         Slice v;
         const int tiles = item(u, which, k0, first, v);
         if (tiles <= 0) continue;
-        const int b = u / np / a.H, kb = kn % kKBufs;
+        // TMA coordinates: (row, h, b), rows absolute when packed
+        const int b = PK ? 0 : u / np / a.H, kb = kn % kKBufs;
+        const int ks = PK ? static_cast<int>(v.krow) + k0 : k0;
+        const int qs = PK ? static_cast<int>(v.qrow) : 0;
         mbar_wait(&kvempty[kb], ((kn / kKBufs) & 1) ^ 1);
         if (tid == 0) {
           mbar_arrive_expect(&kvfull[kb], 2 * L::kKTile);
 #pragma unroll
           for (int p = 0; p < D / 64; ++p) {
             tma_bshd(smem + L::K + kb * L::kKTile + p * kPanel, &kmap, kp,
-                     &kvfull[kb], p * 64, k0, v.h, b);
+                     &kvfull[kb], p * 64, ks, v.h, b);
             tma_bshd(smem + L::V + kb * L::kKTile + p * kPanel, &vmap, vp,
-                     &kvfull[kb], p * 64, k0, v.h, b);
+                     &kvfull[kb], p * 64, ks, v.h, b);
           }
         }
         ++kn;
@@ -1988,9 +2065,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int p = 0; p < D / 64; ++p) {
               tma_bshd(smem + L::Q + stg * L::kQTile + p * L::kQPanel, &qmap,
-                       qp, &qfull[stg], p * 64, q0, v.h, b);
+                       qp, &qfull[stg], p * 64, qs + q0, v.h, b);
               tma_bshd(smem + L::DO + stg * L::kQTile + p * L::kQPanel,
-                       &dmap, dp, &qfull[stg], p * 64, q0, v.h, b);
+                       &dmap, dp, &qfull[stg], p * 64, qs + q0, v.h, b);
             }
           } else {
             mbar_arrive(&qfull[stg]);
@@ -2015,7 +2092,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float s[QT / 2], dp[QT / 2];   // (8-column group j8, e) at [4 j8 + e]
   uint32_t pa[QT / 16][4], da[QT / 16][4];
   int n = 0, kn = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x)
+  for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
     for (int which = 0; which < 2; ++which) {
       int k0, first;
       Slice v;
@@ -2175,15 +2252,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
+// the backward kernel of one case: dq or dk/dv, dropout or not, fixed
+// lengths or packed
+template <int D, bool PK>
+auto bwd_kernel(bool dkv, bool drop) {
+  return dkv ? (drop ? flash_bwd_dkv_wg_kernel<D, true, PK>
+                     : flash_bwd_dkv_wg_kernel<D, false, PK>)
+             : (drop ? flash_bwd_dq_wg_kernel<D, true, PK>
+                     : flash_bwd_dq_wg_kernel<D, false, PK>);
+}
+
+// fixed lengths: units of two row tiles of each (b, h); packed (a.units
+// set): a.nunits entries of the unit table for each of the H heads, the
+// maps over (1, total, H, D)
 template <int D>
 cudaError_t launch_bwd(bool dkv, const Args& a, cudaStream_t stream) {
+  const bool pk = a.units != nullptr;
   BshdMap maps[4];
   const void* base[4] = {a.q, a.k, a.v, a.dout};
   cudaError_t e = cudaSuccess;
   for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
     const bool kv = i == 1 || i == 2;
-    e = bshd_map(&maps[i], base[i], a.B, kv ? a.Sk : a.Sq, a.H, D, a.st[i],
-                 dkv && !kv ? DkvLayout<D>::kQT : kBM);
+    e = bshd_map(&maps[i], base[i], pk ? 1 : a.B, kv ? a.Sk : a.Sq, a.H, D,
+                 a.st[i], dkv && !kv ? DkvLayout<D>::kQT : kBM);
   }
   if (e != cudaSuccess) return e;
   const int perms = maps[0].perm | maps[1].perm << 6 | maps[2].perm << 12 |
@@ -2195,15 +2286,14 @@ cudaError_t launch_bwd(bool dkv, const Args& a, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const int tiles = ((dkv ? a.Sk : a.Sq) + kBM - 1) / kBM;
   const long long nunits =
-      static_cast<long long>(a.B) * a.H * ((tiles + 1) / 2);
+      pk ? static_cast<long long>(a.nunits) * a.H
+         : static_cast<long long>(a.B) * a.H * ((tiles + 1) / 2);
   if (nunits >= (1ll << 31)) return cudaErrorInvalidValue;
   const int units = static_cast<int>(nunits);
   const size_t smem =
       1024 + (dkv ? DkvLayout<D>::kBytes : DqLayout<D>::kBytes);
-  auto kern = dkv ? (a.dropout ? flash_bwd_dkv_wg_kernel<D, true>
-                               : flash_bwd_dkv_wg_kernel<D, false>)
-                  : (a.dropout ? flash_bwd_dq_wg_kernel<D, true>
-                               : flash_bwd_dq_wg_kernel<D, false>);
+  auto kern = pk ? bwd_kernel<D, true>(dkv, a.dropout)
+                 : bwd_kernel<D, false>(dkv, a.dropout);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -2231,11 +2321,14 @@ cudaError_t slice_grid(const Args& a, int zblocks, dim3* grid) {
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
-  // bf16 on fixed lengths at D 64 and 128: wgmma and TMA
-  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
+  // bf16 at D 64 and 128: wgmma and TMA on fixed lengths, and the packed
+  // backward (the packed forward stays on flash_fwd_kernel)
+  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128)) {
     if (a.tiles == nullptr)
       return which == kFwd ? wg::launch_fwd<D>(a, stream)
                            : wg::launch_bwd<D>(which == kDkv, a, stream);
+    if (which != kFwd) return wg::launch_bwd<D>(which == kDkv, a, stream);
+  }
   constexpr int C = other_rows<T, D>(), DO = out_cols<D>();
   constexpr size_t LD = ld<T, D>(), LDO = ld<T, DO>();
   const size_t own = kRows * LD * sizeof(T), other = C * LD * sizeof(T);
@@ -2313,16 +2406,18 @@ int run(int which, const void* q, const void* k, const void* v,
         const float* delta, const void* seed, const void* lens,
         const void* shift, const void* cu_q, const void* cu_k,
         const void* hstart, const void* tiles, int ntiles,
-        const long long* strides, int B, int H, int Sq, int Sk, int D,
-        float scale, int threshold, float inv_keep, int causal, int dtype,
-        void* stream) {
+        const void* units, int nunits, const long long* strides, int B,
+        int H, int Sq, int Sk, int D, float scale, int threshold,
+        float inv_keep, int causal, int dtype, void* stream) {
   const bool packed = tiles != nullptr;
-  // lengths below 2^30 keep the masks' int32 sums from overflowing
+  // lengths below 2^30 keep the masks' int32 sums from overflowing; the
+  // packed backward takes its unit table, the forward none
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || Sq >= (1 << 30) ||
       Sk >= (1 << 30) || (dtype != 0 && dtype != 1) ||
       static_cast<long long>(B) * H >= (1ll << 31) ||
       (packed && (ntiles <= 0 || cu_q == nullptr || cu_k == nullptr ||
-                  hstart == nullptr || lens != nullptr || shift != nullptr)))
+                  hstart == nullptr || lens != nullptr || shift != nullptr)) ||
+      (packed && which != kFwd) != (units != nullptr && nunits > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -2335,6 +2430,8 @@ int run(int which, const void* q, const void* k, const void* v,
   a.hstart = static_cast<const int32_t*>(hstart);
   a.tiles = static_cast<const int32_t*>(tiles);
   a.ntiles = ntiles;
+  a.units = static_cast<const int32_t*>(units);
+  a.nunits = nunits;
   // the q tiles (forward, dq) or k tiles (dk/dv) of a slice
   a.ntx = packed ? ntiles : ((which == kDkv ? Sk : Sq) + kRows - 1) / kRows;
   for (int i = 0; i < 4; ++i)
@@ -2363,6 +2460,10 @@ int run(int which, const void* q, const void* k, const void* v,
 // sequences, hstart (2B int32) holds the hash bases start_q then start_k,
 // and tiles (ntiles x 2 int32) names each block's (sequence, first own
 // row): q tiles for the forward and dq, k tiles for dk/dv, 64 rows each.
+// dq and dk/dv also take units (nunits x 3 int32), the wgmma kernels'
+// unit table (Args::units: q tiles for dq, k tiles for dk/dv, 128 rows
+// each; null and 0 with fixed lengths): bf16 at D 64 and 128 read it,
+// every other case the tile table.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seed,
                              const void* lens, const void* shift,
@@ -2374,8 +2475,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              int dtype, void* stream) {
   return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
              nullptr, seed, lens, shift, cu_q, cu_k, hstart, tiles, ntiles,
-             strides, B, H, Sq, Sk, D, scale, threshold, inv_keep, causal,
-             dtype, stream);
+             nullptr, 0, strides, B, H, Sq, Sk, D, scale, threshold,
+             inv_keep, causal, dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -2384,15 +2485,16 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* lens, const void* shift,
                                 const void* cu_q, const void* cu_k,
                                 const void* hstart, const void* tiles,
-                                int ntiles, const long long* strides, int B,
-                                int H, int Sq, int Sk, int D, float scale,
+                                int ntiles, const void* units, int nunits,
+                                const long long* strides, int B, int H,
+                                int Sq, int Sk, int D, float scale,
                                 int threshold, float inv_keep, int causal,
                                 int dtype, void* stream) {
   return run(kDq, q, k, v, dout, dq, nullptr,
              const_cast<float*>(static_cast<const float*>(lse)),
              static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
-             hstart, tiles, ntiles, strides, B, H, Sq, Sk, D, scale,
-             threshold, inv_keep, causal, dtype, stream);
+             hstart, tiles, ntiles, units, nunits, strides, B, H, Sq, Sk, D,
+             scale, threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -2402,6 +2504,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* shift, const void* cu_q,
                                  const void* cu_k, const void* hstart,
                                  const void* tiles, int ntiles,
+                                 const void* units, int nunits,
                                  const long long* strides, int B, int H,
                                  int Sq, int Sk, int D, float scale,
                                  int threshold, float inv_keep, int causal,
@@ -2409,8 +2512,8 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run(kDkv, q, k, v, dout, dk, dv,
              const_cast<float*>(static_cast<const float*>(lse)),
              static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
-             hstart, tiles, ntiles, strides, B, H, Sq, Sk, D, scale,
-             threshold, inv_keep, causal, dtype, stream);
+             hstart, tiles, ntiles, units, nunits, strides, B, H, Sq, Sk, D,
+             scale, threshold, inv_keep, causal, dtype, stream);
 }
 
 extern "C" const char* ptt_error_string(int status) {

@@ -74,18 +74,23 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# lens, shift, cu_q, cu_k, hstart, tiles, ntiles
+# lens, shift, cu_q, cu_k, hstart, tiles, ntiles; the backward's also
+# units, nunits
 _MASKS = (_P,) * 6 + (_I,)
+_UNITS = (_P, _I)
 _TAIL = (_P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P)
 _SIGNATURES = {
     "ptt_flash_fwd": (_P,) * 6 + _MASKS + _TAIL,
-    "ptt_flash_bwd_dq": (_P,) * 8 + _MASKS + _TAIL,
-    "ptt_flash_bwd_dkv": (_P,) * 9 + _MASKS + _TAIL,
+    "ptt_flash_bwd_dq": (_P,) * 8 + _MASKS + _UNITS + _TAIL,
+    "ptt_flash_bwd_dkv": (_P,) * 9 + _MASKS + _UNITS + _TAIL,
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)   # and above 256, every multiple of 128
 _WIDE_STEP = 128
 _TILE_ROWS = 64       # rows of a kernel block's own tile (kRows in the .cu)
+# the wgmma backward's tiles: 128 rows a unit tile (kBM, kBN in the .cu),
+# 64 q rows a dk/dv step (DkvLayout::kQT)
+_UNIT_ROWS, _DKV_Q_ROWS = 128, 64
 _PACKED_BLOCK = 512   # the JAX mha_packed's default block_q and block_k
 
 
@@ -308,6 +313,22 @@ def _starts(cu, block):
     return starts
 
 
+def _tile_steps(side, len_q, len_k, tile, causal):
+    """The other operand's tiles that 128-row tile ``tile`` of one
+    sequence walks in the wgmma backward: for a q tile (dq, ``side`` "q")
+    the 128-key tiles up to its last row's diagonal when causal, for a key
+    tile (dk/dv, "k") the 64-row q tiles from its diagonal; the diagonal
+    bottom right, ``key <= query + len_k - len_q`` (the kernels'
+    ``q_item`` and ``item``)."""
+    r0, off = tile * _UNIT_ROWS, len_k - len_q
+    if side == "q":
+        end = min(len_k, r0 + _UNIT_ROWS + off) if causal else len_k
+        return -(-end // _UNIT_ROWS) if end > 0 else 0
+    first = max(0, r0 - off) if causal else 0
+    return (-(-(len_q - first) // _DKV_Q_ROWS)
+            if r0 < len_k and first < len_q else 0)
+
+
 class PackedLayout:
     """The sequences of one packed call, read once on the host.
 
@@ -320,10 +341,11 @@ class PackedLayout:
     an element of sequence ``s`` hashes ``(h, start_q[s] + i, start_k[s] +
     j)`` whatever tile the CUDA kernels use.
 
-    The kernels' tile tables are built here on the host from that copy
-    (the grid size needs the tile count on the host in any case) and
-    uploaded once per device (:meth:`tables`): each q (k) tile of 64 rows
-    of one sequence is one block of the forward and dq (dk/dv) kernels.
+    The kernels' tables are built here on the host from that copy (the
+    grid size needs their counts on the host in any case) and uploaded
+    once per device and mask (:meth:`tables`): each q (k) tile of 64 rows
+    of one sequence is one block of the mma.sync forward and dq (dk/dv)
+    kernels; the wgmma backward's units (:meth:`units`) pair 128-row tiles.
     """
 
     def __init__(self, cu_q, cu_k, total_q, total_k, *, block_q=None,
@@ -347,20 +369,50 @@ class PackedLayout:
         cu = self.cu_q if side == "q" else self.cu_k
         return [b - a for a, b in zip(cu, cu[1:])]
 
-    def tables(self, device):
+    def units(self, side, causal):
+        """The wgmma backward's work units over 128-row tiles: q tiles for
+        dq (``side`` "q"), k tiles for dk/dv ("k").  A sequence's ``n``
+        tiles pair as ``wg::unit_tile`` pairs them, tile ``n - 1 - p``
+        with tile ``p`` (an odd ``n``'s middle tile alone), the one with
+        more causal work first; an entry is ``(sequence, first tile,
+        second tile or -1)``.  Every tile of a sequence with rows on its
+        side is in one entry, also where the other side has none (its
+        gradient rows are written as zeros).  The entries are ordered by
+        their work (:func:`_tile_steps`), largest first, ties in sequence
+        order; the kernel takes unit ``u`` as entry ``u // H`` for head
+        ``u % H`` and deals the units to its persistent blocks back and
+        forth (``next_unit``), so every head's longest units go first."""
+        entries = []
+        for s, (lq, lk) in enumerate(zip(self.lens("q"), self.lens("k"))):
+            n = -(-(lq if side == "q" else lk) // _UNIT_ROWS)
+            for p in range((n + 1) // 2):
+                pair = (n - 1 - p, p) if side == "q" else (p, n - 1 - p)
+                pair = pair if p != n - 1 - p else (p, -1)
+                work = sum(_tile_steps(side, lq, lk, t, causal)
+                           for t in pair if t >= 0)
+                entries.append((-work, s, pair))
+        entries.sort(key=lambda e: e[0])
+        return [(s, *pair) for _, s, pair in entries]
+
+    def tables(self, device, causal=False):
         """int32 tensors on ``device``: ``cu_q``, ``cu_k``, ``hstart``
-        (start_q then start_k) and the ``(n, 2)`` tile tables ``q_tiles``
-        and ``k_tiles`` of (sequence, first row).  One copy from one host
-        buffer, which CUDA stages at once, so the host does not wait
-        for the card."""
-        key = str(device)
+        (start_q then start_k), the ``(n, 2)`` tile tables ``q_tiles``
+        and ``k_tiles`` of (sequence, first row) and the ``(n, 3)`` unit
+        tables ``dq_units`` and ``dkv_units`` (:meth:`units`; their order
+        depends on ``causal``).  One copy from one host buffer, which
+        CUDA stages at once, so the host does not wait for the card."""
+        key = (str(device), bool(causal))
         if key not in self._tables:
             def tiles(side):
                 return [x for s, n in enumerate(self.lens(side))
                         for r in range(0, n, _TILE_ROWS) for x in (s, r)]
             parts = dict(cu_q=self.cu_q, cu_k=self.cu_k,
                          hstart=self.start_q + self.start_k,
-                         q_tiles=tiles("q"), k_tiles=tiles("k"))
+                         q_tiles=tiles("q"), k_tiles=tiles("k"),
+                         dq_units=[x for e in self.units("q", causal)
+                                   for x in e],
+                         dkv_units=[x for e in self.units("k", causal)
+                                    for x in e])
             flat = torch.tensor([x for p in parts.values() for x in p],
                                 dtype=torch.int32).to(device,
                                                       non_blocking=True)
@@ -368,8 +420,9 @@ class PackedLayout:
             for name, p in parts.items():
                 views[name] = flat[at:at + len(p)]
                 at += len(p)
-            for name in ("q_tiles", "k_tiles"):
-                views[name] = views[name].view(-1, 2)
+            for name, width in (("q_tiles", 2), ("k_tiles", 2),
+                                ("dq_units", 3), ("dkv_units", 3)):
+                views[name] = views[name].view(-1, width)
             self._tables[key] = views
         return self._tables[key]
 
@@ -544,21 +597,26 @@ def _int32_ptr(t, n, what, dev):
     return t.data_ptr()
 
 
-def _masks(q, layout, side, seq_lens=None, causal_shift=None):
+def _masks(q, layout, side, causal, seq_lens=None, causal_shift=None,
+           units=False):
     """The C entries' mask arguments (lens, shift, cu_q, cu_k, hstart,
-    tiles, ntiles) and the batch count they imply: fixed lengths with the
-    optional ``seq_lens`` and ``causal_shift`` tensors, or packed
-    sequences (``layout``, ``side`` "q" or "k" naming the tile table)."""
+    tiles, ntiles, and with ``units`` the backward's units, nunits) and
+    the batch count they imply: fixed lengths with the optional
+    ``seq_lens`` and ``causal_shift`` tensors, or packed sequences
+    (``layout``, ``side`` "q" or "k" naming the tile and unit tables)."""
     if layout is None:
         b = q.shape[0]
         return (_int32_ptr(seq_lens, b, "seq_lens", q.device),
                 _int32_ptr(causal_shift, 1, "causal_shift", q.device),
-                None, None, None, None, 0), b
-    t = layout.tables(q.device)
+                None, None, None, None, 0) + ((None, 0) if units else ()), b
+    t = layout.tables(q.device, causal)
     tiles = t[f"{side}_tiles"]
-    return (None, None, t["cu_q"].data_ptr(), t["cu_k"].data_ptr(),
-            t["hstart"].data_ptr(), tiles.data_ptr(), tiles.shape[0]), \
-        layout.n
+    masks = (None, None, t["cu_q"].data_ptr(), t["cu_k"].data_ptr(),
+             t["hstart"].data_ptr(), tiles.data_ptr(), tiles.shape[0])
+    if units:
+        u = t["dq_units" if side == "q" else "dkv_units"]
+        masks += (u.data_ptr(), u.shape[0])
+    return masks, layout.n
 
 
 def _tail(shape, strides, *, causal, sm_scale, dropout_p, dtype, dev):
@@ -594,7 +652,7 @@ def _launch_fwd(q, k, v, seed, causal, sm_scale, dropout_p, layout=None,
     q, k, v = _padded(q, k, v)
     shape, strides = _check(*_as4d(layout, q, k, v))
     _, sq, _, h, _ = shape
-    masks, b = _masks(q, layout, "q", seq_lens, causal_shift)
+    masks, b = _masks(q, layout, "q", causal, seq_lens, causal_shift)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq) if layout is None else (h, sq), dtype=torch.float32,
                       device=q.device)
@@ -613,7 +671,8 @@ def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
     _, sq, _, h, _ = shape
-    masks, b = _masks(q, layout, "q", seq_lens, causal_shift)
+    masks, b = _masks(q, layout, "q", causal, seq_lens, causal_shift,
+                      units=True)
     _check_stats((b, h, sq) if layout is None else (h, sq), q.device, lse,
                  delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -633,7 +692,8 @@ def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
     _, sq, _, h, _ = shape
-    masks, b = _masks(q, layout, "k", seq_lens, causal_shift)
+    masks, b = _masks(q, layout, "k", causal, seq_lens, causal_shift,
+                      units=True)
     _check_stats((b, h, sq) if layout is None else (h, sq), q.device, lse,
                  delta)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)

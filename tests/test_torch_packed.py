@@ -14,7 +14,9 @@ Tolerances, the JAX package's own (``tests/test_pallas_ops.py``):
  - dq, dk and dv against ``jax.grad``: 3e-4;
  - the dropout keep mask: identical bits.
 """
+import collections
 import functools
+import itertools
 import types
 
 import jax
@@ -193,6 +195,97 @@ def test_packed_layout_follows_the_jax_block_aligned_buffer():
                                      [2, 128], [2, 192]]
     assert t["cu_k"].tolist() == [0, 10, 13, 213]
     assert t["hstart"].dtype == torch.int32
+
+
+# the wgmma backward's unit tables: (sequence, first tile, second tile or
+# -1) over 128-row tiles, q tiles for dq and k tiles for dk/dv
+BENCH_PACKED_LENS = [64, 128, 896, 256, 1024, 192, 512, 320]
+BENCH_DQ_UNITS = [[4, 7, 0], [4, 6, 1], [4, 5, 2], [4, 4, 3], [2, 6, 0],
+                  [2, 5, 1], [2, 4, 2], [6, 3, 0], [6, 2, 1], [2, 3, -1],
+                  [7, 2, 0], [3, 1, 0], [5, 1, 0], [7, 1, -1], [0, 0, -1],
+                  [1, 0, -1]]
+BENCH_DKV_UNITS = [[4, 0, 7], [4, 1, 6], [4, 2, 5], [4, 3, 4], [2, 0, 6],
+                   [2, 1, 5], [2, 2, 4], [6, 0, 3], [6, 1, 2], [2, 3, -1],
+                   [3, 0, 1], [7, 0, 2], [5, 0, 1], [7, 1, -1], [1, 0, -1],
+                   [0, 0, -1]]
+
+
+def _unit_work(lay, side, causal, entry):
+    lq, lk = lay.lens("q")[entry[0]], lay.lens("k")[entry[0]]
+    return sum(tpo._tile_steps(side, lq, lk, t, causal) for t in entry[1:]
+               if t >= 0)
+
+
+def test_packed_unit_tables_pair_tiles_long_with_short_by_work():
+    # q lens 64, 0, 130 and k lens 10, 3, 200: an empty q sequence whose
+    # k tile still gets a unit (dk and dv written as zeros)
+    lay = tpo.PackedLayout(_cu([64, 0, 130]), _cu([10, 3, 200]), 194, 213)
+    for causal in (False, True):
+        t = lay.tables("cpu", causal)
+        assert t["dq_units"].tolist() == [[2, 1, 0], [0, 0, -1]]
+        assert t["dkv_units"].tolist() == [[2, 0, 1], [0, 0, -1],
+                                           [1, 0, -1]]
+    # bench_packed's 8 causal sequences: 88 key-tile steps a head for dq,
+    # the longest units (1024 tokens: 9 steps) first
+    cu = _cu(BENCH_PACKED_LENS)
+    lay = tpo.PackedLayout(cu, cu, 3392, 3392)
+    t = lay.tables("cpu", True)
+    assert t["dq_units"].tolist() == BENCH_DQ_UNITS
+    assert t["dkv_units"].tolist() == BENCH_DKV_UNITS
+    assert [_unit_work(lay, "q", True, e) for e in BENCH_DQ_UNITS] == [
+        9, 9, 9, 9, 8, 8, 8, 5, 5, 4, 4, 3, 3, 2, 1, 1]
+    assert [_unit_work(lay, "k", True, e) for e in BENCH_DKV_UNITS] == [
+        18, 18, 18, 18, 16, 16, 16, 10, 10, 8, 6, 6, 4, 3, 2, 1]
+    # full attention orders by the other side's length alone: the 320
+    # tokens' pair (3 key tiles each) before the 256 tokens' (2 each)
+    assert lay.units("q", False)[10:13] == [(7, 2, 0), (3, 1, 0), (5, 1, 0)]
+    # one upload a device and mask: every table a view of one buffer
+    assert len({v.untyped_storage().data_ptr() for v in t.values()}) == 1
+    assert lay.tables("cpu", True) is t and lay.tables("cpu") is not t
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("seed", range(6))
+def test_packed_units_cover_every_row_once_largest_work_first(seed, causal):
+    """Walking the unit table as the kernels do (persistent block b takes
+    unit b, then in round r unit r * G + b, or r * G + G - 1 - b when r is
+    odd; unit u is entry u // H for head u % H, then the entry's tiles,
+    128 rows each, stores stopping at the sequence's end)
+    covers every (head, q row) of every sequence with q rows exactly once
+    for dq, and every (head, k row) with k rows once for dk/dv: zero
+    lengths on either side and cross lengths (len_q > len_k) included."""
+    rng = np.random.RandomState(seed)
+    n, heads, grid = rng.randint(1, 10), 3, 7
+    pool = [0, 0, 1, 63, 127, 128, 129, 200, 255, 256, 257, 640, 1000]
+    lens_q = list(rng.choice(pool, n)) + [5]
+    lens_k = list(rng.choice(pool, n)) + [3]     # len_q > len_k last
+    lay = tpo.PackedLayout(_cu(lens_q), _cu(lens_k), sum(lens_q),
+                           sum(lens_k))
+    t = lay.tables("cpu", causal)
+    for side, name in (("q", "dq_units"), ("k", "dkv_units")):
+        entries = [tuple(e) for e in t[name].tolist()]
+        assert entries == lay.units(side, causal)
+        work = [_unit_work(lay, side, causal, e) for e in entries]
+        assert work == sorted(work, reverse=True)
+        lens = lay.lens(side)
+        seen = collections.Counter()
+        units = len(entries) * heads
+        for b in range(grid):
+            for r in itertools.count():
+                u = r * grid + (grid - 1 - b if r % 2 else b)
+                if u >= units:
+                    break
+                s, *tiles = entries[u // heads]
+                for tile in tiles:
+                    if tile < 0:
+                        continue
+                    assert 0 <= tile * 128 < lens[s]
+                    for row in range(tile * 128,
+                                     min(lens[s], (tile + 1) * 128)):
+                        seen[u % heads, s, row] += 1
+        want = {(h, s, r) for h in range(heads) for s, m in enumerate(lens)
+                for r in range(m)}
+        assert set(seen) == want and set(seen.values()) == {1}, side
 
 
 # -- (c) F.flash_attn_unpadded ----------------------------------------------

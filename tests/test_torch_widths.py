@@ -380,8 +380,9 @@ def test_flash_launchers_take_more_than_65535_slices(stub_c, monkeypatch):
     tpo._launch_fwd(q, q, q, None, True, 0.125, 0.0)
     tables = {name: _fake(shape, torch.int32) for name, shape in (
         ("cu_q", (3,)), ("cu_k", (3,)), ("hstart", (4,)),
-        ("q_tiles", (3, 2)), ("k_tiles", (3, 2)))}
-    layout = types.SimpleNamespace(n=2, tables=lambda dev: tables)
+        ("q_tiles", (3, 2)), ("k_tiles", (3, 2)), ("dq_units", (2, 3)),
+        ("dkv_units", (5, 3)))}
+    layout = types.SimpleNamespace(n=2, tables=lambda dev, causal: tables)
     qp = _fake((150, 65540, 64))
     for launch in (tpo._launch_fwd,):
         launch(qp, qp, qp, None, True, 0.125, 0.0, layout=layout)
@@ -395,6 +396,11 @@ def test_flash_launchers_take_more_than_65535_slices(stub_c, monkeypatch):
                                         "ptt_flash_bwd_dkv"]
     assert stub_c[0][1][14:19] == (4097, 16, 64, 64, 64)
     assert stub_c[1][1][12] == 3 and stub_c[1][1][14:16] == (2, 65540)
+    # the backward's entries: the tile table's count, then the unit
+    # table's (dq's q units, dk/dv's k units), then the batch and heads
+    dq, dkv = stub_c[2][1], stub_c[3][1]
+    assert dq[14:17] == (3, 0, 2) and dq[18:20] == (2, 65540)
+    assert dkv[15:18] == (3, 0, 5) and dkv[19:21] == (2, 65540)
 
 
 @pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
