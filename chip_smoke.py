@@ -11,7 +11,15 @@ line is printed:
              with nvcc for sm_90a; build seconds and ptxas' report.
  3. kernels  each kernel against its plain PyTorch version on the card at
              the shapes of its path at ``gpt_345m`` width (serving: 16
-             heads of 64, page size 16, 128 pages per sequence; training:
+             heads of 64, page size 16, 128 pages per sequence, paged
+             attention on f32, bf16 and int8 pages at lengths 1..2048,
+             then 16 rows x 512, 2 rows x 2048, D 128, page size 32,
+             lengths on the split edges with a row of 0, 32 lanes a
+             token (D 128 / 256 / 512) over 4096 positions, and D 16,
+             each also held
+             against the split kernels' mirror, the same bits over two
+             runs, the row of 2048 alone the bits it has in the batch of
+             16; training:
              LayerNorm over 16384 rows of 1024, flash attention at
              batch 16 x 1024 tokens x 16 heads of 64, causal, dropout
              0.1, read in place from the QKV projection's output, and
@@ -201,6 +209,28 @@ TIMED_ITERS = 30
 GPT_345M = dict(vocab_size=50304, hidden=1024, layers=24, heads=16,
                 max_seq_len=2048, ffn_mult=4)
 PAGE_SIZE = 16
+# phase 3's paged attention sets (rows 13-14), the serve shape first: its
+# times are the kernels line's; then the serve profile's 16 rows x 512,
+# a solo decode bucket, gpt_1p3b's head size, a page size of 32, lengths
+# on the kernels' split edges (128 positions) with a row of 0, a token's
+# row over 32 lanes in every page dtype with a table past the combine's
+# batch of 16 splits, and over 4, 2 and 1 lanes (head size 16)
+PAGED_LENGTHS = [1, 16, 17, 100, 255, 256, 511, 700, 1000, 1023, 1024, 1500,
+                 1777, 2000, 2047, 2048]
+PAGED_SETS = (
+    ("B=16 H=16 D=64 ps=16 lengths 1..2048", {}),
+    ("16 rows x 512", dict(lengths=[512] * 16)),
+    ("2 rows x 2048", dict(lengths=[2048, 2048])),
+    ("D=128 lengths 1..2048", dict(d=128)),
+    ("ps=32 lengths 1..2048", dict(ps=32)),
+    ("split edges and length 0", dict(lengths=[
+        0, 1, 127, 128, 129, 255, 256, 257, 383, 384, 1023, 1024, 1025,
+        2047, 2048, 16])),
+    ("D=128/256/512 width 4096", dict(
+        d={"f32": 128, "bf16": 256, "int8": 512}, width=4096,
+        lengths=[4096, 2049, 1000, 0])),
+    ("D=16", dict(d=16)),
+)
 TOL = {"f32": 2e-5, "int8": 2e-5, "bf16": 2e-2}
 MODEL_TOL = {"fp32": 1e-4, "int8": 1e-2}
 
@@ -325,7 +355,7 @@ PROFILE_KERNELS = {
     "LayerNorm + matmul": ("ln_matmul_kernel", "lnmm_whole_kernel",
                            "lnmm_stats_kernel", "lnmm_stream_kernel"),
     "matmul + bias + gelu": ("mm_gelu_kernel", "mbg_kernel"),
-    "paged attention": ("paged_attention_kernel",),
+    "paged attention": ("paged_split_kernel", "paged_combine_kernel"),
     "w8a16": ("w8a16_kernel", "w8a16_split_kernel"),
 }
 # the flash backward's kernels on the GPT steps (bf16, fixed lengths, D =
@@ -405,16 +435,18 @@ def phase_build():
     log(f"[build] {len(built)} libraries in {secs:.2f} s")
 
 
-def _paged_inputs(gen, kv_dtype):
-    """Serve shapes: B = 16 rows, H = 16, D = 64, ps = 16, 128 pages per
-    row, ragged lengths from 1 to 2048 with an exact page and partly
-    filled last pages; every row's table has dead pages."""
+def _paged_inputs(gen, kv_dtype, lengths=None, h=16, d=64, ps=PAGE_SIZE,
+                  width=None):
+    """Serve shapes by default: B = 16 rows, H = 16, D = 64, ps = 16, 128
+    pages per row (``width`` 2048 positions, gpt_345m's ``max_seq_len``),
+    ragged lengths from 1 to 2048 with an exact page and partly filled
+    last pages; every row's table has dead pages."""
     from paddle_tpu_torch.ops.quant_kernels import quantize_kv
-    b, h, d, ps, maxp = 16, 16, 64, PAGE_SIZE, 128
+    lengths = PAGED_LENGTHS if lengths is None else lengths
+    width = GPT_345M["max_seq_len"] if width is None else width
+    b, maxp = len(lengths), width // ps
     n_pages = 1 + b * maxp
-    lengths = torch.tensor([1, 16, 17, 100, 255, 256, 511, 700, 1000, 1023,
-                            1024, 1500, 1777, 2000, 2047, 2048],
-                           dtype=torch.int32, device=DEVICE)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
     perm = torch.randperm(n_pages - 1, generator=gen, device=DEVICE) + 1
     tables = perm.reshape(b, maxp).to(torch.int32).contiguous()
     qdt = torch.bfloat16 if kv_dtype == torch.bfloat16 else torch.float32
@@ -441,42 +473,84 @@ def _paged_bytes_flops(q, k, ks, tables, lengths):
     return nbytes, 4.0 * live * h * d
 
 
-def phase_kernels(timer):
+def _paged_set(timer, gen, tag, kv_dtype, label, shape, main):
+    """One paged attention set against its plain version (rows with a
+    live position; the plain version gives a row of length 0 the mean of
+    V, the kernels 0, as the Pallas kernel) and against the split
+    kernels' mirror (every row), within ``TOL``; two runs the same bits;
+    the kernel's time beside its bound.  At the serve shape (``main``)
+    also: the longest row (2048) alone the bits it has in the batch."""
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_int8, paged_attention_int8_reference,
-        paged_attention_reference)
+        paged_attention, paged_attention_int8,
+        paged_attention_int8_reference, paged_attention_reference,
+        paged_attention_split_reference)
+    shape = {key: val[tag] if isinstance(val, dict) else val
+             for key, val in shape.items()}
+    q, k, v, ks, vs, pt, ln = _paged_inputs(gen, kv_dtype, **shape)
+    if ks is None:
+        name = "paged_attention"
+        kern = lambda q, pt, ln: paged_attention(q, k, v, pt, ln)  # noqa: E731
+        ref = lambda: paged_attention_reference(q, k, v, pt, ln)  # noqa: E731
+        scales = {}
+    else:
+        name = "paged_attention_int8"
+        kern = lambda q, pt, ln: paged_attention_int8(  # noqa: E731
+            q, k, v, ks, vs, pt, ln)
+        ref = lambda: paged_attention_int8_reference(  # noqa: E731
+            q, k, v, ks, vs, pt, ln)
+        scales = dict(k_scale=ks, v_scale=vs)
+    run = lambda: kern(q, pt, ln)  # noqa: E731
+    out, again = run(), run()
+    want, mirror = ref(), paged_attention_split_reference(q, k, v, pt, ln,
+                                                          **scales)
+    torch.cuda.synchronize()
+    live = ln > 0
+    err = (out.float() - want.float())[live].abs().max().item()
+    err_mirror = (out.float() - mirror.float()).abs().max().item()
+    checks = {
+        "finite": bool(torch.isfinite(out.float()).all()),
+        f"plain within {TOL[tag]:.0e}": err <= TOL[tag],
+        f"mirror within {TOL[tag]:.0e}": err_mirror <= TOL[tag],
+        "length 0 gives 0": not out[~live].float().any(),
+        "two runs the same bits": torch.equal(out, again),
+    }
+    if main:
+        r = int(torch.argmax(ln))       # the row of length 2048
+        alone = kern(q[r:r + 1], pt[r:r + 1], ln[r:r + 1])
+        torch.cuda.synchronize()
+        checks[f"row {int(ln[r])} alone == in the batch of {len(ln)}"] = \
+            torch.equal(alone[0], out[r])
+    b, h, d = q.shape
+    nbytes, flops = _paged_bytes_flops(q, k, ks, pt, ln)
+    t_bound, by = bound_ms(nbytes, flops, torch.float32)
+    ms, plain = timer(run), timer(ref)
+    failed = [c for c, ok in checks.items() if not ok]
+    log(f"[kernel] {name}[{tag}] {label} (B={b} H={h} D={d} "
+        f"ps={k.shape[1]}): max_abs_err {err:.3e} against plain, "
+        f"{err_mirror:.3e} against the split mirror (tol {TOL[tag]:.0e}); "
+        f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {t_bound:.4f} ms "
+        f"({by}, {t_bound / ms:.2f} of it); checks "
+        f"{'all pass' if not failed else 'FAIL: ' + ', '.join(failed)}; no "
+        f"single PyTorch call computes paged attention")
+    if failed:
+        raise AssertionError(f"{name}[{tag}] {label}: {failed} (max abs err "
+                             f"{err} plain, {err_mirror} mirror)")
+    variant = tag if main else f"{tag} {label}"
+    return name, dict(variant=variant, max_abs_err=max(err, err_mirror),
+                      tol=TOL[tag], ms=ms, plain_ms=plain, bound_ms=t_bound,
+                      bound_by=by, library_ms=None)
+
+
+def phase_kernels(timer):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     results = {}
 
     for tag, kv_dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
                           ("int8", torch.int8)):
-        q, k, v, ks, vs, pt, ln = _paged_inputs(gen, kv_dtype)
-        if ks is None:
-            name = "paged_attention"
-            run = lambda: paged_attention(q, k, v, pt, ln)  # noqa: E731
-            ref = lambda: paged_attention_reference(q, k, v, pt, ln)  # noqa: E731
-        else:
-            name = "paged_attention_int8"
-            run = lambda: paged_attention_int8(q, k, v, ks, vs, pt, ln)  # noqa: E731
-            ref = lambda: paged_attention_int8_reference(  # noqa: E731
-                q, k, v, ks, vs, pt, ln)
-        out, want = run(), ref()
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[tag]
-        nbytes, flops = _paged_bytes_flops(q, k, ks, pt, ln)
-        t_bound, by = bound_ms(nbytes, flops, torch.float32)
-        ms, plain = timer(run), timer(ref)
-        log(f"[kernel] {name}[{tag}] B=16 H=16 D=64 ps=16 lengths 1..2048: "
-            f"max_abs_err {err:.3e} (tol {TOL[tag]:.0e}) kernel {ms:.4f} ms "
-            f"plain {plain:.4f} ms bound {t_bound:.4f} ms ({by}); no single "
-            f"PyTorch call computes paged attention")
-        if not ok:
-            raise AssertionError(f"{name}[{tag}] disagrees with its plain "
-                                 f"version: {err} > {TOL[tag]}")
-        results.setdefault(name, []).append(dict(
-            variant=tag, max_abs_err=err, tol=TOL[tag], ms=ms, plain_ms=plain,
-            bound_ms=t_bound, bound_by=by, library_ms=None))
+        for i, (label, shape) in enumerate(PAGED_SETS):
+            name, row = _paged_set(timer, gen, tag, kv_dtype, label, shape,
+                                   main=i == 0)
+            results.setdefault(name, []).append(row)
 
     hid, ffn = GPT_345M["hidden"], GPT_345M["hidden"] * 4
     # one layer's six products: q, k, v, o, then the MLP's w1 and w2
@@ -2479,18 +2553,30 @@ def phase_packed(smi):
     return launches
 
 
-def _profiled_kernels(fn, n):
+def _profiled_kernels(fn, n, sessions=3):
     """The device kernels of ``n`` runs of ``fn`` under ``torch.profiler``
-    (``key_averages()`` entries with device time)."""
+    (``key_averages()`` entries with device time).  The card is idle when
+    a session starts.  A session that records no device kernel at all
+    says nothing about the runs (torch 2.11's profiler on an H100 now
+    and then returns such a session for work that ran), so it is taken
+    again, up to ``sessions`` times, and logged; a session that records
+    any kernel is returned as it is."""
     from paddle_tpu_torch.serving.profile import _device_us
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(sessions):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if _device_us(e) > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return kernels
+        log(f"[profile] session {attempt + 1} of {sessions} recorded no "
+            f"device kernel; profiling the runs again")
+    return kernels
 
 
 def _flash_bwd_calls(fn, n=1):

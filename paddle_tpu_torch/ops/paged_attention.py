@@ -12,10 +12,17 @@ layer; the model loops over layers):
 
  - :func:`paged_attention_reference` / :func:`paged_attention_int8_reference`
    gather the page window and run a masked softmax in f32.
+ - :func:`paged_attention_split_reference` mirrors the kernel's
+   arithmetic: splits of ``SPLIT_TOKENS`` positions (:func:`split_plan`),
+   chunks of 32 per warp, exp2 of scores scaled by log2(e), int8 scales
+   on the score and the probability, partials merged in a fixed order; a
+   row of length 0 gives 0, as the Pallas kernel does.  For the tests and
+   ``chip_smoke.py`` only.
  - :func:`paged_attention` / :func:`paged_attention_int8` run the CUDA
-   kernel ``csrc/paged_attention.cu`` on CUDA tensors and the reference
-   on CPU tensors.  There is no other path: a tensor on another device
-   raises, and so does a CUDA input the kernel does not take.
+   kernels ``csrc/paged_attention.cu`` (a split kernel, then a combine)
+   on CUDA tensors and the reference on CPU tensors.  There is no other
+   path: a tensor on another device raises, and so does a CUDA input the
+   kernel does not take.
 """
 from __future__ import annotations
 
@@ -27,17 +34,26 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "paged_attention_int8", "paged_attention_int8_reference"]
+           "paged_attention_int8", "paged_attention_int8_reference",
+           "paged_attention_split_reference", "split_plan", "SPLIT_TOKENS",
+           "KERNEL_NAMES"]
 
 # masked-score value of the JAX model (a finite number, so a row whose
 # scores are all masked never computes inf - inf)
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+# positions a block of the split kernel covers (``kSplit`` in the CUDA
+# source): a constant, so a row's sums never depend on the batch
+SPLIT_TOKENS = 128
+_CHUNK = 32          # positions one warp stages and scores
+# the CUDA kernels one call launches, as a profiler names them
+KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, ctypes.c_float, _I, _I, _P),
+    "ptt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, ctypes.c_float, _I, _I, _P),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -87,6 +103,76 @@ def paged_attention_int8_reference(q, k_pages, v_pages, k_scale, v_scale,
                               torch.float32)
 
 
+def split_plan(k_pages, page_tables):
+    """``(split size, split count)`` of the kernel's grid: positions a
+    split covers, and splits per row, from the page size and the table's
+    width alone (never the batch, the lengths or the card)."""
+    width = page_tables.shape[1] * k_pages.shape[1]
+    return SPLIT_TOKENS, -(-width // SPLIT_TOKENS)
+
+
+def _merge(parts):
+    """Partials ``(m, l, acc)`` (scores in log2 units) merged in list
+    order: ``M = max m``, ``l`` and ``acc`` weighted by ``exp2(m - M)``."""
+    big = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big = torch.maximum(big, m)
+    l_sum = torch.zeros_like(big)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        f = torch.exp2(m - big)
+        l_sum = l_sum + l * f
+        acc = acc + a * f[:, None]
+    return big, l_sum, acc
+
+
+def paged_attention_split_reference(q, k_pages, v_pages, page_tables,
+                                    lengths, *, k_scale=None, v_scale=None,
+                                    sm_scale=None):
+    """The CUDA kernels' arithmetic in plain PyTorch, one row at a time.
+
+    Each live split of ``SPLIT_TOKENS`` positions is cut into chunks of
+    32 (one warp each): scores ``(q * sm_scale * log2 e) . k`` (times the
+    int8 ``k_scale``), the chunk's max ``m``, ``p = exp2(s - m)``, ``l =
+    sum p`` and ``acc = sum p (* v_scale) v``; the chunks merge in order
+    into the split's partial, the splits in order into the row.  A row
+    with no live position gives 0.  Rows never mix, so a row's bits do
+    not depend on the batch.  Reads ``lengths`` on the host: for the tests
+    and ``chip_smoke.py``, never on the card's path.
+    """
+    b, h, d = q.shape
+    n_pages, ps = k_pages.shape[:2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    quant = k_scale is not None
+    width = page_tables.shape[1] * ps
+    qs = q.float() * (float(sm_scale) * _LOG2E)
+    out = torch.zeros(b, h, d, dtype=torch.float32, device=q.device)
+    for r in range(b):
+        n = max(0, min(int(lengths[r]), width))
+        splits = []
+        for t0 in range(0, n, SPLIT_TOKENS):
+            chunks = []
+            for c0 in range(t0, min(n, t0 + SPLIT_TOKENS), _CHUNK):
+                pos = torch.arange(c0, min(n, c0 + _CHUNK), device=q.device)
+                pages = page_tables[r, pos // ps].long().clamp(0, n_pages - 1)
+                slots = pos % ps
+                k = k_pages[pages, slots].float()           # (T, H, D)
+                v = v_pages[pages, slots].float()
+                s = (k * qs[r]).sum(-1)                     # (T, H)
+                if quant:
+                    s = s * k_scale[pages, slots]
+                m = s.amax(0)
+                p = torch.exp2(s - m)
+                pv = p * v_scale[pages, slots] if quant else p
+                chunks.append((m, p.sum(0), (pv[..., None] * v).sum(0)))
+            splits.append(_merge(chunks))
+        if splits:
+            _, l_sum, acc = _merge(splits)
+            out[r] = acc / l_sum[:, None]
+    return out.to(q.dtype)
+
+
 def _require(cond, msg):
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
@@ -94,8 +180,9 @@ def _require(cond, msg):
 
 def _launch(q, k_pages, v_pages, k_scale, v_scale, page_tables, lengths,
             sm_scale):
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream.  Never synchronises."""
+    """Check what the kernels take, allocate the output and the splits'
+    workspace, launch the split and combine kernels on the current
+    stream.  Never synchronises and never reads a tensor's values."""
     dev = q.device
     _require(dev.type == "cuda", f"q is on {dev}, not a CUDA device")
     quant = k_scale is not None
@@ -136,27 +223,33 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, page_tables, lengths,
              f"head_dim {d} unsupported for {k_pages.dtype} pages")
     for t in (k_pages, v_pages):
         _require(t.data_ptr() % 16 == 0, "pages must be 16-byte aligned")
+    _, n_splits = split_plan(k_pages, page_tables)
+    _require(b * h * n_splits < 2 ** 31, "B * H * splits must be below 2^31")
     out = torch.empty_like(q)
     if b * h == 0:
         return out
+    # each split's partial (m, l, acc); rows with one live split never
+    # touch it, and no call reads what another wrote
+    ws = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
+                     device=dev)
     lib = _build.load("paged_attention", _SIGNATURES)
     status = lib.ptt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, d, ps, max_pages, n_pages, float(sm_scale),
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        ws.data_ptr(), b, h, d, ps, max_pages, n_pages, n_splits,
+        float(sm_scale) * _LOG2E, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pages.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "paged_attention")
     return out
 
 
 def paged_attention(q, k_pages, v_pages, page_tables, lengths, *,
                     sm_scale=None):
-    """Paged decode attention: the CUDA kernel for CUDA tensors, the
+    """Paged decode attention: the CUDA kernels for CUDA tensors, the
     plain reference for CPU tensors.  ``paged_attention.launches``
-    counts kernel launches."""
+    counts calls that launched the kernels (one a call)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -174,9 +267,9 @@ paged_attention.launches = 0
 def paged_attention_int8(q, k_pages, v_pages, k_scale, v_scale, page_tables,
                          lengths, *, sm_scale=None):
     """Paged decode attention over int8 pages with per-(token, head)
-    scales: the CUDA kernel for CUDA tensors, the plain reference for
-    CPU tensors.  ``paged_attention_int8.launches`` counts kernel
-    launches."""
+    scales: the CUDA kernels for CUDA tensors, the plain reference for
+    CPU tensors.  ``paged_attention_int8.launches`` counts calls that
+    launched the kernels (one a call)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

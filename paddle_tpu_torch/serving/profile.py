@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.paged_attention import KERNEL_NAMES as PAGED_KERNELS
 from .engine import ServeConfig, ServingEngine
 from .model import ModelSpec, init_params
 
@@ -72,6 +73,8 @@ def profile_precision(spec, params, precision, rows, context, steps, device):
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     busy_us = sum(_device_us(e) for e in kernels) / steps
+    paged_us = sum(_device_us(e) for e in kernels
+                   if any(n in e.key for n in PAGED_KERNELS)) / steps
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
     wall_ms = statistics.median(walls) * 1e3
@@ -82,6 +85,7 @@ def profile_precision(spec, params, precision, rows, context, steps, device):
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "device_ops_per_step": launches,
+        "paged_attention_device_ms": paged_us / 1e3,
         "top_kernels": [{"name": e.key[:80],
                          "device_ms_per_step": _device_us(e) / steps / 1e3,
                          "calls_per_step": e.count / steps} for e in top],

@@ -187,20 +187,27 @@ def _forbid(*a, **k):
 
 
 def test_cuda_tensor_never_reaches_plain_paged_attention(monkeypatch):
+    # neither plain version nor the split kernels' mirror; each call (one
+    # split launch and one combine) adds exactly one to its own counter
     calls = []
     monkeypatch.setattr(tpa, "paged_attention_reference", _forbid)
     monkeypatch.setattr(tpa, "paged_attention_int8_reference", _forbid)
+    monkeypatch.setattr(tpa, "paged_attention_split_reference", _forbid)
     monkeypatch.setattr(tpa, "_launch",
                         lambda *a: calls.append(a[4] is not None) or "out")
-    before = (tpa.paged_attention.launches,
-              tpa.paged_attention_int8.launches)
     q = _cuda_like((2, 2, 8))
-    assert tpa.paged_attention(q, q, q, q, q) == "out"
-    assert tpa.paged_attention_int8(q, q, q, q, q, q, q) == "out"
-    assert calls == [False, True]
-    assert (tpa.paged_attention.launches,
-            tpa.paged_attention_int8.launches) == (before[0] + 1,
-                                                   before[1] + 1)
+    for _ in range(3):
+        before = (tpa.paged_attention.launches,
+                  tpa.paged_attention_int8.launches)
+        assert tpa.paged_attention(q, q, q, q, q) == "out"
+        assert (tpa.paged_attention.launches,
+                tpa.paged_attention_int8.launches) == (before[0] + 1,
+                                                       before[1])
+        assert tpa.paged_attention_int8(q, q, q, q, q, q, q) == "out"
+        assert (tpa.paged_attention.launches,
+                tpa.paged_attention_int8.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert calls == [False, True] * 3
 
 
 def test_cuda_tensor_never_reaches_plain_w8a16(monkeypatch):
