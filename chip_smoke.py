@@ -196,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -342,7 +343,8 @@ BLOCK_KERNELS = ("ln_matmul", "matmul_bias_gelu")
 # the profiles report it in; a profile finds a kernel by its name in the
 # profiler's key, so a kernel missing here drops out of those shares
 PROFILE_KERNELS = {
-    "LayerNorm forward": ("ln_fwd_kernel", "ln_fwd_any_kernel"),
+    "LayerNorm forward": ("ln_fwd_kernel", "ln_fwd_any_kernel",
+                          "ln_fwd_staged_kernel"),
     "LayerNorm backward": ("ln_bwd_kernel", "ln_bwd_reduce_kernel",
                            "ln_bwd_one_pass_kernel"),
     "flash forward": ("flash_fwd_kernel", "flash_fwd_wg_kernel",
@@ -362,6 +364,10 @@ PROFILE_KERNELS = {
 # 64): the wgmma ones, and not the mma.sync ones
 WG_FLASH_BWD = ("flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel")
 MMA_FLASH_BWD = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# the flash forward's: the packed forward's route is checked as the
+# backward's (bf16 at D 64 and 128 the wgmma kernel)
+WG_FLASH_FWD, MMA_FLASH_FWD = ("flash_fwd_wg_kernel",), ("flash_fwd_kernel",)
+FLASH_ROUTES = WG_FLASH_FWD + MMA_FLASH_FWD + WG_FLASH_BWD + MMA_FLASH_BWD
 
 
 def log(*args):
@@ -945,8 +951,8 @@ def _mbg_entry(timer, gen, tag, rows, k, n, *, approximate, bias=True,
 
 def _layer_norm_no_affine(gen, tag, dtype, rows, d, eps):
     """The LayerNorm kernels with no weight and no bias against their plain
-    versions: y, mean, rstd, dx and db (dw is None), dx and db
-    bit-identical over two runs."""
+    versions: y, mean, rstd, dx and db (dw is None), y, mean, rstd, dx and
+    db bit-identical over two runs."""
     from paddle_tpu_torch.ops.fused_kernels import (
         layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
         layer_norm_fwd_reference)
@@ -954,6 +960,7 @@ def _layer_norm_no_affine(gen, tag, dtype, rows, d, eps):
          ).to(dtype)
     g = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
     y, mean, rstd = layer_norm_fwd(x, None, None, eps)
+    fwd2 = layer_norm_fwd(x, None, None, eps)
     y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, None, None, eps)
     dx, dw, db = layer_norm_bwd(g, x, None, mean, rstd)
     dx2, _, db2 = layer_norm_bwd(g, x, None, mean, rstd)
@@ -963,12 +970,14 @@ def _layer_norm_no_affine(gen, tag, dtype, rows, d, eps):
             "rstd": _ln_err(rstd, rstd_ref, tag),
             "dx": _ln_err(dx, dx_ref, tag),
             "db": _ln_err(db, db_ref, tag, rel_to_max=True)}
-    same_bits = torch.equal(dx, dx2) and torch.equal(db, db2) and dw is None
+    same_bits = (torch.equal(dx, dx2) and torch.equal(db, db2) and dw is None
+                 and all(torch.equal(a, b)
+                         for a, b in zip((y, mean, rstd), fwd2)))
     variant = f"{tag} no affine ({rows}, {d})"
     log(f"[kernel] layer_norm[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-        + f" (tol {LN_TOL[tag]}); dx/db bit-identical over two runs, dw None:"
-        f" {same_bits}")
+        + f" (tol {LN_TOL[tag]}); y/mean/rstd/dx/db bit-identical over two "
+        f"runs, dw None: {same_bits}")
     bad = [k for k, (_, ok) in errs.items() if not ok]
     if bad or not same_bits:
         raise AssertionError(f"layer_norm[{variant}] disagrees with its plain "
@@ -1237,7 +1246,8 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
     tensor as a QKV projection gives them (cross lengths: q alone, k and v
     from one ``(total_k, H, 2 * D)`` tensor); every kernel fed the same
     inputs as its plain version (the backward ones the kernel forward's lse
-    and one delta); dq, dk and dv bit-identical over two runs.  ``blocks``
+    and one delta); out, lse, dq, dk and dv bit-identical over two runs,
+    and the second run's kernels those of the set's route.  ``blocks``
     (block_q, block_k) set the dropout hash's layout.  ``timed``: kernel,
     plain and library times and the bounds."""
     from paddle_tpu_torch.ops import pallas_ops as po
@@ -1267,21 +1277,23 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
     second = {}
 
     def again():
+        second["fwd"] = po.flash_packed_fwd(q, k, v, layout, seed, **opts)
         second["dq"] = po.flash_packed_bwd_dq(*bwd_args, layout, seed,
                                               **opts)
         second["dkv"] = po.flash_packed_bwd_dkv(*bwd_args, layout, seed,
                                                 **opts)
     # the route the second run took, read off the kernels' names: bf16 at
-    # D 64 and 128 (after padding) the wgmma kernels, every other case the
-    # mma.sync ones (the wide heads their slab kernels, neither)
-    calls, _ = _flash_bwd_calls(again)
-    dq2, (dk2, dv2) = second["dq"], second["dkv"]
+    # D 64 and 128 (after padding) the wgmma kernels, forward and backward,
+    # every other case the mma.sync ones (the wide heads their slab
+    # kernels, neither)
+    calls, _ = _flash_calls(again)
+    (out2, lse2), dq2, (dk2, dv2) = second["fwd"], second["dq"], second["dkv"]
     kd = po._kernel_head_dim(d)
     route = ("wgmma" if tag == "bf16" and kd in (64, 128) else
              "mma.sync" if kd <= 256 else "wide")
-    want_calls = {n: float(route == ("wgmma" if n in WG_FLASH_BWD else
-                                     "mma.sync"))
-                  for n in WG_FLASH_BWD + MMA_FLASH_BWD}
+    want_calls = {n: float(route == ("wgmma" if n in WG_FLASH_FWD
+                                     + WG_FLASH_BWD else "mma.sync"))
+                  for n in FLASH_ROUTES}
     ref_opts = dict(opts, seed=seed, block_q=bq, block_k=bk)
     out_ref, lse_ref = po.mha_packed_reference(q, k, v, cu_q, cu_k,
                                                **ref_opts)
@@ -1294,7 +1306,8 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
             "dq": _flash_err(dq, dq_ref, tag, "dq"),
             "dk": _flash_err(dk, dk_ref, tag, "dk"),
             "dv": _flash_err(dv, dv_ref, tag, "dv")}
-    same_bits = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+    same_bits = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                 and torch.equal(dq, dq2) and torch.equal(dk, dk2)
                  and torch.equal(dv, dv2))
     del out_ref, dq_ref, dk_ref, dv_ref
     variant = (f"{tag} lens {lens_q}"
@@ -1304,19 +1317,21 @@ def _packed_entries(timer, gen, tag, lens_q, lens_k, h, d, causal, dropout,
                + ("" if blocks == (None, None) else f" blocks {bq}/{bk}"))
     log(f"[kernel] flash_packed[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-        + f" (tol {FLASH_TOL[tag]}); dq/dk/dv bit-identical over two runs: "
-        f"{same_bits}; rows 5-6 route {route}, backward kernels run "
+        + f" (tol {FLASH_TOL[tag]}); out/lse/dq/dk/dv bit-identical over "
+        f"two runs: {same_bits}; rows 4-6 route {route}, kernels run "
         f"{ {n: c for n, c in calls.items() if c} }")
     bad = [k for k, (_, ok) in errs.items() if not ok]
     if bad or not same_bits or calls != want_calls:
         raise AssertionError(f"flash_packed[{variant}] disagrees with its "
-                             f"plain versions on {bad}, or dq/dk/dv differ "
-                             f"between runs (bit-identical: {same_bits}), "
-                             f"or the backward ran {calls}, not the "
-                             f"{route} route's {want_calls}")
+                             f"plain versions on {bad}, or out/lse/dq/dk/dv "
+                             f"differ between runs (bit-identical: "
+                             f"{same_bits}), or the kernels run were "
+                             f"{calls}, not the {route} route's "
+                             f"{want_calls}")
     rows = {"flash_packed_fwd": dict(variant=variant, max_abs_err=max(
                 errs["out"][0], errs["lse"][0]),
-                errors={k: errs[k][0] for k in ("out", "lse")}),
+                errors={k: errs[k][0] for k in ("out", "lse")},
+                bit_identical=same_bits, route=route),
             "flash_packed_bwd_dq": dict(variant=variant,
                                         max_abs_err=errs["dq"][0],
                                         bit_identical=same_bits,
@@ -1460,7 +1475,8 @@ def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
     d)``, with or without a residual: errors on y, dx, dw and db (and,
     through the autograd function, the residual's gradient, which must be
     dx itself), dw and db bit-identical over two runs, and the kernel,
-    plain and library times (the library on ``x + r`` with a residual)."""
+    plain and library times (the library on ``x + r`` with a residual);
+    y, mean and rstd bit-identical over two runs too."""
     from paddle_tpu_torch.ops.fused_kernels import (
         fused_layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
         layer_norm_fwd, layer_norm_fwd_reference)
@@ -1472,6 +1488,7 @@ def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
     r = (torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
          if residual else None)
     y, mean, rstd = layer_norm_fwd(x, w, b, eps, r)
+    fwd2 = layer_norm_fwd(x, w, b, eps, r)
     y_ref, mean_ref, rstd_ref = layer_norm_fwd_reference(x, w, b, eps, r)
     grads = layer_norm_bwd(g, x, w, mean, rstd, r)
     again = layer_norm_bwd(g, x, w, mean, rstd, r)
@@ -1482,6 +1499,7 @@ def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
             "dx": _ln_err(grads[0], grads_ref[0], tag),
             "dw": _ln_err(grads[1], grads_ref[1], tag, rel_to_max=True),
             "db": _ln_err(grads[2], grads_ref[2], tag, rel_to_max=True)}
+    fwd_bits = all(torch.equal(a, b) for a, b in zip((y, mean, rstd), fwd2))
     same_bits = torch.equal(grads[1], again[1]) and torch.equal(grads[2],
                                                                 again[2])
     if residual:
@@ -1516,7 +1534,8 @@ def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
     lib = "F.layer_norm(x + r)" if residual else "F.layer_norm"
     log(f"[kernel] layer_norm[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-        + f" (tol {tol}); dw/db bit-identical over two runs"
+        + f" (tol {tol}); y/mean/rstd bit-identical over two runs: "
+        f"{fwd_bits}; dw/db bit-identical over two runs"
         f"{', dr is dx' if residual else ''}: {same_bits}; "
         f"fwd kernel {times['fwd']:.4f} ms plain {times['fwd_plain']:.4f} "
         f"library({lib}) {times['fwd_lib']:.4f} bound "
@@ -1525,13 +1544,14 @@ def _layer_norm_entries(timer, gen, tag, dtype, rows, d, eps,
         f"library(native_layer_norm_backward) {times['bwd_lib']:.4f} bound "
         f"{bwd_bound[0]:.4f} ({bwd_bound[1]}, {bwd_bytes / 1e6:.1f} MB)")
     bad = [k for k, (_, ok) in errs.items() if not ok]
-    if bad or not same_bits:
+    if bad or not same_bits or not fwd_bits:
         raise AssertionError(f"layer_norm[{variant}] disagrees with its "
-                             f"plain version on {bad}, or dw/db (or dr) "
-                             f"differ between runs (bit-identical: "
-                             f"{same_bits})")
+                             f"plain version on {bad}, or y/mean/rstd "
+                             f"({fwd_bits}) or dw/db (or dr) ({same_bits}) "
+                             f"differ between runs")
     fwd = dict(variant=variant, max_abs_err=errs["y"][0],
                errors={k: errs[k][0] for k in ("y", "mean", "rstd")},
+               bit_identical=fwd_bits,
                tol=tol, ms=times["fwd"], plain_ms=times["fwd_plain"],
                bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                library_ms=times["fwd_lib"])
@@ -2532,14 +2552,15 @@ def phase_packed(smi):
         log(f"[packed] {label}: device busy {busy:.3f} ms an iteration, "
             f"{busy / ms:.3f} of its wall time {ms:.3f} ms; {ops:.0f} device "
             f"operations an iteration; most device time: {top}")
-    # rows 5-6 on the wgmma kernels: each once an iteration, and no
-    # mma.sync backward kernel
-    calls, bwd_ms = _flash_bwd_calls(lambda: packed_fb(qp), 3)
-    want_calls = {n: float(n in WG_FLASH_BWD) for n in calls}
-    log(f"[packed] the packed backward's kernels, calls an iteration: "
-        f"{calls}; their device time {bwd_ms:.4f} ms an iteration | {smi}")
+    # rows 4-6 on the wgmma kernels: each once an iteration, and no
+    # mma.sync flash kernel
+    calls, ms = _flash_calls(lambda: packed_fb(qp), 3)
+    want_calls = {n: float(n in WG_FLASH_FWD + WG_FLASH_BWD) for n in calls}
+    log(f"[packed] the packed kernels, calls an iteration: {calls}; their "
+        f"device time an iteration: forward {ms['fwd']:.4f} ms, backward "
+        f"{ms['bwd']:.4f} ms | {smi}")
     if calls != want_calls:
-        raise AssertionError(f"packed: backward kernels {calls}, want "
+        raise AssertionError(f"packed: flash kernels {calls}, want "
                              f"{want_calls}")
 
     generator = make_generator(FLASH_SEED, DEVICE)
@@ -2554,41 +2575,69 @@ def phase_packed(smi):
 
 
 def _profiled_kernels(fn, n, sessions=3):
-    """The device kernels of ``n`` runs of ``fn`` under ``torch.profiler``
-    (``key_averages()`` entries with device time).  The card is idle when
-    a session starts.  A session that records no device kernel at all
-    says nothing about the runs (torch 2.11's profiler on an H100 now
-    and then returns such a session for work that ran), so it is taken
-    again, up to ``sessions`` times, and logged; a session that records
-    any kernel is returned as it is."""
-    from paddle_tpu_torch.serving.profile import _device_us
+    """The device kernels of ``n`` runs of ``fn`` under ``torch.profiler``:
+    one entry a kernel name (``key``, ``count``, its device time in
+    ``self_device_time_total``), for the kernels that start after a spin
+    kernel that follows one more run of ``fn`` in the same session.  That
+    first run is there to be left out: late in a long run a session lost
+    the first run's packed forward record (phase 10: the session's raw
+    events held 2 of 3 forward kernels, the first run's missing, and 3 of
+    3 of every other kernel; phase 3, after phase 10 had run first, 0 of
+    1; never in a fresh process).  The card is idle when a session starts.
+    A session that records no device kernel after the spin kernel (or not
+    the spin kernel itself) says nothing about the runs, so it is taken
+    again, up to ``sessions`` times, and logged."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(sessions):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = [e.time_range.end for e in events if "spin_kernel" in e.name]
+        kernels = {}
+        for e in events:
+            if spins and e.time_range.start >= spins[-1]:
+                k = kernels.setdefault(e.name, types.SimpleNamespace(
+                    key=e.name, count=0, self_device_time_total=0.0))
+                k.count += 1
+                k.self_device_time_total += e.self_device_time_total
         if kernels:
-            return kernels
+            return list(kernels.values())
         log(f"[profile] session {attempt + 1} of {sessions} recorded no "
-            f"device kernel; profiling the runs again")
-    return kernels
+            f"device kernel after its spin kernel; profiling the runs again")
+    return []
 
 
-def _flash_bwd_calls(fn, n=1):
-    """The flash backward's kernels that ``n`` runs of ``fn`` launch:
-    ({name: calls a run} for ``WG_FLASH_BWD`` and ``MMA_FLASH_BWD``, their
-    device ms a run)."""
+def _flash_calls(fn, n=1, sessions=3):
+    """The flash kernels that ``n`` runs of ``fn`` launch: ({name: calls
+    a run} for each of ``FLASH_ROUTES``, {"fwd", "bwd": their device ms
+    a run}).  The runs launch the same kernels, so a session whose count
+    of some kernel is not a multiple of ``n`` lost records (see
+    `_profiled_kernels`); it is taken again, up to ``sessions`` times, and
+    logged."""
     from paddle_tpu_torch.serving.profile import _device_us
-    names = WG_FLASH_BWD + MMA_FLASH_BWD
-    mine = [e for e in _profiled_kernels(fn, n)
-            if any(k in e.key for k in names)]
-    return ({k: sum(e.count for e in mine if k in e.key) / n for k in names},
-            sum(_device_us(e) for e in mine) / n / 1e3)
+    fwd = WG_FLASH_FWD + MMA_FLASH_FWD
+    for attempt in range(sessions):
+        mine = [e for e in _profiled_kernels(fn, n)
+                if any(k in e.key for k in FLASH_ROUTES)]
+        counts = {k: sum(e.count for e in mine if k in e.key)
+                  for k in FLASH_ROUTES}
+        if all(c % n == 0 for c in counts.values()):
+            break
+        log(f"[profile] session {attempt + 1} of {sessions} counted "
+            f"{counts} in {n} runs; profiling the runs again")
+    return ({k: c / n for k, c in counts.items()},
+            {side: sum(_device_us(e) for e in mine
+                       if any(k in e.key for k in fwd) == (side == "fwd"))
+             / n / 1e3 for side in ("fwd", "bwd")})
 
 
 def _device_busy(fn, n):

@@ -66,7 +66,7 @@
 // operations each (1.1 G at that shape): at the CUDA cores' integer rate,
 // the same order of time as the products at the tensor cores' peak.
 //
-// The forward in bf16 on fixed lengths at D 64 and 128 (`wg::
+// The forward in bf16 at D 64 and 128, fixed lengths and packed (`wg::
 // flash_fwd_wg_kernel`, FlashAttention-3's design): persistent blocks, one
 // per SM, of three warpgroups, walking 128-row q tiles in pairs.  A
 // producer thread copies each tile's Q into one of two buffers and its
@@ -102,11 +102,14 @@
 // sequence's 128-row tiles paired long with short as `unit_tile` pairs
 // them, the entries ordered by their work (the other operand's tiles they
 // walk), largest first, each entry one unit per head, dealt to the
-// persistent blocks back and forth.
+// persistent blocks back and forth.  The packed forward walks dq's key
+// tiles, so it reads dq's table (PK in the forward too).  On bench_packed's
+// 8 sequences the packed kernels stay 3.5-4.3x their byte bounds: the
+// block with the most key-tile steps sets the time (PERF.md; the forward
+// moved off the mma.sync kernel, 0.0529 -> 0.0363 ms at dropout 0).
 //
-// Every other case (f32, D 32 and 256, the wide heads, the packed
-// forward) runs the mma.sync kernels, dropout a template argument there
-// too: one block of 4
+// Every other case (f32, D 32 and 256, the wide heads) runs the mma.sync
+// kernels, dropout a template argument there too: one block of 4
 // warps per 64-row tile, each warp owning 16 rows; the other operand's
 // tiles (64 rows; 16 in f32 at D = 256, where shared memory holds no
 // more) staged in shared memory in two buffers, the next tile's copy
@@ -190,9 +193,9 @@ struct Args {
   const int32_t* hstart;  // packed: hash bases start_q (B), start_k (B)
   const int32_t* tiles;   // packed: (sequence, first own row) per block
   int ntiles;
-  // the packed backward on wgmma: (sequence, first tile, second tile or
-  // -1) per entry, 128-row tiles (q tiles for dq, k tiles for dk/dv); unit
-  // u is entry u / H for head u % H
+  // the packed kernels on wgmma: (sequence, first tile, second tile or
+  // -1) per entry, 128-row tiles (q tiles for the forward and dq, k tiles
+  // for dk/dv); unit u is entry u / H for head u % H
   const int32_t* units;
   int nunits;
   int ntx;     // mma.sync kernels: blocks per slice (row tiles, or ntiles);
@@ -1201,7 +1204,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// forward on wgmma and TMA: bf16, fixed lengths, D 64 or 128
+// forward on wgmma and TMA: bf16, fixed lengths or packed, D 64 or 128
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -1326,7 +1329,7 @@ __device__ __forceinline__ int unit_tile(int u, int which, int n) {
   return which == 0 ? n - 1 - pp : pp;
 }
 
-// The packed backward's unit u: entry u / H of the unit table, for head u
+// The packed kernels' unit u: entry u / H of the unit table, for head u
 // % H, the table's entries largest work first, so that the persistent
 // blocks (`next_unit`) take every head's longest units first.  Returns
 // the entry's sequence; `tile` its tile `which` (-1: none).
@@ -1376,7 +1379,7 @@ __device__ __forceinline__ int q_item(const Args& a, int nq, int u, int which,
 
 // Persistent blocks, at most one per SM, of three warpgroups; the work
 // units are pairs of 128-row q tiles of one b * h (`q_item`), block b taking
-// units b, b + gridDim.x, ...  A producer thread copies each
+// units b, b + gridDim.x, ... (packed: `next_unit`).  A producer thread copies each
 // item's Q into one of two buffers and its 128-key tiles of K and V into a
 // ring of kStages that runs on across items, by TMA; consumer warpgroups 0
 // and 1 own q rows 0-63 and 64-127 and walk the same key tiles.  Per tile
@@ -1389,8 +1392,14 @@ __device__ __forceinline__ int q_item(const Args& a, int nq, int u, int which,
 // the end): wgmma's accumulator layout is mma.sync's per warp (warp w of a
 // warpgroup holds its rows 16 w .. 16 w + 15).  DROP: dropout on, a
 // template argument so that the per-element keep test is a select in one
-// straight run of code, not a branch around each element's hash.
-template <int D, bool DROP>
+// straight run of code, not a branch around each element's hash.  PK:
+// packed sequences as dq's (`flash_bwd_dq_wg_kernel`): the units from the
+// unit table, the maps over (1, total, H, D), a tile's rows absolute.  A
+// 128-row tile that crosses its sequence's end reads the next sequence's
+// rows, not zeros: keys past klen are masked on the tile that holds them
+// (the ragged-tile test reads v.klen), and rows past sq are neither
+// masked into another row nor stored.
+template <int D, bool DROP, bool PK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -1433,19 +1442,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid != 0) return;
     const int qp = perms & 63, kp = (perms >> 6) & 63, vp = perms >> 12;
     int n = 0, qn = 0;   // ring steps and Q loads so far
-    for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
       for (int which = 0; which < 2; ++which) {
         int q0;
         Slice v;
-        const int tiles = q_item<false>(a, nq, u, which, q0, v);
+        const int tiles = q_item<PK>(a, nq, u, which, q0, v);
         if (tiles <= 0) continue;
-        const int b = u / np / a.H, qb = qn & 1;
+        // TMA coordinates: (row, h, b), rows absolute when packed
+        const int b = PK ? 0 : u / np / a.H, qb = qn & 1;
+        const int qs = PK ? static_cast<int>(v.qrow) + q0 : q0;
+        const int ks = PK ? static_cast<int>(v.krow) : 0;
         mbar_wait(&qempty[qb], ((qn >> 1) & 1) ^ 1);
         mbar_arrive_expect(&qfull[qb], L::kTile);
 #pragma unroll
         for (int p = 0; p < D / 64; ++p)
           tma_bshd(smem + L::Q + qb * L::kTile + p * kPanel, &qmap, qp,
-                   &qfull[qb], p * 64, q0, v.h, b);
+                   &qfull[qb], p * 64, qs, v.h, b);
         ++qn;
         for (int t = 0; t < tiles; ++t, ++n) {
           const int stg = n % kStages, ph = ((n / kStages) & 1) ^ 1;
@@ -1454,13 +1466,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int p = 0; p < D / 64; ++p)
             tma_bshd(smem + L::K + stg * L::kTile + p * kPanel, &kmap, kp,
-                     &kfull[stg], p * 64, t * kBN, v.h, b);
+                     &kfull[stg], p * 64, ks + t * kBN, v.h, b);
           mbar_wait(&vempty[stg], ph);
           mbar_arrive_expect(&vfull[stg], L::kTile);
 #pragma unroll
           for (int p = 0; p < D / 64; ++p)
             tma_bshd(smem + L::V + stg * L::kTile + p * kPanel, &vmap, vp,
-                     &vfull[stg], p * 64, t * kBN, v.h, b);
+                     &vfull[stg], p * 64, ks + t * kBN, v.h, b);
         }
       }
     return;
@@ -1485,11 +1497,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float s[kBN / 2];     // (8-column group j8, element e) at s[4 j8 + e]
   uint32_t p[kBN / 16][4];
   int n = 0, qn = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x)
+  for (int r = 0, u = blockIdx.x; u < units; u = next_unit<PK>(u, ++r))
     for (int which = 0; which < 2; ++which) {
       int q0;
       Slice v;
-      const int tiles = q_item<false>(a, nq, u, which, q0, v);
+      const int tiles = q_item<PK>(a, nq, u, which, q0, v);
       if (tiles < 0) continue;
       const int qw = q0 + cw * 64, r0 = q0 + wr;
       // m in log2 units: the running max of s * scale * log2(e)
@@ -1629,14 +1641,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
+// fixed lengths: units of two q tiles of each (b, h); packed (a.units
+// set): a.nunits entries of dq's unit table (the forward walks dq's key
+// tiles) for each of the H heads, the maps over (1, total, H, D)
 template <int D>
 cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
+  const bool pk = a.units != nullptr;
   BshdMap maps[3];
   const void* base[3] = {a.q, a.k, a.v};
   cudaError_t e = cudaSuccess;
   for (int i = 0; i < 3 && e == cudaSuccess; ++i)
-    e = bshd_map(&maps[i], base[i], a.B, i == 0 ? a.Sq : a.Sk, a.H, D,
-                 a.st[i]);
+    e = bshd_map(&maps[i], base[i], pk ? 1 : a.B, i == 0 ? a.Sq : a.Sk, a.H,
+                 D, a.st[i]);
   if (e != cudaSuccess) return e;
   const int perms = maps[0].perm | maps[1].perm << 6 | maps[2].perm << 12;
   int dev = 0, sms = 0;
@@ -1644,13 +1660,17 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const long long nunits = static_cast<long long>(a.B) * a.H *
-                           (((a.Sq + kBM - 1) / kBM + 1) / 2);
+  const long long nunits =
+      pk ? static_cast<long long>(a.nunits) * a.H
+         : static_cast<long long>(a.B) * a.H *
+               (((a.Sq + kBM - 1) / kBM + 1) / 2);
   if (nunits >= (1ll << 31)) return cudaErrorInvalidValue;
   const int units = static_cast<int>(nunits);
   const size_t smem = 1024 + Layout<D>::kBytes;
-  auto kern = a.dropout ? flash_fwd_wg_kernel<D, true>
-                        : flash_fwd_wg_kernel<D, false>;
+  auto kern = pk ? (a.dropout ? flash_fwd_wg_kernel<D, true, true>
+                              : flash_fwd_wg_kernel<D, false, true>)
+                 : (a.dropout ? flash_fwd_wg_kernel<D, true, false>
+                              : flash_fwd_wg_kernel<D, false, false>);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -2321,14 +2341,10 @@ cudaError_t slice_grid(const Args& a, int zblocks, dim3* grid) {
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
-  // bf16 at D 64 and 128: wgmma and TMA on fixed lengths, and the packed
-  // backward (the packed forward stays on flash_fwd_kernel)
-  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128)) {
-    if (a.tiles == nullptr)
-      return which == kFwd ? wg::launch_fwd<D>(a, stream)
-                           : wg::launch_bwd<D>(which == kDkv, a, stream);
-    if (which != kFwd) return wg::launch_bwd<D>(which == kDkv, a, stream);
-  }
+  // bf16 at D 64 and 128: wgmma and TMA, fixed lengths and packed alike
+  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
+    return which == kFwd ? wg::launch_fwd<D>(a, stream)
+                         : wg::launch_bwd<D>(which == kDkv, a, stream);
   constexpr int C = other_rows<T, D>(), DO = out_cols<D>();
   constexpr size_t LD = ld<T, D>(), LDO = ld<T, DO>();
   const size_t own = kRows * LD * sizeof(T), other = C * LD * sizeof(T);
@@ -2410,14 +2426,14 @@ int run(int which, const void* q, const void* k, const void* v,
         int H, int Sq, int Sk, int D, float scale, int threshold,
         float inv_keep, int causal, int dtype, void* stream) {
   const bool packed = tiles != nullptr;
-  // lengths below 2^30 keep the masks' int32 sums from overflowing; the
-  // packed backward takes its unit table, the forward none
+  // lengths below 2^30 keep the masks' int32 sums from overflowing; every
+  // packed kernel takes its unit table, fixed lengths none
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || Sq >= (1 << 30) ||
       Sk >= (1 << 30) || (dtype != 0 && dtype != 1) ||
       static_cast<long long>(B) * H >= (1ll << 31) ||
       (packed && (ntiles <= 0 || cu_q == nullptr || cu_k == nullptr ||
                   hstart == nullptr || lens != nullptr || shift != nullptr)) ||
-      (packed && which != kFwd) != (units != nullptr && nunits > 0))
+      packed != (units != nullptr && nunits > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -2460,22 +2476,23 @@ int run(int which, const void* q, const void* k, const void* v,
 // sequences, hstart (2B int32) holds the hash bases start_q then start_k,
 // and tiles (ntiles x 2 int32) names each block's (sequence, first own
 // row): q tiles for the forward and dq, k tiles for dk/dv, 64 rows each.
-// dq and dk/dv also take units (nunits x 3 int32), the wgmma kernels'
-// unit table (Args::units: q tiles for dq, k tiles for dk/dv, 128 rows
-// each; null and 0 with fixed lengths): bf16 at D 64 and 128 read it,
-// every other case the tile table.
+// Packed, every entry also takes units (nunits x 3 int32), the wgmma
+// kernels' unit table (Args::units: q tiles for the forward and dq, k
+// tiles for dk/dv, 128 rows each; null and 0 with fixed lengths): bf16 at
+// D 64 and 128 read it, every other case the tile table.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seed,
                              const void* lens, const void* shift,
                              const void* cu_q, const void* cu_k,
                              const void* hstart, const void* tiles,
-                             int ntiles, const long long* strides, int B,
-                             int H, int Sq, int Sk, int D, float scale,
-                             int threshold, float inv_keep, int causal,
-                             int dtype, void* stream) {
+                             int ntiles, const void* units, int nunits,
+                             const long long* strides, int B, int H, int Sq,
+                             int Sk, int D, float scale, int threshold,
+                             float inv_keep, int causal, int dtype,
+                             void* stream) {
   return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
              nullptr, seed, lens, shift, cu_q, cu_k, hstart, tiles, ntiles,
-             nullptr, 0, strides, B, H, Sq, Sk, D, scale, threshold,
+             units, nunits, strides, B, H, Sq, Sk, D, scale, threshold,
              inv_keep, causal, dtype, stream);
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (csrc/block_gemm.cu, csrc/flash_attention.cu) and the LayerNorm backward
-// (csrc/layer_norm.cu): mbarriers, TMA loads (tiled and 1-D bulk) and
-// stores and their tensor maps, shared memory matrix descriptors (128-byte
+// (csrc/block_gemm.cu, csrc/flash_attention.cu) and the LayerNorm kernels
+// (csrc/layer_norm.cu): mbarriers, TMA loads and stores (tiled and 1-D
+// bulk) and their tensor maps, shared memory matrix descriptors (128-byte
 // swizzle), `wgmma` with A from shared memory or from registers, and named
 // barriers.  Inline PTX; nothing here allocates or launches.
 #pragma once
@@ -98,6 +98,22 @@ __device__ __forceinline__ void tma_store_wait() {
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   else
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16) from src in shared memory to dst in global
+// memory, both 16-byte aligned, by TMA's 1-D bulk copy; one bulk group a
+// call with tma_store_commit
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+// all but this thread's N latest bulk groups have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // generic-proxy writes to shared memory, made visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_shared() {

@@ -24,16 +24,33 @@
 //
 //  - Forward: one warp per row.  A lane owns 8 consecutive columns of each
 //    256-column chunk and reads them with one 16-byte load (bf16) or two
-//    (f32); for d <= 1024 (d % 8 == 0) the row stays in registers between
-//    the statistics and the output, so x is read once.  NC = ceil(d / 256)
+//    (f32), chunk by chunk into its sums, so every forward kernel here
+//    gives the same f32 arithmetic and the same bits.  For d <= 1024 (d %
+//    8 == 0, `ln_fwd_kernel`) the row stays in registers between the
+//    statistics and the output, so x is read once.  NC = ceil(d / 256)
 //    chunks.  Any other d (the JAX package takes every width: GPT-1.3B's
-//    2048, GPT-13B's 5120, a d that is not a multiple of 8) takes
-//    `ln_fwd_any_kernel`: the same warp per row walks the row in chunks
-//    twice, once for the sums and once for the output (the second read
-//    mostly hits L1/L2).  A lane's sums run in the same order as the
-//    register version's, chunk by chunk, so the statistics are the same
-//    f32 arithmetic.  d % 8 == 0 keeps the 16-byte loads (V = 8); any
-//    other d loads one element at a time (V = 1, 32-column chunks).
+//    2048, GPT-13B's 5120, a d that is not a multiple of 8; d % 8 != 0
+//    loads one element at a time, V = 1, 32-column chunks) takes
+//    `ln_fwd_staged_kernel`: persistent blocks over a row partition the
+//    wrapper computes from the row count (`ln_fwd_plan`, at most 528
+//    blocks), each warp's rows copied by TMA bulk copies into its own ring
+//    of shared memory stages, its next rows in flight while it sums one,
+//    so x and r are read from device memory once (the kernel before it,
+//    `ln_fwd_any_kernel`, read each row twice, the second time mostly from
+//    L1/L2, and at V = 1 waited on every element's load); w and b copied
+//    into shared memory once a block, y written over x in the stage and
+//    stored by a bulk copy.  A row too wide for two stages (f32 with a
+//    residual past about 14000) is still read twice by ln_fwd_any_kernel.
+//    What the card's times decided (PERF.md, PR 14): at d <= 1024 the
+//    register kernel took less time (one row a warp, the whole problem
+//    in flight at once: the staged copy and store only add latency,
+//    (4096, 768) with a residual 0.0148 against 0.0127 ms), so it keeps
+//    that range; past it the staged kernel took 0.62-0.96x the old one's
+//    time with the L2 flushed (0.24x at (100, 16001) in bf16), up to 1.1x
+//    with the L2 warm at rows of 4 KB or less, with up to four blocks an
+//    SM, as many warps as a block has rows and as many stages as a warp
+//    has rows (two blocks an SM of 8 warps, 2 rows each, took 10% longer
+//    at (4096, 2048)).
 //  - Row sums go through a xor butterfly of shuffles, which leaves the
 //    same bits in every lane.
 //  - dw and db need a sum over all rows; the TPU kernel adds them tile by
@@ -647,6 +664,175 @@ __global__ void __launch_bounds__(kOneThreads) ln_bwd_one_pass_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the forward: persistent blocks, each warp's rows staged by TMA
+// ---------------------------------------------------------------------------
+constexpr int kFwdWarps = 8;                        // a block's most warps
+// its mbarriers (one a stage of each warp, then the weights'), in bytes
+// rounded up to 16: w and b follow them
+constexpr int kFwdBars = ((kFwdWarps * kMaxStages + 1) * 8 + 15) / 16 * 16;
+// a block's shared memory where four (two) blocks stay on an SM
+constexpr int kQuadSmem = 56 * 1024, kPairSmem = 112 * 1024;
+
+// the forward's stages: past the mbarriers and the `nwt` weight rows (w
+// and b where not null, each rounded up to 16 bytes), 128-byte aligned
+__host__ __device__ __forceinline__ size_t fwd_stage_offset(int d, int es,
+                                                            int nwt) {
+  const size_t wb = (static_cast<size_t>(d) * es + 15) & ~size_t(15);
+  return (kFwdBars + nwt * wb + 127) & ~size_t(127);
+}
+
+// Block p owns rows [p * per, min((p + 1) * per, rows)) (`ln_fwd_plan`:
+// the row count alone); warp w of its nw warps takes the rows r0 + w, r0 +
+// w + nw, ..., one at a time, each as one warp per row in ln_fwd_any_kernel:
+// lane l owns the columns l V + c 32 V + i and sums them chunk by chunk,
+// the lanes' sums meet in the xor butterfly, and y takes the same f32
+// arithmetic, so y, mean and rstd are that kernel's bits (and, at d <=
+// 1024, ln_fwd_kernel's).  Each warp has a ring of `nst` stages of one row
+// (x, and r), copied by its lane 0 as the 16-byte aligned span that holds
+// the row (TMA bulk copies on the stage's mbarrier; the row lies (row * d
+// * sizeof(T)) % 16 bytes into its copy), the warp's next rows in flight
+// while one is used: x and r are read from device memory once.  `bulk`
+// (d * sizeof(T) % 16 == 0, and a warp of more than one row): y is
+// written over x in the stage and stored by a bulk copy, the stage
+// refilled once that copy has read it; else y is stored from registers
+// (a warp of one row refills nothing: on the card that was no slower, and
+// 5% faster at (2048, 5120) and (300, 12288), PERF.md).  w and b are
+// copied to shared memory once a block, by bulk copies in flight with the
+// first rows'.
+template <typename T, int V, bool RES>
+__global__ void __launch_bounds__(kFwdWarps * 32) ln_fwd_staged_kernel(
+    const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ w,
+    const T* __restrict__ b, T* __restrict__ y, float* __restrict__ mean_out,
+    float* __restrict__ rstd_out, int rows, int d, float eps, int per,
+    int slot, int nst, int bulk) {
+  constexpr int NA = RES ? 2 : 1;   // staged arrays: x (, r)
+  constexpr int CH = 32 * V;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + warp * kMaxStages;
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(smem) + kFwdWarps * kMaxStages;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  const int nrows = r1 - r0 > warp ? (r1 - r0 - warp + nw - 1) / nw : 0;
+  const size_t row_bytes = static_cast<size_t>(d) * sizeof(T);
+  // w's and b's copies: each the 16-byte chunks that hold it
+  const uint32_t wbytes =
+      static_cast<uint32_t>((row_bytes + 15) & ~size_t(15));
+  const int nwt = (w != nullptr) + (b != nullptr);
+  const T* src[2] = {x, r};
+  const T* ws = w ? reinterpret_cast<const T*>(smem + kFwdBars) : nullptr;
+  const T* bs =
+      b ? reinterpret_cast<const T*>(smem + kFwdBars + (w ? wbytes : 0))
+        : nullptr;
+  unsigned char* stages = smem + fwd_stage_offset(d, sizeof(T), nwt);
+  auto stage = [&](int s, int a) {
+    return stages + (static_cast<size_t>(warp * nst + s) * NA + a) * slot;
+  };
+  // lane 0: the warp's k-th row into stage k % nst
+  auto fetch = [&](int k) {
+    const int s = k % nst;
+    const size_t a0 = static_cast<size_t>(r0 + warp + k * nw) * row_bytes;
+    const size_t lo = a0 & ~size_t(15);
+    const uint32_t span = static_cast<uint32_t>(
+        ((a0 + row_bytes + 15) & ~size_t(15)) - lo);
+    hopper::mbar_arrive_expect(&bar[s], NA * span);
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      hopper::bulk_load(stage(s, a),
+                        reinterpret_cast<const unsigned char*>(src[a]) + lo,
+                        span, &bar[s]);
+  };
+  // each warp's lane 0 sets up its own ring and starts its first rows'
+  // copies; thread 0 also copies w and b
+  if (lane == 0) {
+    for (int i = 0; i < nst; ++i) hopper::mbar_init(&bar[i], 1);
+    if (tid == 0) hopper::mbar_init(wfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < min(nst, nrows); ++k) fetch(k);
+    if (tid == 0 && nwt) {
+      hopper::mbar_arrive_expect(wfull, nwt * wbytes);
+      if (w) hopper::bulk_load(const_cast<T*>(ws), w, wbytes, wfull);
+      if (b) hopper::bulk_load(const_cast<T*>(bs), b, wbytes, wfull);
+    }
+  }
+  __syncthreads();   // every warp's mbarriers are set up
+
+  for (int k = 0; k < nrows; ++k) {
+    const int row = r0 + warp + k * nw, s = k % nst;
+    const size_t base = static_cast<size_t>(row) * d;
+    const int off = static_cast<int>((base * sizeof(T)) & 15) / sizeof(T);
+    const T* xr = reinterpret_cast<const T*>(stage(s, 0)) + off;
+    const T* rr = reinterpret_cast<const T*>(stage(s, NA - 1)) + off;
+    T* yr = bulk ? const_cast<T*>(xr) : y + base;
+    hopper::mbar_wait(&bar[s], (k / nst) & 1);
+    auto input = [&](int col, float (&v)[V]) {
+      loadv<V>(xr + col, v);
+      if (RES) {
+        float rv[V];
+        loadv<V>(rr + col, rv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] += rv[i];
+      }
+    };
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int col = lane * V; col < d; col += CH) {
+      float v[V];
+      input(col, v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        s1 += v[i];
+        s2 += v[i] * v[i];
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float mean = s1 / d;
+    const float var = fmaxf(s2 / d - mean * mean, 0.f);
+    const float rstd = rsqrtf(var + eps);
+    if (k == 0 && nwt) hopper::mbar_wait(wfull, 0);
+#pragma unroll 4
+    for (int col = lane * V; col < d; col += CH) {
+      float v[V], wv[V], bv[V], o[V];
+      input(col, v);
+      loadv_or<V>(ws, col, 1.f, wv);
+      loadv_or<V>(bs, col, 0.f, bv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = (v[i] - mean) * rstd * wv[i] + bv[i];
+      storev<V>(yr + col, o);
+    }
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+    if (bulk) {
+      hopper::fence_async_shared();   // y in the stage, seen by the copy
+      __syncwarp();
+      if (lane == 0) {
+        hopper::bulk_store(y + base, xr, static_cast<uint32_t>(row_bytes));
+        hopper::tma_store_commit();
+        // a stage is free once its store has read it: with 3 or 4 stages
+        // the row before's is refilled (its store has had a row's time),
+        // with 2 this row's, at once
+        const int j = nst > 2 ? k - 1 : k;
+        if (j >= 0 && j + nst < nrows) {
+          if (nst > 2)
+            hopper::bulk_wait_read<1>();
+          else
+            hopper::bulk_wait_read<0>();
+          fetch(j + nst);
+        }
+      }
+    } else {
+      __syncwarp();   // the stage is read
+      if (lane == 0 && k + nst < nrows) fetch(k + nst);
+    }
+  }
+  // the stores have read the stages before the block's shared memory goes
+  if (bulk && lane == 0) hopper::tma_store_wait<true>();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ln_bwd_reduce_kernel(
     const float* __restrict__ dw_part, const float* __restrict__ db_part,
@@ -718,6 +904,54 @@ int fwd_any(const void* x, const void* r, const void* w, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the staged forward's shape, the first that fits beside w and b: the
+// shared memory of four blocks an SM, then two, then one; as many warps
+// as the block has rows (up to 8), then fewer; each with a ring of as
+// many stages as it has rows (2 to 4; one for a warp of one row).  Else
+// the rows in place, read twice, by ln_fwd_any_kernel.
+template <typename T, int V, bool RES>
+int fwd_staged(const void* x, const void* r, const void* w, const void* b,
+               void* y, void* mean, void* rstd, int rows, int d, float eps,
+               int nblocks, int per, cudaStream_t s) {
+  constexpr int NA = RES ? 2 : 1;
+  const long long bytes = static_cast<long long>(d) * sizeof(T);
+  // a row's copy: its bytes, and 16 more where rows are not 16-byte aligned
+  const long long slot = (bytes + 15) / 16 * 16 + (bytes % 16 ? 16 : 0);
+  const int nwt = (w != nullptr) + (b != nullptr);
+  int top = 1;   // the block's most warps: its rows, to a power of 2
+  while (top < kFwdWarps && top < per) top *= 2;
+  const long long fixed =
+      static_cast<long long>(fwd_stage_offset(d, sizeof(T), nwt));
+  int warps = top;
+  long long nst = 0;
+  bool fits = false;
+  for (const long long room : {kQuadSmem, kPairSmem, kSmemMax}) {
+    for (warps = top; warps >= 1; warps /= 2) {
+      const long long own = (per + warps - 1) / warps;   // a warp's rows
+      nst = std::min<long long>(std::min<long long>(kMaxStages, own),
+                                (room - fixed) / (warps * NA * slot));
+      fits = nst >= std::min<long long>(2, own);
+      if (fits) break;
+    }
+    if (fits) break;
+  }
+  if (!fits)
+    return fwd_any<T, V, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s);
+  const size_t smem = static_cast<size_t>(fixed + nst * warps * NA * slot);
+  auto kern = ln_fwd_staged_kernel<T, V, RES>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<nblocks, warps * 32, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), rows, d, eps, per,
+      static_cast<int>(slot), static_cast<int>(nst),
+      bytes % 16 == 0 && (per + warps - 1) / warps > 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the one-pass backward: groups of G rows (a power of 2, up to 8) in
 // stages of about kStageTarget bytes, as many stages (2 to 4) as fit beside
 // the column sums, or the rows in place where two stages of one row each do
@@ -786,14 +1020,20 @@ int bwd_any(const void* g, const void* x, const void* r, const void* w,
 #undef PTT_ONE_PASS
 }
 
+// d <= 1024 with d % 8 == 0: the register kernel, a row in registers
+// (on the card it took less time than the staged kernel at every such
+// shape timed, PERF.md); every other d the staged kernel, 8 columns a lane
+// per 256-column chunk where d % 8 == 0 (16-byte loads), else 1 per 32
 template <typename T, bool RES>
 int fwd_dispatch(const void* x, const void* r, const void* w, const void* b,
                  void* y, void* mean, void* rstd, int rows, int d, float eps,
-                 cudaStream_t s) {
+                 int nblocks, int per, cudaStream_t s) {
   if (d % VEC != 0)
-    return fwd_any<T, 1, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s);
+    return fwd_staged<T, 1, RES>(x, r, w, b, y, mean, rstd, rows, d, eps,
+                                 nblocks, per, s);
   if (d > kMaxD)
-    return fwd_any<T, VEC, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s);
+    return fwd_staged<T, VEC, RES>(x, r, w, b, y, mean, rstd, rows, d, eps,
+                                   nblocks, per, s);
   switch ((d + kChunk - 1) / kChunk) {
     case 1: fwd<T, 1, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
     case 2: fwd<T, 2, RES>(x, r, w, b, y, mean, rstd, rows, d, eps, s); break;
@@ -837,10 +1077,11 @@ int bwd_dispatch(const void* g, const void* x, const void* r, const void* w,
 template <typename T>
 int fwd_res(const void* x, const void* r, const void* w, const void* b,
             void* y, void* mean, void* rstd, int rows, int d, float eps,
-            cudaStream_t s) {
-  return r ? fwd_dispatch<T, true>(x, r, w, b, y, mean, rstd, rows, d, eps, s)
+            int nblocks, int per, cudaStream_t s) {
+  return r ? fwd_dispatch<T, true>(x, r, w, b, y, mean, rstd, rows, d, eps,
+                                   nblocks, per, s)
            : fwd_dispatch<T, false>(x, r, w, b, y, mean, rstd, rows, d, eps,
-                                    s);
+                                    nblocks, per, s);
 }
 
 template <typename T>
@@ -859,19 +1100,24 @@ int bwd_res(const void* g, const void* x, const void* r, const void* w,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, r, w, b and y alike).  The caller
 // guarantees rows > 0, d > 0 and 16-byte aligned tensors (rows are 16-byte
-// aligned too when d % 8 == 0).  r is the residual, or null for none; w and b may be null (scale 1,
-// shift 0).  mean and rstd are f32 (rows,).
+// aligned too when d % 8 == 0).  r is the residual, or null for none; w and
+// b may be null (scale 1, shift 0).  mean and rstd are f32 (rows,).  Block
+// p of nblocks takes rows [p * per, (p + 1) * per) (nblocks * per >= rows).
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* r,
                                   const void* w, const void* b, void* y,
                                   void* mean, void* rstd, int rows, int d,
-                                  float eps, int dtype, void* stream) {
+                                  float eps, int nblocks, int per, int dtype,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || nblocks < 1 || per < 1 ||
+      static_cast<long long>(nblocks) * per < rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return fwd_res<float>(x, r, w, b, y, mean, rstd, rows, d, eps, s);
+    return fwd_res<float>(x, r, w, b, y, mean, rstd, rows, d, eps, nblocks,
+                          per, s);
   if (dtype == 1)
     return fwd_res<__nv_bfloat16>(x, r, w, b, y, mean, rstd, rows, d, eps,
-                                  s);
+                                  nblocks, per, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -84,6 +84,7 @@ from . import _build
 
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
+           "ln_fwd_plan", "layer_norm_fwd_lane_reference",
            "ln_bwd_plan", "layer_norm_bwd_split_reference",
            "fused_softmax_xent", "softmax_xent_fwd", "softmax_xent_bwd",
            "softmax_xent_fwd_reference", "softmax_xent_bwd_reference",
@@ -95,7 +96,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ptt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           ctypes.c_float, _I, _P),
+                           ctypes.c_float, _I, _I, _I, _P),
     "ptt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _I, _I, _P),
 }
@@ -107,6 +108,7 @@ _XENT_SIGNATURES = {
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_PER_BLOCK = 8      # one warp per row
+_FWD_BLOCKS = 528        # the forward's most blocks: four on each of 132 SMs
 _BWD_MAX_BLOCKS = 256    # the register backward's partial rows of dw/db
 _REGISTER_MAX_D = 1024   # the register backward: d <= 1024, d % 8 == 0
 _ONE_PASS_PARTS = 128    # the one-pass backward's most partial rows
@@ -161,6 +163,55 @@ def layer_norm_bwd_reference(g, x, weight, mean, rstd, residual=None):
     wdt = x.dtype if weight is None else weight.dtype
     dw = None if weight is None else (gv * xhat).sum(0).to(wdt)
     return dx.to(x.dtype), dw, gv.sum(0).to(wdt)
+
+
+def layer_norm_fwd_lane_reference(x, weight, bias, epsilon=1e-5,
+                                  residual=None):
+    """A plain model of the forward kernel's sum order: ``(y, mean,
+    rstd)`` as :func:`layer_norm_fwd_reference` returns them.  One warp
+    takes a row; lane ``l`` owns the columns ``c * 32 V + l * V + i``
+    (``V`` = 8 where ``d % 8 == 0``, else 1) and adds them, chunk ``c`` by
+    chunk and ``i`` in order, into its f32 sums of ``x`` and ``x^2``; an
+    xor butterfly (offsets 16, 8, 4, 2, 1) adds the 32 lanes' sums.  (The
+    card may round ``x * x + s`` once, a fused multiply-add, where this
+    rounds twice.)"""
+    rows, d = x.shape
+    vec = 8 if d % 8 == 0 else 1
+    chunk = 32 * vec
+    xv = _ln_input(x, residual)
+    cols = torch.zeros(rows, -(-d // chunk) * chunk, device=x.device)
+    cols[:, :d] = xv           # a zero column adds nothing to either sum
+    cols = cols.reshape(rows, -1, 32, vec)
+    s1 = torch.zeros(rows, 32, device=x.device)
+    s2 = torch.zeros(rows, 32, device=x.device)
+    for c in range(cols.shape[1]):
+        for i in range(vec):
+            s1 = s1 + cols[:, c, :, i]
+            s2 = s2 + cols[:, c, :, i] * cols[:, c, :, i]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s1 = s1 + s1[:, lanes ^ o]
+        s2 = s2 + s2[:, lanes ^ o]
+    mean = s1[:, :1] / d
+    rstd = torch.rsqrt(torch.clamp(s2[:, :1] / d - mean * mean, min=0.0)
+                       + epsilon)
+    h = (xv - mean) * rstd
+    if weight is not None:
+        h = h * weight.float()
+    if bias is not None:
+        h = h + bias.float()
+    return h.to(x.dtype), mean[:, 0], rstd[:, 0]
+
+
+def ln_fwd_plan(rows):
+    """The LayerNorm forward's row partition: ``(nblocks, per)``, block p
+    owning rows ``[p * per, min((p + 1) * per, rows))``, at most
+    ``_FWD_BLOCKS`` blocks (four an SM of an H100, where the kernel's
+    stages let four stay).  A row is one warp's, so its bits never depend
+    on the partition; the partition reads the row count alone, so the
+    grid does not depend on the card either."""
+    per = -(-rows // _FWD_BLOCKS)
+    return -(-rows // per), per
 
 
 def ln_bwd_plan(rows, d):
@@ -269,7 +320,8 @@ def _launch_fwd(x, weight, bias, epsilon, residual=None):
     status = lib.ptt_layer_norm_fwd(
         x.data_ptr(), _ptr(residual), _ptr(weight), _ptr(bias),
         y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, d,
-        float(epsilon), _DTYPE_CODE[x.dtype], _stream(dev))
+        float(epsilon), *ln_fwd_plan(rows), _DTYPE_CODE[x.dtype],
+        _stream(dev))
     _build.check(lib, status, "layer_norm_fwd")
     return y, mean, rstd
 

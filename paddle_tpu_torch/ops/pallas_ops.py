@@ -74,13 +74,12 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# lens, shift, cu_q, cu_k, hstart, tiles, ntiles; the backward's also
-# units, nunits
+# lens, shift, cu_q, cu_k, hstart, tiles, ntiles, then units, nunits
 _MASKS = (_P,) * 6 + (_I,)
 _UNITS = (_P, _I)
 _TAIL = (_P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P)
 _SIGNATURES = {
-    "ptt_flash_fwd": (_P,) * 6 + _MASKS + _TAIL,
+    "ptt_flash_fwd": (_P,) * 6 + _MASKS + _UNITS + _TAIL,
     "ptt_flash_bwd_dq": (_P,) * 8 + _MASKS + _UNITS + _TAIL,
     "ptt_flash_bwd_dkv": (_P,) * 9 + _MASKS + _UNITS + _TAIL,
 }
@@ -88,7 +87,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)   # and above 256, every multiple of 128
 _WIDE_STEP = 128
 _TILE_ROWS = 64       # rows of a kernel block's own tile (kRows in the .cu)
-# the wgmma backward's tiles: 128 rows a unit tile (kBM, kBN in the .cu),
+# the wgmma kernels' tiles: 128 rows a unit tile (kBM, kBN in the .cu),
 # 64 q rows a dk/dv step (DkvLayout::kQT)
 _UNIT_ROWS, _DKV_Q_ROWS = 128, 64
 _PACKED_BLOCK = 512   # the JAX mha_packed's default block_q and block_k
@@ -315,11 +314,11 @@ def _starts(cu, block):
 
 def _tile_steps(side, len_q, len_k, tile, causal):
     """The other operand's tiles that 128-row tile ``tile`` of one
-    sequence walks in the wgmma backward: for a q tile (dq, ``side`` "q")
-    the 128-key tiles up to its last row's diagonal when causal, for a key
-    tile (dk/dv, "k") the 64-row q tiles from its diagonal; the diagonal
-    bottom right, ``key <= query + len_k - len_q`` (the kernels'
-    ``q_item`` and ``item``)."""
+    sequence walks in the wgmma kernels: for a q tile (the forward and dq,
+    ``side`` "q") the 128-key tiles up to its last row's diagonal when
+    causal, for a key tile (dk/dv, "k") the 64-row q tiles from its
+    diagonal; the diagonal bottom right, ``key <= query + len_k - len_q``
+    (the kernels' ``q_item`` and ``item``)."""
     r0, off = tile * _UNIT_ROWS, len_k - len_q
     if side == "q":
         end = min(len_k, r0 + _UNIT_ROWS + off) if causal else len_k
@@ -345,7 +344,7 @@ class PackedLayout:
     grid size needs their counts on the host in any case) and uploaded
     once per device and mask (:meth:`tables`): each q (k) tile of 64 rows
     of one sequence is one block of the mma.sync forward and dq (dk/dv)
-    kernels; the wgmma backward's units (:meth:`units`) pair 128-row tiles.
+    kernels; the wgmma kernels' units (:meth:`units`) pair 128-row tiles.
     """
 
     def __init__(self, cu_q, cu_k, total_q, total_k, *, block_q=None,
@@ -370,8 +369,9 @@ class PackedLayout:
         return [b - a for a, b in zip(cu, cu[1:])]
 
     def units(self, side, causal):
-        """The wgmma backward's work units over 128-row tiles: q tiles for
-        dq (``side`` "q"), k tiles for dk/dv ("k").  A sequence's ``n``
+        """The wgmma kernels' work units over 128-row tiles: q tiles for
+        the forward and dq (``side`` "q": the forward walks dq's key
+        tiles, so one table serves both), k tiles for dk/dv ("k").  A sequence's ``n``
         tiles pair as ``wg::unit_tile`` pairs them, tile ``n - 1 - p``
         with tile ``p`` (an odd ``n``'s middle tile alone), the one with
         more causal work first; an entry is ``(sequence, first tile,
@@ -597,26 +597,23 @@ def _int32_ptr(t, n, what, dev):
     return t.data_ptr()
 
 
-def _masks(q, layout, side, causal, seq_lens=None, causal_shift=None,
-           units=False):
+def _masks(q, layout, side, causal, seq_lens=None, causal_shift=None):
     """The C entries' mask arguments (lens, shift, cu_q, cu_k, hstart,
-    tiles, ntiles, and with ``units`` the backward's units, nunits) and
-    the batch count they imply: fixed lengths with the optional
-    ``seq_lens`` and ``causal_shift`` tensors, or packed sequences
-    (``layout``, ``side`` "q" or "k" naming the tile and unit tables)."""
+    tiles, ntiles, units, nunits) and the batch count they imply: fixed
+    lengths with the optional ``seq_lens`` and ``causal_shift`` tensors, or
+    packed sequences (``layout``, ``side`` "q" or "k" naming the tile and
+    unit tables: q for the forward and dq, k for dk/dv)."""
     if layout is None:
         b = q.shape[0]
         return (_int32_ptr(seq_lens, b, "seq_lens", q.device),
                 _int32_ptr(causal_shift, 1, "causal_shift", q.device),
-                None, None, None, None, 0) + ((None, 0) if units else ()), b
+                None, None, None, None, 0, None, 0), b
     t = layout.tables(q.device, causal)
     tiles = t[f"{side}_tiles"]
-    masks = (None, None, t["cu_q"].data_ptr(), t["cu_k"].data_ptr(),
-             t["hstart"].data_ptr(), tiles.data_ptr(), tiles.shape[0])
-    if units:
-        u = t["dq_units" if side == "q" else "dkv_units"]
-        masks += (u.data_ptr(), u.shape[0])
-    return masks, layout.n
+    units = t["dq_units" if side == "q" else "dkv_units"]
+    return (None, None, t["cu_q"].data_ptr(), t["cu_k"].data_ptr(),
+            t["hstart"].data_ptr(), tiles.data_ptr(), tiles.shape[0],
+            units.data_ptr(), units.shape[0]), layout.n
 
 
 def _tail(shape, strides, *, causal, sm_scale, dropout_p, dtype, dev):
@@ -671,8 +668,7 @@ def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
     _, sq, _, h, _ = shape
-    masks, b = _masks(q, layout, "q", causal, seq_lens, causal_shift,
-                      units=True)
+    masks, b = _masks(q, layout, "q", causal, seq_lens, causal_shift)
     _check_stats((b, h, sq) if layout is None else (h, sq), q.device, lse,
                  delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -692,8 +688,7 @@ def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
     _, sq, _, h, _ = shape
-    masks, b = _masks(q, layout, "k", causal, seq_lens, causal_shift,
-                      units=True)
+    masks, b = _masks(q, layout, "k", causal, seq_lens, causal_shift)
     _check_stats((b, h, sq) if layout is None else (h, sq), q.device, lse,
                  delta)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)

@@ -288,6 +288,116 @@ def test_packed_units_cover_every_row_once_largest_work_first(seed, causal):
         assert set(seen) == want and set(seen.values()) == {1}, side
 
 
+# -- the wgmma forward's walk of dq's unit table, modelled -------------------
+
+# lens_q, lens_k, causal, dropout, block: lengths off a multiple of 128,
+# len_q > len_k (300 against 150), an empty q sequence, len_k = 0 (129
+# rows with no key), tiles crossing into the next sequence's rows
+UNIT_CASES = {
+    "causal-drop-b128": ([300, 0, 129, 17, 200], [150, 40, 0, 17, 260], True,
+                         0.1, 128),
+    "full-default": ([300, 0, 129, 17, 200], [150, 40, 0, 17, 260], False,
+                     0.0, None),
+}
+
+
+def _wg_packed_forward_model(q, k, v, lay, causal, p, seed, scale):
+    """The wgmma packed forward as its blocks walk the unit table: unit u
+    is entry ``u // H`` of ``dq_units`` for head ``u % H``; each 128-row q
+    tile of the entry reads 128 absolute rows from its sequence's first
+    (crossing into the next sequence's rows, zeros past the buffer) and
+    walks the 128-key tiles up to its last row's diagonal, keys read the
+    same way and masked by the sequence's lengths (key < len_k, query <
+    len_q, causal bottom right); an online softmax in f32 per key tile,
+    the dropout hash over the block-aligned coordinates, and only rows
+    below len_q stored.  Returns (out, lse, how often each (row, head)
+    was stored)."""
+    total_q, heads, d = q.shape
+    zq, zk = torch.zeros(128, heads, d), torch.zeros(128, heads, d)
+    qz, kz, vz = torch.cat([q, zq]), torch.cat([k, zk]), torch.cat([v, zk])
+    out = torch.zeros_like(q)
+    lse = torch.zeros(heads, total_q)
+    stores = torch.zeros(total_q, heads, dtype=torch.int64)
+    lens_q, lens_k = lay.lens("q"), lay.lens("k")
+    entries = lay.tables("cpu", causal)["dq_units"].tolist()
+    for u in range(len(entries) * heads):
+        s, *tiles = entries[u // heads]
+        h, sq, sk = u % heads, lens_q[s], lens_k[s]
+        for tile in (t for t in tiles if t >= 0):
+            q0, off = tile * 128, sk - sq
+            end = min(sk, q0 + 128 + off) if causal else sk
+            rows = torch.arange(q0, q0 + 128)
+            at = lay.cu_q[s] + q0
+            qt = qz[at:at + 128, h]
+            m = torch.full((128,), -1e30)
+            l, acc = torch.zeros(128), torch.zeros(128, d)
+            for k0 in range(0, end, 128):
+                kat = lay.cu_k[s] + k0
+                keys = torch.arange(k0, k0 + 128)
+                sc = (qt @ kz[kat:kat + 128, h].T) * scale
+                mask = (keys[None] >= sk) | (rows[:, None] >= sq)
+                if causal:
+                    mask |= keys[None] > rows[:, None] + off
+                sc = torch.where(mask, -float("inf"), sc)
+                mnew = torch.maximum(m, sc.amax(1))
+                alpha = torch.exp(m - mnew)
+                pr = torch.exp(sc - mnew[:, None])
+                l = l * alpha + pr.sum(1)
+                if p > 0:
+                    pr = torch.where(tpo.keep_mask(
+                        seed, h, lay.start_q[s] + rows[:, None],
+                        lay.start_k[s] + keys[None], p), pr, 0.0)
+                acc = acc * alpha[:, None] + pr @ vz[kat:kat + 128, h]
+                m = mnew
+            inv = (1.0 / (1.0 - p) if p > 0 else 1.0) / torch.where(
+                l == 0, 1.0, l)
+            keep = rows < sq
+            out[lay.cu_q[s] + rows[keep], h] = (acc * inv[:, None])[keep]
+            lse[h, lay.cu_q[s] + rows[keep]] = torch.where(
+                l == 0, -1e30, m + torch.log(l))[keep]
+            stores[lay.cu_q[s] + rows[keep], h] += 1
+    return out, lse, stores
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_case(name):
+    lens_q, lens_k, causal, p, block = UNIT_CASES[name]
+    cu_q, cu_k = _cu(lens_q), _cu(lens_k)
+    rng = np.random.RandomState(sum(lens_q) + 3 * sum(lens_k))
+    q = rng.randn(cu_q[-1], H, D).astype(np.float32)
+    k, v = (rng.randn(cu_k[-1], H, D).astype(np.float32) for _ in range(2))
+    f = jax.jit(lambda q_, k_, v_: jpo.mha_packed(
+        q_, k_, v_, jnp.asarray(cu_q), jnp.asarray(cu_k), causal=causal,
+        dropout_p=p, seed=_jseed(SEED), block_q=block, block_k=block,
+        interpret=True))
+    return q, k, v, cu_q, cu_k, np.asarray(f(q, k, v))
+
+
+@pytest.mark.parametrize("name", list(UNIT_CASES))
+def test_wgmma_forward_unit_model_matches_jax_interpret(name):
+    """The model of the wgmma packed forward's walk (above) gives the JAX
+    ``_pk_fwd_kernel``'s out (interpret mode, f32) within 2e-5, the JAX
+    package's tolerance, and the plain version's lse; every (row, head)
+    of every sequence is stored exactly once."""
+    lens_q, lens_k, causal, p, block = UNIT_CASES[name]
+    q, k, v, cu_q, cu_k, want = _unit_case(name)
+    lay = tpo.PackedLayout(cu_q, cu_k, len(q), len(k), block_q=block,
+                           block_k=block)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse, stores = _wg_packed_forward_model(tq, tk, tv, lay, causal, p,
+                                                SEED, D ** -0.5)
+    assert torch.all(stores == 1)
+    np.testing.assert_allclose(out.numpy(), want, atol=OUT_TOL, rtol=OUT_TOL)
+    _, lse_ref = tpo.mha_packed_reference(
+        tq, tk, tv, cu_q, cu_k, causal=causal, dropout_p=p, seed=SEED,
+        block_q=block, block_k=block)
+    np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    # the 129 rows whose sequence has no key: out 0, lse -1e30
+    rows = slice(cu_q[2], cu_q[3])
+    assert torch.all(out[rows] == 0) and torch.all(lse[:, rows] == -1e30)
+
+
 # -- (c) F.flash_attn_unpadded ----------------------------------------------
 
 @pytest.mark.parametrize("name", ["self-causal-default", "cross-full-default"])

@@ -265,8 +265,9 @@ def test_bf16_flash_fwd_reads_qkv_slices_in_place(stub_c, monkeypatch, d):
     tpo._launch_fwd(q, k, v, None, True, d ** -0.5, 0.0)
     (fn, args), = stub_c
     assert fn == "ptt_flash_fwd"
-    assert list(args[13]) == [*st[:3]] * 3 + [0, 0, 0]
-    assert args[14:19] == (b, h, s, s, d) and args[-3:-1] == (1, 1)
+    assert args[13:15] == (None, 0)      # fixed lengths: no unit table
+    assert list(args[15]) == [*st[:3]] * 3 + [0, 0, 0]
+    assert args[16:21] == (b, h, s, s, d) and args[-3:-1] == (1, 1)
 
 
 # -- GPT's wide presets ---------------------------------------------------------
@@ -394,11 +395,12 @@ def test_flash_launchers_take_more_than_65535_slices(stub_c, monkeypatch):
     assert [fn for fn, _ in stub_c] == ["ptt_flash_fwd", "ptt_flash_fwd",
                                         "ptt_flash_bwd_dq",
                                         "ptt_flash_bwd_dkv"]
-    assert stub_c[0][1][14:19] == (4097, 16, 64, 64, 64)
-    assert stub_c[1][1][12] == 3 and stub_c[1][1][14:16] == (2, 65540)
-    # the backward's entries: the tile table's count, then the unit
-    # table's (dq's q units, dk/dv's k units), then the batch and heads
-    dq, dkv = stub_c[2][1], stub_c[3][1]
+    assert stub_c[0][1][16:21] == (4097, 16, 64, 64, 64)
+    # every packed entry: the tile table's count, then the unit table's
+    # (the forward's and dq's q units, dk/dv's k units), then the batch
+    # and heads
+    fwd, dq, dkv = stub_c[1][1], stub_c[2][1], stub_c[3][1]
+    assert fwd[12] == 3 and fwd[14] == 2 and fwd[16:18] == (2, 65540)
     assert dq[14:17] == (3, 0, 2) and dq[18:20] == (2, 65540)
     assert dkv[15:18] == (3, 0, 5) and dkv[19:21] == (2, 65540)
 
@@ -461,6 +463,80 @@ def test_w8a16_plain_versions_match_jax_at_any_k_and_n():
     for m in (1, 5, 16, 17):
         assert torch.equal(tqk.w8a16_split_reference(
             torch.from_numpy(x[:m]), wq, sc), full[:m])
+
+
+def test_packed_forward_launcher_passes_the_q_unit_table(stub_c,
+                                                        monkeypatch):
+    """The packed forward's C entry gets dq's unit table and its count
+    (the wgmma forward walks dq's key tiles, so one table serves both),
+    as dq's entry does; dk/dv's gets the k units."""
+    monkeypatch.setattr(tpo.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    lay = tpo.PackedLayout([0, 300, 300, 429], [0, 150, 190, 190], 429, 190)
+    layout = types.SimpleNamespace(n=lay.n, tables=lambda dev, causal:
+                                   lay.tables("cpu", causal))
+    q, k = _fake((429, 4, 64)), _fake((190, 4, 64))
+    stats = _fake((4, 429), torch.float32)
+    tpo._launch_fwd(q, k, k, None, True, 0.125, 0.0, layout=layout)
+    tpo._launch_dq(q, k, k, q, stats, stats, None, True, 0.125, 0.0,
+                   layout=layout)
+    tpo._launch_dkv(q, k, k, q, stats, stats, None, True, 0.125, 0.0,
+                    layout=layout)
+    (f0, fwd), (f1, dq), (f2, dkv) = stub_c
+    assert (f0, f1, f2) == ("ptt_flash_fwd", "ptt_flash_bwd_dq",
+                            "ptt_flash_bwd_dkv")
+    t = lay.tables("cpu", True)
+    units, kunits = t["dq_units"], t["dkv_units"]
+    assert units.tolist() == [list(e) for e in lay.units("q", True)]
+    assert fwd[13:15] == (units.data_ptr(), 3) == dq[15:17]
+    assert dkv[16:18] == (kunits.data_ptr(), kunits.shape[0])
+    assert fwd[11:13] == (t["q_tiles"].data_ptr(), t["q_tiles"].shape[0])
+
+
+# -- the LayerNorm forward's plan and sum order ---------------------------------
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 100, 528, 529, 2048, 4096, 16384,
+                                  16385])
+def test_layer_norm_forward_plan_reads_rows_alone(rows):
+    """The staged forward's blocks own contiguous row ranges, at most 528
+    of them (four on each of an H100's SMs), none empty; a block's warps
+    (8, 4, 2 or 1) take its rows r0 + w, r0 + w + warps, ...: every row
+    once."""
+    nblocks, per = tfk.ln_fwd_plan(rows)
+    assert 1 <= nblocks <= 528 and (nblocks - 1) * per < rows
+    for warps in (8, 4, 2, 1):
+        seen = []
+        for p in range(nblocks):
+            r0, r1 = p * per, min((p + 1) * per, rows)
+            for w in range(warps):
+                n = (r1 - r0 - w + warps - 1) // warps if r1 - r0 > w else 0
+                seen += [r0 + w + k * warps for k in range(n)]
+        assert sorted(seen) == list(range(rows))
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("d", [768, 1003, 2048, 5120])
+def test_layer_norm_forward_lane_model_matches_jax_kernel(d, residual):
+    """The staged forward's sum order (each lane's columns chunk by chunk,
+    then the xor butterfly over the lanes), modelled, gives the JAX
+    ``_ln_fwd_kernel``'s y, mean and rstd, run in interpret mode, f32,
+    within 1e-5 (sums over d in another order)."""
+    rows = 24
+    x, w, b, _, r = _ln_inputs(rows, d, d + 11)
+    d_pad = -(-d // 128) * 128
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(a), ((0, 0), (0, d_pad - d)))
+    want = jfk._ln_pallas_fwd(pad(x), pad(r) if residual else None,
+                              pad(w[None]), pad(b[None]), d=d, eps=1e-5,
+                              block_rows=8, parallel=True, interpret=True)
+    got = tfk.layer_norm_fwd_lane_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), 1e-5,
+        torch.from_numpy(r) if residual else None)
+    for t, ref in zip(got, (np.asarray(want[0])[:, :d],
+                            np.asarray(want[1])[:, 0],
+                            np.asarray(want[2])[:, 0])):
+        np.testing.assert_allclose(t.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
 # -- the LayerNorm backward's summation plan ------------------------------------
