@@ -179,6 +179,31 @@ line is printed:
              kernels once each an iteration and no mma.sync backward
              kernel (their device time an iteration); then 2
              iterations at dropout 0.1 with the run's generator.
+11. capture  the captured step (``paddle_tpu_torch.jit.capture``): bert_base
+             at 32 x 128, dropout 0.1, the fusion pass off and on, then
+             bench_gpt's headline step (gpt_345m, 8 x 1024, no recompute,
+             pass on), then the recompute step (16 x 1024, pass off): each
+             8 steps eager (``step.eager``) and 8 captured (``step(...)``,
+             a warm-up that captures one CUDA graph, then 7 replays) from
+             the same weights and generator state: losses, every
+             parameter, master weight, optimizer slot, the step count and
+             the generator's offset the same bits; 1 compile, 7 hits, no
+             fallback; the launches per step of phases 7-9 on both; a
+             profiled replay naming the LayerNorm, flash, block and (BERT)
+             cross-entropy kernels; then the two in turns (eager, graph,
+             graph, eager) for the median step, each profiled for its
+             device busy time; peak memory and capture seconds.  A step
+             that reads its loss on the host falls back (``capture_unsafe``)
+             and runs eagerly.  Then the serving engine's graphs (one a
+             prefill and a decode bucket) at fp32, bf16 and int8 over phase
+             5's requests, in turns with the same engine's steps run
+             eagerly: tokens identical, decode tokens/s, median step and
+             peak memory each way; 4 prompts alone as in the batch; a
+             weight swap reaching the graphs (their tokens those of the
+             new weights run eagerly).
+Phases 5-9 run the training steps and the serving engine as users do:
+on the card, through their CUDA graphs (the kernel counters count a
+replay's launches, as phase 11 checks against the eager steps).
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero when no CUDA device
@@ -253,7 +278,7 @@ BLOCK_TOL = {"f32": 1e-4, "bf16": 1e-2}
 # gpt_1p3b at full width (hidden 2048, 16 heads of 128), depth cut to 2
 # layers: the width the port's LayerNorm and block kernels took first in
 # PR 8, at bench_gpt's sequence
-WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = 2, 4, 2
+WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = 2, 4, 3
 # its first forward and backward on the kernels against the same on rows
 # 7-8 and 11-12's plain versions, read in f32: ||got - want|| / ||want||
 # for the logits and for each parameter's gradient (both sides sum in f32
@@ -277,6 +302,22 @@ SHORT_SEQ, SHORT_STEPS = 256, 3             # below the flash lengths
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 8        # phase-1 pretraining
 BERT_LONG_BATCH, BERT_LONG_SEQ, BERT_LONG_STEPS = 8, 512, 2   # phase 2
 BERT_HIDDEN, BERT_HEADS, BERT_VOCAB = 768, 12, 30528
+# phase 11: steps eager and captured, then turns a b b a of the two
+CAPTURE_STEPS, CAPTURE_TURN_STEPS = 8, 2
+CAPTURE_TURNS = ("eager", "graph", "graph", "eager")
+# state that a library op makes differ from run to run, eager or captured:
+# F.embedding's CUDA backward (embedding_dense_backward) adds a row's many
+# repeats in an order that varies between runs where few rows take many
+# ids (BERT's token-type table, 2 rows x 4096 ids; _embedding_runs
+# measures it).  Those tensors (the table, its master and moments) are
+# held to this share of their largest magnitude: above the largest
+# reading of sound runs (1.3e-4), below that of a planted fault (one
+# step's gradient of the table dropped; _planted_fault measures it each
+# run).  The losses are held to the same bits up to the first step after
+# which the table itself differs, and from there to CAPTURE_LOOSE_LOSS
+# (relative); every other tensor to the same bits.
+CAPTURE_LOOSE = {"token_type_embeddings.weight": 1e-3}
+CAPTURE_LOOSE_LOSS = 1e-4
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -359,6 +400,32 @@ PROFILE_KERNELS = {
     "matmul + bias + gelu": ("mm_gelu_kernel", "mbg_kernel"),
     "paged attention": ("paged_split_kernel", "paged_combine_kernel"),
     "w8a16": ("w8a16_kernel", "w8a16_split_kernel"),
+}
+# each wrapper's launch runs exactly one of these kernels (the others it
+# may add: a LayerNorm backward's reduce kernel, a streamed LayerNorm +
+# matmul's stats kernel, a paged call's split kernel).  So their counts in
+# a profile are the wrappers' launches as the card ran them: the check on
+# the counters that a CUDA graph's replay adds (phase 11).  The paged
+# wrappers share their kernels and are counted together; the packed
+# wrappers' kernels are the flash ones, never on a captured path.  A
+# LayerNorm kernel's residual variant is its third template argument.
+HEAD_KERNELS = {
+    ("layer_norm_fwd",): ("ln_fwd_kernel", "ln_fwd_any_kernel",
+                          "ln_fwd_staged_kernel"),
+    ("layer_norm_bwd",): ("ln_bwd_kernel", "ln_bwd_one_pass_kernel"),
+    ("flash_fwd",): ("flash_fwd_kernel", "flash_fwd_wg_kernel",
+                     "flash_fwd_wide_kernel"),
+    ("flash_bwd_dq",): ("flash_bwd_dq_kernel", "flash_bwd_dq_wg_kernel",
+                        "flash_bwd_dq_wide_kernel"),
+    ("flash_bwd_dkv",): ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wg_kernel",
+                         "flash_bwd_dkv_wide_kernel"),
+    ("softmax_xent_fwd",): ("xent_fwd_kernel",),
+    ("softmax_xent_bwd",): ("xent_bwd_kernel",),
+    ("ln_matmul",): ("ln_matmul_kernel", "lnmm_whole_kernel",
+                     "lnmm_stream_kernel"),
+    ("matmul_bias_gelu",): ("mm_gelu_kernel", "mbg_kernel"),
+    ("paged_attention", "paged_attention_int8"): ("paged_combine_kernel",),
+    ("w8a16_matmul",): ("w8a16_kernel", "w8a16_split_kernel"),
 }
 # the flash backward's kernels on the GPT steps (bf16, fixed lengths, D =
 # 64): the wgmma ones, and not the mma.sync ones
@@ -1992,7 +2059,9 @@ def phase_bucket_stages(params, prompts):
                       prefill_buckets=(64, 128, 256, 512), kv_pages=1024,
                       page_size=PAGE_SIZE, max_inflight=64,
                       max_new_tokens=32, precision="bf16")
-    engine = ServingEngine(spec, params, cfg, device=DEVICE)
+    # the stages are read on the host, so the buckets run eagerly here
+    # (no graphs), each through decode_step
+    engine = _uncaptured_engine(spec, params, cfg, device=DEVICE)
     record = []
     step_fn = E.decode_step
 
@@ -2087,6 +2156,7 @@ def phase_train(smi):
         traj = {dev: [st(ids.to(dev), labels.to(dev)).item()
                       for _ in range(3)] for dev, st in steps.items()}
         flash = {n: KERNELS[n].launches for n in FLASH_KERNELS}
+        _check_small_captured(f"train seq {seq}", steps, 3)
         err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
         log(f"[train] gpt_tiny seq {seq} f32 3-step loss, card {traj[DEVICE]} "
             f"vs CPU {traj['cpu']}: max diff {err:.3e} (tol {TRAIN_TOL:.0e}); "
@@ -2133,6 +2203,7 @@ def _train_run(smi, seq, n_steps, profile):
         losses.append(step(ids, labels).item())   # waits for the card
         times.append(time.perf_counter() - t0)
     launches = {name: KERNELS[name].launches for name in KERNELS}
+    _check_captured(f"train seq {seq}", step, n_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times[1:])
     tokens = TRAIN_BATCH * seq
@@ -2252,6 +2323,7 @@ def phase_bert(smi):
             traj[dev] = [st(*on).item() for _ in range(3)]
         counts = {n: KERNELS[n].launches for n in XENT_KERNELS
                   + FLASH_KERNELS}
+        _check_small_captured(f"bert seq {seq}", steps, 3)
         err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
         log(f"[bert] bert_tiny seq {seq}{' padding mask' if padded else ''} "
             f"f32 3-step loss, card {traj[DEVICE]} vs CPU {traj['cpu']}: max "
@@ -2346,6 +2418,7 @@ def _bert_run(smi, batch, seq, n_steps, profile):
     launches = {name: KERNELS[name].launches for name in KERNELS}
     for name in LN_KERNELS:
         launches[name + ".residual"] = KERNELS[name].residual_launches
+    _check_captured(f"bert {batch} x {seq}", step, n_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times[1:])
     layers = cfg.num_layers
@@ -2421,6 +2494,7 @@ def phase_fusion(smi):
                 on = (inputs.to(dev), targets.to(dev))
             traj[dev] = [st(*on).item() for _ in range(3)]
         counts = {n: KERNELS[n].launches for n in BLOCK_KERNELS}
+        _check_small_captured(f"fusion {name}", steps, 3)
         err = max(abs(a - b) for a, b in zip(traj["cpu"], traj[DEVICE]))
         log(f"[fusion] {name} seq 64 f32 pass on, 3-step loss, card "
             f"{traj[DEVICE]} vs CPU {traj['cpu']}: max diff {err:.3e} (tol "
@@ -2640,6 +2714,80 @@ def _flash_calls(fn, n=1, sessions=3):
              / n / 1e3 for side in ("fwd", "bwd")})
 
 
+def _template_args(key, start):
+    """The top-level template arguments of the demangled name ``key``
+    whose ``<`` is at ``start``."""
+    args, depth, cur = [], 0, ""
+    for ch in key[start:]:
+        if ch == "<":
+            depth += 1
+            if depth == 1:
+                continue
+        elif ch == ">":
+            depth -= 1
+            if depth == 0:
+                break
+        elif ch == "," and depth == 1:
+            args.append(cur.strip())
+            cur = ""
+            continue
+        cur += ch
+    return args + [cur.strip()]
+
+
+def _device_launches(kernels, n):
+    """Wrapper launches a run, counted on the device: ``kernels`` (from
+    :func:`_profiled_kernels`, ``n`` runs) by ``HEAD_KERNELS``, keyed as
+    the counters are (``"+"``-joined where wrappers share their kernels;
+    ``layer_norm_*.residual`` for the residual variants)."""
+    import re
+    out = {}
+    for wrappers, names in HEAD_KERNELS.items():
+        key = "+".join(wrappers)
+        for e in kernels:
+            for name in names:
+                m = re.search(rf"(?<!\w){name}(?=[<(])", e.key)
+                if m is None:
+                    continue
+                out[key] = out.get(key, 0) + e.count / n
+                if wrappers[0].startswith("layer_norm") and \
+                        e.key[m.end()] == "<" and \
+                        _template_args(e.key, m.end())[2] == "true":
+                    res = key + ".residual"
+                    out[res] = out.get(res, 0) + e.count / n
+    return out
+
+
+def _counter_launches(counts):
+    """Counter readings (``{name or name.residual: count}``) keyed as
+    :func:`_device_launches` keys them, zeros left out."""
+    out = {}
+    for wrappers in HEAD_KERNELS:
+        key = "+".join(wrappers)
+        for suffix in ("", ".residual"):
+            n = sum(counts.get(w + suffix, 0) for w in wrappers)
+            if n:
+                out[key + suffix] = n
+    return out
+
+
+def _check_device_launches(what, fn, n, want):
+    """Profile ``n`` runs of ``fn`` and hold the wrapper launches that the
+    device ran a run (:func:`_device_launches`) equal to ``want`` (counter
+    readings a run).  A session that lost records is taken once more,
+    logged.  Returns the profiled kernels."""
+    want = _counter_launches(want)
+    for attempt in range(2):
+        kernels = _profiled_kernels(fn, n)
+        got = {k: v for k, v in _device_launches(kernels, n).items() if v}
+        if got == want:
+            return kernels
+        log(f"[profile] {what}: session {attempt + 1} counted {got} on the "
+            f"device, the counters {want}")
+    raise AssertionError(f"{what}: the device ran {got} wrapper launches a "
+                         f"run, the counters say {want}")
+
+
 def _device_busy(fn, n):
     """Device time of ``fn`` under ``torch.profiler``, summed over its
     kernels: (ms per call, device operations per call, the three largest
@@ -2655,10 +2803,12 @@ def _device_busy(fn, n):
                       for e in top))
 
 
-def _run_steps(step, inputs, targets, n_steps):
+def _run_steps(step, inputs, targets, n_steps, what, watch=None):
     """``n_steps`` of ``step`` with every kernel counter set to 0 just
     before and read just after: (losses, step times, launch counts,
-    peak GB)."""
+    peak GB).  A ``TrainStep`` must be fresh, and is held to 1 capture
+    and ``n_steps - 1`` replays (:func:`_check_captured`).  ``watch()``,
+    if given, runs after each step, untimed."""
     from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -2668,10 +2818,35 @@ def _run_steps(step, inputs, targets, n_steps):
         t0 = time.perf_counter()
         losses.append(step(inputs, targets).item())   # waits for the card
         times.append(time.perf_counter() - t0)
+        if watch is not None:
+            watch()
     launches = {name: KERNELS[name].launches for name in KERNELS}
     for name in LN_KERNELS:
         launches[name + ".residual"] = KERNELS[name].residual_launches
+    if hasattr(step, "captured"):
+        _check_captured(what, step, n_steps)
     return losses, times, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_captured(what, step, calls):
+    """``step`` (a ``TrainStep`` called ``calls`` times since it was
+    built) captured once, replayed the other calls, never fell back: the
+    steps timed and counted are the graph's, not eager ones."""
+    stats = step.captured.stats
+    if (stats["compiles"], stats["hits"], stats["fallback"]) != (
+            1, calls - 1, None):
+        raise AssertionError(f"{what}: capture stats {stats} after {calls} "
+                             f"calls, want 1 compile, {calls - 1} hits, no "
+                             f"fallback")
+
+
+def _check_small_captured(what, steps, calls):
+    """The card-against-CPU pair ``steps`` ({device: TrainStep}): the
+    card's captured (:func:`_check_captured`), the CPU's run as written."""
+    _check_captured(f"{what} (card)", steps[DEVICE], calls)
+    if steps["cpu"].captured.stats["fallback"] != "cpu":
+        raise AssertionError(f"{what}: the CPU step reports "
+                             f"{steps['cpu'].captured.stats}")
 
 
 def _check_counts(what, launches, per_step, n_steps):
@@ -2707,8 +2882,8 @@ def _fused_gpt_run(smi):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     fp.reset_stats()
-    losses, times, launches, peak_gb = _run_steps(step, ids, labels,
-                                                  FUSED_STEPS)
+    losses, times, launches, peak_gb = _run_steps(
+        step, ids, labels, FUSED_STEPS, "gpt_345m fused")
     layers = cfg.num_layers
     rewrites = _check_rewrites("gpt_345m fused", {
         "ln_matmul": layers, "matmul_bias_gelu": layers,
@@ -2760,7 +2935,8 @@ def _fused_gpt_on_vs_off():
         fp.reset_stats()
         step = build_train_step(cfg, device=DEVICE, seed=0, fusion=fusion)
         traj[fusion], _, launches[fusion], _ = _run_steps(
-            step, ids, labels, FUSED_CMP_STEPS)
+            step, ids, labels, FUSED_CMP_STEPS,
+            f"gpt_345m dropout 0 pass {'on' if fusion else 'off'}")
         if fusion:
             layers = cfg.num_layers
             rewrites = _check_rewrites("gpt_345m fused, dropout 0", {
@@ -2817,6 +2993,9 @@ def _fused_gpt_ab(smi, turns=(True, False, False, True) * 2, turn_steps=2):
             steps[fusion](ids, labels).item()   # waits for the card
             times[fusion].append(time.perf_counter() - t0)
         clocks.append(_clocks())
+    for fusion, step in steps.items():
+        _check_captured(f"gpt_345m pass {'on' if fusion else 'off'} turns",
+                        step, 2 + turns.count(fusion) * turn_steps)
     med = {f: statistics.median(t) * 1e3 for f, t in times.items()}
     sm, watts, temp = (sorted(c[i] for c in clocks) for i in range(3))
     log(f"[fusion] gpt_345m {FUSED_BATCH} x {TRAIN_SEQ}, no recompute, "
@@ -2931,7 +3110,7 @@ def _fused_gpt_wide(smi):
                 setattr(fk, n, kernels[n] if mode == "kernels"
                         else getattr(fk, n + "_reference"))
             traj[mode], times, launches, peak_gb = _run_steps(
-                step, ids, labels, WIDE_STEPS)
+                step, ids, labels, WIDE_STEPS, f"gpt_1p3b {mode}")
             if mode == "kernels":
                 counts, kernel_times, kernel_peak = launches, times, peak_gb
                 rewrites = _check_rewrites("gpt_1p3b fused", {
@@ -2940,7 +3119,7 @@ def _fused_gpt_wide(smi):
                 # where its time goes: the LayerNorm backward's share above
                 # all, every call of it on the one-pass kernel
                 _profile_train_step(step, ids, labels,
-                                    statistics.median(times), smi,
+                                    statistics.median(times[1:]), smi,
                                     "gpt_1p3b fused")
             del step
             torch.cuda.empty_cache()
@@ -3014,8 +3193,8 @@ def _fused_bert_run(smi):
     inputs, targets = make_bert_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0,
                                       device=DEVICE)
     fp.reset_stats()
-    losses, times, launches, peak_gb = _run_steps(step, inputs, targets,
-                                                  BERT_STEPS)
+    losses, times, launches, peak_gb = _run_steps(
+        step, inputs, targets, BERT_STEPS, "bert_base fused")
     layers = cfg.num_layers
     # the embeddings' add (word + position + token type, all (B, T, H))
     # feeds only their LayerNorm, so it is absorbed as a residual, as the
@@ -3075,7 +3254,9 @@ def _fused_bert_unpadded_vocab():
         step = build_bert_pretrain_step(cfg, device=DEVICE, seed=0,
                                         fusion=fusion)
         traj[fusion], _, launches[fusion], _ = _run_steps(
-            step, inputs, targets, BERT_VOCAB_STEPS)
+            step, inputs, targets, BERT_VOCAB_STEPS,
+            f"bert_base vocab {cfg.vocab_size} pass "
+            f"{'on' if fusion else 'off'}")
         del step
         torch.cuda.empty_cache()
     err = max(abs(a - b) / abs(b) for a, b in zip(traj[True], traj[False]))
@@ -3096,18 +3277,473 @@ def _fused_bert_unpadded_vocab():
                              f"{blocks}, want {want} with the pass on")
 
 
+# -- phase 11: the captured step ------------------------------------------------
+
+def _bits(t):
+    """``t``'s bits as integers of its width (bit-for-bit comparison)."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().contiguous().view(width[t.element_size()])
+
+
+def _step_state(step):
+    """Every tensor of a training step's state by name: parameters,
+    master weights, optimizer slots, the step count."""
+    out = {f"param {n}": p for n, p in step.params.items()}
+    out.update({f"master {n}": t for n, t in step.state["master"].items()})
+    for slot, d in step.state["slots"].items():
+        out.update({f"{slot} {n}": t for n, t in d.items()})
+    out["step"] = step.state["step"]
+    return out
+
+
+def _state_digest(state):
+    """A sha256 over each tensor's bit sum (int64), in name order."""
+    import hashlib
+    sums = torch.stack([_bits(state[n]).sum(dtype=torch.int64)
+                        for n in sorted(state)]).cpu().numpy()
+    return hashlib.sha256(sums.tobytes()).hexdigest()[:16]
+
+
+def _capture_turns(run_eager, run_graph, turns=CAPTURE_TURNS,
+                   turn_steps=CAPTURE_TURN_STEPS):
+    """Step wall times of the eager and the captured step in turns (a b
+    b a), each step ending in the loss read on the host."""
+    times = {"eager": [], "graph": []}
+    for way in turns:
+        fn = run_eager if way == "eager" else run_graph
+        for _ in range(turn_steps):
+            t0 = time.perf_counter()
+            fn().item()
+            times[way].append(time.perf_counter() - t0)
+    return times
+
+
+def _loose_tol(name):
+    """The ``CAPTURE_LOOSE`` limit of state tensor ``name``, or None."""
+    return next((t for k, t in CAPTURE_LOOSE.items() if k in name), None)
+
+
+def _reading(want, got):
+    """max |got - want| / max |want|: what ``CAPTURE_LOOSE`` bounds."""
+    ref = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(ref, 1e-30)
+
+
+def _planted_fault(make, want):
+    """What ``CAPTURE_LOOSE`` must still catch: ``CAPTURE_STEPS`` eager
+    steps from the same weights and generator as the eager run whose
+    state is ``want``, with the loose tables' gradient dropped at the
+    middle step.  Returns each loose tensor's reading against ``want``."""
+    step, inputs, targets = make()
+    names = [n for n in step.params if _loose_tol(n) is not None]
+    for i in range(CAPTURE_STEPS):
+        hooks = ([step.params[n].register_hook(torch.zeros_like)
+                  for n in names] if i == CAPTURE_STEPS // 2 else [])
+        step.eager(inputs, targets)
+        for h in hooks:
+            h.remove()
+    got = _step_state(step)
+    return {n: _reading(want[n], got[n]) for n in want
+            if _loose_tol(n) is not None}
+
+
+def _capture_path(smi, label, make, per_step, want_kernels):
+    """One training path eager and captured: ``make()`` builds the step
+    and its batch (the same weights and generator state each call).
+    ``CAPTURE_STEPS`` eager steps (``step.eager``) and as many captured
+    ones (``step(...)``: a warm-up that captures, then replays) must give
+    the same parameters, masters, slots, step count and generator offset
+    after, bit for bit (``CAPTURE_LOOSE``'s tensors within their limit,
+    which a planted fault must exceed), and the same losses bit for bit
+    up to the first step after which a parameter in ``CAPTURE_LOOSE``
+    differs (within ``CAPTURE_LOOSE_LOSS`` from there); the capture 1
+    compile, 7 hits, no fallback; the launches per step ``per_step`` on
+    both.  The launches that the graph adds at each replay must be the
+    eager step's, and a profile must count them on the device, eager
+    and replayed (:func:`_check_device_launches`); the replay must name
+    the kernels ``want_kernels`` (labels of ``PROFILE_KERNELS``).  Then
+    both in turns (a b b a) for the step wall times, and each profiled
+    for its device busy time.  Returns the captured run's launch
+    counts."""
+    from paddle_tpu_torch.serving.profile import _device_us
+    eager, inputs, targets = make()
+    graph, _, _ = make()
+    watched = [n for n in eager.params if _loose_tol(n) is not None]
+    runs, seen = {}, {}
+    for way, step, params in (("eager", eager.eager, eager.params),
+                              ("graph", graph, graph.params)):
+        seen[way] = []
+
+        def watch(params=params, out=seen[way]):
+            out.append([_bits(params[n]).clone() for n in watched])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[way] = _run_steps(step, inputs, targets, CAPTURE_STEPS,
+                               f"capture {label}", watch=watch)
+    (le, te, ne, pe), (lg, tg, ng, pg) = runs["eager"], runs["graph"]
+    stats = dict(graph.captured.stats)
+    se, sg = _step_state(eager), _step_state(graph)
+    differ = [n for n in se if not torch.equal(_bits(se[n]), _bits(sg[n]))]
+    loose = {n: (_reading(se[n], sg[n]), _loose_tol(n)) for n in differ
+             if _loose_tol(n) is not None}
+    differ = [n for n in differ if n not in loose]
+    planted = _planted_fault(make, se) if watched else {}
+    # loss k reads the parameters that step k - 1 left
+    first = next((i for i, (a, b) in enumerate(zip(seen["eager"],
+                                                   seen["graph"]))
+                  if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
+    exact = CAPTURE_STEPS if first is None else first + 1
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    offsets = (eager.generator.get_offset(), graph.generator.get_offset())
+    # the graph's launches a replay: the counters it adds, held to the
+    # eager step's and to what the device runs
+    per_eager = {k: v / CAPTURE_STEPS for k, v in ne.items()}
+    (entry,) = graph.captured.graphs
+    recorded = {n if a == "launches" else f"{n}.residual": c
+                for (n, a), c in entry.launches.items()}
+    if _counter_launches(recorded) != _counter_launches(per_eager):
+        raise AssertionError(f"capture {label}: the graph adds launches "
+                             f"{_counter_launches(recorded)} a replay, the "
+                             f"eager step runs {_counter_launches(per_eager)}")
+    times = _capture_turns(lambda: eager.eager(inputs, targets),
+                           lambda: graph(inputs, targets))
+    med = {w: statistics.median(t) * 1e3 for w, t in times.items()}
+    busy, names = {}, {}
+    for way, fn, want in (
+            ("eager", lambda: eager.eager(inputs, targets), per_eager),
+            ("graph", lambda: graph(inputs, targets), recorded)):
+        kernels = _check_device_launches(f"capture {label} {way}", fn, 2,
+                                         want)
+        busy[way] = sum(_device_us(e) for e in kernels) / 2 / 1e3
+        names[way] = [lab for lab, ks in PROFILE_KERNELS.items()
+                      if any(k in e.key for e in kernels for k in ks)]
+    log(f"[capture] {label}: {CAPTURE_STEPS} steps eager / captured from the "
+        f"same weights: losses {le} / {lg}; state digest "
+        f"{_state_digest(se)} / {_state_digest(sg)}, tensors that differ "
+        f"{differ[:4]} of {len(se)}, held to a limit (max |diff| / max "
+        f"|eager|, limit) { {n: (float(f'{r:.3e}'), t) for n, (r, t) in loose.items()} }"
+        f", the same reading with one step's gradient dropped (planted) "
+        f"{ {n: float(f'{r:.3e}') for n, r in planted.items()} }; watched "
+        f"parameters first differ after step "
+        f"{'none' if first is None else first + 1}, losses' max relative "
+        f"diff {loss_rel:.3e}; generator offset {offsets[0]} / "
+        f"{offsets[1]}; capture {stats} in {graph.captured.capture_seconds:.3f}"
+        f" s, first captured step {tg[0] * 1e3:.1f} ms (eager {te[0] * 1e3:.1f}"
+        f"); peak memory {pe:.2f} / {pg:.2f} GB; turns "
+        f"{'/'.join(CAPTURE_TURNS)} of {CAPTURE_TURN_STEPS}: median step eager "
+        f"{med['eager']:.2f} ms, graph {med['graph']:.2f} ms (graph / eager "
+        f"{med['graph'] / med['eager']:.3f}); step ms eager "
+        f"{[round(t * 1e3, 2) for t in times['eager']]} graph "
+        f"{[round(t * 1e3, 2) for t in times['graph']]}; device busy a step "
+        f"eager {busy['eager']:.3f} ms ({busy['eager'] / med['eager']:.3f} of "
+        f"its median), graph {busy['graph']:.3f} ms ({busy['graph'] / med['graph']:.3f}"
+        f"); kernels in the profiled replay {names['graph']}; launches a "
+        f"replay, counted on the device {_counter_launches(recorded)}; "
+        f"launches {ne == ng} eager == graph { {n: ng[n] for n in per_step} }"
+        f" | {smi}")
+    if (le[:exact] != lg[:exact] or loss_rel > CAPTURE_LOOSE_LOSS or differ
+            or offsets[0] != offsets[1]
+            or any(r > t for r, t in loose.values())):
+        raise AssertionError(f"capture {label}: the captured step is not the "
+                             f"eager one bit for bit: losses {le} / {lg} "
+                             f"(the same bits up to step {exact}), tensors "
+                             f"{differ[:8]}, beyond their limit "
+                             f"{ {n: v for n, v in loose.items() if v[0] > v[1]} }"
+                             f", offsets {offsets}")
+    if planted and not any(r > _loose_tol(n) for n, r in planted.items()):
+        raise AssertionError(f"capture {label}: CAPTURE_LOOSE misses a "
+                             f"dropped gradient: readings {planted}")
+    _check_counts(f"capture {label} eager", ne, per_step, CAPTURE_STEPS)
+    _check_counts(f"capture {label} graph", ng, per_step, CAPTURE_STEPS)
+    missing = [k for k in want_kernels if k not in names["graph"]]
+    if missing:
+        raise AssertionError(f"capture {label}: the profiled replay names no "
+                             f"{missing} kernel: {names['graph']}")
+    del eager, graph
+    torch.cuda.empty_cache()
+    return ng
+
+
+def _embedding_runs():
+    """``F.embedding``'s backward twice, eagerly, on the same inputs at
+    BERT's token-type shape (a (2, 768) table, 32 x 128 ids, half 0 and
+    half 1) and at its word-embedding shape: whether the two runs give
+    the same bits, bf16 and f32 (the reason for ``CAPTURE_LOOSE``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    tt = torch.zeros(BERT_BATCH, BERT_SEQ, dtype=torch.long, device=DEVICE)
+    tt[:, BERT_SEQ // 2:] = 1
+    ids = torch.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ), generator=gen,
+                        device=DEVICE)
+    out = []
+    for rows, idx in ((2, tt), (BERT_VOCAB, ids)):
+        for dtype in (torch.bfloat16, torch.float32):
+            w = torch.randn(rows, BERT_HIDDEN, generator=gen, device=DEVICE
+                            ).to(dtype).requires_grad_(True)
+            g = torch.randn(*idx.shape, BERT_HIDDEN, generator=gen,
+                            device=DEVICE).to(dtype)
+            runs = []
+            for _ in range(8):
+                w.grad = None
+                torch.nn.functional.embedding(idx, w).backward(g)
+                runs.append(w.grad)
+            diff = max((r.float() - runs[0].float()).abs().max().item()
+                       for r in runs)
+            out.append(f"({rows}, {BERT_HIDDEN}) {str(dtype)[6:]}: 8 runs "
+                       f"{'the same bits' if diff == 0 else 'differ'} "
+                       f"(max abs diff {diff:.3e})")
+    log(f"[capture] F.embedding's backward, eager, on the same inputs at "
+        f"BERT's token-type and word-embedding shapes: {'; '.join(out)}")
+
+
+def _capture_unsafe():
+    """A step that reads a value on the host cannot be captured: its
+    capture falls back (``capture_unsafe``) and it runs eagerly, giving
+    what the eager step gives."""
+    from paddle_tpu_torch.jit import capture_step
+    lin = torch.nn.Linear(64, 64, device=DEVICE)
+    x = torch.randn(8, 64, device=DEVICE)
+
+    def fn(x):
+        y = lin(x).square().mean()
+        return y * 2 if y.item() > 0 else y
+
+    step = capture_step(fn)
+    got = [step(x).item() for _ in range(3)]
+    want = fn(x).item()
+    log(f"[capture] a step reading its loss on the host: {step.stats}, "
+        f"values {got} (eager {want})")
+    if step.stats["fallback"] != "capture_unsafe" or step.stats["compiles"] \
+            or got != [want] * 3:
+        raise AssertionError(f"capture: the unsafe step did not fall back "
+                             f"cleanly: {step.stats}, {got} vs {want}")
+
+
+def _uncaptured_engine(*args, **kw):
+    """A ``ServingEngine`` built with ``PT_CAPTURE=0``: no graphs, each
+    bucket's step run eagerly (``decode_step``, ``prefill_step``)."""
+    import os
+    from paddle_tpu_torch.serving import ServingEngine
+    old = os.environ.get("PT_CAPTURE")
+    os.environ["PT_CAPTURE"] = "0"
+    try:
+        return ServingEngine(*args, **kw)
+    finally:
+        if old is None:
+            del os.environ["PT_CAPTURE"]
+        else:
+            os.environ["PT_CAPTURE"] = old
+
+
+def _capture_serve(smi):
+    """The serving engine's graphs (one a prefill and a decode bucket) at
+    fp32, bf16 and int8 over phase 5's requests: in turns (a b b a) with
+    an engine on the same weights whose buckets run eagerly
+    (:func:`_uncaptured_engine`), the tokens and the launch counts
+    identical, and the graph engine's launches counted on the device
+    (:func:`_check_device_launches`); 4 prompts alone through the graphs
+    equal to their tokens in the batch (fp32 and int8; bf16's contract is
+    one bucket's, phase 5); then both engines' weights swapped (seed 1):
+    the graphs' next tokens those of the new weights run eagerly, and
+    changed.  Decode tokens/s, median decode step and peak memory above
+    the engines' own of each way.  Returns the graph turns' launch counts
+    summed over the precisions."""
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.serving import (ModelSpec, ServeConfig,
+                                          ServingEngine, init_params)
+    spec = ModelSpec(**GPT_345M)
+    prompts = _serve_prompts(spec.vocab_size)
+    params = init_params(spec, seed=0, device=DEVICE)
+    swapped = init_params(spec, seed=1, device=DEVICE)
+    total = {name: 0 for name in KERNELS}
+    for prec in ("fp32", "bf16", "int8"):
+        cfg = ServeConfig(decode_buckets=(2, 4, 8, 16),
+                          prefill_buckets=(64, 128, 256, 512),
+                          kv_pages=1024, page_size=PAGE_SIZE,
+                          max_inflight=64, max_new_tokens=32,
+                          precision=prec)
+        engines, held_gb, build_s = {}, {}, {}
+        for way, build in (("graph", ServingEngine),
+                           ("eager", _uncaptured_engine)):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            engines[way] = build(spec, params, cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            build_s[way] = time.perf_counter() - t0
+            held_gb[way] = (torch.cuda.memory_allocated() - mem0) / 1e9
+        engine = engines["graph"]
+        n_buckets = len(cfg.prefill_buckets) + len(cfg.decode_buckets)
+        n_graphs = len(engine._graphs)
+        if (n_graphs, len(engines["eager"]._graphs)) != (n_buckets, 0) or \
+                engine.compiled_programs != n_buckets:
+            raise AssertionError(f"capture serve {prec}: {n_graphs} graphs "
+                                 f"({engine.compiled_programs} programs), "
+                                 f"want one a bucket, {n_buckets}, and none "
+                                 f"in the uncaptured engine")
+        outs, rows = {}, {}
+        for turn, way in enumerate(CAPTURE_TURNS):
+            eng = engines[way]
+            eng.scheduler._step_times.clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            outs[turn] = eng.generate(prompts, max_new_tokens=32)
+            torch.cuda.synchronize()
+            counts = {name: fn.launches for name, fn in KERNELS.items()}
+            step_times = list(eng.scheduler._step_times)
+            tokens = sum(len(o) - 1 for o in outs[turn])
+            rows.setdefault(way, []).append(
+                (tokens / sum(step_times), statistics.median(step_times) * 1e3,
+                 (torch.cuda.max_memory_allocated() - base) / 1e9, counts))
+        first = outs[0]
+        same = all(o == first for o in outs.values())
+        launches_same = all(r[3] == rows["eager"][0][3]
+                            for way in rows for r in rows[way])
+        _check_device_launches(
+            f"capture serve {prec} graph",
+            lambda: engine.generate(prompts, max_new_tokens=32), 1,
+            rows["graph"][0][3])
+        solo = [engine.generate([p], max_new_tokens=32)[0]
+                for p in prompts[:4]]
+        # the swap: the graphs read the served tensors, written in place
+        before = engine.generate(prompts[:4], max_new_tokens=8)
+        for eng in engines.values():
+            eng.install_weights(swapped, step=1)
+        after = engine.generate(prompts[:4], max_new_tokens=8)
+        after_eager = engines["eager"].generate(prompts[:4], max_new_tokens=8)
+        for eng in engines.values():
+            eng.close()
+        for name in KERNELS:
+            total[name] += sum(r[3][name] for r in rows["graph"])
+
+        def fmt(way):
+            return ", ".join(f"{tps:.1f} tok/s median step {ms:.2f} ms peak "
+                             f"{gb:.2f} GB" for tps, ms, gb, _ in rows[way])
+        log(f"[capture] serve {prec}: {n_graphs} graphs captured in "
+            f"{engine.capture_seconds:.3f} s (engine build {build_s['graph']:.2f}"
+            f" s, uncaptured {build_s['eager']:.2f} s; held after the build: "
+            f"{held_gb['graph']:.2f} GB with the graphs, {held_gb['eager']:.2f}"
+            f" GB without: weights, pools, graphs); turns "
+            f"{'/'.join(CAPTURE_TURNS)}, peak above what is held: eager "
+            f"{fmt('eager')}; graph {fmt('graph')}; tokens identical across "
+            f"turns {same}; launches alike {launches_same} "
+            f"{rows['graph'][0][3]}, counted on the device; 4 alone == in "
+            f"batch {solo == first[:4]}; weight swap: graph == eager on the "
+            f"new weights {after == after_eager}, changed {after != before} | "
+            f"{smi}")
+        if not same or not launches_same:
+            raise AssertionError(f"capture serve {prec}: the graphs' tokens "
+                                 f"or launches differ from the eager steps'")
+        # bf16's contract covers one bucket (phase 5 checks it within
+        # bucket 16): across buckets 2 and 16 its rows may differ
+        if solo != first[:4] and prec != "bf16":
+            raise AssertionError(f"capture serve {prec}: join/leave fails "
+                                 f"under the graphs")
+        if after != after_eager or after == before:
+            raise AssertionError(f"capture serve {prec}: the weight swap did "
+                                 f"not reach the graphs")
+        del engine, engines, eng
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_capture(smi):
+    """The captured step (``paddle_tpu_torch.jit.capture``): bert_base 32
+    x 128 (pass off and on), bench_gpt's headline step (gpt_345m 8 x 1024,
+    no recompute, pass on) and the recompute step (16 x 1024, pass off),
+    each eager against captured (:func:`_capture_path`); a step that
+    cannot be captured falls back; the serving engine's graphs
+    (:func:`_capture_serve`).  Returns {path: launch counts}."""
+    from paddle_tpu_torch.incubate.models import bert_base, gpt_345m
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        build_train_step, make_batch,
+                                        make_bert_batch)
+    bert = bert_base()
+    layers = bert.num_layers
+    bert_ln = {"layer_norm_fwd": 2 * layers + 2,
+               "layer_norm_bwd": 2 * layers + 2,
+               "softmax_xent_fwd": 2, "softmax_xent_bwd": 2,
+               **{n: 0 for n in FLASH_KERNELS}}
+    _embedding_runs()
+    out = {}
+    for fusion in (False, True):
+        label = f"bert_base {BERT_BATCH}x{BERT_SEQ} pass {'on' if fusion else 'off'}"
+
+        def make(fusion=fusion):
+            step = build_bert_pretrain_step(bert, device=DEVICE, seed=0,
+                                            fusion=fusion)
+            return (step, *make_bert_batch(bert, BERT_BATCH, BERT_SEQ, seed=0,
+                                           device=DEVICE))
+        per_step = dict(bert_ln, **({
+            "ln_matmul": 1, "matmul_bias_gelu": layers + 1,
+            "layer_norm_fwd.residual": 2 * layers + 1,
+            "layer_norm_bwd.residual": 2 * layers + 1} if fusion else {
+            "layer_norm_fwd.residual": 2 * layers,
+            "layer_norm_bwd.residual": 2 * layers}))
+        want = ["LayerNorm forward", "LayerNorm backward", "cross-entropy"]
+        if fusion:
+            want += ["LayerNorm + matmul", "matmul + bias + gelu"]
+        out[label] = _capture_path(smi, label, make, per_step, want)
+
+    gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    layers = gpt.num_layers
+
+    def make_headline():
+        step = build_train_step(gpt, device=DEVICE, seed=0, fusion=True)
+        return (step, *make_batch(gpt, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                                  device=DEVICE))
+    label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} fused"
+    out[label] = _capture_path(
+        smi, label, make_headline,
+        {"ln_matmul": layers, "matmul_bias_gelu": layers,
+         "layer_norm_fwd": 2 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
+         "layer_norm_fwd.residual": 1, "layer_norm_bwd.residual": 1,
+         **{n: layers for n in FLASH_KERNELS}},
+        ["LayerNorm forward", "LayerNorm backward", "flash forward",
+         "flash backward", "LayerNorm + matmul", "matmul + bias + gelu"])
+
+    rec = gpt_345m(use_recompute=True, max_position_embeddings=TRAIN_SEQ)
+
+    def make_recompute():
+        step = build_train_step(rec, device=DEVICE, seed=0, fusion=False)
+        return (step, *make_batch(rec, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                  device=DEVICE))
+    label = f"gpt_345m {TRAIN_BATCH}x{TRAIN_SEQ} recompute"
+    out[label] = _capture_path(
+        smi, label, make_recompute,
+        {"layer_norm_fwd": 4 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
+         "flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+         "flash_bwd_dkv": layers},
+        ["LayerNorm forward", "LayerNorm backward", "flash forward",
+         "flash backward"])
+    _capture_unsafe()
+    out["serve"] = _capture_serve(smi)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
               "and has no CPU mode", file=sys.stderr)
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(what):
+        """Log the seconds since the last lap."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[time] {what} {now - t_lap:.1f} s")
+        t_lap = now
+
     smi = phase_card()
     phase_build()
+    lap("card and build")
     timer = Timer()
     results = phase_kernels(timer)
     del timer
+    lap("kernels")
     phase_model()
     engine, launches, prompts, params = phase_serve(smi)
     phase_bucket_stages(params, prompts)
@@ -3115,10 +3751,17 @@ def main() -> int:
     phase_http(engine, prompts[0][:64])
     del engine
     torch.cuda.empty_cache()
+    lap("model and serve")
     train_launches = phase_train(smi)
+    lap("train")
     bert_launches, bert_long = phase_bert(smi)
+    lap("bert")
     fused_gpt, fused_bert, fused_wide = phase_fusion(smi)
+    lap("fusion")
     packed = phase_packed(smi)
+    lap("packed")
+    captured = phase_capture(smi)
+    lap("capture")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -3149,6 +3792,12 @@ def main() -> int:
     for name in BLOCK_KERNELS + TRAIN_KERNELS:
         by_path[name][f"gpt_1p3b {WIDE_LAYERS} layers "
                       f"{WIDE_BATCH}x{TRAIN_SEQ} fused"] = fused_wide[name]
+    # phase 11's captured paths (the serve path's graphs at all three
+    # precisions)
+    for path, counts in captured.items():
+        for name in by_path:
+            if counts.get(name):
+                by_path[name][f"{path} captured"] = counts[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]

@@ -10,7 +10,10 @@ masks and the gradients would silently belong to another forward.  So
 :func:`recompute` snapshots that generator's state before the block and
 replays it for the rerun, leaving the generator where the forward left
 it: recompute on and off give the same loss and gradients, as
-``jax.checkpoint`` does by replaying a key.
+``jax.checkpoint`` does by replaying a key.  The same holds inside a
+captured step (:mod:`...jit.capture`): there the state read and set on
+the host places the graph's draws, so each replay's rerun draws what
+that replay's forward drew.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ from . import paged_attention as _paged_attention
 from . import pallas_ops as _pallas_ops
 from . import quant_kernels as _quant_kernels
 
-__all__ = ["KERNELS", "reset_launch_counts"]
+__all__ = ["KERNELS", "reset_launch_counts", "launch_counts",
+           "set_launch_counts", "add_launch_counts"]
 
 #: every kernel wrapper of the port, by name
 KERNELS = {
@@ -35,3 +36,25 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "residual_launches"):
             fn.residual_launches = 0
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch counts: ``{(name, attribute): count}`` for
+    ``launches`` and, where a wrapper has it, ``residual_launches``."""
+    return {(name, attr): getattr(fn, attr)
+            for name, fn in KERNELS.items()
+            for attr in ("launches", "residual_launches") if hasattr(fn, attr)}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counts :func:`launch_counts` returned."""
+    for (name, attr), n in counts.items():
+        setattr(KERNELS[name], attr, n)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (as :func:`launch_counts` keys it) to the counts: a
+    CUDA graph's replay launches what its capture recorded."""
+    for (name, attr), n in delta.items():
+        fn = KERNELS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -829,14 +829,22 @@ def flash_attention(query, key, value, *, causal=False, dropout_p=0.0,
                         _scale(query, None), float(dropout_p))[0]
 
 
+def _int32_scalar(value, device):
+    """An int as a 0-d int32 tensor on ``device``, by a fill on the device
+    (no host-to-device copy, which a CUDA graph's capture refuses); a
+    tensor as it is, on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(value), dtype=torch.int32, device=device)
+
+
 def _seed_tensor(seed, dropout_p, device):
     """The dropout seed as an int32 tensor on ``device``; None without
     dropout."""
     if dropout_p <= 0.0:
         return None
     if not isinstance(seed, torch.Tensor):
-        seed = torch.tensor(0 if seed is None else seed, dtype=torch.int32,
-                            device=device)
+        seed = _int32_scalar(0 if seed is None else seed, device)
     return seed
 
 
@@ -859,8 +867,7 @@ def mha(q, k, v, *, causal=False, sm_scale=None, dropout_p=0.0, seed=None,
     if causal_shift is not None:
         if not causal:
             raise ValueError("causal_shift requires causal=True")
-        causal_shift = torch.as_tensor(causal_shift, dtype=torch.int32,
-                                       device=q.device).reshape(())
+        causal_shift = _int32_scalar(causal_shift, q.device)
     out, lse = _Flash.apply(*_bhsd(q, k, v),
                             _seed_tensor(seed, dropout_p, q.device), seq_lens,
                             causal_shift, bool(causal), _scale(q, sm_scale),

@@ -21,14 +21,19 @@ class Adam(Optimizer):
     def _update(self, params, grads, slots, lr, step):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m1, m2 = slots
+        # the bias corrections in f32 on the device, as the JAX update
+        # computes them from its int32 step
+        t = step.clamp(min=1).float()
+        bc1 = 1 - torch.pow(b1, t)
+        bc2 = 1 - torch.pow(b2, t)
         torch._foreach_mul_(m1, b1)
         torch._foreach_add_(m1, grads, alpha=1 - b1)
         torch._foreach_mul_(m2, b2)
         torch._foreach_addcmul_(m2, grads, grads, value=1 - b2)
-        denom = torch._foreach_div(m2, 1 - b2 ** step)
+        denom = torch._foreach_div(m2, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(m1, 1 - b1 ** step)
+        upd = torch._foreach_div(m1, bc1)
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(params, upd, alpha=-lr)
 

@@ -2,7 +2,9 @@
 ``apply_gradients_tree`` in ``paddle_tpu/optimizer/optimizer.py``).
 
 The state is a tree of tensors keyed by parameter name:
-``{"slots": {slot: {name: t}}, "master": {name: t}, "step": int}``.
+``{"slots": {slot: {name: t}}, "master": {name: t}, "step": t}``, the
+step count a 0-d int32 tensor on the parameters' device, as the JAX
+tree holds it.
 With ``multi_precision`` a bf16 or fp16 parameter gets an f32 master
 copy; the update runs on the master and the parameter receives it cast
 back.  Slots are f32 for low-precision parameters.
@@ -11,6 +13,10 @@ The JAX package returns a new tree from a pure function; the port
 updates parameters, masters and slots in place (no second copy of the
 state on the card), with PyTorch's multi-tensor ``_foreach`` operations,
 a few launches for the whole tree as the JAX package's one program.
+The step count and everything derived from it (Adam's bias
+corrections) stay on the device, so the update reads no host value that
+changes from step to step and a CUDA graph of it replays correctly
+(:mod:`...jit.capture`).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ class Optimizer:
         """Zero slots (and f32 masters for low-precision parameters)."""
         slots = {s: {} for s in self._state_slots}
         master = {}
+        device = next(iter(params.values())).device if params else None
         for name, p in params.items():
             low = p.dtype in _LOW_PRECISION
             for s in self._state_slots:
@@ -48,16 +55,18 @@ class Optimizer:
                     p, dtype=torch.float32 if low else p.dtype)
             if self._multi_precision and low:
                 master[name] = p.detach().float()
-        return {"slots": slots, "master": master, "step": 0}
+        return {"slots": slots, "master": master,
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def apply_gradients_tree(self, params: Dict[str, torch.Tensor],
                              grads: Dict[str, Optional[torch.Tensor]],
                              state: dict) -> dict:
-        """One update of every parameter with a gradient, in place;
-        returns ``state``."""
+        """One update of every parameter with a gradient, in place (the
+        step count too); returns ``state``."""
         lr = self._learning_rate
-        step = state["step"] + 1
+        step = state["step"]
+        step.add_(1)
         master = state["master"]
         names = [n for n in params if grads.get(n) is not None]
         compute = [master.get(n, params[n]) for n in names]
@@ -75,9 +84,10 @@ class Optimizer:
         if low:
             torch._foreach_copy_([params[n] for n in low],
                                  [master[n] for n in low])
-        state["step"] = step
         return state
 
-    def _update(self, params, grads, slots, lr: float, step: int) -> None:
-        """``params -= lr * update(grads, slots)`` in place, slots too."""
+    def _update(self, params, grads, slots, lr: float,
+                step: torch.Tensor) -> None:
+        """``params -= lr * update(grads, slots)`` in place, slots too;
+        ``step`` is the 0-d int32 count after this update."""
         raise NotImplementedError

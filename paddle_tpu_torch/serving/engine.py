@@ -1,15 +1,23 @@
 """Serving engine: bucketed prefill/decode over a paged KV pool.
 
-The counterpart of ``paddle_tpu/serving/engine.py``.  PyTorch runs
-eagerly, so there is no ahead-of-time compile: at construction the
-engine runs every prefill and decode bucket once (the warm-up), which
-builds and loads the CUDA kernels and gives cuBLAS its handles before
-the first request.  The bucket ladder stays: it fixes the padded shapes,
-and so the matrix-product algorithm of each bucket, which the
-continuous-batching bit-identity contract needs.
+The counterpart of ``paddle_tpu/serving/engine.py``, which compiles one
+executable per prefill bucket and one per decode bucket at load.  Here,
+on the card, each bucket is one CUDA graph (:mod:`..jit.capture`),
+captured at construction (:meth:`ServingEngine._warmup`): the bucket's
+step runs once eagerly (building the kernels, giving cuBLAS its handles)
+and is then recorded over the bucket's static token, position,
+page-table and length buffers.  A request's step fills those buffers
+from pinned host staging, replays the graph and copies the next tokens
+out before any other bucket replays.  All the graphs share one memory
+pool.  ``PT_CAPTURE=0`` (or a CPU device) runs the steps eagerly.  The
+bucket ladder stays: it fixes the padded shapes, and so the
+matrix-product algorithm of each bucket, which the continuous-batching
+bit-identity contract needs.
 
 KV state is updated in place: the steps write the pool tensors, which
-the engine never rebinds.
+the engine never rebinds; nor does it rebind a weight tensor
+(:meth:`ServingEngine.install_weights` copies into them), since the
+graphs read them where they were captured.
 
 The fp32 path is meant to be fp32: on a CUDA device the engine turns
 TF32 off for matrix products and cuDNN.
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..jit import CapturedGraph, capture_enabled
 from .kv_cache import NULL_PAGE, PagePool, kv_page_budget
 from .model import ModelSpec, decode_step, params_from_numpy, prefill_step
 
@@ -159,6 +168,31 @@ _KV_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16,
              "int8": torch.int8}
 
 
+def _shares_storage(t: torch.Tensor, src) -> bool:
+    return (isinstance(src, torch.Tensor) and t.device == src.device
+            and t.untyped_storage().data_ptr()
+            == src.untyped_storage().data_ptr())
+
+
+class _Bucket:
+    """One bucket's captured graph: its static device inputs, filled
+    from pinned host staging, and the graph that reads them."""
+
+    __slots__ = ("staging", "inputs", "graph")
+
+    def __init__(self, staging, inputs, graph):
+        self.staging, self.inputs, self.graph = staging, inputs, graph
+
+    def run(self, **host) -> torch.Tensor:
+        """Stage ``host`` (numpy, by input name), replay; the graph's
+        output, valid until its next replay."""
+        for name, a in host.items():
+            self.staging[name].numpy()[...] = a
+            self.inputs[name].copy_(self.staging[name], non_blocking=True)
+        self.graph.replay()
+        return self.graph.outputs
+
+
 class ServingEngine:
     """Bucketed steps + paged KV pool + swappable weights.
 
@@ -184,13 +218,19 @@ class ServingEngine:
             page_size=self.config.page_size, heads=spec.heads,
             head_dim=spec.head_dim, dtype=_KV_DTYPE[prec],
             scale_pages=(prec == "int8"), device=self.device)
-        self._params = self._prepare_params(params)
+        # the engine owns its weights: install_weights writes into them
+        self._params = {
+            name: t.clone() if _shares_storage(t, params.get(name)) else t
+            for name, t in self._prepare_params(params).items()}
         self._weights_step = weights_step
         self._weights_lock = threading.Lock()
-        # no compiles happen on a request path in eager PyTorch; the key
-        # stays in /healthz for the clients that read it
+        # no capture happens on a request path; the key stays in
+        # /healthz for the clients that read it
         self.unexpected_compiles = 0
         self.compiled_programs = 0
+        #: ("prefill" | "decode", bucket) -> its captured graph
+        self._graphs: Dict[Tuple[str, int], _Bucket] = {}
+        self.capture_seconds = 0.0
         self._warmup()
         from .scheduler import ContinuousScheduler
         self.scheduler = ContinuousScheduler(self)
@@ -215,23 +255,70 @@ class ServingEngine:
 
     def _warmup(self) -> None:
         """Run every bucket once, so the kernels are built and loaded and
-        the first request pays no lazy initialisation.  Warm-up traffic
-        writes only the null page."""
+        the first request pays no lazy initialisation; on the card, then
+        capture each bucket's graph.  Warm-up traffic writes only the
+        null page."""
         maxp = self.max_pages_per_seq
+        graphs = self.device.type == "cuda" and capture_enabled()
+        if graphs:
+            stream = torch.cuda.Stream(self.device)
+            pool = torch.cuda.graph_pool_handle()
         for s in self.config.prefill_buckets:
-            self._prefill_padded(np.zeros((s,), np.int32), 1,
-                                 np.zeros((maxp,), np.int32))
+            host = {"tokens": np.zeros((s,), np.int32),
+                    "length": np.ones((), np.int32),
+                    "page_table": np.zeros((maxp,), np.int32)}
+            if graphs:
+                self._capture("prefill", s, host, self._prefill_on,
+                              stream, pool)
+            else:
+                self._prefill_padded(host["tokens"], 1, host["page_table"])
         for b in self.config.decode_buckets:
-            self._decode_padded(np.zeros((b,), np.int32),
-                                np.zeros((b,), np.int32),
-                                np.zeros((b, maxp), np.int32))
+            host = {"tokens": np.zeros((b,), np.int32),
+                    "positions": np.zeros((b,), np.int32),
+                    "page_tables": np.zeros((b, maxp), np.int32)}
+            if graphs:
+                self._capture("decode", b, host, self._decode_on,
+                              stream, pool)
+            else:
+                self._decode_padded(host["tokens"], host["positions"],
+                                    host["page_tables"])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.compiled_programs = (len(self.config.prefill_buckets)
                                   + len(self.config.decode_buckets))
-        logger.info("serve buckets warmed: prefill %s, decode %s",
+        logger.info("serve buckets warmed: prefill %s, decode %s, %d graphs",
                     list(self.config.prefill_buckets),
-                    list(self.config.decode_buckets))
+                    list(self.config.decode_buckets), len(self._graphs))
+
+    def _capture(self, kind, size, host, fn, stream, pool) -> None:
+        """Warm up and capture one bucket over static buffers made from
+        ``host`` (numpy), staged through pinned host memory."""
+        staging = {k: torch.from_numpy(a).pin_memory()
+                   for k, a in host.items()}
+        inputs = {k: t.to(self.device) for k, t in staging.items()}
+        CapturedGraph.warm_up(fn, (inputs,), {}, stream=stream)
+        graph = CapturedGraph.capture(fn, (inputs,), {}, stream=stream,
+                                      pool=pool)
+        self._graphs[(kind, size)] = _Bucket(staging, inputs, graph)
+        self.capture_seconds += graph.capture_s
+
+    def _prefill_on(self, buf):
+        """The prefill step on device inputs (``buf`` by name): its first
+        token.  What a prefill bucket's graph records."""
+        *_, nxt, _ = prefill_step(
+            self.spec, self._params, self.pool.k_flat, self.pool.v_flat,
+            buf["tokens"], buf["length"], buf["page_table"],
+            page_size=self.config.page_size, **self._scale_kw())
+        return nxt
+
+    def _decode_on(self, buf):
+        """The decode step on device inputs (``buf`` by name): the next
+        tokens.  What a decode bucket's graph records."""
+        *_, nxt, _ = decode_step(
+            self.spec, self._params, self.pool.k_flat, self.pool.v_flat,
+            buf["tokens"], buf["positions"], buf["page_tables"],
+            page_size=self.config.page_size, **self._scale_kw())
+        return nxt
 
     def close(self) -> None:
         """Stop the scheduler's background loop, if one runs."""
@@ -258,24 +345,30 @@ class ServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _prefill_padded(self, padded, n, page_table):
+    def _prefill_padded(self, padded, n, page_table) -> int:
+        """The first generated token of one padded prompt: its bucket's
+        graph replayed, or the step run eagerly where there is none."""
         with self._weights_lock:
-            params = self._params
-        *_, nxt, _ = prefill_step(
-            self.spec, params, self.pool.k_flat, self.pool.v_flat,
-            self._tensor(padded), n, self._tensor(page_table), page_size=self.config.page_size,
-            **self._scale_kw())
-        return nxt
+            bucket = self._graphs.get(("prefill", padded.shape[0]))
+            if bucket is not None:
+                return int(bucket.run(tokens=padded, length=n,
+                                      page_table=page_table))
+            return int(self._prefill_on({
+                "tokens": self._tensor(padded), "length": n,
+                "page_table": self._tensor(page_table)}))
 
-    def _decode_padded(self, tok, pos, pt):
+    def _decode_padded(self, tok, pos, pt) -> np.ndarray:
+        """The next token of every row of a padded decode batch: its
+        bucket's graph replayed, or the step run eagerly where there is
+        none."""
         with self._weights_lock:
-            params = self._params
-        *_, nxt, _ = decode_step(
-            self.spec, params, self.pool.k_flat, self.pool.v_flat,
-            self._tensor(tok),
-            self._tensor(pos), self._tensor(pt),
-            page_size=self.config.page_size, **self._scale_kw())
-        return nxt
+            bucket = self._graphs.get(("decode", tok.shape[0]))
+            if bucket is not None:
+                return bucket.run(tokens=tok, positions=pos,
+                                  page_tables=pt).cpu().numpy()
+            return self._decode_on({
+                "tokens": self._tensor(tok), "positions": self._tensor(pos),
+                "page_tables": self._tensor(pt)}).cpu().numpy()
 
     def _scale_kw(self):
         if self.pool.scale_pages:
@@ -288,9 +381,8 @@ class ServingEngine:
         s = self.prefill_bucket_for(n)
         padded = np.zeros((s,), np.int32)
         padded[:n] = np.asarray(tokens, np.int32)
-        nxt = self._prefill_padded(padded, n,
-                                   np.asarray(page_table, np.int32))
-        return int(nxt)
+        return self._prefill_padded(padded, n,
+                                    np.asarray(page_table, np.int32))
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
                page_tables: np.ndarray) -> np.ndarray:
@@ -308,8 +400,7 @@ class ServingEngine:
         tok[:n] = tokens
         pos[:n] = positions
         pt[:n] = page_tables
-        nxt = self._decode_padded(tok, pos, pt)
-        return nxt.cpu().numpy()[:n]
+        return self._decode_padded(tok, pos, pt)[:n]
 
     # -- weights ------------------------------------------------------------
 
@@ -321,7 +412,9 @@ class ServingEngine:
         """Swap to a new weight generation between steps.
 
         The names and shapes must match the served ones; incoming
-        weights pass through the engine's precision conversion first.
+        weights pass through the engine's precision conversion first
+        (int8 quantization included), then are copied into the served
+        tensors in place, which the captured graphs read.
         """
         params = self._prepare_params(params)
         if set(params) != set(self._params):
@@ -332,7 +425,8 @@ class ServingEngine:
                                  f"{tuple(params[name].shape)} vs "
                                  f"{tuple(a.shape)}")
         with self._weights_lock:
-            self._params = params
+            for name, a in self._params.items():
+                a.copy_(params[name])
             self._weights_step = step
         logger.info("weights swapped to generation step=%s", step)
 

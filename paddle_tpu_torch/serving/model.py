@@ -230,7 +230,10 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
     Args:
       k_flat/v_flat: pools ``(L, P*ps, H, D)``, updated in place.
       tokens: ``(S,)`` int, the padded prompt (bucket size S).
-      length: int, the true prompt length (1 <= length <= S).
+      length: the true prompt length (1 <= length <= S), a 0-d int32
+        tensor on the device, as the JAX step takes it (an int is put
+        there); it is read on the device only, so a CUDA graph of the
+        step serves every length of its bucket.
       page_table: ``(max_pages,)`` int32 pages owned by this sequence
         (unused tail = 0, the null page).
       k_scale/v_scale: scale pools ``(L, P*ps, H)`` f32 when the pool is
@@ -244,8 +247,10 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
     flat row 0, inside the null page, which no reader sees unmasked.
     """
     s = tokens.shape[0]
-    length = int(length)
     dev = tokens.device
+    if not isinstance(length, torch.Tensor):
+        length = torch.tensor(int(length), dtype=torch.int32, device=dev)
+    length = length.reshape(())
     tokens = tokens.long()
     h = params["embed"][tokens] + params["pos"][:s]
     cdt = params["embed"].dtype
@@ -272,7 +277,8 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
         h = h + _mlp(params, i, x2)
         ks.append(k)
         vs.append(v)
-    hf = _ln(h[length - 1], params["lnf.w"], params["lnf.b"]).to(cdt)
+    last = h.index_select(0, (length - 1).long().reshape(1))[0]
+    hf = _ln(last, params["lnf.w"], params["lnf.b"]).to(cdt)
     logits = hf @ params["embed"].T                         # (V,)
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)
     dest = torch.where(pos_ids < length,

@@ -4,13 +4,16 @@
 
 Builds a ``ServingEngine`` at the ``gpt_345m`` widths (24 layers, random
 weights, seed 0) at fp32, bf16 and int8, prefills 16 sequences of 512
-tokens, then runs 8 decode steps twice: once timed by the host clock (each step
-ends in a device synchronise, as the engine's steps do), once under
-``torch.profiler``.  Prints, per precision, the median step wall time,
-the device time summed over the step's kernels, their ratio (the
-device's busy share; the rest is idle, waiting on the host), the number
-of device operations (kernels and copies) per step, and the kernels that
-take the most device time.  Needs a CUDA device; there is no CPU mode.
+tokens, then runs 8 decode steps twice each way, in one process: on the
+engine's CUDA graph of the bucket (its replay), and eagerly (the same
+step uncaptured): once timed by the host clock (each step ends in
+copying the next tokens to the host, as the engine's steps do), once
+under ``torch.profiler``.  Prints, per precision and way, the median
+step wall time, the device time summed over the step's kernels, their
+ratio (the device's busy share; the rest is idle, waiting on the host),
+the number of device operations (kernels and copies) per step, and the
+kernels that take the most device time.  Needs a CUDA device; there is
+no CPU mode.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..jit import capture_enabled
 from ..ops.paged_attention import KERNEL_NAMES as PAGED_KERNELS
 from .engine import ServeConfig, ServingEngine
 from .model import ModelSpec, init_params
@@ -36,27 +40,7 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def profile_precision(spec, params, precision, rows, context, steps, device):
-    ps = 16
-    cfg = ServeConfig(decode_buckets=(rows,), prefill_buckets=(context,),
-                      kv_pages=1 + rows * (-(-(context + 2 * steps + 1) // ps)),
-                      page_size=ps, max_inflight=rows, precision=precision)
-    eng = ServingEngine(spec, params, cfg, device=device)
-    rng = np.random.RandomState(0)
-    need = eng.pool.pages_needed(context + 2 * steps + 1)
-    tables = np.stack([eng.pool.null_padded_table(eng.pool.alloc(need),
-                                                  eng.max_pages_per_seq)
-                       for _ in range(rows)])
-    tokens = np.asarray([eng.prefill(rng.randint(1, spec.vocab_size,
-                                                 size=context).tolist(), t)
-                         for t in tables], np.int32)
-    pos = np.full((rows,), context, np.int32)
-
-    def step():
-        nonlocal tokens, pos
-        tokens = eng.decode(tokens, pos, tables)  # ends in a device sync
-        pos = pos + 1
-
+def _profile_steps(step, steps, device):
     walls = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -78,10 +62,8 @@ def profile_precision(spec, params, precision, rows, context, steps, device):
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
     wall_ms = statistics.median(walls) * 1e3
-    eng.close()
     return {
-        "precision": precision, "rows": rows, "context": context,
-        "layers": spec.layers, "step_wall_ms": wall_ms,
+        "step_wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "device_ops_per_step": launches,
@@ -90,6 +72,46 @@ def profile_precision(spec, params, precision, rows, context, steps, device):
                          "device_ms_per_step": _device_us(e) / steps / 1e3,
                          "calls_per_step": e.count / steps} for e in top],
     }
+
+
+def profile_precision(spec, params, precision, rows, context, steps, device):
+    ps = 16
+    cfg = ServeConfig(decode_buckets=(rows,), prefill_buckets=(context,),
+                      kv_pages=1 + rows * (-(-(context + 4 * steps + 1) // ps)),
+                      page_size=ps, max_inflight=rows, precision=precision)
+    if not capture_enabled():
+        raise RuntimeError("PT_CAPTURE=0: the engine would capture no graph")
+    eng = ServingEngine(spec, params, cfg, device=device)
+    rng = np.random.RandomState(0)
+    need = eng.pool.pages_needed(context + 4 * steps + 1)
+    tables = np.stack([eng.pool.null_padded_table(eng.pool.alloc(need),
+                                                  eng.max_pages_per_seq)
+                       for _ in range(rows)])
+    tokens = np.asarray([eng.prefill(rng.randint(1, spec.vocab_size,
+                                                 size=context).tolist(), t)
+                         for t in tables], np.int32)
+    pos = np.full((rows,), context, np.int32)
+
+    def graph_step():
+        nonlocal tokens, pos
+        tokens = eng.decode(tokens, pos, tables)  # ends in a device sync
+        pos = pos + 1
+
+    def eager_step():
+        # the bucket's step uncaptured, on the engine's tensors; rows fill
+        # the bucket, so nothing is padded
+        nonlocal tokens, pos
+        tokens = eng._decode_on({
+            "tokens": eng._tensor(tokens), "positions": eng._tensor(pos),
+            "page_tables": eng._tensor(tables)}).cpu().numpy()
+        pos = pos + 1
+
+    out = {"precision": precision, "rows": rows, "context": context,
+           "layers": spec.layers}
+    for way, step in (("graph", graph_step), ("eager", eager_step)):
+        out[way] = _profile_steps(step, steps, device)
+    eng.close()
+    return out
 
 
 def main():

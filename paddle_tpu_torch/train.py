@@ -18,9 +18,12 @@ kernels unless ``--no-fusion`` or ``PT_FUSION_PASS=0``, as the JAX
 package applies it to bench's GPT step, captured steps and hapi.  Batches come from
 ``np.random.RandomState(0)``; one generator seeded with 0 draws the
 weights and then every dropout mask.  The CLI prints each step's loss
-and time, then the median step time, sequences and tokens per second.
-It runs on ``cuda`` unless ``--device cpu`` is given, and raises when
-there is no GPU.
+and time, then the median step time, sequences and tokens per second,
+and the capture's ``compiles``, ``hits`` and ``fallback``.  It runs on
+``cuda`` unless ``--device cpu`` is given, and raises when there is no
+GPU.  On the card each step is replayed as a CUDA graph
+(:mod:`.jit.capture`; the first call warms up and captures) unless
+``PT_CAPTURE=0``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 from .amp import decorate
 from .device import resolve_device
 from .framework.random import make_generator
+from .jit import capture_step
 from .incubate.models import (BertConfig, BertForPretraining,
                               BertPretrainingCriterion, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
@@ -44,7 +48,7 @@ from .incubate.models import (BertConfig, BertForPretraining,
 from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
-__all__ = ["TrainStep", "build_train_step", "make_batch",
+__all__ = ["TrainStep", "EagerStep", "build_train_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "main"]
 
 CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
@@ -57,35 +61,20 @@ MASK_TOKEN = 103                 # [MASK] in BERT's uncased vocabulary
 MAX_PREDICTIONS = 20             # MLM targets per sequence, phase 1
 
 
-class TrainStep:
-    """One optimizer step: loss of ``model`` on a batch, its gradients,
-    and the optimizer's update of every parameter, in place.  The
-    optimizer state lives in ``self.state``; ``generator`` feeds every
-    dropout.  The criterion takes the model's outputs (all of them, when
-    the model returns a tuple), then the targets.  With ``fusion`` (by
-    default when ``fusion_enabled()``) the model runs under the fusion
-    pass (``self.model`` is the wrapped module, on the same
-    parameters)."""
+class EagerStep:
+    """One optimizer step, run eagerly: loss of ``model`` on a batch, its
+    gradients, and the optimizer's update of every parameter (``params``,
+    with the optimizer's ``state``), in place; ``generator`` feeds every
+    dropout.  Each parameter's gradient is dropped after the update, so
+    under capture the gradients live in the graph's memory pool."""
 
-    def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
-                 optimizer: Optimizer, generator: torch.Generator, *,
-                 fusion: Optional[bool] = None):
-        model.train()
-        if fusion is None:
-            fusion = fusion_enabled()
-        self.model = wrap(model) if fusion else model
-        self.criterion = criterion
-        self.optimizer = optimizer
-        self.generator = generator
-        self.params: Dict[str, torch.nn.Parameter] = dict(
-            model.named_parameters())
-        self.state = optimizer.init_state_tree(self.params)
+    def __init__(self, model, criterion, optimizer, generator, params,
+                 state):
+        self.model, self.criterion = model, criterion
+        self.optimizer, self.generator = optimizer, generator
+        self.params, self.state = params, state
 
     def __call__(self, inputs, targets) -> torch.Tensor:
-        """Run the step on the model's ``inputs`` and the criterion's
-        ``targets``, each one tensor (GPT's ids and labels) or a dict of
-        keyword arguments (:func:`make_bert_batch`); returns the f32
-        loss (before the update)."""
         if isinstance(inputs, dict):
             out = self.model(**inputs, generator=self.generator)
         else:
@@ -102,6 +91,46 @@ class TrainStep:
         for p in self.params.values():
             p.grad = None
         return loss.detach()
+
+
+class TrainStep:
+    """One optimizer step: loss of ``model`` on a batch, its gradients,
+    and the optimizer's update of every parameter, in place.  The
+    optimizer state lives in ``self.state``; ``generator`` feeds every
+    dropout.  The criterion takes the model's outputs (all of them, when
+    the model returns a tuple), then the targets.  With ``fusion`` (by
+    default when ``fusion_enabled()``) the model runs under the fusion
+    pass (``self.model`` is the wrapped module, on the same
+    parameters).  Calling the step runs it through
+    :func:`.jit.capture_step` (``self.captured``): on the card a CUDA
+    graph replays it; on the CPU, or with ``PT_CAPTURE=0``, it runs
+    eagerly.  ``self.eager`` (:class:`EagerStep`) is the step itself,
+    uncaptured; it does not refer back to this object, so dropping the
+    step frees its graphs at once."""
+
+    def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
+                 optimizer: Optimizer, generator: torch.Generator, *,
+                 fusion: Optional[bool] = None):
+        model.train()
+        if fusion is None:
+            fusion = fusion_enabled()
+        self.model = wrap(model) if fusion else model
+        self.criterion = criterion
+        self.optimizer = optimizer
+        self.generator = generator
+        self.params: Dict[str, torch.nn.Parameter] = dict(
+            model.named_parameters())
+        self.state = optimizer.init_state_tree(self.params)
+        self.eager = EagerStep(self.model, criterion, optimizer, generator,
+                               self.params, self.state)
+        self.captured = capture_step(self.eager)
+
+    def __call__(self, inputs, targets) -> torch.Tensor:
+        """Run the step on the model's ``inputs`` and the criterion's
+        ``targets``, each one tensor (GPT's ids and labels) or a dict of
+        keyword arguments (:func:`make_bert_batch`); returns the f32
+        loss (before the update)."""
+        return self.captured(inputs, targets)
 
 
 def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
@@ -244,12 +273,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"step {i + 1} loss {loss:.6f} {times[-1] * 1e3:.2f} ms",
               flush=True)
     med = statistics.median(times[1:] if len(times) > 1 else times)
+    stats = step.captured.stats
     print(json.dumps({"model": args.model, "device": name,
                       "batch": batch, "seq": seq, "fusion": fusion,
                       "losses": losses,
                       "median_step_ms": med * 1e3,
                       "sequences_per_s": batch / med,
-                      "tokens_per_s": batch * seq / med}), flush=True)
+                      "tokens_per_s": batch * seq / med,
+                      "compiles": stats["compiles"], "hits": stats["hits"],
+                      "fallback": stats["fallback"]}), flush=True)
     return 0
 
 
