@@ -179,7 +179,11 @@ line is printed:
              kernels once each an iteration and no mma.sync backward
              kernel (their device time an iteration); then 2
              iterations at dropout 0.1 with the run's generator.
-11. capture  the captured step (``paddle_tpu_torch.jit.capture``): bert_base
+11. capture  the captured step (``paddle_tpu_torch.jit.capture``): first
+             ``F.embedding``'s backward (the port's fixed summation order)
+             8 times at BERT's token-type, position and word shapes and
+             GPT's word shape, bf16 and f32, the same bits every run, timed
+             beside the library's; then bert_base
              at 32 x 128, dropout 0.1, the fusion pass off and on, then
              bench_gpt's headline step (gpt_345m, 8 x 1024, no recompute,
              pass on), then the recompute step (16 x 1024, pass off): each
@@ -187,7 +191,9 @@ line is printed:
              a warm-up that captures one CUDA graph, then 7 replays) from
              the same weights and generator state: losses, every
              parameter, master weight, optimizer slot, the step count and
-             the generator's offset the same bits; 1 compile, 7 hits, no
+             the generator's offset the same bits (on BERT, 8 eager steps
+             with the token-type table's gradient dropped at one step must
+             fail that comparison); 1 compile, 7 hits, no
              fallback; the launches per step of phases 7-9 on both; a
              profiled replay naming the LayerNorm, flash, block and (BERT)
              cross-entropy kernels; then the two in turns (eager, graph,
@@ -201,6 +207,26 @@ line is printed:
              peak memory each way; 4 prompts alone as in the batch; a
              weight swap reaching the graphs (their tokens those of the
              new weights run eagerly).
+12. schedule the learning rate on the card, its schedules, gradient clipping
+             and the optimizer family on the captured steps: bert_base at
+             32 x 128 (pass off) under AdamW with BERT's warm-up (4
+             steps) and linear decay, and bench_gpt's headline step
+             (gpt_345m, 8 x 1024, pass on) under AdamW with Megatron's
+             warm-up and cosine decay, both with a global-norm clip of 1.0:
+             each 12 steps eager and 12 captured from the same weights,
+             the schedule stepped after each: losses, every state tensor
+             and the generator offset the same bits, the learning-rate
+             tensor ``np.float32`` of the schedule's value at every step, 1
+             compile and 11 hits, no fallback, the launches of phase 11;
+             on BERT a replay that never writes its learning rate must
+             differ from eager; then eager, captured and phase 11's
+             schedule-free graph step in turns (medians, busy shares);
+             then SGD, Momentum (Nesterov), Adagrad, Adadelta, RMSProp
+             (centered, momentum), Adam (amsgrad), Adamax, Lamb, NAdam
+             and RAdam on gpt_345m cut to 2 layers (8 x 1024, pass on),
+             4 steps eager and 4 captured each, under StepDecay or
+             ExponentialDecay with the per-tensor clips and the L1 / L2
+             decays in turn: the same bits and 1 compile each.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -213,6 +239,7 @@ it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
 import itertools
 import json
@@ -305,19 +332,17 @@ BERT_HIDDEN, BERT_HEADS, BERT_VOCAB = 768, 12, 30528
 # phase 11: steps eager and captured, then turns a b b a of the two
 CAPTURE_STEPS, CAPTURE_TURN_STEPS = 8, 2
 CAPTURE_TURNS = ("eager", "graph", "graph", "eager")
-# state that a library op makes differ from run to run, eager or captured:
-# F.embedding's CUDA backward (embedding_dense_backward) adds a row's many
-# repeats in an order that varies between runs where few rows take many
-# ids (BERT's token-type table, 2 rows x 4096 ids; _embedding_runs
-# measures it).  Those tensors (the table, its master and moments) are
-# held to this share of their largest magnitude: above the largest
-# reading of sound runs (1.3e-4), below that of a planted fault (one
-# step's gradient of the table dropped; _planted_fault measures it each
-# run).  The losses are held to the same bits up to the first step after
-# which the table itself differs, and from there to CAPTURE_LOOSE_LOSS
-# (relative); every other tensor to the same bits.
-CAPTURE_LOOSE = {"token_type_embeddings.weight": 1e-3}
-CAPTURE_LOOSE_LOSS = 1e-4
+# the parameter whose gradient a planted fault drops at the middle step of
+# an eager run (BERT's token-type table, 2 rows x 4096 ids): the bit
+# comparison of phase 11 must see it
+PLANTED = "token_type_embeddings.weight"
+# F.embedding's backward against the library's on the card, max |diff| over
+# max |g|: both sum in f32 (in another order); bf16 rounds each once
+EMBED_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# phase 12: the scheduled, clipped steps (eager and captured), then the
+# optimizer sweep on gpt_345m cut to SWEEP_LAYERS layers
+SCHEDULE_STEPS = 12
+SWEEP_LAYERS, SWEEP_STEPS = 2, 4
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -2771,13 +2796,15 @@ def _counter_launches(counts):
     return out
 
 
-def _check_device_launches(what, fn, n, want):
+def _check_device_launches(what, fn, n, want, sessions=4):
     """Profile ``n`` runs of ``fn`` and hold the wrapper launches that the
     device ran a run (:func:`_device_launches`) equal to ``want`` (counter
-    readings a run).  A session that lost records is taken once more,
-    logged.  Returns the profiled kernels."""
+    readings a run).  A session that lost records (a serving graph's
+    session loses 4-24 of the paged kernels' 1488 records now and then)
+    is taken again, up to ``sessions`` in all, each logged.  Returns the
+    profiled kernels."""
     want = _counter_launches(want)
-    for attempt in range(2):
+    for attempt in range(sessions):
         kernels = _profiled_kernels(fn, n)
         got = {k: v for k, v in _device_launches(kernels, n).items() if v}
         if got == want:
@@ -3304,38 +3331,30 @@ def _state_digest(state):
     return hashlib.sha256(sums.tobytes()).hexdigest()[:16]
 
 
-def _capture_turns(run_eager, run_graph, turns=CAPTURE_TURNS,
-                   turn_steps=CAPTURE_TURN_STEPS):
-    """Step wall times of the eager and the captured step in turns (a b
-    b a), each step ending in the loss read on the host."""
-    times = {"eager": [], "graph": []}
+def _capture_turns(fns, turns=CAPTURE_TURNS, turn_steps=CAPTURE_TURN_STEPS):
+    """Step wall times of the steps ``fns`` ({way: callable}) in
+    ``turns`` (a b b a), each step ending in the loss read on the host."""
+    times = {way: [] for way in fns}
     for way in turns:
-        fn = run_eager if way == "eager" else run_graph
         for _ in range(turn_steps):
             t0 = time.perf_counter()
-            fn().item()
+            fns[way]().item()
             times[way].append(time.perf_counter() - t0)
     return times
 
 
-def _loose_tol(name):
-    """The ``CAPTURE_LOOSE`` limit of state tensor ``name``, or None."""
-    return next((t for k, t in CAPTURE_LOOSE.items() if k in name), None)
-
-
-def _reading(want, got):
-    """max |got - want| / max |want|: what ``CAPTURE_LOOSE`` bounds."""
-    ref = want.float().abs().max().item()
-    return (got.float() - want.float()).abs().max().item() / max(ref, 1e-30)
+def _differ(want, got):
+    """The names of the state tensors whose bits differ."""
+    return [n for n in want if not torch.equal(_bits(want[n]), _bits(got[n]))]
 
 
 def _planted_fault(make, want):
-    """What ``CAPTURE_LOOSE`` must still catch: ``CAPTURE_STEPS`` eager
-    steps from the same weights and generator as the eager run whose
-    state is ``want``, with the loose tables' gradient dropped at the
-    middle step.  Returns each loose tensor's reading against ``want``."""
+    """What the bit comparison must catch: ``CAPTURE_STEPS`` eager steps
+    from the same weights and generator as the eager run whose state is
+    ``want``, with ``PLANTED``'s gradient dropped at the middle step.
+    Returns the tensors whose bits then differ from ``want``."""
     step, inputs, targets = make()
-    names = [n for n in step.params if _loose_tol(n) is not None]
+    names = [n for n in step.params if PLANTED in n]
     for i in range(CAPTURE_STEPS):
         hooks = ([step.params[n].register_hook(torch.zeros_like)
                   for n in names] if i == CAPTURE_STEPS // 2 else [])
@@ -3343,8 +3362,8 @@ def _planted_fault(make, want):
         for h in hooks:
             h.remove()
     got = _step_state(step)
-    return {n: _reading(want[n], got[n]) for n in want
-            if _loose_tol(n) is not None}
+    del step
+    return _differ(want, got)
 
 
 def _capture_path(smi, label, make, per_step, want_kernels):
@@ -3352,48 +3371,31 @@ def _capture_path(smi, label, make, per_step, want_kernels):
     and its batch (the same weights and generator state each call).
     ``CAPTURE_STEPS`` eager steps (``step.eager``) and as many captured
     ones (``step(...)``: a warm-up that captures, then replays) must give
-    the same parameters, masters, slots, step count and generator offset
-    after, bit for bit (``CAPTURE_LOOSE``'s tensors within their limit,
-    which a planted fault must exceed), and the same losses bit for bit
-    up to the first step after which a parameter in ``CAPTURE_LOOSE``
-    differs (within ``CAPTURE_LOOSE_LOSS`` from there); the capture 1
-    compile, 7 hits, no fallback; the launches per step ``per_step`` on
-    both.  The launches that the graph adds at each replay must be the
-    eager step's, and a profile must count them on the device, eager
-    and replayed (:func:`_check_device_launches`); the replay must name
-    the kernels ``want_kernels`` (labels of ``PROFILE_KERNELS``).  Then
-    both in turns (a b b a) for the step wall times, and each profiled
-    for its device busy time.  Returns the captured run's launch
-    counts."""
+    the same losses, parameters, masters, slots, step count and generator
+    offset, bit for bit (on a path with ``PLANTED``, a planted fault must
+    fail that comparison); the capture 1 compile, 7 hits, no fallback;
+    the launches per step ``per_step`` on both.  The launches that the
+    graph adds at each replay must be the eager step's, and a profile
+    must count them on the device, eager and replayed
+    (:func:`_check_device_launches`); the replay must name the kernels
+    ``want_kernels`` (labels of ``PROFILE_KERNELS``).  Then both in turns
+    (a b b a) for the step wall times, and each profiled for its device
+    busy time.  Returns the captured run's launch counts."""
     from paddle_tpu_torch.serving.profile import _device_us
     eager, inputs, targets = make()
     graph, _, _ = make()
-    watched = [n for n in eager.params if _loose_tol(n) is not None]
-    runs, seen = {}, {}
-    for way, step, params in (("eager", eager.eager, eager.params),
-                              ("graph", graph, graph.params)):
-        seen[way] = []
-
-        def watch(params=params, out=seen[way]):
-            out.append([_bits(params[n]).clone() for n in watched])
+    runs = {}
+    for way, step in (("eager", eager.eager), ("graph", graph)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runs[way] = _run_steps(step, inputs, targets, CAPTURE_STEPS,
-                               f"capture {label}", watch=watch)
+                               f"capture {label}")
     (le, te, ne, pe), (lg, tg, ng, pg) = runs["eager"], runs["graph"]
     stats = dict(graph.captured.stats)
     se, sg = _step_state(eager), _step_state(graph)
-    differ = [n for n in se if not torch.equal(_bits(se[n]), _bits(sg[n]))]
-    loose = {n: (_reading(se[n], sg[n]), _loose_tol(n)) for n in differ
-             if _loose_tol(n) is not None}
-    differ = [n for n in differ if n not in loose]
-    planted = _planted_fault(make, se) if watched else {}
-    # loss k reads the parameters that step k - 1 left
-    first = next((i for i, (a, b) in enumerate(zip(seen["eager"],
-                                                   seen["graph"]))
-                  if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
-    exact = CAPTURE_STEPS if first is None else first + 1
-    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    differ = _differ(se, sg)
+    planted = (_planted_fault(make, se)
+               if any(PLANTED in n for n in eager.params) else None)
     offsets = (eager.generator.get_offset(), graph.generator.get_offset())
     # the graph's launches a replay: the counters it adds, held to the
     # eager step's and to what the device runs
@@ -3405,8 +3407,8 @@ def _capture_path(smi, label, make, per_step, want_kernels):
         raise AssertionError(f"capture {label}: the graph adds launches "
                              f"{_counter_launches(recorded)} a replay, the "
                              f"eager step runs {_counter_launches(per_eager)}")
-    times = _capture_turns(lambda: eager.eager(inputs, targets),
-                           lambda: graph(inputs, targets))
+    times = _capture_turns({"eager": lambda: eager.eager(inputs, targets),
+                            "graph": lambda: graph(inputs, targets)})
     med = {w: statistics.median(t) * 1e3 for w, t in times.items()}
     busy, names = {}, {}
     for way, fn, want in (
@@ -3420,13 +3422,12 @@ def _capture_path(smi, label, make, per_step, want_kernels):
     log(f"[capture] {label}: {CAPTURE_STEPS} steps eager / captured from the "
         f"same weights: losses {le} / {lg}; state digest "
         f"{_state_digest(se)} / {_state_digest(sg)}, tensors that differ "
-        f"{differ[:4]} of {len(se)}, held to a limit (max |diff| / max "
-        f"|eager|, limit) { {n: (float(f'{r:.3e}'), t) for n, (r, t) in loose.items()} }"
-        f", the same reading with one step's gradient dropped (planted) "
-        f"{ {n: float(f'{r:.3e}') for n, r in planted.items()} }; watched "
-        f"parameters first differ after step "
-        f"{'none' if first is None else first + 1}, losses' max relative "
-        f"diff {loss_rel:.3e}; generator offset {offsets[0]} / "
+        f"{differ[:4]} of {len(se)}; "
+        + ("" if planted is None else
+           f"with {PLANTED}'s gradient dropped at step "
+           f"{CAPTURE_STEPS // 2 + 1} (planted), {len(planted)} tensors "
+           f"differ ({planted[:4]}); ")
+        + f"generator offset {offsets[0]} / "
         f"{offsets[1]}; capture {stats} in {graph.captured.capture_seconds:.3f}"
         f" s, first captured step {tg[0] * 1e3:.1f} ms (eager {te[0] * 1e3:.1f}"
         f"); peak memory {pe:.2f} / {pg:.2f} GB; turns "
@@ -3441,18 +3442,13 @@ def _capture_path(smi, label, make, per_step, want_kernels):
         f"replay, counted on the device {_counter_launches(recorded)}; "
         f"launches {ne == ng} eager == graph { {n: ng[n] for n in per_step} }"
         f" | {smi}")
-    if (le[:exact] != lg[:exact] or loss_rel > CAPTURE_LOOSE_LOSS or differ
-            or offsets[0] != offsets[1]
-            or any(r > t for r, t in loose.values())):
+    if le != lg or differ or offsets[0] != offsets[1]:
         raise AssertionError(f"capture {label}: the captured step is not the "
-                             f"eager one bit for bit: losses {le} / {lg} "
-                             f"(the same bits up to step {exact}), tensors "
-                             f"{differ[:8]}, beyond their limit "
-                             f"{ {n: v for n, v in loose.items() if v[0] > v[1]} }"
-                             f", offsets {offsets}")
-    if planted and not any(r > _loose_tol(n) for n, r in planted.items()):
-        raise AssertionError(f"capture {label}: CAPTURE_LOOSE misses a "
-                             f"dropped gradient: readings {planted}")
+                             f"eager one bit for bit: losses {le} / {lg}, "
+                             f"tensors {differ[:8]}, offsets {offsets}")
+    if planted is not None and not planted:
+        raise AssertionError(f"capture {label}: the bit comparison misses a "
+                             f"dropped gradient of {PLANTED}")
     _check_counts(f"capture {label} eager", ne, per_step, CAPTURE_STEPS)
     _check_counts(f"capture {label} graph", ng, per_step, CAPTURE_STEPS)
     missing = [k for k in want_kernels if k not in names["graph"]]
@@ -3464,35 +3460,77 @@ def _capture_path(smi, label, make, per_step, want_kernels):
     return ng
 
 
-def _embedding_runs():
-    """``F.embedding``'s backward twice, eagerly, on the same inputs at
-    BERT's token-type shape (a (2, 768) table, 32 x 128 ids, half 0 and
-    half 1) and at its word-embedding shape: whether the two runs give
-    the same bits, bf16 and f32 (the reason for ``CAPTURE_LOOSE``)."""
+def _embedding_runs(smi):
+    """``F.embedding``'s backward (the port's: a fixed summation order)
+    8 times on the same inputs at BERT's token-type (2 rows), position
+    (512) and word-embedding (30528) shapes over a ``make_bert_batch``
+    batch, and at GPT's word-embedding shape (50304 x 1024, bench_gpt's 8
+    x 1024 ids), bf16 and f32: the same bits every run, or the phase
+    fails.  Beside it the library's ``torch.nn.functional.embedding``: its
+    8 runs (the same bits or not, logged), its gradient's largest
+    difference from the port's (within ``EMBED_TOL`` of the largest
+    value: another summation order), and both backward times
+    (``Timer``)."""
+    from paddle_tpu_torch.incubate.models import bert_base, gpt_345m
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.train import make_batch, make_bert_batch
+    timer = Timer()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    tt = torch.zeros(BERT_BATCH, BERT_SEQ, dtype=torch.long, device=DEVICE)
-    tt[:, BERT_SEQ // 2:] = 1
-    ids = torch.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ), generator=gen,
-                        device=DEVICE)
-    out = []
-    for rows, idx in ((2, tt), (BERT_VOCAB, ids)):
+    bert = bert_base()
+    inputs, _ = make_bert_batch(bert, BERT_BATCH, BERT_SEQ, seed=0,
+                                device=DEVICE)
+    positions = torch.arange(BERT_SEQ, device=DEVICE).expand(
+        BERT_BATCH, BERT_SEQ).contiguous()
+    gpt_ids, _ = make_batch(gpt_345m(), FUSED_BATCH, TRAIN_SEQ, seed=0,
+                            device=DEVICE)
+    shapes = (("BERT token types", 2, BERT_HIDDEN, inputs["token_type_ids"]),
+              ("BERT positions", bert.max_position_embeddings, BERT_HIDDEN,
+               positions),
+              ("BERT words", BERT_VOCAB, BERT_HIDDEN, inputs["input_ids"]),
+              ("GPT words", GPT_345M["vocab_size"], GPT_345M["hidden"],
+               gpt_ids))
+    out, varies = [], []
+    for label, rows, d, ids in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            w = torch.randn(rows, BERT_HIDDEN, generator=gen, device=DEVICE
+            w = torch.randn(rows, d, generator=gen, device=DEVICE
                             ).to(dtype).requires_grad_(True)
-            g = torch.randn(*idx.shape, BERT_HIDDEN, generator=gen,
+            g = torch.randn(*ids.shape, d, generator=gen,
                             device=DEVICE).to(dtype)
-            runs = []
-            for _ in range(8):
-                w.grad = None
-                torch.nn.functional.embedding(idx, w).backward(g)
-                runs.append(w.grad)
-            diff = max((r.float() - runs[0].float()).abs().max().item()
-                       for r in runs)
-            out.append(f"({rows}, {BERT_HIDDEN}) {str(dtype)[6:]}: 8 runs "
-                       f"{'the same bits' if diff == 0 else 'differ'} "
-                       f"(max abs diff {diff:.3e})")
-    log(f"[capture] F.embedding's backward, eager, on the same inputs at "
-        f"BERT's token-type and word-embedding shapes: {'; '.join(out)}")
+            got = {}
+            for way, fn in (("port", F.embedding),
+                            ("library", torch.nn.functional.embedding)):
+                runs = []
+                for _ in range(8):
+                    w.grad = None
+                    fn(ids, w).backward(g)
+                    runs.append(w.grad)
+                same = all(torch.equal(_bits(r), _bits(runs[0]))
+                           for r in runs)
+                y = fn(ids, w)
+                ms = timer(lambda: torch.autograd.grad(y, w, g,
+                                                       retain_graph=True))
+                got[way] = (same, ms, runs[0].float())
+            ref = got["library"][2].abs().max().item()
+            diff = (got["port"][2] - got["library"][2]).abs().max().item()
+            tag = f"{label} ({rows}, {d}) {str(dtype)[6:]}"
+            out.append(f"{tag}: port 8 runs "
+                       f"{'the same bits' if got['port'][0] else 'DIFFER'} "
+                       f"{got['port'][1]:.4f} ms, library "
+                       f"{'the same bits' if got['library'][0] else 'differ'}"
+                       f" {got['library'][1]:.4f} ms, max |port - library| "
+                       f"{diff:.3e} (max |g| {ref:.3e})")
+            if not got["port"][0] or diff > EMBED_TOL[dtype] * ref:
+                varies.append(tag)
+            w.grad = None
+    log(f"[capture] F.embedding's backward (the port's, one fixed summation "
+        f"order) against the library's, 8 eager runs each on the same "
+        f"inputs, backward ms (Timer): {'; '.join(out)} | {smi}")
+    if varies:
+        raise AssertionError(f"capture: F.embedding's backward is not the "
+                             f"same bits over 8 runs, or not the library's "
+                             f"gradient, at {varies}")
+    del timer
+    torch.cuda.empty_cache()
 
 
 def _capture_unsafe():
@@ -3648,6 +3686,32 @@ def _capture_serve(smi):
     return total
 
 
+def _bert_per_step(bert, fusion):
+    """The kernel launches of one bert_base step, the fusion pass on or
+    off."""
+    layers = bert.num_layers
+    return {"layer_norm_fwd": 2 * layers + 2,
+            "layer_norm_bwd": 2 * layers + 2,
+            "softmax_xent_fwd": 2, "softmax_xent_bwd": 2,
+            **{n: 0 for n in FLASH_KERNELS},
+            **({"ln_matmul": 1, "matmul_bias_gelu": layers + 1,
+                "layer_norm_fwd.residual": 2 * layers + 1,
+                "layer_norm_bwd.residual": 2 * layers + 1} if fusion else {
+                "layer_norm_fwd.residual": 2 * layers,
+                "layer_norm_bwd.residual": 2 * layers})}
+
+
+def _headline_per_step(gpt):
+    """The kernel launches of one step of bench_gpt's headline step (no
+    recompute, the fusion pass on) at ``gpt``'s depth."""
+    layers = gpt.num_layers
+    return {"ln_matmul": layers, "matmul_bias_gelu": layers,
+            "layer_norm_fwd": 2 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1,
+            "layer_norm_fwd.residual": 1, "layer_norm_bwd.residual": 1,
+            **{n: layers for n in FLASH_KERNELS}}
+
+
 def phase_capture(smi):
     """The captured step (``paddle_tpu_torch.jit.capture``): bert_base 32
     x 128 (pass off and on), bench_gpt's headline step (gpt_345m 8 x 1024,
@@ -3660,12 +3724,9 @@ def phase_capture(smi):
                                         build_train_step, make_batch,
                                         make_bert_batch)
     bert = bert_base()
-    layers = bert.num_layers
-    bert_ln = {"layer_norm_fwd": 2 * layers + 2,
-               "layer_norm_bwd": 2 * layers + 2,
-               "softmax_xent_fwd": 2, "softmax_xent_bwd": 2,
-               **{n: 0 for n in FLASH_KERNELS}}
-    _embedding_runs()
+    t0 = time.perf_counter()
+    _embedding_runs(smi)
+    log(f"[time] capture embedding runs {time.perf_counter() - t0:.1f} s")
     out = {}
     for fusion in (False, True):
         label = f"bert_base {BERT_BATCH}x{BERT_SEQ} pass {'on' if fusion else 'off'}"
@@ -3675,16 +3736,11 @@ def phase_capture(smi):
                                             fusion=fusion)
             return (step, *make_bert_batch(bert, BERT_BATCH, BERT_SEQ, seed=0,
                                            device=DEVICE))
-        per_step = dict(bert_ln, **({
-            "ln_matmul": 1, "matmul_bias_gelu": layers + 1,
-            "layer_norm_fwd.residual": 2 * layers + 1,
-            "layer_norm_bwd.residual": 2 * layers + 1} if fusion else {
-            "layer_norm_fwd.residual": 2 * layers,
-            "layer_norm_bwd.residual": 2 * layers}))
         want = ["LayerNorm forward", "LayerNorm backward", "cross-entropy"]
         if fusion:
             want += ["LayerNorm + matmul", "matmul + bias + gelu"]
-        out[label] = _capture_path(smi, label, make, per_step, want)
+        out[label] = _capture_path(smi, label, make,
+                                   _bert_per_step(bert, fusion), want)
 
     gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
     layers = gpt.num_layers
@@ -3695,11 +3751,7 @@ def phase_capture(smi):
                                   device=DEVICE))
     label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} fused"
     out[label] = _capture_path(
-        smi, label, make_headline,
-        {"ln_matmul": layers, "matmul_bias_gelu": layers,
-         "layer_norm_fwd": 2 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
-         "layer_norm_fwd.residual": 1, "layer_norm_bwd.residual": 1,
-         **{n: layers for n in FLASH_KERNELS}},
+        smi, label, make_headline, _headline_per_step(gpt),
         ["LayerNorm forward", "LayerNorm backward", "flash forward",
          "flash backward", "LayerNorm + matmul", "matmul + bias + gelu"])
 
@@ -3719,6 +3771,321 @@ def phase_capture(smi):
          "flash backward"])
     _capture_unsafe()
     out["serve"] = _capture_serve(smi)
+    return out
+
+
+# -- phase 12: schedules, clipping and the optimizer family -------------------
+
+def _gpt_optimizer():
+    """Megatron GPT's schedule: linear warm-up over 4 steps, then cosine
+    decay over ``SCHEDULE_STEPS``; a global-norm clip of 1.0; AdamW."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4,
+                                                    T_max=SCHEDULE_STEPS),
+                            warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+    return AdamW(sched, grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _bert_optimizer():
+    """BERT's schedule: linear warm-up over 4 steps, then linear decay to
+    0 over ``SCHEDULE_STEPS``; a global-norm clip of 1.0; AdamW."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    sched = lr.LinearWarmup(lr.PolynomialDecay(1e-4,
+                                               decay_steps=SCHEDULE_STEPS,
+                                               end_lr=0.0, power=1.0),
+                            4, 0.0, 1e-4)
+    return AdamW(sched, grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _sweep_optimizers():
+    """Every other optimizer, each under a StepDecay or ExponentialDecay
+    schedule, the per-tensor clips and the L1 / L2 decays in turn."""
+    from paddle_tpu_torch.nn import ClipGradByNorm, ClipGradByValue
+    from paddle_tpu_torch.optimizer import (SGD, Adadelta, Adagrad, Adam,
+                                            Adamax, Lamb, Momentum, NAdam,
+                                            RAdam, RMSProp, lr)
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+    return {
+        "SGD": lambda: SGD(lr.StepDecay(1e-2, step_size=2),
+                           grad_clip=ClipGradByNorm(1.0),
+                           weight_decay=L2Decay(0.01)),
+        "Momentum (Nesterov)": lambda: Momentum(
+            lr.ExponentialDecay(1e-2, gamma=0.9), use_nesterov=True,
+            grad_clip=ClipGradByValue(1.0), weight_decay=L1Decay(1e-4)),
+        "Adagrad": lambda: Adagrad(lr.StepDecay(1e-2, step_size=2),
+                                   initial_accumulator_value=0.1,
+                                   grad_clip=ClipGradByNorm(1.0)),
+        "Adadelta": lambda: Adadelta(lr.ExponentialDecay(1.0, gamma=0.9),
+                                     grad_clip=ClipGradByValue(1.0),
+                                     weight_decay=L2Decay(0.01)),
+        "RMSProp (centered, momentum 0.9)": lambda: RMSProp(
+            lr.StepDecay(1e-4, step_size=2), centered=True, momentum=0.9,
+            grad_clip=ClipGradByNorm(1.0), weight_decay=L1Decay(1e-4)),
+        "Adam (amsgrad)": lambda: Adam(
+            lr.ExponentialDecay(1e-4, gamma=0.9), amsgrad=True,
+            grad_clip=ClipGradByValue(1.0), weight_decay=L2Decay(0.01)),
+        "Adamax": lambda: Adamax(lr.StepDecay(1e-4, step_size=2),
+                                 grad_clip=ClipGradByNorm(1.0),
+                                 weight_decay=L1Decay(1e-4)),
+        "Lamb": lambda: Lamb(lr.ExponentialDecay(1e-4, gamma=0.9),
+                             grad_clip=ClipGradByValue(1.0)),
+        "NAdam": lambda: NAdam(lr.StepDecay(1e-4, step_size=2),
+                               grad_clip=ClipGradByNorm(1.0),
+                               weight_decay=L2Decay(0.01)),
+        "RAdam": lambda: RAdam(lr.ExponentialDecay(1e-4, gamma=0.9),
+                               grad_clip=ClipGradByValue(1.0),
+                               weight_decay=L1Decay(1e-4)),
+    }
+
+
+def _free_steps():
+    """Give the card back the memory of the training steps just dropped: a
+    step whose model the fusion pass traced sits in reference cycles
+    (the traced graph and its module), so its parameters and its graph's
+    memory pool wait for a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] after freeing the steps: allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+
+
+def _scheduled_run(step, inputs, targets, n_steps, what, eager):
+    """``n_steps`` of the ``TrainStep`` ``step`` under its optimizer's
+    schedule: captured (``step(...)``, which writes the learning rate
+    before each call) or, with ``eager``, ``step.eager`` after an explicit
+    ``write_lr()``.  After each step (untimed) the learning-rate tensor
+    is read back beside ``np.float32`` of the host schedule's value, then
+    the schedule steps.  Returns :func:`_run_steps`' tuple and the
+    (read, host) pairs."""
+    opt = step.optimizer
+    sched = opt._learning_rate_scheduler
+    lrs = []
+
+    def watch():
+        lrs.append((opt.lr_tensor.item(), float(np.float32(opt.get_lr()))))
+        sched.step()
+
+    def run_eager(i, t):
+        opt.write_lr()
+        return step.eager(i, t)
+    return (*_run_steps(run_eager if eager else step, inputs, targets,
+                        n_steps, what, watch=watch), lrs)
+
+
+def _schedule_path(smi, label, make, make_plain, per_step, planted):
+    """One scheduled, clipped training path, eager against captured:
+    ``make()`` builds the step with its schedule and batch (the same
+    weights, generator and schedule each call).  ``SCHEDULE_STEPS`` eager
+    and as many captured steps (:func:`_scheduled_run`) must give the
+    same losses, parameters, masters, slots, step count and generator
+    offset bit for bit, the learning-rate tensor ``np.float32`` of the
+    schedule's value at every step on both, 1 compile and ``n - 1`` hits
+    with no fallback, the launches ``per_step``.  With ``planted``, a
+    captured run whose learning-rate tensor is never written (the graph
+    called directly) must differ from eager.  Then eager, the captured
+    step and ``make_plain()``'s (phase 11's step: constant rate, no clip)
+    in turns, each profiled for its device busy time.  Returns the
+    captured run's launch counts."""
+    eager, inputs, targets = make()
+    graph, _, _ = make()
+    runs = {}
+    for way, step in (("eager", eager), ("graph", graph)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[way] = _scheduled_run(step, inputs, targets, SCHEDULE_STEPS,
+                                   f"schedule {label}", way == "eager")
+    (le, te, ne, pe, re), (lg, tg, ng, pg, rg) = runs["eager"], runs["graph"]
+    se, sg = _step_state(eager), _step_state(graph)
+    differ = _differ(se, sg)
+    digests = (_state_digest(se), _state_digest(sg), len(se))
+    offsets = (eager.generator.get_offset(), graph.generator.get_offset())
+    lr_off = [(i, a, b) for i, (a, b) in enumerate(re + rg) if a != b]
+    stuck = None
+    if planted:
+        bad, _, _ = make()
+        sched = bad.optimizer._learning_rate_scheduler
+        for _ in range(SCHEDULE_STEPS):
+            bad.captured(inputs, targets)     # no write_lr: a stale rate
+            sched.step()
+        stuck = (bad.optimizer.lr_tensor.item(),
+                 _differ(se, _step_state(bad)))
+        del bad
+    fns = {"eager": lambda: (eager.optimizer.write_lr(),
+                             eager.eager(inputs, targets))[1],
+           "graph": lambda: graph(inputs, targets)}
+    times = _capture_turns(fns)
+    busy = {w: _device_busy(fn, 2) for w, fn in fns.items()}
+    # then the schedule-free step beside the graph, the eager copy freed
+    # (three copies of gpt_345m with two graph pools do not fit)
+    del eager, fns
+    _free_steps()
+    plain, _, _ = make_plain()
+    plain(inputs, targets)                    # its warm-up and capture
+    fns = {"graph": lambda: graph(inputs, targets),
+           "plain": lambda: plain(inputs, targets)}
+    turns = ("graph", "plain", "plain", "graph")
+    pair = _capture_turns(fns, turns)
+    times.update(graph2=pair["graph"], plain=pair["plain"])
+    med = {w: statistics.median(t) * 1e3 for w, t in times.items()}
+    busy["plain"] = _device_busy(fns["plain"], 2)
+    stats = dict(graph.captured.stats)
+    pstats = dict(plain.captured.stats)
+    opt = graph.optimizer
+    log(f"[schedule] {label}: {SCHEDULE_STEPS} steps eager / captured from "
+        f"the same weights under {type(opt).__name__}("
+        f"{type(opt._learning_rate).__name__}("
+        f"{type(opt._learning_rate.lr_sched).__name__}), "
+        f"{type(opt._grad_clip).__name__}(1.0)): losses {le} / "
+        f"{lg}; learning rate read from its tensor {[a for a, _ in rg]}, "
+        f"steps off np.float32 of the schedule {lr_off[:4]}; state digest "
+        f"{digests[0]} / {digests[1]}, tensors that differ "
+        f"{differ[:4]} of {digests[2]}; generator offset {offsets[0]} / "
+        f"{offsets[1]}; capture {stats} in "
+        f"{graph.captured.capture_seconds:.3f} s; "
+        + ("" if stuck is None else
+           f"the graph replayed without writing the rate (planted): rate "
+           f"{stuck[0]}, {len(stuck[1])} tensors differ from eager "
+           f"({stuck[1][:3]}); ")
+        + f"peak memory {pe:.2f} / {pg:.2f} GB; turns "
+        f"{'/'.join(CAPTURE_TURNS)}, then {'/'.join(turns)}, of "
+        f"{CAPTURE_TURN_STEPS}: median step eager {med['eager']:.2f} ms, "
+        f"graph {med['graph']:.2f} ms; then graph {med['graph2']:.2f} ms, "
+        f"schedule-free graph (phase 11's step, {pstats['compiles']} "
+        f"compile) {med['plain']:.2f} ms (graph - schedule-free "
+        f"{med['graph2'] - med['plain']:+.2f} ms); step ms graph "
+        f"{[round(t * 1e3, 2) for t in times['graph2']]} schedule-free "
+        f"{[round(t * 1e3, 2) for t in times['plain']]}; device "
+        f"busy a step eager {busy['eager'][0]:.3f} ms ("
+        f"{busy['eager'][0] / med['eager']:.3f} of its median), graph "
+        f"{busy['graph'][0]:.3f} ms ({busy['graph'][0] / med['graph']:.3f}), "
+        f"schedule-free {busy['plain'][0]:.3f} ms "
+        f"({busy['plain'][0] / med['plain']:.3f}); device operations a step "
+        f"graph {busy['graph'][1]:.0f}, schedule-free {busy['plain'][1]:.0f}"
+        f"; launches {ne == ng} eager == graph | {smi}")
+    if (le != lg or differ or offsets[0] != offsets[1] or lr_off
+            or not all(math.isfinite(x) for x in le)):
+        raise AssertionError(f"schedule {label}: the captured step is not "
+                             f"the eager one bit for bit: losses {le} / "
+                             f"{lg}, tensors {differ[:8]}, offsets "
+                             f"{offsets}, learning rates off {lr_off[:4]}")
+    if stats["compiles"] != 1 or stats["fallback"] is not None or \
+            pstats["compiles"] != 1 or pstats["fallback"] is not None:
+        raise AssertionError(f"schedule {label}: after the turns the "
+                             f"capture reports {stats}, the schedule-free "
+                             f"step {pstats}: want 1 compile, no fallback")
+    if stuck is not None and not stuck[1]:
+        raise AssertionError(f"schedule {label}: a replay that never wrote "
+                             f"its learning rate gave the eager bits")
+    _check_counts(f"schedule {label} eager", ne, per_step, SCHEDULE_STEPS)
+    _check_counts(f"schedule {label} graph", ng, per_step, SCHEDULE_STEPS)
+    del graph, plain, fns
+    _free_steps()
+    return ng
+
+
+def _optimizer_sweep(smi):
+    """Every optimizer of :func:`_sweep_optimizers` on bench_gpt's
+    headline step cut to ``SWEEP_LAYERS`` layers (gpt_345m's widths, 8 x
+    1024, the fusion pass on, O2 bf16), ``SWEEP_STEPS`` steps eager and
+    as many captured from the same weights: losses finite and every
+    state tensor the same bits, the learning-rate tensor the schedule's
+    value, 1 compile and ``n - 1`` hits, the launches of the headline
+    step at that depth.  Returns the captured runs' launch counts,
+    summed."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = dataclasses.replace(
+        gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ),
+        num_layers=SWEEP_LAYERS)
+    inputs, targets = make_batch(cfg, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                                 device=DEVICE)
+    total = {name: 0 for name in KERNELS}
+    rows, bad = [], []
+    for name, make_opt in _sweep_optimizers().items():
+        runs, state = {}, {}
+        for way in ("eager", "graph"):
+            step = build_train_step(cfg, device=DEVICE, seed=0, fusion=True,
+                                    optimizer=make_opt())
+            runs[way] = _scheduled_run(step, inputs, targets, SWEEP_STEPS,
+                                       f"sweep {name}", way == "eager")
+            state[way] = _step_state(step)
+            slots = tuple(step.state["slots"])
+            del step
+        (le, _, ne, _, re), (lg, _, ng, _, rg) = runs["eager"], runs["graph"]
+        differ = _differ(state["eager"], state["graph"])
+        lr_off = [(a, b) for a, b in re + rg if a != b]
+        for k in total:
+            total[k] += ng.get(k, 0)
+        rows.append(f"{name} (slots {slots}): losses {le} / {lg}, rates "
+                    f"{[a for a, _ in rg]}, {len(differ)} of "
+                    f"{len(state['eager'])} tensors differ")
+        if (le != lg or differ or lr_off
+                or not all(math.isfinite(x) for x in le)):
+            bad.append(name)
+        _check_counts(f"sweep {name} eager", ne, _headline_per_step(cfg),
+                      SWEEP_STEPS)
+        _check_counts(f"sweep {name} graph", ng, _headline_per_step(cfg),
+                      SWEEP_STEPS)
+        del state
+        _free_steps()
+    log(f"[schedule] optimizer sweep, gpt_345m cut to {SWEEP_LAYERS} layers "
+        f"at {FUSED_BATCH}x{TRAIN_SEQ}, pass on, {SWEEP_STEPS} steps eager / "
+        f"captured each (1 compile, {SWEEP_STEPS - 1} hits, no fallback "
+        f"each): {'; '.join(rows)} | {smi}")
+    if bad:
+        raise AssertionError(f"schedule sweep: captured and eager steps "
+                             f"differ (or a loss is not finite) for {bad}")
+    return total
+
+
+def phase_schedule(smi):
+    """The learning rate on the card, its schedules, gradient clipping and
+    the optimizer family on the captured steps: bert_base 32 x 128 (pass
+    off) under BERT's warm-up and linear decay, with a planted fault;
+    bench_gpt's headline step under Megatron's warm-up and cosine; both
+    with a global-norm clip, each eager against captured and beside phase
+    11's schedule-free step (:func:`_schedule_path`); then the optimizer
+    sweep (:func:`_optimizer_sweep`).  Returns {path: launch counts}."""
+    from paddle_tpu_torch.incubate.models import bert_base, gpt_345m
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        build_train_step, make_batch,
+                                        make_bert_batch)
+    out = {}
+    bert = bert_base()
+    _free_steps()
+
+    def make_bert(optimizer=_bert_optimizer):
+        step = build_bert_pretrain_step(
+            bert, device=DEVICE, seed=0, fusion=False,
+            optimizer=optimizer() if optimizer else None)
+        return (step, *make_bert_batch(bert, BERT_BATCH, BERT_SEQ, seed=0,
+                                       device=DEVICE))
+    label = f"bert_base {BERT_BATCH}x{BERT_SEQ} pass off scheduled"
+    t0 = time.perf_counter()
+    out[label] = _schedule_path(smi, label, make_bert,
+                                lambda: make_bert(None),
+                                _bert_per_step(bert, False), planted=True)
+    log(f"[time] schedule {label} {time.perf_counter() - t0:.1f} s")
+    gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+
+    def make_gpt(optimizer=_gpt_optimizer):
+        step = build_train_step(gpt, device=DEVICE, seed=0, fusion=True,
+                                optimizer=optimizer() if optimizer else None)
+        return (step, *make_batch(gpt, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                                  device=DEVICE))
+    label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} fused scheduled"
+    t0 = time.perf_counter()
+    out[label] = _schedule_path(smi, label, make_gpt, lambda: make_gpt(None),
+                                _headline_per_step(gpt), planted=False)
+    log(f"[time] schedule {label} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out[f"gpt_345m {SWEEP_LAYERS} layers optimizer sweep"] = \
+        _optimizer_sweep(smi)
+    log(f"[time] schedule optimizer sweep {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3762,6 +4129,8 @@ def main() -> int:
     lap("packed")
     captured = phase_capture(smi)
     lap("capture")
+    scheduled = phase_schedule(smi)
+    lap("schedule")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -3795,6 +4164,11 @@ def main() -> int:
     # phase 11's captured paths (the serve path's graphs at all three
     # precisions)
     for path, counts in captured.items():
+        for name in by_path:
+            if counts.get(name):
+                by_path[name][f"{path} captured"] = counts[name]
+    # phase 12's scheduled, clipped paths and the optimizer sweep
+    for path, counts in scheduled.items():
         for name in by_path:
             if counts.get(name):
                 by_path[name][f"{path} captured"] = counts[name]

@@ -7,9 +7,9 @@ package traces it once into one XLA program, the port records it once
 into one ``torch.cuda.CUDAGraph`` and replays it.
 
 How a signature is captured: the first call for it runs ``fn`` eagerly
-on a side stream.  That run is the warm-up (it builds the kernels,
-traces the fusion pass, makes cuBLAS's handles on that stream) and its
-result is returned.  Then one graph of ``fn`` is recorded over static
+on a side stream (one for the process, :func:`capture_stream`).  That
+run is the warm-up (it builds the kernels, traces the fusion pass, makes
+cuBLAS's handles on that stream) and its result is returned.  Then one graph of ``fn`` is recorded over static
 copies of the tensor arguments; recording runs nothing, so the state
 after the first call is the state after one eager step.  Later calls
 copy their tensors into the static buffers and replay the graph; the
@@ -19,9 +19,15 @@ share one memory pool.
 
 What replays correctly: anything whose per-step values live on the
 device.  The optimizer's step count is a device tensor
-(:mod:`...optimizer`); the CUDA generators the step reaches are
-registered with each graph, so every replay draws new dropout masks, as
-eager steps do.  Recompute's rerun reads and sets its generator's state
+(:mod:`...optimizer`), and so is its learning rate: ``TrainStep`` writes
+``get_lr()`` into it before each call, outside the graph, so
+``set_lr``, ``set_lr_scheduler`` and ``scheduler.step()`` reach a graph
+recorded once (a learning rate passed as a Python float would be a
+cache-key leaf: each new value would record a new graph, and one baked
+into an operation's arguments would never change).  The clips' norms
+and scales are device tensors too.  The CUDA generators the step
+reaches are registered with each graph, so every replay draws new
+dropout masks, as eager steps do.  Recompute's rerun reads and sets its generator's state
 on the host (:func:`...framework.random.replay`); during a capture that
 state places the graph's draws, so each replay's rerun draws what its
 forward drew.  The kernels' TMA maps hold raw addresses that a graph
@@ -66,7 +72,7 @@ from ..ops import add_launch_counts, launch_counts, set_launch_counts
 from ..ops import fusion_pass
 
 __all__ = ["capture_step", "CapturedStep", "CapturedGraph",
-           "capture_enabled"]
+           "capture_enabled", "capture_stream"]
 
 logger = logging.getLogger("paddle_tpu_torch.jit")
 
@@ -76,6 +82,20 @@ _FALSY = {"0", "false", "no", "off"}
 def capture_enabled() -> bool:
     """False when ``PT_CAPTURE`` is 0, false, no or off."""
     return os.environ.get("PT_CAPTURE", "1").strip().lower() not in _FALSY
+
+
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The side stream every warm-up and capture on ``device`` runs on.
+    One for the process: cuBLAS keeps a workspace for each stream it
+    meets, for good, so a stream per captured step would leave one
+    behind for each step (and pin the memory around it)."""
+    device = torch.device(device)
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
 
 
 # -- trees ---------------------------------------------------------------------
@@ -334,7 +354,7 @@ class CapturedStep:
     def _capture(self, key, struct, leaves, args, kwargs, found, modules,
                  device):
         if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
+            self._stream = capture_stream(device)
             self._pool = torch.cuda.graph_pool_handle()
         static = [x.detach().clone().requires_grad_(x.requires_grad)
                   if isinstance(x, torch.Tensor) else x for x in leaves]

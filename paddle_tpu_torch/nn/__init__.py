@@ -1,7 +1,10 @@
-"""Layers, functionals and initializers of the training path
-(the counterpart of ``paddle_tpu/nn`` for the GPT and BERT steps)."""
-from . import functional, initializer
+"""Layers, functionals, initializers and gradient clips of the training
+path (the counterpart of ``paddle_tpu/nn`` for the GPT and BERT steps)."""
+from . import clip, functional, initializer
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 from .layer import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["functional", "initializer", "Dropout", "Embedding", "LayerNorm",
-           "Linear"]
+__all__ = ["clip", "functional", "initializer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
+           "clip_grad_value_", "Dropout", "Embedding", "LayerNorm", "Linear"]

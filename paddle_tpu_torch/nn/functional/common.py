@@ -4,6 +4,8 @@ counterpart of ``paddle_tpu/nn/functional/common.py``).
  - :func:`linear`: ``x @ W + b`` with the weight in ``(in, out)`` layout.
  - :func:`dropout`: ``upscale_in_train``; the mask is drawn from an
    explicit ``torch.Generator`` (:mod:`...framework.random`).
+ - :func:`embedding`: the gather, with ``padding_idx``; its backward sums
+   in an order that never changes between runs (:class:`_Embedding`).
  - :func:`scaled_dot_product_attention`: the JAX package's plain softmax
    attention below ``flash_min_seq`` (512,
    ``paddle_tpu/framework/flags.py``) or with an ``attn_mask``; from 512
@@ -19,8 +21,8 @@ import torch
 
 from ...ops import pallas_ops
 
-__all__ = ["FLASH_MIN_SEQ", "linear", "dropout", "embedding",
-           "scaled_dot_product_attention"]
+__all__ = ["FLASH_MIN_SEQ", "ONE_HOT_MAX_ROWS", "linear", "dropout",
+           "embedding", "scaled_dot_product_attention"]
 
 #: sequence length from which attention belongs to the flash kernels
 FLASH_MIN_SEQ = 512
@@ -49,9 +51,65 @@ def dropout(x, p=0.5, training=True, generator=None):
                                                         device=x.device))
 
 
-def embedding(x, weight):
-    """Rows of ``weight`` at the ids ``x``."""
-    return torch.nn.functional.embedding(x, weight)
+#: tables of at most this many rows take the one-hot product backward
+ONE_HOT_MAX_ROWS = 16
+
+
+class _Embedding(torch.autograd.Function):
+    """The gather and a backward whose sums never change order between
+    runs (the library's CUDA backward adds a row's repeats in an order
+    that varies).  A table of at most ``ONE_HOT_MAX_ROWS`` rows (BERT's
+    token types) takes ``one_hot(ids).T @ grad`` (a cuBLAS product; TF32
+    off, PyTorch's default); a larger one a stable sort of the ids, then
+    the gradient's rows added in that order into an f32 table, cast to
+    the weight's dtype: on the card by ``index_put_(accumulate=True)``,
+    a sort-based kernel that adds each id's rows in sequence (its
+    ``index_add_`` adds by atomics), on the CPU by ``index_add_``, which
+    adds row after row (its ``index_put_`` accumulates in parallel).
+    Every shape is fixed by the inputs' shapes, so the backward records
+    inside a CUDA graph."""
+
+    @staticmethod
+    def forward(ctx, ids, weight, padding_idx):
+        flat = ids.reshape(-1)
+        out = weight.index_select(0, flat)
+        if padding_idx is not None:
+            out = out.masked_fill((flat == padding_idx).unsqueeze(-1), 0)
+        ctx.save_for_backward(flat)
+        ctx.rows, ctx.dtype, ctx.padding_idx = (weight.shape[0], weight.dtype,
+                                                padding_idx)
+        return out.view(*ids.shape, weight.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        g = grad.reshape(flat.numel(), -1)
+        if ctx.padding_idx is not None:
+            g = g.masked_fill((flat == ctx.padding_idx).unsqueeze(-1), 0)
+        rows = ctx.rows
+        if rows <= ONE_HOT_MAX_ROWS:
+            one_hot = (flat.unsqueeze(-1) == torch.arange(
+                rows, device=flat.device)).to(g.dtype)
+            return None, (one_hot.t() @ g).to(ctx.dtype), None
+        ids, order = torch.sort(flat, stable=True)
+        vals = g.index_select(0, order).float()
+        gw = torch.zeros(rows, g.shape[1], dtype=torch.float32,
+                         device=g.device)
+        if gw.is_cuda:
+            gw.index_put_((ids,), vals, accumulate=True)
+        else:
+            gw.index_add_(0, ids, vals)
+        return None, gw.to(ctx.dtype), None
+
+
+def embedding(x, weight, padding_idx=None):
+    """Rows of ``weight`` at the ids ``x``; positions whose id is
+    ``padding_idx`` (negative counts from the end) give 0 and send no
+    gradient to that row.  The backward's sums are the same bits on
+    every run (:class:`_Embedding`)."""
+    if padding_idx is not None and padding_idx < 0:
+        padding_idx += weight.shape[0]
+    return _Embedding.apply(x, weight, padding_idx)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

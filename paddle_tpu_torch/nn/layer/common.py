@@ -35,16 +35,23 @@ class Linear(torch.nn.Module):
 
 class Embedding(torch.nn.Module):
     """A ``(num_embeddings, embedding_dim)`` table drawn by
-    ``weight_attr``."""
+    ``weight_attr``; row ``padding_idx`` (negative counts from the end)
+    starts at 0, and positions holding it give 0 (:func:`F.embedding`)."""
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr, *,
-                 generator):
+                 generator, padding_idx=None):
         super().__init__()
         self.weight = _param(weight_attr, (num_embeddings, embedding_dim),
                              generator)
+        if padding_idx is not None and padding_idx < 0:
+            padding_idx += num_embeddings
+        self._padding_idx = padding_idx
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
 class Dropout(torch.nn.Module):

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..jit import CapturedGraph, capture_enabled
+from ..jit import CapturedGraph, capture_enabled, capture_stream
 from .kv_cache import NULL_PAGE, PagePool, kv_page_budget
 from .model import ModelSpec, decode_step, params_from_numpy, prefill_step
 
@@ -261,7 +261,7 @@ class ServingEngine:
         maxp = self.max_pages_per_seq
         graphs = self.device.type == "cuda" and capture_enabled()
         if graphs:
-            stream = torch.cuda.Stream(self.device)
+            stream = capture_stream(self.device)
             pool = torch.cuda.graph_pool_handle()
         for s in self.config.prefill_buckets:
             host = {"tokens": np.zeros((s,), np.int32),

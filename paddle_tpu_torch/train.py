@@ -12,8 +12,9 @@ The GPT step: ``GPTForCausalLM`` (recompute per block unless
 a phase-1-style masked batch (:func:`make_bert_batch`).  Both: dropout
 0.1 on the hidden states and the attention probabilities, AMP O2 in
 bf16, the loss in f32, the backward pass, and ``AdamW(1e-4)`` with f32
-master weights and weight decay 0.01 on every parameter.  The fusion
-pass (:mod:`.ops.fusion_pass`) rewrites the model's clusters to the block
+master weights and weight decay 0.01 on every parameter (the builders
+take any ``optimizer=``: a schedule, a clip, another optimizer).  The
+fusion pass (:mod:`.ops.fusion_pass`) rewrites the model's clusters to the block
 kernels unless ``--no-fusion`` or ``PT_FUSION_PASS=0``, as the JAX
 package applies it to bench's GPT step, captured steps and hapi.  Batches come from
 ``np.random.RandomState(0)``; one generator seeded with 0 draws the
@@ -66,7 +67,10 @@ class EagerStep:
     gradients, and the optimizer's update of every parameter (``params``,
     with the optimizer's ``state``), in place; ``generator`` feeds every
     dropout.  Each parameter's gradient is dropped after the update, so
-    under capture the gradients live in the graph's memory pool."""
+    under capture the gradients live in the graph's memory pool.  The
+    update reads the learning rate from ``optimizer.lr_tensor``: a caller
+    that runs this step directly under a schedule calls
+    ``optimizer.write_lr()`` first, as :class:`TrainStep` does."""
 
     def __init__(self, model, criterion, optimizer, generator, params,
                  state):
@@ -129,24 +133,32 @@ class TrainStep:
         """Run the step on the model's ``inputs`` and the criterion's
         ``targets``, each one tensor (GPT's ids and labels) or a dict of
         keyword arguments (:func:`make_bert_batch`); returns the f32
-        loss (before the update)."""
+        loss (before the update).  The optimizer's learning rate
+        (``get_lr()``: its scheduler's value, or ``set_lr``'s) is first
+        written into its tensor on the device, outside the graph, which
+        reads it at each replay."""
+        self.optimizer.write_lr()
         return self.captured(inputs, targets)
 
 
+def _default_optimizer() -> Optimizer:
+    return AdamW(learning_rate=1e-4, multi_precision=True)
+
+
 def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
-                     amp_o2: bool = True,
-                     fusion: Optional[bool] = None) -> TrainStep:
+                     amp_o2: bool = True, fusion: Optional[bool] = None,
+                     optimizer: Optional[Optimizer] = None) -> TrainStep:
     """bench_gpt's step for ``cfg`` on ``device`` (``cuda`` unless the
     CPU is asked for): weights from ``seed``, bf16 O2 unless ``amp_o2``
-    is false (f32 then), ``AdamW(1e-4, multi_precision=True)``, the
-    fusion pass as ``fusion`` says (:class:`TrainStep`)."""
+    is false (f32 then), ``optimizer`` (by default ``AdamW(1e-4,
+    multi_precision=True)``), the fusion pass as ``fusion`` says
+    (:class:`TrainStep`)."""
     gen = make_generator(seed, device)
     model = GPTForCausalLM(cfg, generator=gen)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
     return TrainStep(model, GPTPretrainingCriterion(),
-                     AdamW(learning_rate=1e-4, multi_precision=True),
-                     gen, fusion=fusion)
+                     optimizer or _default_optimizer(), gen, fusion=fusion)
 
 
 def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
@@ -162,18 +174,20 @@ def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
 
 def build_bert_pretrain_step(cfg: BertConfig, *, device=None, seed: int = 0,
                              amp_o2: bool = True,
-                             fusion: Optional[bool] = None) -> TrainStep:
+                             fusion: Optional[bool] = None,
+                             optimizer: Optional[Optimizer] = None
+                             ) -> TrainStep:
     """The BERT pretraining step for ``cfg`` on ``device`` (``cuda``
     unless the CPU is asked for): weights from ``seed``, bf16 O2 unless
-    ``amp_o2`` is false (f32 then), ``AdamW(1e-4, multi_precision=True)``,
-    the fusion pass as ``fusion`` says (:class:`TrainStep`)."""
+    ``amp_o2`` is false (f32 then), ``optimizer`` (by default
+    ``AdamW(1e-4, multi_precision=True)``), the fusion pass as ``fusion``
+    says (:class:`TrainStep`)."""
     gen = make_generator(seed, device)
     model = BertForPretraining(cfg, generator=gen)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
     return TrainStep(model, BertPretrainingCriterion(),
-                     AdamW(learning_rate=1e-4, multi_precision=True), gen,
-                     fusion=fusion)
+                     optimizer or _default_optimizer(), gen, fusion=fusion)
 
 
 def make_bert_batch(cfg: BertConfig, batch: int, seq: int, seed: int = 0,

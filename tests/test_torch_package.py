@@ -50,6 +50,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert 'paddle_tpu_torch.jit.capture' in names, names\n"
+        "for m in ('optimizer.lr', 'optimizer.lbfgs', 'nn.clip',\n"
+        "          'regularizer'):\n"
+        "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
+        "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          capture_output=True, text=True, timeout=120)

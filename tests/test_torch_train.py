@@ -17,7 +17,13 @@ Tolerances:
    0 in exact arithmetic), so an f32 master may differ by up to
    ``2 * lr`` per step: all within ``2 * lr * steps``, and 99% of them
    within ``2 * lr``;
- - recompute on and off: identical loss and gradients with dropout 0.1.
+ - recompute on and off: identical loss and gradients with dropout 0.1;
+ - the tree update of every optimizer (``OPTIMIZERS``: Adam and AdamW
+   as before, then SGD, Momentum, Nesterov, Adagrad, Adadelta, RMSProp,
+   AMSGrad, Adamax, Lamb, NAdam, RAdam with schedules, the three clips
+   and the decay modes) against the JAX ``apply_gradients_tree`` given
+   the schedule's value as ``lr=``: parameters within 1e-6, slots
+   within 1e-5 relative.
 """
 import io
 import contextlib
@@ -44,7 +50,10 @@ from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               gpt_tiny, params_from_numpy)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import fused_kernels as tfk
-from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch import optimizer as topt_mod
+from paddle_tpu_torch import regularizer as treg
+from paddle_tpu_torch.optimizer import AdamW
 
 B, S, LR, STEPS = 2, 64, 1e-4, 4
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -179,43 +188,112 @@ def test_adamw_trajectory_matches_jax(jax_f32, o2):
     assert within >= 0.99 * total
 
 
-@pytest.mark.parametrize("name", ["Adam", "AdamW"])
+# every optimizer of the tree API: (JAX class, constructor keywords, the
+# schedule of both packages (None: a constant 1e-3), the clip, updates).
+# Adam and AdamW are the first cases (L2 weight decay 0.01, and AdamW's
+# decoupled default; constant rate, no clip, 3 updates); the others rotate
+# the three clips and the decay modes (a float: L2; L2Decay; L1Decay) and
+# take a StepDecay, ExponentialDecay or warm-up schedule over 8 updates.
+# RAdam with beta2 0.9 switches to the rectified step at its sixth update.
+_SCHED = {
+    "step": lambda lr: lr.StepDecay(1e-2, step_size=3, gamma=0.5),
+    "exp": lambda lr: lr.ExponentialDecay(1e-2, gamma=0.8),
+    "warm": lambda lr: lr.LinearWarmup(lr.CosineAnnealingDecay(
+        1e-2, T_max=6), warmup_steps=3, start_lr=0.0, end_lr=1e-2),
+}
+_CLIP = {"global": lambda nn: nn.ClipGradByGlobalNorm(1.0),
+         "norm": lambda nn: nn.ClipGradByNorm(1.0),
+         "value": lambda nn: nn.ClipGradByValue(0.5)}
+_DECAY = {"l1": lambda reg: reg.L1Decay(0.01),
+          "l2": lambda reg: reg.L2Decay(0.01)}
+OPTIMIZERS = {
+    "Adam": ("Adam", {"weight_decay": 0.01}, None, None, None, 3),
+    "AdamW": ("AdamW", {}, None, None, None, 3),
+    "SGD": ("SGD", {}, "step", "global", "l2", 8),
+    "Momentum": ("Momentum", {"momentum": 0.9}, "exp", "norm", "l1", 8),
+    "Momentum_nesterov": ("Momentum", {"use_nesterov": True,
+                                       "weight_decay": 0.01},
+                          "step", "value", None, 8),
+    "Adagrad": ("Adagrad", {"initial_accumulator_value": 0.1}, "exp",
+                "global", "l2", 8),
+    "Adadelta": ("Adadelta", {"learning_rate": 1.0}, None, "norm", "l1", 8),
+    "RMSProp": ("RMSProp", {"centered": True, "momentum": 0.9}, "warm",
+                "value", "l2", 8),
+    "Adam_amsgrad": ("Adam", {"amsgrad": True}, "warm", "global", "l1", 8),
+    "AdamW_clip": ("AdamW", {}, "warm", "global", None, 8),
+    "Adamax": ("Adamax", {}, "step", "norm", "l2", 8),
+    "Lamb": ("Lamb", {"lamb_weight_decay": 0.01}, "exp", "value", None, 8),
+    "NAdam": ("NAdam", {}, "step", "global", "l1", 8),
+    "RAdam": ("RAdam", {"beta2": 0.9}, "exp", "norm", "l2", 8),
+}
+
+
+@pytest.mark.parametrize("name", list(OPTIMIZERS))
 def test_optimizer_tree_matches_jax(name):
-    # f32 and bf16 parameters (the latter with f32 masters), L2 (Adam,
-    # weight_decay 0.01) or decoupled decay (AdamW's default), 3 updates
-    # from the same gradients
+    # f32 and bf16 parameters (the latter with f32 masters) updated from
+    # the same gradients; the JAX tree takes the schedule's value as lr=,
+    # the port reads its learning-rate tensor, written by write_lr()
+    cls, kw, sched, clip, decay, steps = OPTIMIZERS[name]
     rng = np.random.RandomState(9)
     params = {"w": rng.randn(6, 5).astype(np.float32),
               "b": rng.randn(5).astype(np.float32)}
     grads = [{k: rng.randn(*v.shape).astype(np.float32)
-              for k, v in params.items()} for _ in range(3)]
-    kw = {"weight_decay": 0.01} if name == "Adam" else {}
-    jopt = getattr(pt.optimizer, name)(
-        learning_rate=1e-3, parameters=pt.nn.Linear(2, 2).parameters(), **kw)
-    topt = {"Adam": Adam, "AdamW": AdamW}[name](learning_rate=1e-3, **kw)
+              for k, v in params.items()} for _ in range(steps)]
+    jkw, tkw = dict(kw), dict(kw)
+    jkw.setdefault("learning_rate", 1e-3)
+    tkw.setdefault("learning_rate", 1e-3)
+    jsched = tsched = None
+    if sched:
+        jsched, tsched = _SCHED[sched](pt.optimizer.lr), \
+            _SCHED[sched](topt_mod.lr)
+        jkw["learning_rate"], tkw["learning_rate"] = jsched, tsched
+    if clip:
+        jkw["grad_clip"], tkw["grad_clip"] = _CLIP[clip](pt.nn), \
+            _CLIP[clip](tnn)
+    if decay:
+        jkw["weight_decay"] = _DECAY[decay](pt.regularizer)
+        tkw["weight_decay"] = _DECAY[decay](treg)
+    jopt = getattr(pt.optimizer, cls)(
+        parameters=pt.nn.Linear(2, 2).parameters(), **jkw)
+    topt = getattr(topt_mod, cls)(**tkw)
+    assert tuple(topt._state_slots) == tuple(jopt._state_slots)
     jp = {"w": jnp.asarray(params["w"]),
           "b": jnp.asarray(params["b"], jnp.bfloat16)}
     tp = {"w": torch.from_numpy(params["w"]),
           "b": torch.from_numpy(params["b"]).to(torch.bfloat16)}
     jstate, tstate = jopt.init_state_tree(jp), topt.init_state_tree(tp)
+    if cls == "Adagrad":
+        # the JAX tree starts its accumulator at 0; its eager step starts
+        # it at initial_accumulator_value (_init_slot), as the port's does
+        jstate["slots"]["moment"] = {
+            k: v + kw["initial_accumulator_value"]
+            for k, v in jstate["slots"]["moment"].items()}
     for g in grads:
         jp, jstate = jopt.apply_gradients_tree(
             jp, {"w": jnp.asarray(g["w"]),
-                 "b": jnp.asarray(g["b"], jnp.bfloat16)}, jstate)
+                 "b": jnp.asarray(g["b"], jnp.bfloat16)}, jstate,
+            lr=jsched() if jsched else None)
+        topt.write_lr()
         topt.apply_gradients_tree(
             tp, {"w": torch.from_numpy(g["w"]),
                  "b": torch.from_numpy(g["b"]).to(torch.bfloat16)}, tstate)
+        assert topt.lr_tensor.item() == np.float32(jopt.get_lr())
+        if jsched:
+            jsched.step()
+            tsched.step()
     assert tp["b"].dtype == torch.bfloat16 and set(tstate["master"]) == {"b"}
+    assert int(tstate["step"]) == int(jstate["step"]) == steps
     np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]),
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(tstate["master"]["b"].numpy(),
                                np.asarray(jstate["master"]["b"]), rtol=0,
                                atol=1e-6)
-    for slot in ("moment1", "moment2"):
+    for slot in topt._state_slots:
         for k in ("w", "b"):
             np.testing.assert_allclose(
                 tstate["slots"][slot][k].numpy(),
-                np.asarray(jstate["slots"][slot][k]), rtol=1e-5, atol=1e-7)
+                np.asarray(jstate["slots"][slot][k]), rtol=1e-5, atol=1e-7,
+                err_msg=f"{slot} {k}")
 
 
 def test_recompute_replays_dropout_masks(jax_f32):
