@@ -227,6 +227,38 @@ line is printed:
              4 steps eager and 4 captured each, under StepDecay or
              ExponentialDecay with the per-tensor clips and the L1 / L2
              decays in turn: the same bits and 1 compile each.
+13. checkpoint  checkpoints on the card, in a temporary directory whose
+             free space is checked first (a shortfall fails, named) and
+             whose files each path removes after its check: bench_gpt's
+             headline step (gpt_345m 8 x 1024, pass on, dropout 0.1,
+             phase 12's AdamW with warm-up and cosine, clip 1.0) run 6
+             captured steps uninterrupted; a second run saves after step
+             3 through a ``CheckpointManager``, synchronously (timed, then
+             removed) and asynchronously (the caller's stall timed, the
+             run going on while the writer writes; a second async save
+             after step 6 timed too, then removed); a fresh step from
+             seed 1 restored there runs steps 4-6: every loss, LR reading,
+             state tensor and the generator the uninterrupted bits, 1
+             compile, no fallback, the launches of phase 12; then the
+             same restore into the first run's captured step.  bert_base
+             32 x 128 (pass off, BERT's recipe) the same, saving steps 2
+             and 3; then step 3 corrupted twice (a flipped byte, which the
+             manifest CRC catches; a flipped bit under a re-sealed
+             manifest, which only the content digest catches): each time
+             ``restore_latest`` falls back to step 2, the error naming the
+             leaf, and the restored step runs to the uninterrupted bits.
+             Then phase 5's gpt_345m weights through ``save_served_model``
+             and ``load_engine`` at fp32, bf16 (decode bucket 16) and
+             int8, each engine's tokens on phase 5's requests those of an
+             engine built in memory; ``save_quantized_model`` with
+             calibration on the card, its directory served against the
+             int8 engine; ``logit_divergence`` at full width; then the hot
+             reload over HTTP: generation 1 (the weights perturbed) saved,
+             ``POST /v1/reload`` with 16 requests in flight, ``/healthz``'s
+             ``weights_step`` 1, the tokens after equal to a fresh
+             engine's on generation 1, the graphs the same objects, none
+             captured again.  Save, restore and reload seconds, GB and
+             GB/s, decode tokens/s before and after the reload.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -244,6 +276,8 @@ import inspect
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -298,6 +332,11 @@ BERT_PLAIN_TOL = 5e-3
 # sum where the unfused step rounds to bf16 first; 24 layers)
 FUSION_TOL = 5e-3
 FUSED_BATCH, FUSED_STEPS, FUSED_CMP_STEPS = 8, 8, 3     # bench_gpt's rung
+# logit_divergence of gpt_345m (fp32 against int8) on the card against the
+# same call on the CPU's plain path, same weights and prompts: relative
+# gap.  The int8 weights are the same bits on both; the int8 KV pages
+# round activations that differ in fp32's last bits, so a level may flip
+DIVERGENCE_RTOL = 5e-2
 # the block kernels against their plain versions: max |err| within this
 # share of max |ref| (f32: sums in another order; bf16: about 2.5 bf16
 # steps of the largest output, one rounding of h and of the output)
@@ -343,6 +382,9 @@ EMBED_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # optimizer sweep on gpt_345m cut to SWEEP_LAYERS layers
 SCHEDULE_STEPS = 12
 SWEEP_LAYERS, SWEEP_STEPS = 2, 4
+# phase 13: steps of the uninterrupted run, the step saved and resumed
+# from, and the free disk a path needs over the bytes it writes
+RESUME_STEPS, RESUME_SAVE_AT, CKPT_DISK_MARGIN = 6, 3, 1.2
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -4089,6 +4131,622 @@ def phase_schedule(smi):
     return out
 
 
+# -- phase 13: checkpoints, resume, served-model directories, hot reload ------
+
+def _tree_bytes(tree):
+    """The bytes of a nested dict's tensors (what a checkpoint of it
+    holds, less the headers)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _need_disk(what, path, nbytes):
+    """Fail, naming the shortfall, when ``path``'s filesystem has less
+    than ``nbytes`` (times ``CKPT_DISK_MARGIN``) free."""
+    need = nbytes * CKPT_DISK_MARGIN
+    free = shutil.disk_usage(path).free
+    log(f"[checkpoint] {what}: {free / 1e9:.2f} GB free at {path} "
+        f"({_filesystem(path)}), {need / 1e9:.2f} GB needed")
+    if free < need:
+        raise AssertionError(f"checkpoint {what}: {path} has "
+                             f"{free / 1e9:.2f} GB free, {need / 1e9:.2f} GB "
+                             f"needed: short by {(need - free) / 1e9:.2f} GB")
+
+
+def _filesystem(path):
+    """The type and source of the filesystem holding ``path`` (from
+    ``/proc/mounts``, read only)."""
+    path, best = os.path.realpath(path), ("?", "?", "")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                src, mnt, kind = line.split()[:3]
+                if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) >= len(best[2]):
+                    best = (kind, src, mnt)
+    except OSError:
+        pass
+    return f"{best[0]} {best[1]} on {best[2] or '?'}"
+
+
+def _resume_run(step, inputs, targets, n):
+    """``n`` captured steps of a scheduled ``TrainStep``: (losses, the
+    learning-rate tensor read after each step); the schedule steps after
+    each."""
+    opt = step.optimizer
+    sched = opt._learning_rate_scheduler
+    losses, rates = [], []
+    for _ in range(n):
+        losses.append(step(inputs, targets).item())
+        rates.append(opt.lr_tensor.item())
+        sched.step()
+    return losses, rates
+
+
+def _resume_state(step):
+    """Every state tensor of a step (:func:`_step_state`) and its
+    generator's state, cloned."""
+    out = {k: v.detach().clone() for k, v in _step_state(step).items()}
+    out["generator"] = step.generator.get_state()
+    return out
+
+
+def _on_card(state):
+    """``state`` without the generator's (host) state."""
+    return {k: v for k, v in state.items() if k != "generator"}
+
+
+def _resume_check(what, want, got, step, calls):
+    """``got`` ((losses, rates), state) the same bits as ``want``, and
+    ``step`` captured once over ``calls`` calls with no fallback."""
+    (wl, wr), ws = want
+    (gl, gr), gs = got
+    differ = _differ(ws, gs)
+    stats = step.captured.stats
+    log(f"[checkpoint] {what}: losses {gl} (uninterrupted {wl}); learning "
+        f"rate {gr} ({wr}); state digest {_state_digest(_on_card(gs))} "
+        f"({_state_digest(_on_card(ws))}), tensors that differ "
+        f"{differ[:4]} of "
+        f"{len(ws)}; capture {stats}")
+    if (gl, gr) != (wl, wr) or differ:
+        raise AssertionError(f"checkpoint {what}: the resumed run is not the "
+                             f"uninterrupted one bit for bit: losses {gl} / "
+                             f"{wl}, rates {gr} / {wr}, tensors {differ[:8]}")
+    _check_captured(what, step, calls)
+
+
+def _corrupt_fallback(what, mgr_root, newest, older, fault, step, inputs,
+                      targets, want):
+    """Corrupt step ``newest`` under ``mgr_root`` with ``fault`` (which
+    returns the shard file it hit), check that a full verify names it,
+    that ``restore_latest`` falls back to ``older``, and that the step
+    restored from there runs to ``want``'s bits.  Returns the error."""
+    from paddle_tpu_torch.distributed import (CheckpointCorruptError,
+                                              CheckpointManager,
+                                              verify_checkpoint)
+    from paddle_tpu_torch.train import restore_checkpoint
+    mgr = CheckpointManager(mgr_root, orphan_age=None)
+    rel = fault(mgr.step_dir(newest))
+    leaf_dir = rel.split(os.sep)[-2]
+    try:
+        verify_checkpoint(mgr.step_dir(newest), integrity="full")
+        err = None
+    except CheckpointCorruptError as e:
+        err = str(e)
+    if err is None or leaf_dir not in err:
+        raise AssertionError(f"checkpoint {what}: a full verify of the "
+                             f"corrupted step {newest} gave {err!r}, which "
+                             f"does not name {leaf_dir}")
+    n = restore_checkpoint(mgr, step)
+    calls = step.captured.stats["hits"] + 1
+    run = _resume_run(step, inputs, targets, RESUME_STEPS - older)
+    _resume_check(f"{what}: fell back to step {n}", want,
+                  (run, _resume_state(step)), step,
+                  calls + RESUME_STEPS - older)
+    if n != older:
+        raise AssertionError(f"checkpoint {what}: restore_latest gave step "
+                             f"{n}, not the older step {older}")
+    return err
+
+
+def _flip_byte(step_dir, mask=0xFF):
+    """XOR the last byte of the step's first shard file with ``mask``
+    (its manifest CRC no longer matches; the same call again undoes it);
+    returns the file, relative to the step."""
+    rel = _shard_files(step_dir)[0]
+    with open(os.path.join(step_dir, rel), "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([b[0] ^ mask]))
+    return rel
+
+
+def _poison(step_dir):
+    """Flip one bit of the step's first shard file and re-seal its
+    COMMIT manifest's CRC over the corrupted bytes: corruption before
+    serialization, which only the content digest catches."""
+    import zlib
+    rel = _flip_byte(step_dir, 0x01)
+    with open(os.path.join(step_dir, rel), "rb") as f:
+        data = f.read()
+    marker = os.path.join(step_dir, "COMMIT.0")
+    with open(marker) as f:
+        mk = json.load(f)
+    mk["files"][rel.replace(os.sep, "/")]["crc32"] = \
+        zlib.crc32(data) & 0xFFFFFFFF
+    with open(marker, "w") as f:
+        json.dump(mk, f)
+    return rel
+
+
+def _shard_files(step_dir):
+    out = []
+    for d, _, files in os.walk(os.path.join(step_dir, "data")):
+        out += [os.path.relpath(os.path.join(d, f), step_dir) for f in files]
+    return sorted(out)
+
+
+def _resume_path(smi, label, make, per_step, root, corrupt):
+    """One training path saved and resumed on the card.  ``make(seed)``
+    builds the scheduled, clipped step and its batch.  Run A: the
+    uninterrupted ``RESUME_STEPS`` captured steps.  Run B (seed 0):
+    ``RESUME_SAVE_AT`` steps, a synchronous save (timed, then removed)
+    and an asynchronous one through a ``CheckpointManager`` (the caller's
+    stall timed; B runs on while the writer writes); with ``corrupt``,
+    B first saves one step earlier too.  Then a fresh step from seed 1,
+    the checkpoint restored into it, the remaining steps: losses, LR
+    readings, every state tensor and the generator the bits of A, 1
+    compile, no fallback; then the same restore into A itself (already
+    captured).  With ``corrupt``, the newest step is corrupted twice (a
+    flipped byte, then a flipped bit under a re-sealed manifest) and
+    each time ``restore_latest`` falls back to the older step, the error
+    naming the leaf.  Returns the fresh step's launch counts."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.train import restore_checkpoint, save_checkpoint
+    a, inputs, targets = make(0)
+    run_a = _resume_run(a, inputs, targets, RESUME_STEPS)
+    want_a = (run_a, _resume_state(a))
+    k = RESUME_SAVE_AT
+    want = ((run_a[0][k:], run_a[1][k:]), want_a[1])
+    older = k - 1
+    want_older = ((run_a[0][older:], run_a[1][older:]), want_a[1])
+    b, _, _ = make(0)
+    gen_bytes = _tree_bytes(b.checkpoint_tree())
+    # the async save's generations (two with corrupt) and the second one
+    _need_disk(label, root, gen_bytes * (3 if corrupt else 2))
+    if corrupt:
+        _resume_run(b, inputs, targets, older)
+        save_checkpoint(CheckpointManager(os.path.join(root, "run")), older, b)
+        _resume_run(b, inputs, targets, 1)
+    else:
+        _resume_run(b, inputs, targets, k)
+    t0 = time.perf_counter()
+    save_checkpoint(CheckpointManager(os.path.join(root, "sync")), k, b)
+    sync_s = time.perf_counter() - t0
+    disk = _dir_bytes(os.path.join(root, "sync"))
+    shutil.rmtree(os.path.join(root, "sync"))
+    mgr = CheckpointManager(os.path.join(root, "run"), async_save=True)
+    t0 = time.perf_counter()
+    save_checkpoint(mgr, k, b)
+    stall_s = time.perf_counter() - t0
+    run_b = _resume_run(b, inputs, targets, RESUME_STEPS - k)
+    mgr.wait()
+    async_s = time.perf_counter() - t0
+    b_differ = _differ(want_a[1], _resume_state(b))
+    # a second async save: the host allocator now holds the pinned blocks
+    # the first one's copy was made in
+    again = CheckpointManager(os.path.join(root, "again"), async_save=True)
+    t0 = time.perf_counter()
+    save_checkpoint(again, RESUME_STEPS, b)
+    stall2_s = time.perf_counter() - t0
+    again.wait()
+    shutil.rmtree(again.root)
+    del b
+    _free_steps()
+    c, _, _ = make(1)
+    t0 = time.perf_counter()
+    n = restore_checkpoint(mgr, c)
+    restore_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run_c = _resume_run(c, inputs, targets, RESUME_STEPS - k)
+    launches = {name: KERNELS[name].launches for name in KERNELS}
+    for name in LN_KERNELS:
+        launches[name + ".residual"] = KERNELS[name].residual_launches
+    log(f"[checkpoint] {label}: a generation {gen_bytes / 1e9:.3f} GB of "
+        f"tensors, {disk / 1e9:.3f} GB on disk; sync save {sync_s:.2f} s "
+        f"({disk / 1e9 / sync_s:.2f} GB/s); async save: the caller stalled "
+        f"{stall_s:.2f} s (the host copy), committed after {async_s:.2f} s "
+        f"while {RESUME_STEPS - k} steps ran on ({disk / 1e9 / async_s:.2f} "
+        f"GB/s), a second async save stalled {stall2_s:.2f} s; restore {restore_s:.2f} s ({disk / 1e9 / restore_s:.2f} "
+        f"GB/s, verified in full) | {smi}")
+    if n != k or run_b != want[0] or b_differ:
+        raise AssertionError(f"checkpoint {label}: restored step {n}; the "
+                             f"saving run went on to {run_b} against "
+                             f"{want[0]}, tensors {b_differ[:4]}")
+    _resume_check(f"{label} fresh step (seed 1) restored", want,
+                  (run_c, _resume_state(c)), c, RESUME_STEPS - k)
+    _check_counts(f"checkpoint {label}", launches, per_step,
+                  RESUME_STEPS - k)
+    del c
+    _free_steps()
+    n = restore_checkpoint(mgr, a)
+    run_a2 = _resume_run(a, inputs, targets, RESUME_STEPS - k)
+    _resume_check(f"{label} the captured step restored", want,
+                  (run_a2, _resume_state(a)), a, 2 * RESUME_STEPS - k)
+    if corrupt:
+        run = os.path.join(root, "run")
+        for fault in (_flip_byte, _poison):
+            err = _corrupt_fallback(f"{label} {fault.__name__[1:]}", run, k,
+                                    older, fault, a, inputs, targets,
+                                    want_older)
+            log(f"[checkpoint] {label}: {fault.__name__[1:]} of step {k}: "
+                f"{err}")
+            if fault is _flip_byte:   # undo the flip: one fault at a time
+                _flip_byte(os.path.join(run, f"step_{k:08d}"))
+    del a
+    _free_steps()
+    return launches
+
+
+def _served_paths(smi, root):
+    """Serving from a model directory at full width (phase 5's gpt_345m
+    weights and requests): ``save_served_model``, then ``load_engine`` at
+    fp32, bf16 (one decode bucket, 16) and int8, each engine's tokens
+    those of an engine built in memory from the same weights; then
+    ``save_quantized_model`` (calibration on the card) served from its
+    directory against the int8 engine, and ``logit_divergence``.  Then
+    the hot reload over HTTP (:func:`_reload_path`).  Returns {path:
+    launch counts}."""
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.serving import (ModelSpec, ServeConfig,
+                                          ServingEngine, init_params,
+                                          load_engine, save_served_model)
+    from paddle_tpu_torch.serving.quant import (default_calibration_prompts,
+                                                logit_divergence,
+                                                save_quantized_model)
+    spec = ModelSpec(**GPT_345M)
+    prompts = _serve_prompts(spec.vocab_size)
+    params = init_params(spec, seed=0, device=DEVICE)
+    pbytes = _tree_bytes(params)
+    _need_disk("served-model dirs", root, pbytes * 2.5)
+    cfg = ServeConfig(decode_buckets=(2, 4, 8, 16),
+                      prefill_buckets=(64, 128, 256, 512), kv_pages=1024,
+                      page_size=PAGE_SIZE, max_inflight=64, max_new_tokens=32)
+    t0 = time.perf_counter()
+    path = save_served_model(os.path.join(root, "fp32"), spec, params, cfg)
+    save_s = time.perf_counter() - t0
+    out, tokens, engines = {}, {}, {}
+    for prec in ("fp32", "bf16", "int8"):
+        kw = {"precision": prec}
+        if prec == "bf16":          # bf16's join/leave holds in one bucket
+            kw["decode_buckets"] = (16,)
+        mem = ServingEngine(spec, params, cfg.replace(**kw), device=DEVICE)
+        tokens[prec] = mem.generate(prompts, max_new_tokens=32)
+        mem.close()
+        del mem
+        t0 = time.perf_counter()
+        eng = load_engine(path, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = eng.generate(prompts, max_new_tokens=32)
+        torch.cuda.synchronize()
+        out[f"serve from dir {prec}"] = {n: f.launches
+                                         for n, f in KERNELS.items()}
+        log(f"[checkpoint] serve from dir {prec}: load_engine {load_s:.2f} s "
+            f"(restore, warm-up, {len(eng._graphs)} graphs), weights step "
+            f"{eng.weights_step}; 32 requests x 32 tokens equal to the "
+            f"in-memory engine's: {got == tokens[prec]}")
+        if got != tokens[prec] or eng.weights_step != 0:
+            raise AssertionError(f"serve from dir {prec}: tokens differ from "
+                                 f"an engine built in memory")
+        if prec == "fp32":
+            engines[prec] = eng
+        else:
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    qpath = save_quantized_model(os.path.join(root, "int8"), spec, params,
+                                 cfg, max_new=4)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    div = logit_divergence(spec, params, default_calibration_prompts(spec),
+                           max_new=4, page_size=PAGE_SIZE)
+    div_s = time.perf_counter() - t0
+    out["calibrate/logit_divergence"] = {n: f.launches
+                                         for n, f in KERNELS.items()}
+    t0 = time.perf_counter()
+    div_cpu = logit_divergence(spec, {k: v.cpu() for k, v in params.items()},
+                               default_calibration_prompts(spec), max_new=4,
+                               page_size=PAGE_SIZE)
+    div_cpu_s = time.perf_counter() - t0
+    with open(os.path.join(qpath, "serve_config.json")) as f:
+        scales = json.load(f)["precision"]["act_scales"]
+    eng = load_engine(qpath, device=DEVICE)
+    reset_launch_counts()
+    got = eng.generate(prompts, max_new_tokens=32)
+    out["serve from quantized dir int8"] = {n: f.launches
+                                            for n, f in KERNELS.items()}
+    eng.close()
+    del eng
+    lo, hi = min(scales, key=scales.get), max(scales, key=scales.get)
+    log(f"[checkpoint] served dir: save_served_model {save_s:.2f} s "
+        f"({_dir_bytes(path) / 1e9:.3f} GB); save_quantized_model "
+        f"{cal_s:.2f} s with calibration on the card "
+        f"({_dir_bytes(qpath) / 1e9:.3f} GB), {len(scales)} act scales "
+        f"{scales[lo]:.4g} ({lo}) .. {scales[hi]:.4g} ({hi}); "
+        f"logit_divergence {div:.6g} in {div_s:.2f} s (4 prompts, 4 new "
+        f"tokens, fp32 against int8), {div_cpu:.6g} on the CPU's plain "
+        f"path in {div_cpu_s:.2f} s (relative gap "
+        f"{abs(div - div_cpu) / div_cpu:.3e}, limit {DIVERGENCE_RTOL:g}); "
+        f"the quantized dir's tokens equal the int8 engine's: "
+        f"{got == tokens['int8']} | {smi}")
+    if got != tokens["int8"]:
+        raise AssertionError("serve from the quantized dir: tokens differ "
+                             "from the int8 engine built in memory")
+    if not (math.isfinite(div) and div_cpu > 0 and
+            abs(div - div_cpu) <= DIVERGENCE_RTOL * div_cpu) or \
+            not all(math.isfinite(s) and s > 0 for s in scales.values()):
+        raise AssertionError(f"calibration: divergence {div} on the card, "
+                             f"{div_cpu} on the CPU; scales {scales[lo]} .. "
+                             f"{scales[hi]}")
+    out["serve reload"] = _reload_path(smi, engines.pop("fp32"), spec,
+                                       params, cfg, prompts,
+                                       tokens["fp32"])
+    return out
+
+
+def _post(base, path, body, timeout=300):
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _reload_path(smi, engine, spec, params, cfg, prompts, tokens0):
+    """The hot reload over HTTP, under traffic: 16 clients each post one
+    prompt's requests back to back; once the scheduler holds active rows,
+    generation 1 (the weights perturbed) is saved into the directory's
+    manager and ``POST /v1/reload`` sent.  The swap waits for active
+    rows and is made with them resident (requests whose tokens come from
+    both generations); every request answers 200 with
+    32 tokens in the vocabulary, those that ended before the swap with
+    generation 0's tokens (``tokens0``, the in-memory engine's), those
+    that began after it with a fresh engine's on generation 1.
+    ``/healthz`` then shows ``weights_step`` 1, the tokens that follow
+    equal the fresh engine's, the graphs are the same objects and none
+    was captured again.  Returns the launch counts of the generate after
+    the reload."""
+    import threading
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.http import ServeHTTPServer
+    n_clients, new = 16, 32
+
+    def tok_s(eng):
+        eng.scheduler._step_times.clear()
+        got = eng.generate(prompts, max_new_tokens=new)
+        times = list(eng.scheduler._step_times)
+        return got, sum(len(o) - 1 for o in got) / sum(times)
+
+    graphs = {k: id(b.graph.graph) for k, b in engine._graphs.items()}
+    captured_s = engine.capture_seconds
+    _, before_tps = tok_s(engine)
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    gen1 = {k: v + 0.01 * torch.randn(v.shape, generator=g, device=DEVICE)
+            for k, v in params.items()}
+    t0 = time.perf_counter()
+    engine.checkpoint_manager.save(1, gen1)
+    publish_s = time.perf_counter() - t0
+    sched, swap = engine.scheduler, {}
+
+    def install(p, step=None):
+        """The engine's install, held until the scheduler has active rows
+        and made at a step boundary with them resident: under the
+        scheduler's lock, taken before the weights lock as a step takes
+        them.  A resident row has tokens left, so each one active here
+        decodes on generation 0 before the swap and on 1 after it."""
+        t0 = time.perf_counter()
+        while True:
+            with sched._lock:
+                if sched._active:
+                    swap["waited"] = time.perf_counter() - t0
+                    swap["active"] = len(sched._active)
+                    swap["t_in"] = time.perf_counter()
+                    install_weights(p, step)
+                    swap["t_out"] = time.perf_counter()
+                    return
+            if time.perf_counter() - t0 > 60:
+                raise TimeoutError("no active row to swap under in 60 s")
+            time.sleep(0.0005)
+
+    install_weights = engine.install_weights
+    engine.install_weights = install
+    srv = ServeHTTPServer(engine, port=0).start()
+    base = f"http://{srv.host}:{srv.port}"
+    results, stop, reloaded = [], threading.Event(), []
+
+    def client(i):
+        """Requests for prompt ``i`` until the reload has returned and
+        one request has begun after it."""
+        while True:
+            t_start = time.perf_counter()
+            try:
+                status, body = _post(base, "/v1/generate",
+                                     {"tokens": prompts[i],
+                                      "max_new_tokens": new})
+            except Exception as e:      # recorded, and failed below
+                results.append((i, t_start, time.perf_counter(),
+                                getattr(e, "code", repr(e)), None))
+                return
+            results.append((i, t_start, time.perf_counter(), status,
+                            body.get("tokens")))
+            if stop.is_set() and t_start > reloaded[0]:
+                return
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 120
+        while not sched.snapshot()["active_sequences"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("serve reload: no request became "
+                                     "active within 120 s")
+            time.sleep(0.001)
+        steps0 = sched.snapshot()["steps"]
+        t0 = time.perf_counter()
+        status, body = _post(base, "/v1/reload", {})
+        reload_s = time.perf_counter() - t0
+        steps_during = sched.snapshot()["steps"] - steps0
+        reloaded.append(time.perf_counter())
+        stop.set()
+        for t in threads:
+            t.join(300)
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        _, solo = _post(base, "/v1/generate",
+                        {"tokens": prompts[0], "max_new_tokens": new})
+    finally:
+        if not reloaded:
+            reloaded.append(0.0)
+        stop.set()
+        for t in threads:
+            t.join(300)
+        srv.stop()
+        del engine.install_weights
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    after, after_tps = tok_s(engine)
+    launches = {n: f.launches for n, f in KERNELS.items()}
+    fresh = ServingEngine(spec, gen1, cfg, device=DEVICE)
+    want = fresh.generate(prompts, max_new_tokens=new)
+    want_solo = fresh.generate([prompts[0]], max_new_tokens=new)[0]
+    fresh.close()
+    del fresh
+    bad, n_old, n_new, n_span = [], 0, 0, 0
+    for i, t_start, t_end, st, toks in results:
+        if st != 200 or not isinstance(toks, list) or len(toks) != new or \
+                not all(isinstance(x, int) and 0 <= x < spec.vocab_size
+                        for x in toks):
+            bad.append(f"prompt {i}: status {st}, tokens {toks!r:.80}")
+        elif t_end < swap.get("t_in", 0.0):
+            n_old += 1
+            if toks != tokens0[i]:
+                bad.append(f"prompt {i}: ended before the swap, not "
+                           f"generation 0's tokens")
+        elif t_start > swap.get("t_out", math.inf):
+            n_new += 1
+            if toks != want[i]:
+                bad.append(f"prompt {i}: began after the swap, not "
+                           f"generation 1's tokens")
+        else:
+            n_span += 1
+    same_graphs = {k: id(b.graph.graph)
+                   for k, b in engine._graphs.items()} == graphs
+    log(f"[checkpoint] serve reload: generation 1 published in "
+        f"{publish_s:.2f} s; POST /v1/reload {status} {body} in "
+        f"{reload_s:.2f} s under {n_clients} clients ({steps_during} "
+        f"scheduler steps during it; the swap waited "
+        f"{swap.get('waited', math.nan) * 1e3:.3f} ms for active rows and "
+        f"found {swap.get('active')}); "
+        f"{len(results)} requests answered: {n_old} before the swap with "
+        f"generation 0's tokens, {n_new} after it with generation 1's, "
+        f"{n_span} across it, all 200 with {new} tokens: {not bad}; "
+        f"/healthz weights_step {health['weights_step']}; tokens after equal "
+        f"a fresh engine's on generation 1: {after == want} (one over HTTP: "
+        f"{solo['tokens'] == want_solo}); graphs the same objects "
+        f"{same_graphs} ({len(graphs)}), capture seconds {captured_s:.3f} -> "
+        f"{engine.capture_seconds:.3f}; decode {before_tps:.1f} tok/s "
+        f"before, {after_tps:.1f} after | {smi}")
+    engine.close()
+    if (status, body) != (200, {"reloaded": True, "weights_step": 1}) or \
+            health["weights_step"] != 1:
+        raise AssertionError(f"serve reload: /v1/reload {status} {body}, "
+                             f"healthz {health['weights_step']}")
+    if not swap.get("active") or n_span < swap["active"] or not n_old or \
+            not n_new or bad:
+        raise AssertionError(f"serve reload: the swap found "
+                             f"{swap.get('active')} rows active, {n_span} "
+                             f"requests ran across it; {n_old} before it, "
+                             f"{n_new} after; {len(bad)} wrong: {bad[:4]}")
+    if after != want or solo["tokens"] != want_solo:
+        raise AssertionError("serve reload: the tokens after the reload are "
+                             "not a fresh engine's on generation 1")
+    if not same_graphs or engine.capture_seconds != captured_s:
+        raise AssertionError("serve reload: a graph was captured again")
+    return launches
+
+
+def phase_checkpoint(smi):
+    """Checkpoints on the card, in a temporary directory whose free space
+    is checked first and whose files each path removes after its check:
+    bench_gpt's headline step (gpt_345m 8 x 1024, pass on, dropout 0.1,
+    phase 12's AdamW recipe) and bert_base 32 x 128 (pass off, BERT's
+    recipe) saved and resumed (:func:`_resume_path`; BERT also through
+    two corruptions), then serving from a model directory, calibration
+    and the hot reload (:func:`_served_paths`).  Returns {path: launch
+    counts}."""
+    import tempfile
+    from paddle_tpu_torch.incubate.models import bert_base, gpt_345m
+    from paddle_tpu_torch.train import (build_bert_pretrain_step,
+                                        build_train_step, make_batch,
+                                        make_bert_batch)
+    out = {}
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    bert = bert_base()
+
+    def make_gpt(seed):
+        step = build_train_step(gpt, device=DEVICE, seed=seed, fusion=True,
+                                optimizer=_gpt_optimizer())
+        return (step, *make_batch(gpt, FUSED_BATCH, TRAIN_SEQ, seed=0,
+                                  device=DEVICE))
+
+    def make_bert(seed):
+        step = build_bert_pretrain_step(bert, device=DEVICE, seed=seed,
+                                        fusion=False,
+                                        optimizer=_bert_optimizer())
+        return (step, *make_bert_batch(bert, BERT_BATCH, BERT_SEQ, seed=0,
+                                       device=DEVICE))
+    try:
+        for label, make, per_step, corrupt in (
+                (f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} resume captured",
+                 make_gpt, _headline_per_step(gpt), False),
+                (f"bert_base {BERT_BATCH}x{BERT_SEQ} resume captured",
+                 make_bert, _bert_per_step(bert, False), True)):
+            root = os.path.join(base, label.split()[0])
+            os.makedirs(root)
+            t0 = time.perf_counter()
+            out[label] = _resume_path(smi, label, make, per_step, root,
+                                      corrupt)
+            shutil.rmtree(root)
+            log(f"[time] checkpoint {label} {time.perf_counter() - t0:.1f} s")
+        root = os.path.join(base, "serve")
+        os.makedirs(root)
+        t0 = time.perf_counter()
+        out.update(_served_paths(smi, root))
+        shutil.rmtree(root)
+        log(f"[time] checkpoint serve {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -4131,6 +4789,8 @@ def main() -> int:
     lap("capture")
     scheduled = phase_schedule(smi)
     lap("schedule")
+    checkpointed = phase_checkpoint(smi)
+    lap("checkpoint")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -4172,6 +4832,11 @@ def main() -> int:
         for name in by_path:
             if counts.get(name):
                 by_path[name][f"{path} captured"] = counts[name]
+    # phase 13's resumed steps, served directories, calibration and reload
+    for path, counts in checkpointed.items():
+        for name in by_path:
+            if counts.get(name):
+                by_path[name][path] = counts[name]
     kernels = []
     for name, rows in results.items():
         top = rows[0]

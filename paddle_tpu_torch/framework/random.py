@@ -18,7 +18,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["make_generator", "replay"]
+__all__ = ["make_generator", "replay", "restore_generator_state"]
 
 
 def make_generator(seed: int,
@@ -40,3 +40,24 @@ def replay(generator: torch.Generator, state: torch.Tensor) -> Iterator[None]:
         yield
     finally:
         generator.set_state(current)
+
+
+def restore_generator_state(generator: torch.Generator,
+                            state: torch.Tensor) -> None:
+    """Set ``generator`` to ``state`` (a ``get_state()`` of a generator of
+    the same kind, as a checkpoint carries it).  Raises ``ValueError``
+    naming both device types when ``state`` is another kind's (a CPU
+    run's state restored into a CUDA generator, or the reverse).  The
+    generator object stays the same, so the CUDA graphs it is registered
+    with draw from the restored state at their next replay."""
+    state = state.detach().to("cpu", torch.uint8).contiguous()
+    want = generator.get_state().numel()
+    if state.numel() != want:
+        kind = generator.device.type
+        other = "cpu" if kind == "cuda" else "cuda"
+        raise ValueError(
+            f"cannot restore a generator state of {state.numel()} bytes "
+            f"into a {kind} generator, whose state has {want}: the "
+            f"checkpoint was written by a run on another device type "
+            f"({other}, not {kind})")
+    generator.set_state(state)

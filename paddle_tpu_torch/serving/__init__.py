@@ -15,14 +15,16 @@ Both run on ``cuda`` unless ``device="cpu"`` is passed.
 
 Module map: :mod:`.model` (decoder step functions over paged KV),
 :mod:`.kv_cache` (page allocator + admission reservations),
-:mod:`.engine` (bucket ladder, warm-up, weight swap), :mod:`.scheduler`
-(continuous batching), :mod:`.http` (front end), :mod:`.quant` (int8
-weights).
+:mod:`.engine` (bucket ladder, warm-up, weight swap, served-model
+directories, hot reload), :mod:`.scheduler` (continuous batching),
+:mod:`.http` (front end), :mod:`.quant` (int8 weights, calibration,
+quantized directories).
 """
 from .model import (ModelSpec, init_params, params_from_numpy, prefill_step,
                     decode_step)
 from .kv_cache import PagePool, KVPoolExhausted, NULL_PAGE
-from .engine import ServeConfig, ServingEngine
+from .engine import (SERVE_CONFIG_NAME, ServeConfig, ServingEngine,
+                     is_served_model_dir, load_engine, save_served_model)
 from .scheduler import (ContinuousScheduler, GenerationStream,
                         EngineSaturated, RequestShed, RequestCancelled,
                         DeadlineExceeded, WATCHDOG_EXIT_CODE)
@@ -30,7 +32,8 @@ from .scheduler import (ContinuousScheduler, GenerationStream,
 __all__ = [
     "ModelSpec", "init_params", "params_from_numpy", "prefill_step",
     "decode_step", "PagePool", "KVPoolExhausted", "NULL_PAGE",
-    "ServeConfig", "ServingEngine",
+    "ServeConfig", "ServingEngine", "save_served_model", "load_engine",
+    "is_served_model_dir", "SERVE_CONFIG_NAME",
     "ContinuousScheduler", "GenerationStream", "EngineSaturated",
     "RequestShed", "RequestCancelled", "DeadlineExceeded",
     "WATCHDOG_EXIT_CODE",

@@ -1,12 +1,14 @@
-"""``python -m paddle_tpu_torch.serving --spec '{...}'``: serve a decoder
-with random weights over HTTP, with the drain/deadline/watchdog
-lifecycle.
+"""``python -m paddle_tpu_torch.serving --model DIR`` (a served-model
+directory of either package) or ``--spec '{...}'`` (random weights):
+serve a decoder over HTTP, with the drain/deadline/watchdog lifecycle.
 
 Builds the engine on the card (``--device cpu`` runs the plain PyTorch
 path), binds the stdlib front end, publishes the bound endpoint to
 ``--port-file`` (atomic write), installs the SIGTERM graceful-drain
 handler (exit 143), and serves until told to stop.  Serve settings come
-from the ``PT_SERVE_*`` environment (:class:`.engine.ServeConfig`).
+from the ``PT_SERVE_*`` environment (:class:`.engine.ServeConfig`), over
+the directory's ``serve_config.json`` with ``--model``.  A directory's
+server reloads newer weight generations on ``POST /v1/reload``.
 """
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ def parse_args(argv=None):
         prog="python -m paddle_tpu_torch.serving",
         description="serve a decoder over HTTP with drain/deadline/"
                     "watchdog resilience")
-    ap.add_argument("--spec", required=True,
+    ap.add_argument("--model", default=None,
+                    help="served-model dir (save_served_model or "
+                         "save_quantized_model output, either package's)")
+    ap.add_argument("--spec", default=None,
                     help="ModelSpec JSON, e.g. '{\"vocab_size\": 50304, "
                          "\"hidden\": 1024, \"layers\": 24, \"heads\": 16, "
-                         "\"max_seq_len\": 2048}'")
+                         "\"max_seq_len\": 2048}'; mutually exclusive "
+                         "with --model")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     ap.add_argument("--device", default=None,
@@ -55,13 +61,22 @@ def main(argv=None):
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if bool(args.model) == bool(args.spec):
+        print("exactly one of --model / --spec is required",
+              file=sys.stderr)
+        return 2
 
-    from . import ModelSpec, ServeConfig, ServingEngine, init_params
+    from . import (ModelSpec, ServeConfig, ServingEngine, init_params,
+                   load_engine)
     from .http import ServeHTTPServer, install_drain_handler
 
-    spec = ModelSpec.from_dict(json.loads(args.spec))
-    engine = ServingEngine(spec, init_params(spec, args.seed, args.device),
-                           ServeConfig.from_env(), device=args.device)
+    if args.model:
+        engine = load_engine(args.model, device=args.device)
+    else:
+        spec = ModelSpec.from_dict(json.loads(args.spec))
+        engine = ServingEngine(spec,
+                               init_params(spec, args.seed, args.device),
+                               ServeConfig.from_env(), device=args.device)
     server = ServeHTTPServer(engine, host=args.host, port=args.port,
                              request_timeout=args.request_timeout).start()
     install_drain_handler(server, budget_s=args.drain_budget)

@@ -19,11 +19,20 @@ the engine never rebinds; nor does it rebind a weight tensor
 (:meth:`ServingEngine.install_weights` copies into them), since the
 graphs read them where they were captured.
 
+Served-model directories (the JAX package's format, so either package
+serves the other's): :func:`save_served_model` writes
+``serve_config.json`` (architecture and serve shapes) and a
+:class:`~..distributed.CheckpointManager` weight tree; :func:`load_engine`
+builds an engine from one.  With a manager attached,
+:meth:`ServingEngine.maybe_reload` swaps in a newer generation between
+scheduler steps: same graphs, weights copied in place, no recapture.
+
 The fp32 path is meant to be fp32: on a CUDA device the engine turns
 TF32 off for matrix products and cuDNN.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
@@ -42,24 +51,30 @@ PRECISIONS = ("fp32", "bf16", "int8")
 
 logger = logging.getLogger("paddle_tpu_torch.serving")
 
-__all__ = ["ServeConfig", "ServingEngine", "PRECISIONS"]
+__all__ = ["ServeConfig", "ServingEngine", "PRECISIONS",
+           "save_served_model", "is_served_model_dir", "load_engine",
+           "SERVE_CONFIG_NAME"]
+
+SERVE_CONFIG_NAME = "serve_config.json"
 
 
-def _env_int(name: str, default: int) -> int:
-    v = os.environ.get(name)
-    return int(v) if v else default
-
-
-def _env_float(name: str, default: float) -> float:
-    v = os.environ.get(name)
-    return float(v) if v else default
-
-
-def _env_buckets(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
-    v = os.environ.get(name)
-    if not v:
-        return tuple(default)
+def _buckets(v: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in v.replace(";", ",").split(",") if x.strip())
+
+
+#: each ServeConfig field, the environment variable that overrides it
+#: and how the variable's value is read
+_ENV_VARS = (("decode_buckets", "PT_SERVE_BUCKETS", _buckets),
+             ("prefill_buckets", "PT_SERVE_PREFILL_BUCKETS", _buckets),
+             ("kv_pages", "PT_SERVE_KV_PAGES", int),
+             ("page_size", "PT_SERVE_PAGE_SIZE", int),
+             ("max_inflight", "PT_SERVE_MAX_INFLIGHT", int),
+             ("max_new_tokens", "PT_SERVE_MAX_NEW_TOKENS", int),
+             ("eos_id", "PT_SERVE_EOS_ID", int),
+             ("deadline_ms", "PT_SERVE_DEADLINE_MS", float),
+             ("max_queue", "PT_SERVE_MAX_QUEUE", int),
+             ("drain_s", "PT_SERVE_DRAIN_S", float),
+             ("precision", "PT_SERVE_PRECISION", str))
 
 
 @dataclass(frozen=True)
@@ -97,27 +112,16 @@ class ServeConfig:
     drain_s: float = 10.0     # SIGTERM drain budget (seconds)
     precision: str = "fp32"   # fp32 | bf16 | int8
 
+    @staticmethod
+    def env_overrides() -> Dict[str, Any]:
+        """The fields whose ``PT_SERVE_*`` variable is set (and not
+        empty), each read from its variable."""
+        return {field: read(os.environ[var])
+                for field, var, read in _ENV_VARS if os.environ.get(var)}
+
     @classmethod
     def from_env(cls, **overrides) -> "ServeConfig":
-        base = cls(
-            decode_buckets=_env_buckets(
-                "PT_SERVE_BUCKETS", cls.decode_buckets),
-            prefill_buckets=_env_buckets(
-                "PT_SERVE_PREFILL_BUCKETS", cls.prefill_buckets),
-            kv_pages=_env_int("PT_SERVE_KV_PAGES", cls.kv_pages),
-            page_size=_env_int("PT_SERVE_PAGE_SIZE", cls.page_size),
-            max_inflight=_env_int("PT_SERVE_MAX_INFLIGHT",
-                                  cls.max_inflight),
-            max_new_tokens=_env_int("PT_SERVE_MAX_NEW_TOKENS",
-                                    cls.max_new_tokens),
-            eos_id=_env_int("PT_SERVE_EOS_ID", cls.eos_id),
-            deadline_ms=_env_float("PT_SERVE_DEADLINE_MS",
-                                   cls.deadline_ms),
-            max_queue=_env_int("PT_SERVE_MAX_QUEUE", cls.max_queue),
-            drain_s=_env_float("PT_SERVE_DRAIN_S", cls.drain_s),
-            precision=os.environ.get("PT_SERVE_PRECISION") or cls.precision,
-        )
-        return base.replace(**overrides) if overrides else base
+        return cls().replace(**{**cls.env_overrides(), **overrides})
 
     def replace(self, **kw) -> "ServeConfig":
         d = asdict(self)
@@ -199,12 +203,16 @@ class ServingEngine:
     ``device`` defaults to ``cuda`` and raises when there is no GPU;
     pass ``device="cpu"`` to run the plain PyTorch path.  The request
     path (scheduler / HTTP) calls :meth:`prefill` and :meth:`decode`
-    with numpy inputs.
+    with numpy inputs.  ``checkpoint_manager`` (a
+    :class:`~..distributed.CheckpointManager` over weight generations)
+    is what :meth:`maybe_reload` polls.
     """
 
     def __init__(self, spec: ModelSpec, params, config: ServeConfig = None,
-                 *, device=None, weights_step: Optional[int] = None):
+                 *, device=None, weights_step: Optional[int] = None,
+                 checkpoint_manager=None):
         self.spec = spec
+        self.checkpoint_manager = checkpoint_manager
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,7 +249,9 @@ class ServingEngine:
 
         int8: deterministic inline quantization (same weights, same
         bytes); an already-quantized dict passes through.  bf16: every
-        float leaf cast.  fp32: as given.
+        float leaf cast.  fp32: as given.  Calibration leaves
+        (``act::<site>::scale``) ride along unchanged, as the JAX engine
+        carries them.
         """
         prec = self.config.precision
         params = params_from_numpy(
@@ -411,14 +421,19 @@ class ServingEngine:
     def install_weights(self, params, step: Optional[int] = None) -> None:
         """Swap to a new weight generation between steps.
 
-        The names and shapes must match the served ones; incoming
-        weights pass through the engine's precision conversion first
-        (int8 quantization included), then are copied into the served
-        tensors in place, which the captured graphs read.
+        The names and shapes must match the served ones (``act::``
+        leaves included); incoming weights pass through the engine's
+        precision conversion first (int8 quantization included), then
+        are copied into the served tensors in place, which the captured
+        graphs read.
         """
         params = self._prepare_params(params)
         if set(params) != set(self._params):
-            raise ValueError("weight swap changes the parameter names")
+            missing = sorted(set(self._params) - set(params))
+            extra = sorted(set(params) - set(self._params))
+            raise ValueError(f"weight swap changes the parameter names: "
+                             f"missing {missing[:4]}, unexpected "
+                             f"{extra[:4]}")
         for name, a in self._params.items():
             if a.shape != params[name].shape:
                 raise ValueError(f"weight swap changes the shape of {name}: "
@@ -429,6 +444,27 @@ class ServingEngine:
                 a.copy_(params[name])
             self._weights_step = step
         logger.info("weights swapped to generation step=%s", step)
+
+    def maybe_reload(self) -> Optional[int]:
+        """Swap in a newer weight generation of :attr:`checkpoint_manager`
+        if one exists: its newest valid step (falling back past corrupt
+        ones), read onto the engine's device in the checkpoint's dtypes,
+        then :meth:`install_weights` (precision conversion, int8
+        quantization before the copy, the name and shape checks, the
+        in-place copy under the weights lock, between scheduler steps).
+        No graph is recaptured and no graph input is allocated.  Returns
+        the new step, or None when there is nothing newer."""
+        mgr = self.checkpoint_manager
+        if mgr is None:
+            return None
+        latest = mgr.latest_step()
+        if latest is None or latest == self._weights_step:
+            return None
+        params, step = mgr.restore_latest(device=self.device)
+        if step is None or step == self._weights_step:
+            return None
+        self.install_weights(params, step)
+        return step
 
     # -- convenience / health ----------------------------------------------
 
@@ -472,3 +508,71 @@ class ServingEngine:
         if sched is not None:
             h.update(sched.snapshot())
         return h
+
+
+# -- served-model directory format ------------------------------------------
+
+def save_served_model(path: str, spec: ModelSpec, params,
+                      config: Optional[ServeConfig] = None,
+                      step: int = 0) -> str:
+    """Write a self-describing served-model directory:
+    ``serve_config.json`` (architecture and serve shapes) and a
+    :class:`~..distributed.CheckpointManager` weight tree under
+    ``weights/`` (step ``step``), the unit :func:`load_engine` reads and
+    a trainer republishes for a hot reload."""
+    from ..distributed.checkpoint_manager import CheckpointManager
+    os.makedirs(path, exist_ok=True)
+    cfg = config or ServeConfig.from_env()
+    with open(os.path.join(path, SERVE_CONFIG_NAME), "w") as f:
+        json.dump({"model": spec.to_dict(), "serve": cfg.to_dict()},
+                  f, indent=2, sort_keys=True)
+    mgr = CheckpointManager(os.path.join(path, "weights"))
+    mgr.save(step, dict(params), block=True)
+    return path
+
+
+def is_served_model_dir(path: str) -> bool:
+    return os.path.isdir(path) and \
+        os.path.exists(os.path.join(path, SERVE_CONFIG_NAME))
+
+
+def load_engine(path: str, config: Optional[ServeConfig] = None, *,
+                device=None, **config_overrides) -> ServingEngine:
+    """Build a :class:`ServingEngine` on ``device`` (``cuda`` unless the
+    CPU is asked for) from a served-model directory, either package's:
+    the newest valid weight generation, read onto the device, the
+    directory's manager attached for :meth:`ServingEngine.maybe_reload`.
+
+    Config precedence: ``config`` > the ``PT_SERVE_*`` environment >
+    ``serve_config.json``; ``config_overrides`` apply last.  A quantized
+    directory (:func:`.quant.save_quantized_model`) carries its int8
+    tree and its ``precision`` block; the restored tree must match
+    :func:`.quant.quantized_template`'s names and shapes."""
+    from ..distributed.checkpoint_manager import CheckpointManager
+    dev = resolve_device(device)
+    with open(os.path.join(path, SERVE_CONFIG_NAME)) as f:
+        meta = json.load(f)
+    spec = ModelSpec.from_dict(meta.get("model", {}))
+    if config is None:
+        config = ServeConfig.from_dict(meta.get("serve", {})).replace(
+            **ServeConfig.env_overrides())
+    if config_overrides:
+        config = config.replace(**config_overrides)
+    mgr = CheckpointManager(os.path.join(path, "weights"))
+    params, step = mgr.restore_latest(device=dev)
+    if step is None:
+        raise FileNotFoundError(
+            f"no valid weight checkpoint under {path}/weights")
+    precision_meta = meta.get("precision") or {}
+    if precision_meta.get("mode") == "int8":
+        from .quant import quantized_template
+        want = {k: (tuple(t.shape), t.dtype) for k, t in quantized_template(
+            spec, sorted(precision_meta.get("act_scales", {}))).items()}
+        got = {k: (tuple(t.shape), t.dtype) for k, t in params.items()}
+        if got != want:
+            bad = sorted(k for k in set(want) | set(got)
+                         if want.get(k) != got.get(k))
+            raise ValueError(f"{path}: the quantized weights do not match "
+                             f"its precision block: {bad[:4]}")
+    return ServingEngine(spec, params, config, device=dev,
+                         checkpoint_manager=mgr, weights_step=step)

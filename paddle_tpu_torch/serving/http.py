@@ -15,6 +15,13 @@ bound at import):
                           cancelled, 400 on bad input
  - ``POST /v1/cancel``    ``{"request_id": N}`` -> evicts the request
                           at the next step boundary (pages released)
+ - ``POST /v1/reload``    swaps in the newest weight generation of the
+                          engine's checkpoint manager, if newer ->
+                          ``{"reloaded": bool, "weights_step": N}``
+
+With ``reload_interval`` (seconds) a background thread polls the
+manager and swaps in newer generations as they land: serving N while
+loading N+1.
 
 Handler threads only submit numpy work to the scheduler and wait; all
 device work happens on the scheduler's step loop.  While waiting they
@@ -62,13 +69,17 @@ def _client_gone(sock) -> bool:
 
 class ServeHTTPServer:
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
-                 request_timeout: float = 120.0):
+                 request_timeout: float = 120.0,
+                 reload_interval: Optional[float] = None):
         self.engine = engine
         self._host = host
         self._requested_port = int(port)
         self._request_timeout = request_timeout
+        self._reload_interval = reload_interval
         self._httpd = None
         self._thread = None
+        self._reload_thread = None
+        self._stop = threading.Event()
         self.port = None
 
     @property
@@ -128,6 +139,11 @@ class ServeHTTPServer:
                         self._generate(raw)
                     elif path == "/v1/cancel":
                         self._cancel(raw)
+                    elif path == "/v1/reload":
+                        step = engine.maybe_reload()
+                        self._send_json(200, {
+                            "reloaded": step is not None,
+                            "weights_step": engine.weights_step})
                     else:
                         self._send_json(404, {"error": "unknown route"})
                 except Exception as e:
@@ -233,10 +249,26 @@ class ServeHTTPServer:
             target=self._httpd.serve_forever, name="pt-serve-http",
             daemon=True)
         self._thread.start()
+        if self._reload_interval:
+            self._stop.clear()
+            self._reload_thread = threading.Thread(
+                target=self._reload_loop, name="pt-serve-reload",
+                daemon=True)
+            self._reload_thread.start()
         logger.info("serve endpoint on http://%s:%d (/v1/generate, "
-                    "/v1/cancel, /healthz)",
+                    "/v1/cancel, /v1/reload, /healthz)",
                     self._host, self.port)
         return self
+
+    def _reload_loop(self):
+        """Poll the checkpoint manager and swap in newer generations."""
+        while not self._stop.wait(self._reload_interval):
+            try:
+                step = self.engine.maybe_reload()
+                if step is not None:
+                    logger.info("background weight swap -> step %s", step)
+            except Exception:
+                logger.exception("background weight reload failed")
 
     def drain(self, budget_s: Optional[float] = None,
               settle_s: float = 1.0) -> bool:
@@ -253,6 +285,7 @@ class ServeHTTPServer:
         return clean
 
     def stop(self):
+        self._stop.set()
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             httpd.shutdown()
@@ -260,6 +293,9 @@ class ServeHTTPServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+        if self._reload_thread is not None:
+            self._reload_thread.join(timeout=5.0)
+            self._reload_thread = None
         self.engine.scheduler.stop()
         self.port = None
 

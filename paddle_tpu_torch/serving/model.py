@@ -54,9 +54,13 @@ def QUANT_WEIGHT_NAMES(spec: "ModelSpec"):
     return names
 
 
-def _matmul(params, name, x):
+def _matmul(params, name, x, tap=None):
     """A weight present as ``name::q`` + ``name::scale`` runs through
-    the w8a16 kernel; otherwise a plain dense product."""
+    the w8a16 kernel; otherwise a plain dense product.  ``tap`` is the
+    calibration hook, called with the product's input under the site
+    name ``name`` (None on the engine's path)."""
+    if tap is not None:
+        tap(name, x)
     qk = name + "::q"
     if qk in params:
         return w8a16_matmul(x, params[qk], params[name + "::scale"])
@@ -188,10 +192,10 @@ def _ln(x, w, b):
     return (x32 - mu) * torch.rsqrt(var + _LN_EPS) * w + b
 
 
-def _mlp(params, i, x):
-    h = _matmul(params, f"h{i}.mlp.w1", x) + params[f"h{i}.mlp.b1"]
+def _mlp(params, i, x, tap=None):
+    h = _matmul(params, f"h{i}.mlp.w1", x, tap) + params[f"h{i}.mlp.b1"]
     h = F.gelu(h, approximate="tanh")
-    return _matmul(params, f"h{i}.mlp.w2", h) + params[f"h{i}.mlp.b2"]
+    return _matmul(params, f"h{i}.mlp.w2", h, tap) + params[f"h{i}.mlp.b2"]
 
 
 def _flat_dest(page_table, positions, page_size):
@@ -224,7 +228,8 @@ def _write_kv(k_flat, v_flat, k_scale, v_scale, layer, dest, k, v):
 
 
 def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
-                 page_table, *, page_size: int, k_scale=None, v_scale=None):
+                 page_table, *, page_size: int, k_scale=None, v_scale=None,
+                 tap=None):
     """Run one prompt (padded to a seq bucket) and seed its KV pages.
 
     Args:
@@ -238,6 +243,10 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
         (unused tail = 0, the null page).
       k_scale/v_scale: scale pools ``(L, P*ps, H)`` f32 when the pool is
         int8, updated in place.
+      tap: the calibration hook ``tap(site, activation)``: each
+        product's input under its weight's name, and the final
+        LayerNorm's output over every position as ``"head"``, the JAX
+        step's sites; None on the engine's path.
 
     Returns ``(k_flat, v_flat, next_token, logits)``, with the scale
     pools after ``v_flat`` when they were passed, as the JAX function
@@ -261,22 +270,24 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
     ks, vs = [], []
     for i in range(spec.layers):
         x = _ln(h, params[f"h{i}.ln1.w"], params[f"h{i}.ln1.b"]).to(cdt)
-        q = _matmul(params, f"h{i}.attn.wq", x).reshape(s, spec.heads,
-                                                        spec.head_dim)
-        k = _matmul(params, f"h{i}.attn.wk", x).reshape(s, spec.heads,
-                                                        spec.head_dim)
-        v = _matmul(params, f"h{i}.attn.wv", x).reshape(s, spec.heads,
-                                                        spec.head_dim)
+        q = _matmul(params, f"h{i}.attn.wq", x,
+                    tap).reshape(s, spec.heads, spec.head_dim)
+        k = _matmul(params, f"h{i}.attn.wk", x,
+                    tap).reshape(s, spec.heads, spec.head_dim)
+        v = _matmul(params, f"h{i}.attn.wv", x,
+                    tap).reshape(s, spec.heads, spec.head_dim)
         att = torch.einsum("ihd,jhd->hij", q.float(), k.float()) * scale
         att = att.masked_fill(~visible[None], _NEG_INF)
         w = torch.softmax(att, dim=-1)
         o = torch.einsum("hij,jhd->ihd", w.to(v.dtype).float(), v.float())
         o = o.reshape(s, spec.hidden).to(cdt)
-        h = h + _matmul(params, f"h{i}.attn.wo", o)
+        h = h + _matmul(params, f"h{i}.attn.wo", o, tap)
         x2 = _ln(h, params[f"h{i}.ln2.w"], params[f"h{i}.ln2.b"]).to(cdt)
-        h = h + _mlp(params, i, x2)
+        h = h + _mlp(params, i, x2, tap)
         ks.append(k)
         vs.append(v)
+    if tap is not None:
+        tap("head", _ln(h, params["lnf.w"], params["lnf.b"]).to(cdt))
     last = h.index_select(0, (length - 1).long().reshape(1))[0]
     hf = _ln(last, params["lnf.w"], params["lnf.b"]).to(cdt)
     logits = hf @ params["embed"].T                         # (V,)
@@ -292,7 +303,8 @@ def prefill_step(spec: ModelSpec, params, k_flat, v_flat, tokens, length,
 
 
 def decode_step(spec: ModelSpec, params, k_flat, v_flat, tokens, positions,
-                page_tables, *, page_size: int, k_scale=None, v_scale=None):
+                page_tables, *, page_size: int, k_scale=None, v_scale=None,
+                tap=None):
     """One decode step for a padded batch bucket.
 
     Args:
@@ -305,6 +317,7 @@ def decode_step(spec: ModelSpec, params, k_flat, v_flat, tokens, positions,
       k_scale/v_scale: scale pools ``(L, P*ps, H)`` f32 for an int8
         pool, updated in place; the step's K/V quantize per (token,
         head) at write time.
+      tap: the calibration hook, as in :func:`prefill_step`.
 
     Returns ``(k_flat, v_flat, next_tokens, logits)``, with the scale
     pools after ``v_flat`` when they were passed.  The returned pools
@@ -321,12 +334,12 @@ def decode_step(spec: ModelSpec, params, k_flat, v_flat, tokens, positions,
     pages = (num_pages, page_size, spec.heads, spec.head_dim)
     for i in range(spec.layers):
         x = _ln(h, params[f"h{i}.ln1.w"], params[f"h{i}.ln1.b"]).to(cdt)
-        q = _matmul(params, f"h{i}.attn.wq", x).reshape(b, spec.heads,
-                                                        spec.head_dim)
-        k = _matmul(params, f"h{i}.attn.wk", x).reshape(b, spec.heads,
-                                                        spec.head_dim)
-        v = _matmul(params, f"h{i}.attn.wv", x).reshape(b, spec.heads,
-                                                        spec.head_dim)
+        q = _matmul(params, f"h{i}.attn.wq", x,
+                    tap).reshape(b, spec.heads, spec.head_dim)
+        k = _matmul(params, f"h{i}.attn.wk", x,
+                    tap).reshape(b, spec.heads, spec.head_dim)
+        v = _matmul(params, f"h{i}.attn.wv", x,
+                    tap).reshape(b, spec.heads, spec.head_dim)
         _write_kv(k_flat, v_flat, k_scale, v_scale, i, dest, k, v)
         if quant:
             o = paged_attention_int8(
@@ -336,10 +349,13 @@ def decode_step(spec: ModelSpec, params, k_flat, v_flat, tokens, positions,
         else:
             o = paged_attention(q, k_flat[i].view(pages),
                                 v_flat[i].view(pages), page_tables, lengths)
-        h = h + _matmul(params, f"h{i}.attn.wo", o.reshape(b, spec.hidden))
+        h = h + _matmul(params, f"h{i}.attn.wo", o.reshape(b, spec.hidden),
+                        tap)
         x2 = _ln(h, params[f"h{i}.ln2.w"], params[f"h{i}.ln2.b"]).to(cdt)
-        h = h + _mlp(params, i, x2)
+        h = h + _mlp(params, i, x2, tap)
     hf = _ln(h, params["lnf.w"], params["lnf.b"]).to(cdt)
+    if tap is not None:
+        tap("head", hf)
     logits = hf @ params["embed"].T                        # (B, V)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     if k_scale is not None:

@@ -29,6 +29,7 @@ GPU.  On the card each step is replayed as a CUDA graph
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import time
@@ -39,7 +40,8 @@ import torch
 
 from .amp import decorate
 from .device import resolve_device
-from .framework.random import make_generator
+from .distributed.checkpoint import copy_into
+from .framework.random import make_generator, restore_generator_state
 from .jit import capture_step
 from .incubate.models import (BertConfig, BertForPretraining,
                               BertPretrainingCriterion, GPTConfig,
@@ -50,7 +52,8 @@ from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
 __all__ = ["TrainStep", "EagerStep", "build_train_step", "make_batch",
-           "build_bert_pretrain_step", "make_bert_batch", "main"]
+           "build_bert_pretrain_step", "make_bert_batch", "save_checkpoint",
+           "restore_checkpoint", "main"]
 
 CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
            "gpt_1p3b": gpt_1p3b, "gpt_6p7b": gpt_6p7b, "gpt_13b": gpt_13b,
@@ -139,6 +142,79 @@ class TrainStep:
         reads it at each replay."""
         self.optimizer.write_lr()
         return self.captured(inputs, targets)
+
+    # -- checkpoints -----------------------------------------------------------
+    def checkpoint_tree(self) -> dict:
+        """The step's state in hapi's sharded layout, so either package
+        reads what the other wrote: ``{"params": {name: t}, "opt_tree":
+        {"slots": {slot: {name: t}}, "master": {name: t}, "step": t},
+        "rng": generator state}``.  The tensors are the live ones (a
+        save copies them to the host); ``rng`` (the dropout generator's
+        ``get_state()``, a uint8 tensor) is the one leaf the JAX package
+        does not have, and its templates ignore it."""
+        return {"params": dict(self.params), "opt_tree": self.state,
+                "rng": self.generator.get_state()}
+
+    def data_state(self) -> dict:
+        """What rides beside the tensors as JSON: the learning-rate
+        schedule's ``state_dict()`` under the optimizer's own key,
+        ``LR_Scheduler`` (empty without a schedule)."""
+        sched = self.optimizer._learning_rate_scheduler
+        return {} if sched is None else {"LR_Scheduler": sched.state_dict()}
+
+    def load_checkpoint_tree(self, tree: dict,
+                             data_state: Optional[dict] = None) -> None:
+        """Restore a checkpoint tree (:meth:`checkpoint_tree`'s layout, as
+        ``load_sharded`` returns it, with or without a template) into
+        this step in place: parameters, masters, slots and the step count
+        are copied into the live tensors (a captured graph reads them
+        where they are), the generator is set to ``rng`` when the tree
+        has it, and a schedule to ``data_state["LR_Scheduler"]``, whose
+        rate is then written into ``optimizer.lr_tensor``.  Empty
+        subtrees that have no leaves on disk (``master`` in an f32 run,
+        SGD's slots) are rebuilt, as hapi's ``load`` does.  Raises
+        ``KeyError`` for a tensor the tree lacks and ``ValueError`` for
+        one of another shape or dtype."""
+        ot = dict(tree.get("opt_tree", {}))
+        ot["slots"] = dict(ot.get("slots", {}))
+        ot.setdefault("master", {})
+        for s in self.optimizer._state_slots:
+            ot["slots"].setdefault(s, {})
+        copy_into({"params": self.params, "opt_tree": self.state},
+                  {"params": tree.get("params", {}), "opt_tree": ot})
+        if "rng" in tree:
+            restore_generator_state(self.generator, tree["rng"])
+        sched = self.optimizer._learning_rate_scheduler
+        if sched is not None and data_state and \
+                "LR_Scheduler" in data_state:
+            sched.set_state_dict(copy.deepcopy(data_state["LR_Scheduler"]))
+        self.optimizer.write_lr()
+
+
+def save_checkpoint(manager, step_no: int, train_step: TrainStep, *,
+                    block: bool = False,
+                    data_state: Optional[dict] = None) -> None:
+    """Save ``train_step``'s state as step ``step_no`` through
+    ``manager`` (a :class:`~.distributed.CheckpointManager`), the
+    schedule's state in its ``data_state`` beside ``data_state``'s keys.
+    In async mode the host copy is complete when this returns, so the
+    next step may overwrite the tensors."""
+    extra = dict(data_state or {})
+    extra.update(train_step.data_state())
+    manager.save(step_no, train_step.checkpoint_tree(), block=block,
+                 data_state=extra or None)
+
+
+def restore_checkpoint(manager, train_step: TrainStep) -> Optional[int]:
+    """Restore the newest valid checkpoint of ``manager`` into
+    ``train_step`` in place (falling back past corrupt steps), each
+    tensor read onto the device of the tensor it replaces; returns its
+    step number, or None when there is none."""
+    tree, n = manager.restore_latest(template=train_step.checkpoint_tree())
+    if n is None:
+        return None
+    train_step.load_checkpoint_tree(tree, manager.load_data_state(n))
+    return n
 
 
 def _default_optimizer() -> Optimizer:

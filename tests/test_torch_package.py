@@ -51,7 +51,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert 'paddle_tpu_torch.jit.capture' in names, names\n"
         "for m in ('optimizer.lr', 'optimizer.lbfgs', 'nn.clip',\n"
-        "          'regularizer'):\n"
+        "          'regularizer', 'distributed.checkpoint',\n"
+        "          'distributed.checkpoint_manager', 'serving.quant',\n"
+        "          'quantization.observers', 'utils.retry'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
@@ -66,6 +68,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
 def test_package_sources_name_no_jax_and_no_reference_module():
     sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) >= 12
+    for m in ("distributed/checkpoint.py", "distributed/checkpoint_manager.py",
+              "serving/quant.py", "quantization/observers.py",
+              "utils/retry.py"):
+        assert PKG / m in sources, m
     for path in sources:
         text = path.read_text()
         assert not re.search(r"^\s*(import|from)\s+jax", text, re.M), path
