@@ -259,6 +259,30 @@ line is printed:
              engine's on generation 1, the graphs the same objects, none
              captured again.  Save, restore and reload seconds, GB and
              GB/s, decode tokens/s before and after the reload.
+14. hapi     data loading and ``hapi.Model.fit`` over the captured step:
+             gpt_345m built from a generator seeded 0, decorated O2 bf16
+             before ``Model(...)``, ``AdamW(1e-4, multi_precision=True,
+             parameters=...)``, the causal-LM loss, dropout 0.1, no
+             recompute, the fusion pass on, fed by a DataLoader (2
+             spawned workers, shuffled by a ``RandomState(0)`` sampler)
+             over 64 synthetic sequences of 1025 tokens at bench_gpt's
+             headline 8 x 1024: one epoch of 8 steps, saving after step 3
+             through a ``CheckpointManager`` with the loader's
+             ``state_dict()`` as its data state; 1 compile, 7 hits, no
+             fallback, the headline step's launches each step; losses and
+             every state tensor the bits of ``build_train_step`` fed the
+             same batches; a fresh ``Model`` (seed 1) and DataLoader
+             restored there run steps 4-8 to the same bits; then ``fit``
+             and the bare captured step in turns (fit, step, step, fit):
+             median step wall times, the host's wait on the loader each
+             step, peak memory; a profiled replay of ``train_batch``
+             holding the launches to the counters.  Then the JAX
+             package's hapi test classifier (Flatten, Linear 192 -> 32,
+             ReLU, Linear 32 -> 4, ``Adam(0.01)``, ``CrossEntropyLoss``,
+             ``Accuracy``) through ``fit`` (3 epochs), ``evaluate`` and
+             ``predict`` on the card against the CPU's plain path:
+             within ``HAPI_CLS_TOL``, the cross-entropy kernels counted
+             on the training and eval steps and in a profiled replay.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -385,6 +409,14 @@ SWEEP_LAYERS, SWEEP_STEPS = 2, 4
 # phase 13: steps of the uninterrupted run, the step saved and resumed
 # from, and the free disk a path needs over the bytes it writes
 RESUME_STEPS, RESUME_SAVE_AT, CKPT_DISK_MARGIN = 6, 3, 1.2
+# phase 14: GPT through hapi's fit from the DataLoader (sequences of the
+# synthetic dataset, loader workers, the step saved after and resumed
+# from), fit and the bare captured step in turns; the classifier's data
+# and its card-vs-CPU tolerance (f32: losses, eval loss and accuracy,
+# predictions after 6 Adam(0.01) steps)
+HAPI_SEQS, HAPI_WORKERS, HAPI_SAVE_AT = 64, 2, 3
+HAPI_TURNS = ("fit", "step", "step", "fit")
+HAPI_CLS_SIZE, HAPI_CLS_TOL = 64, 1e-4
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -2464,7 +2496,7 @@ def _bert_run(smi, batch, seq, n_steps, profile):
     under ``layer_norm_*.residual``)."""
     from paddle_tpu_torch.incubate.models import bert_base
     from paddle_tpu_torch.nn import functional as F
-    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops import reset_launch_counts
     from paddle_tpu_torch.train import (build_bert_pretrain_step,
                                         make_bert_batch)
     cfg = bert_base()
@@ -2482,9 +2514,7 @@ def _bert_run(smi, batch, seq, n_steps, profile):
         t0 = time.perf_counter()
         losses.append(step(inputs, targets).item())   # waits for the card
         times.append(time.perf_counter() - t0)
-    launches = {name: KERNELS[name].launches for name in KERNELS}
-    for name in LN_KERNELS:
-        launches[name + ".residual"] = KERNELS[name].residual_launches
+    launches = _launch_counts()
     _check_captured(f"bert {batch} x {seq}", step, n_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times[1:])
@@ -2878,7 +2908,7 @@ def _run_steps(step, inputs, targets, n_steps, what, watch=None):
     peak GB).  A ``TrainStep`` must be fresh, and is held to 1 capture
     and ``n_steps - 1`` replays (:func:`_check_captured`).  ``watch()``,
     if given, runs after each step, untimed."""
-    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops import reset_launch_counts
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     torch.cuda.synchronize()
@@ -2889,9 +2919,7 @@ def _run_steps(step, inputs, targets, n_steps, what, watch=None):
         times.append(time.perf_counter() - t0)
         if watch is not None:
             watch()
-    launches = {name: KERNELS[name].launches for name in KERNELS}
-    for name in LN_KERNELS:
-        launches[name + ".residual"] = KERNELS[name].residual_launches
+    launches = _launch_counts()
     if hasattr(step, "captured"):
         _check_captured(what, step, n_steps)
     return losses, times, launches, torch.cuda.max_memory_allocated() / 1e9
@@ -4309,7 +4337,7 @@ def _resume_path(smi, label, make, per_step, root, corrupt):
     each time ``restore_latest`` falls back to the older step, the error
     naming the leaf.  Returns the fresh step's launch counts."""
     from paddle_tpu_torch.distributed import CheckpointManager
-    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.ops import reset_launch_counts
     from paddle_tpu_torch.train import restore_checkpoint, save_checkpoint
     a, inputs, targets = make(0)
     run_a = _resume_run(a, inputs, targets, RESUME_STEPS)
@@ -4358,9 +4386,7 @@ def _resume_path(smi, label, make, per_step, root, corrupt):
     torch.cuda.synchronize()
     reset_launch_counts()
     run_c = _resume_run(c, inputs, targets, RESUME_STEPS - k)
-    launches = {name: KERNELS[name].launches for name in KERNELS}
-    for name in LN_KERNELS:
-        launches[name + ".residual"] = KERNELS[name].residual_launches
+    launches = _launch_counts()
     log(f"[checkpoint] {label}: a generation {gen_bytes / 1e9:.3f} GB of "
         f"tensors, {disk / 1e9:.3f} GB on disk; sync save {sync_s:.2f} s "
         f"({disk / 1e9 / sync_s:.2f} GB/s); async save: the caller stalled "
@@ -4747,6 +4773,375 @@ def phase_checkpoint(smi):
     return out
 
 
+# -- phase 14: data loading and hapi --------------------------------------------
+
+class _HapiTokens:
+    """bench_gpt's synthetic data as a dataset: ``HAPI_SEQS`` sequences
+    of ``TRAIN_SEQ + 1`` tokens from ``np.random.RandomState(0)``; a
+    sample is (ids ``[:-1]``, labels ``[1:]``).  Defined here, so it
+    pickles: the loader spawns its workers."""
+
+    def __init__(self, vocab):
+        self.tokens = np.random.RandomState(0).randint(
+            0, vocab, (HAPI_SEQS, TRAIN_SEQ + 1)).astype(np.int64)
+
+    def __getitem__(self, i):
+        return self.tokens[i, :-1], self.tokens[i, 1:]
+
+    def __len__(self):
+        return len(self.tokens)
+
+
+def _hapi_loader(ds, workers=HAPI_WORKERS):
+    """The loader of phase 14: shuffled by a ``RandomState(0)`` sampler,
+    ``FUSED_BATCH`` sequences a batch, ``workers`` worker processes."""
+    from paddle_tpu_torch.io import BatchSampler, DataLoader, RandomSampler
+    sampler = BatchSampler(sampler=RandomSampler(
+        ds, generator=np.random.RandomState(0)), batch_size=FUSED_BATCH)
+    return DataLoader(ds, batch_sampler=sampler, num_workers=workers)
+
+
+class _TimedLoader:
+    """A loader whose ``next()`` waits are kept (``waits``, seconds)."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def _hapi_callbacks():
+    """A callback that reads each step's loss on the host (``losses``)
+    and keeps the wall time from the epoch's start or the last step's end
+    to this step's end (``times``)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.times = [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self._t = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))     # waits for the card
+            now = time.perf_counter()
+            self.times.append(now - self._t)
+            self._t = now
+    return StepClock()
+
+
+def _hapi_gpt(gpt, seed):
+    """gpt_345m through hapi as phase 14 drives it: the network drawn
+    from a generator seeded ``seed`` on the card, O2 bf16 (decorated
+    before ``Model``), ``AdamW(1e-4, multi_precision=True,
+    parameters=...)``, the causal-LM loss, the fusion pass as
+    ``fusion_enabled()`` says (on)."""
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
+                                                  GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = make_generator(seed, DEVICE)
+    net = GPTForCausalLM(gpt, generator=gen)
+    decorate(net, level="O2", dtype="bfloat16")
+    model = Model(net, generator=gen)
+    model.prepare(optimizer=AdamW(learning_rate=1e-4, multi_precision=True,
+                                  parameters=net.parameters()),
+                  loss=GPTPretrainingCriterion())
+    return model
+
+
+def _launch_counts():
+    """Every wrapper's launch counter, the LayerNorm residual variants'
+    as ``name.residual``."""
+    from paddle_tpu_torch.ops import KERNELS
+    launches = {name: KERNELS[name].launches for name in KERNELS}
+    for name in LN_KERNELS:
+        launches[name + ".residual"] = KERNELS[name].residual_launches
+    return launches
+
+
+def _hapi_gpt_path(smi, root):
+    """GPT-345m through ``Model.fit`` at bench_gpt's headline shape
+    (8 x 1024, no recompute, dropout 0.1, the fusion pass on, O2 bf16,
+    AdamW) from phase 14's DataLoader (2 workers): run A, one epoch of 8
+    steps, saves after step ``HAPI_SAVE_AT`` through a
+    ``CheckpointManager`` with the loader's ``state_dict()`` as its data
+    state; it must capture once and replay 7 times, launching the
+    headline step's kernels each step.  Run B, ``build_train_step`` on
+    the same batches in the same order: losses and every state tensor
+    the same bits as A.  Run C, a fresh ``Model`` (weights from seed 1)
+    and a fresh DataLoader restored there: steps 4-8 A's bits.  Then
+    ``fit`` and the bare captured step in turns (a b b a), the host's
+    wait on the loader and peak memory, and the launches of a replay
+    held to the profiler's count.  Returns {path: launch counts}."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.ops import reset_launch_counts
+    from paddle_tpu_torch.train import (build_train_step,
+                                        restore_checkpoint, save_checkpoint)
+    gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    per_step = _headline_per_step(gpt)
+    ds = _HapiTokens(gpt.vocab_size)
+    n_steps = len(ds) // FUSED_BATCH
+    label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} hapi fit"
+    mgr = CheckpointManager(os.path.join(root, "run"), async_save=True)
+
+    class SaveAt(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step == HAPI_SAVE_AT - 1:
+                save_checkpoint(mgr, HAPI_SAVE_AT, self.model.train_step,
+                                data_state=loader.state_dict())
+
+    a = _hapi_gpt(gpt, 0)
+    loader = _hapi_loader(ds)
+    _need_disk("hapi", root, _tree_bytes(a.train_step.checkpoint_tree()))
+    clock = _hapi_callbacks()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    a.fit(loader, epochs=1, verbose=0, callbacks=[clock, SaveAt()])
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    mgr.wait()
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    _check_captured(f"{label} (run A)", a.train_step, n_steps)
+    _check_counts(label, launches, per_step, n_steps)
+    losses_a = clock.losses
+    log(f"[hapi] {label}: run A {n_steps} steps in {fit_s:.2f} s (capture "
+        f"and the save after step {HAPI_SAVE_AT} included), losses "
+        f"{losses_a}; capture {a.train_step.captured.stats}; peak "
+        f"{peak_a:.2f} GB")
+    # uniform random tokens: nothing to learn, so no fall to check
+    if not all(math.isfinite(v) for v in losses_a):
+        raise AssertionError(f"{label}: losses {losses_a}")
+
+    batches = [tuple(t.to(DEVICE) for t in batch)
+               for batch in _hapi_loader(ds, workers=0)]
+    b = build_train_step(gpt, device=DEVICE, seed=0, fusion=True)
+    losses_b = [b(ids, labels).item() for ids, labels in batches]
+    state_a = _step_state(a.train_step)
+    differ = _differ(state_a, _step_state(b))
+    same_rng = torch.equal(a.train_step.generator.get_state(),
+                           b.generator.get_state())
+    log(f"[hapi] {label}: build_train_step on the same batches: losses "
+        f"{losses_b}; state digest {_state_digest(_step_state(b))} (fit "
+        f"{_state_digest(state_a)}), tensors that differ {differ[:4]} of "
+        f"{len(state_a)}, generators the same: {same_rng}")
+    if losses_b != losses_a or differ or not same_rng:
+        raise AssertionError(f"{label}: fit and build_train_step differ: "
+                             f"losses {losses_a} / {losses_b}, tensors "
+                             f"{differ[:8]}, generator same {same_rng}")
+    _check_captured(f"{label} (build_train_step)", b, n_steps)
+    del b
+    _free_steps()
+
+    c = _hapi_gpt(gpt, 1)
+    t0 = time.perf_counter()
+    n = restore_checkpoint(mgr, c.train_step)
+    restore_s = time.perf_counter() - t0
+    resumed = _hapi_loader(ds)
+    resumed.load_state_dict(mgr.load_data_state(n))
+    clock_c = _hapi_callbacks()
+    c.fit(resumed, epochs=1, verbose=0, callbacks=[clock_c])
+    differ = _differ(state_a, _step_state(c.train_step))
+    log(f"[hapi] {label}: resumed at step {n} (restore {restore_s:.2f} s) "
+        f"into a fresh Model and DataLoader: losses {clock_c.losses} "
+        f"(uninterrupted {losses_a[n:]}), tensors that differ {differ[:4]}")
+    if n != HAPI_SAVE_AT or clock_c.losses != losses_a[n:] or differ or \
+            not torch.equal(c.train_step.generator.get_state(),
+                            a.train_step.generator.get_state()):
+        raise AssertionError(f"{label}: the resumed steps are not the "
+                             f"uninterrupted ones: step {n}, losses "
+                             f"{clock_c.losses} / {losses_a[n:]}, tensors "
+                             f"{differ[:8]}")
+    _check_captured(f"{label} (resumed)", c.train_step, n_steps - n)
+    del c
+    shutil.rmtree(mgr.root)
+    _free_steps()
+
+    # fit against the bare captured step, in turns
+    b = build_train_step(gpt, device=DEVICE, seed=0, fusion=True)
+    b(*batches[0]).item()                              # capture
+    times = {"fit": [], "step": []}
+    waits, peaks = [], []
+    for way in HAPI_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if way == "fit":
+            timed, clock = _TimedLoader(_hapi_loader(ds)), _hapi_callbacks()
+            a.fit(timed, epochs=1, verbose=0, callbacks=[clock])
+            times["fit"] += clock.times
+            waits += timed.waits
+        else:
+            for ids, labels in batches:
+                t0 = time.perf_counter()
+                b(ids, labels).item()
+                times["step"].append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    wait_ms = sorted(w * 1e3 for w in waits)
+    log(f"[hapi] {label}: turns {'/'.join(HAPI_TURNS)}, {n_steps} steps "
+        f"each: fit median {med['fit']:.2f} ms a step (first steps "
+        f"{[round(t * 1e3, 2) for t in times['fit'][::n_steps]]} ms, the "
+        f"workers' start), the bare captured step {med['step']:.2f} ms "
+        f"(fit - step {med['fit'] - med['step']:+.2f} ms); the host's wait "
+        f"on the loader a step: median {statistics.median(wait_ms):.3f} "
+        f"ms, max {wait_ms[-1]:.3f} ms, after the first of each epoch max "
+        f"{max(w * 1e3 for i, w in enumerate(waits) if i % n_steps):.3f} "
+        f"ms; peak {max(peaks):.2f} GB (fit) | {smi}")
+    del b
+    ids, labels = batches[0]
+    kernels = _check_device_launches(
+        f"{label} replay", lambda: a.train_batch([ids], [labels]), 2,
+        per_step)
+    log(f"[hapi] {label}: a profiled replay of train_batch ran "
+        f"{len(kernels)} kernel names, the counters' launches on the "
+        f"device")
+    del a, batches
+    _free_steps()
+    return {label: launches}
+
+
+class _Shapes:
+    """The classifier's data: ``HAPI_CLS_SIZE`` images (3, 8, 8) of 4
+    classes, a class centre plus noise, from ``RandomState(0)`` (the JAX
+    package's ``FakeData`` recipe); a sample is (image, label)."""
+
+    def __init__(self):
+        rng = np.random.RandomState(0)
+        centres = rng.randn(4, 3, 8, 8).astype(np.float32)
+        self.labels = np.arange(HAPI_CLS_SIZE) % 4
+        self.images = (centres[self.labels] + 0.5 * rng.randn(
+            HAPI_CLS_SIZE, 3, 8, 8).astype(np.float32))
+
+    def __getitem__(self, i):
+        return self.images[i], np.int64(self.labels[i])
+
+    def __len__(self):
+        return HAPI_CLS_SIZE
+
+
+def _hapi_classifier(device):
+    """The JAX package's hapi test classifier on ``device``: Flatten,
+    Linear 192 -> 32, ReLU, Linear 32 -> 4, ``Adam(0.01)``,
+    ``CrossEntropyLoss``, ``Accuracy``, 3 epochs of batch 32 (the global
+    numpy stream seeded 0 first: the same order on both devices), then
+    ``evaluate`` and ``predict``.  Returns (losses, eval logs, predictions,
+    model)."""
+    from paddle_tpu_torch import metric, nn
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.nn.initializer import XavierNormal
+    from paddle_tpu_torch.optimizer import Adam
+
+    class Data(_Shapes, Dataset):
+        pass
+
+    # drawn on the CPU, so both devices start from the same weights
+    gen = make_generator(42, "cpu")
+    net = torch.nn.Sequential(
+        torch.nn.Flatten(), nn.Linear(3 * 8 * 8, 32, XavierNormal(),
+                                      generator=gen),
+        torch.nn.ReLU(), nn.Linear(32, 4, XavierNormal(), generator=gen))
+    net.to(device)
+    model = Model(net)
+    model.prepare(optimizer=Adam(learning_rate=0.01,
+                                 parameters=net.parameters()),
+                  loss=nn.CrossEntropyLoss(), metrics=metric.Accuracy())
+    clock = _hapi_callbacks()
+    np.random.seed(0)
+    data = Data()
+    model.fit(data, epochs=3, batch_size=32, verbose=0, callbacks=[clock])
+    logs = model.evaluate(data, batch_size=32, verbose=0)
+    preds = model.predict(data, batch_size=8, stack_outputs=True)[0]
+    return clock.losses, logs, preds, model
+
+
+def _hapi_classifier_path(smi):
+    """The classifier through ``fit``, ``evaluate`` and ``predict`` on the
+    card against the same on the CPU's plain path (the same weights and
+    data order): losses, eval loss and accuracy, predictions within
+    ``HAPI_CLS_TOL``; the cross-entropy kernels (rows 9-10) counted on
+    the training and eval steps, captured, and held to a profiled
+    replay.  Returns {path: launch counts}."""
+    from paddle_tpu_torch.ops import reset_launch_counts
+    label = f"classifier {HAPI_CLS_SIZE} x (3, 8, 8) hapi"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, logs, preds, model = _hapi_classifier(DEVICE)
+    launches = _launch_counts()
+    want_losses, want_logs, want_preds, _ = _hapi_classifier("cpu")
+    err = max([abs(a - b) for a, b in zip(losses, want_losses)]
+              + [abs(logs["loss"] - want_logs["loss"]),
+                 abs(logs["acc"] - want_logs["acc"]),
+                 float(np.abs(preds - want_preds).max())])
+    steps = 3 * HAPI_CLS_SIZE // 32
+    evals = HAPI_CLS_SIZE // 32
+    train, ev = model.train_step.captured.stats, model._eval_step.stats
+    log(f"[hapi] {label}: fit losses {losses} (CPU {want_losses}), "
+        f"evaluate {logs} (CPU {want_logs}), predictions {preds.shape}; "
+        f"max |card - CPU| {err:.3e} (limit {HAPI_CLS_TOL}); softmax_xent "
+        f"fwd / bwd launches {launches['softmax_xent_fwd']} / "
+        f"{launches['softmax_xent_bwd']} (train {steps} steps, eval "
+        f"{evals} batches); capture: train {train}, eval {ev} | {smi}")
+    if err > HAPI_CLS_TOL or len(losses) != steps or \
+            losses[-1] >= losses[0]:
+        raise AssertionError(f"{label}: card and CPU differ by {err} "
+                             f"(limit {HAPI_CLS_TOL}), losses {losses}")
+    if (launches["softmax_xent_fwd"], launches["softmax_xent_bwd"]) != (
+            steps + evals, steps):
+        raise AssertionError(f"{label}: cross-entropy launches {launches}")
+    _check_captured(f"{label} train", model.train_step, steps)
+    # evaluate's batches and predict's (no labels): a graph each
+    if (ev["compiles"], ev["fallback"]) != (2, None):
+        raise AssertionError(f"{label}: the eval step's capture {ev}")
+    x = torch.from_numpy(_Shapes().images[:32])
+    y = torch.from_numpy(_Shapes().labels[:32])
+    _check_device_launches(f"{label} replay",
+                           lambda: model.train_batch([x], [y]), 2,
+                           {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1})
+    del model
+    _free_steps()
+    return {label: launches}
+
+
+def phase_hapi(smi):
+    """Data loading and hapi on the card (:func:`_hapi_gpt_path`,
+    :func:`_hapi_classifier_path`), in a temporary directory.  Returns
+    {path: launch counts}."""
+    import tempfile
+    base = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    try:
+        t0 = time.perf_counter()
+        out = _hapi_gpt_path(smi, base)
+        log(f"[time] hapi gpt {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out.update(_hapi_classifier_path(smi))
+        log(f"[time] hapi classifier {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -4791,6 +5186,8 @@ def main() -> int:
     lap("schedule")
     checkpointed = phase_checkpoint(smi)
     lap("checkpoint")
+    hapi = phase_hapi(smi)
+    lap("hapi")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -4834,6 +5231,11 @@ def main() -> int:
                 by_path[name][f"{path} captured"] = counts[name]
     # phase 13's resumed steps, served directories, calibration and reload
     for path, counts in checkpointed.items():
+        for name in by_path:
+            if counts.get(name):
+                by_path[name][path] = counts[name]
+    # phase 14's hapi paths: GPT's fit, the classifier's fit and evaluate
+    for path, counts in hapi.items():
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

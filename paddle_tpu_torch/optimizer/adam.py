@@ -44,9 +44,9 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True, amsgrad=False):
+                 multi_precision=True, amsgrad=False, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._amsgrad = amsgrad
         if amsgrad:
@@ -77,9 +77,10 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=0.01, grad_clip=None,
-                 multi_precision=True, amsgrad=False):
+                 multi_precision=True, amsgrad=False, parameters=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, weight_decay,
-                         grad_clip, multi_precision, amsgrad)
+                         grad_clip, multi_precision, amsgrad,
+                         parameters=parameters)
 
 
 class Adamax(Optimizer):
@@ -89,9 +90,9 @@ class Adamax(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True):
+                 multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _update(self, params, grads, slots, lr, step):
@@ -117,8 +118,10 @@ class Lamb(Optimizer):
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, grad_clip=None,
-                 exclude_from_weight_decay_fn=None, multi_precision=True):
-        super().__init__(learning_rate, None, grad_clip, multi_precision)
+                 exclude_from_weight_decay_fn=None, multi_precision=True,
+                 parameters=None):
+        super().__init__(learning_rate, None, grad_clip, multi_precision,
+                         parameters=parameters)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lamb_wd = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
@@ -147,9 +150,9 @@ class NAdam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, momentum_decay=0.004, weight_decay=None,
-                 grad_clip=None, multi_precision=True):
+                 grad_clip=None, multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._psi = momentum_decay
 
@@ -179,9 +182,9 @@ class RAdam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True):
+                 multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _update(self, params, grads, slots, lr, step):

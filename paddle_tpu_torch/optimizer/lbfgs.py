@@ -43,9 +43,8 @@ class LBFGS(Optimizer):
         if parameters is None:
             raise ValueError("parameters must be given "
                              "(pass model.parameters())")
-        super().__init__(learning_rate, None, None, multi_precision=False)
-        self._parameter_list = list(parameters)
-        self._global_step = 0
+        super().__init__(learning_rate, None, None, multi_precision=False,
+                         parameters=parameters)
         if max_eval is None:
             max_eval = max_iter * 5 // 4
         if line_search_fn not in (None, "strong_wolfe"):

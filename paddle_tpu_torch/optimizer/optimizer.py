@@ -56,13 +56,21 @@ class Optimizer:
     """A learning rate (a float or an :class:`~.lr.LRScheduler`), weight
     decay (a float: L2; ``L2Decay(c)`` or ``L1Decay(c)``) added to the
     gradient, or decoupled (``_decoupled_wd``, AdamW), and an optional
-    ``grad_clip`` run over the whole tree first."""
+    ``grad_clip`` run over the whole tree first.
+
+    ``parameters`` (the JAX package's keyword) is kept as
+    ``_parameter_list`` and not read by the tree update, which updates
+    the parameters it is given.  The moments and masters live in a
+    training step's state tree, never in the optimizer, so
+    :meth:`state_dict` holds the JAX package's ``global_step`` and
+    ``LR_Scheduler`` keys only; the sharded save carries the tree."""
 
     _state_slots: tuple = ()
     _decoupled_wd = False
 
     def __init__(self, learning_rate=0.001, weight_decay=None,
-                 grad_clip=None, multi_precision: bool = True):
+                 grad_clip=None, multi_precision: bool = True,
+                 parameters=None):
         self._learning_rate = learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate)
         self._grad_clip = grad_clip
@@ -77,6 +85,8 @@ class Optimizer:
         else:
             self._weight_decay, self._wd_mode = 0.0, "l2"
         self._lr_tensor: Optional[torch.Tensor] = None
+        self._parameter_list = [] if parameters is None else list(parameters)
+        self._global_step = 0
 
     # -- the learning rate ---------------------------------------------------
     def get_lr(self) -> float:
@@ -120,6 +130,36 @@ class Optimizer:
             self._lr_tensor = torch.full((), self.get_lr(),
                                          dtype=torch.float32, device=device)
         return self._lr_tensor
+
+    # -- checkpoints ---------------------------------------------------------
+    def state_dict(self) -> dict:
+        """``global_step``, and ``LR_Scheduler`` under a schedule: what
+        ``hapi.Model.save`` writes to ``.pdopt``, as the JAX package's
+        hapi does."""
+        out = {"global_step": self._global_step}
+        if self._learning_rate_scheduler is not None:
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        return out
+
+    def set_state_dict(self, state) -> None:
+        """Restore :meth:`state_dict`'s keys.  Any other key (a moment or
+        master that the JAX package's eager ``step()`` saved) raises
+        ``ValueError``: the port has nowhere to put it, and resuming from
+        zero moments would pass for a resume.  A training step's state
+        resumes from the sharded save (``Model.save(sharded=True)``,
+        ``train.save_checkpoint``)."""
+        state = dict(state)
+        sched = state.pop("LR_Scheduler", None)
+        self._global_step = int(state.pop("global_step", 0))
+        if state:
+            raise ValueError(
+                f"optimizer state {sorted(state)[:4]} cannot be restored "
+                "into the port's optimizer, whose moments and masters live "
+                "in the training step's state tree; resume from a sharded "
+                "save (Model.save(sharded=True)) or load with "
+                "reset_optimizer=True")
+        if sched is not None and self._learning_rate_scheduler is not None:
+            self._learning_rate.set_state_dict(sched)
 
     # -- the state tree ------------------------------------------------------
     def _init_slot(self, slot: str, p: torch.Tensor) -> torch.Tensor:
@@ -211,9 +251,9 @@ class Momentum(Optimizer):
 
     def __init__(self, learning_rate=0.001, momentum=0.9,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 multi_precision=True):
+                 multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._momentum, self._nesterov = momentum, use_nesterov
 
     def _update(self, params, grads, slots, lr, step):
@@ -232,9 +272,9 @@ class Adagrad(Optimizer):
 
     def __init__(self, learning_rate, epsilon=1e-6, weight_decay=None,
                  grad_clip=None, initial_accumulator_value=0.0,
-                 multi_precision=True):
+                 multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._epsilon = epsilon
         self._initial_acc = initial_accumulator_value
 
@@ -253,9 +293,10 @@ class Adadelta(Optimizer):
     _state_slots = ("avg_squared_grad", "avg_squared_update")
 
     def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
-                 weight_decay=None, grad_clip=None, multi_precision=True):
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._epsilon, self._rho = epsilon, rho
 
     def _update(self, params, grads, slots, lr, step):
@@ -282,9 +323,9 @@ class RMSProp(Optimizer):
 
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
                  centered=False, weight_decay=None, grad_clip=None,
-                 multi_precision=True):
+                 multi_precision=True, parameters=None):
         super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision, parameters=parameters)
         self._rho, self._epsilon = rho, epsilon
         self._momentum, self._centered = momentum, centered
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import inspect
 import json
 import statistics
 import time
@@ -69,26 +70,35 @@ class EagerStep:
     """One optimizer step, run eagerly: loss of ``model`` on a batch, its
     gradients, and the optimizer's update of every parameter (``params``,
     with the optimizer's ``state``), in place; ``generator`` feeds every
-    dropout.  Each parameter's gradient is dropped after the update, so
-    under capture the gradients live in the graph's memory pool.  The
-    update reads the learning rate from ``optimizer.lr_tensor``: a caller
-    that runs this step directly under a schedule calls
-    ``optimizer.write_lr()`` first, as :class:`TrainStep` does."""
+    dropout (passed to ``model`` as ``generator=`` when
+    ``takes_generator``).  Each parameter's gradient is dropped after the
+    update, so under capture the gradients live in the graph's memory
+    pool.  The update reads the learning rate from
+    ``optimizer.lr_tensor``: a caller that runs this step directly under
+    a schedule calls ``optimizer.write_lr()`` first, as
+    :class:`TrainStep` does."""
 
     def __init__(self, model, criterion, optimizer, generator, params,
-                 state):
+                 state, *, takes_generator: bool = True,
+                 outputs: bool = False):
         self.model, self.criterion = model, criterion
         self.optimizer, self.generator = optimizer, generator
         self.params, self.state = params, state
+        self.takes_generator, self.outputs = takes_generator, outputs
 
-    def __call__(self, inputs, targets) -> torch.Tensor:
+    def __call__(self, inputs, targets):
+        kw = {"generator": self.generator} if self.takes_generator else {}
         if isinstance(inputs, dict):
-            out = self.model(**inputs, generator=self.generator)
+            out = self.model(**inputs, **kw)
+        elif isinstance(inputs, (list, tuple)):
+            out = self.model(*inputs, **kw)
         else:
-            out = self.model(inputs, generator=self.generator)
+            out = self.model(inputs, **kw)
         out = out if isinstance(out, tuple) else (out,)
         if isinstance(targets, dict):
             loss = self.criterion(*out, **targets)
+        elif isinstance(targets, (list, tuple)):
+            loss = self.criterion(*out, *targets)
         else:
             loss = self.criterion(*out, targets)
         loss = loss.float()
@@ -97,6 +107,8 @@ class EagerStep:
         self.optimizer.apply_gradients_tree(self.params, grads, self.state)
         for p in self.params.values():
             p.grad = None
+        if self.outputs:
+            return loss.detach(), tuple(o.detach() for o in out)
         return loss.detach()
 
 
@@ -104,8 +116,11 @@ class TrainStep:
     """One optimizer step: loss of ``model`` on a batch, its gradients,
     and the optimizer's update of every parameter, in place.  The
     optimizer state lives in ``self.state``; ``generator`` feeds every
-    dropout.  The criterion takes the model's outputs (all of them, when
-    the model returns a tuple), then the targets.  With ``fusion`` (by
+    dropout, passed to the model as ``generator=`` when its ``forward``
+    takes one.  The criterion takes the model's outputs (all of them, when
+    the model returns a tuple), then the targets.  With ``outputs`` a call
+    returns ``(loss, outputs)``, the model's outputs detached (hapi's
+    metrics read them).  With ``fusion`` (by
     default when ``fusion_enabled()``) the model runs under the fusion
     pass (``self.model`` is the wrapped module, on the same
     parameters).  Calling the step runs it through
@@ -117,7 +132,7 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
                  optimizer: Optimizer, generator: torch.Generator, *,
-                 fusion: Optional[bool] = None):
+                 fusion: Optional[bool] = None, outputs: bool = False):
         model.train()
         if fusion is None:
             fusion = fusion_enabled()
@@ -128,15 +143,18 @@ class TrainStep:
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
         self.state = optimizer.init_state_tree(self.params)
+        takes = "generator" in inspect.signature(model.forward).parameters
         self.eager = EagerStep(self.model, criterion, optimizer, generator,
-                               self.params, self.state)
+                               self.params, self.state,
+                               takes_generator=takes, outputs=outputs)
         self.captured = capture_step(self.eager)
 
-    def __call__(self, inputs, targets) -> torch.Tensor:
+    def __call__(self, inputs, targets):
         """Run the step on the model's ``inputs`` and the criterion's
-        ``targets``, each one tensor (GPT's ids and labels) or a dict of
-        keyword arguments (:func:`make_bert_batch`); returns the f32
-        loss (before the update).  The optimizer's learning rate
+        ``targets``, each one tensor (GPT's ids and labels), a tuple of
+        positional arguments (hapi's batches) or a dict of keyword
+        arguments (:func:`make_bert_batch`); returns the f32 loss (before
+        the update).  The optimizer's learning rate
         (``get_lr()``: its scheduler's value, or ``set_lr``'s) is first
         written into its tensor on the device, outside the graph, which
         reads it at each replay."""
@@ -162,6 +180,17 @@ class TrainStep:
         sched = self.optimizer._learning_rate_scheduler
         return {} if sched is None else {"LR_Scheduler": sched.state_dict()}
 
+    def full_opt_tree(self, opt_tree: dict) -> dict:
+        """``opt_tree`` as a checkpoint holds it, with the empty subtrees
+        that have no leaves on disk (``master`` in an f32 run, SGD's
+        slots) rebuilt, so that it has :attr:`state`'s layout."""
+        ot = dict(opt_tree)
+        ot["slots"] = dict(ot.get("slots", {}))
+        ot.setdefault("master", {})
+        for s in self.optimizer._state_slots:
+            ot["slots"].setdefault(s, {})
+        return ot
+
     def load_checkpoint_tree(self, tree: dict,
                              data_state: Optional[dict] = None) -> None:
         """Restore a checkpoint tree (:meth:`checkpoint_tree`'s layout, as
@@ -171,17 +200,13 @@ class TrainStep:
         where they are), the generator is set to ``rng`` when the tree
         has it, and a schedule to ``data_state["LR_Scheduler"]``, whose
         rate is then written into ``optimizer.lr_tensor``.  Empty
-        subtrees that have no leaves on disk (``master`` in an f32 run,
-        SGD's slots) are rebuilt, as hapi's ``load`` does.  Raises
+        subtrees that have no leaves on disk are rebuilt
+        (:meth:`full_opt_tree`).  Raises
         ``KeyError`` for a tensor the tree lacks and ``ValueError`` for
         one of another shape or dtype."""
-        ot = dict(tree.get("opt_tree", {}))
-        ot["slots"] = dict(ot.get("slots", {}))
-        ot.setdefault("master", {})
-        for s in self.optimizer._state_slots:
-            ot["slots"].setdefault(s, {})
         copy_into({"params": self.params, "opt_tree": self.state},
-                  {"params": tree.get("params", {}), "opt_tree": ot})
+                  {"params": tree.get("params", {}),
+                   "opt_tree": self.full_opt_tree(tree.get("opt_tree", {}))})
         if "rng" in tree:
             restore_generator_state(self.generator, tree["rng"])
         sched = self.optimizer._learning_rate_scheduler
