@@ -283,6 +283,41 @@ line is printed:
              ``predict`` on the card against the CPU's plain path:
              within ``HAPI_CLS_TOL``, the cross-entropy kernels counted
              on the training and eval steps and in a profiled replay.
+15. hybrid   data x tensor parallelism (``paddle_tpu_torch.distributed``)
+             at the headline GPT-345m widths (hidden 1024, 16 heads,
+             vocabulary 50304, 8 x 1024, no recompute, the fusion pass off,
+             the same weights from seed 0), each run's ranks started by
+             ``spawn`` and reporting to this process: (a) NCCL at a world
+             of one, ``fleet.init`` with every degree 1, the mp layers at
+             degree 1, O2 bf16, AdamW with ``ClipGradByGlobalNorm(1.0)``,
+             dropout 0.1, captured (1 compile, the rest replays, no
+             fallback): losses and every state tensor the bits of
+             ``build_train_step``'s plain-model step (captured too), the
+             clip's global norm read from its ``last_norm`` after each
+             replay the plain step's and new each step, the launches of
+             rows 1-3 and 7-8 a step on the counters and in a profiled
+             replay; then, in the same process, the world-of-one f32 step
+             (dropout 0, the same optimizer) at full depth and at
+             ``HYBRID_C_LAYERS``: the references.  Every f32 comparison
+             below holds, against its reference, the losses within
+             ``HYBRID_LOSS_TOL``, the clip's norm after each step within
+             ``HYBRID_NORM_RTOL``, the ``gather_params`` of the updates
+             (updated minus initial weights) within ``HYBRID_PARAM_TOL``
+             element by element and within ``HYBRID_UPDATE_RTOL`` of each
+             tensor's update in 2-norm.  (b) mp = 2, two ranks sharing
+             the card over gloo (asked for), full depth: 3 f32 steps so
+             compared; the planted fault (the two ranks trade their
+             shards) must fail the loss comparison; then 3 bf16 O2 steps
+             at dropout 0.1: finite losses, the replicated parameters the
+             same bits on both ranks; each rank's launches (flash at 8
+             heads).  (c) dp = 2 x mp = 2, four ranks on the card over
+             gloo, depth cut to ``HYBRID_C_LAYERS``: 3 f32 steps on the
+             global batch so compared, both dp ranks' shards the same
+             bits.  (d) with two cards or more, (b) over NCCL, one card a
+             rank, captured, its norms read after each replay; otherwise
+             one line says it did not run.  The
+             gloo runs are eager (gloo's collectives run on the host) and
+             their step times are printed as such, not as throughput.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -417,6 +452,31 @@ RESUME_STEPS, RESUME_SAVE_AT, CKPT_DISK_MARGIN = 6, 3, 1.2
 HAPI_SEQS, HAPI_WORKERS, HAPI_SAVE_AT = 64, 2, 3
 HAPI_TURNS = ("fit", "step", "step", "fit")
 HAPI_CLS_SIZE, HAPI_CLS_TOL = 64, 1e-4
+# phase 15: data x tensor parallelism.  (a)'s plain and degree-1 steps, the
+# f32 steps of the references, (b), (c) and (d); (c)'s depth
+HYBRID_BATCH, HYBRID_A_STEPS, HYBRID_STEPS = 8, 4, 3
+HYBRID_C_LAYERS = 4
+HYBRID_LR, HYBRID_CLIP = 1e-4, 1.0
+# sharded against the world-of-one step, f32: losses within the bound the
+# JAX hybrid step is held to (__graft_entry__.py:163-169).  AdamW's first
+# steps move a weight by up to about lr a step (3e-4 in all); each weight
+# after the steps within lr of the reference's (the readings: 3.666e-05 at
+# mp 2, 2.059e-05 at dp 2 x mp 2), and each tensor's update (updated minus
+# initial weights) within HYBRID_UPDATE_RTOL of the reference's update in
+# 2-norm, so a shard left as it was (about 0.7) or moved the wrong way (2)
+# fails
+HYBRID_LOSS_TOL = 1e-4
+HYBRID_PARAM_TOL = HYBRID_LR
+HYBRID_UPDATE_RTOL = 1e-2
+# AdamW's update hardly moves when every gradient is scaled alike, so the
+# losses cannot show a wrong clip: its global norm (the shards' squares
+# all-reduced over mp, the replicated ones counted once), read from the
+# clip's last_norm after each step (a captured step's replay writes it),
+# is held to the world of one's, f32 sums in another order
+HYBRID_NORM_RTOL = 1e-5
+# (a)'s process group: NCCL at a world of one (a rehearsal on the CPU sets
+# gloo); seconds a run's ranks may take
+HYBRID_BACKEND, HYBRID_TIMEOUT = "nccl", 420
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -5142,6 +5202,397 @@ def phase_hapi(smi):
     return out
 
 
+# -- phase 15: data x tensor parallelism ----------------------------------------
+
+def _hybrid_cfg(layers=None, dropout=True):
+    """GPT-345m at the headline step's widths, no recompute, the position
+    table at ``TRAIN_SEQ``; ``layers`` cuts the depth."""
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    kw = {} if dropout else dict(hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0)
+    cfg = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ,
+                   **kw)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _degrees(dp=1, mp=1):
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    return strategy
+
+
+def _hybrid_optimizer(bf16=False):
+    """AdamW at ``HYBRID_LR`` with the global-norm clip (master weights in
+    f32 for O2 bf16)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=HYBRID_LR, multi_precision=bf16,
+                 grad_clip=ClipGradByGlobalNorm(HYBRID_CLIP))
+
+
+def _weights(step):
+    """A copy of the step's parameters, by name, on the card."""
+    from paddle_tpu_torch.distributed import unwrap_model
+    return {n: p.detach().clone()
+            for n, p in unwrap_model(step.model).named_parameters()}
+
+
+def _updates(step, init):
+    """Each parameter's update since ``init`` (:func:`_weights`), by name
+    in f32 numpy, and the split axes."""
+    from paddle_tpu_torch.distributed import unwrap_model
+    from paddle_tpu_torch.incubate.models import split_axes
+    model = unwrap_model(step.model)
+    return ({n: (p.detach() - init[n]).float().cpu().numpy()
+             for n, p in model.named_parameters()}, split_axes(model))
+
+
+def _hybrid_steps(step, ids, labels, n):
+    """``n`` steps, the counters set to 0 just before and read just after:
+    (losses, step seconds, launch counts, the clip's global norm after
+    each step (none without a global-norm clip))."""
+    from paddle_tpu_torch.ops import reset_launch_counts
+    clip = step.optimizer._grad_clip
+    if ids.is_cuda:
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, times, norms = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        times.append(time.perf_counter() - t0)
+        if getattr(clip, "last_norm", None) is not None:
+            norms.append(clip.last_norm.item())
+    return losses, times, _launch_counts(), norms
+
+
+def _plain_per_step(cfg):
+    """Launches of one unfused, non-recompute GPT step at ``cfg``'s depth:
+    LayerNorm forward and backward 2 a block and the final one, the flash
+    forward, dq and dk/dv one a block."""
+    layers = cfg.num_layers
+    return {"layer_norm_fwd": 2 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1,
+            "layer_norm_fwd.residual": 0, "layer_norm_bwd.residual": 0,
+            **{n: layers for n in FLASH_KERNELS}}
+
+
+def _free():
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _hybrid_world1_rank(backend):
+    """(a) and the references of (b) and (c), in one rank of a world of
+    one on the card (see the module docstring)."""
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    init_parallel_env(backend, device=DEVICE)
+    capture = backend == "nccl"
+    out = {}
+    cfg = _hybrid_cfg()
+    ids, labels = make_batch(cfg, HYBRID_BATCH, TRAIN_SEQ, seed=0,
+                             device=DEVICE)
+    plain = build_train_step(cfg, device=DEVICE, fusion=False,
+                             optimizer=_hybrid_optimizer(bf16=True))
+    losses_p, times_p, _, norms_p = _hybrid_steps(plain, ids, labels,
+                                                  HYBRID_A_STEPS)
+    want = {k: t.clone() for k, t in _step_state(plain).items()}
+    want_rng = plain.generator.get_state()
+    del plain
+    _free()
+    hyb = build_train_step(cfg, device=DEVICE, fusion=False,
+                           strategy=_degrees(), capture=capture,
+                           optimizer=_hybrid_optimizer(bf16=True))
+    losses_h, times_h, launches, norms_h = _hybrid_steps(hyb, ids, labels,
+                                                         HYBRID_A_STEPS)
+    if capture:
+        _check_captured("hybrid (a)", hyb, HYBRID_A_STEPS)
+    got = _step_state(hyb)
+    differ = _differ(want, got)
+    same_rng = torch.equal(want_rng, hyb.generator.get_state())
+    per_step = _plain_per_step(cfg)
+    _check_counts("hybrid (a)", launches, per_step, HYBRID_A_STEPS)
+    profiled = None
+    if capture:
+        profiled = len(_check_device_launches(
+            "hybrid (a) replay", lambda: hyb(ids, labels), 2, per_step))
+    log(f"[hybrid] (a) rank 0: losses {losses_h}, plain {losses_p}, "
+        f"tensors that differ {len(differ)}")
+    out["a"] = {"plain": losses_p, "hybrid": losses_h, "differ": differ,
+                "norms_plain": norms_p, "norms_hybrid": norms_h,
+                "n_state": len(want), "plain_s": times_p, "hybrid_s": times_h,
+                "same_rng": same_rng,
+                "launches": launches, "profiled": profiled,
+                "stats": None if hyb.captured is None
+                else dict(hyb.captured.stats)}
+    del hyb, want, got
+    _free()
+    for key, layers in (("b", None), ("c", HYBRID_C_LAYERS)):
+        cfg = _hybrid_cfg(layers, dropout=False)
+        step = build_train_step(cfg, device=DEVICE, amp_o2=False,
+                                fusion=False, strategy=_degrees(),
+                                capture=False,
+                                optimizer=_hybrid_optimizer())
+        init = _weights(step)
+        losses, times, _, norms = _hybrid_steps(step, ids, labels,
+                                                HYBRID_STEPS)
+        updates, _ = _updates(step, init)
+        out[key] = {"losses": losses, "times": times, "updates": updates,
+                    "norms": norms}
+        del init
+        del step
+        _free()
+    return out
+
+
+def _swap_shards(step):
+    """The planted fault: the two model-parallel ranks trade shards."""
+    from paddle_tpu_torch.distributed import broadcast
+    from paddle_tpu_torch.distributed import unwrap_model
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import is_shard
+    group = step.hcg.get_model_parallel_group()
+    with torch.no_grad():
+        for p in unwrap_model(step.model).parameters():
+            if not is_shard(p):
+                continue
+            a, b = p.data.clone(), p.data.clone()
+            broadcast(a, src=group.ranks[0], group=group)
+            broadcast(b, src=group.ranks[1], group=group)
+            p.data.copy_(b if group.rank == 0 else a)
+
+
+def _bits_sha(t):
+    import hashlib
+    return hashlib.sha256(_bits(t).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _hybrid_rank(dp, mp, layers, backend, planted, bf16):
+    """One rank of (b), (c) or (d): f32 steps at dp x mp (dropout 0,
+    AdamW and the clip) from seed 0's weights; with ``planted``, one step
+    after the mp ranks traded shards; with ``bf16``, O2 bf16 steps at
+    dropout 0.1 and the replicated parameters' bit hashes."""
+    from paddle_tpu_torch.distributed import (fleet, init_parallel_env,
+                                              rank_device, unwrap_model)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import is_shard
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    init_parallel_env(backend, device=DEVICE)
+    dev = rank_device()
+    capture = backend == "nccl"
+    cfg = _hybrid_cfg(layers, dropout=False)
+    ids, labels = make_batch(cfg, HYBRID_BATCH, TRAIN_SEQ, seed=0,
+                             device=dev)
+
+    def f32_step():
+        return build_train_step(cfg, device=dev, amp_o2=False, fusion=False,
+                                dp=dp, mp=mp, capture=capture,
+                                optimizer=_hybrid_optimizer())
+
+    step = f32_step()
+    hcg = fleet.get_hybrid_communicate_group()
+    init = _weights(step)
+    losses, times, launches, norms = _hybrid_steps(step, ids, labels,
+                                                   HYBRID_STEPS)
+    if capture:
+        _check_captured("hybrid f32", step, HYBRID_STEPS)
+    updates, axes = _updates(step, init)
+    res = {"rank": hcg.get_global_rank(),
+           "dp_rank": hcg.get_data_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank(),
+           "heads": unwrap_model(step.model).gpt.layers[0].attn.num_heads,
+           "losses": losses, "times": times, "launches": launches,
+           "updates": updates, "axes": axes, "norms": norms}
+    del step, init
+    _free()
+    if planted:
+        step = f32_step()
+        _swap_shards(step)
+        res["planted_loss"] = step(ids, labels).item()
+        del step
+        _free()
+    if bf16:
+        step = build_train_step(_hybrid_cfg(layers), device=dev,
+                                fusion=False, dp=dp, mp=mp, capture=capture)
+        b_losses, b_times, b_launches, _ = _hybrid_steps(step, ids, labels,
+                                                         HYBRID_STEPS)
+        model = unwrap_model(step.model)
+        res["bf16"] = {"losses": b_losses, "times": b_times,
+                       "launches": b_launches,
+                       "replicated": {n: _bits_sha(p) for n, p in
+                                      model.named_parameters()
+                                      if not is_shard(p)}}
+        del step
+        _free()
+    return res
+
+
+def _gathered_err(ranks, want, dp_rank=0):
+    """``dp_rank``'s mp ranks' updates gathered against the reference's
+    (``want``): the max |difference| over every weight (the updated
+    weights', since both start from the same ones), and the largest
+    2-norm of a tensor's difference over that of its reference update,
+    with its name."""
+    from paddle_tpu_torch.incubate.models import gather_params
+    mine = sorted((r for r in ranks if r["dp_rank"] == dp_rank),
+                  key=lambda r: r["mp_rank"])
+    full = gather_params([r["updates"] for r in mine], mine[0]["axes"])
+    if set(full) != set(want):
+        raise AssertionError(f"gathered names {sorted(set(full) ^ set(want))}")
+    worst, rel = 0.0, (0.0, None)
+    for name, w in want.items():
+        if full[name].shape != w.shape:
+            raise AssertionError(f"{name}: gathered {full[name].shape}, "
+                                 f"want {w.shape}")
+        d = full[name] - w
+        worst = max(worst, float(np.abs(d).max()))
+        r = float(np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30))
+        rel = max(rel, (r, name), key=lambda t: t[0])
+    return worst, rel
+
+
+def _check_hybrid_ranks(what, ranks, ref, per_step):
+    """The f32 ranks of (b), (c) or (d) against the world-of-one
+    reference: losses, the clip's norms, gathered updates, the dp ranks'
+    shards, launches."""
+    loss_err = max(abs(a - b) for r in ranks
+                   for a, b in zip(r["losses"], ref["losses"]))
+    param_err, (upd_err, upd_name) = _gathered_err(ranks, ref["updates"])
+    # the clip's global norm over the shards, read after every step
+    norm_err = max((abs(a - b) / b for r in ranks
+                    for a, b in zip(r["norms"], ref["norms"])), default=0.0)
+    log(f"[hybrid] {what}: f32 losses {ranks[0]['losses']} against the world "
+        f"of one's {ref['losses']}: max |diff| {loss_err:.3e} (tol "
+        f"{HYBRID_LOSS_TOL:.0e}); gathered weights max |diff| "
+        f"{param_err:.3e} (tol {HYBRID_PARAM_TOL:.0e}); updates' largest "
+        f"relative 2-norm diff {upd_err:.3e} ({upd_name}, tol "
+        f"{HYBRID_UPDATE_RTOL:.0e}); the clip's global norms "
+        f"{ranks[0]['norms']} (world of one {ref['norms']}, max relative "
+        f"diff {norm_err:.2e}, tol {HYBRID_NORM_RTOL:.0e}); heads a rank "
+        f"{ranks[0]['heads']}")
+    if any(len(r["norms"]) != HYBRID_STEPS for r in [ref, *ranks]) or \
+            not norm_err <= HYBRID_NORM_RTOL:
+        raise AssertionError(f"{what}: clip norms "
+                             f"{[r['norms'] for r in ranks]}, the world of "
+                             f"one's {ref['norms']}")
+    if not loss_err <= HYBRID_LOSS_TOL or not param_err <= HYBRID_PARAM_TOL \
+            or not upd_err <= HYBRID_UPDATE_RTOL:
+        raise AssertionError(f"{what}: sharded f32 steps differ from the "
+                             f"world of one: losses {loss_err}, weights "
+                             f"{param_err}, updates {upd_err} ({upd_name})")
+    by = {(r["dp_rank"], r["mp_rank"]): r for r in ranks}
+    for (dp, mp), r in by.items():
+        if dp and any(not np.array_equal(a, by[0, mp]["updates"][n])
+                      for n, a in r["updates"].items()):
+            raise AssertionError(f"{what}: dp rank {dp}'s shard {mp} is not "
+                                 f"dp rank 0's")
+        _check_counts(f"{what} rank {r['rank']}", r["launches"], per_step,
+                      HYBRID_STEPS)
+    return loss_err, param_err
+
+
+def phase_hybrid(smi):
+    """Data x tensor parallelism on the card (see the module docstring):
+    (a) to (d).  Returns {path: launch counts}."""
+    from paddle_tpu_torch.distributed import spawn
+    _free_steps()
+    out = {}
+    t0 = time.perf_counter()
+    [w1] = spawn(_hybrid_world1_rank, args=(HYBRID_BACKEND,), nprocs=1,
+                 timeout=HYBRID_TIMEOUT)
+    a = w1["a"]
+    med = {k: statistics.median(a[k][1:]) * 1e3 for k in ("plain_s",
+                                                           "hybrid_s")}
+    log(f"[hybrid] (a) {HYBRID_BACKEND} world of 1, every degree 1, O2 bf16, "
+        f"dropout 0.1, {HYBRID_BATCH}x{TRAIN_SEQ}: losses {a['hybrid']} "
+        f"(plain build_train_step {a['plain']}); state tensors that differ "
+        f"{a['differ'][:4]} of {a['n_state']}; generator the same "
+        f"{a['same_rng']}; the clip's global norms {a['norms_hybrid']} "
+        f"(plain {a['norms_plain']}); capture {a['stats']}; median step "
+        f"{med['hybrid_s']:.2f} ms (plain {med['plain_s']:.2f} ms); a "
+        f"profiled replay ran {a['profiled']} kernel names, the counters' "
+        f"launches; {time.perf_counter() - t0:.1f} s with the references | "
+        f"{smi}")
+    if a["hybrid"] != a["plain"] or a["differ"] or not a["same_rng"]:
+        raise AssertionError(f"hybrid (a): the degree-1 step is not the "
+                             f"plain step's bits: losses {a['hybrid']} / "
+                             f"{a['plain']}, tensors {a['differ'][:8]}")
+    # the norm each replay wrote: the plain step's, a new one every step
+    norms = a["norms_hybrid"]
+    if norms != a["norms_plain"] or len(set(norms)) != HYBRID_A_STEPS or \
+            not all(math.isfinite(v) and v > 0 for v in norms):
+        raise AssertionError(f"hybrid (a): the captured clip's norms "
+                             f"{norms}, the plain step's "
+                             f"{a['norms_plain']}")
+    out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} hybrid dp1 mp1 "
+        f"{HYBRID_BACKEND} captured"] = a["launches"]
+
+    full, cut = _hybrid_cfg(), _hybrid_cfg(HYBRID_C_LAYERS)
+    t0 = time.perf_counter()
+    ranks = spawn(_hybrid_rank, args=(1, 2, None, "gloo", True, True),
+                  nprocs=2, timeout=HYBRID_TIMEOUT)
+    _check_hybrid_ranks("(b) mp 2 over gloo", ranks, w1["b"],
+                        _plain_per_step(full))
+    planted = [abs(r["planted_loss"] - w1["b"]["losses"][0]) for r in ranks]
+    log(f"[hybrid] (b) planted fault, the two ranks' shards traded: first "
+        f"losses {[r['planted_loss'] for r in ranks]} against "
+        f"{w1['b']['losses'][0]}: |diff| {planted}, must exceed "
+        f"{HYBRID_LOSS_TOL:.0e}")
+    if not min(planted) > HYBRID_LOSS_TOL:
+        raise AssertionError("(b): the planted fault passed the comparison")
+    bf = [r["bf16"] for r in ranks]
+    if not all(math.isfinite(v) for r in bf for v in r["losses"]) or \
+            bf[0]["replicated"] != bf[1]["replicated"]:
+        raise AssertionError(f"(b) bf16 dropout 0.1: losses "
+                             f"{[r['losses'] for r in bf]}, replicated "
+                             f"parameters the same bits: "
+                             f"{bf[0]['replicated'] == bf[1]['replicated']}")
+    for r in ranks:
+        _check_counts(f"(b) bf16 rank {r['rank']}", r["bf16"]["launches"],
+                      _plain_per_step(full), HYBRID_STEPS)
+    log(f"[hybrid] (b) bf16 O2 dropout 0.1: losses {bf[0]['losses']} (rank "
+        f"1 {bf[1]['losses']}); {len(bf[0]['replicated'])} replicated "
+        f"parameters the same bits on both ranks; step ms eager, gloo, card "
+        f"shared: f32 {[round(t * 1e3, 1) for t in ranks[0]['times']]}, "
+        f"bf16 {[round(t * 1e3, 1) for t in bf[0]['times']]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} mp2 gloo rank {r['rank']} "
+            f"f32"] = r["launches"]
+        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} mp2 gloo rank {r['rank']} "
+            f"bf16"] = r["bf16"]["launches"]
+    del ranks, bf
+
+    t0 = time.perf_counter()
+    ranks = spawn(_hybrid_rank, args=(2, 2, HYBRID_C_LAYERS, "gloo", False,
+                                      False),
+                  nprocs=4, timeout=HYBRID_TIMEOUT)
+    _check_hybrid_ranks(f"(c) dp 2 x mp 2 over gloo, {HYBRID_C_LAYERS} "
+                        f"layers", ranks, w1["c"], _plain_per_step(cut))
+    log(f"[hybrid] (c) step ms eager, gloo, card shared: "
+        f"{[round(t * 1e3, 1) for t in ranks[0]['times']]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x{TRAIN_SEQ} dp2 "
+        f"mp2 gloo rank 0"] = ranks[0]["launches"]
+    del ranks
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards >= 2:
+        t0 = time.perf_counter()
+        ranks = spawn(_hybrid_rank, args=(1, 2, None, "nccl", False, False),
+                      nprocs=2, timeout=HYBRID_TIMEOUT)
+        _check_hybrid_ranks("(d) mp 2 over NCCL, two cards, captured", ranks,
+                            w1["b"], _plain_per_step(full))
+        log(f"[hybrid] (d) step ms (graph): "
+            f"{[round(t * 1e3, 1) for t in ranks[0]['times']]}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"[hybrid] (d) not run: this machine has {cards} card(s); NCCL "
+            f"takes one card a rank, so mp 2 over NCCL needs two")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -5188,6 +5639,8 @@ def main() -> int:
     lap("checkpoint")
     hapi = phase_hapi(smi)
     lap("hapi")
+    hybrid = phase_hybrid(smi)
+    lap("hybrid")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -5235,7 +5688,8 @@ def main() -> int:
             if counts.get(name):
                 by_path[name][path] = counts[name]
     # phase 14's hapi paths: GPT's fit, the classifier's fit and evaluate
-    for path, counts in hapi.items():
+    # phase 15's hybrid runs: (a) captured, each rank of (b) and (c)'s rank 0
+    for path, counts in itertools.chain(hapi.items(), hybrid.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

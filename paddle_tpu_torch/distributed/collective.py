@@ -1,0 +1,504 @@
+"""Process groups and the collective API on ``torch.distributed`` (the
+counterpart of ``paddle_tpu/distributed/collective.py``).
+
+The JAX package is one controller over a device mesh: its eager
+collectives take a rank-major array, whose row ``i`` is rank ``i``'s
+value.  The port runs one process per rank, as Paddle's own runtime does,
+so each rank passes its own tensor and gets its own result: rank ``i``'s
+result here is row ``i`` of the JAX package's.  Ranks are global ranks
+(``src``, ``dst``, ``peer`` and a group's ``ranks``), as in Paddle.
+
+Every collective takes Paddle's ``sync_op`` and returns a :class:`Task`:
+with ``sync_op=True`` the operation is issued synchronously (on the card,
+ordered with the current stream, so it records into a CUDA graph) and
+the task is done; with ``sync_op=False`` it runs asynchronously and
+``task.wait()`` orders its result with the current stream.  Collectives
+that hand back a new tensor (``all_gather``'s tensor form,
+``alltoall_single`` without an output, ``reduce_scatter`` without a
+list) return that tensor instead.
+
+``ReduceOp.AVG`` is the backend's average on NCCL; gloo has none, so
+there it is a sum divided by the group's size.  ``reduce`` leaves the
+tensors of the ranks other than ``dst`` as they were (the JAX package's
+semantics; the backends may write them).  Groups, and every collective,
+need a process group: before ``init_parallel_env`` they raise.  The JAX
+package's per-collective telemetry is not ported.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from .env import get_rank, get_world_size
+
+__all__ = [
+    "ReduceOp", "Group", "Task", "new_group", "get_group",
+    "destroy_process_group", "is_initialized", "is_available",
+    "get_backend", "all_reduce", "all_gather", "gather",
+    "all_gather_object", "broadcast", "broadcast_object_list", "reduce",
+    "scatter", "scatter_object_list", "alltoall", "alltoall_single",
+    "all_to_all", "reduce_scatter", "send", "recv", "isend", "irecv",
+    "barrier", "P2POp", "batch_isend_irecv", "wait",
+]
+
+
+class ReduceOp:
+    """Paddle's reduce operations."""
+    SUM = 0
+    MAX = 1
+    MIN = 2
+    PROD = 3
+    AVG = 4
+
+
+_TORCH_OP = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
+             ReduceOp.MIN: dist.ReduceOp.MIN,
+             ReduceOp.PROD: dist.ReduceOp.PRODUCT}
+
+
+class Group:
+    """A group of global ranks: ``rank`` is this process's index in
+    ``ranks`` (-1 when it is not a member), ``process_group`` the
+    ``torch.distributed`` group its collectives run on."""
+
+    def __init__(self, rank: int, ranks, id: int, process_group,
+                 name: Optional[str] = None):
+        self._rank = rank
+        self.ranks = list(ranks)
+        self.id = id
+        self._pg = process_group
+        self._name = name
+
+    @property
+    def rank(self) -> int:
+        return self._rank
+
+    @property
+    def nranks(self) -> int:
+        return len(self.ranks)
+
+    world_size = nranks
+
+    @property
+    def process_group(self):
+        return self._pg
+
+    @property
+    def name(self) -> str:
+        return self._name or f"_default_pg{self.id}"
+
+    @property
+    def backend(self) -> str:
+        """``"nccl"`` or ``"gloo"``."""
+        return str(dist.get_backend(self._pg)).lower()
+
+    def is_member(self) -> bool:
+        return self._rank >= 0
+
+    def get_group_rank(self, global_rank: int) -> int:
+        return self.ranks.index(global_rank) if global_rank in self.ranks \
+            else -1
+
+    def __repr__(self):
+        return f"Group(id={self.id}, ranks={self.ranks}, backend={self.backend})"
+
+
+class Task:
+    """A collective's handle (Paddle's task): :meth:`wait` orders its
+    result with the current stream and runs what must follow it (the
+    divide of an average, a copy back)."""
+
+    def __init__(self, work=None, then: Optional[Callable[[], None]] = None):
+        self._work, self._then = work, then
+
+    def wait(self) -> bool:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._then is not None:
+            then, self._then = self._then, None
+            then()
+        return True
+
+    def is_completed(self) -> bool:
+        return self._work is None or self._work.is_completed()
+
+    def synchronize(self) -> None:
+        self.wait()
+
+
+_GROUPS: Dict[int, Group] = {}
+
+
+def is_available() -> bool:
+    return dist.is_available()
+
+
+def is_initialized() -> bool:
+    """True once a process group exists (``init_parallel_env``)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def _require_process_group() -> None:
+    if not is_initialized():
+        raise RuntimeError("no process group: call init_parallel_env() "
+                           "first")
+
+
+def _default_group() -> Group:
+    if 0 not in _GROUPS:
+        _require_process_group()
+        _GROUPS[0] = Group(dist.get_rank(), range(dist.get_world_size()),
+                           id=0, process_group=dist.group.WORLD)
+    return _GROUPS[0]
+
+
+def get_group(id: int = 0) -> Group:
+    if id == 0:
+        return _default_group()
+    return _GROUPS[id]
+
+
+def new_group(ranks=None, backend=None, timeout=None) -> Group:
+    """A group of the global ``ranks`` (all by default).  Every rank must
+    call it, for every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    _require_process_group()
+    if ranks is None:
+        ranks = list(range(get_world_size()))
+    ranks = [int(r) for r in ranks]
+    gid = max(_GROUPS, default=0) + 1
+    me = get_rank()
+    kw = {} if timeout is None else {"timeout": timeout}
+    pg = dist.new_group(ranks, backend=backend, **kw)
+    g = Group(ranks.index(me) if me in ranks else -1, ranks, id=gid,
+              process_group=pg)
+    _GROUPS[gid] = g
+    return g
+
+
+def destroy_process_group(group: Optional[Group] = None) -> None:
+    """Destroy ``group``, or every group and the world's process group."""
+    if group is None or group.id == 0:
+        _GROUPS.clear()
+        if is_initialized():
+            dist.destroy_process_group()
+        return
+    _GROUPS.pop(group.id, None)
+    if is_initialized():
+        dist.destroy_process_group(group.process_group)
+
+
+def get_backend(group: Optional[Group] = None) -> str:
+    return _group_of(group).backend
+
+
+def _group_of(group) -> Group:
+    return group if isinstance(group, Group) else _default_group()
+
+
+def _pg(group) -> object:
+    """The ``torch.distributed`` group of ``group`` (the world's for
+    None); raises for a rank outside it."""
+    g = _group_of(group)
+    if not g.is_member():
+        raise RuntimeError(f"rank {get_rank()} is not a member of {g}")
+    return g.process_group
+
+
+def _issue(fn, *args, sync_op: bool, then=None, **kwargs) -> Task:
+    """``fn(*args, async_op=not sync_op, **kwargs)`` as a :class:`Task`
+    (waited, and ``then`` run, when ``sync_op``)."""
+    work = fn(*args, async_op=not sync_op, **kwargs)
+    task = Task(work, then)
+    if sync_op:
+        task.wait()
+    return task
+
+
+def _torch_op(op: int, group) -> tuple:
+    """(the backend's reduce op, a divide to run after it or None)."""
+    if op != ReduceOp.AVG:
+        return _TORCH_OP[op], None
+    g = _group_of(group)
+    if g.backend == "nccl":
+        return dist.ReduceOp.AVG, None
+    return dist.ReduceOp.SUM, g.nranks
+
+
+def _divide(tensor: torch.Tensor, n: Optional[int]) -> Callable[[], None]:
+    def run():
+        if n is None:
+            return
+        if tensor.is_floating_point() or tensor.is_complex():
+            tensor.div_(n)
+        else:
+            tensor.copy_(torch.div(tensor, n, rounding_mode="trunc"))
+    return run
+
+
+# -- collectives -----------------------------------------------------------------
+
+def all_reduce(tensor: torch.Tensor, op: int = ReduceOp.SUM, group=None,
+               sync_op: bool = True) -> Task:
+    """Reduce ``tensor`` over the group, in place on every rank."""
+    pg = _pg(group)
+    top, n = _torch_op(op, group)
+    return _issue(dist.all_reduce, tensor, op=top, group=pg, sync_op=sync_op,
+                  then=_divide(tensor, n))
+
+
+def all_gather(tensor_or_list, tensor: Optional[torch.Tensor] = None,
+               group=None, sync_op: bool = True, axis: int = 0):
+    """``all_gather(tensor_list, tensor)`` fills ``tensor_list`` with each
+    rank's ``tensor`` in group order and returns a :class:`Task`;
+    ``all_gather(tensor)`` returns the ranks' tensors concatenated on
+    ``axis`` (synchronous only)."""
+    pg = _pg(group)
+    g = _group_of(group)
+    if isinstance(tensor_or_list, list):
+        outs = [torch.empty_like(tensor) for _ in range(g.nranks)]
+        task = _issue(dist.all_gather, outs, tensor.contiguous(), group=pg,
+                      sync_op=sync_op)
+        tensor_or_list.clear()
+        tensor_or_list.extend(outs)
+        return task
+    if not sync_op:
+        raise ValueError("all_gather's tensor form is synchronous; pass a "
+                         "list for sync_op=False")
+    src = tensor_or_list.contiguous()
+    outs = [torch.empty_like(src) for _ in range(g.nranks)]
+    dist.all_gather(outs, src, group=pg)
+    return torch.cat(outs, dim=axis)
+
+
+def gather(tensor: torch.Tensor, gather_list: Optional[list] = None,
+           dst: int = 0, group=None, sync_op: bool = True) -> list:
+    """Every rank's ``tensor`` into ``gather_list`` on ``dst``, in group
+    order; the other ranks' lists are left empty.  Returns the list."""
+    pg = _pg(group)
+    g = _group_of(group)
+    _check_in(g, dst, "gather dst")
+    gather_list = [] if gather_list is None else gather_list
+    mine = get_rank() == dst
+    outs = [torch.empty_like(tensor) for _ in range(g.nranks)] if mine \
+        else None
+    _issue(dist.gather, tensor.contiguous(), outs, dst=dst, group=pg,
+           sync_op=True)
+    gather_list.clear()
+    if mine:
+        gather_list.extend(outs)
+    return gather_list
+
+
+def all_gather_object(object_list: list, obj, group=None) -> list:
+    """Every rank's picklable ``obj`` into ``object_list``, group order."""
+    g = _group_of(group)
+    out = [None] * g.nranks
+    dist.all_gather_object(out, obj, group=_pg(group))
+    object_list.clear()
+    object_list.extend(out)
+    return object_list
+
+
+def _check_in(g: Group, rank: int, what: str) -> None:
+    if rank not in g.ranks:
+        raise ValueError(f"{what}={rank} is not in group {g.ranks}")
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0, group=None,
+              sync_op: bool = True) -> Task:
+    """``src``'s ``tensor`` into every rank's, in place."""
+    g = _group_of(group)
+    _check_in(g, src, "broadcast src")
+    return _issue(dist.broadcast, tensor, src=src, group=_pg(group),
+                  sync_op=sync_op)
+
+
+def broadcast_object_list(object_list: list, src: int = 0,
+                          group=None) -> list:
+    """``src``'s picklable objects into every rank's ``object_list``."""
+    g = _group_of(group)
+    _check_in(g, src, "broadcast src")
+    dist.broadcast_object_list(object_list, src=src, group=_pg(group))
+    return object_list
+
+
+def reduce(tensor: torch.Tensor, dst: int = 0, op: int = ReduceOp.SUM,
+           group=None, sync_op: bool = True) -> Task:
+    """The group's reduction into ``dst``'s ``tensor``; the other ranks'
+    tensors keep their values."""
+    g = _group_of(group)
+    _check_in(g, dst, "reduce dst")
+    top, n = _torch_op(op, group)
+    mine = get_rank() == dst
+    work = tensor if mine else tensor.clone()
+    return _issue(dist.reduce, work, dst=dst, op=top, group=_pg(group),
+                  sync_op=sync_op, then=_divide(tensor, n if mine else None))
+
+
+def scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
+            src: int = 0, group=None, sync_op: bool = True) -> Task:
+    """Element ``i`` of ``src``'s ``tensor_list`` into the ``tensor`` of
+    the group's ``i``-th rank."""
+    g = _group_of(group)
+    _check_in(g, src, "scatter src")
+    items = None
+    if get_rank() == src:
+        if tensor_list is None or len(tensor_list) != g.nranks:
+            raise ValueError(f"scatter's src needs a list of {g.nranks} "
+                             f"tensors")
+        items = [t.contiguous() for t in tensor_list]
+    return _issue(dist.scatter, tensor, items, src=src, group=_pg(group),
+                  sync_op=sync_op)
+
+
+def scatter_object_list(out_object_list: list, in_object_list=None,
+                        src: int = 0, group=None) -> list:
+    """Element ``i`` of ``src``'s ``in_object_list`` as the one element of
+    the ``i``-th rank's ``out_object_list``."""
+    g = _group_of(group)
+    _check_in(g, src, "scatter src")
+    out = [None]
+    dist.scatter_object_list(out, in_object_list if get_rank() == src
+                             else None, src=src, group=_pg(group))
+    out_object_list.clear()
+    out_object_list.extend(out)
+    return out_object_list
+
+
+def alltoall(out_tensor_list, in_tensor_list: Optional[list] = None,
+             group=None, sync_op: bool = True):
+    """``alltoall(out_list, in_list)``: element ``j`` of this rank's
+    ``in_list`` goes to the group's ``j``-th rank, and element ``j`` of
+    ``out_list`` is what that rank sent here; returns a :class:`Task`.
+    ``alltoall(x)``: the same over ``x``'s first axis (one slot a rank),
+    returning the received tensor."""
+    pg = _pg(group)
+    g = _group_of(group)
+    if in_tensor_list is None and not isinstance(out_tensor_list, list):
+        x = out_tensor_list
+        if x.shape[0] != g.nranks:
+            raise ValueError(f"alltoall's tensor form wants {g.nranks} slots "
+                             f"on axis 0, got {tuple(x.shape)}")
+        out = torch.empty_like(x)
+        _issue(dist.all_to_all_single, out, x.contiguous(), group=pg,
+               sync_op=True)
+        return out
+    ins = [t.contiguous() for t in in_tensor_list]
+    outs = [torch.empty_like(t) for t in ins]
+    task = _issue(dist.all_to_all, outs, ins, group=pg, sync_op=sync_op)
+    out_tensor_list.clear()
+    out_tensor_list.extend(outs)
+    return task
+
+
+all_to_all = alltoall
+
+
+def alltoall_single(in_tensor: torch.Tensor,
+                    out_tensor: Optional[torch.Tensor] = None,
+                    in_split_sizes=None, out_split_sizes=None, group=None,
+                    sync_op: bool = True):
+    """``in_tensor``'s first axis split among the ranks (evenly, or by
+    ``in_split_sizes``), each rank's pieces concatenated in group order.
+    Into ``out_tensor`` (returns a :class:`Task`), or a new tensor of
+    ``in_tensor``'s shape with even splits (returned)."""
+    pg = _pg(group)
+    if out_tensor is None:
+        if in_split_sizes is not None or out_split_sizes is not None:
+            raise ValueError("uneven splits need out_tensor")
+        out = torch.empty_like(in_tensor)
+        _issue(dist.all_to_all_single, out, in_tensor.contiguous(),
+               group=pg, sync_op=True)
+        return out
+    return _issue(dist.all_to_all_single, out_tensor, in_tensor.contiguous(),
+                  output_split_sizes=out_split_sizes,
+                  input_split_sizes=in_split_sizes, group=pg,
+                  sync_op=sync_op)
+
+
+def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
+                   op: int = ReduceOp.SUM, group=None, sync_op: bool = True):
+    """``reduce_scatter(out, tensor_list)``: ``out`` gets the group's
+    reduction of everyone's ``tensor_list[i]``, ``i`` this rank's index
+    (returns a :class:`Task`).  ``reduce_scatter(x)``: ``x``'s first axis
+    in ``nranks`` chunks, this rank's chunk of the reduction returned."""
+    pg = _pg(group)
+    g = _group_of(group)
+    top, n = _torch_op(op, group)
+    if tensor_list is not None:
+        ins = [t.contiguous() for t in tensor_list]
+        return _issue(dist.reduce_scatter, tensor, ins, op=top, group=pg,
+                      sync_op=sync_op, then=_divide(tensor, n))
+    if tensor.shape[0] % g.nranks:
+        raise ValueError(f"reduce_scatter: axis 0 of {tuple(tensor.shape)} "
+                         f"does not split into {g.nranks} chunks")
+    ins = [c.contiguous() for c in tensor.chunk(g.nranks, dim=0)]
+    out = torch.empty_like(ins[0])
+    _issue(dist.reduce_scatter, out, ins, op=top, group=pg, sync_op=True,
+           then=_divide(out, n))
+    return out
+
+
+# -- point to point --------------------------------------------------------------
+
+def send(tensor: torch.Tensor, dst: int = 0, group=None,
+         sync_op: bool = True) -> Task:
+    """``tensor`` to the global rank ``dst``."""
+    pg = _pg(group)
+    fn = dist.send if sync_op else dist.isend
+    work = fn(tensor.contiguous(), dst=dst, group=pg)
+    return Task(None if sync_op else work)
+
+
+def recv(tensor: torch.Tensor, src: int = 0, group=None,
+         sync_op: bool = True) -> Task:
+    """Into ``tensor``, from the global rank ``src``."""
+    pg = _pg(group)
+    if sync_op:
+        dist.recv(tensor, src=src, group=pg)
+        return Task()
+    return Task(dist.irecv(tensor, src=src, group=pg))
+
+
+def isend(tensor: torch.Tensor, dst: int = 0, group=None) -> Task:
+    return send(tensor, dst=dst, group=group, sync_op=False)
+
+
+def irecv(tensor: torch.Tensor, src: int = 0, group=None) -> Task:
+    return recv(tensor, src=src, group=group, sync_op=False)
+
+
+class P2POp:
+    """One send or receive of :func:`batch_isend_irecv`: ``op`` is
+    :func:`isend` or :func:`irecv`, ``peer`` a global rank."""
+
+    def __init__(self, op, tensor: torch.Tensor, peer: int, group=None):
+        if op not in (isend, irecv):
+            raise ValueError("P2POp's op must be isend or irecv")
+        self.op, self.tensor, self.peer, self.group = op, tensor, peer, group
+
+
+def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Task]:
+    """Issue every operation together; returns their tasks."""
+    ops = []
+    for p in p2p_op_list:
+        ops.append(dist.P2POp(dist.isend if p.op is isend else dist.irecv,
+                              p.tensor, p.peer, group=_pg(p.group)))
+    return [Task(w) for w in dist.batch_isend_irecv(ops)]
+
+
+def barrier(group=None) -> None:
+    """Every rank of the group waits for the others."""
+    dist.barrier(group=_pg(group))
+
+
+def wait(tensor: torch.Tensor, group=None, use_calc_stream: bool = True
+         ) -> None:
+    """Block until the work queued on ``tensor``'s card is done (a CPU
+    tensor's collectives are complete when they return)."""
+    if tensor.is_cuda:
+        torch.cuda.synchronize(tensor.device)

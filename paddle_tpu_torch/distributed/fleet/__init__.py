@@ -1,6 +1,19 @@
-"""Fleet pieces of the training path: per-block recompute
-(:mod:`.recompute`) and the unsharded ``ParallelCrossEntropy``
-(:mod:`.meta_parallel`)."""
+"""Fleet: the hybrid-parallel facade (``fleet.init``, the topology,
+``distributed_model`` and ``distributed_optimizer``), the strategy, the
+tensor-parallel layers (:mod:`.meta_parallel`) and per-block recompute
+(:mod:`.recompute`)."""
+from . import meta_optimizers, meta_parallel
+from .base.distributed_strategy import DistributedStrategy
+from .fleet import (Fleet, barrier_worker, distributed_model,
+                    distributed_optimizer, fleet, get_hybrid_communicate_group,
+                    hybrid_degrees, init, is_first_worker, worker_endpoints,
+                    worker_index, worker_num)
 from .recompute import recompute
+from ..topology import CommunicateTopology, HybridCommunicateGroup
 
-__all__ = ["recompute"]
+__all__ = ["DistributedStrategy", "Fleet", "fleet", "init",
+           "get_hybrid_communicate_group", "distributed_model",
+           "distributed_optimizer", "worker_num", "worker_index",
+           "is_first_worker", "worker_endpoints", "barrier_worker",
+           "hybrid_degrees", "recompute", "CommunicateTopology",
+           "HybridCommunicateGroup", "meta_parallel", "meta_optimizers"]

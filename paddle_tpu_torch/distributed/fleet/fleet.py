@@ -1,0 +1,183 @@
+"""``fleet`` (the counterpart of ``paddle_tpu/distributed/fleet/fleet.py``).
+
+``fleet.init`` joins the process group (:func:`..parallel.init_parallel_env`,
+if the caller has not), takes the degrees from the strategy's
+``hybrid_configs`` (:func:`hybrid_degrees`: the JAX package's rule,
+ranks left over go to dp when dp is left at 1) and builds the
+:class:`..topology.HybridCommunicateGroup`.  The degrees must cover the
+world exactly.  ``distributed_model`` wraps the model for its mode:
+:class:`.meta_parallel.TensorParallel` when mp > 1, then
+:class:`..parallel.DataParallel` over the data-parallel group; the
+strategy's bf16 O2 ``amp`` and ``recompute`` are applied first.
+``distributed_optimizer`` wraps the optimizer in
+:class:`.meta_optimizers.HybridParallelOptimizer`.  Pipeline, sharding
+(ZeRO) and sequence parallelism are not ported: degrees above 1 there
+raise.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from ..env import get_rank, get_world_size
+from ..topology import CommunicateTopology, HybridCommunicateGroup
+from .base.distributed_strategy import DistributedStrategy
+
+__all__ = ["Fleet", "fleet", "init", "get_hybrid_communicate_group",
+           "distributed_model", "distributed_optimizer", "worker_num",
+           "worker_index", "is_first_worker", "worker_endpoints",
+           "barrier_worker", "hybrid_degrees"]
+
+_HCG: Optional[HybridCommunicateGroup] = None
+_NAMES = ("data", "pipe", "sharding", "sep", "model")
+_KEYS = ("dp_degree", "pp_degree", "sharding_degree", "sep_degree",
+         "mp_degree")
+
+
+def hybrid_degrees(hybrid_configs: dict, world: int) -> tuple:
+    """``(dp, pp, sharding, sep, mp)`` from ``hybrid_configs`` for a
+    world of ``world`` ranks: when their product falls short of the
+    world, divides it, and dp was left at 1, dp takes the rest (the JAX
+    package's ``fleet.init``)."""
+    dims = [int(hybrid_configs.get(k, 1)) for k in _KEYS]
+    prod = 1
+    for d in dims:
+        prod *= d
+    if prod < world and world % prod == 0 and dims[0] == 1:
+        dims[0] = world // prod
+    return tuple(dims)
+
+
+class Fleet:
+    def __init__(self):
+        self._is_initialized = False
+        self._user_defined_strategy: Optional[DistributedStrategy] = None
+        self._hcg: Optional[HybridCommunicateGroup] = None
+
+    def init(self, role_maker=None, is_collective=True, strategy=None,
+             log_level="INFO"):
+        """Join the process group and build the hybrid topology."""
+        global _HCG
+        from ..parallel import init_parallel_env
+        strategy = strategy or DistributedStrategy()
+        self._user_defined_strategy = strategy
+        init_parallel_env()
+        world = get_world_size()
+        dims = hybrid_degrees(strategy.hybrid_configs, world)
+        for name, d in zip(_KEYS[1:4], dims[1:4]):
+            if d > 1:
+                raise NotImplementedError(
+                    f"{name} {d}: pipeline, sharding and sequence "
+                    f"parallelism are not ported yet (ROADMAP Queue 1, "
+                    f"item 4)")
+        topo = CommunicateTopology(_NAMES, dims)
+        if topo.world_size() != world:
+            raise ValueError(f"hybrid degrees {dict(zip(_KEYS, dims))} make "
+                             f"{topo.world_size()} ranks; the world has "
+                             f"{world}")
+        self._hcg = _HCG = HybridCommunicateGroup(topo)
+        self._is_initialized = True
+        return self
+
+    @property
+    def is_initialized(self):
+        return self._is_initialized
+
+    def get_hybrid_communicate_group(self):
+        return self._hcg
+
+    def worker_index(self):
+        return get_rank()
+
+    def worker_num(self):
+        return get_world_size()
+
+    def is_first_worker(self):
+        return get_rank() == 0
+
+    def worker_endpoints(self, to_string=False):
+        eps = [e for e in os.environ.get("PADDLE_TRAINER_ENDPOINTS",
+                                         "").split(",") if e]
+        return ",".join(eps) if to_string else eps
+
+    def is_worker(self):
+        return True
+
+    def is_server(self):
+        return False
+
+    def barrier_worker(self):
+        from ..collective import barrier
+        barrier()
+
+    def distributed_model(self, model):
+        """``model`` wrapped for the topology's mode (module docstring)."""
+        from ..parallel import DataParallel
+        from .meta_parallel import TensorParallel
+        hcg = self._hcg
+        if hcg is None:
+            raise RuntimeError("call fleet.init() first")
+        s = self._user_defined_strategy
+        if s is not None and s.amp:
+            if not s.amp_configs.get("use_bf16", True):
+                raise NotImplementedError("fp16 AMP is not ported: only O2 "
+                                          "in bf16")
+            from ...amp import decorate
+            decorate(model, level="O2", dtype="bfloat16")
+        if s is not None and s.recompute:
+            cfg = getattr(model, "config", None)
+            if cfg is not None and hasattr(cfg, "use_recompute"):
+                cfg.use_recompute = True
+                inner = getattr(model, "gpt", None)
+                if inner is not None and hasattr(inner, "use_recompute"):
+                    inner.use_recompute = True
+        if hcg.get_parallel_mode() == "model":
+            model = TensorParallel(model, hcg, strategy=s)
+        return DataParallel(model, strategy=s,
+                            group=hcg.get_data_parallel_group())
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        from .meta_optimizers import HybridParallelOptimizer
+        if strategy is not None:
+            self._user_defined_strategy = strategy
+        return HybridParallelOptimizer(optimizer, self._hcg,
+                                       self._user_defined_strategy)
+
+
+fleet = Fleet()
+
+
+def init(role_maker=None, is_collective=True, strategy=None):
+    return fleet.init(role_maker, is_collective, strategy)
+
+
+def get_hybrid_communicate_group():
+    return _HCG
+
+
+def distributed_model(model):
+    return fleet.distributed_model(model)
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    return fleet.distributed_optimizer(optimizer, strategy)
+
+
+def worker_num():
+    return fleet.worker_num()
+
+
+def worker_index():
+    return fleet.worker_index()
+
+
+def is_first_worker():
+    return fleet.is_first_worker()
+
+
+def worker_endpoints(to_string=False):
+    return fleet.worker_endpoints(to_string)
+
+
+def barrier_worker():
+    return fleet.barrier_worker()

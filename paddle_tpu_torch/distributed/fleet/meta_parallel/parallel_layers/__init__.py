@@ -1,1 +1,6 @@
-"""Model-parallel layers; only the unsharded cross-entropy is ported."""
+"""The tensor-parallel layers (:mod:`.mp_layers`)."""
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
+                        RowParallelLinear, VocabParallelEmbedding)
+
+__all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
+           "RowParallelLinear", "VocabParallelEmbedding"]

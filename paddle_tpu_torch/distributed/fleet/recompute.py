@@ -17,7 +17,8 @@ that replay's forward drew.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,18 +29,27 @@ __all__ = ["recompute"]
 
 
 def recompute(function: Callable, *args,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              replay_generators: Sequence[torch.Generator] = ()):
     """``function(*args, generator=generator)``, keeping only ``args`` for
-    the backward pass, which reruns it with ``generator`` replayed."""
-    snapshot = None if generator is None else generator.get_state()
+    the backward pass, which reruns it with ``generator`` and the
+    ``replay_generators`` the block also draws from (a tensor-parallel
+    block's local dropout stream) replayed."""
+    gens = []
+    for g in (generator, *replay_generators):
+        if g is not None and not any(g is o for o in gens):
+            gens.append(g)
+    snapshots = [g.get_state() for g in gens]
     ran = False
 
     def run(*inputs):
         nonlocal ran
-        if not ran or snapshot is None:
+        if not ran or not gens:
             ran = True
             return function(*inputs, generator=generator)
-        with replay(generator, snapshot):
+        with contextlib.ExitStack() as stack:
+            for g, state in zip(gens, snapshots):
+                stack.enter_context(replay(g, state))
             return function(*inputs, generator=generator)
 
     return checkpoint(run, *args, use_reentrant=False,

@@ -1,5 +1,5 @@
 """GPT for causal language modelling (the counterpart of
-``paddle_tpu/incubate/models/gpt.py`` with ``tensor_parallel=False``).
+``paddle_tpu/incubate/models/gpt.py``).
 
 Parameter names and layouts are the JAX model's
 (``gpt.embeddings.word_embeddings.weight``,
@@ -16,28 +16,52 @@ model computes, kept here:
  - with ``use_recompute`` each decoder block is recomputed in the
    backward pass, its dropout masks replayed.
 
-Not ported: tensor parallelism, rotary positions, an untied head, the
-pipeline adapter, attention masks other than causal.  Every dropout
-draws from the generator passed to ``forward``.
+Built after ``fleet.init``, the model is one rank's shard over fleet's
+model-parallel group (the JAX model's ``tensor_parallel=True``
+branches); without fleet it is the unsharded model, as the JAX model is
+on a mesh without an mp axis.  In a shard the word embedding is a
+``VocabParallelEmbedding``, QKV and ``fc1`` are ``ColumnParallelLinear``
+without gathering their outputs, ``out_proj`` and ``fc2`` are
+``RowParallelLinear`` on parallel inputs.  QKV's output is interleaved
+per head, so a rank's contiguous columns are whole heads and it attends
+over ``num_attention_heads / mp`` of them.  The tied head is
+``_c_identity(h) @ W_local.T``: vocabulary-local logits, for the sharded
+``ParallelCrossEntropy`` of ``GPTPretrainingCriterion`` on the model's
+``mp_group``.  Each layer
+draws its whole weight and keeps its slice, so a shard holds the slices
+of the unsharded model drawn from the same seed.  Attention dropout
+draws from :meth:`GPTForCausalLM.set_attention_generator`'s generator
+when one is set (the local stream of
+``fleet.meta_parallel.random``), every other dropout from the generator
+passed to ``forward``.
+
+Not ported: rotary positions, an untied head, the pipeline adapter,
+attention masks other than causal.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ...distributed.fleet import recompute
-from ...distributed.fleet.meta_parallel import ParallelCrossEntropy
+from ...distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                                ParallelCrossEntropy,
+                                                RowParallelLinear,
+                                                VocabParallelEmbedding)
+from ...distributed.fleet.meta_parallel.mp_ops import _c_identity
+from ...distributed.fleet.meta_parallel.parallel_layers.mp_layers import \
+    mp_group_of
 from ...nn import Dropout, Embedding, LayerNorm, Linear
 from ...nn import functional as F
 from ...nn.initializer import Normal
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m",
-           "params_from_numpy"]
+           "params_from_numpy", "split_axes", "gather_params"]
 
 
 @dataclasses.dataclass
@@ -59,16 +83,35 @@ class GPTConfig:
             self.intermediate_size = 4 * self.hidden_size
 
 
+def _degree(group) -> int:
+    return 1 if group is None else group.nranks
+
+
 class GPTAttention(torch.nn.Module):
-    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 mp_group=None):
         super().__init__()
         h = cfg.hidden_size
-        self.num_heads = cfg.num_attention_heads
-        self.head_dim = h // self.num_heads
+        self.head_dim = h // cfg.num_attention_heads
         init = Normal(std=cfg.initializer_range)
-        self.qkv_proj = Linear(h, 3 * h, init, generator=generator)
-        self.out_proj = Linear(h, h, init, generator=generator)
+        if mp_group is not None:
+            n = _degree(mp_group)
+            if cfg.num_attention_heads % n:
+                raise ValueError(f"{cfg.num_attention_heads} heads do not "
+                                 f"split over {n} model-parallel ranks")
+            self.num_heads = cfg.num_attention_heads // n
+            self.qkv_proj = ColumnParallelLinear(
+                h, 3 * h, init, generator=generator, gather_output=False,
+                mp_group=mp_group)
+            self.out_proj = RowParallelLinear(
+                h, h, init, generator=generator, input_is_parallel=True,
+                mp_group=mp_group)
+        else:
+            self.num_heads = cfg.num_attention_heads
+            self.qkv_proj = Linear(h, 3 * h, init, generator=generator)
+            self.out_proj = Linear(h, h, init, generator=generator)
         self.attn_dropout_p = cfg.attention_probs_dropout_prob
+        self.attn_generator: Optional[torch.Generator] = None
 
     def forward(self, x, generator=None):
         b, s = x.shape[0], x.shape[1]
@@ -76,6 +119,8 @@ class GPTAttention(torch.nn.Module):
                                        3 * self.head_dim)
         hd = self.head_dim
         q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        if self.attn_generator is not None:
+            generator = self.attn_generator
         out = F.scaled_dot_product_attention(
             q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
             training=self.training, generator=generator)
@@ -83,15 +128,25 @@ class GPTAttention(torch.nn.Module):
 
 
 class GPTMLP(torch.nn.Module):
-    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 mp_group=None):
         super().__init__()
         init = Normal(std=cfg.initializer_range)
         out_init = Normal(
             std=cfg.initializer_range / math.sqrt(2 * cfg.num_layers))
-        self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, init,
-                          generator=generator)
-        self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size, out_init,
-                          generator=generator)
+        if mp_group is not None:
+            self.fc1 = ColumnParallelLinear(
+                cfg.hidden_size, cfg.intermediate_size, init,
+                generator=generator, gather_output=False, mp_group=mp_group)
+            self.fc2 = RowParallelLinear(
+                cfg.intermediate_size, cfg.hidden_size, out_init,
+                generator=generator, input_is_parallel=True,
+                mp_group=mp_group)
+        else:
+            self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, init,
+                              generator=generator)
+            self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size,
+                              out_init, generator=generator)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -100,13 +155,14 @@ class GPTMLP(torch.nn.Module):
 class GPTDecoderLayer(torch.nn.Module):
     """Pre-LN decoder block."""
 
-    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 mp_group=None):
         super().__init__()
         eps = cfg.layer_norm_epsilon
         self.ln1 = LayerNorm(cfg.hidden_size, eps, generator=generator)
-        self.attn = GPTAttention(cfg, generator)
+        self.attn = GPTAttention(cfg, generator, mp_group)
         self.ln2 = LayerNorm(cfg.hidden_size, eps, generator=generator)
-        self.mlp = GPTMLP(cfg, generator)
+        self.mlp = GPTMLP(cfg, generator, mp_group)
         self.dropout1 = Dropout(cfg.hidden_dropout_prob)
         self.dropout2 = Dropout(cfg.hidden_dropout_prob)
 
@@ -116,11 +172,18 @@ class GPTDecoderLayer(torch.nn.Module):
 
 
 class GPTEmbeddings(torch.nn.Module):
-    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 mp_group=None):
         super().__init__()
         init = Normal(std=cfg.initializer_range)
-        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         init, generator=generator)
+        if mp_group is not None:
+            self.word_embeddings = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, init, generator=generator,
+                mp_group=mp_group)
+        else:
+            self.word_embeddings = Embedding(cfg.vocab_size,
+                                             cfg.hidden_size, init,
+                                             generator=generator)
         self.position_embeddings = Embedding(
             cfg.max_position_embeddings, cfg.hidden_size, init,
             generator=generator)
@@ -136,21 +199,26 @@ class GPTEmbeddings(torch.nn.Module):
 
 
 class GPTModel(torch.nn.Module):
-    def __init__(self, cfg: GPTConfig, generator: torch.Generator):
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 mp_group=None):
         super().__init__()
         self.config = cfg
-        self.embeddings = GPTEmbeddings(cfg, generator)
+        self.embeddings = GPTEmbeddings(cfg, generator, mp_group)
         self.layers = torch.nn.ModuleList(
-            [GPTDecoderLayer(cfg, generator) for _ in range(cfg.num_layers)])
+            [GPTDecoderLayer(cfg, generator, mp_group)
+             for _ in range(cfg.num_layers)])
         self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
                                   generator=generator)
         self.use_recompute = cfg.use_recompute
+        # the attention's own dropout stream, replayed by recompute too
+        self.replay_generators: tuple = ()
 
     def forward(self, input_ids, position_ids=None, generator=None):
         x = self.embeddings(input_ids, position_ids, generator)
         for layer in self.layers:
             if self.use_recompute:
-                x = recompute(layer, x, generator=generator)
+                x = recompute(layer, x, generator=generator,
+                              replay_generators=self.replay_generators)
             else:
                 x = layer(x, generator)
         return self.final_ln(x)
@@ -165,20 +233,35 @@ class GPTForCausalLM(torch.nn.Module):
     def __init__(self, cfg: GPTConfig, *, generator: torch.Generator):
         super().__init__()
         self.config = cfg
-        self.gpt = GPTModel(cfg, generator)
+        # None without fleet: the unsharded model
+        self.mp_group = mp_group_of()
+        self.gpt = GPTModel(cfg, generator, self.mp_group)
+
+    def set_attention_generator(self, generator: Optional[torch.Generator]
+                                ) -> None:
+        """Attention dropout draws from ``generator`` (None: from the one
+        passed to ``forward``), recompute replays it."""
+        for layer in self.gpt.layers:
+            layer.attn.attn_generator = generator
+        self.gpt.replay_generators = () if generator is None else \
+            (generator,)
 
     def forward(self, input_ids, position_ids=None, generator=None):
         x = self.gpt(input_ids, position_ids, generator)
         w = self.gpt.embeddings.word_embeddings.weight
+        if self.mp_group is not None:
+            x = _c_identity(x, self.mp_group)
         return torch.matmul(x, w.t())
 
 
 class GPTPretrainingCriterion(torch.nn.Module):
-    """Mean causal-LM loss over every token, in the logits' dtype."""
+    """Mean causal-LM loss over every token, in the logits' dtype; over
+    vocabulary-local logits on ``mp_group`` (by default fleet's, as for
+    the model: pass the model's ``mp_group``)."""
 
-    def __init__(self):
+    def __init__(self, mp_group=None):
         super().__init__()
-        self.ce = ParallelCrossEntropy()
+        self.ce = ParallelCrossEntropy(mp_group=mp_group)
 
     def forward(self, logits, labels):
         return self.ce(logits, labels).reshape(-1).mean()
@@ -218,20 +301,31 @@ def _as_numpy(a) -> np.ndarray:
 
 
 def params_from_numpy(model: torch.nn.Module,
-                      arrays: Dict[str, np.ndarray]) -> torch.nn.Module:
+                      arrays: Dict[str, np.ndarray], *, mp_rank: int = 0,
+                      mp_degree: int = 1) -> torch.nn.Module:
     """Copy ``arrays`` (the JAX model's parameters as numpy arrays, by
     name) into ``model`` in place, cast to each parameter's dtype and
-    device.  Names must match exactly and shapes must agree; raises
-    ``ValueError`` otherwise.  Returns ``model``."""
+    device.  A tensor-parallel shard (``mp_rank`` of ``mp_degree``) takes
+    its slice of each split parameter's array along the parameter's
+    ``split_axis``.  Names must match exactly and shapes must agree;
+    raises ``ValueError`` otherwise.  Returns ``model``."""
     named = dict(model.named_parameters())
     missing = sorted(set(named) - set(arrays))
     extra = sorted(set(arrays) - set(named))
     if missing or extra:
         raise ValueError(f"parameter names differ: missing {missing}, "
                          f"unexpected {extra}")
+    if not 0 <= mp_rank < mp_degree:
+        raise ValueError(f"mp_rank {mp_rank} of mp_degree {mp_degree}")
     loaded = {}
     for name, p in named.items():
         a = _as_numpy(arrays[name])
+        axis = getattr(p, "split_axis", None)
+        if axis is not None and mp_degree > 1:
+            if a.shape[axis] % mp_degree:
+                raise ValueError(f"{name}: axis {axis} of {a.shape} does not "
+                                 f"split into {mp_degree}")
+            a = np.split(a, mp_degree, axis=axis)[mp_rank]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(a.shape)} does not "
                              f"match the model's {tuple(p.shape)}")
@@ -241,3 +335,23 @@ def params_from_numpy(model: torch.nn.Module,
             p.copy_(loaded[name])
     return model
 
+
+
+def split_axes(model: torch.nn.Module) -> Dict[str, Optional[int]]:
+    """Each parameter's tensor-parallel split axis (None when whole)."""
+    return {n: getattr(p, "split_axis", None)
+            for n, p in model.named_parameters()}
+
+
+def gather_params(shards: Sequence[Dict[str, np.ndarray]],
+                  axes: Dict[str, Optional[int]]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`'s slicing: whole arrays
+    from the shards of every model-parallel rank (``shards[r]``: rank
+    ``r``'s parameters by name), each split parameter concatenated along
+    its axis (``axes``, :func:`split_axes`), a whole one taken from rank
+    0."""
+    out: Dict[str, np.ndarray] = {}
+    for name, axis in axes.items():
+        parts: List[np.ndarray] = [np.asarray(s[name]) for s in shards]
+        out[name] = parts[0] if axis is None else np.concatenate(parts, axis)
+    return out

@@ -56,6 +56,13 @@ not permitted when stream is capturing", an illegal host copy such as
 eagerly from then on.  CPU tensors have no graph: the step runs as
 written with ``stats["fallback"] == "cpu"``.  ``PT_CAPTURE=0`` turns
 capture off.
+
+Collectives: a step whose ``groups`` (the process groups of
+:mod:`..distributed.collective` its collectives run on) are NCCL groups
+records them into its graph.  gloo's collectives run on the host, which
+a graph cannot hold, so :func:`capture_step` refuses a step with a gloo
+group (on the CPU too): its caller runs it eagerly, by saying so
+(``build_train_step(..., capture=False)``), never by a silent fallback.
 """
 from __future__ import annotations
 
@@ -290,6 +297,14 @@ class CapturedStep:
     ``capture_seconds`` sums the time spent recording graphs."""
 
     def __init__(self, fn: Callable):
+        gloo = [g for g in getattr(fn, "groups", ()) or ()
+                if g.backend == "gloo"]
+        if gloo:
+            raise ValueError(
+                f"capture_step cannot record a step whose collectives run on "
+                f"gloo ({gloo[0]}): gloo's collectives run on the host.  Run "
+                f"it eagerly (build_train_step(..., capture=False)), or use "
+                f"NCCL")
         self._fn = fn
         self._cache: Dict[tuple, CapturedGraph] = {}
         self._fallback_reason: Optional[str] = None

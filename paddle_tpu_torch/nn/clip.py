@@ -94,6 +94,9 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
+        # the global norm of the last clip, a 0-d f32 tensor written in
+        # place (a captured step's replay rewrites it); None before one
+        self.last_norm: Optional[torch.Tensor] = None
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The 2-norm of all of ``grads`` together, a 0-d f32 tensor."""
@@ -102,11 +105,21 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def _scale_of(self, norm: torch.Tensor) -> torch.Tensor:
         return _div(self.clip_norm, norm.clamp(min=self.clip_norm))
 
+    def clipped(self, grads: List[torch.Tensor],
+                norm: torch.Tensor) -> List[torch.Tensor]:
+        """``grads`` scaled for their global ``norm``, which is kept in
+        :attr:`last_norm`."""
+        if self.last_norm is None or self.last_norm.device != norm.device:
+            self.last_norm = torch.zeros((), dtype=torch.float32,
+                                         device=norm.device)
+        self.last_norm.copy_(norm)
+        return _scale(grads, self._scale_of(norm))
+
     def apply_tensors(self, grads):
         live = [g for g in grads if g is not None]
         if not live:
             return list(grads)
-        it = iter(_scale(live, self._scale_of(self.global_norm(live))))
+        it = iter(self.clipped(live, self.global_norm(live)))
         return [None if g is None else next(it) for g in grads]
 
     def __call__(self, params_grads):
@@ -115,7 +128,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         live = [g for (_, g), m in zip(params_grads, mask) if m]
         if not live:
             return list(params_grads)
-        it = iter(_scale(live, self._scale_of(self.global_norm(live))))
+        it = iter(self.clipped(live, self.global_norm(live)))
         return [(p, next(it) if m else g)
                 for (p, g), m in zip(params_grads, mask)]
 

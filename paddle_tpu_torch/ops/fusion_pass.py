@@ -464,5 +464,17 @@ class FusedModule(torch.nn.Module):
 
 
 def wrap(model: torch.nn.Module) -> FusedModule:
-    """``model`` under the fusion pass (:class:`FusedModule`)."""
+    """``model`` under the fusion pass (:class:`FusedModule`).  Raises
+    ``NotImplementedError`` for a tensor-parallel model (one with the
+    mp layers of ``distributed.fleet``): the pass does not trace through
+    their collectives yet."""
+    from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                                   RowParallelLinear,
+                                                   VocabParallelEmbedding)
+    mp = (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    if any(isinstance(m, mp) for m in model.modules()):
+        raise NotImplementedError(
+            "the fusion pass on tensor-parallel models is not ported yet "
+            "(ROADMAP Queue 1: the fusion pass on mp models); build the "
+            "step with fusion=False")
     return FusedModule(model)

@@ -5,6 +5,8 @@ pretraining step (MLM + NSP), and a CLI that runs either.
     python -m paddle_tpu_torch.train --model gpt_345m --batch 16 --seq 1024 --steps 8
     python -m paddle_tpu_torch.train --model bert_base --batch 32 --seq 128 --steps 8
     python -m paddle_tpu_torch.train --model gpt_tiny --batch 2 --seq 64 --steps 4 --device cpu
+    python -m paddle_tpu_torch.train --dp 2 --mp 2 --batch 8 --no-recompute
+    python -m paddle_tpu_torch.train --model gpt_tiny --dp 2 --mp 2 --batch 4 --seq 64 --device cpu
 
 The GPT step: ``GPTForCausalLM`` (recompute per block unless
 ``--no-recompute``), the causal-LM loss.  The BERT step:
@@ -25,6 +27,14 @@ and the capture's ``compiles``, ``hits`` and ``fallback``.  It runs on
 GPU.  On the card each step is replayed as a CUDA graph
 (:mod:`.jit.capture`; the first call warms up and captures) unless
 ``PT_CAPTURE=0``.
+
+With ``--dp`` and ``--mp`` (GPT) the CLI spawns ``dp * mp`` ranks
+(:func:`.distributed.spawn`), each building :func:`build_train_step`'s
+hybrid step through ``fleet``: data parallelism over ``dp`` ranks, each
+taking its slice of the batch, and tensor parallelism over ``mp``.  On
+cards the backend is NCCL, one card a rank, and the step is captured;
+``--backend gloo`` lets ranks share a card and runs the step eagerly, as
+on the CPU (gloo's collectives run on the host).  Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ import torch
 from .amp import decorate
 from .device import resolve_device
 from .distributed.checkpoint import copy_into
+from .distributed.collective import ReduceOp, all_reduce
+from .distributed.parallel import unwrap_model
 from .framework.random import make_generator, restore_generator_state
 from .jit import capture_step
 from .incubate.models import (BertConfig, BertForPretraining,
@@ -52,7 +64,8 @@ from .incubate.models import (BertConfig, BertForPretraining,
 from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
-__all__ = ["TrainStep", "EagerStep", "build_train_step", "make_batch",
+__all__ = ["TrainStep", "EagerStep", "HybridTrainStep",
+           "build_train_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "save_checkpoint",
            "restore_checkpoint", "main"]
 
@@ -76,15 +89,22 @@ class EagerStep:
     pool.  The update reads the learning rate from
     ``optimizer.lr_tensor``: a caller that runs this step directly under
     a schedule calls ``optimizer.write_lr()`` first, as
-    :class:`TrainStep` does."""
+    :class:`TrainStep` does.  A distributed step names the other
+    generators its model draws from (``generators``, so a CUDA graph
+    registers them), the process groups of its collectives (``groups``),
+    and the data-parallel group the returned loss is averaged over
+    (``loss_group``)."""
 
     def __init__(self, model, criterion, optimizer, generator, params,
                  state, *, takes_generator: bool = True,
-                 outputs: bool = False):
+                 outputs: bool = False, generators=(), groups=(),
+                 loss_group=None):
         self.model, self.criterion = model, criterion
         self.optimizer, self.generator = optimizer, generator
         self.params, self.state = params, state
         self.takes_generator, self.outputs = takes_generator, outputs
+        self.generators = [g for g in generators if g is not generator]
+        self.groups, self.loss_group = list(groups), loss_group
 
     def __call__(self, inputs, targets):
         kw = {"generator": self.generator} if self.takes_generator else {}
@@ -107,9 +127,13 @@ class EagerStep:
         self.optimizer.apply_gradients_tree(self.params, grads, self.state)
         for p in self.params.values():
             p.grad = None
+        loss = loss.detach()
+        if self.loss_group is not None:
+            loss = loss.clone()
+            all_reduce(loss, op=ReduceOp.AVG, group=self.loss_group)
         if self.outputs:
-            return loss.detach(), tuple(o.detach() for o in out)
-        return loss.detach()
+            return loss, tuple(o.detach() for o in out)
+        return loss
 
 
 class TrainStep:
@@ -126,13 +150,19 @@ class TrainStep:
     parameters).  Calling the step runs it through
     :func:`.jit.capture_step` (``self.captured``): on the card a CUDA
     graph replays it; on the CPU, or with ``PT_CAPTURE=0``, it runs
-    eagerly.  ``self.eager`` (:class:`EagerStep`) is the step itself,
+    eagerly.  With ``capture=False`` it is never captured
+    (``self.captured`` is None): the caller's choice for a step whose
+    collectives run on gloo, which :func:`.jit.capture_step` refuses.
+    ``self.eager`` (:class:`EagerStep`) is the step itself,
     uncaptured; it does not refer back to this object, so dropping the
-    step frees its graphs at once."""
+    step frees its graphs at once.  ``generators``, ``groups`` and
+    ``loss_group`` are :class:`EagerStep`'s."""
 
     def __init__(self, model: torch.nn.Module, criterion: torch.nn.Module,
                  optimizer: Optimizer, generator: torch.Generator, *,
-                 fusion: Optional[bool] = None, outputs: bool = False):
+                 fusion: Optional[bool] = None, outputs: bool = False,
+                 capture: bool = True, generators=(), groups=(),
+                 loss_group=None):
         model.train()
         if fusion is None:
             fusion = fusion_enabled()
@@ -143,11 +173,14 @@ class TrainStep:
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
         self.state = optimizer.init_state_tree(self.params)
-        takes = "generator" in inspect.signature(model.forward).parameters
+        takes = "generator" in inspect.signature(
+            unwrap_model(model).forward).parameters
         self.eager = EagerStep(self.model, criterion, optimizer, generator,
                                self.params, self.state,
-                               takes_generator=takes, outputs=outputs)
-        self.captured = capture_step(self.eager)
+                               takes_generator=takes, outputs=outputs,
+                               generators=generators, groups=groups,
+                               loss_group=loss_group)
+        self.captured = capture_step(self.eager) if capture else None
 
     def __call__(self, inputs, targets):
         """Run the step on the model's ``inputs`` and the criterion's
@@ -159,6 +192,8 @@ class TrainStep:
         written into its tensor on the device, outside the graph, which
         reads it at each replay."""
         self.optimizer.write_lr()
+        if self.captured is None:
+            return self.eager(inputs, targets)
         return self.captured(inputs, targets)
 
     # -- checkpoints -----------------------------------------------------------
@@ -216,6 +251,58 @@ class TrainStep:
         self.optimizer.write_lr()
 
 
+class HybridTrainStep(TrainStep):
+    """One rank's share of a data x tensor parallel step (``hcg``: fleet's
+    topology).  A call takes the global batch and keeps this rank's
+    slice of its first axis (data-parallel rank ``r`` of ``dp``: rows
+    ``[r * B/dp, (r + 1) * B/dp)``); the loss it returns is averaged over
+    the data-parallel group, so every rank returns the global batch's
+    loss (at dp 1 it is this rank's).  Its collectives run on the data-
+    and model-parallel groups: captured on NCCL, eager on gloo
+    (``capture=False``)."""
+
+    def __init__(self, model, criterion, optimizer, generator, hcg, *,
+                 capture: bool = True, generators=(), outputs: bool = False):
+        self.hcg = hcg
+        dp_group = hcg.get_data_parallel_group()
+        super().__init__(model, criterion, optimizer, generator, fusion=False,
+                         outputs=outputs, capture=capture,
+                         generators=generators,
+                         groups=[dp_group, hcg.get_model_parallel_group()],
+                         loss_group=None if dp_group.nranks == 1 else dp_group)
+
+    def _local(self, batch):
+        if isinstance(batch, dict):
+            return {k: self._local(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._local(v) for v in batch)
+        dp = self.hcg.get_data_parallel_world_size()
+        if batch.shape[0] % dp:
+            raise ValueError(f"a batch of {batch.shape[0]} does not split "
+                             f"over {dp} data-parallel ranks")
+        per = batch.shape[0] // dp
+        return batch.narrow(0, self.hcg.get_data_parallel_rank() * per, per)
+
+    def __call__(self, inputs, targets):
+        return super().__call__(self._local(inputs), self._local(targets))
+
+    def checkpoint_tree(self) -> dict:
+        """This rank's state, when it is the whole model's (no parameter
+        split over model parallelism).  A shard raises: saving and
+        loading sharded steps (``load_sharded`` with a mesh) is ROADMAP
+        Queue 1 item 4's later part."""
+        from .distributed.fleet.meta_parallel.parallel_layers.mp_layers \
+            import is_shard
+        split = [n for n, p in self.params.items() if is_shard(p)]
+        if split:
+            raise NotImplementedError(
+                f"checkpoint_tree of a tensor-parallel shard ({split[0]} and "
+                f"{len(split) - 1} more are slices): sharded checkpoints "
+                f"(load_sharded with a mesh) are not ported yet (ROADMAP "
+                f"Queue 1, item 4)")
+        return super().checkpoint_tree()
+
+
 def save_checkpoint(manager, step_no: int, train_step: TrainStep, *,
                     block: bool = False,
                     data_state: Optional[dict] = None) -> None:
@@ -248,18 +335,65 @@ def _default_optimizer() -> Optimizer:
 
 def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
                      amp_o2: bool = True, fusion: Optional[bool] = None,
-                     optimizer: Optional[Optimizer] = None) -> TrainStep:
+                     optimizer: Optional[Optimizer] = None, dp: int = 1,
+                     mp: int = 1, strategy=None,
+                     capture: bool = True) -> TrainStep:
     """bench_gpt's step for ``cfg`` on ``device`` (``cuda`` unless the
     CPU is asked for): weights from ``seed``, bf16 O2 unless ``amp_o2``
     is false (f32 then), ``optimizer`` (by default ``AdamW(1e-4,
     multi_precision=True)``), the fusion pass as ``fusion`` says
-    (:class:`TrainStep`)."""
-    gen = make_generator(seed, device)
+    (:class:`TrainStep`), captured unless ``capture`` is false.
+
+    With ``dp`` or ``mp`` above 1, or a ``strategy``
+    (``fleet.DistributedStrategy``, whose ``hybrid_configs`` then give the
+    degrees), this rank's :class:`HybridTrainStep`: the process group is
+    joined (``init_parallel_env(device=device)``, unless the caller
+    joined one, with ``backend="gloo"`` for ranks that share a card),
+    then ``fleet.init``; the model is this rank's shard of ``cfg`` over
+    fleet's model-parallel group, its weights drawn from ``seed`` (the
+    same weights as the single-card step's), with its dropout streams from
+    ``model_parallel_random_seed(seed)``; ``fleet.distributed_model``
+    and ``fleet.distributed_optimizer`` wrap model and optimizer.  The
+    fusion pass is off (``fusion=True`` raises: not ported for
+    tensor-parallel models).  A step on gloo needs ``capture=False``."""
+    if strategy is None and dp == 1 and mp == 1:
+        gen = make_generator(seed, device)
+        model = GPTForCausalLM(cfg, generator=gen)
+        if amp_o2:
+            decorate(model, level="O2", dtype="bfloat16")
+        return TrainStep(model, GPTPretrainingCriterion(model.mp_group),
+                         optimizer or _default_optimizer(), gen,
+                         fusion=fusion, capture=capture)
+    return _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
+                              dp, mp, strategy, capture)
+
+
+def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer, dp, mp,
+                       strategy, capture) -> HybridTrainStep:
+    from .distributed import fleet, init_parallel_env, rank_device
+    from .distributed.fleet.meta_parallel.random import (
+        MODEL_PARALLEL_RNG, model_parallel_random_seed)
+    if strategy is None:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    init_parallel_env(device=device)
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    gen = make_generator(seed, rank_device())
     model = GPTForCausalLM(cfg, generator=gen)
+    tracker = model_parallel_random_seed(seed, generator=gen)
+    local = tracker.get(MODEL_PARALLEL_RNG)
+    if local is not gen:
+        model.set_attention_generator(local)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
-    return TrainStep(model, GPTPretrainingCriterion(),
-                     optimizer or _default_optimizer(), gen, fusion=fusion)
+    if fusion:
+        model = wrap(model)                  # raises: not ported for mp
+    return HybridTrainStep(
+        fleet.distributed_model(model),
+        GPTPretrainingCriterion(model.mp_group),
+        fleet.distributed_optimizer(optimizer or _default_optimizer()), gen,
+        hcg, capture=capture, generators=tracker.generators())
 
 
 def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
@@ -335,13 +469,14 @@ def make_bert_batch(cfg: BertConfig, batch: int, seq: int, seed: int = 0,
     return inputs, targets
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.train", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=sorted(CONFIGS), default="gpt_345m")
     ap.add_argument("--batch", type=int, default=None,
-                    help="16 for GPT, 32 for BERT by default")
+                    help="16 for GPT, 32 for BERT by default (the global "
+                    "batch with --dp)")
     ap.add_argument("--seq", type=int, default=None,
                     help="1024 for GPT, 128 for BERT by default")
     ap.add_argument("--steps", type=int, default=8)
@@ -353,11 +488,42 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "at batch 8 has it off)")
     ap.add_argument("--fusion", action=argparse.BooleanOptionalAction,
                     default=None, help="the fusion pass (default: on "
-                    "unless PT_FUSION_PASS=0)")
-    args = ap.parse_args(argv)
-    fusion = fusion_enabled() if args.fusion is None else args.fusion
+                    "unless PT_FUSION_PASS=0; off with --mp)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="GPT: data-parallel ranks")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="GPT: tensor-parallel ranks")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="with --dp/--mp: nccl on cards (default), gloo on "
+                    "the CPU or for ranks that share a card (eager steps)")
+    return ap
 
-    dev = resolve_device(args.device)
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = _parser().parse_args(argv)
+    if args.dp * args.mp > 1:
+        if not args.model.startswith("gpt"):
+            raise SystemExit("--dp and --mp take a GPT model")
+        from .distributed import spawn
+        spawn(_cli_rank, args=(vars(args),), nprocs=args.dp * args.mp)
+        return 0
+    return _run(args)
+
+
+def _cli_rank(arg_dict: dict) -> None:
+    """One rank of the CLI's hybrid run."""
+    from .distributed import init_parallel_env
+    args = argparse.Namespace(**arg_dict)
+    init_parallel_env(args.backend, device=args.device)
+    _run(args)
+
+
+def _run(args) -> int:
+    from .distributed import get_rank, rank_device
+    hybrid = args.dp * args.mp > 1
+    fusion = (fusion_enabled() if not hybrid else False) \
+        if args.fusion is None else args.fusion
+    dev = rank_device() if hybrid else resolve_device(args.device)
     family = args.model.split("_")[0]
     batch = args.batch or DEFAULT_SHAPE[family][0]
     seq = args.seq or DEFAULT_SHAPE[family][1]
@@ -366,9 +532,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         pos = {"max_position_embeddings": seq} \
             if args.model == "gpt_345m" else {}
         cfg = CONFIGS[args.model](use_recompute=args.recompute, **pos)
-        step = build_train_step(cfg, device=dev, fusion=fusion)
+        backend = None
+        if hybrid:
+            from .distributed import get_backend
+            backend = get_backend()
+        step = build_train_step(cfg, device=dev, fusion=fusion, dp=args.dp,
+                                mp=args.mp, capture=backend != "gloo")
         inputs, targets = make_batch(cfg, batch, seq, device=dev)
         what = "recompute" if args.recompute else "no recompute"
+        if hybrid:
+            what += f", dp {args.dp} x mp {args.mp} over {backend}"
     else:
         cfg = CONFIGS[args.model]()
         step = build_bert_pretrain_step(cfg, device=dev, fusion=fusion)
@@ -376,27 +549,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         what = "MLM + NSP, no recompute"
     what += f", fusion pass {'on' if fusion else 'off'}"
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{args.model} on {name}: batch {batch} x seq {seq}, "
-          f"{sum(p.numel() for p in step.params.values())} parameters, "
-          f"AMP O2 bf16, AdamW(1e-4), {what}", flush=True)
+    talk = not hybrid or get_rank() == 0
+    if talk:
+        print(f"{args.model} on {name}: batch {batch} x seq {seq}, "
+              f"{sum(p.numel() for p in step.params.values())} parameters"
+              f"{' (rank 0)' if hybrid else ''}, AMP O2 bf16, AdamW(1e-4), "
+              f"{what}", flush=True)
     times, losses = [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
         loss = step(inputs, targets).item()   # .item() waits for the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        print(f"step {i + 1} loss {loss:.6f} {times[-1] * 1e3:.2f} ms",
-              flush=True)
+        if talk:
+            print(f"step {i + 1} loss {loss:.6f} {times[-1] * 1e3:.2f} ms",
+                  flush=True)
     med = statistics.median(times[1:] if len(times) > 1 else times)
-    stats = step.captured.stats
-    print(json.dumps({"model": args.model, "device": name,
-                      "batch": batch, "seq": seq, "fusion": fusion,
-                      "losses": losses,
-                      "median_step_ms": med * 1e3,
-                      "sequences_per_s": batch / med,
-                      "tokens_per_s": batch * seq / med,
-                      "compiles": stats["compiles"], "hits": stats["hits"],
-                      "fallback": stats["fallback"]}), flush=True)
+    stats = step.captured.stats if step.captured is not None else {
+        "compiles": 0, "hits": 0, "fallback": "eager (gloo)"}
+    if talk:
+        print(json.dumps({"model": args.model, "device": name,
+                          "batch": batch, "seq": seq, "fusion": fusion,
+                          "dp": args.dp, "mp": args.mp, "losses": losses,
+                          "median_step_ms": med * 1e3,
+                          "sequences_per_s": batch / med,
+                          "tokens_per_s": batch * seq / med,
+                          "compiles": stats["compiles"],
+                          "hits": stats["hits"],
+                          "fallback": stats["fallback"]}), flush=True)
     return 0
 
 

@@ -57,7 +57,18 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "          'io.dataloader', 'io.sampler', 'io.dataset',\n"
         "          'framework.io_state', 'metric', 'hapi.model',\n"
         "          'hapi.callbacks', 'hapi.summary', 'callbacks',\n"
-        "          'batch'):\n"
+        "          'batch', 'distributed.env', 'distributed.collective',\n"
+        "          'distributed.communication.stream',\n"
+        "          'distributed.parallel', 'distributed.launch_api',\n"
+        "          'distributed.parallel_with_gloo', 'distributed.mesh',\n"
+        "          'distributed.topology', 'distributed.grad_buckets',\n"
+        "          'distributed.fleet.fleet',\n"
+        "          'distributed.fleet.base.distributed_strategy',\n"
+        "          'distributed.fleet.meta_parallel.mp_ops',\n"
+        "          'distributed.fleet.meta_parallel.random',\n"
+        "          'distributed.fleet.meta_parallel.tensor_parallel',\n"
+        "          'distributed.fleet.meta_parallel.parallel_layers.mp_layers',\n"
+        "          'distributed.fleet.meta_optimizers.hybrid_parallel_optimizer'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
@@ -76,7 +87,20 @@ def test_package_sources_name_no_jax_and_no_reference_module():
               "serving/quant.py", "quantization/observers.py",
               "utils/retry.py", "io/dataloader.py", "io/sampler.py",
               "io/dataset.py", "framework/io_state.py", "metric/__init__.py",
-              "hapi/model.py", "hapi/callbacks.py", "hapi/summary.py"):
+              "hapi/model.py", "hapi/callbacks.py", "hapi/summary.py",
+              "distributed/env.py", "distributed/collective.py",
+              "distributed/communication/stream.py",
+              "distributed/parallel.py", "distributed/launch_api.py",
+              "distributed/parallel_with_gloo.py", "distributed/mesh.py",
+              "distributed/topology.py", "distributed/grad_buckets.py",
+              "distributed/fleet/fleet.py",
+              "distributed/fleet/base/distributed_strategy.py",
+              "distributed/fleet/meta_parallel/mp_ops.py",
+              "distributed/fleet/meta_parallel/random.py",
+              "distributed/fleet/meta_parallel/tensor_parallel.py",
+              "distributed/fleet/meta_parallel/parallel_layers/mp_layers.py",
+              "distributed/fleet/meta_optimizers/"
+              "hybrid_parallel_optimizer.py"):
         assert PKG / m in sources, m
     for path in sources:
         text = path.read_text()
@@ -172,6 +196,69 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch,
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_distributed_entry_points_want_the_card_and_never_pick_gloo(
+        monkeypatch):
+    from paddle_tpu_torch.distributed import init_parallel_env, is_initialized
+    from paddle_tpu_torch.incubate.models import gpt_tiny
+    from paddle_tpu_torch.train import build_train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_parallel_env()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_parallel_env(backend="gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(gpt_tiny(), dp=2, mp=2)
+    with pytest.raises(ValueError, match="nccl backend needs"):
+        init_parallel_env(backend="nccl", device="cpu")
+    assert not is_initialized()
+
+
+def _capture_on_gloo():
+    """One gloo rank: a hybrid step asked to be captured must refuse."""
+    from paddle_tpu_torch.incubate.models import gpt_tiny
+    from paddle_tpu_torch.jit import capture_step
+    from paddle_tpu_torch.train import build_train_step
+    with pytest.raises(ValueError, match="gloo") as err:
+        build_train_step(gpt_tiny(), device="cpu", amp_o2=False, mp=1, dp=1,
+                         strategy=_degree_one())
+    step = build_train_step(gpt_tiny(), device="cpu", amp_o2=False,
+                            strategy=_degree_one(), capture=False)
+    assert step.captured is None
+    with pytest.raises(ValueError, match="gloo"):
+        capture_step(step.eager)
+    with pytest.raises(NotImplementedError, match="fusion pass on tensor"):
+        build_train_step(gpt_tiny(), device="cpu", amp_o2=False,
+                         strategy=_degree_one(), capture=False, fusion=True)
+    return str(err.value)
+
+
+def _degree_one():
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+    return s
+
+
+def test_capture_step_refuses_a_step_on_gloo(tmp_path):
+    from paddle_tpu_torch.distributed import spawn
+    [msg] = spawn(_capture_on_gloo, nprocs=1, store=str(tmp_path / "store"),
+                  timeout=60)
+    assert "capture=False" in msg
+
+
+def test_fusion_pass_refuses_a_tensor_parallel_model():
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        ColumnParallelLinear
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.nn.initializer import Normal
+    from paddle_tpu_torch.ops.fusion_pass import wrap
+    model = torch.nn.Sequential(ColumnParallelLinear(
+        8, 16, Normal(), generator=make_generator(0, "cpu")))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1: the fusion pass on mp models"):
+        wrap(model)
 
 
 # -- page pool -------------------------------------------------------------------
