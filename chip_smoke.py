@@ -318,6 +318,28 @@ line is printed:
              one line says it did not run.  The
              gloo runs are eager (gloo's collectives run on the host) and
              their step times are printed as such, not as throughput.
+16. zero-pipeline  ZeRO and the pipeline at the same widths, held to
+             phase 15's world-of-one f32 references as phase 15 holds
+             its runs (losses, the clip's norms, the gathered updates,
+             each rank's launches): (a), in phase 15's world-of-one
+             process, pp = sharding = 1 with ZeRO's ``os_g`` set by the
+             strategy (stage 2), NCCL, O2 bf16, dropout 0.1, captured:
+             no ZeRO plan made, every state tensor, the losses, the
+             norms and the generator the plain step's bits, launches on
+             the counters and in a profiled replay; (b) pp 2 with 2
+             virtual stages a rank and 4 micro-batches, two ranks over
+             gloo, full depth, 3 f32 steps (a stage's launches: each of
+             its 12 blocks once a micro-batch); the planted fault, one
+             micro-batch's gradient dropped, must miss the bound on the
+             first step's updates; 3 bf16 steps at dropout 0.1: finite
+             losses, the tied word embedding the same bits on both
+             stages; (c) sharding 2 at ``os_g``, full depth: as (b), the
+             two ranks' parameters the same bits, each rank's optimizer
+             state at most ``ZP_STATE_SHARE`` of the world of one's, the
+             planted fault two ranks' windows traded; (d) mp 2 x pp 2 x
+             sharding 2 (eight ranks, the dryrun's mesh), 4 layers, 2
+             virtual stages; (e) with two cards or more, (b) over NCCL,
+             captured; otherwise one line says it did not run.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -477,6 +499,15 @@ HYBRID_NORM_RTOL = 1e-5
 # (a)'s process group: NCCL at a world of one (a rehearsal on the CPU sets
 # gloo); seconds a run's ranks may take
 HYBRID_BACKEND, HYBRID_TIMEOUT = "nccl", 420
+# phase 16: ZeRO and the pipeline.  (b)'s pipeline (stages, virtual stages
+# a rank, micro-batches); (c) sharding 2 at os_g; (d) mp 2 x pp 2 x
+# sharding 2 at HYBRID_C_LAYERS, 2 virtual stages; their references are
+# phase 15's world-of-one f32 runs; a ZeRO rank's optimizer state at most
+# ZP_STATE_SHARE of the world of one's; the word embedding, tied across
+# the first and the last stage
+ZP_PP, ZP_V, ZP_M = 2, 2, 4
+ZP_STATE_SHARE = 0.55
+ZP_WORD = "gpt.embeddings.word_embeddings.weight"
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -5215,10 +5246,13 @@ def _hybrid_cfg(layers=None, dropout=True):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def _degrees(dp=1, mp=1):
+def _degrees(dp=1, mp=1, zero_stage=None):
     from paddle_tpu_torch.distributed import fleet
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    if zero_stage is not None:
+        strategy.sharding = True
+        strategy.sharding_configs = {"stage": zero_stage}
     return strategy
 
 
@@ -5248,10 +5282,11 @@ def _updates(step, init):
              for n, p in model.named_parameters()}, split_axes(model))
 
 
-def _hybrid_steps(step, ids, labels, n):
+def _hybrid_steps(step, ids, labels, n, after_first=None):
     """``n`` steps, the counters set to 0 just before and read just after:
     (losses, step seconds, launch counts, the clip's global norm after
-    each step (none without a global-norm clip))."""
+    each step (none without a global-norm clip)); ``after_first()`` runs
+    after the first step, untimed."""
     from paddle_tpu_torch.ops import reset_launch_counts
     clip = step.optimizer._grad_clip
     if ids.is_cuda:
@@ -5264,6 +5299,8 @@ def _hybrid_steps(step, ids, labels, n):
         times.append(time.perf_counter() - t0)
         if getattr(clip, "last_norm", None) is not None:
             norms.append(clip.last_norm.item())
+        if after_first is not None and len(losses) == 1:
+            after_first()
     return losses, times, _launch_counts(), norms
 
 
@@ -5328,7 +5365,38 @@ def _hybrid_world1_rank(backend):
                 "launches": launches, "profiled": profiled,
                 "stats": None if hyb.captured is None
                 else dict(hyb.captured.stats)}
-    del hyb, want, got
+    del hyb, got
+    _free()
+    # phase 16 (a): pp = sharding = 1 with ZeRO's os_g set through fleet's
+    # strategy, against the same plain step
+    t0 = time.perf_counter()
+    zs = build_train_step(cfg, device=DEVICE, fusion=False,
+                          strategy=_degrees(zero_stage=2), capture=capture,
+                          optimizer=_hybrid_optimizer(bf16=True))
+    from paddle_tpu_torch.distributed.sharding import zero_level
+    losses_z, times_z, launches_z, norms_z = _hybrid_steps(zs, ids, labels,
+                                                           HYBRID_A_STEPS)
+    if capture:
+        _check_captured("zero-pipeline (a)", zs, HYBRID_A_STEPS)
+    differ_z = _differ(want, _step_state(zs))
+    same_rng_z = torch.equal(want_rng, zs.generator.get_state())
+    _check_counts("zero-pipeline (a)", launches_z, per_step, HYBRID_A_STEPS)
+    profiled_z = None
+    if capture:
+        profiled_z = len(_check_device_launches(
+            "zero-pipeline (a) replay", lambda: zs(ids, labels), 2,
+            per_step))
+    out["a16"] = {"losses": losses_z, "plain": losses_p, "norms": norms_z,
+                  "norms_plain": norms_p, "differ": differ_z,
+                  "same_rng": same_rng_z,
+                  "level": zero_level(zs.optimizer), "zero": zs.zero,
+                  "launches": launches_z, "profiled": profiled_z,
+                  "times": times_z, "plain_s": times_p,
+                  "seconds": time.perf_counter() - t0,
+                  "stats": None if zs.captured is None
+                  else dict(zs.captured.stats)}
+    out["a16"]["zero"] = out["a16"]["zero"] is not None
+    del zs, want
     _free()
     for key, layers in (("b", None), ("c", HYBRID_C_LAYERS)):
         cfg = _hybrid_cfg(layers, dropout=False)
@@ -5494,7 +5562,8 @@ def _check_hybrid_ranks(what, ranks, ref, per_step):
 
 def phase_hybrid(smi):
     """Data x tensor parallelism on the card (see the module docstring):
-    (a) to (d).  Returns {path: launch counts}."""
+    (a) to (d).  Returns ({path: launch counts}, the world-of-one
+    process's results: phase 16's (a) and the f32 references)."""
     from paddle_tpu_torch.distributed import spawn
     _free_steps()
     out = {}
@@ -5590,6 +5659,326 @@ def phase_hybrid(smi):
     else:
         log(f"[hybrid] (d) not run: this machine has {cards} card(s); NCCL "
             f"takes one card a rank, so mp 2 over NCCL needs two")
+    return out, w1
+
+# -- phase 16: ZeRO and the pipeline ------------------------------------------------
+
+ZP_DEGREES = {
+    "b": dict(pp=ZP_PP, virtual_stages=ZP_V, microbatches=ZP_M),
+    "c": dict(sharding=2, sharding_level="os_g"),
+    "d": dict(mp=2, pp=2, sharding=2, sharding_level="os_g",
+              virtual_stages=2),
+    "e": dict(pp=ZP_PP, virtual_stages=ZP_V, microbatches=ZP_M),
+}
+
+
+def _stage_per_step(cfg, pp, stage, micro):
+    """Launches of one step on pipeline stage ``stage`` of ``pp``: each
+    of its blocks runs once a micro-batch (LayerNorm 2, flash 1 each),
+    the last stage's ``final_ln`` too."""
+    blocks = cfg.num_layers // pp
+    ln = (2 * blocks + (stage == pp - 1)) * micro
+    return {"layer_norm_fwd": ln, "layer_norm_bwd": ln,
+            "layer_norm_fwd.residual": 0, "layer_norm_bwd.residual": 0,
+            **{n: blocks * micro for n in FLASH_KERNELS}}
+
+
+def _upd_diff(got, want):
+    """(max |got - want| over every tensor, (the largest relative 2-norm
+    of a tensor's difference, its name)), on the card."""
+    worst, rel = 0.0, (0.0, None)
+    for n, w in want.items():
+        d = (got[n] - w).float()
+        worst = max(worst, d.abs().max().item())
+        r = (d.norm() / w.float().norm().clamp(min=1e-30)).item()
+        rel = max(rel, (r, n), key=lambda t: t[0])
+    return worst, rel
+
+
+def _zp_rank(kind, backend):
+    """One rank of phase 16's (b), (c), (d) or (e): f32 steps (dropout 0,
+    AdamW and the clip) from seed 0's weights at ``ZP_DEGREES[kind]``;
+    (b) and (c) then one step with the planted fault against the honest
+    first step's updates, and (b) O2 bf16 steps at dropout 0.1."""
+    from paddle_tpu_torch.distributed import (init_parallel_env, rank_device,
+                                              unwrap_model)
+    from paddle_tpu_torch.distributed.sharding import state_bytes, window
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    init_parallel_env(backend, device=DEVICE)
+    dev = rank_device()
+    capture = backend == "nccl"
+    layers = HYBRID_C_LAYERS if kind == "d" else None
+    degrees = ZP_DEGREES[kind]
+    cfg = _hybrid_cfg(layers, dropout=False)
+    ids, labels = make_batch(cfg, HYBRID_BATCH, TRAIN_SEQ, seed=0,
+                             device=dev)
+
+    def build(amp_o2=False, c=cfg):
+        return build_train_step(c, device=dev, amp_o2=amp_o2, fusion=False,
+                                capture=capture,
+                                optimizer=_hybrid_optimizer(bf16=amp_o2),
+                                **degrees)
+
+    step = build()
+    hcg = step.hcg
+    coords = (hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+              hcg.get_sharding_parallel_rank(), hcg.get_model_parallel_rank())
+    init = _weights(step)
+    first = {}
+    losses, times, launches, norms = _hybrid_steps(
+        step, ids, labels, HYBRID_STEPS,
+        after_first=lambda: first.update(_weights(step)))
+    if capture:
+        _check_captured(f"zero-pipeline ({kind})", step, HYBRID_STEPS)
+    updates, axes = _updates(step, init)
+    first = {n: first[n] - init[n] for n in first}
+    micro = step.engine.M if step.engine is not None else 1
+    res = {"coords": coords, "rank": hcg.get_global_rank(),
+           "losses": losses, "times": times, "launches": launches,
+           "norms": norms, "axes": axes, "micro": micro,
+           "pp": hcg.get_pipe_parallel_world_size(),
+           "heads": next(m for m in unwrap_model(step.model).gpt.layers
+                         if hasattr(m, "attn")).attn.num_heads,
+           "state_bytes": state_bytes(step.state),
+           # AdamW's two f32 slots of every parameter the rank holds
+           # whole: the world of one's state for them
+           "whole_bytes": sum(p.numel() * 4 * 2
+                              for p in step.params.values()),
+           "param_sha": {n: _bits_sha(p) for n, p in step.params.items()}}
+    if coords[0] == 0 and coords[2] == 0:     # data rank 0 ships its updates
+        res["updates"] = updates
+    del step, updates
+    _free()
+    if kind == "b":
+        # a micro-batch's gradient dropped: the last virtual stage passes
+        # no gradient back for micro-batch 2 of each step
+        step = build()
+        net = unwrap_model(step.model)
+        last, calls, chunk = net.pipeline[0] * net.pipeline[2] - 1, [0], \
+            net.forward_chunk
+
+        def dropping(k, x, generator=None):
+            y = chunk(k, x, generator=generator)
+            if k == last:
+                calls[0] += 1
+                if calls[0] % step.engine.M == 2:
+                    y = y.detach() + (y - y.detach()) * 0
+            return y
+
+        net.forward_chunk = dropping
+    elif kind == "c":
+        # the two ranks' ZeRO windows traded
+        step = build()
+        z = step.zero
+        z.views = {k: (window(p.data, z.dims[k], z.n, z.n - 1 - z.rank)
+                       if k in z.dims else p) for k, p in z.params.items()}
+    else:
+        step = None
+    if step is not None:
+        start = _weights(step)
+        p_loss = step(ids, labels).item()
+        p_norm = step.optimizer._grad_clip.last_norm.item()
+        got = {n: t - start[n] for n, t in _weights(step).items()}
+        res["planted"] = {"loss": p_loss, "norm": p_norm,
+                          "diff": _upd_diff(got, first)}
+        del step, start, got
+    del first, init
+    _free()
+    if kind == "b":
+        step = build(amp_o2=True, c=_hybrid_cfg(layers))
+        b_losses, b_times, b_launches, _ = _hybrid_steps(step, ids, labels,
+                                                         HYBRID_STEPS)
+        res["bf16"] = {"losses": b_losses, "times": b_times,
+                       "launches": b_launches,
+                       "word": _bits_sha(step.params[ZP_WORD])
+                       if ZP_WORD in step.params else None}
+        del step
+        _free()
+    return res
+
+
+def _zp_gathered(ranks):
+    """The updates of data rank 0's ranks: stages' names joined, mp
+    slices concatenated, as numpy by name."""
+    parts = {}
+    for r in ranks:
+        if "updates" not in r:
+            continue
+        mp = r["coords"][3]
+        for n, a in r["updates"].items():
+            parts.setdefault(n, {})[mp] = (a, r["axes"][n])
+    out = {}
+    for n, by_mp in parts.items():
+        axis = by_mp[0][1]
+        out[n] = by_mp[0][0] if axis is None else np.concatenate(
+            [by_mp[m][0] for m in sorted(by_mp)], axis)
+    return out
+
+
+def _check_zp(what, ranks, ref, per_step):
+    """The f32 ranks of (b)-(e) against their world-of-one reference, as
+    phase 15 holds its runs: losses, the clip's norms, the gathered
+    updates; each rank's launches (``per_step(rank)``); the sharding
+    ranks' parameters the same bits."""
+    loss_err = max(abs(a - b) for r in ranks
+                   for a, b in zip(r["losses"], ref["losses"]))
+    norm_err = max((abs(a - b) / b for r in ranks
+                    for a, b in zip(r["norms"], ref["norms"])), default=0.0)
+    full = _zp_gathered(ranks)
+    if set(full) != set(ref["updates"]):
+        raise AssertionError(f"{what}: gathered names "
+                             f"{sorted(set(full) ^ set(ref['updates']))[:6]}")
+    worst, rel = 0.0, (0.0, None)
+    for name, w in ref["updates"].items():
+        if full[name].shape != w.shape:
+            raise AssertionError(f"{what}: {name} gathered "
+                                 f"{full[name].shape}, want {w.shape}")
+        d = full[name] - w
+        worst = max(worst, float(np.abs(d).max()))
+        r = float(np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30))
+        rel = max(rel, (r, name), key=lambda t: t[0])
+    log(f"[zero-pipeline] {what}: f32 losses {ranks[0]['losses']} against "
+        f"the world of one's {ref['losses']}: max |diff| {loss_err:.3e} (tol "
+        f"{HYBRID_LOSS_TOL:.0e}); gathered updates max |diff| {worst:.3e} "
+        f"(tol {HYBRID_PARAM_TOL:.0e}), largest relative 2-norm diff "
+        f"{rel[0]:.3e} ({rel[1]}, tol {HYBRID_UPDATE_RTOL:.0e}); the clip's "
+        f"norms {ranks[0]['norms']} (world of one {ref['norms']}, max "
+        f"relative diff {norm_err:.2e}, tol {HYBRID_NORM_RTOL:.0e}); heads a "
+        f"rank {ranks[0]['heads']}; step ms eager, gloo, card shared "
+        f"{[round(t * 1e3, 1) for t in ranks[0]['times']]}")
+    if any(len(r["norms"]) != HYBRID_STEPS for r in ranks) or \
+            not norm_err <= HYBRID_NORM_RTOL or \
+            not loss_err <= HYBRID_LOSS_TOL or \
+            not worst <= HYBRID_PARAM_TOL or not rel[0] <= HYBRID_UPDATE_RTOL:
+        raise AssertionError(f"{what}: against the world of one: losses "
+                             f"{loss_err}, norms {norm_err}, updates {worst}, "
+                             f"{rel}")
+    by = {r["coords"]: r for r in ranks}
+    for (dp, s, sh, mp), r in by.items():
+        if sh and r["param_sha"] != by[(dp, s, 0, mp)]["param_sha"]:
+            raise AssertionError(f"{what}: sharding rank {sh}'s parameters "
+                                 f"are not sharding rank 0's")
+        _check_counts(f"{what} rank {r['rank']}", r["launches"], per_step(r),
+                      HYBRID_STEPS)
+
+
+def _check_planted(what, ranks, fault):
+    """The planted fault's first step against the honest run's first
+    step: its updates must miss the bound the honest run is held to."""
+    worst = [r["planted"]["diff"] for r in ranks]
+    log(f"[zero-pipeline] {what} planted fault, {fault}: first-step updates "
+        f"against the honest first step's: max |diff| "
+        f"{[round(w[0], 8) for w in worst]}, relative "
+        f"{[(round(w[1][0], 4), w[1][1]) for w in worst]}; norms "
+        f"{[r['planted']['norm'] for r in ranks]} against "
+        f"{[r['norms'][0] for r in ranks]}; must exceed "
+        f"{HYBRID_UPDATE_RTOL:.0e} relative")
+    if not all(w[1][0] > HYBRID_UPDATE_RTOL for w in worst):
+        raise AssertionError(f"{what}: the planted fault ({fault}) passed "
+                             f"the comparison")
+
+
+def phase_zero_pipeline(smi, w1):
+    """ZeRO and the pipeline on the card (see the module docstring): (a)
+    from phase 15's world-of-one process, then (b) to (e).  Returns
+    {path: launch counts}."""
+    from paddle_tpu_torch.distributed import spawn
+    _free_steps()
+    out = {}
+    a = w1["a16"]
+    med = statistics.median(a["times"][1:]) * 1e3
+    log(f"[zero-pipeline] (a) {HYBRID_BACKEND} world of 1, pp = sharding = "
+        f"1 with ZeRO level {a['level']} set by the strategy (no ZeRO plan "
+        f"made: {not a['zero']}), O2 bf16, dropout 0.1, {HYBRID_BATCH}x"
+        f"{TRAIN_SEQ}: losses {a['losses']} (plain {a['plain']}); state "
+        f"tensors that differ {a['differ'][:4]}; generator the same "
+        f"{a['same_rng']}; norms {a['norms']}; capture {a['stats']}; median "
+        f"step {med:.2f} ms; a profiled replay ran {a['profiled']} kernel "
+        f"names, the counters' launches; {a['seconds']:.1f} s | {smi}")
+    if a["losses"] != a["plain"] or a["differ"] or not a["same_rng"] or \
+            a["norms"] != a["norms_plain"] or a["level"] != "os_g" or \
+            a["zero"]:
+        raise AssertionError(f"zero-pipeline (a): the degree-1 step with "
+                             f"os_g is not the plain step's bits: "
+                             f"{a['losses']} / {a['plain']}, "
+                             f"{a['differ'][:8]}")
+    out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} zero os_g pp1 sharding1 "
+        f"{HYBRID_BACKEND} captured"] = a["launches"]
+    full, cut = _hybrid_cfg(), _hybrid_cfg(HYBRID_C_LAYERS)
+
+    def per_stage(cfg):
+        return lambda r: _stage_per_step(cfg, r["pp"], r["coords"][1],
+                                         r["micro"])
+
+    t0 = time.perf_counter()
+    ranks = spawn(_zp_rank, args=("b", "gloo"), nprocs=ZP_PP,
+                  timeout=HYBRID_TIMEOUT)
+    _check_zp(f"(b) pp {ZP_PP}, v {ZP_V}, M {ZP_M} over gloo", ranks,
+              w1["b"], per_stage(full))
+    _check_planted("(b)", ranks, "micro-batch 2's gradient dropped")
+    bf = [r["bf16"] for r in ranks]
+    words = [b["word"] for b in bf]
+    log(f"[zero-pipeline] (b) bf16 O2 dropout 0.1: losses {bf[0]['losses']} "
+        f"(stage 1 {bf[1]['losses']}); the tied word embedding's bits "
+        f"{words}; step ms {[round(t * 1e3, 1) for t in bf[0]['times']]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) for b in bf for v in b["losses"]) or \
+            words[0] is None or words[0] != words[-1]:
+        raise AssertionError(f"(b) bf16: losses {[b['losses'] for b in bf]}, "
+                             f"tied embedding bits {words}")
+    for r in ranks:
+        s = r["coords"][1]
+        _check_counts(f"(b) bf16 stage {s}", r["bf16"]["launches"],
+                      per_stage(full)(r), HYBRID_STEPS)
+        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} pp{ZP_PP} v{ZP_V} "
+            f"M{ZP_M} gloo stage {s} f32"] = r["launches"]
+        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} pp{ZP_PP} v{ZP_V} "
+            f"M{ZP_M} gloo stage {s} bf16"] = r["bf16"]["launches"]
+    del ranks, bf
+
+    t0 = time.perf_counter()
+    ranks = spawn(_zp_rank, args=("c", "gloo"), nprocs=2,
+                  timeout=HYBRID_TIMEOUT)
+    _check_zp("(c) sharding 2 at os_g over gloo", ranks, w1["b"],
+              lambda r: _plain_per_step(full))
+    _check_planted("(c)", ranks, "the two ranks' windows traded")
+    shares = [r["state_bytes"] / r["whole_bytes"] for r in ranks]
+    log(f"[zero-pipeline] (c) optimizer-state bytes a rank "
+        f"{[r['state_bytes'] for r in ranks]} against the world of one's "
+        f"{ranks[0]['whole_bytes']}: {[round(x, 4) for x in shares]} (at most "
+        f"{ZP_STATE_SHARE}); {time.perf_counter() - t0:.1f} s")
+    if not max(shares) <= ZP_STATE_SHARE:
+        raise AssertionError(f"(c): optimizer state shares {shares}")
+    out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} sharding2 os_g gloo rank 0"] = \
+        ranks[0]["launches"]
+    del ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn(_zp_rank, args=("d", "gloo"), nprocs=8,
+                  timeout=HYBRID_TIMEOUT)
+    _check_zp(f"(d) mp 2 x pp 2 x sharding 2 at os_g, v 2, "
+              f"{HYBRID_C_LAYERS} layers, over gloo", ranks, w1["c"],
+              per_stage(cut))
+    log(f"[zero-pipeline] (d) {time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        if r["coords"][0] == r["coords"][2] == r["coords"][3] == 0:
+            out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x"
+                f"{TRAIN_SEQ} mp2 pp2 sharding2 gloo stage "
+                f"{r['coords'][1]}"] = r["launches"]
+    del ranks
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards >= 2:
+        t0 = time.perf_counter()
+        ranks = spawn(_zp_rank, args=("e", "nccl"), nprocs=ZP_PP,
+                      timeout=HYBRID_TIMEOUT)
+        _check_zp(f"(e) pp {ZP_PP} over NCCL, captured", ranks, w1["b"],
+                  per_stage(full))
+        log(f"[zero-pipeline] (e) {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"[zero-pipeline] (e) not run: this machine has {cards} card(s); "
+            f"NCCL takes one card a rank, so pp {ZP_PP} over NCCL needs "
+            f"{ZP_PP}")
     return out
 
 
@@ -5639,8 +6028,11 @@ def main() -> int:
     lap("checkpoint")
     hapi = phase_hapi(smi)
     lap("hapi")
-    hybrid = phase_hybrid(smi)
+    hybrid, world1 = phase_hybrid(smi)
     lap("hybrid")
+    zero_pipeline = phase_zero_pipeline(smi, world1)
+    del world1
+    lap("zero-pipeline")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -5689,7 +6081,10 @@ def main() -> int:
                 by_path[name][path] = counts[name]
     # phase 14's hapi paths: GPT's fit, the classifier's fit and evaluate
     # phase 15's hybrid runs: (a) captured, each rank of (b) and (c)'s rank 0
-    for path, counts in itertools.chain(hapi.items(), hybrid.items()):
+    # phase 16's: (a) captured, each stage of (b), (c)'s rank 0, (d)'s
+    # stages
+    for path, counts in itertools.chain(hapi.items(), hybrid.items(),
+                                        zero_pipeline.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

@@ -4,12 +4,16 @@ collectives (:mod:`.collective`, :mod:`.communication.stream`), the
 process group and ``DataParallel`` (:mod:`.parallel`), ``spawn``
 (:mod:`.launch_api`), the rank mesh and the hybrid topology
 (:mod:`.mesh`, :mod:`.topology`), gradient buckets
-(:mod:`.grad_buckets`), ``fleet`` and the tensor-parallel layers
-(:mod:`.fleet`), a CPU rendezvous (:mod:`.parallel_with_gloo`),
+(:mod:`.grad_buckets`) and their collective schedule
+(:mod:`.collective_schedule`), the ZeRO placement rule
+(:mod:`.auto_parallel`), group sharding (:mod:`.sharding`), ``fleet``
+with the tensor-parallel layers and the pipeline (:mod:`.fleet`), a CPU
+rendezvous (:mod:`.parallel_with_gloo`),
 process-level contracts and the crash-consistent checkpoint
 (:mod:`.checkpoint`, :mod:`.checkpoint_manager`), whose directories both
 packages read."""
-from . import communication, fleet
+from . import (auto_parallel, collective_schedule, communication, fleet,
+               sharding)
 from .checkpoint import (CheckpointCorruptError, HostLocalShard,
                          ReshardError, is_committed, load_sharded,
                          load_state, read_leaf, save_sharded, save_state,
@@ -20,7 +24,8 @@ from .collective import (P2POp, ReduceOp, Group, all_gather,
                          alltoall_single, barrier, batch_isend_irecv,
                          broadcast, broadcast_object_list,
                          destroy_process_group, gather, get_backend,
-                         get_group, irecv, is_available, is_initialized,
+                         get_group, host_staged, irecv, is_available,
+                         is_initialized,
                          isend, new_group, recv, reduce, reduce_scatter,
                          scatter, scatter_object_list, send, wait)
 from .communication import stream
@@ -33,6 +38,7 @@ from .parallel import (DataParallel, init_parallel_env, rank_device,
                        unwrap_model)
 from .parallel_with_gloo import (gloo_barrier, gloo_init_parallel_env,
                                  gloo_release)
+from .sharding import group_sharded_parallel, save_group_sharded_model
 from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        ParallelMode)
 
@@ -44,7 +50,8 @@ __all__ = [
     "all_gather_object", "all_reduce", "all_to_all", "alltoall",
     "alltoall_single", "barrier", "batch_isend_irecv", "broadcast",
     "broadcast_object_list", "destroy_process_group", "gather",
-    "get_backend", "get_group", "irecv", "is_available", "is_initialized",
+    "get_backend", "get_group", "host_staged", "irecv", "is_available",
+    "is_initialized",
     "isend", "new_group", "recv", "reduce", "reduce_scatter", "scatter",
     "scatter_object_list", "send", "wait", "stream", "communication",
     "ParallelEnv", "get_rank", "get_world_size", "split", "spawn",
@@ -53,4 +60,6 @@ __all__ = [
     "unwrap_model",
     "gloo_barrier", "gloo_init_parallel_env", "gloo_release",
     "CommunicateTopology", "HybridCommunicateGroup", "ParallelMode", "fleet",
+    "auto_parallel", "collective_schedule", "sharding",
+    "group_sharded_parallel", "save_group_sharded_model",
 ]

@@ -18,7 +18,13 @@ that hand back a new tensor (``all_gather``'s tensor form,
 list) return that tensor instead.
 
 ``ReduceOp.AVG`` is the backend's average on NCCL; gloo has none, so
-there it is a sum divided by the group's size.  ``reduce`` leaves the
+there it is a sum divided by the group's size.  Gloo carries CUDA
+tensors for ``all_reduce``, ``broadcast`` and ``all_gather``, but its
+point-to-point path hands a device pointer to the host's socket (a send
+of a CUDA tensor fails with "writev ... Bad address" on the card, and
+breaks the pair); so on a gloo group the point-to-point operations and
+``reduce_scatter`` carry CUDA tensors through host copies, always
+(:func:`host_staged`): a transport, not a fallback.  ``reduce`` leaves the
 tensors of the ranks other than ``dst`` as they were (the JAX package's
 semantics; the backends may write them).  Groups, and every collective,
 need a process group: before ``init_parallel_env`` they raise.  The JAX
@@ -40,7 +46,7 @@ __all__ = [
     "all_gather_object", "broadcast", "broadcast_object_list", "reduce",
     "scatter", "scatter_object_list", "alltoall", "alltoall_single",
     "all_to_all", "reduce_scatter", "send", "recv", "isend", "irecv",
-    "barrier", "P2POp", "batch_isend_irecv", "wait",
+    "barrier", "P2POp", "batch_isend_irecv", "wait", "host_staged",
 ]
 
 
@@ -112,6 +118,7 @@ class Task:
 
     def __init__(self, work=None, then: Optional[Callable[[], None]] = None):
         self._work, self._then = work, then
+        self._keep = None          # a buffer the operation still reads
 
     def wait(self) -> bool:
         if self._work is not None:
@@ -226,6 +233,32 @@ def _torch_op(op: int, group) -> tuple:
     if g.backend == "nccl":
         return dist.ReduceOp.AVG, None
     return dist.ReduceOp.SUM, g.nranks
+
+
+def host_staged(group, tensor) -> bool:
+    """Whether ``tensor`` crosses ``group`` through a host copy: a CUDA
+    tensor on a gloo group, for the operations gloo cannot take from the
+    card (point to point and ``reduce_scatter``)."""
+    return bool(getattr(tensor, "is_cuda", False)) and \
+        _group_of(group).backend == "gloo"
+
+
+def _to_host(tensor: torch.Tensor) -> torch.Tensor:
+    return tensor.detach().to("cpu").contiguous()
+
+
+def _copy_back(dst: torch.Tensor, src: torch.Tensor) -> Callable[[], None]:
+    def run():
+        dst.copy_(src)
+    return run
+
+
+def _then(*fns) -> Callable[[], None]:
+    def run():
+        for f in fns:
+            if f is not None:
+                f()
+    return run
 
 
 def _divide(tensor: torch.Tensor, n: Optional[int]) -> Callable[[], None]:
@@ -425,43 +458,59 @@ def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
     """``reduce_scatter(out, tensor_list)``: ``out`` gets the group's
     reduction of everyone's ``tensor_list[i]``, ``i`` this rank's index
     (returns a :class:`Task`).  ``reduce_scatter(x)``: ``x``'s first axis
-    in ``nranks`` chunks, this rank's chunk of the reduction returned."""
+    in ``nranks`` chunks, this rank's chunk of the reduction returned.
+    On gloo, CUDA tensors go through host copies (:func:`host_staged`)."""
     pg = _pg(group)
     g = _group_of(group)
     top, n = _torch_op(op, group)
-    if tensor_list is not None:
-        ins = [t.contiguous() for t in tensor_list]
-        return _issue(dist.reduce_scatter, tensor, ins, op=top, group=pg,
-                      sync_op=sync_op, then=_divide(tensor, n))
-    if tensor.shape[0] % g.nranks:
-        raise ValueError(f"reduce_scatter: axis 0 of {tuple(tensor.shape)} "
-                         f"does not split into {g.nranks} chunks")
-    ins = [c.contiguous() for c in tensor.chunk(g.nranks, dim=0)]
-    out = torch.empty_like(ins[0])
-    _issue(dist.reduce_scatter, out, ins, op=top, group=pg, sync_op=True,
-           then=_divide(out, n))
-    return out
+    if tensor_list is None:
+        if tensor.shape[0] % g.nranks:
+            raise ValueError(f"reduce_scatter: axis 0 of "
+                             f"{tuple(tensor.shape)} does not split into "
+                             f"{g.nranks} chunks")
+        out = torch.empty_like(tensor.chunk(g.nranks, dim=0)[0])
+        reduce_scatter(out, list(tensor.chunk(g.nranks, dim=0)), op=op,
+                       group=group, sync_op=True)
+        return out
+    staged = host_staged(group, tensor)
+    ins = [_to_host(t) if staged else t.contiguous() for t in tensor_list]
+    out = torch.empty_like(tensor, device="cpu") if staged else tensor
+    return _issue(dist.reduce_scatter, out, ins, op=top, group=pg,
+                  sync_op=sync_op,
+                  then=_then(_copy_back(tensor, out) if staged else None,
+                             _divide(tensor, n)))
 
 
 # -- point to point --------------------------------------------------------------
 
 def send(tensor: torch.Tensor, dst: int = 0, group=None,
          sync_op: bool = True) -> Task:
-    """``tensor`` to the global rank ``dst``."""
+    """``tensor`` to the global rank ``dst`` (through a host copy on gloo
+    for a CUDA tensor)."""
     pg = _pg(group)
+    src = _to_host(tensor) if host_staged(group, tensor) else \
+        tensor.contiguous()
     fn = dist.send if sync_op else dist.isend
-    work = fn(tensor.contiguous(), dst=dst, group=pg)
-    return Task(None if sync_op else work)
+    work = fn(src, dst=dst, group=pg)
+    task = Task(None if sync_op else work)
+    task._keep = src              # alive until the send completes
+    return task
 
 
 def recv(tensor: torch.Tensor, src: int = 0, group=None,
          sync_op: bool = True) -> Task:
-    """Into ``tensor``, from the global rank ``src``."""
+    """Into ``tensor``, from the global rank ``src`` (through a host copy
+    on gloo for a CUDA tensor)."""
     pg = _pg(group)
+    staged = host_staged(group, tensor)
+    buf = torch.empty_like(tensor, device="cpu") if staged else tensor
+    back = _copy_back(tensor, buf) if staged else None
     if sync_op:
-        dist.recv(tensor, src=src, group=pg)
+        dist.recv(buf, src=src, group=pg)
+        if back is not None:
+            back()
         return Task()
-    return Task(dist.irecv(tensor, src=src, group=pg))
+    return Task(dist.irecv(buf, src=src, group=pg), back)
 
 
 def isend(tensor: torch.Tensor, dst: int = 0, group=None) -> Task:
@@ -483,12 +532,28 @@ class P2POp:
 
 
 def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Task]:
-    """Issue every operation together; returns their tasks."""
-    ops = []
+    """Issue every operation together; returns their tasks (a received
+    CUDA tensor on gloo is written when its task is waited for)."""
+    ops, thens = [], []
     for p in p2p_op_list:
-        ops.append(dist.P2POp(dist.isend if p.op is isend else dist.irecv,
-                              p.tensor, p.peer, group=_pg(p.group)))
-    return [Task(w) for w in dist.batch_isend_irecv(ops)]
+        staged = host_staged(p.group, p.tensor)
+        if p.op is isend:
+            t = _to_host(p.tensor) if staged else p.tensor
+            ops.append(dist.P2POp(dist.isend, t, p.peer,
+                                  group=_pg(p.group)))
+            thens.append(None)
+        else:
+            t = torch.empty_like(p.tensor, device="cpu") if staged \
+                else p.tensor
+            ops.append(dist.P2POp(dist.irecv, t, p.peer,
+                                  group=_pg(p.group)))
+            thens.append(_copy_back(p.tensor, t) if staged else None)
+    tasks = []
+    for w, then, op in zip(dist.batch_isend_irecv(ops), thens, ops):
+        task = Task(w, then)
+        task._keep = op.tensor
+        tasks.append(task)
+    return tasks
 
 
 def barrier(group=None) -> None:

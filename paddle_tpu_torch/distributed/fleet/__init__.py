@@ -1,7 +1,8 @@
 """Fleet: the hybrid-parallel facade (``fleet.init``, the topology,
 ``distributed_model`` and ``distributed_optimizer``), the strategy, the
-tensor-parallel layers (:mod:`.meta_parallel`) and per-block recompute
-(:mod:`.recompute`)."""
+tensor-parallel layers, the pipeline and stage-3 sharding
+(:mod:`.meta_parallel`), the optimizer wrappers
+(:mod:`.meta_optimizers`) and per-block recompute (:mod:`.recompute`)."""
 from . import meta_optimizers, meta_parallel
 from .base.distributed_strategy import DistributedStrategy
 from .fleet import (Fleet, barrier_worker, distributed_model,

@@ -6,10 +6,15 @@ config merges into its defaults and rejects unknown keys.  What the port
 reads: ``hybrid_configs`` (the degrees, :func:`..fleet.hybrid_degrees`),
 ``fuse_all_reduce_ops`` and ``fuse_grad_size_in_MB`` (the buckets of
 :class:`...parallel.DataParallel`), ``amp`` with ``amp_configs``'
-``use_bf16`` (O2 in bf16) and ``recompute`` (``fleet.distributed_model``).
-The rest are kept so that strategy code carries over; the pipeline,
-sharding and sequence-parallel degrees wait for their slices
-(``fleet.init`` refuses them above 1).
+``use_bf16`` (O2 in bf16) and ``recompute`` (``fleet.distributed_model``),
+``sharding`` with ``sharding_configs``' ``stage`` (1: ZeRO ``os``, 2:
+``os_g``; ``fleet.distributed_optimizer``), ``pipeline_configs``'
+``accumulate_steps`` (the micro-batches) and ``virtual_pp_degree``.
+``sharding_configs``' ``offload`` and ``comm_overlap`` are accepted and
+not read (the port keeps no state on the host, and its reduction runs
+after the backward pass).  The rest are kept so that strategy code
+carries over; the sequence-parallel degree waits for its slice
+(``fleet.init`` refuses it above 1).
 """
 from __future__ import annotations
 

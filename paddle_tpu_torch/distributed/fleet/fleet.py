@@ -5,14 +5,17 @@ if the caller has not), takes the degrees from the strategy's
 ``hybrid_configs`` (:func:`hybrid_degrees`: the JAX package's rule,
 ranks left over go to dp when dp is left at 1) and builds the
 :class:`..topology.HybridCommunicateGroup`.  The degrees must cover the
-world exactly.  ``distributed_model`` wraps the model for its mode:
-:class:`.meta_parallel.TensorParallel` when mp > 1, then
-:class:`..parallel.DataParallel` over the data-parallel group; the
-strategy's bf16 O2 ``amp`` and ``recompute`` are applied first.
-``distributed_optimizer`` wraps the optimizer in
-:class:`.meta_optimizers.HybridParallelOptimizer`.  Pipeline, sharding
-(ZeRO) and sequence parallelism are not ported: degrees above 1 there
-raise.
+world exactly.  ``distributed_model`` wraps the model for its mode
+(``get_parallel_mode``): a :class:`.meta_parallel.PipelineParallel` over
+a ``PipelineLayer`` when pp > 1, :class:`.meta_parallel.ShardingParallel`
+(stage 3) when sharding > 1, else :class:`.meta_parallel.TensorParallel`
+when mp > 1, then :class:`..parallel.DataParallel` over the data-parallel
+group; the strategy's bf16 O2 ``amp`` and ``recompute`` are applied
+first.  ``distributed_optimizer`` wraps the optimizer in
+:class:`.meta_optimizers.HybridParallelOptimizer`, and with
+``strategy.sharding`` sets the ZeRO level from
+``sharding_configs["stage"]`` (1: ``os``, 2: ``os_g``).  Sequence
+parallelism is not ported: a sep degree above 1 raises.
 """
 from __future__ import annotations
 
@@ -64,12 +67,11 @@ class Fleet:
         init_parallel_env()
         world = get_world_size()
         dims = hybrid_degrees(strategy.hybrid_configs, world)
-        for name, d in zip(_KEYS[1:4], dims[1:4]):
-            if d > 1:
-                raise NotImplementedError(
-                    f"{name} {d}: pipeline, sharding and sequence "
-                    f"parallelism are not ported yet (ROADMAP Queue 1, "
-                    f"item 4)")
+        if dims[3] > 1:
+            raise NotImplementedError(
+                f"sep_degree {dims[3]}: sequence parallelism (ring and "
+                f"Ulysses attention) is not ported yet (ROADMAP Queue 1, "
+                f"item 4.3)")
         topo = CommunicateTopology(_NAMES, dims)
         if topo.world_size() != world:
             raise ValueError(f"hybrid degrees {dict(zip(_KEYS, dims))} make "
@@ -131,7 +133,14 @@ class Fleet:
                 inner = getattr(model, "gpt", None)
                 if inner is not None and hasattr(inner, "use_recompute"):
                     inner.use_recompute = True
-        if hcg.get_parallel_mode() == "model":
+        mode = hcg.get_parallel_mode()
+        if mode == "pipeline":
+            from .meta_parallel import PipelineParallel
+            return PipelineParallel(model, hcg, strategy=s)
+        if mode == "sharding_parallel":
+            from .meta_parallel import ShardingParallel
+            return ShardingParallel(model, hcg, strategy=s)
+        if mode == "model":
             model = TensorParallel(model, hcg, strategy=s)
         return DataParallel(model, strategy=s,
                             group=hcg.get_data_parallel_group())
@@ -140,6 +149,15 @@ class Fleet:
         from .meta_optimizers import HybridParallelOptimizer
         if strategy is not None:
             self._user_defined_strategy = strategy
+        s = self._user_defined_strategy
+        if s is not None and s.sharding:
+            from ..sharding.group_sharded import set_zero_level
+            stage = int(s.sharding_configs.get("stage", 1))
+            if stage not in (1, 2):
+                raise ValueError(f"sharding_configs stage {stage}: 1 (os) or "
+                                 f"2 (os_g); stage 3 is "
+                                 f"group_sharded_parallel(level='p_g_os')")
+            set_zero_level(optimizer, "os" if stage == 1 else "os_g")
         return HybridParallelOptimizer(optimizer, self._hcg,
                                        self._user_defined_strategy)
 

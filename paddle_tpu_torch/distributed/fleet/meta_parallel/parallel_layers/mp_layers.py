@@ -29,7 +29,9 @@ generator, as the unsharded layer would, and keeps its slice, so the
 generator ends where the unsharded model's does, and every rank's slice
 is cut from the same draws.  A parameter that is a slice (the group
 has more than one rank) carries ``split_axis``, the axis it was cut
-along; :func:`is_shard` reads it.  Paddle's ``is_distributed`` flag is
+along; :func:`is_shard` reads it.  Every parameter a layer splits
+carries ``mp_axis``, that axis at any degree (the JAX layer's spec
+annotation, which stage-3 placement reads).  Paddle's ``is_distributed`` flag is
 not set: on a torch tensor that name is a method.
 """
 from __future__ import annotations
@@ -82,6 +84,7 @@ def _sliced(init, shape, axis, group, generator):
     per = shape[axis] // n
     p = torch.nn.Parameter(full.narrow(axis, _local(group) * per,
                                        per).contiguous())
+    p.mp_axis = axis          # the layer's split axis, at any degree
     if n > 1:
         p.split_axis = axis
     return p

@@ -12,11 +12,15 @@ Two streams, as Megatron and Paddle keep them:
  - the local stream (``MODEL_PARALLEL_RNG``), different on each mp rank:
    dropout on each rank's own attention heads.
 
-Both differ between data-parallel ranks.  :func:`model_parallel_random_seed`
-sets them from one seed: the global stream is the run's generator
-(``generator``, whose draws made the weights, so its state is the same
-on every rank), re-seeded with ``seed + DP_SEED_OFFSET + dp_rank`` when
-there is more than one dp rank; the local stream is a generator seeded
+Both differ between data ranks (the dp x sharding ranks, which each
+take their slice of the batch) and between pipeline stages (each
+stage's blocks draw from that stage's streams).
+:func:`model_parallel_random_seed` sets them from one seed: the global
+stream is the run's generator (``generator``, whose draws made the
+weights, so its state is the same on every rank), re-seeded with
+``seed + DP_SEED_OFFSET + data_rank + PP_SEED_OFFSET * stage`` when
+there is more than one data rank or stage (``data_rank = dp_rank *
+sharding + sharding_rank``); the local stream is a generator seeded
 ``seed + 1024 + global rank`` (the JAX package's local seed), or the
 global stream itself when there is one mp rank.  At dp = mp = 1 both are
 the run's generator, so the model draws its masks as the unsharded model
@@ -35,12 +39,14 @@ from ... import collective as _c
 
 __all__ = ["RNGStatesTracker", "get_rng_state_tracker",
            "model_parallel_random_seed", "GLOBAL_RNG", "MODEL_PARALLEL_RNG",
-           "DP_SEED_OFFSET"]
+           "DP_SEED_OFFSET", "PP_SEED_OFFSET"]
 
 GLOBAL_RNG = "global_seed"
 MODEL_PARALLEL_RNG = "model_parallel_rng"
 #: added to the seed of the global stream of dp rank ``r`` (with ``r``)
 DP_SEED_OFFSET = 1 << 20
+#: times the pipeline stage, added to the seed of the global stream
+PP_SEED_OFFSET = 1 << 16
 
 
 class RNGStatesTracker:
@@ -110,15 +116,20 @@ def model_parallel_random_seed(seed: Optional[int] = None, *,
             _c.broadcast_object_list(box, src=0)
         seed = box[0]
     hcg = get_hybrid_communicate_group()
-    dp, dp_rank = ((1, 0) if hcg is None else
-                   (hcg.get_data_parallel_world_size(),
-                    hcg.get_data_parallel_rank()))
+    data, data_rank, pp, stage = (1, 0, 1, 0)
+    if hcg is not None:
+        sh = hcg.get_sharding_parallel_world_size()
+        data = hcg.get_data_parallel_world_size() * sh
+        data_rank = hcg.get_data_parallel_rank() * sh + \
+            hcg.get_sharding_parallel_rank()
+        pp, stage = hcg.get_pipe_parallel_world_size(), hcg.get_stage_id()
     mp = 1 if hcg is None else hcg.get_model_parallel_world_size()
     rank = 0 if hcg is None else hcg.get_global_rank()
     glob = generator if generator is not None else make_generator(seed,
                                                                   device)
-    if dp > 1:
-        glob.manual_seed(seed + DP_SEED_OFFSET + dp_rank)
+    if data > 1 or pp > 1:
+        glob.manual_seed(seed + DP_SEED_OFFSET + data_rank +
+                         PP_SEED_OFFSET * stage)
     _TRACKER.reset()
     _TRACKER.set(GLOBAL_RNG, glob)
     if mp > 1:

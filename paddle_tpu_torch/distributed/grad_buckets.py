@@ -7,8 +7,15 @@ early and its one fused all-reduce can start while the backward pass
 goes on (the reference's ``EagerReducer`` and ``fuse_grad_size_in_MB``).
 :func:`partition_buckets` makes the plan; :class:`..parallel.DataParallel`
 copies each gradient into its bucket's flat buffer and all-reduces a
-bucket as soon as its last gradient is in.  The JAX package's
-reduce-scatter buckets (ZeRO's collective schedule) are not ported.
+bucket as soon as its last gradient is in.
+
+ZeRO's buckets (``scatter_dims``: each member's ``zero_spec`` dimension)
+are packed rank-major (:func:`to_rank_major`): a bucket of ``n``
+sharding ranks is an ``(n, W)`` block whose row ``r`` is the ravel of
+every member's ``r``-th window along its dimension, so one
+reduce-scatter of the block hands rank ``r`` exactly its windows
+(:class:`.sharding.GradReducer`).  A member that no dimension lets
+scatter rides an all-reduce bucket.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["Bucket", "BucketPlan", "partition_buckets",
-           "default_bucket_bytes"]
+           "default_bucket_bytes", "to_rank_major", "from_rank_major"]
 
 # the reference DistributedStrategy's default fuse_grad_size_in_MB
 _DEFAULT_BUCKET_MB = 32.0
@@ -53,8 +60,12 @@ class Bucket:
 
 @dataclass
 class BucketPlan:
+    """The buckets, and the :class:`..collective_schedule.CollectiveSchedule`
+    that ``reduce_scatter`` buckets run (None for a plain data-parallel
+    plan)."""
     buckets: list = field(default_factory=list)
     target_bytes: int = 0
+    schedule: object = None
 
     @property
     def n_buckets(self) -> int:
@@ -97,3 +108,25 @@ def partition_buckets(params, bucket_bytes, order=None, scatter_dims=None):
         cur.dims.append(dim)
         cur.nbytes += nb
     return plan
+
+
+def _pre_blk_post(shape, dim: int, n: int) -> tuple:
+    pre = int(np.prod(shape[:dim])) if dim else 1
+    post = int(np.prod(shape[dim + 1:])) if dim + 1 < len(shape) else 1
+    return pre, shape[dim] // n, post
+
+
+def to_rank_major(t, dim: int, n: int):
+    """``t`` as ``(n, numel / n)``: row ``r`` is the ravel of its
+    ``r``-th window along ``dim`` (the JAX package's ``_to_rank_major``).
+    A copy unless ``dim`` is 0."""
+    pre, blk, post = _pre_blk_post(tuple(t.shape), dim, n)
+    return t.reshape(pre, n, blk, post).transpose(0, 1).reshape(
+        n, pre * blk * post)
+
+
+def from_rank_major(x, shape, dim: int, n: int):
+    """The inverse of :func:`to_rank_major`: ``(n, W)`` rows back to a
+    tensor of ``shape``."""
+    pre, blk, post = _pre_blk_post(tuple(shape), dim, n)
+    return x.reshape(n, pre, blk, post).transpose(0, 1).reshape(shape)

@@ -13,8 +13,10 @@ the launcher's environment contract set:
    at ``store`` (``PT_STORE_FILE``), or ``MASTER_ADDR`` / ``MASTER_PORT``
    on a free localhost port.
 
-Each rank returns its function's result to the parent through a file in
-a temporary directory (so a large result never blocks a pipe).  The
+The arguments reach the ranks, and each rank returns its function's
+result to the parent, through files in a temporary directory (so large
+data never blocks a pipe, and a rank importing its function's module
+never holds up the next rank's start).  The
 parent fails when any rank exits non-zero (the others are stopped, and
 the error names the rank and carries its traceback) or when the ranks
 have not all finished within ``timeout`` seconds (all are stopped).
@@ -60,11 +62,13 @@ def _environ(env: Dict[str, str]):
                 os.environ[k] = v
 
 
-def _worker(func, rank, env, args, out_dir):
+def _worker(func, rank, env, out_dir):
     os.environ.update(env)
     path = os.path.join(out_dir, f"rank{rank}")
     code = 0
     try:
+        with open(os.path.join(out_dir, "args"), "rb") as f:
+            args = pickle.load(f)
         result = func(*args)
         with open(path + ".tmp", "wb") as f:
             pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -176,12 +180,16 @@ def spawn(func: Callable, args=(), nprocs: int = 1, join: bool = True,
     out_dir = tempfile.mkdtemp(prefix="pt_spawn_")
     procs = []
     try:
+        # the arguments go through a file: through the start pipe, a rank
+        # still importing ``func``'s module would hold up the next start
+        with open(os.path.join(out_dir, "args"), "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
         for rank in range(nprocs):
             renv = dict(base, PADDLE_TRAINER_ID=str(rank),
                         PADDLE_LOCAL_RANK=str(rank),
                         PADDLE_CURRENT_ENDPOINT=eps[rank])
             p = ctx.Process(target=_worker,
-                            args=(func, rank, renv, tuple(args), out_dir),
+                            args=(func, rank, renv, out_dir),
                             daemon=daemon)
             with _environ(renv):       # read while the child starts
                 p.start()

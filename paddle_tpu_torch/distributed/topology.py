@@ -123,6 +123,14 @@ class HybridCommunicateGroup:
                 g = new_group(ranks)
                 if rank in ranks:
                     self._groups[name] = g
+        # the first and the last stage of each pipeline (a tied
+        # embedding's two copies): the pipe group itself at pp 2
+        self._ends = self._groups.get("pipe")
+        if self._pp_degree > 2:
+            for ranks in topology.get_comm_list("pipe"):
+                g = new_group([ranks[0], ranks[-1]])
+                if rank in (ranks[0], ranks[-1]):
+                    self._ends = g
 
     def get_parallel_mode(self):
         if self._pp_degree > 1:
@@ -186,6 +194,14 @@ class HybridCommunicateGroup:
 
     def get_p2p_groups(self):
         return None
+
+    def get_pipe_ends_group(self):
+        """The group of this pipeline's first and last stage (None on a
+        middle stage, or without a pipeline)."""
+        if self._pp_degree <= 1 or not (self.is_first_stage()
+                                        or self.is_last_stage()):
+            return None
+        return self._ends
 
     # sharding
     def get_sharding_parallel_rank(self):

@@ -35,8 +35,17 @@ when one is set (the local stream of
 ``fleet.meta_parallel.random``), every other dropout from the generator
 passed to ``forward``.
 
-Not ported: rotary positions, an untied head, the pipeline adapter,
-attention masks other than causal.
+For pipeline parallelism :meth:`GPTForCausalLM.pipeline_blocks` names
+the decoder stack (the JAX adapter), :meth:`GPTForCausalLM.keep_stage`
+keeps one rank's virtual stages of a model built whole (so every stage
+holds the weights the unsplit model draws from the same seed):
+virtual stage ``k`` of ``pp * v`` runs blocks ``[k L / (pp v), (k + 1) L
+/ (pp v))``, the first also the embeddings, the last ``final_ln`` and
+the tied head (the word embedding is kept on the first and the last
+stage), and :meth:`GPTForCausalLM.forward_chunk` runs one.
+
+Not ported: rotary positions, an untied head, attention masks other
+than causal.
 """
 from __future__ import annotations
 
@@ -248,10 +257,79 @@ class GPTForCausalLM(torch.nn.Module):
 
     def forward(self, input_ids, position_ids=None, generator=None):
         x = self.gpt(input_ids, position_ids, generator)
+        return self._head(x)
+
+    def _head(self, x):
         w = self.gpt.embeddings.word_embeddings.weight
         if self.mp_group is not None:
             x = _c_identity(x, self.mp_group)
         return torch.matmul(x, w.t())
+
+    # -- pipeline parallelism ----------------------------------------------
+    def pipeline_blocks(self):
+        """The decoder stack: each block's parameter prefix, and one
+        block (the JAX model's adapter)."""
+        n = len(self.gpt.layers)
+        return [f"gpt.layers.{i}." for i in range(n)], self.gpt.layers[0]
+
+    def chunk_blocks(self, k: int, chunks: int) -> range:
+        """The blocks of virtual stage ``k`` of ``chunks``."""
+        n = self.config.num_layers
+        if n % chunks:
+            raise ValueError(f"{n} blocks do not split into {chunks} "
+                             f"pipeline stages")
+        per = n // chunks
+        return range(k * per, (k + 1) * per)
+
+    def keep_stage(self, pp: int, stage: int, virtual_stages: int = 1
+                   ) -> "GPTForCausalLM":
+        """Keep what rank ``stage`` of ``pp`` runs, in place: the blocks of
+        its virtual stages ``{g * pp + stage}``, the embeddings on the
+        first stage, ``final_ln`` on the last, the word embedding on both
+        (the tied head).  Names stay the whole model's."""
+        chunks = pp * virtual_stages
+        self.pipeline = (pp, stage, virtual_stages)
+        keep = {i for g in range(virtual_stages)
+                for i in self.chunk_blocks(g * pp + stage, chunks)}
+        for i in range(len(self.gpt.layers)):
+            if i not in keep:
+                self.gpt.layers[i] = _Absent()
+        first, last = stage == 0, stage == pp - 1
+        emb = self.gpt.embeddings
+        if not first:
+            emb.position_embeddings = _Absent()
+        if not (first or last):
+            emb.word_embeddings = _Absent()
+        if not last:
+            self.gpt.final_ln = _Absent()
+        return self
+
+    def forward_chunk(self, k: int, x, generator=None):
+        """Virtual stage ``k`` (of :meth:`keep_stage`'s ``pp * v``) on
+        ``x``: token ids for the first, hidden states otherwise; the last
+        returns the logits."""
+        pp, _, v = self.pipeline
+        gpt = self.gpt
+        if k == 0:
+            x = gpt.embeddings(x, None, generator)
+        for i in self.chunk_blocks(k, pp * v):
+            layer = gpt.layers[i]
+            if gpt.use_recompute:
+                x = recompute(layer, x, generator=generator,
+                              replay_generators=gpt.replay_generators)
+            else:
+                x = layer(x, generator)
+        if k == pp * v - 1:
+            return self._head(gpt.final_ln(x))
+        return x
+
+
+class _Absent(torch.nn.Module):
+    """A part of the model another pipeline stage holds."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this part of the model is on another pipeline "
+                           "stage")
 
 
 class GPTPretrainingCriterion(torch.nn.Module):

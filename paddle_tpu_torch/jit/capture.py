@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import dis
 import functools
+import gc
 import logging
 import os
 import time
@@ -237,6 +238,16 @@ class CapturedGraph:
         grads = [p.grad for p in params]
         before = launch_counts()
         t0 = time.perf_counter()
+        # cyclic garbage is collected first, as torch.cuda.graph does: an
+        # old step's autograd graph left in a cycle keeps its gradient
+        # accumulators, made on another stream, alive into the backward
+        # being recorded, which then fails.  The collector then stays off
+        # while the graph records: a graph it frees mid-capture (an old
+        # step's or engine's) resets itself, which is not permitted during
+        # a capture and invalidates this one
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool)
@@ -254,6 +265,8 @@ class CapturedGraph:
                 p.grad = g
             raise
         finally:
+            if collecting:
+                gc.enable()
             after = launch_counts()
             set_launch_counts(before)
         self.capture_s = time.perf_counter() - t0

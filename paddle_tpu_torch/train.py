@@ -7,6 +7,7 @@ pretraining step (MLM + NSP), and a CLI that runs either.
     python -m paddle_tpu_torch.train --model gpt_tiny --batch 2 --seq 64 --steps 4 --device cpu
     python -m paddle_tpu_torch.train --dp 2 --mp 2 --batch 8 --no-recompute
     python -m paddle_tpu_torch.train --model gpt_tiny --dp 2 --mp 2 --batch 4 --seq 64 --device cpu
+    python -m paddle_tpu_torch.train --model gpt_tiny --pp 2 --sharding 2 --batch 8 --seq 64 --device cpu
 
 The GPT step: ``GPTForCausalLM`` (recompute per block unless
 ``--no-recompute``), the causal-LM loss.  The BERT step:
@@ -35,6 +36,13 @@ taking its slice of the batch, and tensor parallelism over ``mp``.  On
 cards the backend is NCCL, one card a rank, and the step is captured;
 ``--backend gloo`` lets ranks share a card and runs the step eagerly, as
 on the CPU (gloo's collectives run on the host).  Rank 0 prints.
+
+With ``--pp`` (pipeline stages, ``--microbatches`` and
+``--virtual-stages``) and ``--sharding`` (ZeRO over ``--sharding-level``
+``os``, ``os_g`` or ``p_g_os``; ``os_g`` by default) the ranks are
+``dp * mp * pp * sharding``: each pipeline stage runs its virtual
+stages of the 1F1B schedule and each ZeRO rank holds its windows of the
+optimizer state (:class:`HybridTrainStep`).
 """
 from __future__ import annotations
 
@@ -53,7 +61,10 @@ from .amp import decorate
 from .device import resolve_device
 from .distributed.checkpoint import copy_into
 from .distributed.collective import ReduceOp, all_reduce
+from .distributed.fleet.meta_parallel.parallel_layers.mp_layers import \
+    is_shard
 from .distributed.parallel import unwrap_model
+from .distributed.sharding.group_sharded import gathered, local_batch
 from .framework.random import make_generator, restore_generator_state
 from .jit import capture_step
 from .incubate.models import (BertConfig, BertForPretraining,
@@ -64,7 +75,7 @@ from .incubate.models import (BertConfig, BertForPretraining,
 from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
-__all__ = ["TrainStep", "EagerStep", "HybridTrainStep",
+__all__ = ["TrainStep", "EagerStep", "HybridTrainStep", "HybridEagerStep",
            "build_train_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "save_checkpoint",
            "restore_checkpoint", "main"]
@@ -75,6 +86,7 @@ CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
 #: the CLI's batch and sequence when none is given: bench_gpt's, and
 #: BERT's phase-1 pretraining shape (bench.py's BERT_SEQ)
 DEFAULT_SHAPE = {"gpt": (16, 1024), "bert": (32, 128)}
+WORD_EMBEDDING = "gpt.embeddings.word_embeddings.weight"
 MASK_TOKEN = 103                 # [MASK] in BERT's uncased vocabulary
 MAX_PREDICTIONS = 20             # MLM targets per sequence, phase 1
 
@@ -251,55 +263,124 @@ class TrainStep:
         self.optimizer.write_lr()
 
 
-class HybridTrainStep(TrainStep):
-    """One rank's share of a data x tensor parallel step (``hcg``: fleet's
-    topology).  A call takes the global batch and keeps this rank's
-    slice of its first axis (data-parallel rank ``r`` of ``dp``: rows
-    ``[r * B/dp, (r + 1) * B/dp)``); the loss it returns is averaged over
-    the data-parallel group, so every rank returns the global batch's
-    loss (at dp 1 it is this rank's).  Its collectives run on the data-
-    and model-parallel groups: captured on NCCL, eager on gloo
-    (``capture=False``)."""
+class HybridEagerStep(EagerStep):
+    """The body of a ZeRO or pipelined :class:`HybridTrainStep`, one
+    rank's share: the forward and backward passes (the schedule of
+    ``engine``, a pipeline's :class:`PipelineEngine`, when there is
+    one), then ``zero.step`` (``zero``: a
+    :class:`.distributed.sharding.ZeroPlan`), the update body that
+    ``PipelineParallel.train_batch`` runs too: the gradients reduced
+    over dp x sharding, the tied embedding's copies summed, the clip and
+    the update of this rank's windows, the windows gathered, the loss
+    averaged over the data ranks."""
 
-    def __init__(self, model, criterion, optimizer, generator, hcg, *,
-                 capture: bool = True, generators=(), outputs: bool = False):
-        self.hcg = hcg
-        dp_group = hcg.get_data_parallel_group()
-        super().__init__(model, criterion, optimizer, generator, fusion=False,
-                         outputs=outputs, capture=capture,
-                         generators=generators,
-                         groups=[dp_group, hcg.get_model_parallel_group()],
-                         loss_group=None if dp_group.nranks == 1 else dp_group)
-
-    def _local(self, batch):
-        if isinstance(batch, dict):
-            return {k: self._local(v) for k, v in batch.items()}
-        if isinstance(batch, (list, tuple)):
-            return type(batch)(self._local(v) for v in batch)
-        dp = self.hcg.get_data_parallel_world_size()
-        if batch.shape[0] % dp:
-            raise ValueError(f"a batch of {batch.shape[0]} does not split "
-                             f"over {dp} data-parallel ranks")
-        per = batch.shape[0] // dp
-        return batch.narrow(0, self.hcg.get_data_parallel_rank() * per, per)
+    def __init__(self, model, criterion, optimizer, generator, params,
+                 state, *, zero, engine=None, generators=(), groups=()):
+        super().__init__(model, criterion, optimizer, generator, params,
+                         state, generators=generators, groups=groups)
+        self.zero, self.engine = zero, engine
 
     def __call__(self, inputs, targets):
-        return super().__call__(self._local(inputs), self._local(targets))
+        net = unwrap_model(self.model)
+        if self.engine is not None:
+            def chunk(k, x):
+                with gathered(net):
+                    return net.forward_chunk(k, x, generator=self.generator)
+
+            loss = self.engine.run_batch(chunk, self.criterion, inputs,
+                                         targets)
+        else:
+            with gathered(net):
+                out = self.model(inputs, generator=self.generator)
+                loss = self.criterion(out, targets).float()
+            loss.backward()
+        return self.zero.step(self.optimizer, self.state, loss)
+
+
+class HybridTrainStep(TrainStep):
+    """One rank's share of a hybrid-parallel step (``hcg``: fleet's
+    topology).  A call takes the global batch and keeps this data rank's
+    rows (:func:`.distributed.sharding.local_batch`: data rank ``r`` of
+    dp x sharding); the loss it returns is averaged over the data ranks
+    (and, pipelined, broadcast from the last stage), so every rank
+    returns the global batch's loss.
+
+    At data x tensor parallelism (pp = sharding = 1) the model is
+    wrapped by ``DataParallel``, whose buckets reduce the gradients in
+    the backward pass, overlapped with it, and the step is
+    :class:`TrainStep`'s.  With ``zero`` (a
+    :class:`.distributed.sharding.ZeroPlan` over the model's
+    parameters, which a sharding group or a pipeline needs) and
+    ``engine`` (a pipeline's :class:`PipelineEngine`) the step is a
+    :class:`HybridEagerStep`, whose reduction runs once after the whole
+    backward pass (a pipeline's spans every micro-batch; ``os_g``
+    reduce-scatters).  Collectives run on the hybrid groups: captured on
+    NCCL, eager on gloo (``capture=False``)."""
+
+    def __init__(self, model, criterion, optimizer, generator, hcg, *,
+                 capture: bool = True, generators=(), outputs: bool = False,
+                 zero=None, engine=None):
+        self.hcg = hcg
+        dp_group = hcg.get_data_parallel_group()
+        groups = [g for g in (dp_group, hcg.get_model_parallel_group(),
+                              hcg.get_sharding_parallel_group(),
+                              hcg.get_pipe_parallel_group())
+                  if g is not None]
+        self.zero, self.engine = zero, engine
+        if zero is None:
+            super().__init__(model, criterion, optimizer, generator,
+                             fusion=False, outputs=outputs, capture=capture,
+                             generators=generators, groups=groups[:2],
+                             loss_group=None if dp_group.nranks == 1
+                             else dp_group)
+            return
+        if outputs:
+            raise NotImplementedError("outputs of a ZeRO or pipelined step "
+                                      "are not ported")
+        model.train()
+        self.model, self.criterion = model, criterion
+        self.optimizer, self.generator = optimizer, generator
+        self.params = dict(unwrap_model(model).named_parameters())
+        self.state = zero.init_state(optimizer)
+        self.eager = HybridEagerStep(
+            model, criterion, optimizer, generator, self.params, self.state,
+            zero=zero, engine=engine, generators=generators, groups=groups)
+        self.captured = capture_step(self.eager) if capture else None
+
+    def __call__(self, inputs, targets):
+        return super().__call__(local_batch(inputs, self.hcg),
+                                local_batch(targets, self.hcg))
 
     def checkpoint_tree(self) -> dict:
-        """This rank's state, when it is the whole model's (no parameter
-        split over model parallelism).  A shard raises: saving and
-        loading sharded steps (``load_sharded`` with a mesh) is ROADMAP
-        Queue 1 item 4's later part."""
-        from .distributed.fleet.meta_parallel.parallel_layers.mp_layers \
-            import is_shard
+        """This rank's state, when it is the whole model's.  A
+        tensor-parallel shard, a ZeRO window or a pipeline stage raises:
+        saving and loading sharded steps (``load_sharded`` with a mesh)
+        is ROADMAP Queue 1 item 4.5."""
         split = [n for n, p in self.params.items() if is_shard(p)]
         if split:
             raise NotImplementedError(
                 f"checkpoint_tree of a tensor-parallel shard ({split[0]} and "
                 f"{len(split) - 1} more are slices): sharded checkpoints "
                 f"(load_sharded with a mesh) are not ported yet (ROADMAP "
-                f"Queue 1, item 4)")
+                f"Queue 1, item 4.5)")
+        if self.engine is not None:
+            raise NotImplementedError(
+                f"checkpoint_tree of pipeline stage "
+                f"{self.hcg.get_stage_id()} of "
+                f"{self.hcg.get_pipe_parallel_world_size()} (it holds "
+                f"{len(self.params)} of the model's parameters): sharded "
+                f"checkpoints (load_sharded with a mesh) are not ported yet "
+                f"(ROADMAP Queue 1, item 4.5)")
+        windows = [] if self.zero is None else \
+            [n for n in self.params if self.zero.windowed(n)]
+        if windows:
+            raise NotImplementedError(
+                f"checkpoint_tree of a ZeRO window ({windows[0]} and "
+                f"{len(windows) - 1} more hold window "
+                f"{self.hcg.get_sharding_parallel_rank()} of "
+                f"{self.hcg.get_sharding_parallel_world_size()}): sharded "
+                f"checkpoints (load_sharded with a mesh) are not ported yet "
+                f"(ROADMAP Queue 1, item 4.5)")
         return super().checkpoint_tree()
 
 
@@ -336,7 +417,10 @@ def _default_optimizer() -> Optimizer:
 def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
                      amp_o2: bool = True, fusion: Optional[bool] = None,
                      optimizer: Optional[Optimizer] = None, dp: int = 1,
-                     mp: int = 1, strategy=None,
+                     mp: int = 1, pp: int = 1, sharding: int = 1,
+                     sharding_level: Optional[str] = None,
+                     microbatches: Optional[int] = None,
+                     virtual_stages: int = 1, strategy=None,
                      capture: bool = True) -> TrainStep:
     """bench_gpt's step for ``cfg`` on ``device`` (``cuda`` unless the
     CPU is asked for): weights from ``seed``, bf16 O2 unless ``amp_o2``
@@ -344,19 +428,27 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
     multi_precision=True)``), the fusion pass as ``fusion`` says
     (:class:`TrainStep`), captured unless ``capture`` is false.
 
-    With ``dp`` or ``mp`` above 1, or a ``strategy``
-    (``fleet.DistributedStrategy``, whose ``hybrid_configs`` then give the
-    degrees), this rank's :class:`HybridTrainStep`: the process group is
-    joined (``init_parallel_env(device=device)``, unless the caller
-    joined one, with ``backend="gloo"`` for ranks that share a card),
-    then ``fleet.init``; the model is this rank's shard of ``cfg`` over
-    fleet's model-parallel group, its weights drawn from ``seed`` (the
-    same weights as the single-card step's), with its dropout streams from
-    ``model_parallel_random_seed(seed)``; ``fleet.distributed_model``
-    and ``fleet.distributed_optimizer`` wrap model and optimizer.  The
-    fusion pass is off (``fusion=True`` raises: not ported for
-    tensor-parallel models).  A step on gloo needs ``capture=False``."""
-    if strategy is None and dp == 1 and mp == 1:
+    With any of ``dp``, ``mp``, ``pp`` or ``sharding`` above 1, or a
+    ``strategy`` (``fleet.DistributedStrategy``, whose
+    ``hybrid_configs`` then give the degrees, ``pipeline_configs`` the
+    micro-batches and virtual stages and ``sharding`` /
+    ``sharding_configs`` the ZeRO level), this rank's
+    :class:`HybridTrainStep`: the process group is joined
+    (``init_parallel_env(device=device)``, unless the caller joined one,
+    with ``backend="gloo"`` for ranks that share a card), then
+    ``fleet.init``; the model is drawn whole from ``seed`` on every rank
+    (the single-card step's weights), then cut to this rank's tensor-
+    parallel shard and, with ``pp``, to its pipeline stage
+    (``GPTForCausalLM.keep_stage``: ``virtual_stages`` a rank,
+    ``microbatches`` micro-batches, ``pp`` by default); its dropout
+    streams come from ``model_parallel_random_seed(seed)``.  With
+    ``sharding`` the optimizer state is sharded at ``sharding_level``
+    (``os``, ``os_g`` or ``p_g_os``; ``os_g`` unless the strategy or the
+    optimizer says; at ``p_g_os`` the blocks are recomputed, their
+    weights gathered for each pass).  The fusion pass is off
+    (``fusion=True`` raises: not ported for hybrid models).  A step on
+    gloo needs ``capture=False``."""
+    if strategy is None and dp == mp == pp == sharding == 1:
         gen = make_generator(seed, device)
         model = GPTForCausalLM(cfg, generator=gen)
         if amp_o2:
@@ -364,18 +456,27 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
         return TrainStep(model, GPTPretrainingCriterion(model.mp_group),
                          optimizer or _default_optimizer(), gen,
                          fusion=fusion, capture=capture)
+    if strategy is None:
+        from .distributed import fleet
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp,
+                                   "pp_degree": pp,
+                                   "sharding_degree": sharding}
+        strategy.pipeline_configs = {"accumulate_steps": microbatches or 1,
+                                     "virtual_pp_degree": virtual_stages}
     return _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
-                              dp, mp, strategy, capture)
+                              strategy, sharding_level, capture)
 
 
-def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer, dp, mp,
-                       strategy, capture) -> HybridTrainStep:
+def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
+                       strategy, sharding_level, capture) -> HybridTrainStep:
     from .distributed import fleet, init_parallel_env, rank_device
+    from .distributed.fleet.meta_parallel import (PipelineEngine,
+                                                  TensorParallel)
     from .distributed.fleet.meta_parallel.random import (
         MODEL_PARALLEL_RNG, model_parallel_random_seed)
-    if strategy is None:
-        strategy = fleet.DistributedStrategy()
-        strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    from .distributed.sharding import (ZeroPlan, set_zero_level,
+                                       shard_parameters, zero_level)
     init_parallel_env(device=device)
     fleet.init(is_collective=True, strategy=strategy)
     hcg = fleet.get_hybrid_communicate_group()
@@ -385,15 +486,56 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer, dp, mp,
     local = tracker.get(MODEL_PARALLEL_RNG)
     if local is not gen:
         model.set_attention_generator(local)
+    pp = hcg.get_pipe_parallel_world_size()
+    n_sh = hcg.get_sharding_parallel_world_size()
+    if pp == 1 and n_sh == 1:
+        if amp_o2:
+            decorate(model, level="O2", dtype="bfloat16")
+        if fusion:
+            model = wrap(model)              # raises: not ported for mp
+        return HybridTrainStep(
+            fleet.distributed_model(model),
+            GPTPretrainingCriterion(model.mp_group),
+            fleet.distributed_optimizer(optimizer or _default_optimizer()),
+            gen, hcg, capture=capture, generators=tracker.generators())
+    if fusion:
+        raise NotImplementedError("the fusion pass is not ported for "
+                                  "sharded or pipelined models")
+    opt = fleet.distributed_optimizer(optimizer or _default_optimizer())
+    if n_sh > 1 and (sharding_level or zero_level(opt) is None):
+        set_zero_level(opt, sharding_level or "os_g")
+    level = zero_level(opt) if n_sh > 1 else None
+    engine, v = None, 1
+    if pp > 1:
+        cfg_pp = strategy.pipeline_configs
+        v = int(cfg_pp.get("virtual_pp_degree", 1))
+        model.keep_stage(pp, hcg.get_stage_id(), v)
+        engine = PipelineEngine(
+            hcg, max(int(cfg_pp.get("accumulate_steps", 1)), pp), v)
     if amp_o2:
         decorate(model, level="O2", dtype="bfloat16")
-    if fusion:
-        model = wrap(model)                  # raises: not ported for mp
+    if level == "p_g_os":
+        model.gpt.use_recompute = True
+        shard_parameters(model, hcg)
+    net = TensorParallel(model, hcg) if \
+        hcg.get_model_parallel_world_size() > 1 else model
+    named = dict(model.named_parameters())
+    chunks = {}
+    if pp > 1:
+        prefixes, _ = model.pipeline_blocks()
+        per = cfg.num_layers // (pp * v)
+        chunks = {n: (i // per) // pp for i, pre in enumerate(prefixes)
+                  for n in named if n.startswith(pre)}
+    # the tied word embedding: on the first and the last stage, its
+    # gradients summed over both, counted in the clip on the first
+    tied = {WORD_EMBEDDING: (hcg.get_pipe_ends_group(),
+                             hcg.is_first_stage())} if pp > 1 else {}
+    zero = ZeroPlan(named, hcg, level, chunks=chunks, virtual_stages=v,
+                    tied=tied)
     return HybridTrainStep(
-        fleet.distributed_model(model),
-        GPTPretrainingCriterion(model.mp_group),
-        fleet.distributed_optimizer(optimizer or _default_optimizer()), gen,
-        hcg, capture=capture, generators=tracker.generators())
+        net, GPTPretrainingCriterion(model.mp_group), opt, gen, hcg,
+        capture=capture, generators=tracker.generators(), zero=zero,
+        engine=engine)
 
 
 def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
@@ -493,19 +635,37 @@ def _parser() -> argparse.ArgumentParser:
                     help="GPT: data-parallel ranks")
     ap.add_argument("--mp", type=int, default=1,
                     help="GPT: tensor-parallel ranks")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="GPT: pipeline stages")
+    ap.add_argument("--sharding", type=int, default=1,
+                    help="GPT: ZeRO sharding ranks")
+    ap.add_argument("--sharding-level", choices=("os", "os_g", "p_g_os"),
+                    default="os_g", help="with --sharding: the ZeRO level "
+                    "(default os_g)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="with --pp: micro-batches (default pp)")
+    ap.add_argument("--virtual-stages", type=int, default=1,
+                    help="with --pp: virtual stages a rank (interleaved "
+                    "1F1B)")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
-                    help="with --dp/--mp: nccl on cards (default), gloo on "
-                    "the CPU or for ranks that share a card (eager steps)")
+                    help="with more than one rank: nccl on cards (default), "
+                    "gloo on the CPU or for ranks that share a card (eager "
+                    "steps)")
     return ap
+
+
+def _ranks(args) -> int:
+    return args.dp * args.mp * args.pp * args.sharding
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = _parser().parse_args(argv)
-    if args.dp * args.mp > 1:
+    if _ranks(args) > 1:
         if not args.model.startswith("gpt"):
-            raise SystemExit("--dp and --mp take a GPT model")
+            raise SystemExit("--dp, --mp, --pp and --sharding take a GPT "
+                             "model")
         from .distributed import spawn
-        spawn(_cli_rank, args=(vars(args),), nprocs=args.dp * args.mp)
+        spawn(_cli_rank, args=(vars(args),), nprocs=_ranks(args))
         return 0
     return _run(args)
 
@@ -520,7 +680,7 @@ def _cli_rank(arg_dict: dict) -> None:
 
 def _run(args) -> int:
     from .distributed import get_rank, rank_device
-    hybrid = args.dp * args.mp > 1
+    hybrid = _ranks(args) > 1
     fusion = (fusion_enabled() if not hybrid else False) \
         if args.fusion is None else args.fusion
     dev = rank_device() if hybrid else resolve_device(args.device)
@@ -536,12 +696,17 @@ def _run(args) -> int:
         if hybrid:
             from .distributed import get_backend
             backend = get_backend()
-        step = build_train_step(cfg, device=dev, fusion=fusion, dp=args.dp,
-                                mp=args.mp, capture=backend != "gloo")
+        step = build_train_step(
+            cfg, device=dev, fusion=fusion, dp=args.dp, mp=args.mp,
+            pp=args.pp, sharding=args.sharding,
+            sharding_level=args.sharding_level if args.sharding > 1
+            else None, microbatches=args.microbatches,
+            virtual_stages=args.virtual_stages, capture=backend != "gloo")
         inputs, targets = make_batch(cfg, batch, seq, device=dev)
         what = "recompute" if args.recompute else "no recompute"
         if hybrid:
-            what += f", dp {args.dp} x mp {args.mp} over {backend}"
+            what += (f", dp {args.dp} x mp {args.mp} x pp {args.pp} x "
+                     f"sharding {args.sharding} over {backend}")
     else:
         cfg = CONFIGS[args.model]()
         step = build_bert_pretrain_step(cfg, device=dev, fusion=fusion)
@@ -570,7 +735,8 @@ def _run(args) -> int:
     if talk:
         print(json.dumps({"model": args.model, "device": name,
                           "batch": batch, "seq": seq, "fusion": fusion,
-                          "dp": args.dp, "mp": args.mp, "losses": losses,
+                          "dp": args.dp, "mp": args.mp, "pp": args.pp,
+                          "sharding": args.sharding, "losses": losses,
                           "median_step_ms": med * 1e3,
                           "sequences_per_s": batch / med,
                           "tokens_per_s": batch * seq / med,

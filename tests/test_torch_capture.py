@@ -339,3 +339,46 @@ def test_importing_jit_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_capture_keeps_the_collector_off_while_recording(monkeypatch):
+    # a CUDA graph that the cyclic collector frees during another capture
+    # resets itself, which a capture does not permit (on the card an
+    # earlier engine's graphs, collected while the int8 serving engine
+    # recorded, invalidated its capture): the collector stays off while a
+    # graph records, and is back on after, also when the recorded
+    # function raises.  Cyclic garbage is collected just before (on the
+    # card an old step's graph, alive in a cycle, kept gradient
+    # accumulators of another stream and failed a capture)
+    import contextlib
+    import gc
+    import types
+
+    class Graph:
+        def capture_begin(self, pool=None):
+            pass
+
+        def capture_end(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    stream = types.SimpleNamespace(device="cpu")
+    seen = []
+    collect = gc.collect
+    monkeypatch.setattr(gc, "collect",
+                        lambda *a: seen.append("collect") or collect(*a))
+
+    def fn(fail):
+        seen.append(gc.isenabled())
+        if fail:
+            raise ValueError("recorded function failed")
+        return torch.zeros(2)
+
+    assert gc.isenabled()
+    tcap.CapturedGraph.capture(fn, (False,), {}, stream=stream, pool=None)
+    with pytest.raises(ValueError, match="recorded function failed"):
+        tcap.CapturedGraph.capture(fn, (True,), {}, stream=stream, pool=None)
+    assert seen == ["collect", False, "collect", False] and gc.isenabled()

@@ -68,7 +68,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "          'distributed.fleet.meta_parallel.random',\n"
         "          'distributed.fleet.meta_parallel.tensor_parallel',\n"
         "          'distributed.fleet.meta_parallel.parallel_layers.mp_layers',\n"
-        "          'distributed.fleet.meta_optimizers.hybrid_parallel_optimizer'):\n"
+        "          'distributed.fleet.meta_optimizers.hybrid_parallel_optimizer',\n"
+        "          'distributed.collective_schedule',\n"
+        "          'distributed.auto_parallel.spec_layout',\n"
+        "          'distributed.sharding', 'distributed.sharding.group_sharded',\n"
+        "          'distributed.fleet.meta_optimizers.dygraph_sharding_optimizer',\n"
+        "          'distributed.fleet.meta_parallel.sharding_parallel',\n"
+        "          'distributed.fleet.meta_parallel.parallel_layers.pp_layers',\n"
+        "          'distributed.fleet.meta_parallel.pipeline_parallel',\n"
+        "          'distributed.fleet.meta_parallel.pp_utils',\n"
+        "          'distributed.fleet.meta_parallel.pp_utils.p2p_communication'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
@@ -100,7 +109,19 @@ def test_package_sources_name_no_jax_and_no_reference_module():
               "distributed/fleet/meta_parallel/tensor_parallel.py",
               "distributed/fleet/meta_parallel/parallel_layers/mp_layers.py",
               "distributed/fleet/meta_optimizers/"
-              "hybrid_parallel_optimizer.py"):
+              "hybrid_parallel_optimizer.py",
+              "distributed/collective_schedule.py",
+              "distributed/auto_parallel/spec_layout.py",
+              "distributed/sharding/__init__.py",
+              "distributed/sharding/group_sharded.py",
+              "distributed/fleet/meta_optimizers/"
+              "dygraph_sharding_optimizer.py",
+              "distributed/fleet/meta_parallel/sharding_parallel.py",
+              "distributed/fleet/meta_parallel/parallel_layers/pp_layers.py",
+              "distributed/fleet/meta_parallel/pipeline_parallel.py",
+              "distributed/fleet/meta_parallel/pp_utils/__init__.py",
+              "distributed/fleet/meta_parallel/pp_utils/"
+              "p2p_communication.py"):
         assert PKG / m in sources, m
     for path in sources:
         text = path.read_text()
