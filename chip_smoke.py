@@ -311,8 +311,8 @@ line is printed:
              at dropout 0.1: finite losses, the replicated parameters the
              same bits on both ranks; each rank's launches (flash at 8
              heads).  (c) dp = 2 x mp = 2, four ranks on the card over
-             gloo, depth cut to ``HYBRID_C_LAYERS``: 3 f32 steps on the
-             global batch so compared, both dp ranks' shards the same
+             gloo, depth cut to ``HYBRID_C_LAYERS``: ``HYBRID_C_STEPS``
+             (2) f32 steps on the global batch so compared, both dp ranks' shards the same
              bits.  (d) with two cards or more, (b) over NCCL, one card a
              rank, captured, its norms read after each replay; otherwise
              one line says it did not run.  The
@@ -338,8 +338,34 @@ line is printed:
              state at most ``ZP_STATE_SHARE`` of the world of one's, the
              planted fault two ranks' windows traded; (d) mp 2 x pp 2 x
              sharding 2 (eight ranks, the dryrun's mesh), 4 layers, 2
-             virtual stages; (e) with two cards or more, (b) over NCCL,
+             steps, 2 virtual stages; (e) with two cards or more, (b) over NCCL,
              captured; otherwise one line says it did not run.
+17. sep      sequence parallelism, two sep ranks sharing the card over
+             gloo unless named: (a) ``ring_attention`` and
+             ``ulysses_attention`` at GPT-345m's attention (8 x 1024, 16
+             heads of 64), causal, bf16 and f32, dropout 0 and 0.1 with
+             one seed: each rank's output and dq/dk/dv shards against
+             the world of one's flash kernels on the whole sequence
+             within ``SEP_TOL``; before it, rows 1-3 against their plain
+             versions at the ring's shifts (``SEP_SHIFTS``: fully masked,
+             diagonal, unmasked) with the hash base set, on the wgmma
+             kernels (bf16, D 64 and 128) and the mma.sync ones (f32);
+             the ring with its masked blocks computed gives the skipped
+             run's bits.  (b) GPT-345m 8 x 1024 at full depth, sep 2, 3
+             f32 steps at dropout 0 against phase 15's world-of-one f32
+             reference and at attention dropout 0.1 (hidden 0) against
+             the world-of-one run at those settings, both as phase 15
+             holds its runs; 3 bf16 O2 steps at dropout 0.1: finite
+             losses; each rank's launches of rows 1-3 (the ring computes
+             ``r + 1`` blocks on rank ``r``) and 7-8 a step.  (c) the
+             dryrun's second mesh, mp 2 x sharding 2 x sep 2 at
+             ``os_g`` (eight ranks), ``HYBRID_C_LAYERS`` layers, 2 steps,
+             against phase 15's cut reference; each rank's optimizer state at
+             most ``ZP_STATE_SHARE`` of the world of one's.  (d)
+             bench_packed's packed causal sequences (16 heads of 64,
+             bf16) with the heads split over the two ranks: each rank's
+             output and gradients the same bits as the whole run's head
+             slice.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -478,6 +504,10 @@ HAPI_CLS_SIZE, HAPI_CLS_TOL = 64, 1e-4
 # f32 steps of the references, (b), (c) and (d); (c)'s depth
 HYBRID_BATCH, HYBRID_A_STEPS, HYBRID_STEPS = 8, 4, 3
 HYBRID_C_LAYERS = 4
+# the runs at HYBRID_C_LAYERS (phase 15 (c), 16 (d), 17 (c) and their
+# world-of-one reference) take 2 steps, cut from 3 to keep the whole run
+# inside its clock when phase 17 came
+HYBRID_C_STEPS = 2
 HYBRID_LR, HYBRID_CLIP = 1e-4, 1.0
 # sharded against the world-of-one step, f32: losses within the bound the
 # JAX hybrid step is held to (__graft_entry__.py:163-169).  AdamW's first
@@ -508,6 +538,17 @@ HYBRID_BACKEND, HYBRID_TIMEOUT = "nccl", 420
 ZP_PP, ZP_V, ZP_M = 2, 2, 4
 ZP_STATE_SHARE = 0.55
 ZP_WORD = "gpt.embeddings.word_embeddings.weight"
+# phase 17: sequence parallelism over SEP_DEGREE ranks on the card; the
+# ring's causal shifts on a 512-row block (its keys all after its queries,
+# the diagonal, all before), each with the hash base of the ring step that
+# has it; a ring's output is merged in f32 from its blocks' outputs and
+# rounded again, and its gradients summed from its blocks', so in bf16 it
+# is held to twice the flash kernels' bound (two roundings), in f32 to
+# theirs
+SEP_DEGREE = 2
+SEP_SHIFTS = {-512: (0, 512), 0: (512, 512), 512: (512, 0)}
+SEP_TOL = {"f32": dict(abs=2e-5, grad=1e-4),
+           "bf16": dict(abs=4e-2, rel=4e-2)}
 MLM_IGNORED = 0.84          # share of MLM rows whose label is -100
 # softmax cross-entropy: loss and lse within 1e-5 of max(1, |ref|); dx
 # within 1e-6 in f32, within one bf16 step of the plain version's f32
@@ -1263,7 +1304,7 @@ def _flash_err(out, want, tag, key):
 
 def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
                    seq_lens=None, causal_shift=None, dlse=False,
-                   dropout=FLASH_DROPOUT):
+                   dropout=FLASH_DROPOUT, hash_base=None):
     """The three flash kernels against their plain versions on one shape:
     q, k and v read in place from one ``(B, S, H, 3 * D)`` tensor as the
     model's QKV projection gives them (with ``kv_len``: q alone, k and v
@@ -1272,7 +1313,8 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
     version (the backward ones the kernel forward's lse and one delta);
     dq, dk and dv bit-identical over two runs.  ``seq_lens`` (a list) and
     ``causal_shift`` (an int) are the masks' variants, passed as int32
-    tensors on the card; ``dlse`` folds a random lse cotangent into delta.
+    tensors on the card; ``hash_base`` places the dropout hash (a ring
+    step's); ``dlse`` folds a random lse cotangent into delta.
     ``timed``: kernel, plain and library times and the bounds."""
     from paddle_tpu_torch.ops import pallas_ops as po
     dtype = torch.bfloat16 if tag == "bf16" else torch.float32
@@ -1296,6 +1338,8 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
     if causal_shift is not None:
         opts["causal_shift"] = torch.tensor(causal_shift, dtype=torch.int32,
                                             device=DEVICE)
+    if hash_base is not None:
+        opts["hash_base"] = hash_base
     out, lse = po.flash_fwd(q, k, v, seed, **opts)
     out2, lse2 = po.flash_fwd(q, k, v, seed, **opts)
     delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
@@ -1328,6 +1372,7 @@ def _flash_entries(timer, gen, tag, shape, causal, timed, kv_len=None,
                f"{dropout}"
                + ("" if seq_lens is None else f" seq_lens {seq_lens}")
                + ("" if causal_shift is None else f" shift {causal_shift}")
+               + ("" if hash_base is None else f" hash base {hash_base}")
                + (" lse cotangent" if dlse else ""))
     log(f"[kernel] flash[{variant}]: max_abs_err "
         + " ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
@@ -5246,6 +5291,13 @@ def _hybrid_cfg(layers=None, dropout=True):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
+def _attn_dropout_cfg():
+    """GPT-345m as :func:`_hybrid_cfg`, attention dropout 0.1, hidden
+    dropout 0 (phase 17 (b)'s second run)."""
+    return dataclasses.replace(_hybrid_cfg(dropout=False),
+                               attention_probs_dropout_prob=FLASH_DROPOUT)
+
+
 def _degrees(dp=1, mp=1, zero_stage=None):
     from paddle_tpu_torch.distributed import fleet
     strategy = fleet.DistributedStrategy()
@@ -5398,15 +5450,18 @@ def _hybrid_world1_rank(backend):
     out["a16"]["zero"] = out["a16"]["zero"] is not None
     del zs, want
     _free()
-    for key, layers in (("b", None), ("c", HYBRID_C_LAYERS)):
-        cfg = _hybrid_cfg(layers, dropout=False)
+    # the f32 references: phases 15 and 16 (b), (c), and phase 17 (b) at
+    # attention dropout 0.1
+    for key, cfg in (("b", _hybrid_cfg(dropout=False)),
+                     ("c", _hybrid_cfg(HYBRID_C_LAYERS, dropout=False)),
+                     ("b_attn", _attn_dropout_cfg())):
         step = build_train_step(cfg, device=DEVICE, amp_o2=False,
                                 fusion=False, strategy=_degrees(),
                                 capture=False,
                                 optimizer=_hybrid_optimizer())
         init = _weights(step)
-        losses, times, _, norms = _hybrid_steps(step, ids, labels,
-                                                HYBRID_STEPS)
+        n_steps = HYBRID_C_STEPS if key == "c" else HYBRID_STEPS
+        losses, times, _, norms = _hybrid_steps(step, ids, labels, n_steps)
         updates, _ = _updates(step, init)
         out[key] = {"losses": losses, "times": times, "updates": updates,
                     "norms": norms}
@@ -5461,10 +5516,11 @@ def _hybrid_rank(dp, mp, layers, backend, planted, bf16):
     step = f32_step()
     hcg = fleet.get_hybrid_communicate_group()
     init = _weights(step)
+    n_steps = HYBRID_C_STEPS if layers else HYBRID_STEPS
     losses, times, launches, norms = _hybrid_steps(step, ids, labels,
-                                                   HYBRID_STEPS)
+                                                   n_steps)
     if capture:
-        _check_captured("hybrid f32", step, HYBRID_STEPS)
+        _check_captured("hybrid f32", step, n_steps)
     updates, axes = _updates(step, init)
     res = {"rank": hcg.get_global_rank(),
            "dp_rank": hcg.get_data_parallel_rank(),
@@ -5539,7 +5595,8 @@ def _check_hybrid_ranks(what, ranks, ref, per_step):
         f"{ranks[0]['norms']} (world of one {ref['norms']}, max relative "
         f"diff {norm_err:.2e}, tol {HYBRID_NORM_RTOL:.0e}); heads a rank "
         f"{ranks[0]['heads']}")
-    if any(len(r["norms"]) != HYBRID_STEPS for r in [ref, *ranks]) or \
+    n_steps = len(ref["losses"])
+    if any(len(r["norms"]) != n_steps for r in [ref, *ranks]) or \
             not norm_err <= HYBRID_NORM_RTOL:
         raise AssertionError(f"{what}: clip norms "
                              f"{[r['norms'] for r in ranks]}, the world of "
@@ -5556,7 +5613,7 @@ def _check_hybrid_ranks(what, ranks, ref, per_step):
             raise AssertionError(f"{what}: dp rank {dp}'s shard {mp} is not "
                                  f"dp rank 0's")
         _check_counts(f"{what} rank {r['rank']}", r["launches"], per_step,
-                      HYBRID_STEPS)
+                      n_steps)
     return loss_err, param_err
 
 
@@ -5725,11 +5782,12 @@ def _zp_rank(kind, backend):
               hcg.get_sharding_parallel_rank(), hcg.get_model_parallel_rank())
     init = _weights(step)
     first = {}
+    n_steps = HYBRID_C_STEPS if layers else HYBRID_STEPS
     losses, times, launches, norms = _hybrid_steps(
-        step, ids, labels, HYBRID_STEPS,
+        step, ids, labels, n_steps,
         after_first=lambda: first.update(_weights(step)))
     if capture:
-        _check_captured(f"zero-pipeline ({kind})", step, HYBRID_STEPS)
+        _check_captured(f"zero-pipeline ({kind})", step, n_steps)
     updates, axes = _updates(step, init)
     first = {n: first[n] - init[n] for n in first}
     micro = step.engine.M if step.engine is not None else 1
@@ -5815,7 +5873,7 @@ def _zp_gathered(ranks):
     return out
 
 
-def _check_zp(what, ranks, ref, per_step):
+def _check_zp(what, ranks, ref, per_step, tag="zero-pipeline"):
     """The f32 ranks of (b)-(e) against their world-of-one reference, as
     phase 15 holds its runs: losses, the clip's norms, the gathered
     updates; each rank's launches (``per_step(rank)``); the sharding
@@ -5837,7 +5895,7 @@ def _check_zp(what, ranks, ref, per_step):
         worst = max(worst, float(np.abs(d).max()))
         r = float(np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30))
         rel = max(rel, (r, name), key=lambda t: t[0])
-    log(f"[zero-pipeline] {what}: f32 losses {ranks[0]['losses']} against "
+    log(f"[{tag}] {what}: f32 losses {ranks[0]['losses']} against "
         f"the world of one's {ref['losses']}: max |diff| {loss_err:.3e} (tol "
         f"{HYBRID_LOSS_TOL:.0e}); gathered updates max |diff| {worst:.3e} "
         f"(tol {HYBRID_PARAM_TOL:.0e}), largest relative 2-norm diff "
@@ -5846,7 +5904,8 @@ def _check_zp(what, ranks, ref, per_step):
         f"relative diff {norm_err:.2e}, tol {HYBRID_NORM_RTOL:.0e}); heads a "
         f"rank {ranks[0]['heads']}; step ms eager, gloo, card shared "
         f"{[round(t * 1e3, 1) for t in ranks[0]['times']]}")
-    if any(len(r["norms"]) != HYBRID_STEPS for r in ranks) or \
+    n_steps = len(ref["losses"])
+    if any(len(r["norms"]) != n_steps for r in ranks) or \
             not norm_err <= HYBRID_NORM_RTOL or \
             not loss_err <= HYBRID_LOSS_TOL or \
             not worst <= HYBRID_PARAM_TOL or not rel[0] <= HYBRID_UPDATE_RTOL:
@@ -5859,7 +5918,7 @@ def _check_zp(what, ranks, ref, per_step):
             raise AssertionError(f"{what}: sharding rank {sh}'s parameters "
                                  f"are not sharding rank 0's")
         _check_counts(f"{what} rank {r['rank']}", r["launches"], per_step(r),
-                      HYBRID_STEPS)
+                      n_steps)
 
 
 def _check_planted(what, ranks, fault):
@@ -5982,6 +6041,323 @@ def phase_zero_pipeline(smi, w1):
     return out
 
 
+# -- phase 17: sequence parallelism ---------------------------------------------
+
+
+def _sep_kernel_checks(gen):
+    """Rows 1-3 against their plain versions at each of the ring's shifts
+    on a 512-row block, with that ring step's hash base, at both dropouts:
+    the wgmma kernels (bf16, D 64 and 128) and the mma.sync ones (f32).
+    Returns the rows."""
+    rows = []
+    for tag, shape in (("bf16", (HYBRID_BATCH, 512, 16, 64)),
+                       ("bf16", (HYBRID_BATCH, 512, 8, 128)),
+                       ("f32", (HYBRID_BATCH, 512, 16, 64))):
+        for shift, (r0, c0) in SEP_SHIFTS.items():
+            for p in FLASH_DROPOUTS:
+                rows.append(_flash_entries(
+                    None, gen, tag, shape, True, False, causal_shift=shift,
+                    dropout=p, hash_base=(r0, c0, 0, 0)))
+    return rows
+
+
+def _sep_attention(r, n):
+    """(a) on sep rank ``r`` of ``n``: ring and Ulysses attention on this
+    rank's shard of one (B, H, S, D) batch against the world of one's
+    flash kernels (``pallas_ops.mha``) on the whole of it; the ring with
+    its masked blocks computed; the launches of each ring run."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ring_attention, ulysses_attention)
+    from paddle_tpu_torch.ops import pallas_ops as po
+    from paddle_tpu_torch.ops import reset_launch_counts
+    b, h, s, d = HYBRID_BATCH, 16, TRAIN_SEQ, 64
+    sl = s // n
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=DEVICE)
+    res, launches = {}, {}
+
+    def run(fn, q, k, v, do, **kw):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = fn(q, k, v, **kw)
+        o.backward(do)
+        return [o.detach(), q.grad, k.grad, v.grad]
+
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=DEVICE
+                                   ).to(dtype) for _ in range(4))
+        mine = [t[:, :, r * sl:(r + 1) * sl] for t in (q, k, v, do)]
+        for p in FLASH_DROPOUTS:
+            full = run(po.mha, q, k, v, do, causal=True, dropout_p=p,
+                       seed=seed)
+            want = [t[:, :, r * sl:(r + 1) * sl] for t in full]
+            for kind, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = run(fn, *mine, causal=True, dropout_p=p, seed=seed)
+                torch.cuda.synchronize()
+                launches[kind, tag, p] = _launch_counts()
+                errs = {}
+                for key, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+                    err = (g.float() - w.float()).abs()
+                    t = SEP_TOL[tag]
+                    bound = t["abs"] + t["rel"] * w.float().abs() \
+                        if tag == "bf16" else \
+                        (t["abs"] if key == "out" else t["grad"])
+                    errs[key] = (err.max().item(),
+                                 bool(torch.isfinite(g.float()).all()) and
+                                 bool((err <= bound).all()))
+                res[kind, tag, p] = errs
+                if kind == "ring":
+                    again = run(fn, *mine, causal=True, dropout_p=p,
+                                seed=seed, skip_masked=False)
+                    res["computed", tag, p] = all(
+                        torch.equal(a, c) for a, c in zip(got, again))
+            del full, want
+    return res, launches
+
+
+def _sep_packed(r, n):
+    """(d) on sep rank ``r``: bench_packed's sequences, this rank's heads
+    against the whole run's head slice, out and gradients."""
+    from paddle_tpu_torch.ops import pallas_ops as po
+    from paddle_tpu_torch.ops import reset_launch_counts
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    lens = PACKED_LENS
+    cu = [0]
+    for x in lens:
+        cu.append(cu[-1] + x)
+    h, d = PACKED_HEADS, PACKED_HD
+    q, k, v, do = (torch.randn(cu[-1], h, d, generator=gen, device=DEVICE
+                               ).to(torch.bfloat16) for _ in range(4))
+
+    def run(q, k, v, do):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = po.mha_packed(q, k, v, cu, cu, causal=True)
+        o.backward(do)
+        return [o.detach(), q.grad, k.grad, v.grad]
+
+    full = run(q, k, v, do)
+    hs = slice(r * h // n, (r + 1) * h // n)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mine = run(*(t[:, hs] for t in (q, k, v, do)))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    same = {key: torch.equal(g, w[:, hs]) for key, g, w in
+            zip(("out", "dq", "dk", "dv"), mine, full)}
+    return same, launches
+
+
+def _sep_per_step(cfg, sep_rank):
+    """Launches of one sep step on sep rank ``sep_rank``: the LayerNorms
+    of an unfused step, and each flash kernel once a block the ring
+    computes (``sep_rank + 1`` of them, causal) a layer."""
+    return dict(_plain_per_step(cfg),
+                **{nm: cfg.num_layers * (sep_rank + 1)
+                   for nm in FLASH_KERNELS})
+
+
+def _sep_rank(kind, backend):
+    """One rank of phase 17: ``kind`` "abd" runs (a), (b) and (d) at sep
+    2; "c" the eight-rank mesh of (c)."""
+    from paddle_tpu_torch.distributed import (fleet, init_parallel_env,
+                                              rank_device, unwrap_model)
+    from paddle_tpu_torch.distributed.sharding import state_bytes
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    init_parallel_env(backend, device=DEVICE)
+    dev = rank_device()
+    res = {}
+    if kind == "abd":
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"sep_degree": SEP_DEGREE}
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        r = hcg.get_sep_parallel_rank()
+        t0 = time.perf_counter()
+        res["a"], res["a_launches"] = _sep_attention(r, SEP_DEGREE)
+        res["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["d"], res["d_launches"] = _sep_packed(r, SEP_DEGREE)
+        res["d_s"] = time.perf_counter() - t0
+        _free()
+        runs = (("b", _hybrid_cfg(dropout=False), False),
+                ("b_attn", _attn_dropout_cfg(), False),
+                ("b_bf16", _hybrid_cfg(), True))
+        degrees = dict(sep=SEP_DEGREE)
+    else:
+        runs = (("c", _hybrid_cfg(HYBRID_C_LAYERS, dropout=False), False),)
+        degrees = dict(mp=2, sharding=2, sep=SEP_DEGREE,
+                       sharding_level="os_g")
+    for key, cfg, bf16 in runs:
+        t0 = time.perf_counter()
+        ids, labels = make_batch(cfg, HYBRID_BATCH, TRAIN_SEQ, seed=0,
+                                 device=dev)
+        step = build_train_step(cfg, device=dev, amp_o2=bf16, fusion=False,
+                                capture=False,
+                                optimizer=_hybrid_optimizer(bf16=bf16),
+                                **degrees)
+        hcg = step.hcg
+        init = _weights(step)
+        n_steps = HYBRID_C_STEPS if key == "c" else HYBRID_STEPS
+        losses, times, launches, norms = _hybrid_steps(step, ids, labels,
+                                                       n_steps)
+        run = {"losses": losses, "times": times, "launches": launches,
+               "norms": norms, "rank": hcg.get_global_rank(),
+               "sep_rank": hcg.get_sep_parallel_rank(),
+               "coords": (hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+                          hcg.get_sharding_parallel_rank(),
+                          hcg.get_model_parallel_rank()),
+               "pp": 1, "micro": 1,
+               "heads": unwrap_model(step.model).gpt.layers[0].attn
+               .num_heads,
+               "param_sha": {n: _bits_sha(p)
+                             for n, p in step.params.items()}}
+        if not bf16:
+            updates, axes = _updates(step, init)
+            run["axes"] = axes
+            if run["coords"][0] == run["coords"][2] == 0:
+                run["updates"] = updates
+            del updates
+        if key == "c":
+            run["state_bytes"] = state_bytes(step.state)
+            run["whole_bytes"] = sum(p.numel() * 4 * 2
+                                     for p in step.params.values())
+        run["seconds"] = time.perf_counter() - t0
+        res[key] = run
+        del step, init
+        _free()
+    return res
+
+
+def phase_sep(smi, w1):
+    """Sequence parallelism on the card (see the module docstring): (a)
+    to (d).  ``w1``: phase 15's world-of-one results (the f32
+    references).  Returns {path: launch counts}."""
+    from paddle_tpu_torch.distributed import spawn
+    _free_steps()
+    out = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    rows = _sep_kernel_checks(gen)
+    worst = {}
+    for row in rows:
+        for name, r in row.items():
+            worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+    log(f"[sep] rows 1-3 at the ring's shifts {sorted(SEP_SHIFTS)} with "
+        f"their hash bases, bf16 D 64 and 128 (wgmma) and f32 (mma.sync), "
+        f"dropout {FLASH_DROPOUTS}: {len(rows)} checks against the plain "
+        f"versions passed, the same bits over two runs; max |err| "
+        f"{ {k: f'{v:.3e}' for k, v in worst.items()} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = spawn(_sep_rank, args=("abd", "gloo"), nprocs=SEP_DEGREE,
+                  timeout=HYBRID_TIMEOUT)
+    ranks.sort(key=lambda x: x["b"]["sep_rank"])
+    # (a)
+    for i, r in enumerate(ranks):
+        bad = [(key, k) for key, errs in r["a"].items()
+               if key[0] != "computed" for k, (_, ok) in errs.items()
+               if not ok]
+        computed = {key: v for key, v in r["a"].items()
+                    if key[0] == "computed"}
+        ring = {f"{t} {p}": {n: c for n, c in v.items() if c}
+                for (kd, t, p), v in r["a_launches"].items() if kd == "ring"}
+        log(f"[sep] (a) rank {i}, {HYBRID_BATCH} x {TRAIN_SEQ}, 16 heads of "
+            f"64, causal, shard of {TRAIN_SEQ // SEP_DEGREE}: "
+            + "; ".join(f"{kind} {tag} dropout {p}: " + " ".join(
+                f"{k} {e:.3e}" for k, (e, _) in errs.items())
+                for (kind, tag, p), errs in r["a"].items()
+                if kind != "computed")
+            + f" (tol {SEP_TOL}); the ring with its masked blocks computed "
+            f"the same bits: {computed}; ring launches {ring}; "
+            f"{r['a_s']:.1f} s")
+        if bad or not all(computed.values()):
+            raise AssertionError(f"sep (a) rank {i}: {bad} beyond SEP_TOL, "
+                                 f"or masked blocks computed differ: "
+                                 f"{computed}")
+        for (kind, tag, p), counts in r["a_launches"].items():
+            want = {"ring": i + 1, "ulysses": 1}[kind]
+            if any(counts[n] != want for n in FLASH_KERNELS):
+                raise AssertionError(f"sep (a) rank {i} {kind} {tag} {p}: "
+                                     f"launches {counts}, want {want} each")
+            out[f"{kind} attention sep{SEP_DEGREE} {HYBRID_BATCH}x"
+                f"{TRAIN_SEQ} {tag} dropout {p} gloo rank {i}"] = counts
+    # (d)
+    for i, r in enumerate(ranks):
+        log(f"[sep] (d) rank {i}: packed {PACKED_PATH}, heads "
+            f"{i * PACKED_HEADS // SEP_DEGREE}..."
+            f"{(i + 1) * PACKED_HEADS // SEP_DEGREE - 1} of {PACKED_HEADS}: "
+            f"the same bits as the whole run's head slice {r['d']}; "
+            f"{r['d_s']:.1f} s")
+        if not all(r["d"].values()):
+            raise AssertionError(f"sep (d) rank {i}: {r['d']}")
+        out[f"{PACKED_PATH} heads split over sep{SEP_DEGREE} rank {i}"] = \
+            r["d_launches"]
+    # (b)
+    full = _hybrid_cfg()
+    per = {i: _sep_per_step(full, i) for i in range(SEP_DEGREE)}
+    for key, ref, what in (("b", w1["b"], "dropout 0"),
+                           ("b_attn", w1["b_attn"],
+                            f"attention dropout {FLASH_DROPOUT}, hidden 0")):
+        _check_zp(f"(b) sep {SEP_DEGREE}, {what}", [r[key] for r in ranks],
+                  ref, lambda x: per[x["sep_rank"]], tag="sep")
+        for i, r in enumerate(ranks):    # both sep ranks share coordinates
+            _check_counts(f"sep (b) {key} rank {i}", r[key]["launches"],
+                          per[i], HYBRID_STEPS)
+    bf = [r["b_bf16"] for r in ranks]
+    if not all(math.isfinite(v) for b in bf for v in b["losses"]):
+        raise AssertionError(f"sep (b) bf16: losses "
+                             f"{[b['losses'] for b in bf]}")
+    for i, r in enumerate(ranks):
+        _check_counts(f"sep (b) bf16 rank {i}", r["b_bf16"]["launches"],
+                      per[i], HYBRID_STEPS)
+        for key in ("b", "b_attn", "b_bf16"):
+            counts = r[key]["launches"]
+            a_step = {n: counts[n] // HYBRID_STEPS
+                      for n in FLASH_KERNELS + LN_KERNELS}
+            log(f"[sep] (b) rank {i} {key}: launches a step {a_step}; "
+                f"losses {r[key]['losses']}; step ms eager, gloo, card "
+                f"shared {[round(t * 1e3, 1) for t in r[key]['times']]}; "
+                f"{r[key]['seconds']:.1f} s")
+            tag = {"b": "f32", "b_attn": "f32 attention dropout",
+                   "b_bf16": "bf16"}[key]
+            out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} sep{SEP_DEGREE} gloo "
+                f"rank {i} {tag}"] = counts
+    if any(r["b"]["param_sha"] != ranks[0]["b"]["param_sha"]
+           for r in ranks):
+        raise AssertionError("sep (b): the sep ranks' parameters differ")
+    log(f"[sep] (a), (b), (d) {time.perf_counter() - t0:.1f} s | {smi}")
+    # (c)
+    t0 = time.perf_counter()
+    ranks = spawn(_sep_rank, args=("c", "gloo"), nprocs=8,
+                  timeout=HYBRID_TIMEOUT)
+    runs = [r["c"] for r in ranks]
+    cut = _hybrid_cfg(HYBRID_C_LAYERS)
+    _check_zp(f"(c) mp 2 x sharding 2 x sep {SEP_DEGREE} at os_g, "
+              f"{HYBRID_C_LAYERS} layers", runs, w1["c"],
+              lambda x: _sep_per_step(cut, x["sep_rank"]), tag="sep")
+    by = {(x["coords"], x["sep_rank"]): x for x in runs}
+    for (coords, sep), x in by.items():
+        _check_counts(f"sep (c) rank {x['rank']}", x["launches"],
+                      _sep_per_step(cut, sep), HYBRID_C_STEPS)
+        if sep and x["param_sha"] != by[coords, 0]["param_sha"]:
+            raise AssertionError(f"sep (c): sep rank {sep}'s parameters at "
+                                 f"{coords} are not sep rank 0's")
+    shares = [x["state_bytes"] / x["whole_bytes"] for x in runs]
+    log(f"[sep] (c) optimizer-state bytes a rank against the world of one's "
+        f"for the same parameters: {[round(v, 4) for v in shares]} (at most "
+        f"{ZP_STATE_SHARE}); {time.perf_counter() - t0:.1f} s")
+    if not max(shares) <= ZP_STATE_SHARE:
+        raise AssertionError(f"sep (c): optimizer state shares {shares}")
+    for x in runs:
+        if x["coords"] == (0, 0, 0, 0):
+            out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x"
+                f"{TRAIN_SEQ} mp2 sharding2 sep{SEP_DEGREE} os_g gloo sep "
+                f"rank {x['sep_rank']}"] = x["launches"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -6031,8 +6407,10 @@ def main() -> int:
     hybrid, world1 = phase_hybrid(smi)
     lap("hybrid")
     zero_pipeline = phase_zero_pipeline(smi, world1)
-    del world1
     lap("zero-pipeline")
+    sep = phase_sep(smi, world1)
+    del world1
+    lap("sep")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -6083,8 +6461,10 @@ def main() -> int:
     # phase 15's hybrid runs: (a) captured, each rank of (b) and (c)'s rank 0
     # phase 16's: (a) captured, each stage of (b), (c)'s rank 0, (d)'s
     # stages
+    # phase 17's: (a)'s ring and Ulysses runs and (d)'s packed heads on each
+    # rank, (b)'s steps on each rank, (c)'s data rank 0
     for path, counts in itertools.chain(hapi.items(), hybrid.items(),
-                                        zero_pipeline.items()):
+                                        zero_pipeline.items(), sep.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

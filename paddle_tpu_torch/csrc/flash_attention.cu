@@ -44,8 +44,12 @@
 //
 // The dropout keep mask is a hash of the element's (hb, row, col)
 // coordinates (`_tile_keep_mask`), so the three kernels regenerate the
-// same mask whatever their tiling.  With fixed lengths hb = b * H + h and
-// (row, col) = (i, j).  Packed, the coordinates are those of the TPU
+// same mask whatever their tiling.  With fixed lengths hb = b * Hh + h0 +
+// h and (row, col) = (row0 + i, col0 + j), where the hash base (row0,
+// col0, h0, Hh) is 0, 0, 0 and H unless the caller places the call inside
+// a larger attention (a ring step: its rows and keys at their positions
+// in the whole sequence; a head shard: its heads among all of them).
+// Packed, the coordinates are those of the TPU
 // kernel's block-aligned packed buffer: hb = h, row = start_q[s] + i, col =
 // start_k[s] + j, where start_q (start_k) is the exclusive cumsum of the
 // lengths rounded up to the TPU's block_q (block_k); the wrapper computes
@@ -200,6 +204,10 @@ struct Args {
   int nunits;
   int ntx;     // mma.sync kernels: blocks per slice (row tiles, or ntiles);
                // blockIdx.x = slice * ntx + the block's tile
+  // the dropout hash's base: row and column of q row 0 and key 0 (fixed
+  // lengths), the first head and the heads a batch row spans (hb = b *
+  // hheads + hhead0 + h; packed, hb = hhead0 + h)
+  int hrow0, hcol0, hhead0, hheads;
   long long st[4][3];  // strides of b, s, h of q, k, v, do (elements)
   int B, H, Sq, Sk;    // packed: B sequences, Sq and Sk the totals
   float scale;
@@ -251,9 +259,10 @@ __device__ __forceinline__ Slice fixed_slice(const Args& a, int hb, int r0) {
   v.stat = static_cast<long long>(hb) * a.Sq;
   v.klen = a.lens != nullptr ? max(0, min(a.lens[b], a.Sk)) : a.Sk;
   v.off = a.lens != nullptr ? 0 : a.Sk - a.Sq;
-  v.hrow = v.hcol = 0u;
+  v.hrow = static_cast<uint32_t>(a.hrow0);
+  v.hcol = static_cast<uint32_t>(a.hcol0);
   for (int i = 0; i < 4; ++i) v.base[i] = b * a.st[i][0] + v.h * a.st[i][2];
-  finish_slice(v, a, hb);
+  finish_slice(v, a, b * a.hheads + a.hhead0 + v.h);
   return v;
 }
 
@@ -278,7 +287,7 @@ __device__ __forceinline__ Slice packed_slice(const Args& a, int s, int h,
     v.base[i] = static_cast<long long>(i == 1 || i == 2 ? k0 : q0) *
                     a.st[i][1] +
                 v.h * a.st[i][2];
-  finish_slice(v, a, v.h);
+  finish_slice(v, a, a.hhead0 + v.h);
   return v;
 }
 
@@ -2424,7 +2433,8 @@ int run(int which, const void* q, const void* k, const void* v,
         const void* hstart, const void* tiles, int ntiles,
         const void* units, int nunits, const long long* strides, int B,
         int H, int Sq, int Sk, int D, float scale, int threshold,
-        float inv_keep, int causal, int dtype, void* stream) {
+        float inv_keep, int causal, int dtype, void* stream,
+        const int* hash) {
   const bool packed = tiles != nullptr;
   // lengths below 2^30 keep the masks' int32 sums from overflowing; every
   // packed kernel takes its unit table, fixed lengths none
@@ -2448,6 +2458,10 @@ int run(int which, const void* q, const void* k, const void* v,
   a.ntiles = ntiles;
   a.units = static_cast<const int32_t*>(units);
   a.nunits = nunits;
+  a.hrow0 = hash[0];
+  a.hcol0 = hash[1];
+  a.hhead0 = hash[2];
+  a.hheads = hash[3] > 0 ? hash[3] : H;
   // the q tiles (forward, dq) or k tiles (dk/dv) of a slice
   a.ntx = packed ? ntiles : ((which == kDkv ? Sk : Sq) + kRows - 1) / kRows;
   for (int i = 0; i < 4; ++i)
@@ -2479,7 +2493,10 @@ int run(int which, const void* q, const void* k, const void* v,
 // Packed, every entry also takes units (nunits x 3 int32), the wgmma
 // kernels' unit table (Args::units: q tiles for the forward and dq, k
 // tiles for dk/dv, 128 rows each; null and 0 with fixed lengths): bf16 at
-// D 64 and 128 read it, every other case the tile table.
+// D 64 and 128 read it, every other case the tile table.  hash (after the
+// stream): four host int32, the dropout hash's base (Args::hrow0, hcol0,
+// hhead0, hheads; 0, 0, 0, 0 for the call's own coordinates, a heads count
+// of 0 meaning H).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seed,
                              const void* lens, const void* shift,
@@ -2489,11 +2506,11 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const long long* strides, int B, int H, int Sq,
                              int Sk, int D, float scale, int threshold,
                              float inv_keep, int causal, int dtype,
-                             void* stream) {
+                             void* stream, const int* hash) {
   return run(kFwd, q, k, v, nullptr, out, nullptr, static_cast<float*>(lse),
              nullptr, seed, lens, shift, cu_q, cu_k, hstart, tiles, ntiles,
              units, nunits, strides, B, H, Sq, Sk, D, scale, threshold,
-             inv_keep, causal, dtype, stream);
+             inv_keep, causal, dtype, stream, hash);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -2506,12 +2523,12 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const long long* strides, int B, int H,
                                 int Sq, int Sk, int D, float scale,
                                 int threshold, float inv_keep, int causal,
-                                int dtype, void* stream) {
+                                int dtype, void* stream, const int* hash) {
   return run(kDq, q, k, v, dout, dq, nullptr,
              const_cast<float*>(static_cast<const float*>(lse)),
              static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
              hstart, tiles, ntiles, units, nunits, strides, B, H, Sq, Sk, D,
-             scale, threshold, inv_keep, causal, dtype, stream);
+             scale, threshold, inv_keep, causal, dtype, stream, hash);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -2525,12 +2542,12 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const long long* strides, int B, int H,
                                  int Sq, int Sk, int D, float scale,
                                  int threshold, float inv_keep, int causal,
-                                 int dtype, void* stream) {
+                                 int dtype, void* stream, const int* hash) {
   return run(kDkv, q, k, v, dout, dk, dv,
              const_cast<float*>(static_cast<const float*>(lse)),
              static_cast<const float*>(delta), seed, lens, shift, cu_q, cu_k,
              hstart, tiles, ntiles, units, nunits, strides, B, H, Sq, Sk, D,
-             scale, threshold, inv_keep, causal, dtype, stream);
+             scale, threshold, inv_keep, causal, dtype, stream, hash);
 }
 
 extern "C" const char* ptt_error_string(int status) {

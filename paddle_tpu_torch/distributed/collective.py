@@ -22,9 +22,10 @@ there it is a sum divided by the group's size.  Gloo carries CUDA
 tensors for ``all_reduce``, ``broadcast`` and ``all_gather``, but its
 point-to-point path hands a device pointer to the host's socket (a send
 of a CUDA tensor fails with "writev ... Bad address" on the card, and
-breaks the pair); so on a gloo group the point-to-point operations and
-``reduce_scatter`` carry CUDA tensors through host copies, always
-(:func:`host_staged`): a transport, not a fallback.  ``reduce`` leaves the
+breaks the pair); so on a gloo group the point-to-point operations,
+``reduce_scatter`` and ``alltoall_single`` carry CUDA tensors through
+host copies, always (:func:`host_staged`): a transport, not a fallback.
+``reduce`` leaves the
 tensors of the ranks other than ``dst`` as they were (the JAX package's
 semantics; the backends may write them).  Groups, and every collective,
 need a process group: before ``init_parallel_env`` they raise.  The JAX
@@ -76,6 +77,7 @@ class Group:
         self.id = id
         self._pg = process_group
         self._name = name
+        self.axis_name: Optional[str] = None
 
     @property
     def rank(self) -> int:
@@ -168,10 +170,13 @@ def get_group(id: int = 0) -> Group:
     return _GROUPS[id]
 
 
-def new_group(ranks=None, backend=None, timeout=None) -> Group:
+def new_group(ranks=None, backend=None, timeout=None,
+              axis_name=None) -> Group:
     """A group of the global ``ranks`` (all by default).  Every rank must
     call it, for every group, in the same order, as
-    ``torch.distributed.new_group`` requires."""
+    ``torch.distributed.new_group`` requires.  ``axis_name`` names the
+    mesh axis the group runs along (the JAX package's shard_map axis;
+    here only a label, :attr:`Group.axis_name`)."""
     _require_process_group()
     if ranks is None:
         ranks = list(range(get_world_size()))
@@ -182,6 +187,7 @@ def new_group(ranks=None, backend=None, timeout=None) -> Group:
     pg = dist.new_group(ranks, backend=backend, **kw)
     g = Group(ranks.index(me) if me in ranks else -1, ranks, id=gid,
               process_group=pg)
+    g.axis_name = axis_name
     _GROUPS[gid] = g
     return g
 
@@ -238,7 +244,8 @@ def _torch_op(op: int, group) -> tuple:
 def host_staged(group, tensor) -> bool:
     """Whether ``tensor`` crosses ``group`` through a host copy: a CUDA
     tensor on a gloo group, for the operations gloo cannot take from the
-    card (point to point and ``reduce_scatter``)."""
+    card (point to point, ``reduce_scatter`` and ``alltoall_single``, which
+    ``alltoall``'s tensor form calls)."""
     return bool(getattr(tensor, "is_cuda", False)) and \
         _group_of(group).backend == "gloo"
 
@@ -416,10 +423,7 @@ def alltoall(out_tensor_list, in_tensor_list: Optional[list] = None,
         if x.shape[0] != g.nranks:
             raise ValueError(f"alltoall's tensor form wants {g.nranks} slots "
                              f"on axis 0, got {tuple(x.shape)}")
-        out = torch.empty_like(x)
-        _issue(dist.all_to_all_single, out, x.contiguous(), group=pg,
-               sync_op=True)
-        return out
+        return alltoall_single(x, group=group)
     ins = [t.contiguous() for t in in_tensor_list]
     outs = [torch.empty_like(t) for t in ins]
     task = _issue(dist.all_to_all, outs, ins, group=pg, sync_op=sync_op)
@@ -440,17 +444,22 @@ def alltoall_single(in_tensor: torch.Tensor,
     Into ``out_tensor`` (returns a :class:`Task`), or a new tensor of
     ``in_tensor``'s shape with even splits (returned)."""
     pg = _pg(group)
-    if out_tensor is None:
+    new = out_tensor is None
+    if new:
         if in_split_sizes is not None or out_split_sizes is not None:
             raise ValueError("uneven splits need out_tensor")
-        out = torch.empty_like(in_tensor)
-        _issue(dist.all_to_all_single, out, in_tensor.contiguous(),
-               group=pg, sync_op=True)
-        return out
-    return _issue(dist.all_to_all_single, out_tensor, in_tensor.contiguous(),
+        out_tensor = torch.empty_like(in_tensor)
+        sync_op = True
+    staged = host_staged(group, in_tensor)
+    src = _to_host(in_tensor) if staged else in_tensor.contiguous()
+    buf = torch.empty_like(out_tensor, device="cpu") if staged else \
+        out_tensor
+    task = _issue(dist.all_to_all_single, buf, src,
                   output_split_sizes=out_split_sizes,
                   input_split_sizes=in_split_sizes, group=pg,
-                  sync_op=sync_op)
+                  sync_op=sync_op,
+                  then=_copy_back(out_tensor, buf) if staged else None)
+    return out_tensor if new else task
 
 
 def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
@@ -513,12 +522,17 @@ def recv(tensor: torch.Tensor, src: int = 0, group=None,
     return Task(dist.irecv(buf, src=src, group=pg), back)
 
 
-def isend(tensor: torch.Tensor, dst: int = 0, group=None) -> Task:
-    return send(tensor, dst=dst, group=group, sync_op=False)
+def isend(tensor: torch.Tensor, dst: int = 0, group=None,
+          sync_op: bool = False) -> Task:
+    """:func:`send`, asynchronous unless ``sync_op`` (the JAX package's
+    ``isend`` is its ``send``, whose ``sync_op`` this takes)."""
+    return send(tensor, dst=dst, group=group, sync_op=sync_op)
 
 
-def irecv(tensor: torch.Tensor, src: int = 0, group=None) -> Task:
-    return recv(tensor, src=src, group=group, sync_op=False)
+def irecv(tensor: torch.Tensor, src: int = 0, group=None,
+          sync_op: bool = False) -> Task:
+    """:func:`recv`, asynchronous unless ``sync_op``."""
+    return recv(tensor, src=src, group=group, sync_op=sync_op)
 
 
 class P2POp:

@@ -14,8 +14,10 @@ group; the strategy's bf16 O2 ``amp`` and ``recompute`` are applied
 first.  ``distributed_optimizer`` wraps the optimizer in
 :class:`.meta_optimizers.HybridParallelOptimizer`, and with
 ``strategy.sharding`` sets the ZeRO level from
-``sharding_configs["stage"]`` (1: ``os``, 2: ``os_g``).  Sequence
-parallelism is not ported: a sep degree above 1 raises.
+``sharding_configs["stage"]`` (1: ``os``, 2: ``os_g``).  A sep degree
+above 1 splits each sequence over the sep group
+(:mod:`.meta_parallel.sequence_parallel`); the ``DataParallel`` wrapper
+then averages over ``data x sep`` (``get_dp_sep_parallel_group``).
 """
 from __future__ import annotations
 
@@ -67,11 +69,6 @@ class Fleet:
         init_parallel_env()
         world = get_world_size()
         dims = hybrid_degrees(strategy.hybrid_configs, world)
-        if dims[3] > 1:
-            raise NotImplementedError(
-                f"sep_degree {dims[3]}: sequence parallelism (ring and "
-                f"Ulysses attention) is not ported yet (ROADMAP Queue 1, "
-                f"item 4.3)")
         topo = CommunicateTopology(_NAMES, dims)
         if topo.world_size() != world:
             raise ValueError(f"hybrid degrees {dict(zip(_KEYS, dims))} make "
@@ -143,7 +140,7 @@ class Fleet:
         if mode == "model":
             model = TensorParallel(model, hcg, strategy=s)
         return DataParallel(model, strategy=s,
-                            group=hcg.get_data_parallel_group())
+                            group=hcg.get_dp_sep_parallel_group())
 
     def distributed_optimizer(self, optimizer, strategy=None):
         from .meta_optimizers import HybridParallelOptimizer

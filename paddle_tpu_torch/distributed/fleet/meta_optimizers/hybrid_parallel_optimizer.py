@@ -13,7 +13,9 @@ windows over the sharding group (both for a window of an mp slice),
 each pipeline stage's total over the pipe group, and a gradient that is
 not ``counted`` (the tied embedding's copy on the last stage) left out:
 every element of the model counts once.  The gradients are already
-averaged over the data ranks, so no reduce over dp is needed; without
+averaged over the data ranks (``data x sep``), so no reduce over dp or
+sep is needed: a sep rank holds every parameter whole, and summing over
+sep would count each gradient once a sep rank; without
 shards, windows or stages the norm is the inner clip's own.  The norm
 is kept in the inner clip's ``last_norm`` (also
 :attr:`HybridParallelClipGrad.last_norm`), written in place on the

@@ -14,17 +14,24 @@ Two streams, as Megatron and Paddle keep them:
 
 Both differ between data ranks (the dp x sharding ranks, which each
 take their slice of the batch) and between pipeline stages (each
-stage's blocks draw from that stage's streams).
+stage's blocks draw from that stage's streams).  Over sequence
+parallelism the global stream differs between sep ranks too (each holds
+other positions of the hidden states), while the local stream is the
+same on every sep rank: the ring's dropout hash takes its seed from it
+and draws, on each rank, that rank's part of one mask over the whole
+sequence.
 :func:`model_parallel_random_seed` sets them from one seed: the global
 stream is the run's generator (``generator``, whose draws made the
 weights, so its state is the same on every rank), re-seeded with
-``seed + DP_SEED_OFFSET + data_rank + PP_SEED_OFFSET * stage`` when
-there is more than one data rank or stage (``data_rank = dp_rank *
-sharding + sharding_rank``); the local stream is a generator seeded
-``seed + 1024 + global rank`` (the JAX package's local seed), or the
-global stream itself when there is one mp rank.  At dp = mp = 1 both are
-the run's generator, so the model draws its masks as the unsharded model
-does.
+``seed + DP_SEED_OFFSET + data_rank * sep + sep_rank + PP_SEED_OFFSET *
+stage`` when there is more than one data rank, stage or sep rank
+(``data_rank = dp_rank * sharding + sharding_rank``); the local stream
+is a generator seeded ``seed + 1024 + rank`` (the JAX package's local
+seed; ``rank`` the global rank of this rank's sep peer 0), or, with one
+mp rank, the global stream itself, or at a sep degree above 1 a
+generator that draws what the global stream would at sep 1.  At dp = mp
+= sep = 1 both are the run's generator, so the model draws its masks as
+the unsharded model does.
 """
 from __future__ import annotations
 
@@ -116,24 +123,37 @@ def model_parallel_random_seed(seed: Optional[int] = None, *,
             _c.broadcast_object_list(box, src=0)
         seed = box[0]
     hcg = get_hybrid_communicate_group()
-    data, data_rank, pp, stage = (1, 0, 1, 0)
+    data, data_rank, pp, stage, sep, sep_rank = (1, 0, 1, 0, 1, 0)
+    rank = 0
     if hcg is not None:
         sh = hcg.get_sharding_parallel_world_size()
         data = hcg.get_data_parallel_world_size() * sh
         data_rank = hcg.get_data_parallel_rank() * sh + \
             hcg.get_sharding_parallel_rank()
         pp, stage = hcg.get_pipe_parallel_world_size(), hcg.get_stage_id()
+        sep = hcg.get_sep_parallel_world_size()
+        sep_rank = hcg.get_sep_parallel_rank()
+        rank = hcg.get_global_rank()
+        if sep > 1:
+            rank = hcg.topology().get_rank_from_stage(rank, sep=0)
     mp = 1 if hcg is None else hcg.get_model_parallel_world_size()
-    rank = 0 if hcg is None else hcg.get_global_rank()
     glob = generator if generator is not None else make_generator(seed,
                                                                   device)
-    if data > 1 or pp > 1:
-        glob.manual_seed(seed + DP_SEED_OFFSET + data_rank +
+    local = glob
+    if sep > 1 and mp == 1:
+        # the sep ranks' shared stream: what glob draws at sep 1
+        local = make_generator(seed, glob.device)
+        local.set_state(glob.get_state())
+        if data > 1 or pp > 1:
+            local.manual_seed(seed + DP_SEED_OFFSET + data_rank +
+                              PP_SEED_OFFSET * stage)
+    if data > 1 or pp > 1 or sep > 1:
+        glob.manual_seed(seed + DP_SEED_OFFSET + data_rank * sep + sep_rank +
                          PP_SEED_OFFSET * stage)
     _TRACKER.reset()
     _TRACKER.set(GLOBAL_RNG, glob)
     if mp > 1:
         _TRACKER.add(MODEL_PARALLEL_RNG, seed + 1024 + rank, glob.device)
     else:
-        _TRACKER.set(MODEL_PARALLEL_RNG, glob)
+        _TRACKER.set(MODEL_PARALLEL_RNG, local)
     return _TRACKER

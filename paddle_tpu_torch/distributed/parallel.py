@@ -119,9 +119,10 @@ def unwrap_model(model: torch.nn.Module) -> torch.nn.Module:
 
 class DataParallel(torch.nn.Module):
     """``layers`` with its gradients averaged over ``group`` (the
-    data-parallel group of ``fleet``'s topology when fleet is set up,
-    else the world) in buckets of ``comm_buffer_size`` MB (a
-    ``strategy``'s ``fuse_grad_size_in_MB`` instead when given;
+    ``data x sep`` group of ``fleet``'s topology when fleet is set up,
+    the data-parallel group itself at sep 1, else the world) in buckets
+    of ``comm_buffer_size`` MB (a ``strategy``'s ``fuse_grad_size_in_MB``
+    instead when given;
     ``PT_GRAD_BUCKET_MB`` wins over both).  The parameters are broadcast
     from the group's first rank when it is made.  Each rank feeds its own
     batch.  Parameter names, ``state_dict`` and ``parameters`` are the
@@ -138,7 +139,7 @@ class DataParallel(torch.nn.Module):
         if group is None:
             from .fleet.fleet import get_hybrid_communicate_group
             hcg = get_hybrid_communicate_group()
-            group = (hcg.get_data_parallel_group() if hcg is not None
+            group = (hcg.get_dp_sep_parallel_group() if hcg is not None
                      else _c.get_group(0))
         self._group = group
         self.find_unused_parameters = find_unused_parameters

@@ -22,7 +22,10 @@ sharding coordinate ``r`` holds.
    all-reduced over sharding, then over dp.  Every sum is divided by
    ``dp * sharding``: the port splits the global batch over both (the
    JAX step replicates it over sharding), so the mean over them is the
-   global batch's gradient.
+   global batch's gradient.  With a sep degree above 1 "dp" is the
+   ``data x sep`` group throughout (each sep rank holds its part of
+   every sequence, and its loss is the mean over its tokens), and the
+   divisor ``dp * sep * sharding``.
  - :class:`ZeroPlan`: the update.  Each rank updates its windows (views
    of its parameters, with window-sized slots and masters), then the
    windows are all-gathered over the sharding group bucket by bucket,
@@ -35,7 +38,8 @@ sharding coordinate ``r`` holds.
    loop of one's own): the reduction, the sum of a tied parameter's
    copies on other pipeline stages, the clip and the update, the
    gather, and the loss averaged over the data ranks.
- - :func:`local_batch`: this data rank's rows of the global batch.
+ - :func:`local_batch`: this data rank's rows of the global batch, and
+   this sep rank's positions of each.
  - Stage 3 (``p_g_os``, :func:`shard_parameters`): parameters of at
    least ``min_size`` elements are stored as their windows.  A
    :class:`GatherWindow` gathers one into a whole tensor where it is
@@ -158,8 +162,11 @@ def local_batch(batch, hcg):
     """This data rank's rows of the global ``batch`` (a tensor, or a
     list, tuple or dict of them): data rank ``r = dp_rank * sharding +
     sharding_rank`` of ``n = dp * sharding`` takes rows ``[r * B/n, (r +
-    1) * B/n)`` of the first axis.  The JAX step replicates the batch
-    over sharding; the update is the same (module docstring)."""
+    1) * B/n)`` of the first axis, and with a sep degree ``m`` above 1
+    sep rank ``s`` positions ``[s * S/m, (s + 1) * S/m)`` of the second
+    (the JAX step's data spec ``P("dp", "sep")``).  The JAX step
+    replicates the batch over sharding; the update is the same (module
+    docstring)."""
     if isinstance(batch, dict):
         return {k: local_batch(v, hcg) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
@@ -171,15 +178,23 @@ def local_batch(batch, hcg):
                          f"{n} data ranks (dp x sharding)")
     per = batch.shape[0] // n
     r = hcg.get_data_parallel_rank() * sh + hcg.get_sharding_parallel_rank()
-    return batch.narrow(0, r * per, per)
+    batch = batch.narrow(0, r * per, per)
+    sep = hcg.get_sep_parallel_world_size()
+    if sep > 1:
+        if batch.dim() < 2 or batch.shape[1] % sep:
+            raise ValueError(f"a batch of shape {tuple(batch.shape)} does not "
+                             f"split its sequence over {sep} sep ranks")
+        sl = batch.shape[1] // sep
+        batch = batch.narrow(1, hcg.get_sep_parallel_rank() * sl, sl)
+    return batch
 
 
 def mean_over_data_ranks(loss: torch.Tensor, hcg) -> torch.Tensor:
-    """``loss`` (a copy) averaged over the sharding and data-parallel
-    groups: the global batch's loss on every data rank."""
+    """``loss`` (a copy) averaged over the sharding and the ``data x
+    sep`` groups: the global batch's loss on every data rank."""
     loss = loss.detach().clone()
     for g in (hcg.get_sharding_parallel_group(),
-              hcg.get_data_parallel_group()):
+              hcg.get_dp_sep_parallel_group()):
         if g.nranks > 1:
             _c.all_reduce(loss, op=_c.ReduceOp.AVG, group=g)
     return loss
@@ -208,7 +223,7 @@ class GradReducer:
     def __init__(self, params: Dict[str, torch.Tensor], hcg,
                  scatter_dims: Optional[Dict[str, int]] = None):
         self.sh = hcg.get_sharding_parallel_group()
-        self.dp = hcg.get_data_parallel_group()
+        self.dp = hcg.get_dp_sep_parallel_group()
         self.n = self.sh.nranks
         self.world = self.n * self.dp.nranks
         self.params = params
@@ -326,7 +341,7 @@ class ZeroPlan:
                     self.dims[k] = d
         zero = {"os": "os", "os_g": "os_g"}.get(level)
         self.schedule = plan_grad_reduction(
-            {"dp": hcg.get_data_parallel_world_size(), "sharding": self.n},
+            {"dp": hcg.get_dp_sep_parallel_world_size(), "sharding": self.n},
             zero)
         scatter = self.dims if (level == "os_g" and self.schedule is not
                                 None and self.schedule.scatters) else {}
@@ -431,7 +446,8 @@ class GatherWindow(torch.autograd.Function):
     """``window`` (rank ``r``'s window along ``dim`` of a tensor of
     ``full_shape``) -> the whole tensor, all-gathered over the sharding
     group; the backward reduce-scatters the whole gradient back into the
-    window, all-reduces it over dp and divides by ``dp * sharding``."""
+    window, all-reduces it over dp (``data x sep``) and divides by ``dp *
+    sharding``."""
 
     @staticmethod
     def forward(ctx, win, dim, full_shape, sh, dp):
@@ -458,7 +474,7 @@ class GatherWindow(torch.autograd.Function):
 def _gather(p, hcg):
     return GatherWindow.apply(p, p.zero_dim, p.zero_full_shape,
                               hcg.get_sharding_parallel_group(),
-                              hcg.get_data_parallel_group())
+                              hcg.get_dp_sep_parallel_group())
 
 
 @contextlib.contextmanager

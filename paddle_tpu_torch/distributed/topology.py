@@ -8,6 +8,11 @@ innermost), copied.  :class:`HybridCommunicateGroup` makes one
 :func:`..collective.new_group`, on every rank and in the same order (as
 ``torch.distributed.new_group`` requires), keeps the ones this rank
 belongs to, and sets the global :mod:`..mesh` to the topology's grid.
+With a sep degree above 1 it also makes the groups over ``data x sep``
+(one for each combination of the other axes): the ranks that hold the
+same parameters and different tokens, over which gradients and the loss
+are averaged (:meth:`HybridCommunicateGroup.get_dp_sep_parallel_group`,
+the data-parallel group itself at sep 1).
 """
 from __future__ import annotations
 
@@ -123,6 +128,12 @@ class HybridCommunicateGroup:
                 g = new_group(ranks)
                 if rank in ranks:
                     self._groups[name] = g
+        self._dp_sep = self._groups.get("data")
+        if self._sep_degree > 1:
+            for ranks in self._dp_sep_lists():
+                g = new_group(ranks)
+                if rank in ranks:
+                    self._dp_sep = g
         # the first and the last stage of each pipeline (a tied
         # embedding's two copies): the pipe group itself at pp 2
         self._ends = self._groups.get("pipe")
@@ -225,6 +236,26 @@ class HybridCommunicateGroup:
 
     def get_sep_parallel_group(self) -> Group:
         return self._groups.get("sep")
+
+    def _dp_sep_lists(self):
+        """The rank lists over ``data x sep``: one for each combination
+        of the other axes, in rank order."""
+        topo = self._topo
+        names = topo.get_hybrid_group_names()
+        lists = {}
+        for r in range(topo.world_size()):
+            c = dict(zip(names, topo.get_coord(r)))
+            key = tuple(v for n, v in c.items() if n not in ("data", "sep"))
+            lists.setdefault(key, []).append(r)
+        return list(lists.values())
+
+    def get_dp_sep_parallel_group(self) -> Group:
+        """The group over ``data x sep`` this rank belongs to (the
+        data-parallel group when the sep degree is 1)."""
+        return self._dp_sep
+
+    def get_dp_sep_parallel_world_size(self):
+        return self._dp_degree * self._sep_degree
 
     def get_check_parallel_group(self):
         return self._groups["model"]

@@ -35,6 +35,12 @@ when one is set (the local stream of
 ``fleet.meta_parallel.random``), every other dropout from the generator
 passed to ``forward``.
 
+Built after ``fleet.init`` with a sep degree above 1, the model runs on
+one rank's positions of each sequence (``local_batch``): attention goes
+around the sep ring (:class:`RingFlashAttention`, its dropout seed from
+the attention generator, the same on every sep rank), and the default
+position ids start at ``sep_rank * S_local``.
+
 For pipeline parallelism :meth:`GPTForCausalLM.pipeline_blocks` names
 the decoder stack (the JAX adapter), :meth:`GPTForCausalLM.keep_stage`
 keeps one rank's virtual stages of a model built whole (so every stage
@@ -64,6 +70,8 @@ from ...distributed.fleet.meta_parallel import (ColumnParallelLinear,
 from ...distributed.fleet.meta_parallel.mp_ops import _c_identity
 from ...distributed.fleet.meta_parallel.parallel_layers.mp_layers import \
     mp_group_of
+from ...distributed.fleet.meta_parallel.sequence_parallel import (
+    RingFlashAttention, sep_group_of)
 from ...nn import Dropout, Embedding, LayerNorm, Linear
 from ...nn import functional as F
 from ...nn.initializer import Normal
@@ -121,6 +129,9 @@ class GPTAttention(torch.nn.Module):
             self.out_proj = Linear(h, h, init, generator=generator)
         self.attn_dropout_p = cfg.attention_probs_dropout_prob
         self.attn_generator: Optional[torch.Generator] = None
+        sep = sep_group_of()
+        self.ring = None if sep is None else RingFlashAttention(
+            causal=True, group=sep)
 
     def forward(self, x, generator=None):
         b, s = x.shape[0], x.shape[1]
@@ -130,9 +141,13 @@ class GPTAttention(torch.nn.Module):
         q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
         if self.attn_generator is not None:
             generator = self.attn_generator
-        out = F.scaled_dot_product_attention(
-            q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
-            training=self.training, generator=generator)
+        if self.ring is not None:
+            out = self.ring(q, k, v, dropout_p=self.attn_dropout_p,
+                            training=self.training, generator=generator)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
+                training=self.training, generator=generator)
         return self.out_proj(out.reshape(b, s, self.num_heads * hd))
 
 
@@ -197,11 +212,16 @@ class GPTEmbeddings(torch.nn.Module):
             cfg.max_position_embeddings, cfg.hidden_size, init,
             generator=generator)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
+        sep = sep_group_of()
+        # a sep rank's tokens start at this position of the sequence
+        self.sep_rank = 0 if sep is None else sep.rank
 
     def forward(self, input_ids, position_ids=None, generator=None):
         x = self.word_embeddings(input_ids)
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
+            s = input_ids.shape[1]
+            position_ids = torch.arange(self.sep_rank * s,
+                                        (self.sep_rank + 1) * s,
                                         device=input_ids.device)[None, :]
         x = x + self.position_embeddings(position_ids)
         return self.dropout(x, generator)
@@ -333,16 +353,23 @@ class _Absent(torch.nn.Module):
 
 
 class GPTPretrainingCriterion(torch.nn.Module):
-    """Mean causal-LM loss over every token, in the logits' dtype; over
-    vocabulary-local logits on ``mp_group`` (by default fleet's, as for
-    the model: pass the model's ``mp_group``)."""
+    """Mean causal-LM loss over every token, in the logits' dtype, or
+    with ``loss_mask`` the masked mean in f32, ``sum(loss * mask) /
+    max(sum(mask), 1e-6)``; over vocabulary-local logits on ``mp_group``
+    (by default fleet's, as for the model: pass the model's
+    ``mp_group``).  ``cfg`` is the reference's first argument and is not
+    read."""
 
-    def __init__(self, mp_group=None):
+    def __init__(self, cfg: Optional[GPTConfig] = None, *, mp_group=None):
         super().__init__()
         self.ce = ParallelCrossEntropy(mp_group=mp_group)
 
-    def forward(self, logits, labels):
-        return self.ce(logits, labels).reshape(-1).mean()
+    def forward(self, logits, labels, loss_mask=None):
+        loss = self.ce(logits, labels).reshape(-1)
+        if loss_mask is None:
+            return loss.mean()
+        m = loss_mask.reshape(-1).to(torch.float32)
+        return (loss * m).sum() / m.sum().clamp_min(1e-6)
 
 
 def gpt_tiny(**kw) -> GPTConfig:

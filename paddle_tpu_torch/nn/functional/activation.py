@@ -7,7 +7,7 @@ import torch
 __all__ = ["gelu", "tanh"]
 
 
-def gelu(x, approximate: bool = False):
+def gelu(x, approximate: bool = False, name=None):
     """GELU: the erf form by default (BERT's), or with
     ``approximate=True`` the tanh form
     ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))`` that GPT's MLP
@@ -16,6 +16,6 @@ def gelu(x, approximate: bool = False):
         x, approximate="tanh" if approximate else "none")
 
 
-def tanh(x):
+def tanh(x, name=None):
     """Elementwise tanh (BERT's pooler)."""
     return torch.tanh(x)

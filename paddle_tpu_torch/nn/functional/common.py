@@ -28,7 +28,7 @@ __all__ = ["FLASH_MIN_SEQ", "ONE_HOT_MAX_ROWS", "linear", "dropout",
 FLASH_MIN_SEQ = 512
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias``; weight ``(in, out)``."""
     out = torch.matmul(x, weight)
     if bias is not None:
@@ -36,19 +36,39 @@ def linear(x, weight, bias=None):
     return out
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Zero each element with probability ``p`` and scale the rest by
-    ``1 / (1 - p)``; the identity when not training or ``p == 0``.  The
-    mask draws from ``generator``, which training with ``p > 0`` needs."""
+_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """Zero each element with probability ``p``, the reference's
+    ``(x, p, axis, training, mode, name)``.  ``mode``
+    ``upscale_in_train`` scales the kept elements by ``1 / (1 - p)`` in
+    training and is the identity otherwise; ``downscale_in_infer`` keeps
+    them as they are in training and scales by ``1 - p`` otherwise.
+    ``axis`` (an int or a list): one mask entry is drawn for each index
+    of those axes and broadcast over the others.  The mask draws from
+    ``generator``, which training with ``0 < p < 1`` needs."""
+    if mode not in _DROPOUT_MODES:
+        raise ValueError(f"dropout mode {mode!r} is not one of "
+                         f"{_DROPOUT_MODES}")
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
         return x
     if p == 1.0:
         return torch.zeros_like(x)
     if generator is None:
         raise ValueError("dropout in training needs the run's generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+    shape = x.shape
+    if axis is not None:
+        axes = [a % x.dim() for a in ([axis] if isinstance(axis, int)
+                                       else axis)]
+        shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 #: tables of at most this many rows take the one-hot product backward
@@ -102,11 +122,19 @@ class _Embedding(torch.autograd.Function):
         return None, gw.to(ctx.dtype), None
 
 
-def embedding(x, weight, padding_idx=None):
+def _refuse_sparse(sparse):
+    if sparse:
+        raise NotImplementedError(
+            "embedding(sparse=True): sparse (row-wise) gradients are not "
+            "ported; the table's gradient is dense")
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at the ids ``x``; positions whose id is
     ``padding_idx`` (negative counts from the end) give 0 and send no
     gradient to that row.  The backward's sums are the same bits on
-    every run (:class:`_Embedding`)."""
+    every run (:class:`_Embedding`).  ``sparse=True`` raises."""
+    _refuse_sparse(sparse)
     if padding_idx is not None and padding_idx < 0:
         padding_idx += weight.shape[0]
     return _Embedding.apply(x, weight, padding_idx)
@@ -114,7 +142,8 @@ def embedding(x, weight, padding_idx=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     """Softmax attention over ``(B, S, H, D)`` q, k and v (paddle's
     layout), with an optional ``attn_mask`` broadcast against the
     ``(B, H, S, S)`` scores: a bool mask keeps the scores where it is
@@ -145,5 +174,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(query.dtype)
-    probs = dropout(probs, dropout_p, training, generator)
+    probs = dropout(probs, dropout_p, training=training,
+                    generator=generator)
     return torch.matmul(probs, v).transpose(1, 2)

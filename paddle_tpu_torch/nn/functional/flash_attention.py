@@ -21,20 +21,47 @@ from .common import scaled_dot_product_attention
 __all__ = ["flash_attention", "flash_attn_unpadded"]
 
 
+def _rng(rng_name, generator):
+    """``generator``, or the one the model-parallel tracker keeps under
+    ``rng_name`` (paddle's named RNG state) when none is given."""
+    if generator is not None or not rng_name:
+        return generator
+    from ...distributed.fleet.meta_parallel.random import \
+        get_rng_state_tracker
+    gen = get_rng_state_tracker().get(rng_name)
+    if gen is None:
+        raise KeyError(f"flash_attention(rng_name={rng_name!r}): the RNG "
+                       f"state tracker has no generator of that name")
+    return gen
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
-                    return_softmax=False, *, training=True, generator=None):
+                    return_softmax=False, *, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None, generator=None):
     """Attention over ``(B, S, H, D)`` q, k and v; returns ``(out,
     softmax)``.  ``softmax`` is None unless ``return_softmax``, which
     takes the plain path of :func:`scaled_dot_product_attention` and
     returns the f32 ``(B, H, S, S)`` probabilities before dropout, as the
-    JAX function does.  Dropout in training draws its seed from
-    ``generator``."""
+    JAX function does.  Dropout in training hashes with a seed drawn
+    from ``generator`` (by default the tracker's generator named
+    ``rng_name``), or with ``fixed_seed_offset`` when given: an int, or
+    a tensor whose first element is the seed (paddle's ``(seed,
+    offset)`` pair; the hash has no offset, so the second is not read)."""
     eff = dropout if training else 0.0
+    generator = _rng(rng_name, generator)
     if return_softmax:
         out = scaled_dot_product_attention(
             query, key, value, dropout_p=dropout, is_causal=causal,
             training=training, generator=generator)
         return out, _softmax_probs(query, key, causal)
+    if fixed_seed_offset is not None and eff > 0.0:
+        seed = fixed_seed_offset
+        if isinstance(seed, torch.Tensor):
+            seed = seed.reshape(-1)[0]
+        out = pallas_ops.mha(query.transpose(1, 2), key.transpose(1, 2),
+                             value.transpose(1, 2), causal=causal,
+                             dropout_p=eff, seed=seed)
+        return out.transpose(1, 2), None
     return pallas_ops.flash_attention(query, key, value, causal=causal,
                                       dropout_p=eff,
                                       generator=generator), None

@@ -35,7 +35,7 @@ def _is_soft(input, label, axis):
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """Softmax cross-entropy of ``input`` against hard (int) or soft
     labels, as the JAX package's ``F.cross_entropy``: f32 losses, rows
     whose label is ``ignore_index`` count 0, and ``"mean"`` over hard

@@ -21,8 +21,8 @@ from ...ops.fused_kernels import fused_layer_norm
 __all__ = ["layer_norm"]
 
 
-def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5,
-               residual=None):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               residual=None, name=None):
     """Normalize ``x`` (or ``x + residual``, same shape) over the trailing
     ``normalized_shape`` axes; f32 statistics, output in x's dtype."""
     if isinstance(normalized_shape, int):

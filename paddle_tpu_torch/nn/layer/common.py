@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from .. import functional as F
+from ..functional.common import _refuse_sparse
 from ..initializer import Constant
 
 __all__ = ["Linear", "Embedding", "Dropout"]
@@ -39,8 +40,9 @@ class Embedding(torch.nn.Module):
     starts at 0, and positions holding it give 0 (:func:`F.embedding`)."""
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr, *,
-                 generator, padding_idx=None):
+                 generator, padding_idx=None, sparse=False, name=None):
         super().__init__()
+        _refuse_sparse(sparse)
         self.weight = _param(weight_attr, (num_embeddings, embedding_dim),
                              generator)
         if padding_idx is not None and padding_idx < 0:
@@ -63,4 +65,5 @@ class Dropout(torch.nn.Module):
         self.p = p
 
     def forward(self, x, generator=None):
-        return F.dropout(x, self.p, self.training, generator)
+        return F.dropout(x, self.p, training=self.training,
+                         generator=generator)

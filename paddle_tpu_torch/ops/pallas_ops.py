@@ -25,9 +25,13 @@ Arithmetic of the TPU kernels, kept by both versions here:
  - dropout keeps an element when a hash of its ``(hb, row, col)``
    coordinates passes the threshold (:func:`keep_mask`) and scales the
    kept ``p`` by ``1 / (1 - p_drop)`` in the numerator only.  Fixed
-   lengths hash ``(b * H + h, i, j)``; packed sequences hash the TPU
-   kernel's block-aligned buffer, ``(h, start_q[s] + i, start_k[s] + j)``
-   (:class:`PackedLayout`);
+   lengths hash ``(b * H + h, i, j)``, or with a ``hash_base`` ``(row0,
+   col0, head0, heads)`` ``(b * heads + head0 + h, row0 + i, col0 + j)``:
+   the coordinates of a call that is one block of a larger attention (a
+   ring step's rows and keys in the whole sequence, a head shard's heads
+   among all of them), so that it draws that attention's mask; packed
+   sequences hash the TPU kernel's block-aligned buffer, ``(h, start_q[s]
+   + i, start_k[s] + j)`` (:class:`PackedLayout`);
  - ``p``, ``p~`` and ``ds`` are cast to the other operand's dtype before
    their products, which sum in f32;
  - the backward takes ``delta = rowsum(out * do) - dlse`` in f32,
@@ -74,10 +78,12 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# lens, shift, cu_q, cu_k, hstart, tiles, ntiles, then units, nunits
+# lens, shift, cu_q, cu_k, hstart, tiles, ntiles, then units, nunits; the
+# tail ends with the stream, then the dropout hash's base (four int32 on
+# the host)
 _MASKS = (_P,) * 6 + (_I,)
 _UNITS = (_P, _I)
-_TAIL = (_P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P)
+_TAIL = (_P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P, _P)
 _SIGNATURES = {
     "ptt_flash_fwd": (_P,) * 6 + _MASKS + _UNITS + _TAIL,
     "ptt_flash_bwd_dq": (_P,) * 8 + _MASKS + _UNITS + _TAIL,
@@ -217,46 +223,58 @@ def _dkv_plain(q, k, v, do, lse, delta, valid, keep, scale, dropout_p):
 
 # -- plain versions, fixed lengths, (B, H, S, D) ---------------------------
 
-def _fixed_masks(q, k, causal, dropout_p, seed, seq_lens, causal_shift):
+def _hash_base(hash_base, heads):
+    """``(row0, col0, head0, heads)`` with a heads count of 0 or None
+    read as ``heads``; all zeros (and ``heads``) for None."""
+    row0, col0, head0, hh = hash_base or (0, 0, 0, 0)
+    return int(row0), int(col0), int(head0), int(hh or heads)
+
+
+def _fixed_masks(q, k, causal, dropout_p, seed, seq_lens, causal_shift,
+                 hash_base=None):
     b, h, sq = q.shape[:3]
     sk, dev = k.shape[2], q.device
     valid = _valid(sq, sk, causal, dev, seq_lens, causal_shift)
     keep = None
     if dropout_p > 0.0:
-        keep = _keep(seed, dropout_p,
-                     torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
-                     0, 0, sq, sk, dev)
+        row0, col0, head0, hh = _hash_base(hash_base, h)
+        bh = (torch.arange(b, device=dev).reshape(b, 1, 1, 1) * hh + head0 +
+              torch.arange(h, device=dev).reshape(1, h, 1, 1))
+        keep = _keep(seed, dropout_p, bh, row0, col0, sq, sk, dev)
     return valid, keep
 
 
 def mha_reference(q, k, v, *, causal=False, sm_scale=None, dropout_p=0.0,
-                  seed=None, seq_lens=None, causal_shift=None):
+                  seed=None, seq_lens=None, causal_shift=None,
+                  hash_base=None):
     """Plain forward on ``(B, H, S, D)``: ``(out, lse)``, out in q's
     dtype, lse f32 ``(B, H, S)``.  ``seq_lens`` is a ``(B,)`` int tensor,
-    ``causal_shift`` an int32 tensor, both on q's device."""
+    ``causal_shift`` an int32 tensor, both on q's device; ``hash_base``
+    ``(row0, col0, head0, heads)`` or None, the dropout hash's
+    coordinates (module docstring)."""
     valid, keep = _fixed_masks(q, k, causal, dropout_p, seed, seq_lens,
-                               causal_shift)
+                               causal_shift, hash_base)
     return _fwd_plain(q, k, v, valid, keep, _scale(q, sm_scale), dropout_p)
 
 
 def mha_dq_reference(q, k, v, do, lse, delta, *, causal=False,
                      sm_scale=None, dropout_p=0.0, seed=None, seq_lens=None,
-                     causal_shift=None):
+                     causal_shift=None, hash_base=None):
     """Plain dq on ``(B, H, S, D)``, from the forward's lse and ``delta =
     rowsum(out * do) - dlse`` (both f32 ``(B, H, S)``)."""
     valid, keep = _fixed_masks(q, k, causal, dropout_p, seed, seq_lens,
-                               causal_shift)
+                               causal_shift, hash_base)
     return _dq_plain(q, k, v, do, lse, delta, valid, keep,
                      _scale(q, sm_scale), dropout_p)
 
 
 def mha_dkv_reference(q, k, v, do, lse, delta, *, causal=False,
                       sm_scale=None, dropout_p=0.0, seed=None, seq_lens=None,
-                      causal_shift=None):
+                      causal_shift=None, hash_base=None):
     """Plain ``(dk, dv)`` on ``(B, H, S, D)``; arguments as
     :func:`mha_dq_reference`."""
     valid, keep = _fixed_masks(q, k, causal, dropout_p, seed, seq_lens,
-                               causal_shift)
+                               causal_shift, hash_base)
     return _dkv_plain(q, k, v, do, lse, delta, valid, keep,
                       _scale(q, sm_scale), dropout_p)
 
@@ -597,6 +615,17 @@ def _int32_ptr(t, n, what, dev):
     return t.data_ptr()
 
 
+def _hash_arg(hash_base):
+    """The C entries' ``hash``: four int32 on the host (a heads count of
+    0 is the call's own H)."""
+    row0, col0, head0, heads = hash_base or (0, 0, 0, 0)
+    for x in (row0, col0, head0, heads or 0):
+        _require(0 <= int(x) < 2 ** 31, f"hash_base {hash_base} is out of "
+                 f"range")
+    return (ctypes.c_int * 4)(int(row0), int(col0), int(head0),
+                              int(heads or 0))
+
+
 def _masks(q, layout, side, causal, seq_lens=None, causal_shift=None):
     """The C entries' mask arguments (lens, shift, cu_q, cu_k, hstart,
     tiles, ntiles, units, nunits) and the batch count they imply: fixed
@@ -616,14 +645,15 @@ def _masks(q, layout, side, causal, seq_lens=None, causal_shift=None):
             units.data_ptr(), units.shape[0]), layout.n
 
 
-def _tail(shape, strides, *, causal, sm_scale, dropout_p, dtype, dev):
+def _tail(shape, strides, *, causal, sm_scale, dropout_p, dtype, dev,
+          hash_base=None):
     """The C entries' shared trailing arguments, from ``strides`` on."""
     b, sq, sk, h, d = shape
     return (strides, b, h, sq, sk, d, float(sm_scale),
             int(dropout_p * (1 << 24)),
             1.0 / (1.0 - dropout_p) if dropout_p < 1.0 else 0.0,
             int(bool(causal)), _DTYPE_CODE[dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, _hash_arg(hash_base))
 
 
 def _run(entry, args, tail, what):
@@ -644,7 +674,7 @@ def _check_stats(want, dev, *stats):
 
 
 def _launch_fwd(q, k, v, seed, causal, sm_scale, dropout_p, layout=None,
-                seq_lens=None, causal_shift=None):
+                seq_lens=None, causal_shift=None, hash_base=None):
     d = q.shape[-1]
     q, k, v = _padded(q, k, v)
     shape, strides = _check(*_as4d(layout, q, k, v))
@@ -657,13 +687,14 @@ def _launch_fwd(q, k, v, seed, causal, sm_scale, dropout_p, layout=None,
     _run("ptt_flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(), sp, *masks),
          _tail((b, *shape[1:]), strides, causal=causal, sm_scale=sm_scale,
-               dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
+               dropout_p=dropout_p, dtype=q.dtype, dev=q.device,
+               hash_base=hash_base),
          "flash_fwd")
     return out[..., :d], lse
 
 
 def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
-               layout=None, seq_lens=None, causal_shift=None):
+               layout=None, seq_lens=None, causal_shift=None, hash_base=None):
     d = q.shape[-1]
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
@@ -677,13 +708,14 @@ def _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
                               do.data_ptr(), lse.data_ptr(),
                               delta.data_ptr(), dq.data_ptr(), sp, *masks),
          _tail((b, *shape[1:]), strides, causal=causal, sm_scale=sm_scale,
-               dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
+               dropout_p=dropout_p, dtype=q.dtype, dev=q.device,
+               hash_base=hash_base),
          "flash_bwd_dq")
     return dq[..., :d]
 
 
 def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
-                layout=None, seq_lens=None, causal_shift=None):
+                layout=None, seq_lens=None, causal_shift=None, hash_base=None):
     d = q.shape[-1]
     q, k, v, do = _padded(q, k, v, do)
     shape, strides = _check(*_as4d(layout, q, k, v, do))
@@ -699,7 +731,8 @@ def _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale, dropout_p,
                                delta.data_ptr(), dk.data_ptr(),
                                dv.data_ptr(), sp, *masks),
          _tail((b, *shape[1:]), strides, causal=causal, sm_scale=sm_scale,
-               dropout_p=dropout_p, dtype=q.dtype, dev=q.device),
+               dropout_p=dropout_p, dtype=q.dtype, dev=q.device,
+               hash_base=hash_base),
          "flash_bwd_dkv")
     return dk[..., :d], dv[..., :d]
 
@@ -709,23 +742,26 @@ def _bhsd(*ts):
 
 
 def flash_fwd(q, k, v, seed=None, *, causal=False, sm_scale=None,
-              dropout_p=0.0, seq_lens=None, causal_shift=None):
+              dropout_p=0.0, seq_lens=None, causal_shift=None,
+              hash_base=None):
     """Attention forward on ``(B, S, H, D)``: ``(out, lse)``, out
     ``(B, S, H, D)`` in q's dtype, lse f32 ``(B, H, S)``.  ``seed`` is the
     int32 dropout seed (:func:`draw_seed`), used when ``dropout_p > 0``;
     ``seq_lens`` (``(B,)``) and ``causal_shift`` (one) are int32 tensors
-    on q's device, or None.  The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; ``flash_fwd.launches`` counts kernel
-    launches."""
+    on q's device, or None; ``hash_base`` ``(row0, col0, head0, heads)``
+    places the dropout hash (module docstring).  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors; ``flash_fwd.launches``
+    counts kernel launches."""
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         out, lse = mha_reference(*_bhsd(q, k, v), causal=causal,
                                  sm_scale=sm_scale, dropout_p=dropout_p,
                                  seed=seed, seq_lens=seq_lens,
-                                 causal_shift=causal_shift)
+                                 causal_shift=causal_shift,
+                                 hash_base=hash_base)
         return out.transpose(1, 2), lse
     out = _launch_fwd(q, k, v, seed, causal, sm_scale, dropout_p, None,
-                      seq_lens, causal_shift)
+                      seq_lens, causal_shift, hash_base=hash_base)
     flash_fwd.launches += 1
     return out
 
@@ -735,7 +771,7 @@ flash_fwd.launches = 0
 
 def flash_bwd_dq(q, k, v, do, lse, delta, seed=None, *, causal=False,
                  sm_scale=None, dropout_p=0.0, seq_lens=None,
-                 causal_shift=None):
+                 causal_shift=None, hash_base=None):
     """dq on ``(B, S, H, D)`` from the output gradient ``do``, the
     forward's lse and ``delta = rowsum(out * do) - dlse`` (f32 ``(B, H,
     S)``).  The CUDA kernel for CUDA tensors, the plain version for CPU
@@ -745,10 +781,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, seed=None, *, causal=False,
         return mha_dq_reference(*_bhsd(q, k, v, do), lse, delta,
                                 causal=causal, sm_scale=sm_scale,
                                 dropout_p=dropout_p, seed=seed,
-                                seq_lens=seq_lens, causal_shift=causal_shift
-                                ).transpose(1, 2)
+                                seq_lens=seq_lens, causal_shift=causal_shift,
+                                hash_base=hash_base).transpose(1, 2)
     dq = _launch_dq(q, k, v, do, lse, delta, seed, causal, sm_scale,
-                    dropout_p, None, seq_lens, causal_shift)
+                    dropout_p, None, seq_lens, causal_shift,
+                    hash_base=hash_base)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -758,7 +795,7 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, seed=None, *, causal=False,
                   sm_scale=None, dropout_p=0.0, seq_lens=None,
-                  causal_shift=None):
+                  causal_shift=None, hash_base=None):
     """``(dk, dv)`` on ``(B, S, H, D)``; arguments as
     :func:`flash_bwd_dq`.  ``flash_bwd_dkv.launches`` counts kernel
     launches."""
@@ -768,10 +805,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, seed=None, *, causal=False,
                                    causal=causal, sm_scale=sm_scale,
                                    dropout_p=dropout_p, seed=seed,
                                    seq_lens=seq_lens,
-                                   causal_shift=causal_shift)
+                                   causal_shift=causal_shift,
+                                   hash_base=hash_base)
         return dk.transpose(1, 2), dv.transpose(1, 2)
     out = _launch_dkv(q, k, v, do, lse, delta, seed, causal, sm_scale,
-                      dropout_p, None, seq_lens, causal_shift)
+                      dropout_p, None, seq_lens, causal_shift,
+                      hash_base=hash_base)
     flash_bwd_dkv.launches += 1
     return out
 
@@ -794,9 +833,10 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, seed, seq_lens, causal_shift, causal,
-                sm_scale, dropout_p):
+                sm_scale, dropout_p, hash_base=None):
         ctx.opts = dict(causal=causal, sm_scale=sm_scale, dropout_p=dropout_p,
-                        seq_lens=seq_lens, causal_shift=causal_shift)
+                        seq_lens=seq_lens, causal_shift=causal_shift,
+                        hash_base=hash_base)
         out, lse = flash_fwd(q, k, v, seed, **ctx.opts)
         ctx.save_for_backward(q, k, v, out, lse, seed)
         ctx.set_materialize_grads(False)
@@ -812,7 +852,7 @@ class _Flash(torch.autograd.Function):
         delta = _delta(out, do, dlse)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, seed, **ctx.opts)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seed, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(query, key, value, *, causal=False, dropout_p=0.0,
@@ -849,7 +889,7 @@ def _seed_tensor(seed, dropout_p, device):
 
 
 def mha(q, k, v, *, causal=False, sm_scale=None, dropout_p=0.0, seed=None,
-        seq_lens=None, causal_shift=None, return_lse=False):
+        seq_lens=None, causal_shift=None, return_lse=False, hash_base=None):
     """Flash attention on ``(B, H, S, D)`` with an explicit int32 dropout
     ``seed`` (a tensor on q's device, or an int), differentiable in q, k
     and v; ``return_lse`` adds the f32 ``(B, H, S)`` log-sum-exp, itself
@@ -857,7 +897,8 @@ def mha(q, k, v, *, causal=False, sm_scale=None, dropout_p=0.0, seed=None,
     keys ``< seq_lens[b]`` and measures causal from position 0;
     ``causal_shift`` (an int or an int32 tensor, read on the device,
     ``causal`` only) keeps key ``j`` for query ``i`` when ``j <= i +
-    shift``."""
+    shift``; ``hash_base`` ``(row0, col0, head0, heads)`` places the
+    dropout hash (module docstring)."""
     b, _, sq, _ = q.shape
     if seq_lens is not None:
         if sq != k.shape[2]:
@@ -871,7 +912,8 @@ def mha(q, k, v, *, causal=False, sm_scale=None, dropout_p=0.0, seed=None,
     out, lse = _Flash.apply(*_bhsd(q, k, v),
                             _seed_tensor(seed, dropout_p, q.device), seq_lens,
                             causal_shift, bool(causal), _scale(q, sm_scale),
-                            float(dropout_p))
+                            float(dropout_p),
+                            None if hash_base is None else tuple(hash_base))
     out = out.transpose(1, 2)
     return (out, lse) if return_lse else out
 

@@ -43,10 +43,14 @@ class Adam(Optimizer):
     _state_slots = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True, amsgrad=False, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=True,
+                 use_multi_tensor=False, amsgrad=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        # dense moments either way (the JAX package's too); the fused
+        # foreach update is the multi-tensor path
+        self._lazy_mode, self._use_multi_tensor = lazy_mode, use_multi_tensor
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._amsgrad = amsgrad
         if amsgrad:
@@ -76,11 +80,17 @@ class AdamW(Adam):
     _decoupled_wd = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=0.01, grad_clip=None,
-                 multi_precision=True, amsgrad=False, parameters=None):
-        super().__init__(learning_rate, beta1, beta2, epsilon, weight_decay,
-                         grad_clip, multi_precision, amsgrad,
-                         parameters=parameters)
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=True, amsgrad=False,
+                 name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, lazy_mode,
+                         multi_precision, amsgrad=amsgrad, name=name)
+        # kept, not read: the tree update decays every parameter and takes
+        # one rate, as the JAX package's does
+        self._lr_ratio = lr_ratio
+        self._apply_decay_param_fun = apply_decay_param_fun
 
 
 class Adamax(Optimizer):
@@ -89,10 +99,10 @@ class Adamax(Optimizer):
     _state_slots = ("moment", "inf_norm")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _update(self, params, grads, slots, lr, step):
@@ -117,11 +127,11 @@ class Lamb(Optimizer):
     _state_slots = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
-                 beta1=0.9, beta2=0.999, epsilon=1e-6, grad_clip=None,
-                 exclude_from_weight_decay_fn=None, multi_precision=True,
-                 parameters=None):
-        super().__init__(learning_rate, None, grad_clip, multi_precision,
-                         parameters=parameters)
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lamb_wd = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
@@ -149,10 +159,11 @@ class NAdam(Optimizer):
     _state_slots = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, momentum_decay=0.004, weight_decay=None,
-                 grad_clip=None, multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 epsilon=1e-8, momentum_decay=0.004, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._psi = momentum_decay
 
@@ -181,10 +192,10 @@ class RAdam(Optimizer):
     _state_slots = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, weight_decay=None, grad_clip=None,
-                 multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _update(self, params, grads, slots, lr, step):

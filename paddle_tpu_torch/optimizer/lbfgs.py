@@ -43,8 +43,8 @@ class LBFGS(Optimizer):
         if parameters is None:
             raise ValueError("parameters must be given "
                              "(pass model.parameters())")
-        super().__init__(learning_rate, None, None, multi_precision=False,
-                         parameters=parameters)
+        super().__init__(learning_rate, parameters, None, None, name,
+                         multi_precision=False)
         if max_eval is None:
             max_eval = max_iter * 5 // 4
         if line_search_fn not in (None, "strong_wolfe"):

@@ -68,9 +68,10 @@ class Optimizer:
     _state_slots: tuple = ()
     _decoupled_wd = False
 
-    def __init__(self, learning_rate=0.001, weight_decay=None,
-                 grad_clip=None, multi_precision: bool = True,
-                 parameters=None):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision: bool = True):
+        self._name = name
         self._learning_rate = learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate)
         self._grad_clip = grad_clip
@@ -249,11 +250,11 @@ class Momentum(Optimizer):
 
     _state_slots = ("velocity",)
 
-    def __init__(self, learning_rate=0.001, momentum=0.9,
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._momentum, self._nesterov = momentum, use_nesterov
 
     def _update(self, params, grads, slots, lr, step):
@@ -270,11 +271,12 @@ class Adagrad(Optimizer):
 
     _state_slots = ("moment",)
 
-    def __init__(self, learning_rate, epsilon=1e-6, weight_decay=None,
-                 grad_clip=None, initial_accumulator_value=0.0,
-                 multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._epsilon = epsilon
         self._initial_acc = initial_accumulator_value
 
@@ -293,10 +295,10 @@ class Adadelta(Optimizer):
     _state_slots = ("avg_squared_grad", "avg_squared_update")
 
     def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
-                 weight_decay=None, grad_clip=None, multi_precision=True,
-                 parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._epsilon, self._rho = epsilon, rho
 
     def _update(self, params, grads, slots, lr, step):
@@ -322,10 +324,10 @@ class RMSProp(Optimizer):
     _state_slots = ("mean_square", "mean_grad", "momentum_acc")
 
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
-                 centered=False, weight_decay=None, grad_clip=None,
-                 multi_precision=True, parameters=None):
-        super().__init__(learning_rate, weight_decay, grad_clip,
-                         multi_precision, parameters=parameters)
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._rho, self._epsilon = rho, epsilon
         self._momentum, self._centered = momentum, centered
 

@@ -8,6 +8,7 @@ pretraining step (MLM + NSP), and a CLI that runs either.
     python -m paddle_tpu_torch.train --dp 2 --mp 2 --batch 8 --no-recompute
     python -m paddle_tpu_torch.train --model gpt_tiny --dp 2 --mp 2 --batch 4 --seq 64 --device cpu
     python -m paddle_tpu_torch.train --model gpt_tiny --pp 2 --sharding 2 --batch 8 --seq 64 --device cpu
+    python -m paddle_tpu_torch.train --model gpt_tiny --sep 2 --batch 2 --seq 64 --device cpu
 
 The GPT step: ``GPTForCausalLM`` (recompute per block unless
 ``--no-recompute``), the causal-LM loss.  The BERT step:
@@ -42,7 +43,9 @@ With ``--pp`` (pipeline stages, ``--microbatches`` and
 ``os``, ``os_g`` or ``p_g_os``; ``os_g`` by default) the ranks are
 ``dp * mp * pp * sharding``: each pipeline stage runs its virtual
 stages of the 1F1B schedule and each ZeRO rank holds its windows of the
-optimizer state (:class:`HybridTrainStep`).
+optimizer state (:class:`HybridTrainStep`).  With ``--sep`` each
+sequence is split over the sep ranks (ring attention over the sep group;
+not with ``--pp``), the ranks ``dp * mp * pp * sharding * sep``.
 """
 from __future__ import annotations
 
@@ -301,9 +304,10 @@ class HybridTrainStep(TrainStep):
     """One rank's share of a hybrid-parallel step (``hcg``: fleet's
     topology).  A call takes the global batch and keeps this data rank's
     rows (:func:`.distributed.sharding.local_batch`: data rank ``r`` of
-    dp x sharding); the loss it returns is averaged over the data ranks
-    (and, pipelined, broadcast from the last stage), so every rank
-    returns the global batch's loss.
+    dp x sharding) and this sep rank's positions of them; the loss it
+    returns is averaged over the data and sep ranks (and, pipelined,
+    broadcast from the last stage), so every rank returns the global
+    batch's loss.
 
     At data x tensor parallelism (pp = sharding = 1) the model is
     wrapped by ``DataParallel``, whose buckets reduce the gradients in
@@ -321,8 +325,9 @@ class HybridTrainStep(TrainStep):
                  capture: bool = True, generators=(), outputs: bool = False,
                  zero=None, engine=None):
         self.hcg = hcg
-        dp_group = hcg.get_data_parallel_group()
+        dp_group = hcg.get_dp_sep_parallel_group()
         groups = [g for g in (dp_group, hcg.get_model_parallel_group(),
+                              hcg.get_sep_parallel_group(),
                               hcg.get_sharding_parallel_group(),
                               hcg.get_pipe_parallel_group())
                   if g is not None]
@@ -330,7 +335,7 @@ class HybridTrainStep(TrainStep):
         if zero is None:
             super().__init__(model, criterion, optimizer, generator,
                              fusion=False, outputs=outputs, capture=capture,
-                             generators=generators, groups=groups[:2],
+                             generators=generators, groups=groups,
                              loss_group=None if dp_group.nranks == 1
                              else dp_group)
             return
@@ -421,15 +426,15 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
                      sharding_level: Optional[str] = None,
                      microbatches: Optional[int] = None,
                      virtual_stages: int = 1, strategy=None,
-                     capture: bool = True) -> TrainStep:
+                     capture: bool = True, sep: int = 1) -> TrainStep:
     """bench_gpt's step for ``cfg`` on ``device`` (``cuda`` unless the
     CPU is asked for): weights from ``seed``, bf16 O2 unless ``amp_o2``
     is false (f32 then), ``optimizer`` (by default ``AdamW(1e-4,
     multi_precision=True)``), the fusion pass as ``fusion`` says
     (:class:`TrainStep`), captured unless ``capture`` is false.
 
-    With any of ``dp``, ``mp``, ``pp`` or ``sharding`` above 1, or a
-    ``strategy`` (``fleet.DistributedStrategy``, whose
+    With any of ``dp``, ``mp``, ``pp``, ``sharding`` or ``sep`` above 1,
+    or a ``strategy`` (``fleet.DistributedStrategy``, whose
     ``hybrid_configs`` then give the degrees, ``pipeline_configs`` the
     micro-batches and virtual stages and ``sharding`` /
     ``sharding_configs`` the ZeRO level), this rank's
@@ -445,15 +450,19 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
     ``sharding`` the optimizer state is sharded at ``sharding_level``
     (``os``, ``os_g`` or ``p_g_os``; ``os_g`` unless the strategy or the
     optimizer says; at ``p_g_os`` the blocks are recomputed, their
-    weights gathered for each pass).  The fusion pass is off
+    weights gathered for each pass).  With ``sep`` each rank takes its
+    ``S / sep`` positions of every sequence and attention goes around the
+    sep ring (with mp, sharding at every level and dp; with pp it
+    raises).  The fusion pass is off
     (``fusion=True`` raises: not ported for hybrid models).  A step on
     gloo needs ``capture=False``."""
-    if strategy is None and dp == mp == pp == sharding == 1:
+    if strategy is None and dp == mp == pp == sharding == sep == 1:
         gen = make_generator(seed, device)
         model = GPTForCausalLM(cfg, generator=gen)
         if amp_o2:
             decorate(model, level="O2", dtype="bfloat16")
-        return TrainStep(model, GPTPretrainingCriterion(model.mp_group),
+        return TrainStep(model,
+                         GPTPretrainingCriterion(mp_group=model.mp_group),
                          optimizer or _default_optimizer(), gen,
                          fusion=fusion, capture=capture)
     if strategy is None:
@@ -461,7 +470,8 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp,
                                    "pp_degree": pp,
-                                   "sharding_degree": sharding}
+                                   "sharding_degree": sharding,
+                                   "sep_degree": sep}
         strategy.pipeline_configs = {"accumulate_steps": microbatches or 1,
                                      "virtual_pp_degree": virtual_stages}
     return _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
@@ -480,6 +490,13 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
     init_parallel_env(device=device)
     fleet.init(is_collective=True, strategy=strategy)
     hcg = fleet.get_hybrid_communicate_group()
+    if hcg.get_sep_parallel_world_size() > 1 and \
+            hcg.get_pipe_parallel_world_size() > 1:
+        raise NotImplementedError(
+            f"sep_degree {hcg.get_sep_parallel_world_size()} with pp_degree "
+            f"{hcg.get_pipe_parallel_world_size()}: sequence parallelism "
+            f"inside a pipeline is not ported (ring attention runs with dp, "
+            f"mp and sharding)")
     gen = make_generator(seed, rank_device())
     model = GPTForCausalLM(cfg, generator=gen)
     tracker = model_parallel_random_seed(seed, generator=gen)
@@ -495,7 +512,7 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
             model = wrap(model)              # raises: not ported for mp
         return HybridTrainStep(
             fleet.distributed_model(model),
-            GPTPretrainingCriterion(model.mp_group),
+            GPTPretrainingCriterion(mp_group=model.mp_group),
             fleet.distributed_optimizer(optimizer or _default_optimizer()),
             gen, hcg, capture=capture, generators=tracker.generators())
     if fusion:
@@ -533,8 +550,8 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
     zero = ZeroPlan(named, hcg, level, chunks=chunks, virtual_stages=v,
                     tied=tied)
     return HybridTrainStep(
-        net, GPTPretrainingCriterion(model.mp_group), opt, gen, hcg,
-        capture=capture, generators=tracker.generators(), zero=zero,
+        net, GPTPretrainingCriterion(mp_group=model.mp_group), opt, gen,
+        hcg, capture=capture, generators=tracker.generators(), zero=zero,
         engine=engine)
 
 
@@ -639,6 +656,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="GPT: pipeline stages")
     ap.add_argument("--sharding", type=int, default=1,
                     help="GPT: ZeRO sharding ranks")
+    ap.add_argument("--sep", type=int, default=1,
+                    help="GPT: sequence-parallel ranks (ring attention)")
     ap.add_argument("--sharding-level", choices=("os", "os_g", "p_g_os"),
                     default="os_g", help="with --sharding: the ZeRO level "
                     "(default os_g)")
@@ -655,15 +674,15 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _ranks(args) -> int:
-    return args.dp * args.mp * args.pp * args.sharding
+    return args.dp * args.mp * args.pp * args.sharding * args.sep
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = _parser().parse_args(argv)
     if _ranks(args) > 1:
         if not args.model.startswith("gpt"):
-            raise SystemExit("--dp, --mp, --pp and --sharding take a GPT "
-                             "model")
+            raise SystemExit("--dp, --mp, --pp, --sharding and --sep take a "
+                             "GPT model")
         from .distributed import spawn
         spawn(_cli_rank, args=(vars(args),), nprocs=_ranks(args))
         return 0
@@ -698,7 +717,7 @@ def _run(args) -> int:
             backend = get_backend()
         step = build_train_step(
             cfg, device=dev, fusion=fusion, dp=args.dp, mp=args.mp,
-            pp=args.pp, sharding=args.sharding,
+            pp=args.pp, sharding=args.sharding, sep=args.sep,
             sharding_level=args.sharding_level if args.sharding > 1
             else None, microbatches=args.microbatches,
             virtual_stages=args.virtual_stages, capture=backend != "gloo")
@@ -706,7 +725,8 @@ def _run(args) -> int:
         what = "recompute" if args.recompute else "no recompute"
         if hybrid:
             what += (f", dp {args.dp} x mp {args.mp} x pp {args.pp} x "
-                     f"sharding {args.sharding} over {backend}")
+                     f"sharding {args.sharding} x sep {args.sep} over "
+                     f"{backend}")
     else:
         cfg = CONFIGS[args.model]()
         step = build_bert_pretrain_step(cfg, device=dev, fusion=fusion)
@@ -736,7 +756,8 @@ def _run(args) -> int:
         print(json.dumps({"model": args.model, "device": name,
                           "batch": batch, "seq": seq, "fusion": fusion,
                           "dp": args.dp, "mp": args.mp, "pp": args.pp,
-                          "sharding": args.sharding, "losses": losses,
+                          "sharding": args.sharding, "sep": args.sep,
+                          "losses": losses,
                           "median_step_ms": med * 1e3,
                           "sequences_per_s": batch / med,
                           "tokens_per_s": batch * seq / med,

@@ -298,7 +298,7 @@ def test_recompute_rerun_replays_and_restores_the_generator():
     state read and set here is what a capture reads and sets for the
     graph, so a captured step advances the generator as an eager one."""
     def block(x, generator=None):
-        return F.dropout(x * 2.0, 0.5, True, generator)
+        return F.dropout(x * 2.0, 0.5, training=True, generator=generator)
 
     x = torch.randn(64, 8)
     gen = make_generator(5, "cpu")

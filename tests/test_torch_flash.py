@@ -165,17 +165,17 @@ def _forbid(*a, **k):
 
 
 def _fake_launches(monkeypatch, calls):
-    def fwd(q, *a):
+    def fwd(q, *a, hash_base=None):
         calls.append("fwd")
         b, s, h, _ = q.shape
         return (torch.empty(q.shape, device="meta"),
                 torch.empty((b, h, s), device="meta"))
 
-    def dq(q, *a):
+    def dq(q, *a, hash_base=None):
         calls.append("dq")
         return torch.empty(q.shape, device="meta")
 
-    def dkv(q, *a):
+    def dkv(q, *a, hash_base=None):
         calls.append("dkv")
         return (torch.empty(q.shape, device="meta"),
                 torch.empty(q.shape, device="meta"))
@@ -545,7 +545,8 @@ def test_cuda_tensor_carries_seq_lens_and_causal_shift_to_the_kernels(
         monkeypatch):
     seen = []
 
-    def launch(q, *a):
+    def launch(q, *a, hash_base=None):
+        assert hash_base is None
         seen.append(a[-2:])
         return (torch.empty(q.shape, device="meta"),
                 torch.empty((q.shape[0], q.shape[2], q.shape[1]),

@@ -75,7 +75,8 @@ def _batch():
 
 NAMES = ("data", "pipe", "sharding", "sep", "model")
 DIMS = [(2, 1, 1, 1, 2), (1, 2, 1, 1, 4), (2, 2, 1, 1, 2), (8, 1, 1, 1, 1),
-        (1, 1, 2, 2, 2)]
+        (1, 1, 2, 2, 2), (1, 1, 1, 2, 1), (2, 1, 1, 2, 1), (1, 1, 1, 4, 2),
+        (2, 1, 2, 2, 1)]
 # the four-rank topologies whose groups the layers' spawn builds
 HCG_DIMS = [(2, 1, 1, 1, 2), (1, 2, 1, 1, 2), (1, 1, 2, 1, 2),
             (1, 1, 1, 2, 2)]
@@ -120,7 +121,8 @@ def test_topology_rank_arithmetic_matches_jax(dims, jax_dist):
 @pytest.mark.parametrize("configs", [
     {"dp_degree": 2, "mp_degree": 2, "pp_degree": 2}, {"mp_degree": 2},
     {"mp_degree": 4}, {}, {"dp_degree": 1, "mp_degree": 8},
-    {"sharding_degree": 2, "mp_degree": 2}], ids=str)
+    {"sharding_degree": 2, "mp_degree": 2}, {"sep_degree": 2},
+    {"sep_degree": 2, "mp_degree": 2, "sharding_degree": 2}], ids=str)
 def test_fleet_degrees_match_jax_fleet_init(configs, jax_dist, monkeypatch):
     import paddle_tpu.distributed.fleet as jfleet
     monkeypatch.delenv("MASTER_ADDR", raising=False)
@@ -557,7 +559,7 @@ def _streams_rank(batch):
     plain_dropout = common.dropout
 
     def recording(x, p=0.5, training=True, generator=None):
-        out = plain_dropout(x, p, training, generator)
+        out = plain_dropout(x, p, training=training, generator=generator)
         if x.dim() == 4:                   # attention probabilities
             masks.append(((out != 0) | (x == 0)).numpy())
         return out

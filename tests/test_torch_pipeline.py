@@ -538,7 +538,7 @@ def _degree_one_rank(batch):
     s.hybrid_configs = {"sep_degree": 2}
     try:
         fleet.init(is_collective=True, strategy=s)
-    except NotImplementedError as e:
+    except ValueError as e:
         sep = str(e)
     return {"want": want, "got": got, "same": same, "sep": sep,
             "level": zero_level(hyb.optimizer),
@@ -551,9 +551,11 @@ def test_degree_one_with_os_g_is_the_single_card_step(tmp_path):
     assert res["level"] == "os_g" and res["zero"]
     assert res["got"] == res["want"]
     assert res["same"]
-    # of the hybrid degrees only sep is refused, naming its ROADMAP item
-    assert "sep_degree 2" in res["sep"] and "item 4.3" in res["sep"]
-    assert "pipeline" not in res["sep"] and "sharding" not in res["sep"]
+    # sep is ported: like every degree it must cover the world (a world
+    # of one here), and nothing names a ROADMAP item
+    assert "'sep_degree': 2" in res["sep"] and \
+        "make 2 ranks; the world has 1" in res["sep"]
+    assert "item 4.3" not in res["sep"]
 
 
 def test_train_cli_spawns_pp_x_sharding_ranks(monkeypatch):

@@ -368,7 +368,8 @@ def test_dropout_needs_the_generator_and_scales_kept_values():
     with pytest.raises(ValueError, match="generator"):
         F.dropout(x, 0.1, training=True)
     assert F.dropout(x, 0.1, training=False) is x
-    y = F.dropout(x, 0.25, True, make_generator(1, "cpu"))
+    y = F.dropout(x, 0.25, training=True,
+                  generator=make_generator(1, "cpu"))
     kept = y[y != 0]
     assert torch.allclose(kept, torch.full_like(kept, 1 / 0.75))
     assert 0.70 < kept.numel() / x.numel() < 0.80

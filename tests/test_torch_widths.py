@@ -267,7 +267,8 @@ def test_bf16_flash_fwd_reads_qkv_slices_in_place(stub_c, monkeypatch, d):
     assert fn == "ptt_flash_fwd"
     assert args[13:15] == (None, 0)      # fixed lengths: no unit table
     assert list(args[15]) == [*st[:3]] * 3 + [0, 0, 0]
-    assert args[16:21] == (b, h, s, s, d) and args[-3:-1] == (1, 1)
+    assert args[16:21] == (b, h, s, s, d) and args[-4:-2] == (1, 1)
+    assert list(args[-1]) == [0, 0, 0, 0]    # the dropout hash's own base
 
 
 # -- GPT's wide presets ---------------------------------------------------------

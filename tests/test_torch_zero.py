@@ -663,7 +663,7 @@ def _eager_rank(arrays, batch, dp, sh):
         else:
             net, opt, _ = group_sharded_parallel(model, _optimizer(),
                                                  level="p_g_os")
-        crit = GPTPretrainingCriterion(model.mp_group)
+        crit = GPTPretrainingCriterion(mp_group=model.mp_group)
         params = dict(net.named_parameters())
         state = opt.init_state_tree(params)
         losses, norms = [], []
