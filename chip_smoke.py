@@ -366,6 +366,32 @@ line is printed:
              bf16) with the heads split over the two ranks: each rank's
              output and gradients the same bits as the whole run's head
              slice.
+18. sharded-ckpt  sharded checkpoints of the hybrid steps, inside phase
+             16's rank processes (gloo, f32, GPT-345m 8 x 1024): (b) pp 2
+             x v 2 x M 4 and (c) sharding 2 at ``os_g`` at full depth,
+             (d) mp 2 x pp 2 x sharding 2 at ``HYBRID_C_LAYERS``.  Each
+             saves after its first step through a ``CheckpointManager``,
+             once synchronously and once asynchronously (every rank its
+             windows, in the JAX package's layout, into one directory);
+             a fresh step from seed 1 restores each and runs the steps
+             left: the losses, every state tensor's bits and the
+             generators the uninterrupted run's, each rank's launches of
+             rows 1-3 and 7-8 on the counters in the resumed steps.  The
+             bytes of the windows the ranks wrote sum to the world of
+             one's.  Then, in this process, a world-of-one step restores
+             (b)'s and (c)'s files: every window of every rank the same
+             bits in its tensors.  Save and restore seconds printed.
+19. moe-ep   ``MoELayer`` at GPT-345m's width (D 1024, Dff 4096, 8
+             experts, gshard top-2, capacity factor 1.2, 8 x 1024 tokens,
+             f32): the world of one on the card (its forward + backward
+             ms, eager), then ep 2 and dp 2 x ep 2 over gloo in one
+             four-rank spawn: the loss and the loss after one SGD step of
+             0.1 (the dryrun's recipe) within ``MOE_LOSS_RTOL`` of the
+             world of one's, each rank's experts the world of one's bits
+             before the step, and the gradients the step applies (its
+             experts' windows and the gate's, averaged over the data
+             group; a fixed stride of elements) within ``MOE_GRAD_RTOL``
+             of the world of one's, in norm.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -538,6 +564,20 @@ HYBRID_BACKEND, HYBRID_TIMEOUT = "nccl", 420
 ZP_PP, ZP_V, ZP_M = 2, 2, 4
 ZP_STATE_SHARE = 0.55
 ZP_WORD = "gpt.embeddings.word_embeddings.weight"
+# phase 18: the checkpoint directory's filesystem must hold the two
+# checkpoints of a run and the two kept for the world of one's loads
+# (CKPT_DISK_MARGIN over their bytes)
+# phase 19: the MoE layer at GPT-345m's width; the tokens split over dp
+# ranks and the experts over ep ranks route as the whole batch does, but
+# the gate's product over fewer rows may round otherwise, and a token near
+# a tie may change expert: the losses within MOE_LOSS_RTOL of the world of
+# one's, relative.  The SGD step moves the loss only about 2e-4 relative,
+# so the gradients it applies are held too, each within MOE_GRAD_RTOL of
+# the world of one's in norm (a rank's expert gradient dropped, or summed
+# where it is averaged, reads 1.0), on every MOE_SAMPLES-th element
+MOE_D, MOE_DFF, MOE_E, MOE_CF, MOE_TOKENS = 1024, 4096, 8, 1.2, 8 * 1024
+MOE_LOSS_RTOL, MOE_GRAD_RTOL, MOE_TIMED = 1e-4, 1e-3, 5
+MOE_SAMPLES = 1 << 16
 # phase 17: sequence parallelism over SEP_DEGREE ranks on the card; the
 # ring's causal shifts on a 512-row block (its keys all after its queries,
 # the diagonal, all before), each with the hash base of the ring step that
@@ -592,11 +632,11 @@ SOURCES = {
     "layer_norm_fwd": "paddle_tpu_torch/csrc/layer_norm.cu",
     "layer_norm_bwd": "paddle_tpu_torch/csrc/layer_norm.cu",
     "flash_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/csrc/flash_attention_dq.cu",
+    "flash_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention_dkv.cu",
     "flash_packed_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_packed_bwd_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
-    "flash_packed_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_packed_bwd_dq": "paddle_tpu_torch/csrc/flash_attention_dq.cu",
+    "flash_packed_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention_dkv.cu",
     "softmax_xent_fwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
     "softmax_xent_bwd": "paddle_tpu_torch/csrc/softmax_xent.cu",
     "ln_matmul": "paddle_tpu_torch/csrc/block_gemm.cu",
@@ -5752,11 +5792,14 @@ def _upd_diff(got, want):
     return worst, rel
 
 
-def _zp_rank(kind, backend):
+def _zp_rank(kind, backend, ckpt_root=None):
     """One rank of phase 16's (b), (c), (d) or (e): f32 steps (dropout 0,
     AdamW and the clip) from seed 0's weights at ``ZP_DEGREES[kind]``;
     (b) and (c) then one step with the planted fault against the honest
-    first step's updates, and (b) O2 bf16 steps at dropout 0.1."""
+    first step's updates, and (b) O2 bf16 steps at dropout 0.1.  With
+    ``ckpt_root``, phase 18's work on the same ranks: the honest run saves
+    after its first step (:func:`_ckpt_save`), and fresh steps resume from
+    its files (:func:`_ckpt_resume`)."""
     from paddle_tpu_torch.distributed import (init_parallel_env, rank_device,
                                               unwrap_model)
     from paddle_tpu_torch.distributed.sharding import state_bytes, window
@@ -5770,9 +5813,9 @@ def _zp_rank(kind, backend):
     ids, labels = make_batch(cfg, HYBRID_BATCH, TRAIN_SEQ, seed=0,
                              device=dev)
 
-    def build(amp_o2=False, c=cfg):
+    def build(amp_o2=False, c=cfg, seed=0):
         return build_train_step(c, device=dev, amp_o2=amp_o2, fusion=False,
-                                capture=capture,
+                                capture=capture, seed=seed,
                                 optimizer=_hybrid_optimizer(bf16=amp_o2),
                                 **degrees)
 
@@ -5781,13 +5824,21 @@ def _zp_rank(kind, backend):
     coords = (hcg.get_data_parallel_rank(), hcg.get_stage_id(),
               hcg.get_sharding_parallel_rank(), hcg.get_model_parallel_rank())
     init = _weights(step)
-    first = {}
+    first, saved = {}, {}
     n_steps = HYBRID_C_STEPS if layers else HYBRID_STEPS
+
+    def after_first():
+        first.update(_weights(step))
+        if ckpt_root is not None:
+            saved.update(_ckpt_save(step, os.path.join(ckpt_root, kind)))
+
     losses, times, launches, norms = _hybrid_steps(
-        step, ids, labels, n_steps,
-        after_first=lambda: first.update(_weights(step)))
+        step, ids, labels, n_steps, after_first=after_first)
     if capture:
         _check_captured(f"zero-pipeline ({kind})", step, n_steps)
+    ckpt = None
+    if ckpt_root is not None:
+        ckpt = _ckpt_after(step, saved, losses)
     updates, axes = _updates(step, init)
     first = {n: first[n] - init[n] for n in first}
     micro = step.engine.M if step.engine is not None else 1
@@ -5807,6 +5858,8 @@ def _zp_rank(kind, backend):
         res["updates"] = updates
     del step, updates
     _free()
+    if ckpt is not None:
+        res["ckpt"] = _ckpt_resume(ckpt, build, ids, labels, n_steps)
     if kind == "b":
         # a micro-batch's gradient dropped: the last virtual stage passes
         # no gradient back for micro-batch 2 of each step
@@ -5937,10 +5990,205 @@ def _check_planted(what, ranks, fault):
                              f"the comparison")
 
 
+# -- phase 18: sharded checkpoints (on phase 16's ranks) -------------------------
+
+def _ckpt_save(step, root):
+    """Save ``step`` as step 1 under ``root/sync`` (synchronously) and
+    ``root/async`` (through an asynchronous manager, waited for later):
+    {"sync_s", "async_s": the seconds until save returned, "manager",
+    "windows": this rank's windows as saved, "bytes": what it wrote}."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.distributed.checkpoint import rank_payload_bytes
+    from paddle_tpu_torch.train import save_checkpoint
+    t0 = time.perf_counter()
+    save_checkpoint(CheckpointManager(os.path.join(root, "sync")), 1, step,
+                    block=True)
+    sync_s = time.perf_counter() - t0
+    mgr = CheckpointManager(os.path.join(root, "async"), async_save=True)
+    t0 = time.perf_counter()
+    save_checkpoint(mgr, 1, step)
+    async_s = time.perf_counter() - t0
+    return {"root": root, "sync_s": sync_s, "async_s": async_s,
+            "manager": mgr, "windows": _tree_windows(step),
+            "bytes": rank_payload_bytes(os.path.join(
+                root, "sync", "step_00000001"), step.hcg.get_global_rank())}
+
+
+def _bits_digest(t):
+    """An exact digest of ``t``'s bits computed on its device: the sum
+    modulo 2^64 of each element's bits times its index + 1 (any changed,
+    lost or moved element changes it), with the element count."""
+    b = _bits(t).reshape(-1).to(torch.int64)
+    w = torch.arange(1, b.numel() + 1, device=b.device, dtype=torch.int64)
+    return (b.numel(), int((b * w).sum()))
+
+
+def _tree_windows(step):
+    """Every window of ``step``'s params and optimizer state (replicas
+    too): [(leaf path, window, global shape, bits digest)]."""
+    from paddle_tpu_torch.distributed.checkpoint import ShardWindow, \
+        _flat_items
+    tree = step.checkpoint_tree()
+    out = []
+    for path, w in _flat_items({"params": tree["params"],
+                                "opt_tree": tree["opt_tree"]}):
+        if isinstance(w, ShardWindow):
+            out.append((path, w.window, w.global_shape,
+                        _bits_digest(w.tensor())))
+    return out
+
+
+def _ckpt_after(step, saved, losses):
+    """After the uninterrupted run: the async save waited for, and the
+    state's bits (every tensor, the generators)."""
+    from paddle_tpu_torch.distributed.checkpoint_layout import generators_of
+    t0 = time.perf_counter()
+    saved["manager"].wait()
+    return {**{k: saved[k] for k in ("root", "sync_s", "async_s", "windows",
+                                     "bytes")},
+            "losses": losses, "async_wait_s": time.perf_counter() - t0,
+            "state": {n: _bits_sha(t) for n, t in _step_state(step).items()},
+            "generators": [_bits_sha(g.get_state())
+                           for g in generators_of(step)]}
+
+
+def _ckpt_resume(ck, build, ids, labels, n_steps):
+    """A fresh step (seed 1) restored from each of the run's checkpoints
+    runs the steps left: {mode: (restore seconds, losses, the tensors and
+    generators whose bits differ from the uninterrupted run's, launches,
+    step seconds)}."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.distributed.checkpoint_layout import generators_of
+    from paddle_tpu_torch.train import restore_checkpoint
+    out = {}
+    for mode in ("sync", "async"):
+        fresh = build(seed=1)
+        t0 = time.perf_counter()
+        n = restore_checkpoint(CheckpointManager(
+            os.path.join(ck["root"], mode)), fresh)
+        restore_s = time.perf_counter() - t0
+        losses, times, launches, _ = _hybrid_steps(fresh, ids, labels,
+                                                   n_steps - 1)
+        state = {k: _bits_sha(t) for k, t in _step_state(fresh).items()}
+        gens = [_bits_sha(g.get_state()) for g in generators_of(fresh)]
+        out[mode] = {"step": n, "restore_s": restore_s,
+                     "losses": ck["losses"][:1] + losses, "times": times,
+                     "launches": launches,
+                     "differ": [k for k in ck["state"]
+                                if state.get(k) != ck["state"][k]],
+                     "generators": gens == ck["generators"]}
+        del fresh
+        _free()
+    return {**{k: ck[k] for k in ("losses", "sync_s", "async_s",
+                                  "async_wait_s", "windows", "bytes")},
+            **out}
+
+
+def _w1_leaf(tree, path, shape):
+    """A world-of-one tree's tensor for a sharded leaf ``path`` of
+    ``shape``: a ``__ppstack__`` leaf stacked from its blocks."""
+    node = tree
+    for k in path[:-1]:
+        node = node[k]
+    name = path[-1]
+    if not name.startswith("__ppstack__."):
+        return node[name]
+    loc = name[len("__ppstack__."):]
+    n = int(np.prod(shape[:len(shape) - node[f"gpt.layers.0.{loc}"].dim()]))
+    return torch.stack([node[f"gpt.layers.{i}.{loc}"]
+                        for i in range(n)]).reshape(shape)
+
+
+def _ckpt_world_of_one(step, what, root, ranks):
+    """The world-of-one f32 ``step`` restores the ranks' checkpoint at
+    ``root``: every window of every rank the same bits in its tensors.
+    Returns (restore seconds, windows checked)."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.train import restore_checkpoint
+    t0 = time.perf_counter()
+    n = restore_checkpoint(CheckpointManager(root), step)
+    restore_s = time.perf_counter() - t0
+    tree = step.checkpoint_tree()
+    tree = {"params": tree["params"], "opt_tree": tree["opt_tree"]}
+    bad, checked = [], 0
+    for r in ranks:
+        for path, win, shape, digest in r["ckpt"]["windows"]:
+            t = _w1_leaf(tree, path, shape)
+            got = _bits_digest(t[tuple(slice(a, b) for a, b in win)])
+            checked += 1
+            if got != tuple(digest):
+                bad.append((path, win))
+    if n != 1 or bad:
+        raise AssertionError(f"sharded-ckpt {what}: the world of one restored "
+                             f"step {n}; windows whose bits differ "
+                             f"{bad[:4]} of {checked}")
+    return restore_s, checked
+
+
+def _w1_bytes(step):
+    """The world of one's bytes of params and optimizer state, and those
+    of one block."""
+    tree = step.checkpoint_tree()
+    leaves = [(p, t.numel() * t.element_size()) for p, t in _flat_leaves(
+        {"params": tree["params"], "opt_tree": tree["opt_tree"]})]
+    return (sum(b for _, b in leaves),
+            sum(b for p, b in leaves if p[-1].startswith("gpt.layers.0.")))
+
+
+def _flat_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _check_ckpt(what, ranks, per_step, world_bytes=None):
+    """Phase 18's checks of one run: each resume the uninterrupted bits,
+    its launches; the ranks' bytes against the world of one's."""
+    for r in ranks:
+        ck = r["ckpt"]
+        for mode in ("sync", "async"):
+            m = ck[mode]
+            if m["step"] != 1 or m["losses"] != ck["losses"] or \
+                    m["differ"] or not m["generators"]:
+                raise AssertionError(
+                    f"sharded-ckpt {what} rank {r['rank']} {mode}: restored "
+                    f"step {m['step']}, losses {m['losses']} against "
+                    f"{ck['losses']}, tensors that differ {m['differ'][:4]}, "
+                    f"generators the same {m['generators']}")
+            _check_counts(f"sharded-ckpt {what} rank {r['rank']} {mode}",
+                          m["launches"], per_step(r), len(ck["losses"]) - 1)
+    total = sum(r["ckpt"]["bytes"] for r in ranks)
+    ck = ranks[0]["ckpt"]
+    log(f"[sharded-ckpt] {what}: save s sync "
+        f"{[round(r['ckpt']['sync_s'], 2) for r in ranks]}, async (until "
+        f"save returned) {[round(r['ckpt']['async_s'], 2) for r in ranks]} "
+        f"+ waited {[round(r['ckpt']['async_wait_s'], 2) for r in ranks]}; "
+        f"restore s sync {[round(r['ckpt']['sync']['restore_s'], 2) for r in ranks]}, "
+        f"async {[round(r['ckpt']['async']['restore_s'], 2) for r in ranks]}; "
+        f"resumed losses {ck['sync']['losses']} = uninterrupted "
+        f"{ck['losses']}; every state tensor and generator the same bits "
+        f"on every rank; bytes written a rank "
+        f"{[r['ckpt']['bytes'] for r in ranks]}, sum {total}"
+        + ("" if world_bytes is None else
+           f" (the world of one's {world_bytes})")
+        + "; launches in the resumed steps (sync) by rank: "
+        + "; ".join(f"{r['rank']}: " + ", ".join(
+            f"{k} {r['ckpt']['sync']['launches'][k]}"
+            for k in FLASH_KERNELS + LN_KERNELS) for r in ranks))
+    if world_bytes is not None and total != world_bytes:
+        raise AssertionError(f"sharded-ckpt {what}: the ranks wrote {total} "
+                             f"bytes of windows, the world of one holds "
+                             f"{world_bytes}")
+
+
 def phase_zero_pipeline(smi, w1):
     """ZeRO and the pipeline on the card (see the module docstring): (a)
-    from phase 15's world-of-one process, then (b) to (e).  Returns
-    {path: launch counts}."""
+    from phase 15's world-of-one process, then (b) to (e), and on the
+    ranks of (b), (c) and (d) phase 18's sharded checkpoints.  Returns
+    ({path: launch counts}, {path: launch counts} of phase 18's resumed
+    steps)."""
     from paddle_tpu_torch.distributed import spawn
     _free_steps()
     out = {}
@@ -5969,11 +6217,34 @@ def phase_zero_pipeline(smi, w1):
         return lambda r: _stage_per_step(cfg, r["pp"], r["coords"][1],
                                          r["micro"])
 
+    import tempfile
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    # (b)'s kept checkpoint beside (c)'s two, GPT-345m's f32 state each
+    # (AdamW's two moments beside the weights)
+    n_params = 355_000_000
+    _need_disk("sharded-ckpt", ckpt_root, 3 * 3 * 4 * n_params)
+    resumed, ck_secs = {}, []
+
+    def ckpt_secs(ranks):
+        """The seconds phase 18 added to a run's ranks (rank 0's)."""
+        ck = ranks[0]["ckpt"]
+        return (ck["sync_s"] + ck["async_s"] + ck["async_wait_s"] +
+                sum(ck[m]["restore_s"] + sum(ck[m]["times"])
+                    for m in ("sync", "async")))
+
     t0 = time.perf_counter()
-    ranks = spawn(_zp_rank, args=("b", "gloo"), nprocs=ZP_PP,
+    ranks = spawn(_zp_rank, args=("b", "gloo", ckpt_root), nprocs=ZP_PP,
                   timeout=HYBRID_TIMEOUT)
+    shutil.rmtree(os.path.join(ckpt_root, "b", "async"), ignore_errors=True)
     _check_zp(f"(b) pp {ZP_PP}, v {ZP_V}, M {ZP_M} over gloo", ranks,
               w1["b"], per_stage(full))
+    ranks_b = ranks
+    for r in ranks_b:
+        r.pop("updates", None)
+    for r in ranks_b:
+        resumed[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} pp{ZP_PP} v{ZP_V} "
+                f"M{ZP_M} gloo stage {r['coords'][1]} resumed"] = \
+            r["ckpt"]["sync"]["launches"]
     _check_planted("(b)", ranks, "micro-batch 2's gradient dropped")
     bf = [r["bf16"] for r in ranks]
     words = [b["word"] for b in bf]
@@ -5996,10 +6267,38 @@ def phase_zero_pipeline(smi, w1):
     del ranks, bf
 
     t0 = time.perf_counter()
-    ranks = spawn(_zp_rank, args=("c", "gloo"), nprocs=2,
+    ranks = spawn(_zp_rank, args=("c", "gloo", ckpt_root), nprocs=2,
                   timeout=HYBRID_TIMEOUT)
+    shutil.rmtree(os.path.join(ckpt_root, "c", "async"), ignore_errors=True)
     _check_zp("(c) sharding 2 at os_g over gloo", ranks, w1["b"],
               lambda r: _plain_per_step(full))
+    # (b)'s and (c)'s kept files into one world-of-one step here
+    t0 = time.perf_counter()
+    from paddle_tpu_torch.train import build_train_step
+    one = build_train_step(_hybrid_cfg(dropout=False), device=DEVICE,
+                           amp_o2=False, fusion=False, seed=1, capture=False,
+                           optimizer=_hybrid_optimizer())
+    w1_bytes, block_bytes = _w1_bytes(one)
+    for kind, what, rk in (("b", f"(b) pp {ZP_PP} x v {ZP_V}", ranks_b),
+                           ("c", "(c) sharding 2 at os_g", ranks)):
+        got = _ckpt_world_of_one(one, what, os.path.join(
+            ckpt_root, kind, "sync"), rk)
+        shutil.rmtree(os.path.join(ckpt_root, kind), ignore_errors=True)
+        log(f"[sharded-ckpt] {what} into a world of one on the card: "
+            f"restored in {got[0]:.2f} s, {got[1]} windows of the ranks "
+            f"the same bits")
+    del one
+    _free()
+    ck_secs.append(time.perf_counter() - t0)
+    log(f"[sharded-ckpt] the world of one's build, two restores and checks "
+        f"{ck_secs[-1]:.1f} s")
+    _check_ckpt(f"(b) pp {ZP_PP} x v {ZP_V} x M {ZP_M}", ranks_b,
+                per_stage(full), w1_bytes)
+    _check_ckpt("(c) sharding 2 at os_g", ranks,
+                lambda r: _plain_per_step(full), w1_bytes)
+    ck_secs.extend([ckpt_secs(ranks_b), ckpt_secs(ranks)])
+    resumed[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} sharding2 os_g gloo rank 0 "
+            f"resumed"] = ranks[0]["ckpt"]["sync"]["launches"]
     _check_planted("(c)", ranks, "the two ranks' windows traded")
     shares = [r["state_bytes"] / r["whole_bytes"] for r in ranks]
     log(f"[zero-pipeline] (c) optimizer-state bytes a rank "
@@ -6013,12 +6312,25 @@ def phase_zero_pipeline(smi, w1):
     del ranks
 
     t0 = time.perf_counter()
-    ranks = spawn(_zp_rank, args=("d", "gloo"), nprocs=8,
+    ranks = spawn(_zp_rank, args=("d", "gloo", ckpt_root), nprocs=8,
                   timeout=HYBRID_TIMEOUT)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
     _check_zp(f"(d) mp 2 x pp 2 x sharding 2 at os_g, v 2, "
               f"{HYBRID_C_LAYERS} layers, over gloo", ranks, w1["c"],
               per_stage(cut))
+    _check_ckpt(f"(d) mp 2 x pp 2 x sharding 2, {HYBRID_C_LAYERS} layers",
+                ranks, per_stage(cut),
+                w1_bytes - (full.num_layers - cut.num_layers) * block_bytes)
+    ck_secs.append(ckpt_secs(ranks))
+    for r in ranks:
+        if r["coords"][0] == r["coords"][2] == r["coords"][3] == 0:
+            resumed[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x"
+                    f"{TRAIN_SEQ} mp2 pp2 sharding2 gloo stage "
+                    f"{r['coords'][1]} resumed"] = r["ckpt"]["sync"]["launches"]
     log(f"[zero-pipeline] (d) {time.perf_counter() - t0:.1f} s")
+    log(f"[time] sharded-ckpt {sum(ck_secs):.1f} s (saves, restores and "
+        f"resumed steps on rank 0 of (b), (c), (d), and the world of one's "
+        f"restores; budget 100 s)")
     for r in ranks:
         if r["coords"][0] == r["coords"][2] == r["coords"][3] == 0:
             out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x"
@@ -6038,7 +6350,7 @@ def phase_zero_pipeline(smi, w1):
         log(f"[zero-pipeline] (e) not run: this machine has {cards} card(s); "
             f"NCCL takes one card a rank, so pp {ZP_PP} over NCCL needs "
             f"{ZP_PP}")
-    return out
+    return out, resumed
 
 
 # -- phase 17: sequence parallelism ---------------------------------------------
@@ -6358,6 +6670,164 @@ def phase_sep(smi, w1):
     return out
 
 
+# -- phase 19: MoE and expert parallelism ------------------------------------------
+
+def _moe_layer(seed, moe_group=None):
+    """The MoE layer at GPT-345m's width from ``seed`` (every rank draws
+    the whole layer and keeps its experts)."""
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertMlp,
+                                                                  MoELayer)
+    gen = make_generator(seed, DEVICE)
+    experts = ExpertMlp(MOE_E, MOE_D, MOE_DFF, generator=gen,
+                        moe_group=moe_group)
+    layer = MoELayer(MOE_D, experts, gate={"type": "gshard", "top_k": 2},
+                     capacity_factor=MOE_CF, moe_group=moe_group,
+                     generator=gen)
+    x = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device=DEVICE)
+    return layer, x
+
+
+def _moe_sample(t):
+    """About MOE_SAMPLES elements of ``t`` at a fixed stride, on the host."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // MOE_SAMPLES)].cpu().numpy()
+
+
+def _moe_recipe(layer, x, data_group=None):
+    """The dryrun's recipe on this rank's tokens: the loss (mean of y^2
+    over every rank's tokens), the gradients averaged over the data
+    group, one SGD step of 0.1, the loss again.  Returns the two losses
+    and the gradients the step applied."""
+    from paddle_tpu_torch.distributed import ReduceOp, all_reduce
+
+    def mean(t):
+        t = t.detach().clone()
+        if data_group is not None:
+            all_reduce(t, op=ReduceOp.AVG, group=data_group)
+        return t.item()
+
+    params = dict(layer.named_parameters())
+    loss = (layer(x).float() ** 2).mean()
+    loss.backward()
+    l0 = mean(loss)
+    grads = {}
+    with torch.no_grad():
+        for name, p in params.items():
+            g = grads[name] = p.grad
+            if data_group is not None:
+                all_reduce(g, op=ReduceOp.AVG, group=data_group)
+            p -= 0.1 * g
+            p.grad = None
+        l1 = mean((layer(x).float() ** 2).mean())
+    return [l0, l1], grads
+
+
+def _moe_rank(cases):
+    """ep 2 (ranks 0 and 1) and dp 2 x ep 2 (all four) over gloo on the
+    card: each rank's experts' bits before the step, the recipe's losses
+    and samples of the gradients it applied."""
+    from paddle_tpu_torch.distributed import (build_mesh, get_rank,
+                                              init_parallel_env)
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        expert_parallel_groups
+    init_parallel_env("gloo", device=DEVICE)
+    me, out = get_rank(), {}
+    for name, degrees in cases.items():
+        n = int(np.prod(list(degrees.values())))
+        mesh = build_mesh(degrees, world_size=n)
+        ep, dg = expert_parallel_groups(mesh, me)
+        if ep is None:
+            continue
+        layer, x = _moe_layer(0, ep)
+        coords = mesh.coords(me)
+        rows = x.reshape(mesh.shape["dp"], -1, MOE_D)[coords["dp"]]
+        experts = {k: _bits_sha(p) for k, p in
+                   layer.experts.named_parameters()}
+        t0 = time.perf_counter()
+        losses, grads = _moe_recipe(layer, rows,
+                                    dg if dg.nranks > 1 else None)
+        out[name] = {"coords": coords, "experts": experts, "losses": losses,
+                     "grads": {k: _moe_sample(g) for k, g in grads.items()},
+                     "seconds": time.perf_counter() - t0}
+        del layer, x
+        _free()
+    return out
+
+
+def phase_moe(smi):
+    """MoE and expert parallelism on the card (see the module docstring)."""
+    from paddle_tpu_torch.distributed import spawn
+    t_phase = time.perf_counter()
+    layer, x = _moe_layer(0)
+    local = MOE_E // 2
+    shas = {j: {k: _bits_sha(p[j * local:(j + 1) * local])
+                for k, p in layer.experts.named_parameters()}
+            for j in range(2)}
+    fb = []
+    for i in range(MOE_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (layer(x).float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        if i:
+            fb.append((time.perf_counter() - t0) * 1e3)
+        layer.zero_grad(set_to_none=True)
+    want, grads = _moe_recipe(layer, x)
+    # each ep rank's window of the expert gradients, the gate's whole
+    want_g = {j: {k: _moe_sample(g[j * local:(j + 1) * local]
+                                 if k.startswith("experts.") else g)
+                  for k, g in grads.items()} for j in range(2)}
+    del layer, x, grads
+    _free()
+    cases = {"ep2": {"ep": 2}, "dp2xep2": {"dp": 2, "ep": 2}}
+    ranks = spawn(_moe_rank, args=(cases,), nprocs=4, timeout=HYBRID_TIMEOUT)
+    worst, worst_g = 0.0, dict.fromkeys(cases, 0.0)
+    for name in cases:
+        for r in ranks:
+            got = r.get(name)
+            if got is None:
+                continue
+            j = got["coords"]["ep"]
+            err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                          want))
+            worst = max(worst, err)
+            if sorted(got["grads"]) != sorted(want_g[j]):
+                raise AssertionError(f"moe-ep {name}: gradients of "
+                                     f"{sorted(got['grads'])}, want "
+                                     f"{sorted(want_g[j])}")
+            err_g = {k: float(np.linalg.norm(g - want_g[j][k])
+                              / np.linalg.norm(want_g[j][k]))
+                     for k, g in got["grads"].items()}
+            worst_g[name] = max(worst_g[name], *err_g.values())
+            if (got["experts"] != shas[j] or not err <= MOE_LOSS_RTOL
+                    or not max(err_g.values()) <= MOE_GRAD_RTOL):
+                raise AssertionError(
+                    f"moe-ep {name} rank at {got['coords']}: losses "
+                    f"{got['losses']} against the world of one's {want} "
+                    f"(relative {err:.2e}, bound {MOE_LOSS_RTOL:.0e}); "
+                    f"gradients' relative error in norm {err_g} (bound "
+                    f"{MOE_GRAD_RTOL:.0e}); experts the world of one's "
+                    f"bits: {got['experts'] == shas[j]}")
+    if not want[1] < want[0]:
+        raise AssertionError(f"moe-ep: the SGD step did not lower the loss "
+                             f"{want}")
+    log(f"[moe-ep] MoELayer D {MOE_D}, Dff {MOE_DFF}, {MOE_E} experts, "
+        f"gshard top-2, capacity factor {MOE_CF}, {MOE_TOKENS} tokens, f32: "
+        f"world of one forward+backward (eager) median "
+        f"{statistics.median(fb):.2f} ms ({[round(t, 2) for t in fb]}); "
+        f"losses before and after one SGD step of 0.1 {want}; ep 2 "
+        f"{[r['ep2']['losses'] for r in ranks if 'ep2' in r]}, dp 2 x ep 2 "
+        f"{[r['dp2xep2']['losses'] for r in ranks]}: max relative diff "
+        f"{worst:.2e} (bound {MOE_LOSS_RTOL:.0e}); the gradients the step "
+        f"applies: max relative error in norm "
+        f"{ {k: f'{v:.2e}' for k, v in worst_g.items()} } (bound "
+        f"{MOE_GRAD_RTOL:.0e}); every rank's experts the "
+        f"world of one's bits; recipe s a rank "
+        f"{[round(r['dp2xep2']['seconds'], 2) for r in ranks]} (gloo, card "
+        f"shared); {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -6406,11 +6876,13 @@ def main() -> int:
     lap("hapi")
     hybrid, world1 = phase_hybrid(smi)
     lap("hybrid")
-    zero_pipeline = phase_zero_pipeline(smi, world1)
-    lap("zero-pipeline")
+    zero_pipeline, resumed = phase_zero_pipeline(smi, world1)
+    lap("zero-pipeline and sharded-ckpt")
     sep = phase_sep(smi, world1)
     del world1
     lap("sep")
+    phase_moe(smi)
+    lap("moe-ep")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -6463,8 +6935,10 @@ def main() -> int:
     # stages
     # phase 17's: (a)'s ring and Ulysses runs and (d)'s packed heads on each
     # rank, (b)'s steps on each rank, (c)'s data rank 0
+    # phase 18's resumed steps: (b)'s stages, (c)'s rank 0, (d)'s stages
     for path, counts in itertools.chain(hapi.items(), hybrid.items(),
-                                        zero_pipeline.items(), sep.items()):
+                                        zero_pipeline.items(), sep.items(),
+                                        resumed.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

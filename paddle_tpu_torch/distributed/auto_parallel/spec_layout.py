@@ -16,10 +16,11 @@ __all__ = ["spec_axes", "place_axis"]
 
 
 def spec_axes(entry) -> tuple:
-    """Mesh axis names of one spec entry (str, tuple or None)."""
+    """Mesh axis names of one spec entry (str, tuple or None; a list, as
+    a checkpoint index writes a tuple, too)."""
     if entry is None:
         return ()
-    if isinstance(entry, tuple):
+    if isinstance(entry, (tuple, list)):
         return tuple(entry)
     return (entry,)
 

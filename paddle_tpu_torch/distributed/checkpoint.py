@@ -5,18 +5,28 @@ directory format, so a checkpoint written by either package loads in
 the other with the same bits:
 
  - ``save_sharded(state, path)`` writes each leaf of a nested dict
-   (torch tensors, numpy arrays, :class:`HostLocalShard` windows) as
-   ``<ckpt>/data/<leaf>/<proc>_<k>.npy`` plus ``index.<proc>.json``
-   (global shape, dtype, each shard file's index window and its content
-   digest).  A torch tensor is one shard, the whole array, as a JAX
-   array on one device is.
- - ``load_sharded(path, template=None)`` verifies the checkpoint, then
-   assembles each leaf from the shard files that cover it (each file
-   read once, several at a time) and returns a nested dict of tensors:
-   on the template leaf's device, else on ``device`` (the CPU by
-   default).  ``load_state(path, state)`` copies a checkpoint into the
-   live tensors of ``state`` in place (a captured step and the kernels'
-   TMA maps keep the addresses they baked in).
+   (torch tensors, numpy arrays, :class:`HostLocalShard` and
+   :class:`ShardWindow` windows) as ``<ckpt>/data/<leaf>/<proc>_<k>.npy``
+   plus ``index.<proc>.json`` (global shape, dtype, spec, each shard
+   file's index window and its content digest).  A torch tensor is one
+   shard, the whole array, as a JAX array on one device is.  A
+   :class:`ShardWindow` is one rank's window of a sharded array with the
+   array's spec in the JAX package's JSON form; only the rank that holds
+   replica 0 of a window writes it (the JAX package's ``replica_id``
+   skip), so the windows of a multi-rank save cover each leaf exactly
+   once, which loads check.
+ - ``load_sharded(path, mesh=None, shardings=None, template=None)``
+   verifies the checkpoint, then assembles each leaf from the shard
+   files that cover it (each file read once, several at a time) and
+   returns a nested dict of tensors: on the template leaf's device, else
+   on ``device`` (the CPU by default).  With a ``mesh`` (or a template
+   of :class:`ShardWindow` leaves) each rank gets its own window of each
+   leaf and reads and verifies only the shard files that window meets;
+   pipeline-stacked ``__ppstack__`` leaves and per-block leaves are
+   translated into each other in either direction, at any number of
+   virtual stages.  ``load_state(path, state)`` copies a checkpoint into
+   the live tensors of ``state`` in place (a captured step and the
+   kernels' TMA maps keep the addresses they baked in).
 
 Crash consistency, as in the JAX package: every payload write is
 fsynced, a ``COMMIT.<proc>`` marker (a manifest of each file's CRC32
@@ -45,6 +55,7 @@ and :func:`_replace_dir`, the seam a fault-injection test patches.
 from __future__ import annotations
 
 import io as _io
+import itertools
 import json
 import logging
 import os
@@ -57,11 +68,14 @@ import numpy as np
 import torch
 
 from ..utils.retry import retry_call, wait_until
+from .auto_parallel.spec_layout import spec_axes
 
 __all__ = ["save_sharded", "load_sharded", "save_state", "load_state",
            "CheckpointCorruptError", "ReshardError", "HostLocalShard",
-           "is_committed", "verify_checkpoint", "store_barrier",
-           "sweep_staging", "read_leaf", "process_index", "world_size"]
+           "ShardWindow", "ProcessGroupStore", "is_committed",
+           "verify_checkpoint", "store_barrier", "sweep_staging",
+           "read_leaf", "process_index", "world_size", "spec_window",
+           "rank_payload_bytes"]
 
 logger = logging.getLogger("paddle_tpu_torch.checkpoint")
 
@@ -164,6 +178,121 @@ class HostLocalShard:
         if want != tuple(self.data.shape):
             raise ValueError(f"data shape {self.data.shape} does not "
                              f"fill window {self.window}")
+
+
+class ShardWindow:
+    """One rank's window of a sharded array, the counterpart of one
+    addressable shard of a JAX array on a mesh.
+
+    ``window`` (``[[start, stop], ...]`` a dimension) places the data in
+    the array of ``global_shape``; ``spec`` is the array's
+    ``PartitionSpec`` in the JAX package's JSON form (a list, one entry a
+    dimension: None, an axis name or a list of names); ``write`` is
+    false on a rank that holds a replica of a window another rank writes.
+    The data are the live tensors, not a copy: ``parts`` is a list of
+    ``(index, tensor)``, each tensor the part of the window at ``index``
+    (``()`` for the whole window), so a window made of several tensors,
+    a pipeline stage's blocks stacked, is assembled only when it is
+    written (:meth:`tensor`) and a load copies back into the parts in
+    place (:meth:`assign`).  As a template leaf of :func:`load_sharded`
+    it asks for that window of the saved leaf."""
+
+    __slots__ = ("parts", "window", "global_shape", "spec", "write",
+                 "shape", "torch_dtype", "device")
+
+    def __init__(self, data=None, window=None, global_shape=None,
+                 spec=None, write=True, *, parts=None):
+        self.parts = [((), data)] if parts is None else list(parts)
+        first = self.parts[0][1]
+        self.global_shape = tuple(int(d) for d in global_shape)
+        self.window = [[int(a), int(b)] for a, b in window]
+        self.shape = tuple(b - a for a, b in self.window)
+        if len(self.window) != len(self.global_shape) or any(
+                not 0 <= a <= b <= d
+                for (a, b), d in zip(self.window, self.global_shape)):
+            raise ValueError(f"window {self.window} out of bounds for "
+                             f"global shape {self.global_shape}")
+        if parts is None and tuple(first.shape) != self.shape:
+            raise ValueError(f"data shape {tuple(first.shape)} does not "
+                             f"fill window {self.window}")
+        self.spec = None if spec is None else _spec_to_json(spec)
+        self.write = bool(write)
+        self.torch_dtype, self.device = first.dtype, first.device
+
+    @property
+    def dtype(self) -> str:
+        return _dtype_name(torch.empty((), dtype=self.torch_dtype))
+
+    def tensor(self) -> torch.Tensor:
+        """The window's data as one tensor (the live tensor itself when
+        the window is one part)."""
+        if len(self.parts) == 1 and self.parts[0][0] == ():
+            return self.parts[0][1].detach()
+        out = torch.empty(self.shape, dtype=self.torch_dtype,
+                          device=self.device)
+        with torch.no_grad():
+            for idx, t in self.parts:
+                out[idx] = t
+        return out
+
+    @torch.no_grad()
+    def assign(self, value: torch.Tensor) -> None:
+        """Copy ``value`` (the window's shape) into the parts in place."""
+        if tuple(value.shape) != self.shape:
+            raise ValueError(f"window {self.window}: got shape "
+                             f"{tuple(value.shape)}, want {self.shape}")
+        for idx, t in self.parts:
+            if value.dtype != t.dtype:
+                raise ValueError(f"window {self.window}: checkpoint "
+                                 f"{value.dtype}, live {t.dtype}")
+            t.copy_(value[idx])
+
+
+def _spec_to_json(spec):
+    """A spec (tuple or list; entries None, a name, or a tuple or list
+    of names) as the JSON list the JAX package writes."""
+    if spec is None:
+        return None
+    return [list(e) if isinstance(e, (tuple, list)) else e for e in spec]
+
+
+def _target_spec(saved_spec, shape, mesh):
+    """The saved spec adapted to the loading mesh (the JAX package's
+    rule): axes the mesh lacks or has at size 1 dropped, a dimension the
+    kept axes do not divide replicated."""
+    if saved_spec is None:
+        return ()
+    out = []
+    for d, e in enumerate(saved_spec):
+        kept = tuple(a for a in spec_axes(e) if mesh.shape.get(a, 1) > 1)
+        size = int(np.prod([mesh.shape[a] for a in kept])) if kept else 1
+        if kept and d < len(shape) and shape[d] % size == 0:
+            out.append(kept if len(kept) > 1 else kept[0])
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def spec_window(spec, shape, mesh, coords):
+    """The window of an array of ``shape`` that the rank at mesh
+    coordinates ``coords`` ({axis: index}) holds under ``spec``: each
+    dimension split evenly over the product of its axes, the first axis
+    the major one (``NamedSharding``'s placement)."""
+    win = []
+    spec = list(spec or ())
+    for d, dim in enumerate(shape):
+        names = [a for a in spec_axes(spec[d] if d < len(spec) else None)
+                 if mesh.shape.get(a, 1) > 1]
+        size, idx = 1, 0
+        for a in names:
+            idx = idx * mesh.shape[a] + coords.get(a, 0)
+            size *= mesh.shape[a]
+        if dim % size:
+            raise ValueError(f"dimension {d} of shape {tuple(shape)} does "
+                             f"not split over {names} ({size})")
+        w = dim // size
+        win.append([idx * w, (idx + 1) * w])
+    return win
 
 
 _SEP = "."  # flattened-tree key separator
@@ -289,7 +418,14 @@ def _snapshot(state):
     flat = list(_flat_items(state))
     out = {}
     for p, x in flat:
-        if isinstance(x, HostLocalShard):
+        if isinstance(x, ShardWindow):
+            if not x.write:
+                continue
+            t = x.tensor()
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            host.copy_(t, non_blocking=t.is_cuda)
+            out[p] = ShardWindow(host, x.window, x.global_shape, x.spec)
+        elif isinstance(x, HostLocalShard):
             copy = HostLocalShard.__new__(HostLocalShard)
             copy.dtype, copy.window = x.dtype, x.window
             copy.global_shape = x.global_shape
@@ -303,7 +439,9 @@ def _snapshot(state):
             out[p] = host
         else:
             out[p] = np.array(x, copy=True)
-    if any(isinstance(x, torch.Tensor) and x.is_cuda for _, x in flat):
+    if any((isinstance(x, torch.Tensor) and x.is_cuda) or
+           (isinstance(x, ShardWindow) and x.device.type == "cuda")
+           for _, x in flat):
         torch.cuda.synchronize()
     return _unflatten({_leaf_name(p): v for p, v in out.items()})
 
@@ -321,7 +459,14 @@ def _shard_records(state, proc):
         leaf = _leaf_name(p)
         fs = _fs_name(leaf)
         fname = f"{proc}_0.npy"
-        if isinstance(x, HostLocalShard):
+        spec = None
+        if isinstance(x, ShardWindow):
+            if not x.write:          # a replica another rank writes
+                continue
+            dtype, data = x.dtype, _to_numpy(x.tensor())
+            shape, window = list(x.global_shape), [list(w) for w in x.window]
+            spec = x.spec
+        elif isinstance(x, HostLocalShard):
             data, dtype = x.data, x.dtype
             shape, window = list(x.global_shape), [list(w) for w in x.window]
         else:
@@ -331,7 +476,7 @@ def _shard_records(state, proc):
             # a 0-d leaf has the window []
             window = [[0, int(d)] for d in data.shape]
         shard = {"file": f"{fs}/{fname}", "index": window, "digest": None}
-        index[leaf] = {"shape": shape, "dtype": dtype, "spec": None,
+        index[leaf] = {"shape": shape, "dtype": dtype, "spec": spec,
                        "shards": [shard]}
 
         def build(data=data, dtype=dtype, shard=shard):
@@ -419,9 +564,14 @@ def _save_records(records, path, proc, world, store=None, durable=True,
         # every process writes into ONE staging dir (its nonce published
         # by rank 0, fresh for each attempt), barrier on all COMMIT
         # markers, then rank 0 promotes with one rename; a crash at any
-        # phase leaves only `.tmp.<nonce>` debris for the janitor
+        # phase leaves only `.tmp.<nonce>` debris for the janitor.  The
+        # keys of a save are fresh in the store: each process counts its
+        # saves of this path there, and all save in one order, so a
+        # second save to a path never reads the first one's nonce
         base = os.path.basename(path)
         tag = f"ckpt/{run_id or '0'}/{base}"
+        seq = store.add(f"{tag}/seq/{proc}", 1)
+        tag = f"{tag}/{seq}"
         if proc == 0:
             nonce = nonce or uuid.uuid4().hex[:8]
             store.set(f"{tag}/nonce", nonce)
@@ -476,6 +626,36 @@ def save_sharded(state, path, process_index=None, *, world_size=None,
                   run_id=run_id or os.environ.get("PT_RUN_ID"),
                   barrier_timeout=barrier_timeout)
 
+
+
+class ProcessGroupStore:
+    """The coordination-store protocol of this module over a
+    ``torch.distributed.Store`` (``set``, ``add``, ``check`` and ``get``):
+    ``get(key, wait=False)`` returns None for an absent key,
+    ``get(key, wait=True, timeout=s)`` polls until the key is set and
+    raises ``TimeoutError`` after ``s`` seconds.  :meth:`default` wraps
+    the store of the default process group."""
+
+    def __init__(self, store):
+        self.store = store
+
+    @classmethod
+    def default(cls) -> "ProcessGroupStore":
+        from torch.distributed import distributed_c10d
+        return cls(distributed_c10d._get_default_store())
+
+    def set(self, key, value):
+        self.store.set(key, value)
+
+    def add(self, key, n):
+        return self.store.add(key, n)
+
+    def get(self, key, wait=True, timeout=None):
+        if not wait:
+            return self.store.get(key) if self.store.check([key]) else None
+        wait_until(lambda: self.store.check([key]), timeout,
+                   desc=f"store key {key!r}")
+        return self.store.get(key)
 
 
 def _barrier_arrive(store, key, rank=None):
@@ -664,30 +844,46 @@ def _npy_array(path, leaf, sh, data, digest=True):
     return arr
 
 
+def _overlap(a, b) -> bool:
+    """Whether two windows share an element (0-d windows always do)."""
+    return all(max(x0, y0) < min(x1, y1) for (x0, x1), (y0, y1) in zip(a, b))
+
+
 def _verify_coverage(path, leaf, entry, elastic=False, committed=None):
     """Every shard window in bounds, and the windows jointly covering
-    the full shape (a volume test: exact for one world, conservative
-    under elastic stitching, where replicated windows overlap)."""
+    the full shape.  The windows of a sharded leaf (one with a spec,
+    which only replica-0 holders write) must not meet: a window written
+    twice is corruption even when the volumes add up.  Coverage is then
+    the volume of the distinct windows (replicated windows of spec-less
+    leaves repeat whole)."""
     shape = tuple(entry["shape"])
     total = int(np.prod(shape)) if shape else 1
     exc = ReshardError if elastic else CheckpointCorruptError
     if not entry["shards"]:
         raise exc(f"{path}: leaf '{leaf}' has no shard files")
-    covered = 0
+    boxes = []
     for sh in entry["shards"]:
         win = sh["index"]
         if len(win) != len(shape):
             raise CheckpointCorruptError(
                 f"{path}: leaf '{leaf}' shard {sh['file']} window rank "
                 f"{len(win)} != array rank {len(shape)}")
-        vol = 1
         for (a, b), dim in zip(win, shape):
             if not (0 <= a < b <= dim):
                 raise CheckpointCorruptError(
                     f"{path}: leaf '{leaf}' shard {sh['file']} window "
                     f"{win} out of bounds for shape {list(shape)}")
-            vol *= b - a
-        covered += vol
+        boxes.append(tuple(tuple(w) for w in win))
+    if entry.get("spec") is not None:
+        for i, j in itertools.combinations(range(len(boxes)), 2):
+            if _overlap(boxes[i], boxes[j]):
+                raise CheckpointCorruptError(
+                    f"{path}: leaf '{leaf}' windows {list(boxes[i])} "
+                    f"({entry['shards'][i]['file']}) and {list(boxes[j])} "
+                    f"({entry['shards'][j]['file']}) overlap: a window of a "
+                    f"sharded array written twice")
+    covered = sum(int(np.prod([b - a for a, b in box]))
+                  for box in set(boxes))
     if covered < total:
         if elastic:
             raise ReshardError(
@@ -711,31 +907,44 @@ def is_committed(path):
         return False
 
 
-def _check(path, integrity="full", elastic=False, leaves=(), scope=None):
+def _open(path, integrity="full", elastic=False):
+    """The markers, the merged manifest (sizes checked at "size" and
+    "full") and the merged index of a checkpoint; at "full" every
+    manifested file that is not shard data has its CRC32 checked (a bad
+    index names its file)."""
+    markers = _read_markers(path, elastic=elastic)
+    manifest = _verify_manifest(path, markers, elastic=elastic) \
+        if integrity in ("full", "size") else {}
+    if integrity == "full":
+        for rel in manifest:
+            if not rel.startswith("data/"):
+                _read_file(path, rel, manifest[rel])
+    return markers, manifest, _merge_index(path, procs=sorted(markers))
+
+
+def _check(path, integrity="full", elastic=False, leaves=(), scope=None,
+           windows=None, opened=None):
     """Verify a checkpoint at ``integrity`` and read the shards of
     ``leaves``: the markers; the manifest's sizes ("size" and "full");
     every manifested file's CRC32 and, for the leaves of ``scope`` (all
     by default), each shard's content digest and the windows' coverage
     ("full"; "size" checks coverage only; "off" nothing more).  Each
     file is read once, ``_IO_THREADS`` at a time.  ``leaves``: leaf keys,
-    or a predicate on them.  Returns (the merged index, {shard file:
-    array} for ``leaves``)."""
+    or a predicate on them.  ``windows`` ({leaf: [window, ...]}): read,
+    and at "full" verify, only the shard files of ``leaves`` that meet
+    one of their leaf's windows, and no other file.  ``opened``:
+    :func:`_open`'s result, when the caller has it.  Returns (the merged
+    index, {shard file: array} for ``leaves``)."""
     from concurrent.futures import ThreadPoolExecutor
-    markers = _read_markers(path, elastic=elastic)
+    markers, manifest, index = opened or _open(path, integrity, elastic)
     full = integrity == "full"
-    manifest = _verify_manifest(path, markers, elastic=elastic) \
-        if integrity in ("full", "size") else {}
-    if full:   # the small files first: a bad index names its file
-        for rel in manifest:
-            if not rel.startswith("data/"):
-                _read_file(path, rel, manifest[rel])
-    index = _merge_index(path, procs=sorted(markers))
     if callable(leaves):
         leaves = [leaf for leaf in index if leaves(leaf)]
     for leaf in leaves:
         if leaf not in index:
             raise KeyError(f"{path}: no leaf {leaf!r} "
                            f"(have: {sorted(index)[:16]})")
+    leaves = set(leaves)
     scope = set(index if scope is None else scope)
     if integrity in ("full", "size"):
         for leaf in sorted(scope):
@@ -743,9 +952,17 @@ def _check(path, integrity="full", elastic=False, leaves=(), scope=None):
                              committed=sorted(markers))
     shard_of = {"data/" + sh["file"]: (leaf, sh)
                 for leaf, entry in index.items() for sh in entry["shards"]}
-    wanted = {rel for rel, (leaf, _) in shard_of.items() if leaf in leaves}
-    rels = sorted(wanted | ({r for r in manifest if r.startswith("data/")}
-                            if full else set()))
+
+    def needed(leaf, sh):
+        if leaf not in leaves:
+            return False
+        if windows is None or leaf not in windows:
+            return True
+        return any(_overlap(sh["index"], w) for w in windows[leaf])
+
+    wanted = {rel for rel, (leaf, sh) in shard_of.items() if needed(leaf, sh)}
+    rels = sorted(wanted if windows is not None else wanted | (
+        {r for r in manifest if r.startswith("data/")} if full else set()))
 
     def one(rel):
         data = _read_file(path, rel, manifest.get(rel) if full else None)
@@ -850,7 +1067,7 @@ def read_leaf(path, leaf, window=None, integrity="size", elastic=False):
     leaf)."""
     index, arrays = _check(path, integrity, elastic, leaves=(leaf,),
                            scope=(leaf,))
-    reader = _LeafReader(index[leaf], arrays)
+    reader = _LeafReader(leaf, index[leaf], arrays)
     if window is None:
         sel = tuple(slice(0, d) for d in reader.shape)
     else:
@@ -858,16 +1075,39 @@ def read_leaf(path, leaf, window=None, integrity="size", elastic=False):
     return reader.read(sel)
 
 
+def rank_payload_bytes(path, proc, prefixes=("params", "opt_tree")):
+    """The element bytes of the windows rank ``proc`` wrote to the
+    checkpoint at ``path`` under the top-level keys ``prefixes`` (no
+    file headers): summed over the ranks of a sharded save, each leaf's
+    bytes once."""
+    with open(os.path.join(path, f"index.{proc}.json")) as f:
+        idx = json.load(f)
+    total = 0
+    for leaf, entry in idx.items():
+        if leaf.split(_SEP)[0] not in prefixes:
+            continue
+        size = np.dtype(np.int16 if entry["dtype"] == _BF16
+                        else entry["dtype"]).itemsize
+        for sh in entry["shards"]:
+            total += size * int(np.prod([b - a for a, b in sh["index"]]))
+    return total
+
+
 class _LeafReader:
     """Assembles windows of one saved array from its shards' arrays
     (``arrays``: {shard file: array}, as :func:`_check` read them).
-    bf16 is read as its int16 bit pattern."""
+    bf16 is read as its int16 bit pattern.  With ``plan`` (a dict) set,
+    a read records the window it asks for under the leaf and returns an
+    empty array: :func:`load_sharded` plans which files to read that
+    way, through the pipeline readers, before it reads any."""
 
-    def __init__(self, entry, arrays):
+    def __init__(self, leaf, entry, arrays, plan=None):
+        self.leaf = leaf
         self.arrays = arrays
         self.entry = entry
         self.shape = tuple(entry["shape"])
         self.dtype = entry["dtype"]
+        self.plan = plan
 
     def read(self, idx):
         """idx: tuple of slices into the global array."""
@@ -875,12 +1115,17 @@ class _LeafReader:
                 for sl, dim in zip(idx, self.shape)]
         out_shape = tuple(b - a for a, b in want)
         bf16 = self.dtype == _BF16
+        dtype = np.int16 if bf16 else np.dtype(self.dtype)
+        if self.plan is not None:
+            self.plan.setdefault(self.leaf, []).append(
+                [list(w) for w in want])
+            return np.empty(out_shape, dtype)
         shards = self.entry["shards"]
         if len(shards) == 1 and [tuple(w) for w in shards[0]["index"]] == want:
             # one shard is the whole window: its array, not a copy
             src = self.arrays["data/" + shards[0]["file"]]
             return src.view(np.uint16).view(np.int16) if bf16 else src
-        out = np.empty(out_shape, np.int16 if bf16 else np.dtype(self.dtype))
+        out = np.empty(out_shape, dtype)
         filled = 0
         for sh in self.entry["shards"]:
             win = sh["index"]
@@ -911,6 +1156,174 @@ class _LeafReader:
         return out
 
 
+# -- pipeline layouts: stacked __ppstack__ leaves <-> per-block leaves --------
+
+_PP = "__ppstack__."
+
+
+def _full(idx, shape):
+    """``idx`` (slices, possibly fewer than dimensions) with open ends
+    closed by ``shape``."""
+    idx = tuple(idx or ())
+    return tuple(slice(s.start or 0, shape[d] if s.stop is None else s.stop)
+                 for d, s in enumerate(idx)) + \
+        tuple(slice(0, d) for d in shape[len(idx):])
+
+
+class _StackedReader:
+    """N per-block saved leaves presented as one ``[N, ...]`` stacked
+    array (a per-block checkpoint loaded into a pp-stacked state)."""
+
+    def __init__(self, readers):
+        self.readers = readers
+        self.shape = (len(readers),) + tuple(readers[0].shape)
+        self.dtype = readers[0].dtype
+
+    def read(self, idx):
+        idx = _full(idx, self.shape)
+        lo, hi = idx[0].start, idx[0].stop
+        parts = [self.readers[i].read(idx[1:])[None] for i in range(lo, hi)]
+        return np.concatenate(parts, 0)
+
+
+class _RowReader:
+    """Row ``i`` of a saved stacked leaf (a pp-stacked checkpoint loaded
+    into a per-block state): the reference's ``pp_parallel_adaptor``
+    direction."""
+
+    def __init__(self, reader, i):
+        self.reader = reader
+        self.i = i
+        self.shape = tuple(reader.shape[1:])
+        self.dtype = reader.dtype
+
+    def read(self, idx):
+        idx = _full(idx, self.shape)
+        return self.reader.read((slice(self.i, self.i + 1),) + idx)[0]
+
+
+class _LeadLayoutReader:
+    """A saved ``__ppstack__`` leaf under another leading layout: flat
+    ``[N, ...]`` and interleaved ``[v, N/v, ...]`` are both row-major
+    views of the natural block order, so only the leading indices
+    change."""
+
+    def __init__(self, reader, shape):
+        self.reader = reader
+        self.shape = tuple(shape)
+        self.dtype = reader.dtype
+        # leading dimensions on each side: 1 (flat) or 2 (interleaved)
+        self._src_lead = 2 if len(reader.shape) > len(shape) else 1
+        self._tgt_lead = 2 if len(shape) > len(reader.shape) else 1
+
+    def _read_flat_rows(self, lo, hi, rest):
+        r = self.reader
+        if self._src_lead == 1:
+            return r.read((slice(lo, hi),) + rest)
+        R = r.shape[1]
+        parts = []
+        for g in range(lo // R, (hi - 1) // R + 1):
+            r0, r1 = max(lo - g * R, 0), min(hi - g * R, R)
+            parts.append(r.read((slice(g, g + 1), slice(r0, r1)) + rest)[0])
+        return np.concatenate(parts, 0)
+
+    def read(self, idx):
+        idx = _full(idx, self.shape)
+        if self._tgt_lead == 1:
+            return self._read_flat_rows(idx[0].start, idx[0].stop, idx[1:])
+        R = self.shape[1]
+        r0, r1 = idx[1].start, idx[1].stop
+        rows = [self._read_flat_rows(g * R + r0, g * R + r1, idx[2:])[None]
+                for g in range(idx[0].start, idx[0].stop)]
+        return np.concatenate(rows, 0)
+
+
+def _adapt_pp_layout(readers, tmpl_flat):
+    """Bridge flat and interleaved pp-stack layouts (the same blocks,
+    another leading split) between the checkpoint and the template."""
+    for tk, tmpl in tmpl_flat.items():
+        r = readers.get(tk)
+        if r is None:
+            continue
+        name = _unesc(tk.split(_SEP)[-1])
+        tshape = _leaf_shape(tmpl)
+        if (name.startswith(_PP) and tshape and tuple(r.shape) != tshape
+                and int(np.prod(r.shape)) == int(np.prod(tshape))
+                and abs(len(r.shape) - len(tshape)) == 1):
+            readers[tk] = _LeadLayoutReader(r, tshape)
+    return readers
+
+
+def _leaf_shape(t):
+    """A template leaf's (global) shape."""
+    if isinstance(t, (ShardWindow, HostLocalShard)):
+        return tuple(t.global_shape)
+    return tuple(getattr(t, "shape", ()) or ())
+
+
+def _block_of(name, loc):
+    """The global block index of the per-block parameter ``name`` whose
+    name within the block is ``loc``: the number in front of ``"." +
+    loc`` (``gpt.layers.7.attn.qkv_proj.weight`` -> 7), read from the
+    name, since a pipeline stage's template holds only its own blocks;
+    None when ``name`` is not a block's."""
+    if not name.endswith("." + loc):
+        return None
+    m = re.search(r"(\d+)$", name[:-len(loc) - 1])
+    return None if m is None else int(m.group(1))
+
+
+def _translate_pp(readers, tmpl_flat):
+    """Reconcile ``__ppstack__`` stacked leaves with per-block ones
+    between the checkpoint and the template, in either direction (the
+    reference's pipeline re-partitioning on load,
+    ``fleet/utils/pp_parallel_adaptor.py``).  A block's row in a stacked
+    leaf is its global index (:func:`_block_of`)."""
+    ck = set(readers)
+
+    def parent_and_name(key):
+        comps = key.split(_SEP)
+        return _SEP.join(comps[:-1]), _unesc(comps[-1])
+
+    for tk in tmpl_flat:
+        if tk in ck:
+            continue
+        parent, name = parent_and_name(tk)
+        if name.startswith(_PP):
+            # the template is stacked, the checkpoint per-block
+            loc = name[len(_PP):]
+            blocks = {}
+            for k in ck:
+                par, n = parent_and_name(k)
+                i = _block_of(n, loc) if par == parent and \
+                    not n.startswith(_PP) else None
+                if i is not None:
+                    blocks[i] = k
+            if blocks and sorted(blocks) == list(range(len(blocks))):
+                readers[tk] = _StackedReader(
+                    [readers[blocks[i]] for i in range(len(blocks))])
+            continue
+        # the template is per-block, the checkpoint stacked
+        rank = len(_leaf_shape(tmpl_flat[tk]))
+        for sk in ck:
+            spar, sname = parent_and_name(sk)
+            if spar != parent or not sname.startswith(_PP):
+                continue
+            row = _block_of(name, sname[len(_PP):])
+            if row is None:
+                continue
+            base = readers[sk]
+            if len(base.shape) == rank + 2:
+                # interleaved [v, pp * Lv, ...]: viewed flat first
+                base = _LeadLayoutReader(
+                    base, (base.shape[0] * base.shape[1],) +
+                    tuple(base.shape[2:]))
+            if row < base.shape[0]:
+                readers[tk] = _RowReader(base, row)
+            break
+    return readers
+
+
 def _to_tensor(arr, dtype, device):
     t = torch.from_numpy(arr)       # the bytes read, no copy
     if dtype == _BF16:
@@ -918,9 +1331,10 @@ def _to_tensor(arr, dtype, device):
     return t.to(device)
 
 
-def load_sharded(path, template=None, integrity="full", elastic=False, *,
-                 device=None):
-    """Load a checkpoint as a nested dict of tensors.
+def load_sharded(path, mesh=None, shardings=None, template=None,
+                 integrity="full", elastic=False, *, device=None):
+    """Load a checkpoint as a nested dict of tensors, each leaf whole or
+    the window of it this rank holds.
 
     Before any tensor is built the checkpoint is verified
     (``integrity``: "full" = CRC32, coverage and content digests,
@@ -930,27 +1344,68 @@ def load_sharded(path, template=None, integrity="full", elastic=False, *,
     ``elastic=True`` stitches a checkpoint written at another world
     size (or with ranks lost) from the committed ranks' windows.
 
+    ``mesh`` (:class:`.mesh.Mesh`) and ``shardings`` ({leaf key: spec})
+    place each leaf as the JAX package's ``load_sharded`` does: this
+    rank (``torch.distributed``'s) gets the window its mesh coordinates
+    hold under ``shardings[leaf]``, else under the template leaf's spec
+    (a :class:`ShardWindow` template leaf names its window itself), else
+    under the saved spec adapted to ``mesh`` (``_target_spec``).  Without
+    a mesh every leaf comes back whole.  Only the shard files those
+    windows meet are read and verified.
+
     ``template``: a nested dict like the saved one; only its leaves are
-    restored, each on the template leaf's device (a tensor's, else
-    ``device``), in the checkpoint's dtype; a leaf the checkpoint lacks
-    keeps the template's value, and empty subtrees stay.  Without a
-    template every saved leaf comes back, on ``device`` (default the
-    CPU)."""
+    restored, each on the template leaf's device (a tensor's or a
+    window's, else ``device``), in the checkpoint's dtype; a leaf the
+    checkpoint lacks keeps the template's value, and empty subtrees
+    stay.  A template stacked where the checkpoint is per-block (or the
+    other way round, or at another number of virtual stages) is
+    translated.  Without a template every saved leaf comes back, on
+    ``device`` (default the CPU)."""
+    opened = _open(path, integrity, elastic)
+    index = opened[2]
     tmpl_flat = {} if template is None else {
         _leaf_name(p): a for p, a in _flat_items(template)}
-    index, arrays = _check(
-        path, integrity, elastic,
-        leaves=lambda leaf: template is None or leaf in tmpl_flat)
+    arrays: dict = {}
+    plan: dict = {}
+    base = {leaf: _LeafReader(leaf, entry, arrays, plan)
+            for leaf, entry in index.items()}
+    readers = dict(base)
+    if template is not None:
+        readers = _translate_pp(readers, tmpl_flat)
+        readers = {k: r for k, r in readers.items() if k in tmpl_flat}
+        readers = _adapt_pp_layout(readers, tmpl_flat)
+    coords = None if mesh is None else mesh.coords(process_index())
     device = torch.device("cpu") if device is None else torch.device(device)
-    flat_out = {}
-    for leaf, entry in index.items():
-        if template is not None and leaf not in tmpl_flat:
-            continue
-        reader = _LeafReader(entry, arrays)
-        arr = reader.read(tuple(slice(0, d) for d in reader.shape))
+    sel = {}
+    for leaf, reader in readers.items():
         t = tmpl_flat.get(leaf)
-        dev = t.device if isinstance(t, torch.Tensor) else device
-        flat_out[leaf] = _to_tensor(arr, entry["dtype"], dev)
+        if isinstance(t, ShardWindow):
+            win = t.window
+        elif mesh is not None and shardings and leaf in shardings:
+            win = spec_window(shardings[leaf], reader.shape, mesh, coords)
+        elif mesh is not None and not isinstance(t, torch.Tensor):
+            saved = index[leaf]["spec"] if leaf in index else None
+            win = spec_window(_target_spec(saved, reader.shape, mesh),
+                              reader.shape, mesh, coords)
+        else:
+            win = [[0, d] for d in reader.shape]
+        sel[leaf] = tuple(slice(a, b) for a, b in win)
+        reader.read(sel[leaf])                 # plan: records the windows
+    for r in base.values():
+        r.plan = None
+    _, got = _check(path, integrity, elastic, leaves=list(plan),
+                    scope=list(plan), windows=plan, opened=opened)
+    arrays.update(got)
+    flat_out = {}
+    for leaf, reader in readers.items():
+        arr = reader.read(sel[leaf])
+        t = tmpl_flat.get(leaf)
+        if isinstance(t, ShardWindow):
+            dev = t.device
+        else:
+            dev = t.device if isinstance(t, torch.Tensor) else device
+        flat_out[leaf] = _to_tensor(np.require(arr, requirements="C"),
+                                    reader.dtype, dev)
     if template is None:
         return _unflatten(flat_out)
 
@@ -982,13 +1437,19 @@ def load_state(path, state, integrity="full"):
 
 def copy_into(state, loaded) -> None:
     """Copy each tensor leaf of ``loaded`` into the same leaf of
-    ``state`` in place.  A leaf of ``state`` that ``loaded`` lacks, or
+    ``state`` in place (a :class:`ShardWindow` leaf into its parts).  A leaf of ``state`` that ``loaded`` lacks, or
     holds as the very same object (a template leaf the checkpoint
     lacked), raises ``KeyError``; a shape or dtype that differs raises
     ``ValueError``."""
     got = dict(_flat_items(loaded))
     pairs = []
     for p, dst in _flat_items(state):
+        if isinstance(dst, ShardWindow):
+            src = got.get(p)
+            if not isinstance(src, torch.Tensor):
+                raise KeyError(f"the checkpoint has no leaf {'/'.join(p)!r}")
+            pairs.append((dst, src))
+            continue
         if not isinstance(dst, torch.Tensor):
             continue
         src = got.get(p)
@@ -1001,4 +1462,7 @@ def copy_into(state, loaded) -> None:
         pairs.append((dst, src))
     with torch.no_grad():
         for dst, src in pairs:
-            dst.copy_(src)
+            if isinstance(dst, ShardWindow):
+                dst.assign(src)
+            else:
+                dst.copy_(src)

@@ -19,6 +19,12 @@ committed checkpoint or the new one, never a half-written directory.
 corrupt directories, and keep-last-N garbage collection never deletes
 the only valid checkpoint.
 
+Several processes (one a rank of a sharded step) save and restore
+together: each writes its windows into the same step directory, and,
+unless a ``store`` is given, they meet over the default process group's
+``torch.distributed`` store (:class:`.checkpoint.ProcessGroupStore`);
+every rank restores the same step.
+
 Async mode (``async_save=True``): the device-to-host copy of every
 tensor is taken on the caller and is complete when ``save`` returns (a
 captured step overwrites its parameters and moments at the next replay);
@@ -34,6 +40,9 @@ import os
 import re
 import shutil
 import threading
+import zlib
+
+import torch
 
 from . import checkpoint as _ckpt
 from .checkpoint import CheckpointCorruptError
@@ -169,8 +178,9 @@ class CheckpointManager:
         return ((f"data_state.{proc}.json", blob),)
 
     def _commit(self, records, path, proc, world):
-        _ckpt._save_records(records, path, proc, world, store=self.store,
-                            durable=self.durable, run_id=self.run_id,
+        _ckpt._save_records(records, path, proc, world,
+                            store=self._coordination_store(world),
+                            durable=self.durable, run_id=self._tag(),
                             barrier_timeout=self.barrier_timeout)
         self._gc()
 
@@ -221,20 +231,66 @@ class CheckpointManager:
         self._raise_pending()
 
     # -- restore ------------------------------------------------------------
-    def restore_latest(self, template=None, *, device=None):
+    def restore_latest(self, template=None, mesh=None, shardings=None, *,
+                       device=None):
         """Load the newest valid checkpoint, falling back past
         uncommitted or corrupt directories to the newest one that
-        verifies clean (:func:`.checkpoint.load_sharded`: tensors on the
-        template's devices, else on ``device``).
+        verifies clean (:func:`.checkpoint.load_sharded`: this rank's
+        window of each leaf with a ``mesh``, ``shardings`` or a template
+        of windows; tensors on the template's devices, else on
+        ``device``).
+
+        With more than one process every rank restores the same step:
+        each loads its newest good step, the ranks take the smallest
+        (over the coordination store), and a rank above it loads again
+        at most that step, until they agree; so one rank's corrupt shard
+        sends every rank back to the same earlier step.
 
         Returns ``(state, step)``; ``(template, None)`` when no valid
         checkpoint exists.  A step that fails the full check is
         remembered, so :meth:`latest_step` reports the fallback."""
         self.wait()
+        proc, world = self._rank_world()
+        store = self._coordination_store(world)
+        state, step = self._restore_newest(None, template, mesh, shardings,
+                                           device)
+        if world <= 1 or store is None:
+            return state, step
+        # the votes of a restore are fresh in the store: each rank counts
+        # its restores of this root there (every manager on the root, in
+        # one order on every rank), so no vote of an earlier one is read
+        tag = f"restore/{self._tag()}"
+        seq = store.add(f"{tag}/seq/{proc}", 1)
+        tag = f"{tag}/{seq}"
+        rnd = 0
+        while True:
+            key = f"{tag}/{rnd}"
+            store.set(f"{key}/{proc}", str(-1 if step is None else step))
+            steps = [int(store.get(f"{key}/{p}", wait=True,
+                                   timeout=self.barrier_timeout))
+                     for p in range(world)]
+            rnd += 1
+            agreed = min(steps)
+            if agreed < 0:
+                return template, None
+            if all(s == agreed for s in steps):
+                return state, step
+            if step != agreed:
+                logger.warning("checkpoint restore: rank %d loaded step %s, "
+                               "the ranks agree on step %d", proc, step,
+                               agreed)
+                state, step = self._restore_newest(agreed, template, mesh,
+                                                   shardings, device)
+
+    def _restore_newest(self, bound, template, mesh, shardings, device):
+        """The newest step at most ``bound`` (any when None) that loads
+        clean on this rank, and its state."""
         for step in reversed(self.valid_steps()):
+            if bound is not None and step > bound:
+                continue
             d = self.step_dir(step)
             try:
-                state = _ckpt.load_sharded(d, template=template,
+                state = _ckpt.load_sharded(d, mesh, shardings, template,
                                            integrity=self.integrity,
                                            elastic=self.elastic,
                                            device=device)
@@ -246,6 +302,23 @@ class CheckpointManager:
                     "falling back to an earlier step", step, d, e)
                 self._bad.add(step)
         return template, None
+
+    def _coordination_store(self, world):
+        """The store of multi-process saves and restores: the one given,
+        else (more than one process, a process group up) the default
+        process group's store."""
+        if self.store is not None or world <= 1:
+            return self.store
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            return _ckpt.ProcessGroupStore.default()
+        return None
+
+    def _tag(self):
+        """What keys this manager's store traffic: the run and the root
+        (several managers may share one store)."""
+        root = os.path.abspath(self.root).encode()
+        return f"{self.run_id or '0'}.{zlib.crc32(root) & 0xFFFFFFFF:08x}"
 
     def load_data_state(self, step=None, process_index=None):
         """The ``data_state`` committed with ``save(..., data_state=)``

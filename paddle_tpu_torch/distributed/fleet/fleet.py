@@ -18,6 +18,9 @@ first.  ``distributed_optimizer`` wraps the optimizer in
 above 1 splits each sequence over the sep group
 (:mod:`.meta_parallel.sequence_parallel`); the ``DataParallel`` wrapper
 then averages over ``data x sep`` (``get_dp_sep_parallel_group``).
+``save_sharded(state, path)`` and ``load_sharded(path, state)`` save and
+load a train step's (or a state dict's) sharded checkpoint, every rank
+its windows, at any layout.
 """
 from __future__ import annotations
 
@@ -157,6 +160,32 @@ class Fleet:
             set_zero_level(optimizer, "os" if stage == 1 else "os_g")
         return HybridParallelOptimizer(optimizer, self._hcg,
                                        self._user_defined_strategy)
+
+    # -- sharded checkpoints ---------------------------------------------------
+    def save_sharded(self, state, path):
+        """Save ``state`` as a sharded checkpoint at ``path``, every rank
+        its part: a train step (its ``checkpoint_tree()``: a hybrid
+        step's windows in the JAX package's layout) or a nested dict of
+        tensors and windows.  With more than one rank the ranks meet over
+        the default process group's store and rank 0 commits."""
+        from ..checkpoint import ProcessGroupStore, save_sharded, world_size
+        tree = state.checkpoint_tree() if hasattr(state, "checkpoint_tree") \
+            else state
+        save_sharded(tree, path, store=ProcessGroupStore.default()
+                     if world_size() > 1 else None)
+
+    def load_sharded(self, path, state):
+        """Load the sharded checkpoint at ``path`` into ``state`` in
+        place and return it: a train step (each rank's windows at its
+        mesh, from a checkpoint saved at any layout) or a nested dict of
+        tensors and windows (``load_state``)."""
+        from ..checkpoint import load_sharded, load_state
+        if not hasattr(state, "checkpoint_tree"):
+            return load_state(path, state)
+        template = state.checkpoint_tree()
+        tree = load_sharded(path, state.checkpoint_mesh, None, template)
+        state.load_checkpoint_tree(tree, template=template)
+        return state
 
 
 fleet = Fleet()

@@ -1,6 +1,6 @@
 """Parameter initializers of the training path (the counterpart of
-``paddle_tpu/nn/initializer/``: ``Normal``, ``XavierNormal`` and
-``Constant``).
+``paddle_tpu/nn/initializer/``: ``Normal``, ``Uniform``, ``XavierNormal``
+and ``Constant``).
 
 An initializer is called with the parameter's shape and the run's
 generator and returns an f32 tensor on the generator's device; layers
@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["Normal", "XavierNormal", "Constant"]
+__all__ = ["Normal", "Uniform", "XavierNormal", "Constant"]
 
 
 class Normal:
@@ -24,6 +24,18 @@ class Normal:
     def __call__(self, shape, generator: torch.Generator) -> torch.Tensor:
         return (torch.randn(tuple(shape), generator=generator,
                             device=generator.device) * self.std + self.mean)
+
+
+class Uniform:
+    """Uniform draws on ``[low, high)``."""
+
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, shape, generator: torch.Generator) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=generator,
+                       device=generator.device)
+        return u * (self.high - self.low) + self.low
 
 
 class XavierNormal:

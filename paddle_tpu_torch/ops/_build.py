@@ -3,7 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes`.  A file
 that includes no PyTorch header builds in seconds, where
-``torch.utils.cpp_extension.load`` takes minutes.
+``torch.utils.cpp_extension.load`` takes minutes.  A library of several
+translation units (``UNITS``: flash attention's forward, dq and dk/dv
+entries, each instantiating only its kernels) is compiled one ``nvcc``
+a unit, all at once with the other libraries, then linked.
 
  - The library name carries a digest of the source, the shared headers
    (``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
@@ -28,7 +31,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
+__all__ = ["SOURCES", "UNITS", "BUILD_DIR", "NVCC_FLAGS", "build", "load",
+           "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -37,6 +41,9 @@ SOURCES = ("paged_attention", "w8a16", "layer_norm", "flash_attention",
            "softmax_xent", "block_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: the libraries built from several translation units (``csrc/<unit>.cu``)
+UNITS = {"flash_attention": ("flash_attention", "flash_attention_dq",
+                             "flash_attention_dkv")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,8 +61,14 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _units(name: str) -> Tuple[str, ...]:
+    return UNITS.get(name, (name,))
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for unit in _units(name):
+        digest.update((CSRC / f"{unit}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -65,7 +78,8 @@ def _lib_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES, *, verbose: bool = False
           ) -> Dict[str, Tuple[Path, str]]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.
+    per translation unit, all started together (a library of several
+    units linked once its units are compiled).
 
     Returns ``{name: (library path, nvcc's output)}`` (the output is
     empty for a library that was already built).  ``verbose`` adds
@@ -73,6 +87,7 @@ def build(names: Iterable[str] = SOURCES, *, verbose: bool = False
     and spills; it does not change the library.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
     procs = {}
     result = {}
     for name in names:
@@ -81,16 +96,39 @@ def build(names: Iterable[str] = SOURCES, *, verbose: bool = False
             result[name] = (out, "")
             continue
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        units = _units(name)
+        if len(units) == 1:
+            cmds = [[_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")]]
+            objs = []
+        else:
+            flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            objs = [tmp.with_name(f"{tmp.name}.{u}.o") for u in units]
+            cmds = [[_nvcc(), *flags, *extra, "-c", "-o", str(o),
+                     str(CSRC / f"{u}.cu")] for u, o in zip(units, objs)]
+        procs[name] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                        for cmd in cmds], objs, tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+    for name, (running, objs, tmp, out) in procs.items():
+        logs, codes = [], []
+        for proc in running:
+            log, _ = proc.communicate()
+            logs.append(log)
+            codes.append(proc.returncode)
+        if objs and not any(codes):
+            link = subprocess.run(
+                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                 *map(str, objs)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            codes.append(link.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        log = "".join(logs)
+        if any(codes):
+            failed.append(f"{name}.cu (nvcc exit {max(codes)}):\n{log}")
             continue
         os.replace(tmp, out)
         result[name] = (out, log)

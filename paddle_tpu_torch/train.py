@@ -53,6 +53,7 @@ import argparse
 import copy
 import inspect
 import json
+import logging
 import statistics
 import time
 from typing import Dict, Optional, Sequence
@@ -64,8 +65,6 @@ from .amp import decorate
 from .device import resolve_device
 from .distributed.checkpoint import copy_into
 from .distributed.collective import ReduceOp, all_reduce
-from .distributed.fleet.meta_parallel.parallel_layers.mp_layers import \
-    is_shard
 from .distributed.parallel import unwrap_model
 from .distributed.sharding.group_sharded import gathered, local_batch
 from .framework.random import make_generator, restore_generator_state
@@ -82,6 +81,8 @@ __all__ = ["TrainStep", "EagerStep", "HybridTrainStep", "HybridEagerStep",
            "build_train_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "save_checkpoint",
            "restore_checkpoint", "main"]
+
+logger = logging.getLogger("paddle_tpu_torch.checkpoint")
 
 CONFIGS = {"gpt_tiny": gpt_tiny, "gpt_345m": gpt_345m,
            "gpt_1p3b": gpt_1p3b, "gpt_6p7b": gpt_6p7b, "gpt_13b": gpt_13b,
@@ -230,6 +231,10 @@ class TrainStep:
         sched = self.optimizer._learning_rate_scheduler
         return {} if sched is None else {"LR_Scheduler": sched.state_dict()}
 
+    #: the mesh of a sharded step's checkpoints; a single process's
+    #: leaves are whole
+    checkpoint_mesh = None
+
     def full_opt_tree(self, opt_tree: dict) -> dict:
         """``opt_tree`` as a checkpoint holds it, with the empty subtrees
         that have no leaves on disk (``master`` in an f32 run, SGD's
@@ -242,7 +247,8 @@ class TrainStep:
         return ot
 
     def load_checkpoint_tree(self, tree: dict,
-                             data_state: Optional[dict] = None) -> None:
+                             data_state: Optional[dict] = None, *,
+                             template: Optional[dict] = None) -> None:
         """Restore a checkpoint tree (:meth:`checkpoint_tree`'s layout, as
         ``load_sharded`` returns it, with or without a template) into
         this step in place: parameters, masters, slots and the step count
@@ -253,12 +259,26 @@ class TrainStep:
         subtrees that have no leaves on disk are rebuilt
         (:meth:`full_opt_tree`).  Raises
         ``KeyError`` for a tensor the tree lacks and ``ValueError`` for
-        one of another shape or dtype."""
+        one of another shape or dtype.  With ``template`` (what
+        ``load_sharded`` loaded the tree for), an ``rng`` that is the
+        template's own (the checkpoint, saved at another layout, has no
+        single-process generator) is left, and a log line says so."""
         copy_into({"params": self.params, "opt_tree": self.state},
                   {"params": tree.get("params", {}),
                    "opt_tree": self.full_opt_tree(tree.get("opt_tree", {}))})
-        if "rng" in tree:
-            restore_generator_state(self.generator, tree["rng"])
+        rng = tree.get("rng")
+        if template is not None and rng is not None and \
+                rng is template.get("rng"):
+            logger.warning("checkpoint: no generator state of a single "
+                           "process (saved at another layout): the dropout "
+                           "generator is not restored")
+        elif rng is not None:
+            restore_generator_state(self.generator, rng)
+        self._restore_schedule(data_state)
+
+    def _restore_schedule(self, data_state: Optional[dict]) -> None:
+        """The schedule's state from ``data_state["LR_Scheduler"]``, and
+        the rate written into ``optimizer.lr_tensor``."""
         sched = self.optimizer._learning_rate_scheduler
         if sched is not None and data_state and \
                 "LR_Scheduler" in data_state:
@@ -356,37 +376,39 @@ class HybridTrainStep(TrainStep):
         return super().__call__(local_batch(inputs, self.hcg),
                                 local_batch(targets, self.hcg))
 
+    @property
+    def checkpoint_mesh(self):
+        """The rank mesh this step's checkpoints are laid out on."""
+        return self.hcg.mesh
+
     def checkpoint_tree(self) -> dict:
-        """This rank's state, when it is the whole model's.  A
-        tensor-parallel shard, a ZeRO window or a pipeline stage raises:
-        saving and loading sharded steps (``load_sharded`` with a mesh)
-        is ROADMAP Queue 1 item 4.5."""
-        split = [n for n, p in self.params.items() if is_shard(p)]
-        if split:
-            raise NotImplementedError(
-                f"checkpoint_tree of a tensor-parallel shard ({split[0]} and "
-                f"{len(split) - 1} more are slices): sharded checkpoints "
-                f"(load_sharded with a mesh) are not ported yet (ROADMAP "
-                f"Queue 1, item 4.5)")
-        if self.engine is not None:
-            raise NotImplementedError(
-                f"checkpoint_tree of pipeline stage "
-                f"{self.hcg.get_stage_id()} of "
-                f"{self.hcg.get_pipe_parallel_world_size()} (it holds "
-                f"{len(self.params)} of the model's parameters): sharded "
-                f"checkpoints (load_sharded with a mesh) are not ported yet "
-                f"(ROADMAP Queue 1, item 4.5)")
-        windows = [] if self.zero is None else \
-            [n for n in self.params if self.zero.windowed(n)]
-        if windows:
-            raise NotImplementedError(
-                f"checkpoint_tree of a ZeRO window ({windows[0]} and "
-                f"{len(windows) - 1} more hold window "
-                f"{self.hcg.get_sharding_parallel_rank()} of "
-                f"{self.hcg.get_sharding_parallel_world_size()}): sharded "
-                f"checkpoints (load_sharded with a mesh) are not ported yet "
-                f"(ROADMAP Queue 1, item 4.5)")
-        return super().checkpoint_tree()
+        """This rank's share of the step's state, each tensor a
+        :class:`.distributed.checkpoint.ShardWindow` of the leaf the JAX
+        package's ``build_train_step`` state holds at the same mesh
+        (:mod:`.distributed.checkpoint_layout`): the tensor-parallel
+        slices, the ZeRO windows (at every level), a pipeline stage's
+        rows of the stacked ``__ppstack__`` leaves, the data and sep
+        replicas written once; ``rng`` holds this rank's generators under
+        its layout.  The windows refer to the live tensors; every rank
+        saves it into the same directory (``save_sharded`` or a
+        :class:`~.distributed.CheckpointManager`), and it is the template
+        that loads this rank's windows of a checkpoint saved at any
+        layout."""
+        from .distributed.checkpoint_layout import checkpoint_tree
+        return checkpoint_tree(self, unwrap_model(self.model))
+
+    def load_checkpoint_tree(self, tree: dict,
+                             data_state: Optional[dict] = None, *,
+                             template: Optional[dict] = None) -> None:
+        """Restore a tree that ``load_sharded`` returned for
+        :meth:`checkpoint_tree`'s ``template`` (or the whole leaves of a
+        checkpoint saved at this layout) into this rank's live tensors in
+        place; the generators too when the checkpoint holds them for this
+        layout and rank (otherwise a log line says so: dropout streams do
+        not carry over to another layout), and the schedule's state."""
+        from .distributed.checkpoint_layout import load_tree
+        load_tree(self, unwrap_model(self.model), tree, template)
+        self._restore_schedule(data_state)
 
 
 def save_checkpoint(manager, step_no: int, train_step: TrainStep, *,
@@ -405,13 +427,17 @@ def save_checkpoint(manager, step_no: int, train_step: TrainStep, *,
 
 def restore_checkpoint(manager, train_step: TrainStep) -> Optional[int]:
     """Restore the newest valid checkpoint of ``manager`` into
-    ``train_step`` in place (falling back past corrupt steps), each
-    tensor read onto the device of the tensor it replaces; returns its
-    step number, or None when there is none."""
-    tree, n = manager.restore_latest(template=train_step.checkpoint_tree())
+    ``train_step`` in place (falling back past corrupt steps; every rank
+    of a hybrid step the same step), each tensor read onto the device of
+    the tensor it replaces, a hybrid step's windows at its mesh, from a
+    checkpoint saved at any layout; returns its step number, or None
+    when there is none."""
+    template = train_step.checkpoint_tree()
+    tree, n = manager.restore_latest(template, train_step.checkpoint_mesh)
     if n is None:
         return None
-    train_step.load_checkpoint_tree(tree, manager.load_data_state(n))
+    train_step.load_checkpoint_tree(tree, manager.load_data_state(n),
+                                    template=template)
     return n
 
 

@@ -328,3 +328,88 @@ def test_sparse_embedding_raises_by_name():
     with pytest.raises(NotImplementedError, match="sparse"):
         Embedding(5, 3, Normal(), generator=make_generator(0, "cpu"),
                   sparse=True)
+
+
+# -- the checkpoint calls in the reference's order ------------------------------------
+
+def _ckpt_state():
+    return {"params": {"w": torch.arange(24, dtype=torch.float32).reshape(
+        4, 6)}, "opt_tree": {"step": torch.tensor(3, dtype=torch.int32)}}
+
+
+def _zeros_like(tree):
+    return {k: _zeros_like(v) if isinstance(v, dict) else torch.zeros_like(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("fn", ["checkpoint:load_sharded",
+                                "checkpoint_manager:CheckpointManager."
+                                "restore_latest",
+                                "fleet.fleet:Fleet.save_sharded",
+                                "fleet.fleet:Fleet.load_sharded"])
+def test_checkpoint_calls_take_the_jax_names_in_order(fn):
+    import importlib
+    mod, attrs = fn.split(":")
+    objs = []
+    for pkg in ("paddle_tpu.distributed", "paddle_tpu_torch.distributed"):
+        obj = importlib.import_module(f"{pkg}.{mod}")
+        for a in attrs.split("."):
+            obj = getattr(obj, a)
+        objs.append(obj)
+    want, got = (_names(o) for o in objs)
+    # the port's device choice is keyword-only, after the JAX arguments
+    assert [n for n in got if n != "device"] == want
+
+
+def test_load_sharded_binds_mesh_shardings_template_by_position(tmp_path):
+    """``load_sharded(path, mesh, shardings, template)`` as a reference
+    call writes it: the mesh places each leaf (rank 0 of dp 2 takes rows
+    0-1 under ``("dp", None)``), the template chooses the leaves."""
+    from paddle_tpu_torch.distributed import build_mesh, checkpoint
+    path = str(tmp_path / "c")
+    checkpoint.save_sharded(_ckpt_state(), path)
+    mesh = build_mesh({"dp": 2}, world_size=2)
+    got = checkpoint.load_sharded(path, mesh, None, _zeros_like(
+        _ckpt_state()))
+    torch.testing.assert_close(got["params"]["w"],
+                               _ckpt_state()["params"]["w"])
+    got = checkpoint.load_sharded(path, mesh, {"params.w": ("dp", None)})
+    torch.testing.assert_close(got["params"]["w"],
+                               _ckpt_state()["params"]["w"][:2])
+    assert int(got["opt_tree"]["step"]) == 3
+
+
+def test_restore_latest_binds_template_mesh_by_position(tmp_path):
+    from paddle_tpu_torch.distributed import CheckpointManager, build_mesh
+    mgr = CheckpointManager(str(tmp_path / "run"))
+    mgr.save(5, _ckpt_state())
+    tmpl = _zeros_like(_ckpt_state())
+    tree, n = mgr.restore_latest(tmpl, build_mesh({"dp": 1}, world_size=1),
+                                 None)
+    assert n == 5
+    torch.testing.assert_close(tree["params"]["w"],
+                               _ckpt_state()["params"]["w"])
+
+
+def test_fleet_save_and_load_sharded_round_trip(tmp_path):
+    path = str(tmp_path / "f")
+    fleet.fleet.save_sharded(_ckpt_state(), path)
+    state = _zeros_like(_ckpt_state())
+    assert fleet.fleet.load_sharded(path, state) is state
+    torch.testing.assert_close(state["params"]["w"],
+                               _ckpt_state()["params"]["w"])
+    # a train step: its tree in, its live tensors restored in place
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    cfg = gpt_tiny()
+    ids, labels = make_batch(cfg, 2, 16, device="cpu")
+    a = build_train_step(cfg, device="cpu", amp_o2=False, fusion=False)
+    a(ids, labels)
+    fleet.fleet.save_sharded(a, str(tmp_path / "s"))
+    b = build_train_step(cfg, device="cpu", amp_o2=False, fusion=False,
+                         seed=1)
+    w = b.params["gpt.layers.0.attn.qkv_proj.weight"]
+    assert fleet.fleet.load_sharded(str(tmp_path / "s"), b) is b
+    assert b.params["gpt.layers.0.attn.qkv_proj.weight"] is w
+    for n, p in a.params.items():
+        assert torch.equal(p, b.params[n]), n
+    assert a(ids, labels).item() == b(ids, labels).item()

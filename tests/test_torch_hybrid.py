@@ -56,6 +56,7 @@ from paddle_tpu_torch.framework.random import make_generator
 from paddle_tpu_torch.incubate.models import (gather_params, gpt_tiny,
                                               params_from_numpy, split_axes)
 
+QKV = "gpt.layers.0.attn.qkv_proj.weight"
 SPAWN_TIMEOUT = 60
 LAYER_TOL = 1e-5
 SLICE_TOL = 2e-4
@@ -573,15 +574,18 @@ def _streams_rank(batch):
             lambda mod, inp, out: acts.append(out.detach().numpy().copy()))
     ids, labels = (torch.from_numpy(a) for a in batch)
     losses = [step(ids, labels).item() for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        step.checkpoint_tree()
+    # the sharded checkpoint's windows: the split weight one a rank, the
+    # replicated LayerNorm written by mp rank 0 only
+    tree = step.checkpoint_tree()
+    windows = {n: (w.spec, w.window, w.write) for n, w in
+               tree["params"].items() if n in (QKV, "gpt.final_ln.weight")}
     common.dropout = plain_dropout
     # recompute replays both streams: the same losses as without it
     rc = build_train_step(gpt_tiny(use_recompute=True), device="cpu",
                           amp_o2=False, mp=2, capture=False)
     losses_rc = [rc(ids, labels).item() for _ in range(2)]
     return {"losses": losses, "losses_rc": losses_rc, "masks": masks,
-            "acts": acts,
+            "acts": acts, "windows": windows,
             "replicated": {n: p.detach().numpy().copy()
                            for n, p in model.named_parameters()
                            if getattr(p, "split_axis", None) is None}}
@@ -617,6 +621,13 @@ def test_mp_ranks_share_replicated_dropout_and_differ_in_attention(
     for name, x in a["replicated"].items():
         np.testing.assert_array_equal(x, b["replicated"][name],
                                       err_msg=name)
+    h = gpt_tiny().hidden_size
+    for r, res in enumerate((a, b)):
+        spec, window, write = res["windows"][QKV]
+        assert (spec, write) == ([None, "mp"], True)
+        assert window == [[0, h], [r * 3 * h // 2, (r + 1) * 3 * h // 2]]
+        assert res["windows"]["gpt.final_ln.weight"] == \
+            ([], [[0, h]], r == 0)
 
 
 def test_train_cli_spawns_dp_x_mp_ranks(monkeypatch):

@@ -77,7 +77,13 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "          'distributed.fleet.meta_parallel.parallel_layers.pp_layers',\n"
         "          'distributed.fleet.meta_parallel.pipeline_parallel',\n"
         "          'distributed.fleet.meta_parallel.pp_utils',\n"
-        "          'distributed.fleet.meta_parallel.pp_utils.p2p_communication'):\n"
+        "          'distributed.fleet.meta_parallel.pp_utils.p2p_communication',\n"
+        "          'distributed.checkpoint_layout',\n"
+        "          'incubate.distributed', 'incubate.distributed.models',\n"
+        "          'incubate.distributed.models.moe',\n"
+        "          'incubate.distributed.models.moe.functional',\n"
+        "          'incubate.distributed.models.moe.gate',\n"
+        "          'incubate.distributed.models.moe.moe_layer'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
@@ -121,7 +127,13 @@ def test_package_sources_name_no_jax_and_no_reference_module():
               "distributed/fleet/meta_parallel/pipeline_parallel.py",
               "distributed/fleet/meta_parallel/pp_utils/__init__.py",
               "distributed/fleet/meta_parallel/pp_utils/"
-              "p2p_communication.py"):
+              "p2p_communication.py", "distributed/checkpoint_layout.py",
+              "incubate/distributed/__init__.py",
+              "incubate/distributed/models/__init__.py",
+              "incubate/distributed/models/moe/__init__.py",
+              "incubate/distributed/models/moe/functional.py",
+              "incubate/distributed/models/moe/gate.py",
+              "incubate/distributed/models/moe/moe_layer.py"):
         assert PKG / m in sources, m
     for path in sources:
         text = path.read_text()
@@ -147,7 +159,8 @@ def _code(path):
 def _global_kernels():
     """The name of every ``__global__`` function in the port's sources."""
     names = []
-    for path in sorted((PKG / "csrc").glob("*.cu")):
+    csrc = PKG / "csrc"
+    for path in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         text = _code(path)
         for m in re.finditer(r"\b__global__\b", text):
             # the first call-like name after the attributes
@@ -173,10 +186,13 @@ def test_every_cuda_kernel_is_in_the_step_profiles_name_lists():
 
 def test_flash_kernels_sum_without_atomics():
     # dq, dk and dv the same bits on every run: no atomic adds, no
-    # reductions to global memory, in the flash source or its header
-    code = {p.name: _code(p) for p in (PKG / "csrc" / "flash_attention.cu",
-                                       PKG / "csrc" / "hopper.cuh")}
-    assert "flash_bwd_dkv_wg_kernel" in code["flash_attention.cu"]
+    # reductions to global memory, in the flash sources or their headers
+    csrc = PKG / "csrc"
+    code = {p.name: _code(p) for p in sorted(csrc.glob("flash_attention*")) +
+            [csrc / "hopper.cuh"]}
+    assert {"flash_attention.cu", "flash_attention_dq.cu",
+            "flash_attention_dkv.cu", "flash_attention.cuh"} <= set(code)
+    assert "flash_bwd_dkv_wg_kernel" in code["flash_attention.cuh"]
     for name, text in code.items():
         assert not re.search(r"\batomic\w*\s*\(", text), name
         assert not re.search(r"\b(red|atom)\.", text), name

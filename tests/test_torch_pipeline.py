@@ -345,10 +345,9 @@ def _pp_rank(arrays, mesh, planted):
             words.append(step.params[WORD].detach().numpy().copy())
     out = rank_result(step, losses, norms)
     out["words"] = words
-    try:
-        step.checkpoint_tree()
-    except NotImplementedError as e:
-        out["checkpoint_tree"] = str(e)
+    tree = step.checkpoint_tree()
+    out["checkpoint_tree"] = {n: (w.spec, w.window, w.write)
+                              for n, w in tree["params"].items()}
     if planted:
         out["planted"] = {}
         # a micro-batch's gradient dropped: the last virtual stage's
@@ -482,9 +481,19 @@ def test_pipelined_gpt_matches_the_jax_pipelined_step(pp_runs, mesh):
     stages = {r["coords"][1] for r in ranks}
     assert stages == {0, 1}
     for r in ranks:
-        assert "pipeline stage" in r["checkpoint_tree"] or \
-            "tensor-parallel" in r["checkpoint_tree"]
-        assert "Queue 1, item 4.5" in r["checkpoint_tree"]
+        # the sharded checkpoint: each stage's rows of the stacked blocks
+        dp, s, sh, mp = r["coords"]
+        v = MESHES[mesh][4]
+        spec, window, _ = r["checkpoint_tree"][
+            "__ppstack__.attn.qkv_proj.weight"]
+        per = LAYERS // (2 * v)
+        assert spec[:2 if v > 1 else 1] == ([None, "pp"] if v > 1
+                                            else ["pp"])
+        assert window[v > 1] == [s * per, (s + 1) * per]
+        # the tied word embedding, on both stages, written by the first
+        wspec, _, write = r["checkpoint_tree"][WORD]
+        assert write == (s == 0 and dp == 0 and
+                         (sh == 0 or "sharding" in wspec))
     # the tied embedding: the same bits on the first and last stage after
     # every step
     by = {r["coords"]: r for r in ranks}

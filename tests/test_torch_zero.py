@@ -27,7 +27,7 @@ ranks, held to the JAX package.
  - ``strategy.sharding`` with ``sharding_configs`` stage 1 and 2 through
    ``fleet``: the levels ``os`` and ``os_g``, the same losses;
    ``save_group_sharded_model``'s files read back; ``checkpoint_tree``'s
-   message for a window.
+   window of a moment.
  - The planted fault, two ranks' windows traded, fails the comparison,
    the moments' too; so does one slot's windows traded after an honest
    run (each slot is held against its own scale, ``MOMENT_RTOL``).
@@ -351,10 +351,9 @@ def _zero_rank(arrays, batch, dp, sh, out_dir):
         out["level"] = step.zero.level
         if level == "p_g_os":
             save_group_sharded_model(step.model, out_dir, step.optimizer)
-        try:
-            step.checkpoint_tree()
-        except NotImplementedError as e:
-            out["checkpoint_tree"] = str(e)
+        w = step.checkpoint_tree()["opt_tree"]["slots"]["moment1"][
+            "gpt.layers.0.attn.qkv_proj.weight"]
+        out["checkpoint_tree"] = (w.spec, w.window, w.write)
         res[level] = out
     if dp == 1:
         # fleet's strategy: sharding_configs stage 1 and 2
@@ -583,8 +582,14 @@ def test_zero_step_matches_the_jax_group_sharded_step(zero_runs, mesh,
     for r in res:
         assert len(set(r["norms"])) == STEPS          # a norm each step
         assert r["state_share"] <= STATE_SHARE, r["state_share"]
-        assert "ZeRO window" in r["checkpoint_tree"]
-        assert "Queue 1, item 4.5" in r["checkpoint_tree"]
+        # the sharded checkpoint's window of the moment: this rank's,
+        # written by data rank 0
+        spec, window, write = r["checkpoint_tree"]
+        assert write == (r["coords"][0] == 0) and "sharding" in spec
+        d = spec.index("sharding")
+        assert window[d][1] - window[d][0] == \
+            r["slots"]["moment1"]["gpt.layers.0.attn.qkv_proj.weight"
+                                  ].shape[d]
     # the sharding ranks hold different windows of the same tensor
     w = "gpt.layers.0.attn.qkv_proj.weight"
     at = by_coords(res)
