@@ -305,9 +305,10 @@ line is printed:
              (updated minus initial weights) within ``HYBRID_PARAM_TOL``
              element by element and within ``HYBRID_UPDATE_RTOL`` of each
              tensor's update in 2-norm.  (b) mp = 2, two ranks sharing
-             the card over gloo (asked for), full depth: 3 f32 steps so
-             compared; the planted fault (the two ranks trade their
-             shards) must fail the loss comparison; then 3 bf16 O2 steps
+             the card over gloo (asked for), depth cut to
+             ``HYBRID_C_LAYERS``: 2 f32 steps so compared; the planted
+             fault (the two ranks trade their shards) must fail the loss
+             comparison; then ``HYBRID_STEPS`` (2) bf16 O2 steps
              at dropout 0.1: finite losses, the replicated parameters the
              same bits on both ranks; each rank's launches (flash at 8
              heads).  (c) dp = 2 x mp = 2, four ranks on the card over
@@ -328,7 +329,7 @@ line is printed:
              norms and the generator the plain step's bits, launches on
              the counters and in a profiled replay; (b) pp 2 with 2
              virtual stages a rank and 4 micro-batches, two ranks over
-             gloo, full depth, 3 f32 steps (a stage's launches: each of
+             gloo, full depth, 2 f32 steps (a stage's launches: each of
              its 12 blocks once a micro-batch); the planted fault, one
              micro-batch's gradient dropped, must miss the bound on the
              first step's updates; 3 bf16 steps at dropout 0.1: finite
@@ -351,11 +352,12 @@ line is printed:
              diagonal, unmasked) with the hash base set, on the wgmma
              kernels (bf16, D 64 and 128) and the mma.sync ones (f32);
              the ring with its masked blocks computed gives the skipped
-             run's bits.  (b) GPT-345m 8 x 1024 at full depth, sep 2, 3
-             f32 steps at dropout 0 against phase 15's world-of-one f32
-             reference and at attention dropout 0.1 (hidden 0) against
-             the world-of-one run at those settings, both as phase 15
-             holds its runs; 3 bf16 O2 steps at dropout 0.1: finite
+             run's bits.  (b) GPT-345m 8 x 1024 cut to
+             ``HYBRID_C_LAYERS`` layers, sep 2, 2 f32 steps at dropout 0
+             against phase 15's cut world-of-one f32 reference and at
+             attention dropout 0.1 (hidden 0) against the cut
+             world-of-one run at those settings, both as phase 15 holds
+             its runs; 2 bf16 O2 steps at dropout 0.1: finite
              losses; each rank's launches of rows 1-3 (the ring computes
              ``r + 1`` blocks on rank ``r``) and 7-8 a step.  (c) the
              dryrun's second mesh, mp 2 x sharding 2 x sep 2 at
@@ -392,6 +394,30 @@ line is printed:
              experts' windows and the gate's, averaged over the data
              group; a fixed stride of elements) within ``MOE_GRAD_RTOL``
              of the world of one's, in norm.
+20. engine   the auto-parallel ``Engine`` and the launcher: (a)
+             GPT-345m 8 x 1024 through ``Engine.fit`` at a world of one
+             (O2 bf16 from ``strategy.amp``, no dynamic loss scaling,
+             dropout 0.1, AdamW, the fusion pass on, no recompute), 8
+             steps from a DataLoader over batches staged on the card, in
+             turns Engine / bare ``build_train_step`` / bare / Engine on
+             the same weights and batches: the losses and every state
+             tensor the same bits after each pair of turns, 1 capture
+             and 7 replays each, both medians; then an Engine saves
+             after step 3 and a fresh Engine's ``restore_latest``
+             resumes steps 4-6 to the uninterrupted run's bits.  (b)
+             ``python -m paddle_tpu_torch.distributed.launch
+             --nproc_per_node 2`` on a worker script written here: each
+             rank joins gloo on the card and runs ``Engine.fit`` at
+             sharding 2 (stage 2, ``os_g``) on GPT-345m's widths at
+             ``HYBRID_C_LAYERS`` layers, f32, dropout 0, 3 steps: each
+             rank's losses within ``ENGINE_LOSS_TOL`` of the world of
+             one's, the launcher's code 0, each rank's ``workerlog``.
+             (c) in the same ranks: one ``rpc_sync`` each way, and a
+             ``ShardedEmbedding`` over the two ranks (GPT's vocabulary x
+             1024, 8 x 1024 ids a rank): each rank's rows and its window
+             of the table's gradient the bits of ``F.embedding`` on the
+             whole table over both ranks' ids.  Rows 1-3 and 7-8 counted
+             on (a)'s replays and (b)'s ranks.  Budget 80 s.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -527,12 +553,15 @@ HAPI_SEQS, HAPI_WORKERS, HAPI_SAVE_AT = 64, 2, 3
 HAPI_TURNS = ("fit", "step", "step", "fit")
 HAPI_CLS_SIZE, HAPI_CLS_TOL = 64, 1e-4
 # phase 15: data x tensor parallelism.  (a)'s plain and degree-1 steps, the
-# f32 steps of the references, (b), (c) and (d); (c)'s depth
-HYBRID_BATCH, HYBRID_A_STEPS, HYBRID_STEPS = 8, 4, 3
+# f32 steps of the references, (b), (c) and (d); the cut depth
+HYBRID_BATCH, HYBRID_A_STEPS, HYBRID_STEPS = 8, 4, 2
 HYBRID_C_LAYERS = 4
-# the runs at HYBRID_C_LAYERS (phase 15 (c), 16 (d), 17 (c) and their
-# world-of-one reference) take 2 steps, cut from 3 to keep the whole run
-# inside its clock when phase 17 came
+# the runs at HYBRID_C_LAYERS (phase 15 (b), (c), 16 (d), 17 (b), (c) and
+# their world-of-one references) take 2 steps, cut from 3 to keep the
+# whole run inside its clock when phase 17 came; the full-depth runs
+# (phase 16 (b), (c)) take HYBRID_STEPS, and phase 15 (b) and 17 (b) run
+# at HYBRID_C_LAYERS, cut from full depth, since phase 20 came (a whole
+# run on a slower host took 1264.7 s, every phase 25-40% over the usual)
 HYBRID_C_STEPS = 2
 HYBRID_LR, HYBRID_CLIP = 1e-4, 1.0
 # sharded against the world-of-one step, f32: losses within the bound the
@@ -578,6 +607,13 @@ ZP_WORD = "gpt.embeddings.word_embeddings.weight"
 MOE_D, MOE_DFF, MOE_E, MOE_CF, MOE_TOKENS = 1024, 4096, 8, 1.2, 8 * 1024
 MOE_LOSS_RTOL, MOE_GRAD_RTOL, MOE_TIMED = 1e-4, 1e-3, 5
 MOE_SAMPLES = 1 << 16
+# phase 20: Engine.fit against the bare step (steps a turn, the step saved
+# after and resumed from); the launched sharding-2 ranks' steps, held to
+# the world of one's losses within phase 15's reading (9.537e-07, the
+# largest difference of its f32 ranks), and the launch's time limit
+ENGINE_STEPS, ENGINE_SAVE_AT, ENGINE_RESUME_TO = 8, 3, 6
+ENGINE_TURNS = ("engine", "bare", "bare", "engine")
+ENGINE_LAUNCH_STEPS, ENGINE_LOSS_TOL, ENGINE_LAUNCH_TIMEOUT = 3, 9.537e-07, 300
 # phase 17: sequence parallelism over SEP_DEGREE ranks on the card; the
 # ring's causal shifts on a 512-row block (its keys all after its queries,
 # the diagonal, all before), each with the hash base of the ring step that
@@ -5331,10 +5367,10 @@ def _hybrid_cfg(layers=None, dropout=True):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def _attn_dropout_cfg():
+def _attn_dropout_cfg(layers=None):
     """GPT-345m as :func:`_hybrid_cfg`, attention dropout 0.1, hidden
     dropout 0 (phase 17 (b)'s second run)."""
-    return dataclasses.replace(_hybrid_cfg(dropout=False),
+    return dataclasses.replace(_hybrid_cfg(layers, dropout=False),
                                attention_probs_dropout_prob=FLASH_DROPOUT)
 
 
@@ -5494,13 +5530,13 @@ def _hybrid_world1_rank(backend):
     # attention dropout 0.1
     for key, cfg in (("b", _hybrid_cfg(dropout=False)),
                      ("c", _hybrid_cfg(HYBRID_C_LAYERS, dropout=False)),
-                     ("b_attn", _attn_dropout_cfg())):
+                     ("c_attn", _attn_dropout_cfg(HYBRID_C_LAYERS))):
         step = build_train_step(cfg, device=DEVICE, amp_o2=False,
                                 fusion=False, strategy=_degrees(),
                                 capture=False,
                                 optimizer=_hybrid_optimizer())
         init = _weights(step)
-        n_steps = HYBRID_C_STEPS if key == "c" else HYBRID_STEPS
+        n_steps = HYBRID_C_STEPS if key.startswith("c") else HYBRID_STEPS
         losses, times, _, norms = _hybrid_steps(step, ids, labels, n_steps)
         updates, _ = _updates(step, init)
         out[key] = {"losses": losses, "times": times, "updates": updates,
@@ -5696,14 +5732,15 @@ def phase_hybrid(smi):
 
     full, cut = _hybrid_cfg(), _hybrid_cfg(HYBRID_C_LAYERS)
     t0 = time.perf_counter()
-    ranks = spawn(_hybrid_rank, args=(1, 2, None, "gloo", True, True),
+    ranks = spawn(_hybrid_rank, args=(1, 2, HYBRID_C_LAYERS, "gloo", True,
+                                      True),
                   nprocs=2, timeout=HYBRID_TIMEOUT)
-    _check_hybrid_ranks("(b) mp 2 over gloo", ranks, w1["b"],
-                        _plain_per_step(full))
-    planted = [abs(r["planted_loss"] - w1["b"]["losses"][0]) for r in ranks]
+    _check_hybrid_ranks(f"(b) mp 2 over gloo, {HYBRID_C_LAYERS} layers",
+                        ranks, w1["c"], _plain_per_step(cut))
+    planted = [abs(r["planted_loss"] - w1["c"]["losses"][0]) for r in ranks]
     log(f"[hybrid] (b) planted fault, the two ranks' shards traded: first "
         f"losses {[r['planted_loss'] for r in ranks]} against "
-        f"{w1['b']['losses'][0]}: |diff| {planted}, must exceed "
+        f"{w1['c']['losses'][0]}: |diff| {planted}, must exceed "
         f"{HYBRID_LOSS_TOL:.0e}")
     if not min(planted) > HYBRID_LOSS_TOL:
         raise AssertionError("(b): the planted fault passed the comparison")
@@ -5716,7 +5753,7 @@ def phase_hybrid(smi):
                              f"{bf[0]['replicated'] == bf[1]['replicated']}")
     for r in ranks:
         _check_counts(f"(b) bf16 rank {r['rank']}", r["bf16"]["launches"],
-                      _plain_per_step(full), HYBRID_STEPS)
+                      _plain_per_step(cut), HYBRID_STEPS)
     log(f"[hybrid] (b) bf16 O2 dropout 0.1: losses {bf[0]['losses']} (rank "
         f"1 {bf[1]['losses']}); {len(bf[0]['replicated'])} replicated "
         f"parameters the same bits on both ranks; step ms eager, gloo, card "
@@ -5724,10 +5761,10 @@ def phase_hybrid(smi):
         f"bf16 {[round(t * 1e3, 1) for t in bf[0]['times']]}; "
         f"{time.perf_counter() - t0:.1f} s")
     for r in ranks:
-        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} mp2 gloo rank {r['rank']} "
-            f"f32"] = r["launches"]
-        out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} mp2 gloo rank {r['rank']} "
-            f"bf16"] = r["bf16"]["launches"]
+        out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x{TRAIN_SEQ} "
+            f"mp2 gloo rank {r['rank']} f32"] = r["launches"]
+        out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x{TRAIN_SEQ} "
+            f"mp2 gloo rank {r['rank']} bf16"] = r["bf16"]["launches"]
     del ranks, bf
 
     t0 = time.perf_counter()
@@ -6493,9 +6530,9 @@ def _sep_rank(kind, backend):
         res["d"], res["d_launches"] = _sep_packed(r, SEP_DEGREE)
         res["d_s"] = time.perf_counter() - t0
         _free()
-        runs = (("b", _hybrid_cfg(dropout=False), False),
-                ("b_attn", _attn_dropout_cfg(), False),
-                ("b_bf16", _hybrid_cfg(), True))
+        runs = (("b", _hybrid_cfg(HYBRID_C_LAYERS, dropout=False), False),
+                ("b_attn", _attn_dropout_cfg(HYBRID_C_LAYERS), False),
+                ("b_bf16", _hybrid_cfg(HYBRID_C_LAYERS), True))
         degrees = dict(sep=SEP_DEGREE)
     else:
         runs = (("c", _hybrid_cfg(HYBRID_C_LAYERS, dropout=False), False),)
@@ -6607,12 +6644,13 @@ def phase_sep(smi, w1):
         out[f"{PACKED_PATH} heads split over sep{SEP_DEGREE} rank {i}"] = \
             r["d_launches"]
     # (b)
-    full = _hybrid_cfg()
-    per = {i: _sep_per_step(full, i) for i in range(SEP_DEGREE)}
-    for key, ref, what in (("b", w1["b"], "dropout 0"),
-                           ("b_attn", w1["b_attn"],
+    cut = _hybrid_cfg(HYBRID_C_LAYERS)
+    per = {i: _sep_per_step(cut, i) for i in range(SEP_DEGREE)}
+    for key, ref, what in (("b", w1["c"], "dropout 0"),
+                           ("b_attn", w1["c_attn"],
                             f"attention dropout {FLASH_DROPOUT}, hidden 0")):
-        _check_zp(f"(b) sep {SEP_DEGREE}, {what}", [r[key] for r in ranks],
+        _check_zp(f"(b) sep {SEP_DEGREE}, {HYBRID_C_LAYERS} layers, {what}",
+                  [r[key] for r in ranks],
                   ref, lambda x: per[x["sep_rank"]], tag="sep")
         for i, r in enumerate(ranks):    # both sep ranks share coordinates
             _check_counts(f"sep (b) {key} rank {i}", r[key]["launches"],
@@ -6634,8 +6672,8 @@ def phase_sep(smi, w1):
                 f"{r[key]['seconds']:.1f} s")
             tag = {"b": "f32", "b_attn": "f32 attention dropout",
                    "b_bf16": "bf16"}[key]
-            out[f"gpt_345m {HYBRID_BATCH}x{TRAIN_SEQ} sep{SEP_DEGREE} gloo "
-                f"rank {i} {tag}"] = counts
+            out[f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x"
+                f"{TRAIN_SEQ} sep{SEP_DEGREE} gloo rank {i} {tag}"] = counts
     if any(r["b"]["param_sha"] != ranks[0]["b"]["param_sha"]
            for r in ranks):
         raise AssertionError("sep (b): the sep ranks' parameters differ")
@@ -6645,7 +6683,6 @@ def phase_sep(smi, w1):
     ranks = spawn(_sep_rank, args=("c", "gloo"), nprocs=8,
                   timeout=HYBRID_TIMEOUT)
     runs = [r["c"] for r in ranks]
-    cut = _hybrid_cfg(HYBRID_C_LAYERS)
     _check_zp(f"(c) mp 2 x sharding 2 x sep {SEP_DEGREE} at os_g, "
               f"{HYBRID_C_LAYERS} layers", runs, w1["c"],
               lambda x: _sep_per_step(cut, x["sep_rank"]), tag="sep")
@@ -6828,6 +6865,381 @@ def phase_moe(smi):
         f"shared); {time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
+# -- phase 20: the Engine and the launcher ----------------------------------------
+
+class _Staged:
+    """Samples (ids, labels) already on the card."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def __len__(self):
+        return len(self.items)
+
+
+def _engine_gpt(gpt, seed):
+    """gpt_345m through the ``Engine`` as phase 20 (a) drives it: the
+    network drawn from a generator seeded ``seed`` on the card, O2 bf16
+    from ``strategy.amp`` (no dynamic loss scaling), ``AdamW(1e-4,
+    multi_precision=True)``, the causal-LM loss: ``build_train_step``'s
+    step."""
+    from paddle_tpu_torch.distributed import Engine, fleet
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
+                                                  GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = make_generator(seed, DEVICE)
+    net = GPTForCausalLM(gpt, generator=gen)
+    strategy = fleet.DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs = {"use_bf16": True,
+                            "use_dynamic_loss_scaling": False}
+    return Engine(net, loss=GPTPretrainingCriterion(),
+                  optimizer=AdamW(learning_rate=1e-4, multi_precision=True,
+                                  parameters=net.parameters()),
+                  strategy=strategy, generator=gen)
+
+
+def _engine_fit(eng, loader, n=None):
+    """``eng.fit`` over ``loader`` (its first ``n`` batches): (losses,
+    step seconds, launch counts), the counters set to 0 just before."""
+    from paddle_tpu_torch.ops import reset_launch_counts
+    clock = _hapi_callbacks()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    eng.fit(loader, epochs=1, steps_per_epoch=n, verbose=0,
+            callbacks=[clock])
+    return clock.losses, clock.times, _launch_counts()
+
+
+def _bare_steps(step, batches):
+    losses, times = [], []
+    for ids, labels in batches:
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _engine_path(smi, root):
+    """(a): the Engine at a world of one against the bare step, then its
+    save and a fresh Engine's ``restore_latest`` (:func:`phase_engine`).
+    Returns {path: launch counts}."""
+    from paddle_tpu_torch.distributed import CheckpointManager
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.train import build_train_step
+    gpt = gpt_345m(use_recompute=False, max_position_embeddings=TRAIN_SEQ)
+    per_step = _headline_per_step(gpt)
+    tokens = _HapiTokens(gpt.vocab_size)
+    ds = _Staged([tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                        for a in tokens[i]) for i in range(len(tokens))])
+    loader = DataLoader(ds, batch_size=FUSED_BATCH, shuffle=False)
+    batches = [tuple(torch.stack([ds.items[i][k] for i in range(
+        j * FUSED_BATCH, (j + 1) * FUSED_BATCH)]) for k in (0, 1))
+        for j in range(ENGINE_STEPS)]
+    label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} Engine.fit"
+    a = _engine_gpt(gpt, 0)
+    b = build_train_step(gpt, device=DEVICE, seed=0)
+    losses = {"engine": [], "bare": []}
+    times = {"engine": [], "bare": []}
+    launches = None
+    for turn, way in enumerate(ENGINE_TURNS):
+        if way == "engine":
+            got, secs, counts = _engine_fit(a, loader)
+            if launches is None:
+                launches = counts
+                _check_captured(f"{label} (first turn)", a.train_step,
+                                ENGINE_STEPS)
+                _check_counts(label, launches, per_step, ENGINE_STEPS)
+        else:
+            got, secs = _bare_steps(b, batches)
+        losses[way] += got
+        # the first step of each side captures its graph
+        times[way] += secs[1:] if not times[way] else secs
+        if turn in (1, 3):
+            differ = _differ(_step_state(b), _step_state(a.train_step))
+            same_rng = torch.equal(a.train_step.generator.get_state(),
+                                   b.generator.get_state())
+            if losses["engine"] != losses["bare"] or differ or not same_rng:
+                raise AssertionError(
+                    f"{label}: Engine and build_train_step differ after "
+                    f"{len(losses['bare'])} steps: losses "
+                    f"{losses['engine']} / {losses['bare']}, tensors "
+                    f"{differ[:8]}, generator same {same_rng}")
+    _check_captured(label, a.train_step, 2 * ENGINE_STEPS)
+    _check_captured(f"{label} (bare)", b, 2 * ENGINE_STEPS)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    n_state = len(_step_state(b))
+    log(f"[engine] (a) {label}: turns {'/'.join(ENGINE_TURNS)}, "
+        f"{ENGINE_STEPS} steps each: losses and all {n_state} state tensors "
+        f"the same bits after steps {ENGINE_STEPS} and {2 * ENGINE_STEPS}; "
+        f"Engine median {med['engine']:.2f} ms a step, the bare graph step "
+        f"{med['bare']:.2f} ms (Engine - bare {med['engine'] - med['bare']:+.2f}"
+        f" ms); capture {a.train_step.captured.stats}; first losses "
+        f"{losses['engine'][:ENGINE_STEPS]} | {smi}")
+    if not all(math.isfinite(v) for v in losses["engine"]):
+        raise AssertionError(f"{label}: losses {losses['engine']}")
+    want = losses["engine"][:ENGINE_RESUME_TO]
+    del a, b
+    _free_steps()
+
+    # the save after ENGINE_SAVE_AT steps and the resume
+    mgr = CheckpointManager(os.path.join(root, "engine"))
+    c = _engine_gpt(gpt, 0)
+    first, _, _ = _engine_fit(c, loader, ENGINE_SAVE_AT)
+    _need_disk("engine", root, _tree_bytes(c.train_step.checkpoint_tree()))
+    t0 = time.perf_counter()
+    c.save(mgr.step_dir(ENGINE_SAVE_AT))
+    save_s = time.perf_counter() - t0
+    tail = _Staged(ds.items[ENGINE_SAVE_AT * FUSED_BATCH:
+                            ENGINE_RESUME_TO * FUSED_BATCH])
+    rest_loader = DataLoader(tail, batch_size=FUSED_BATCH, shuffle=False)
+    rest_c, _, _ = _engine_fit(c, rest_loader)
+    d = _engine_gpt(gpt, 1)
+    t0 = time.perf_counter()
+    n = d.restore_latest(mgr.root)
+    restore_s = time.perf_counter() - t0
+    rest_d, _, resumed = _engine_fit(d, rest_loader)
+    differ = _differ(_step_state(c.train_step), _step_state(d.train_step))
+    log(f"[engine] (a) {label}: saved after step {ENGINE_SAVE_AT} in "
+        f"{save_s:.2f} s, a fresh Engine (weights from seed 1) restored step "
+        f"{n} in {restore_s:.2f} s and ran steps {ENGINE_SAVE_AT + 1}-"
+        f"{ENGINE_RESUME_TO}: losses {rest_d} (uninterrupted {rest_c}), "
+        f"tensors that differ {differ[:4]}")
+    if n != ENGINE_SAVE_AT or first + rest_c != want or rest_d != rest_c \
+            or differ or not torch.equal(c.train_step.generator.get_state(),
+                                         d.train_step.generator.get_state()):
+        raise AssertionError(f"{label}: the resumed steps are not the "
+                             f"uninterrupted ones: step {n}, losses "
+                             f"{first + rest_c} / {want} / {rest_d}, tensors "
+                             f"{differ[:8]}")
+    _check_captured(f"{label} (resumed)", d.train_step,
+                    ENGINE_RESUME_TO - ENGINE_SAVE_AT)
+    _check_counts(f"{label} (resumed)", resumed, per_step,
+                  ENGINE_RESUME_TO - ENGINE_SAVE_AT)
+    del c, d
+    shutil.rmtree(mgr.root)
+    _free_steps()
+    return {label: launches, f"{label} resumed": resumed}
+
+
+#: phase 20 (b) and (c): one launched rank (written to a file and run by
+#: the launcher, one process a rank)
+_ENGINE_WORKER = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+
+
+def who(tag):
+    return tag, int(os.environ["PADDLE_TRAINER_ID"]), os.getpid()
+
+
+def main():
+    out, device, fields = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    batch, seq, steps, lr, clip = (int(sys.argv[4]), int(sys.argv[5]),
+        int(sys.argv[6]), float(sys.argv[7]), float(sys.argv[8]))
+    from paddle_tpu_torch import distributed as tdist
+    from paddle_tpu_torch.distributed import Engine, fleet, rpc
+    from paddle_tpu_torch.distributed.ps import ShardedEmbedding
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.models import (
+        GPTConfig, GPTForCausalLM, GPTPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import embedding
+    from paddle_tpu_torch.nn.initializer import XavierNormal
+    from paddle_tpu_torch.ops import KERNELS, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import make_batch
+    tdist.init_parallel_env("gloo", device=device)
+    r, dev = tdist.get_rank(), tdist.rank_device()
+    cfg = GPTConfig(**fields)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    ids, labels = make_batch(cfg, batch, seq, seed=0, device=dev)
+    gen = make_generator(0, dev)
+    net = GPTForCausalLM(cfg, generator=gen)
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 2}
+    strategy.hybrid_configs = {"sharding_degree": 2}
+    eng = Engine(net, loss=GPTPretrainingCriterion(), strategy=strategy,
+                 optimizer=AdamW(learning_rate=lr,
+                                 grad_clip=ClipGradByGlobalNorm(clip)),
+                 generator=gen)
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.times, self.t = [], [], time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            now = time.perf_counter()
+            self.times.append(now - self.t)
+            self.t = now
+
+    rec = Losses()
+    eng.prepare()
+    sync()
+    reset_launch_counts()
+    eng.fit([(ids, labels)] * steps, epochs=1, verbose=0, callbacks=[rec])
+    counts = {n: KERNELS[n].launches for n in KERNELS}
+    for n in ("layer_norm_fwd", "layer_norm_bwd"):
+        counts[n + ".residual"] = KERNELS[n].residual_launches
+    level = eng.train_step.zero.level
+    # (c) rpc each way, then the sharded table on the card
+    rpc.init_rpc(f"worker{r}")
+    peer = rpc.rpc_sync(f"worker{1 - r}", who, args=(f"from {r}",),
+                        timeout=60)
+    rpc.shutdown()
+    vocab, width = cfg.vocab_size, cfg.hidden_size
+    emb = ShardedEmbedding(vocab, width, generator=make_generator(7, dev))
+    mine = [make_batch(cfg, batch, seq, seed=10 + k, device=dev)[0]
+            for k in range(2)]
+    gouts = [torch.randn(batch, seq, width, device=dev,
+                         generator=make_generator(20 + k, dev))
+             for k in range(2)]
+    t0 = time.perf_counter()
+    rows = emb(mine[r])
+    rows.backward(gouts[r])
+    sync()
+    ps_s = time.perf_counter() - t0
+    whole = XavierNormal()((vocab, width), make_generator(7, dev))
+    whole.requires_grad_()
+    want = embedding(torch.cat(mine), whole)
+    want.backward(torch.cat(gouts))
+    lo = emb.weight.row_offset
+    per = emb.weight.shape[0]
+    fwd_err = (rows - want[r * batch:(r + 1) * batch]).abs().max().item()
+    grad_err = (emb.weight.grad - whole.grad[lo:lo + per]).abs().max().item()
+    res = {"rank": r, "losses": rec.losses, "times": rec.times,
+           "counts": counts, "level": level, "peer": list(peer),
+           "shard_axes": list(emb._shard_axes), "rows": [lo, lo + per],
+           "ps_fwd_err": fwd_err, "ps_grad_err": grad_err, "ps_s": ps_s,
+           "ps_same_bits": bool(torch.equal(rows, want[r * batch:(r + 1) *
+                                                       batch]) and
+                                torch.equal(emb.weight.grad,
+                                            whole.grad[lo:lo + per]))}
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    print(json.dumps(res)[:400], flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+
+def _launched_ranks(tmp, cfg):
+    """(b) and (c): the worker script written into ``tmp`` and run by the
+    launcher over two ranks on ``cfg`` (a ``GPTConfig``); the launcher's
+    code, its seconds and each rank's results."""
+    script = os.path.join(tmp, "engine_worker.py")
+    with open(script, "w") as f:
+        f.write(_ENGINE_WORKER)
+    out, logs = os.path.join(tmp, "out"), os.path.join(tmp, "log")
+    os.makedirs(out)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--log_dir", logs, script, out,
+           DEVICE, json.dumps(dataclasses.asdict(cfg)), str(HYBRID_BATCH),
+           str(TRAIN_SEQ), str(ENGINE_LAUNCH_STEPS), str(HYBRID_LR),
+           str(HYBRID_CLIP)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        text, _ = proc.communicate(timeout=ENGINE_LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"the launcher did not finish within "
+                             f"{ENGINE_LAUNCH_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    tails = {}
+    for r in range(2):
+        path = os.path.join(logs, f"workerlog.{r}")
+        if not os.path.exists(path):
+            raise AssertionError(f"the launcher wrote no {path}")
+        with open(path) as f:
+            tails[r] = f.read()[-2000:]
+    if proc.returncode != 0:
+        raise AssertionError(f"the launcher exited with {proc.returncode}: "
+                             f"{text.decode()[-2000:]}\n{tails}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return proc.returncode, secs, ranks
+
+
+def phase_engine(smi):
+    """Phase 20 (module docstring).  Returns {path: launch counts}."""
+    import tempfile
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pt_engine_") as root:
+        out.update(_engine_path(smi, root))
+        # (b)'s reference: the world of one at the launched ranks' step
+        cut = _hybrid_cfg(HYBRID_C_LAYERS, dropout=False)
+        ids, labels = make_batch(cut, HYBRID_BATCH, TRAIN_SEQ, seed=0,
+                                 device=DEVICE)
+        one = build_train_step(cut, device=DEVICE, amp_o2=False,
+                               fusion=False, capture=False,
+                               optimizer=_hybrid_optimizer())
+        want, _, _, _ = _hybrid_steps(one, ids, labels, ENGINE_LAUNCH_STEPS)
+        del one
+        _free()
+        code, secs, ranks = _launched_ranks(root, cut)
+    per_step = _plain_per_step(cut)
+    label = (f"gpt_345m {HYBRID_C_LAYERS} layers {HYBRID_BATCH}x{TRAIN_SEQ} "
+             f"Engine.fit sharding2 os_g launched gloo")
+    for res in ranks:
+        r = res["rank"]
+        err = max(abs(a - b) for a, b in zip(res["losses"], want))
+        log(f"[engine] (b) launched rank {r}: ZeRO {res['level']}, losses "
+            f"{res['losses']} (world of one {want}, max |diff| {err:.3e}), "
+            f"step seconds {[round(t, 3) for t in res['times']]}; (c) rpc "
+            f"answered {res['peer']}, ShardedEmbedding over "
+            f"{res['shard_axes']} rows {res['rows']}: rows max |err| "
+            f"{res['ps_fwd_err']:.3e}, gradient max |err| "
+            f"{res['ps_grad_err']:.3e}, the same bits "
+            f"{res['ps_same_bits']}, lookup + backward {res['ps_s']:.3f} s")
+        if len(res["losses"]) != ENGINE_LAUNCH_STEPS or \
+                err > ENGINE_LOSS_TOL or res["level"] != "os_g":
+            raise AssertionError(f"(b) launched rank {r}: losses "
+                                 f"{res['losses']} against {want} "
+                                 f"(bound {ENGINE_LOSS_TOL}), ZeRO "
+                                 f"{res['level']}")
+        if res["peer"][:2] != [f"from {r}", 1 - r] or \
+                not res["ps_same_bits"] or res["rows"][1] - \
+                res["rows"][0] != cut.vocab_size // 2:
+            raise AssertionError(f"(c) launched rank {r}: rpc {res['peer']}, "
+                                 f"ShardedEmbedding rows {res['rows']}, "
+                                 f"errors {res['ps_fwd_err']} / "
+                                 f"{res['ps_grad_err']}")
+        _check_counts(f"(b) launched rank {r}", res["counts"], per_step,
+                      ENGINE_LAUNCH_STEPS)
+        out[f"{label} rank {r}"] = res["counts"]
+    log(f"[engine] (b) the launcher: code {code}, {secs:.1f} s for two "
+        f"ranks (start, build, {ENGINE_LAUNCH_STEPS} steps, rpc and the "
+        f"sharded table) | {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -6883,6 +7295,8 @@ def main() -> int:
     lap("sep")
     phase_moe(smi)
     lap("moe-ep")
+    engine = phase_engine(smi)
+    lap("engine and launcher")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -6936,9 +7350,10 @@ def main() -> int:
     # phase 17's: (a)'s ring and Ulysses runs and (d)'s packed heads on each
     # rank, (b)'s steps on each rank, (c)'s data rank 0
     # phase 18's resumed steps: (b)'s stages, (c)'s rank 0, (d)'s stages
+    # phase 20's: (a)'s Engine replays, each launched rank of (b)
     for path, counts in itertools.chain(hapi.items(), hybrid.items(),
                                         zero_pipeline.items(), sep.items(),
-                                        resumed.items()):
+                                        resumed.items(), engine.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

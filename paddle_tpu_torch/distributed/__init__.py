@@ -11,9 +11,18 @@ with the tensor-parallel layers and the pipeline (:mod:`.fleet`), a CPU
 rendezvous (:mod:`.parallel_with_gloo`),
 process-level contracts and the crash-consistent checkpoint
 (:mod:`.checkpoint`, :mod:`.checkpoint_manager`), whose directories both
-packages read."""
+packages read; the launcher (``python -m
+paddle_tpu_torch.distributed.launch``, :mod:`.launch`), the auto-parallel
+annotations and ``Engine`` (:mod:`.auto_parallel_api`,
+:mod:`.auto_parallel`), ``rpc`` (:mod:`.rpc`), the sharded embedding in
+place of a parameter server (:mod:`.ps`) and its entry attributes
+(:mod:`.entry_attr`)."""
 from . import (auto_parallel, collective_schedule, communication, fleet,
-               sharding)
+               launch, ps, rpc, sharding)
+from .auto_parallel import Engine, to_static
+from .auto_parallel_api import (Partial, ProcessMesh, Replicate, Shard,
+                                dtensor_from_fn, reshard, shard_layer,
+                                shard_tensor)
 from .checkpoint import (CheckpointCorruptError, HostLocalShard,
                          ReshardError, is_committed, load_sharded,
                          load_state, read_leaf, save_sharded, save_state,
@@ -31,6 +40,7 @@ from .collective import (P2POp, ReduceOp, Group, all_gather,
 from .communication import stream
 from .env import ParallelEnv, get_rank, get_world_size
 from .fleet.meta_parallel.mp_ops import split
+from .entry_attr import CountFilterEntry, ProbabilityEntry, ShowClickEntry
 from .launch_api import spawn
 from .mesh import (HYBRID_AXES, build_mesh, get_mesh, init_mesh,
                    mesh_axis_size, set_mesh)
@@ -62,4 +72,8 @@ __all__ = [
     "CommunicateTopology", "HybridCommunicateGroup", "ParallelMode", "fleet",
     "auto_parallel", "collective_schedule", "sharding",
     "group_sharded_parallel", "save_group_sharded_model",
+    "ProcessMesh", "Shard", "Replicate", "Partial", "shard_tensor",
+    "shard_layer", "dtensor_from_fn", "reshard", "Engine", "to_static",
+    "launch", "rpc", "ps", "CountFilterEntry", "ProbabilityEntry",
+    "ShowClickEntry",
 ]

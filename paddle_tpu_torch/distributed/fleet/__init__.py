@@ -2,14 +2,18 @@
 ``distributed_model`` and ``distributed_optimizer``), the strategy, the
 tensor-parallel layers, the pipeline and stage-3 sharding
 (:mod:`.meta_parallel`), the optimizer wrappers
-(:mod:`.meta_optimizers`) and per-block recompute (:mod:`.recompute`)."""
-from . import meta_optimizers, meta_parallel
+(:mod:`.meta_optimizers`), per-block recompute (:mod:`.recompute`), the
+role makers that read the launcher's environment (:mod:`.role_maker`)
+and the job helpers (:mod:`.util`)."""
+from . import meta_optimizers, meta_parallel, role_maker, util
 from .base.distributed_strategy import DistributedStrategy
 from .fleet import (Fleet, barrier_worker, distributed_model,
                     distributed_optimizer, fleet, get_hybrid_communicate_group,
                     hybrid_degrees, init, is_first_worker, worker_endpoints,
                     worker_index, worker_num)
 from .recompute import recompute
+from .role_maker import PaddleCloudRoleMaker, Role, UserDefinedRoleMaker
+from .util import UtilBase
 from ..topology import CommunicateTopology, HybridCommunicateGroup
 
 __all__ = ["DistributedStrategy", "Fleet", "fleet", "init",
@@ -17,4 +21,6 @@ __all__ = ["DistributedStrategy", "Fleet", "fleet", "init",
            "distributed_optimizer", "worker_num", "worker_index",
            "is_first_worker", "worker_endpoints", "barrier_worker",
            "hybrid_degrees", "recompute", "CommunicateTopology",
-           "HybridCommunicateGroup", "meta_parallel", "meta_optimizers"]
+           "HybridCommunicateGroup", "meta_parallel", "meta_optimizers",
+           "role_maker", "util", "PaddleCloudRoleMaker", "Role",
+           "UserDefinedRoleMaker", "UtilBase"]

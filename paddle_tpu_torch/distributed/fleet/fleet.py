@@ -34,7 +34,7 @@ from .base.distributed_strategy import DistributedStrategy
 __all__ = ["Fleet", "fleet", "init", "get_hybrid_communicate_group",
            "distributed_model", "distributed_optimizer", "worker_num",
            "worker_index", "is_first_worker", "worker_endpoints",
-           "barrier_worker", "hybrid_degrees"]
+           "barrier_worker", "hybrid_degrees", "apply_recompute"]
 
 _HCG: Optional[HybridCommunicateGroup] = None
 _NAMES = ("data", "pipe", "sharding", "sep", "model")
@@ -56,18 +56,46 @@ def hybrid_degrees(hybrid_configs: dict, world: int) -> tuple:
     return tuple(dims)
 
 
+def apply_recompute(model) -> None:
+    """The strategy's ``recompute``: the model recomputes each block in
+    the backward pass (its config's ``use_recompute``, and GPT's live
+    flag)."""
+    cfg = getattr(model, "config", None)
+    if cfg is not None and hasattr(cfg, "use_recompute"):
+        cfg.use_recompute = True
+        inner = getattr(model, "gpt", None)
+        if inner is not None and hasattr(inner, "use_recompute"):
+            inner.use_recompute = True
+
+
 class Fleet:
     def __init__(self):
         self._is_initialized = False
         self._user_defined_strategy: Optional[DistributedStrategy] = None
         self._hcg: Optional[HybridCommunicateGroup] = None
+        self._role_maker = None
 
     def init(self, role_maker=None, is_collective=True, strategy=None,
              log_level="INFO"):
-        """Join the process group and build the hybrid topology."""
+        """Join the process group and build the hybrid topology.
+        ``role_maker`` (:mod:`.role_maker`'s) must count the world's
+        workers and name this rank."""
         global _HCG
         from ..parallel import init_parallel_env
         strategy = strategy or DistributedStrategy()
+        world = get_world_size()
+        if role_maker is not None:
+            if not role_maker.is_worker():
+                raise NotImplementedError(
+                    "a parameter-server role: the port trains collectively "
+                    "(distributed.ps holds a sharded embedding instead)")
+            if (role_maker.worker_num(), role_maker.worker_index()) != \
+                    (world, get_rank()):
+                raise ValueError(
+                    f"the role maker names worker {role_maker.worker_index()}"
+                    f" of {role_maker.worker_num()}; this process is rank "
+                    f"{get_rank()} of {world}")
+        self._role_maker = role_maker
         self._user_defined_strategy = strategy
         init_parallel_env()
         world = get_world_size()
@@ -127,12 +155,7 @@ class Fleet:
             from ...amp import decorate
             decorate(model, level="O2", dtype="bfloat16")
         if s is not None and s.recompute:
-            cfg = getattr(model, "config", None)
-            if cfg is not None and hasattr(cfg, "use_recompute"):
-                cfg.use_recompute = True
-                inner = getattr(model, "gpt", None)
-                if inner is not None and hasattr(inner, "use_recompute"):
-                    inner.use_recompute = True
+            apply_recompute(model)
         mode = hcg.get_parallel_mode()
         if mode == "pipeline":
             from .meta_parallel import PipelineParallel

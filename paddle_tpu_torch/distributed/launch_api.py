@@ -36,7 +36,7 @@ import traceback
 from multiprocessing.connection import wait as _wait_sentinels
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["spawn", "SpawnContext"]
+__all__ = ["spawn", "launch", "SpawnContext"]
 
 _STOP_GRACE_S = 5.0
 
@@ -202,3 +202,11 @@ def spawn(func: Callable, args=(), nprocs: int = 1, join: bool = True,
     if not join:
         return context
     return context.join(timeout)
+
+
+def launch():
+    """The launcher's command line (``python -m
+    paddle_tpu_torch.distributed.launch``) on ``sys.argv``; exits with its
+    code."""
+    from .launch.main import main
+    sys.exit(main())

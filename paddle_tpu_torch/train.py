@@ -38,6 +38,10 @@ cards the backend is NCCL, one card a rank, and the step is captured;
 ``--backend gloo`` lets ranks share a card and runs the step eagerly, as
 on the CPU (gloo's collectives run on the host).  Rank 0 prints.
 
+Started by the launcher (``python -m paddle_tpu_torch.distributed.launch
+--nproc_per_node N``, ``PADDLE_TRAINERS_NUM`` = N, the product of the
+degrees) the CLI spawns nothing: each launched process is one rank.
+
 With ``--pp`` (pipeline stages, ``--microbatches`` and
 ``--virtual-stages``) and ``--sharding`` (ZeRO over ``--sharding-level``
 ``os``, ``os_g`` or ``p_g_os``; ``os_g`` by default) the ranks are
@@ -54,6 +58,7 @@ import copy
 import inspect
 import json
 import logging
+import os
 import statistics
 import time
 from typing import Dict, Optional, Sequence
@@ -78,7 +83,7 @@ from .ops.fusion_pass import fusion_enabled, wrap
 from .optimizer import AdamW, Optimizer
 
 __all__ = ["TrainStep", "EagerStep", "HybridTrainStep", "HybridEagerStep",
-           "build_train_step", "make_batch",
+           "build_train_step", "hybrid_gpt_step", "make_batch",
            "build_bert_pretrain_step", "make_bert_batch", "save_checkpoint",
            "restore_checkpoint", "main"]
 
@@ -122,7 +127,9 @@ class EagerStep:
         self.generators = [g for g in generators if g is not generator]
         self.groups, self.loss_group = list(groups), loss_group
 
-    def __call__(self, inputs, targets):
+    def loss_of(self, inputs, targets):
+        """The forward pass and the f32 loss: ``(loss, outputs)``, the
+        outputs a tuple."""
         kw = {"generator": self.generator} if self.takes_generator else {}
         if isinstance(inputs, dict):
             out = self.model(**inputs, **kw)
@@ -137,7 +144,10 @@ class EagerStep:
             loss = self.criterion(*out, *targets)
         else:
             loss = self.criterion(*out, targets)
-        loss = loss.float()
+        return loss.float(), out
+
+    def __call__(self, inputs, targets):
+        loss, out = self.loss_of(inputs, targets)
         loss.backward()
         grads = {n: p.grad for n, p in self.params.items()}
         self.optimizer.apply_gradients_tree(self.params, grads, self.state)
@@ -298,9 +308,11 @@ class HybridEagerStep(EagerStep):
     averaged over the data ranks."""
 
     def __init__(self, model, criterion, optimizer, generator, params,
-                 state, *, zero, engine=None, generators=(), groups=()):
+                 state, *, zero, engine=None, generators=(), groups=(),
+                 takes_generator: bool = True):
         super().__init__(model, criterion, optimizer, generator, params,
-                         state, generators=generators, groups=groups)
+                         state, generators=generators, groups=groups,
+                         takes_generator=takes_generator)
         self.zero, self.engine = zero, engine
 
     def __call__(self, inputs, targets):
@@ -314,8 +326,7 @@ class HybridEagerStep(EagerStep):
                                          targets)
         else:
             with gathered(net):
-                out = self.model(inputs, generator=self.generator)
-                loss = self.criterion(out, targets).float()
+                loss, _ = self.loss_of(inputs, targets)
             loss.backward()
         return self.zero.step(self.optimizer, self.state, loss)
 
@@ -367,9 +378,12 @@ class HybridTrainStep(TrainStep):
         self.optimizer, self.generator = optimizer, generator
         self.params = dict(unwrap_model(model).named_parameters())
         self.state = zero.init_state(optimizer)
+        takes = "generator" in inspect.signature(
+            unwrap_model(model).forward).parameters
         self.eager = HybridEagerStep(
             model, criterion, optimizer, generator, self.params, self.state,
-            zero=zero, engine=engine, generators=generators, groups=groups)
+            zero=zero, engine=engine, generators=generators, groups=groups,
+            takes_generator=takes)
         self.captured = capture_step(self.eager) if capture else None
 
     def __call__(self, inputs, targets):
@@ -507,15 +521,17 @@ def build_train_step(cfg: GPTConfig, *, device=None, seed: int = 0,
 def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
                        strategy, sharding_level, capture) -> HybridTrainStep:
     from .distributed import fleet, init_parallel_env, rank_device
-    from .distributed.fleet.meta_parallel import (PipelineEngine,
-                                                  TensorParallel)
-    from .distributed.fleet.meta_parallel.random import (
-        MODEL_PARALLEL_RNG, model_parallel_random_seed)
-    from .distributed.sharding import (ZeroPlan, set_zero_level,
-                                       shard_parameters, zero_level)
     init_parallel_env(device=device)
     fleet.init(is_collective=True, strategy=strategy)
-    hcg = fleet.get_hybrid_communicate_group()
+    _refuse_sep_in_pipeline(fleet.get_hybrid_communicate_group())
+    gen = make_generator(seed, rank_device())
+    model = GPTForCausalLM(cfg, generator=gen)
+    return hybrid_gpt_step(model, gen, seed, strategy, amp_o2=amp_o2,
+                           fusion=fusion, optimizer=optimizer,
+                           sharding_level=sharding_level, capture=capture)
+
+
+def _refuse_sep_in_pipeline(hcg) -> None:
     if hcg.get_sep_parallel_world_size() > 1 and \
             hcg.get_pipe_parallel_world_size() > 1:
         raise NotImplementedError(
@@ -523,8 +539,37 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
             f"{hcg.get_pipe_parallel_world_size()}: sequence parallelism "
             f"inside a pipeline is not ported (ring attention runs with dp, "
             f"mp and sharding)")
-    gen = make_generator(seed, rank_device())
-    model = GPTForCausalLM(cfg, generator=gen)
+
+
+def hybrid_gpt_step(model: GPTForCausalLM, gen: torch.Generator, seed: int,
+                    strategy, *, amp_o2: bool = True,
+                    fusion: Optional[bool] = None,
+                    optimizer: Optional[Optimizer] = None,
+                    sharding_level: Optional[str] = None,
+                    capture: bool = True,
+                    criterion: Optional[torch.nn.Module] = None
+                    ) -> HybridTrainStep:
+    """This rank's :class:`HybridTrainStep` of ``model`` (a whole
+    ``GPTForCausalLM`` built after ``fleet.init``, so a tensor-parallel
+    shard at mp above 1, drawn from ``gen``) under fleet's topology:
+    its dropout streams from ``model_parallel_random_seed(seed)``, cut to
+    this rank's pipeline stage with ``pp``, O2 bf16 when ``amp_o2``, the
+    optimizer state sharded at ``sharding_level`` over the sharding group
+    (``os_g`` unless the strategy or the optimizer says), stage 3's
+    windows stored at ``p_g_os`` (:func:`build_train_step`).  The loss is
+    ``criterion``, by default the causal-LM loss over the model's mp
+    group."""
+    from .distributed import fleet
+    from .distributed.fleet.meta_parallel import (PipelineEngine,
+                                                  TensorParallel)
+    from .distributed.fleet.meta_parallel.random import (
+        MODEL_PARALLEL_RNG, model_parallel_random_seed)
+    from .distributed.sharding import (ZeroPlan, set_zero_level,
+                                       shard_parameters, zero_level)
+    hcg = fleet.get_hybrid_communicate_group()
+    _refuse_sep_in_pipeline(hcg)
+    if criterion is None:
+        criterion = GPTPretrainingCriterion(mp_group=model.mp_group)
     tracker = model_parallel_random_seed(seed, generator=gen)
     local = tracker.get(MODEL_PARALLEL_RNG)
     if local is not gen:
@@ -537,8 +582,7 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
         if fusion:
             model = wrap(model)              # raises: not ported for mp
         return HybridTrainStep(
-            fleet.distributed_model(model),
-            GPTPretrainingCriterion(mp_group=model.mp_group),
+            fleet.distributed_model(model), criterion,
             fleet.distributed_optimizer(optimizer or _default_optimizer()),
             gen, hcg, capture=capture, generators=tracker.generators())
     if fusion:
@@ -566,7 +610,7 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
     chunks = {}
     if pp > 1:
         prefixes, _ = model.pipeline_blocks()
-        per = cfg.num_layers // (pp * v)
+        per = model.config.num_layers // (pp * v)
         chunks = {n: (i // per) // pp for i, pre in enumerate(prefixes)
                   for n in named if n.startswith(pre)}
     # the tied word embedding: on the first and the last stage, its
@@ -576,9 +620,8 @@ def _build_hybrid_step(cfg, device, seed, amp_o2, fusion, optimizer,
     zero = ZeroPlan(named, hcg, level, chunks=chunks, virtual_stages=v,
                     tied=tied)
     return HybridTrainStep(
-        net, GPTPretrainingCriterion(mp_group=model.mp_group), opt, gen,
-        hcg, capture=capture, generators=tracker.generators(), zero=zero,
-        engine=engine)
+        net, criterion, opt, gen, hcg, capture=capture,
+        generators=tracker.generators(), zero=zero, engine=engine)
 
 
 def make_batch(cfg: GPTConfig, batch: int, seq: int, seed: int = 0,
@@ -709,6 +752,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if not args.model.startswith("gpt"):
             raise SystemExit("--dp, --mp, --pp, --sharding and --sep take a "
                              "GPT model")
+        launched = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+        if launched > 1:
+            # started by the launcher: this process is one of the ranks
+            if launched != _ranks(args):
+                raise SystemExit(
+                    f"the launcher started {launched} ranks; --dp x --mp x "
+                    f"--pp x --sharding x --sep is {_ranks(args)}")
+            _cli_rank(vars(args))
+            return 0
         from .distributed import spawn
         spawn(_cli_rank, args=(vars(args),), nprocs=_ranks(args))
         return 0

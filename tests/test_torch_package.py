@@ -83,7 +83,15 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "          'incubate.distributed.models.moe',\n"
         "          'incubate.distributed.models.moe.functional',\n"
         "          'incubate.distributed.models.moe.gate',\n"
-        "          'incubate.distributed.models.moe.moe_layer'):\n"
+        "          'incubate.distributed.models.moe.moe_layer',\n"
+        "          'distributed.launch', 'distributed.launch.main',\n"
+        "          'distributed.launch.__main__', 'distributed.rpc',\n"
+        "          'distributed.ps', 'distributed.entry_attr',\n"
+        "          'distributed.auto_parallel_api',\n"
+        "          'distributed.auto_parallel.engine',\n"
+        "          'distributed.auto_parallel.cluster',\n"
+        "          'distributed.fleet.role_maker', 'distributed.fleet.util',\n"
+        "          'cost_model', 'cost_model.parallel_cost'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
