@@ -418,6 +418,35 @@ line is printed:
              of the table's gradient the bits of ``F.embedding`` on the
              whole table over both ranks' ids.  Rows 1-3 and 7-8 counted
              on (a)'s replays and (b)'s ranks.  Budget 80 s.
+21. telemetry and tuner  the observability core on paths the earlier
+             phases already run, then the auto-tuner; budget 60 s, (d)
+             45 s of it.  (a) on phase 6's fp32 engine: telemetry on, 4
+             requests to ``/v1/generate``, ``GET /metrics`` answers 200
+             in Prometheus text, whose request, completion and token
+             counters equal what was posted and returned, the queue
+             depth 0, the KV page gauges the pool's own counts, the HTTP
+             latency histogram 4 requests.  (b) on phase 14's GPT fit:
+             turns off / on / on / off of 8 steps (an epoch) from
+             a 2-worker DataLoader (forked workers: a spawned one takes
+             15-20 s to start on the chip machine), each step ending in
+             the loss read on the host: with telemetry on, 16 train
+             steps, the capture's hits and misses on the counters, 16
+             data waits, the ``bytes_in_use`` gauge equal to
+             ``torch.cuda.memory_stats()`` at the step it was read, 16
+             ``step`` records in the JSONL sink; the on and off medians
+             printed.  (c) in phase 20 (b)'s launched ranks: each rank's
+             ``pt_collective_*`` counts and bytes a collective equal to
+             what its ZeRO plan implies (the reducer's buckets, the
+             windows' all-gathers, the clip's and the loss's
+             all-reduces a step) and its bucket plan booked once.  (d)
+             ``AutoTuner`` on GPT-345m at sequence 1024 on this card
+             (``Cluster.auto_detect()``): micro-batch {8, 16} x
+             recompute {off, on}, each trial a captured
+             ``build_train_step``, 1 capture and 4 replays, tokens/s
+             from the replays' median, predicted and measured step times
+             side by side; ``get_best()`` the fastest trial, no trial
+             the cost model kept out of memory, the recorder's CSV read
+             back.
 Phases 5-9 run the training steps and the serving engine as users do:
 on the card, through their CUDA graphs (the kernel counters count a
 replay's launches, as phase 11 checks against the eager steps).
@@ -614,6 +643,15 @@ MOE_SAMPLES = 1 << 16
 ENGINE_STEPS, ENGINE_SAVE_AT, ENGINE_RESUME_TO = 8, 3, 6
 ENGINE_TURNS = ("engine", "bare", "bare", "engine")
 ENGINE_LAUNCH_STEPS, ENGINE_LOSS_TOL, ENGINE_LAUNCH_TIMEOUT = 3, 9.537e-07, 300
+# phase 21: (a)'s requests; (b)'s turns, each one epoch of phase 14's
+# loader (HAPI_SEQS / FUSED_BATCH = 8 steps; the memory gauges read at
+# each turn's last step); (d)'s candidates (micro-batch x recompute at
+# TRAIN_SEQ, one card) and its replays a trial
+TELEMETRY_REQUESTS = 4
+TELEMETRY_TURNS = (False, True, True, False)
+TUNER_MBS, TUNER_RECOMPUTE, TUNER_REPLAYS = (8, 16), (False, True), 4
+# each phase-21 part's seconds, for the phase's total
+PHASE21_S = {}
 # phase 17: sequence parallelism over SEP_DEGREE ranks on the card; the
 # ring's causal shifts on a 512-row block (its keys all after its queries,
 # the diagonal, all before), each with the hash base of the ring step that
@@ -2437,9 +2475,346 @@ def phase_http(engine, prompt):
             raise AssertionError(f"/healthz: {r.status} {health}")
         log(f"[http] /v1/generate 200 with 8 tokens in "
             f"{body['latency_ms']:.1f} ms; /healthz ok")
+        return _telemetry_serve(engine, base, prompt)
     finally:
         srv.stop()
         engine.close()
+
+
+# -- phase 21: telemetry and the tuner ----------------------------------------
+
+def _prom_value(text, name, **labels):
+    """The sample ``name`` with ``labels`` (among others: the process's
+    identity) in Prometheus text; None when absent."""
+    for line in text.splitlines():
+        if line.startswith("#") or not line.startswith(name):
+            continue
+        key, value = line.rsplit(" ", 1)
+        series, _, rest = key.partition("{")
+        if series != name:
+            continue
+        got = dict(kv.split("=", 1) for kv in rest.rstrip("}").split(",")
+                   if kv)
+        if all(got.get(k) == f'"{v}"' for k, v in labels.items()):
+            return float(value)
+    return None
+
+
+def _telemetry_serve(engine, base, prompt):
+    """Phase 21 (a): telemetry on over the live server; returns {path:
+    launch counts} of its requests."""
+    from paddle_tpu_torch.observability import configure, reset
+    from paddle_tpu_torch.ops import reset_launch_counts
+    t0 = time.perf_counter()
+    configure(enabled=True)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        generated = 0
+        for i in range(TELEMETRY_REQUESTS):
+            status, body = _post(base, "/v1/generate",
+                                 {"tokens": prompt[i:],
+                                  "max_new_tokens": 8 + i})
+            if status != 200:
+                raise AssertionError(f"(a) /v1/generate: {status} {body}")
+            generated += len(body["tokens"])
+        launches = _launch_counts()
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            status, ctype = r.status, r.headers["Content-Type"]
+            text = r.read().decode()
+        kv = engine.pool.snapshot()
+        got = {
+            "requests": _prom_value(text, "pt_serve_requests_total"),
+            "completed": _prom_value(text, "pt_serve_completed_total"),
+            "tokens": _prom_value(text, "pt_serve_tokens_total"),
+            "queue_depth": _prom_value(text, "pt_serve_queue_depth"),
+            "active": _prom_value(text, "pt_serve_active_sequences"),
+            "kv_used": _prom_value(text, "pt_serve_kv_pages", state="used"),
+            "kv_free": _prom_value(text, "pt_serve_kv_pages", state="free"),
+            "kv_reserved": _prom_value(text, "pt_serve_kv_pages",
+                                       state="reserved"),
+            "http_count": _prom_value(
+                text, "pt_serve_http_request_seconds_count")}
+        want = {"requests": TELEMETRY_REQUESTS,
+                "completed": TELEMETRY_REQUESTS, "tokens": generated,
+                "queue_depth": 0, "active": 0,
+                "kv_used": kv["used_pages"], "kv_free": kv["free_pages"],
+                "kv_reserved": kv["reserved_pages"],
+                "http_count": TELEMETRY_REQUESTS}
+        PHASE21_S["a"] = time.perf_counter() - t0
+        log(f"[telemetry] (a) /metrics {status} {ctype!r}, "
+            f"{len(text.splitlines())} lines: {got}; want {want}; "
+            f"paged_attention launches {launches['paged_attention']} "
+            f"({PHASE21_S['a']:.1f} s)")
+        if status != 200 or not ctype.startswith(
+                "text/plain; version=0.0.4") or got != want:
+            raise AssertionError(f"(a) /metrics: {status} {ctype}, {got} "
+                                 f"against {want}")
+        if launches["paged_attention"] == 0:
+            raise AssertionError("(a) the requests launched no paged "
+                                 "attention")
+    finally:
+        configure(enabled=False)
+        reset()
+    return {f"serve fp32 {TELEMETRY_REQUESTS} requests telemetry on":
+            launches}
+
+
+def _telemetry_turns(smi, a, ds, gpt, root):
+    """Phase 21 (b): ``a`` (phase 14's captured hapi Model) fit in turns
+    telemetry off / on / on / off, an epoch of a 2-worker loader a turn.
+    Returns {path: launch counts} of the on turns."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.observability import (configure, get_registry,
+                                                get_telemetry, reset)
+    from paddle_tpu_torch.ops import reset_launch_counts
+    t_start = time.perf_counter()
+    label = f"gpt_345m {FUSED_BATCH}x{TRAIN_SEQ} hapi fit telemetry on"
+    sink_dir = os.path.join(root, "telemetry")
+
+    class Tokens(_HapiTokens):
+        """Defined here, so it does not pickle: the loader forks."""
+
+    class MemoryAt(Callback):
+        """At each step the gauges were read: the gauge against the
+        allocator's counter read now, at the same step boundary."""
+
+        def __init__(self):
+            super().__init__()
+            self.pairs = []
+
+        def on_train_batch_end(self, step, logs=None):
+            tel = get_telemetry()
+            if tel.enabled and tel._steps % tel._mem_every == 0:
+                gauge = get_registry().gauge(
+                    "pt_device_memory_bytes", labelnames=("stat",)).value(
+                    stat="bytes_in_use")
+                self.pairs.append((gauge, torch.cuda.memory_stats()[
+                    "allocated_bytes.all.current"]))
+
+    data = Tokens(gpt.vocab_size)
+    per_turn = len(data) // FUSED_BATCH
+    times = {True: [], False: []}
+    mem = MemoryAt()
+    stats0 = dict(a.train_step.captured.stats)
+    launches = {}
+    for on in TELEMETRY_TURNS:
+        if on:
+            tel = configure(enabled=True, jsonl_dir=sink_dir)
+            tel._mem_every = per_turn
+            before = dict(a.train_step.captured.stats)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        clock = _hapi_callbacks()
+        loader = _hapi_loader(data)
+        a.fit(loader, epochs=1, verbose=0, callbacks=[clock, mem])
+        times[on] += clock.times[1:]       # the first waits on the workers
+        if on:
+            counts = _launch_counts()
+            launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+            after = a.train_step.captured.stats
+            configure(enabled=False)
+            for k in ("hits", "misses"):
+                stats0[k + "_on"] = stats0.get(k + "_on", 0) + \
+                    after[k] - before[k]
+    snap = get_registry().snapshot()
+    records = []
+    for name in sorted(os.listdir(sink_dir)):
+        with open(os.path.join(sink_dir, name)) as f:
+            records += [json.loads(line) for line in f]
+    reset()
+
+    def value(metric, key=""):
+        series = snap.get(metric, {}).get("series", {})
+        v = series.get(key)
+        return v["count"] if isinstance(v, dict) else v
+
+    n_on = per_turn * TELEMETRY_TURNS.count(True)
+    got = {"steps": value("pt_steps_total", "mode=train"),
+           "hits": value("pt_capture_cache_hits_total"),
+           "misses": sum(v for v in snap.get(
+               "pt_capture_cache_misses_total", {}).get(
+               "series", {}).values()),
+           "data_waits": value("pt_data_wait_seconds"),
+           "step_records": sum(r["event"] == "step" for r in records)}
+    want = {"steps": n_on, "hits": stats0["hits_on"],
+            "misses": stats0["misses_on"], "data_waits": n_on,
+            "step_records": n_on}
+    med = {on: statistics.median(t) * 1e3 for on, t in times.items()}
+    PHASE21_S["b"] = time.perf_counter() - t_start
+    log(f"[telemetry] (b) {label}: {got}, want {want} (the capture's own "
+        f"hits / misses over the on turns); memory gauge against "
+        f"memory_stats() at the steps it was read {mem.pairs}; median step "
+        f"with telemetry on {med[True]:.3f} ms, off {med[False]:.3f} ms "
+        f"(on - off {med[True] - med[False]:+.3f} ms; turns "
+        f"{'/'.join('on' if t else 'off' for t in TELEMETRY_TURNS)}, "
+        f"{per_turn} steps each, the loss read each step) "
+        f"({PHASE21_S['b']:.1f} s) | {smi}")
+    if got != want or want["misses"] != 0:
+        raise AssertionError(f"(b) telemetry: {got} against {want}")
+    if len(mem.pairs) != TELEMETRY_TURNS.count(True) or any(
+            g != m for g, m in mem.pairs):
+        raise AssertionError(f"(b) the memory gauge {mem.pairs}")
+    _check_counts(label, launches, _headline_per_step(gpt), n_on)
+    return {label: launches}
+
+
+def _plan_collectives(plan, steps):
+    """Phase 21 (c): {op: (calls, input bytes)} one launched rank makes in
+    ``steps`` ZeRO steps at sharding 2 (dp 1), from its plan (``plan``:
+    the reducer's buckets as (kind, bytes), the gather buckets' bytes,
+    the loss's, the clip's and the criterion's bytes): a step
+    reduce-scatters or all-reduces each reducer bucket, all-reduces the
+    clip's two partial squares and the loss over the sharding group,
+    all-gathers each gather bucket's window (its bytes over the group's
+    size), and the vocabulary-parallel cross-entropy all-reduces its
+    rows' max, sum of exponentials and target logit (f32, one a token)
+    over fleet's model-parallel group, of one rank here."""
+    want = {"all_reduce": [0, 0], "reduce_scatter": [0, 0],
+            "all_gather": [0, 0]}
+    for kind, nbytes in plan["reduce"]:
+        want[kind][0] += steps
+        want[kind][1] += steps * nbytes
+    for nbytes in plan["gather"]:
+        want["all_gather"][0] += steps
+        want["all_gather"][1] += steps * nbytes // plan["n"]
+    want["all_reduce"][0] += 5 * steps
+    want["all_reduce"][1] += steps * (plan["clip_bytes"] + plan["loss_bytes"]
+                                      + 3 * plan["criterion_bytes"])
+    return {op: tuple(v) for op, v in want.items() if v[0]}
+
+
+def _check_rank_collectives(res, steps):
+    """Phase 21 (c): one launched rank's telemetry against its plan."""
+    snap, plan = res["telemetry"], res["plan"]
+    want = _plan_collectives(plan, steps)
+
+    def series(name):
+        return {k.split("=", 1)[1]: (v["count"] if isinstance(v, dict)
+                                     else v)
+                for k, v in snap.get(name, {}).get("series", {}).items()}
+    got = {op: (int(n), int(series("pt_collective_bytes_total").get(op, 0)))
+           for op, n in series("pt_collective_ops_total").items()}
+    buckets = {}
+    for kind, _ in plan["reduce"]:
+        buckets[kind] = buckets.get(kind, 0) + 1
+    got_buckets = {k: int(v) for k, v in
+                   series("pt_grad_buckets_total").items()}
+    timed = {k: int(v) for k, v in
+             series("pt_collective_time_seconds").items()}
+    per_call_ms = {
+        k.split("=", 1)[1]: round(v["sum"] / v["count"] * 1e3, 3)
+        for k, v in snap["pt_collective_time_seconds"]["series"].items()}
+    log(f"[telemetry] (c) launched rank {res['rank']}: collectives {got} "
+        f"(want {want} from the plan: reducer buckets {plan['reduce']}, "
+        f"gather buckets {plan['gather']} over {plan['n']} ranks, "
+        f"{steps} steps); grad buckets {got_buckets} (want {buckets}); "
+        f"host-timed calls {timed}, mean host ms a call {per_call_ms}")
+    if got != want or got_buckets != buckets or \
+            timed != {op: n for op, (n, _) in want.items()}:
+        raise AssertionError(f"(c) rank {res['rank']}: collectives {got} "
+                             f"against {want}, buckets {got_buckets} "
+                             f"against {buckets}, timed {timed}")
+
+
+def phase_tuner(smi):
+    """Phase 21 (d): ``AutoTuner`` on GPT-345m on this card; returns
+    {path: launch counts} of each trial."""
+    import tempfile
+    from paddle_tpu_torch.distributed.auto_parallel.cluster import Cluster
+    from paddle_tpu_torch.distributed.auto_tuner import (AutoTuner,
+                                                         HistoryRecorder)
+    from paddle_tpu_torch.incubate.models import gpt_345m
+    from paddle_tpu_torch.ops import reset_launch_counts
+    from paddle_tpu_torch.train import build_train_step, make_batch
+    t_start = time.perf_counter()
+    base = gpt_345m(max_position_embeddings=TRAIN_SEQ)
+    h, layers = base.hidden_size, base.num_layers
+    # the word and position embeddings, the blocks, the final LayerNorm
+    # (parallel_cost's count: 354,871,296 at GPT-345m)
+    n_params = ((base.vocab_size + base.max_position_embeddings) * h
+                + layers * (12 * h * h + 13 * h) + 2 * h)
+    model = {"n_params": n_params, "num_layers": layers,
+             "hidden_size": h, "seq_len": TRAIN_SEQ}
+    tuner = AutoTuner({
+        "candidates": {"dp_degree": [1], "mp_degree": [1],
+                       "pp_degree": [1], "sharding_degree": [1],
+                       "micro_batch_size": list(TUNER_MBS),
+                       "use_recompute": list(TUNER_RECOMPUTE)},
+        "num_chips": 1, "model": model, "cluster": Cluster.auto_detect()})
+    out, rows = {}, []
+    while (cfg := tuner.search_once()) is not None:
+        mbs, rc = cfg["micro_batch_size"], cfg["use_recompute"]
+        gpt = gpt_345m(use_recompute=rc, max_position_embeddings=TRAIN_SEQ)
+        label = (f"gpt_345m {mbs}x{TRAIN_SEQ} tuner trial "
+                 f"{'recompute' if rc else 'no recompute'}")
+        step = None
+        try:
+            step = build_train_step(gpt, device=DEVICE, seed=0, fusion=True)
+            ids, labels = make_batch(gpt, mbs, TRAIN_SEQ, seed=0,
+                                     device=DEVICE)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            step(ids, labels).item()                       # the capture
+            times = []
+            for _ in range(TUNER_REPLAYS):
+                t0 = time.perf_counter()
+                step(ids, labels).item()
+                times.append(time.perf_counter() - t0)
+            launches = _launch_counts()
+            _check_captured(label, step, TUNER_REPLAYS + 1)
+            status = "ok"
+        except torch.cuda.OutOfMemoryError:
+            status, times, launches = "oom", None, {}
+        del step
+        _free_steps()
+        med = statistics.median(times) if times else None
+        tps = mbs * TRAIN_SEQ / med if med else None
+        tuner.add_cfg(**cfg, throughput=tps, status=status,
+                      measured_step_time=med)
+        rows.append((label, cfg["predicted_step_time"], med, tps, status))
+        log(f"[tuner] {label}: predicted {cfg['predicted_step_time']:.4f} s "
+            f"({cfg['predicted_memory_bytes'] / 1e9:.2f} GB), measured "
+            f"{med if med is None else round(med, 5)} s a step "
+            f"({tps if tps is None else round(tps, 1)} tokens/s), {status}; "
+            f"replays {[round(t * 1e3, 2) for t in times or []]} ms | {smi}")
+        if status != "ok":
+            raise AssertionError(f"(d) {label}: the cost model kept it and "
+                                 f"it ran out of memory")
+        per = _recompute_per_step(gpt) if rc else _headline_per_step(gpt)
+        _check_counts(label, launches, per, TUNER_REPLAYS + 1)
+        out[label] = launches
+    history = tuner.recorder.history
+    best, err = tuner.get_best()
+    fastest = max(history, key=lambda c: c["throughput"])
+    with tempfile.TemporaryDirectory(prefix="pt_tuner_") as d:
+        path = os.path.join(d, "history.csv")
+        tuner.recorder.store_history(path)
+        with open(path, "rb") as f:
+            first = f.read()
+        back = HistoryRecorder()
+        rows_back, missing = back.load_history(path)
+        again = os.path.join(d, "again.csv")
+        back.store_history(again)
+        with open(again, "rb") as f:
+            same = f.read() == first
+        best_back, _ = back.get_best()
+    PHASE21_S["d"] = time.perf_counter() - t_start
+    log(f"[tuner] (d) {len(history)} trials, pruned by the cost model "
+        f"{tuner.pruned_by_cost}; best {best['micro_batch_size']} x "
+        f"{TRAIN_SEQ}, recompute {best['use_recompute']}: "
+        f"{best['throughput']:.1f} tokens/s (predicted "
+        f"{best['predicted_step_time']:.4f} s, measured "
+        f"{best['measured_step_time']:.5f} s); the CSV read back "
+        f"{len(rows_back)} rows, written again the same bytes {same} "
+        f"({PHASE21_S['d']:.1f} s) | {smi}")
+    if err or best is not fastest or len(history) != \
+            len(TUNER_MBS) * len(TUNER_RECOMPUTE) or missing or not same \
+            or best_back["throughput"] != best["throughput"]:
+        raise AssertionError(f"(d) the tuner: best {best} against the "
+                             f"fastest {fastest}, history {history}, CSV "
+                             f"read back {rows_back}")
+    return out
 
 
 def phase_train(smi):
@@ -3994,6 +4369,19 @@ def _headline_per_step(gpt):
             **{n: layers for n in FLASH_KERNELS}}
 
 
+def _recompute_per_step(gpt):
+    """The kernel launches of one GPT step with recompute (the fusion
+    pass leaves a recomputed block as it is): the backward reruns each
+    block's forward, its two LayerNorms and its attention."""
+    layers = gpt.num_layers
+    return {"ln_matmul": 0, "matmul_bias_gelu": 0,
+            "layer_norm_fwd": 4 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1,
+            "layer_norm_fwd.residual": 0, "layer_norm_bwd.residual": 0,
+            "flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+
+
 def phase_capture(smi):
     """The captured step (``paddle_tpu_torch.jit.capture``): bert_base 32
     x 128 (pass off and on), bench_gpt's headline step (gpt_345m 8 x 1024,
@@ -5227,9 +5615,11 @@ def _hapi_gpt_path(smi, root):
     log(f"[hapi] {label}: a profiled replay of train_batch ran "
         f"{len(kernels)} kernel names, the counters' launches on the "
         f"device")
+    out = {label: launches}
+    out.update(_telemetry_turns(smi, a, ds, gpt, root))
     del a, batches
     _free_steps()
-    return {label: launches}
+    return out
 
 
 class _Shapes:
@@ -7087,10 +7477,22 @@ def main():
             self.t = now
 
     rec = Losses()
+    # phase 21 (c): telemetry on from the step's build (its bucket plan)
+    # to the end of fit
+    from paddle_tpu_torch.observability import configure, get_registry
+    configure(enabled=True, jsonl_dir=os.path.join(out, "telemetry"))
     eng.prepare()
     sync()
     reset_launch_counts()
     eng.fit([(ids, labels)] * steps, epochs=1, verbose=0, callbacks=[rec])
+    telemetry = get_registry().snapshot()
+    configure(enabled=False)
+    zp = eng.train_step.zero
+    plan = {"reduce": [[b.kind, b.nbytes]
+                       for b in zp.reducer.plan.buckets],
+            "gather": [b.nbytes for b in zp.gather_plan.buckets],
+            "n": zp.n, "clip_bytes": 2 * 4, "loss_bytes": 4,
+            "criterion_bytes": batch // tdist.get_world_size() * seq * 4}
     counts = {n: KERNELS[n].launches for n in KERNELS}
     for n in ("layer_norm_fwd", "layer_norm_bwd"):
         counts[n + ".residual"] = KERNELS[n].residual_launches
@@ -7122,6 +7524,7 @@ def main():
     grad_err = (emb.weight.grad - whole.grad[lo:lo + per]).abs().max().item()
     res = {"rank": r, "losses": rec.losses, "times": rec.times,
            "counts": counts, "level": level, "peer": list(peer),
+           "telemetry": telemetry, "plan": plan,
            "shard_axes": list(emb._shard_axes), "rows": [lo, lo + per],
            "ps_fwd_err": fwd_err, "ps_grad_err": grad_err, "ps_s": ps_s,
            "ps_same_bits": bool(torch.equal(rows, want[r * batch:(r + 1) *
@@ -7233,6 +7636,7 @@ def phase_engine(smi):
                                  f"{res['ps_grad_err']}")
         _check_counts(f"(b) launched rank {r}", res["counts"], per_step,
                       ENGINE_LAUNCH_STEPS)
+        _check_rank_collectives(res, ENGINE_LAUNCH_STEPS)
         out[f"{label} rank {r}"] = res["counts"]
     log(f"[engine] (b) the launcher: code {code}, {secs:.1f} s for two "
         f"ranks (start, build, {ENGINE_LAUNCH_STEPS} steps, rpc and the "
@@ -7266,7 +7670,7 @@ def main() -> int:
     engine, launches, prompts, params = phase_serve(smi)
     phase_bucket_stages(params, prompts)
     del params
-    phase_http(engine, prompts[0][:64])
+    tele_serve = phase_http(engine, prompts[0][:64])
     del engine
     torch.cuda.empty_cache()
     lap("model and serve")
@@ -7297,6 +7701,12 @@ def main() -> int:
     lap("moe-ep")
     engine = phase_engine(smi)
     lap("engine and launcher")
+    tuned = phase_tuner(smi)
+    lap("tuner")
+    log(f"[time] phase 21 (telemetry and tuner) "
+        f"{sum(PHASE21_S.values()):.1f} s: "
+        f"{ {k: round(v, 1) for k, v in sorted(PHASE21_S.items())} } "
+        f"(budget 60 s, (d) 45 s)")
     # each kernel's launches on its paths' runs: the GPT step for
     # LayerNorm and flash, the BERT step for LayerNorm (its residual
     # variant) and cross-entropy, the BERT step at 512 for flash
@@ -7351,9 +7761,11 @@ def main() -> int:
     # rank, (b)'s steps on each rank, (c)'s data rank 0
     # phase 18's resumed steps: (b)'s stages, (c)'s rank 0, (d)'s stages
     # phase 20's: (a)'s Engine replays, each launched rank of (b)
+    # phase 21's: (a)'s requests, (b)'s on turns (in hapi's), (d)'s trials
     for path, counts in itertools.chain(hapi.items(), hybrid.items(),
                                         zero_pipeline.items(), sep.items(),
-                                        resumed.items(), engine.items()):
+                                        resumed.items(), engine.items(),
+                                        tele_serve.items(), tuned.items()):
         for name in by_path:
             if counts.get(name):
                 by_path[name][path] = counts[name]

@@ -16,9 +16,12 @@ paddle_tpu_torch.distributed.launch``, :mod:`.launch`), the auto-parallel
 annotations and ``Engine`` (:mod:`.auto_parallel_api`,
 :mod:`.auto_parallel`), ``rpc`` (:mod:`.rpc`), the sharded embedding in
 place of a parameter server (:mod:`.ps`) and its entry attributes
-(:mod:`.entry_attr`)."""
-from . import (auto_parallel, collective_schedule, communication, fleet,
-               launch, ps, rpc, sharding)
+(:mod:`.entry_attr`), the parallel-configuration tuner
+(:mod:`.auto_tuner`), the MultiSlot file datasets
+(:mod:`.fleet.dataset`) and ``global_scatter`` / ``global_gather``
+(:mod:`.utils`)."""
+from . import (auto_parallel, auto_tuner, collective_schedule,
+               communication, fleet, launch, ps, rpc, sharding, utils)
 from .auto_parallel import Engine, to_static
 from .auto_parallel_api import (Partial, ProcessMesh, Replicate, Shard,
                                 dtensor_from_fn, reshard, shard_layer,
@@ -39,6 +42,7 @@ from .collective import (P2POp, ReduceOp, Group, all_gather,
                          scatter, scatter_object_list, send, wait)
 from .communication import stream
 from .env import ParallelEnv, get_rank, get_world_size
+from .fleet.dataset import InMemoryDataset, QueueDataset
 from .fleet.meta_parallel.mp_ops import split
 from .entry_attr import CountFilterEntry, ProbabilityEntry, ShowClickEntry
 from .launch_api import spawn
@@ -75,5 +79,6 @@ __all__ = [
     "ProcessMesh", "Shard", "Replicate", "Partial", "shard_tensor",
     "shard_layer", "dtensor_from_fn", "reshard", "Engine", "to_static",
     "launch", "rpc", "ps", "CountFilterEntry", "ProbabilityEntry",
-    "ShowClickEntry",
+    "ShowClickEntry", "auto_tuner", "utils", "InMemoryDataset",
+    "QueueDataset",
 ]

@@ -56,6 +56,7 @@ import os
 import numpy as np
 import torch
 
+from ...observability.telemetry import get_telemetry
 from ..checkpoint import copy_into, load_sharded, save_sharded
 from ..fleet.base.distributed_strategy import DistributedStrategy
 
@@ -339,6 +340,7 @@ class Engine:
             log_freq=log_freq, save_freq=save_freq, save_dir=save_dir,
             verbose=verbose, metrics=["loss"])
         history = {"loss": []}
+        tel = get_telemetry()
         cbks.on_begin("train")
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
@@ -350,8 +352,11 @@ class Engine:
                 x, labels = self._split_batch(batch)
                 # one input and one label go as tensors (a pipeline's
                 # schedule splits a tensor into micro-batches)
+                tok = tel.step_start()
                 logs["loss"] = LossScalar(self._step(
                     x[0], labels[0] if len(labels) == 1 else tuple(labels)))
+                tel.step_end(tok, mode="train", batch_size=(
+                    x[0].shape[0] if getattr(x[0], "ndim", 0) else None))
                 cbks.on_batch_end("train", step_i, logs)
             if logs.get("loss") is not None:
                 logs["loss"] = float(logs["loss"])

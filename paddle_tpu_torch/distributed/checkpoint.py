@@ -67,6 +67,7 @@ import zlib
 import numpy as np
 import torch
 
+from ..observability.telemetry import get_telemetry
 from ..utils.retry import retry_call, wait_until
 from .auto_parallel.spec_layout import spec_axes
 
@@ -711,12 +712,17 @@ def store_barrier(store, key, world, rank=None, timeout=300.0):
             return False
 
     t0 = time.monotonic()
-    retry_call(_barrier_arrive, store, key, rank, retry_on=transient,
-               deadline=timeout, base=0.05, max_delay=1.0)
-    remaining = max(0.0, timeout - (time.monotonic() - t0))
-    wait_until(_sealed, remaining,
-               desc=f"checkpoint barrier {key!r} ({world} procs)",
-               diag=_missing_ranks if rank is not None else None)
+    ok = False
+    try:
+        retry_call(_barrier_arrive, store, key, rank, retry_on=transient,
+                   deadline=timeout, base=0.05, max_delay=1.0)
+        remaining = max(0.0, timeout - (time.monotonic() - t0))
+        wait_until(_sealed, remaining,
+                   desc=f"checkpoint barrier {key!r} ({world} procs)",
+                   diag=_missing_ranks if rank is not None else None)
+        ok = True
+    finally:
+        get_telemetry().record_barrier_wait(time.monotonic() - t0, ok=ok)
 
 
 # -- commit / integrity verification ----------------------------------------
@@ -1045,6 +1051,7 @@ def sweep_staging(root, max_age=3600.0, now=None):
     for p in partial:
         logger.info("checkpoint janitor: sweeping orphaned %s", p)
         shutil.rmtree(p, ignore_errors=True)
+    get_telemetry().record_staging_sweep(len(partial))
     return len(partial)
 
 

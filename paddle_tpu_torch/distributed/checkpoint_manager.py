@@ -40,10 +40,12 @@ import os
 import re
 import shutil
 import threading
+import time
 import zlib
 
 import torch
 
+from ..observability.telemetry import get_telemetry
 from . import checkpoint as _ckpt
 from .checkpoint import CheckpointCorruptError
 
@@ -177,11 +179,23 @@ class CheckpointManager:
         blob = json.dumps(data_state, sort_keys=True).encode("utf-8")
         return ((f"data_state.{proc}.json", blob),)
 
-    def _commit(self, records, path, proc, world):
-        _ckpt._save_records(records, path, proc, world,
-                            store=self._coordination_store(world),
-                            durable=self.durable, run_id=self._tag(),
-                            barrier_timeout=self.barrier_timeout)
+    def _commit(self, records, path, proc, world, step, mode):
+        """Write and commit, book the save (``mode``: sync or async; an
+        async failure is booked by the caller), then the retention GC."""
+        tel = get_telemetry()
+        t0 = time.perf_counter()
+        try:
+            _ckpt._save_records(records, path, proc, world,
+                                store=self._coordination_store(world),
+                                durable=self.durable, run_id=self._tag(),
+                                barrier_timeout=self.barrier_timeout)
+        except BaseException:
+            if mode == "sync":
+                tel.record_checkpoint_save(time.perf_counter() - t0,
+                                           step=step, mode=mode, ok=False)
+            raise
+        tel.record_checkpoint_save(time.perf_counter() - t0, step=step,
+                                   mode=mode)
         self._gc()
 
     def save(self, step, state, block=False, data_state=None):
@@ -201,7 +215,8 @@ class CheckpointManager:
         if not self.async_save or block:
             self.wait()
             self._commit(itertools.chain(
-                extra, _ckpt._shard_records(state, proc)), path, proc, world)
+                extra, _ckpt._shard_records(state, proc)), path, proc, world,
+                step, "sync")
             return
         snapshot = _ckpt._snapshot(state)
         self.wait()  # one writer at a time, in step order
@@ -210,8 +225,9 @@ class CheckpointManager:
             try:
                 self._commit(itertools.chain(
                     extra, _ckpt._shard_records(snapshot, proc)),
-                    path, proc, world)
+                    path, proc, world, step, "async")
             except BaseException as e:  # raised by the next call
+                get_telemetry().record_async_save_failure(step, e)
                 with self._lock:
                     self._err = e
 
@@ -285,18 +301,24 @@ class CheckpointManager:
     def _restore_newest(self, bound, template, mesh, shardings, device):
         """The newest step at most ``bound`` (any when None) that loads
         clean on this rank, and its state."""
+        tel = get_telemetry()
         for step in reversed(self.valid_steps()):
             if bound is not None and step > bound:
                 continue
             d = self.step_dir(step)
+            t0 = time.perf_counter()
             try:
                 state = _ckpt.load_sharded(d, mesh, shardings, template,
                                            integrity=self.integrity,
                                            elastic=self.elastic,
                                            device=device)
+                tel.record_checkpoint_restore(time.perf_counter() - t0,
+                                              step=step)
                 return state, step
             except (CheckpointCorruptError, FileNotFoundError,
                     ValueError) as e:
+                tel.record_checkpoint_restore(time.perf_counter() - t0,
+                                              step=step, ok=False)
                 logger.warning(
                     "checkpoint step %d at %s failed verification (%s); "
                     "falling back to an earlier step", step, d, e)
@@ -351,15 +373,19 @@ class CheckpointManager:
             return
         newest = valid[-1]
         keep = set(valid[-self.keep_last_n:])
+        deleted = 0
         for step, d in sorted(self._step_dirs().items()):
             if step in keep or step >= newest:
                 continue
             shutil.rmtree(d, ignore_errors=True)
+            deleted += 1
         for n in os.listdir(self.root):
             m = _TMP_RE.match(n)
             if m and int(m.group(1)) <= newest:
                 shutil.rmtree(os.path.join(self.root, n),
                               ignore_errors=True)
+                deleted += 1
+        get_telemetry().record_checkpoint_gc(deleted)
 
     def close(self):
         self.wait()

@@ -28,16 +28,29 @@ host copies, always (:func:`host_staged`): a transport, not a fallback.
 ``reduce`` leaves the
 tensors of the ranks other than ``dst`` as they were (the JAX package's
 semantics; the backends may write them).  Groups, and every collective,
-need a process group: before ``init_parallel_env`` they raise.  The JAX
-package's per-collective telemetry is not ported.
+need a process group: before ``init_parallel_env`` they raise.
+
+Telemetry (:mod:`..observability`, while it is on): each call of a
+collective books ``pt_collective_ops_total{op}`` and its input bytes
+(``pt_collective_bytes_total``, ``pt_collective_bytes``, from shapes and
+dtypes: no sync), and the host's wall time around the call
+(``pt_collective_time_seconds``).  A call made while a CUDA graph
+records on the current stream counts once, at the recording, and books
+no time (the JAX package counts once a trace and times only eager
+calls); a replay runs no Python and books nothing.  ``isend`` / ``irecv``
+and :func:`batch_isend_irecv`'s operations count as ``send`` / ``recv``,
+as the JAX package's aliases do; the object collectives are not counted.
 """
 from __future__ import annotations
 
+import functools
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
+from ..observability.telemetry import get_telemetry
 from .env import get_rank, get_world_size
 
 __all__ = [
@@ -279,17 +292,59 @@ def _divide(tensor: torch.Tensor, n: Optional[int]) -> Callable[[], None]:
     return run
 
 
+# -- telemetry ------------------------------------------------------------------
+
+def _capturing() -> bool:
+    """Whether a CUDA graph records on the current stream (never
+    initialises CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _observe(op: str, nbytes: int) -> None:
+    """One call of ``op`` with ``nbytes`` input bytes."""
+    tel = get_telemetry()
+    if tel.enabled:
+        tel.collective_op(op, nbytes)
+
+
+def _timed(op: str):
+    """The host's wall time around the whole public call, outside a graph
+    recording."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            tel = get_telemetry()
+            if not tel.enabled or _capturing():
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tel.collective_time(op, time.perf_counter() - t0)
+        return wrapper
+    return deco
+
+
 # -- collectives -----------------------------------------------------------------
 
+@_timed("all_reduce")
 def all_reduce(tensor: torch.Tensor, op: int = ReduceOp.SUM, group=None,
                sync_op: bool = True) -> Task:
     """Reduce ``tensor`` over the group, in place on every rank."""
     pg = _pg(group)
+    _observe("all_reduce", _nbytes(tensor))
     top, n = _torch_op(op, group)
     return _issue(dist.all_reduce, tensor, op=top, group=pg, sync_op=sync_op,
                   then=_divide(tensor, n))
 
 
+@_timed("all_gather")
 def all_gather(tensor_or_list, tensor: Optional[torch.Tensor] = None,
                group=None, sync_op: bool = True, axis: int = 0):
     """``all_gather(tensor_list, tensor)`` fills ``tensor_list`` with each
@@ -298,6 +353,8 @@ def all_gather(tensor_or_list, tensor: Optional[torch.Tensor] = None,
     ``axis`` (synchronous only)."""
     pg = _pg(group)
     g = _group_of(group)
+    _observe("all_gather", _nbytes(tensor if isinstance(tensor_or_list, list)
+                                   else tensor_or_list))
     if isinstance(tensor_or_list, list):
         outs = [torch.empty_like(tensor) for _ in range(g.nranks)]
         task = _issue(dist.all_gather, outs, tensor.contiguous(), group=pg,
@@ -314,6 +371,7 @@ def all_gather(tensor_or_list, tensor: Optional[torch.Tensor] = None,
     return torch.cat(outs, dim=axis)
 
 
+@_timed("gather")
 def gather(tensor: torch.Tensor, gather_list: Optional[list] = None,
            dst: int = 0, group=None, sync_op: bool = True) -> list:
     """Every rank's ``tensor`` into ``gather_list`` on ``dst``, in group
@@ -321,6 +379,7 @@ def gather(tensor: torch.Tensor, gather_list: Optional[list] = None,
     pg = _pg(group)
     g = _group_of(group)
     _check_in(g, dst, "gather dst")
+    _observe("gather", _nbytes(tensor))
     gather_list = [] if gather_list is None else gather_list
     mine = get_rank() == dst
     outs = [torch.empty_like(tensor) for _ in range(g.nranks)] if mine \
@@ -348,11 +407,13 @@ def _check_in(g: Group, rank: int, what: str) -> None:
         raise ValueError(f"{what}={rank} is not in group {g.ranks}")
 
 
+@_timed("broadcast")
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None,
               sync_op: bool = True) -> Task:
     """``src``'s ``tensor`` into every rank's, in place."""
     g = _group_of(group)
     _check_in(g, src, "broadcast src")
+    _observe("broadcast", _nbytes(tensor))
     return _issue(dist.broadcast, tensor, src=src, group=_pg(group),
                   sync_op=sync_op)
 
@@ -366,12 +427,14 @@ def broadcast_object_list(object_list: list, src: int = 0,
     return object_list
 
 
+@_timed("reduce")
 def reduce(tensor: torch.Tensor, dst: int = 0, op: int = ReduceOp.SUM,
            group=None, sync_op: bool = True) -> Task:
     """The group's reduction into ``dst``'s ``tensor``; the other ranks'
     tensors keep their values."""
     g = _group_of(group)
     _check_in(g, dst, "reduce dst")
+    _observe("reduce", _nbytes(tensor))
     top, n = _torch_op(op, group)
     mine = get_rank() == dst
     work = tensor if mine else tensor.clone()
@@ -379,10 +442,12 @@ def reduce(tensor: torch.Tensor, dst: int = 0, op: int = ReduceOp.SUM,
                   sync_op=sync_op, then=_divide(tensor, n if mine else None))
 
 
+@_timed("scatter")
 def scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
             src: int = 0, group=None, sync_op: bool = True) -> Task:
     """Element ``i`` of ``src``'s ``tensor_list`` into the ``tensor`` of
-    the group's ``i``-th rank."""
+    the group's ``i``-th rank (booked as the list's bytes on ``src``,
+    ``tensor``'s elsewhere)."""
     g = _group_of(group)
     _check_in(g, src, "scatter src")
     items = None
@@ -391,6 +456,7 @@ def scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
             raise ValueError(f"scatter's src needs a list of {g.nranks} "
                              f"tensors")
         items = [t.contiguous() for t in tensor_list]
+    _observe("scatter", _nbytes(*items) if items else _nbytes(tensor))
     return _issue(dist.scatter, tensor, items, src=src, group=_pg(group),
                   sync_op=sync_op)
 
@@ -409,6 +475,7 @@ def scatter_object_list(out_object_list: list, in_object_list=None,
     return out_object_list
 
 
+@_timed("alltoall")
 def alltoall(out_tensor_list, in_tensor_list: Optional[list] = None,
              group=None, sync_op: bool = True):
     """``alltoall(out_list, in_list)``: element ``j`` of this rank's
@@ -423,8 +490,10 @@ def alltoall(out_tensor_list, in_tensor_list: Optional[list] = None,
         if x.shape[0] != g.nranks:
             raise ValueError(f"alltoall's tensor form wants {g.nranks} slots "
                              f"on axis 0, got {tuple(x.shape)}")
-        return alltoall_single(x, group=group)
+        _observe("alltoall", _nbytes(x))
+        return _alltoall_single(x, group=group)
     ins = [t.contiguous() for t in in_tensor_list]
+    _observe("alltoall", _nbytes(*ins))
     outs = [torch.empty_like(t) for t in ins]
     task = _issue(dist.all_to_all, outs, ins, group=pg, sync_op=sync_op)
     out_tensor_list.clear()
@@ -435,6 +504,7 @@ def alltoall(out_tensor_list, in_tensor_list: Optional[list] = None,
 all_to_all = alltoall
 
 
+@_timed("alltoall_single")
 def alltoall_single(in_tensor: torch.Tensor,
                     out_tensor: Optional[torch.Tensor] = None,
                     in_split_sizes=None, out_split_sizes=None, group=None,
@@ -443,6 +513,13 @@ def alltoall_single(in_tensor: torch.Tensor,
     ``in_split_sizes``), each rank's pieces concatenated in group order.
     Into ``out_tensor`` (returns a :class:`Task`), or a new tensor of
     ``in_tensor``'s shape with even splits (returned)."""
+    _observe("alltoall_single", _nbytes(in_tensor))
+    return _alltoall_single(in_tensor, out_tensor, in_split_sizes,
+                            out_split_sizes, group, sync_op)
+
+
+def _alltoall_single(in_tensor, out_tensor=None, in_split_sizes=None,
+                     out_split_sizes=None, group=None, sync_op=True):
     pg = _pg(group)
     new = out_tensor is None
     if new:
@@ -462,6 +539,7 @@ def alltoall_single(in_tensor: torch.Tensor,
     return out_tensor if new else task
 
 
+@_timed("reduce_scatter")
 def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
                    op: int = ReduceOp.SUM, group=None, sync_op: bool = True):
     """``reduce_scatter(out, tensor_list)``: ``out`` gets the group's
@@ -469,18 +547,24 @@ def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
     (returns a :class:`Task`).  ``reduce_scatter(x)``: ``x``'s first axis
     in ``nranks`` chunks, this rank's chunk of the reduction returned.
     On gloo, CUDA tensors go through host copies (:func:`host_staged`)."""
-    pg = _pg(group)
+    _observe("reduce_scatter", _nbytes(tensor) if tensor_list is None
+             else _nbytes(*tensor_list))
     g = _group_of(group)
-    top, n = _torch_op(op, group)
     if tensor_list is None:
         if tensor.shape[0] % g.nranks:
             raise ValueError(f"reduce_scatter: axis 0 of "
                              f"{tuple(tensor.shape)} does not split into "
                              f"{g.nranks} chunks")
         out = torch.empty_like(tensor.chunk(g.nranks, dim=0)[0])
-        reduce_scatter(out, list(tensor.chunk(g.nranks, dim=0)), op=op,
-                       group=group, sync_op=True)
+        _reduce_scatter(out, list(tensor.chunk(g.nranks, dim=0)), op,
+                        group, True)
         return out
+    return _reduce_scatter(tensor, tensor_list, op, group, sync_op)
+
+
+def _reduce_scatter(tensor, tensor_list, op, group, sync_op) -> Task:
+    pg = _pg(group)
+    top, n = _torch_op(op, group)
     staged = host_staged(group, tensor)
     ins = [_to_host(t) if staged else t.contiguous() for t in tensor_list]
     out = torch.empty_like(tensor, device="cpu") if staged else tensor
@@ -492,11 +576,13 @@ def reduce_scatter(tensor: torch.Tensor, tensor_list: Optional[list] = None,
 
 # -- point to point --------------------------------------------------------------
 
+@_timed("send")
 def send(tensor: torch.Tensor, dst: int = 0, group=None,
          sync_op: bool = True) -> Task:
     """``tensor`` to the global rank ``dst`` (through a host copy on gloo
     for a CUDA tensor)."""
     pg = _pg(group)
+    _observe("send", _nbytes(tensor))
     src = _to_host(tensor) if host_staged(group, tensor) else \
         tensor.contiguous()
     fn = dist.send if sync_op else dist.isend
@@ -506,11 +592,13 @@ def send(tensor: torch.Tensor, dst: int = 0, group=None,
     return task
 
 
+@_timed("recv")
 def recv(tensor: torch.Tensor, src: int = 0, group=None,
          sync_op: bool = True) -> Task:
     """Into ``tensor``, from the global rank ``src`` (through a host copy
     on gloo for a CUDA tensor)."""
     pg = _pg(group)
+    _observe("recv", _nbytes(tensor))
     staged = host_staged(group, tensor)
     buf = torch.empty_like(tensor, device="cpu") if staged else tensor
     back = _copy_back(tensor, buf) if staged else None
@@ -550,6 +638,7 @@ def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Task]:
     CUDA tensor on gloo is written when its task is waited for)."""
     ops, thens = [], []
     for p in p2p_op_list:
+        _observe("send" if p.op is isend else "recv", _nbytes(p.tensor))
         staged = host_staged(p.group, p.tensor)
         if p.op is isend:
             t = _to_host(p.tensor) if staged else p.tensor
@@ -570,9 +659,12 @@ def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Task]:
     return tasks
 
 
+@_timed("barrier")
 def barrier(group=None) -> None:
     """Every rank of the group waits for the others."""
-    dist.barrier(group=_pg(group))
+    pg = _pg(group)
+    _observe("barrier", 0)
+    dist.barrier(group=pg)
 
 
 def wait(tensor: torch.Tensor, group=None, use_calc_stream: bool = True

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...framework.random import replay
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "recompute_sequential"]
 
 
 def recompute(function: Callable, *args,
@@ -54,3 +54,31 @@ def recompute(function: Callable, *args,
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def recompute_sequential(ctx, functions, *args,
+                         generator: Optional[torch.Generator] = None):
+    """``functions`` (a ``Sequential`` or a list of layers) run in order,
+    in ``ctx["segments"]`` segments each recomputed in the backward pass
+    (:func:`recompute`; the JAX package's ``recompute_sequential``).  A
+    layer's tuple output is the next layer's arguments."""
+    segments = ctx.get("segments", 1) if isinstance(ctx, dict) else 1
+    layers = list(functions)
+    n = len(layers)
+    seg = max(n // max(segments, 1), 1)
+    out = args
+    for i in range(0, n, seg):
+        chunk = layers[i:i + seg]
+
+        def run_chunk(*xs, generator=None, _chunk=chunk):
+            y = xs
+            for layer in _chunk:
+                y = layer(*y)
+                if not isinstance(y, tuple):
+                    y = (y,)
+            return y[0] if len(y) == 1 else y
+
+        out = recompute(run_chunk, *out, generator=generator)
+        if not isinstance(out, tuple):
+            out = (out,)
+    return out[0] if len(out) == 1 else out

@@ -71,6 +71,14 @@ class BucketPlan:
     def n_buckets(self) -> int:
         return len(self.buckets)
 
+    def record_metrics(self) -> None:
+        """``pt_grad_buckets_total{kind}`` and ``pt_grad_bucket_bytes``,
+        once for each plan built (what each step then reduces)."""
+        from ..observability.telemetry import get_telemetry
+        tel = get_telemetry()
+        for b in self.buckets:
+            tel.grad_bucket(b.nbytes, kind=b.kind)
+
 
 def _size_and_itemsize(p):
     shape = tuple(p.shape)

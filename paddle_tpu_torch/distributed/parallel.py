@@ -166,6 +166,7 @@ class DataParallel(torch.nn.Module):
         self._tasks = [None] * len(self._plan.buckets)
         self._in_backward = False
         if group.nranks > 1:          # one rank's gradient is the mean
+            self._plan.record_metrics()
             self._sync_params()
             for name, p in params.items():
                 p.register_post_accumulate_grad_hook(self._hook(name))

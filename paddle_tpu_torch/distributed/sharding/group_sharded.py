@@ -229,6 +229,8 @@ class GradReducer:
         self.params = params
         self.plan = partition_buckets(params, default_bucket_bytes(),
                                       scatter_dims=scatter_dims or {})
+        if self.world > 1:
+            self.plan.record_metrics()
 
     def _grad(self, name, grads):
         g = grads.get(name)

@@ -31,7 +31,9 @@ model lives in the step's tree, so ``.pdopt`` holds no moments
 (``Optimizer.state_dict`` reads the eager accumulators), and
 ``prepare``'s ``amp_configs`` is kept and not read: decorate the network
 (``amp.decorate``) before ``Model(...)``.  ``save(training=False)``
-needs ``jit.save``, which the port does not have yet.
+needs ``jit.save``, which the port does not have yet.  With telemetry
+on (:mod:`..observability`), ``fit``'s and ``evaluate``'s steps are
+booked (``pt_steps_total{mode}``, ``pt_step_time_seconds``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from ..framework.io_state import save as _save
 from ..framework.random import make_generator
 from ..jit import capture_step
 from ..metric import Metric, _numpy
+from ..observability.telemetry import get_telemetry
 from ..ops.fusion_pass import fusion_enabled, wrap
 from ..train import TrainStep
 from .callbacks import config_callbacks
@@ -353,6 +356,7 @@ class Model:
             m.reset()
         logs = {}
         names = [n for m in self._metrics for n in _to_list(m.name())]
+        tel = get_telemetry()
         for step, batch in enumerate(loader):
             batch = _to_list(batch)
             # the last element of a batch is the label
@@ -360,10 +364,13 @@ class Model:
             if len(batch) == 1:
                 inputs, labels = batch, []
             cbks.on_batch_begin(mode, step, logs)
+            tok = tel.step_start()
             if mode == "train":
                 out = self.train_batch(inputs, labels)
             else:
                 out = self.eval_batch(inputs, labels)
+            tel.step_end(tok, mode=mode, batch_size=(
+                labels[0].shape[0] if labels else None))
             losses, metrics = out if isinstance(out, tuple) else (out, [])
             logs["loss"] = losses[0] if losses else None
             for n, v in zip(names, metrics):
@@ -384,9 +391,12 @@ class Model:
         for m in self._metrics:
             m.reset()
         total_loss, n = 0.0, 0
+        tel = get_telemetry()
         for batch in loader:
             batch = _to_list(batch)
+            tok = tel.step_start()
             out = self.eval_batch(batch[:-1], batch[-1:])
+            tel.step_end(tok, mode="eval", batch_size=batch[-1].shape[0])
             losses = out[0] if isinstance(out, tuple) else out
             if losses:
                 total_loss += losses[0]

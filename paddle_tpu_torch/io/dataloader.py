@@ -30,6 +30,9 @@ network's device).  Three ways to iterate:
 batches already *delivered* to the consumer (not the ones prefetched):
 the batch sampler skips them as indices, fetching no data, so a resumed
 run sees exactly the batches an uninterrupted one would.
+
+With telemetry on (:mod:`..observability`), each wait of the consumer on
+``next()`` is booked (``pt_data_wait_seconds``, ``pt_data_batches_total``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import traceback
 import numpy as np
 import torch
 
+from ..observability.telemetry import get_telemetry
 from .dataset import IterableDataset
 from .sampler import BatchSampler
 
@@ -168,6 +172,20 @@ def _get_checked(data_queue, workers, timeout, last_sent=None, stop=None):
                     f"batch")
 
 
+def _timed_iter(it, tel):
+    """``it``, booking how long the consumer waited on each ``next()``
+    (``pt_data_wait_seconds``, ``pt_data_batches_total``); installed only
+    while telemetry is on."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        tel.data_wait(time.perf_counter() - t0)
+        yield batch
+
+
 class DataLoader:
     """Batches of ``dataset`` (the JAX package's signature; ``feed_list``,
     ``places``, ``use_buffer_reader`` and ``persistent_workers`` are
@@ -221,7 +239,9 @@ class DataLoader:
             it = self._iter_single()
         else:
             it = self._iter_multiprocess()
-        return self._counted(it)
+        it = self._counted(it)
+        tel = get_telemetry()
+        return _timed_iter(it, tel) if tel.enabled else it
 
     def _counted(self, it):
         # a resumed epoch counts on from the sampler's skip

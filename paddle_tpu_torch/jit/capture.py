@@ -57,6 +57,13 @@ eagerly from then on.  CPU tensors have no graph: the step runs as
 written with ``stats["fallback"] == "cpu"``.  ``PT_CAPTURE=0`` turns
 capture off.
 
+Telemetry (:mod:`..observability`): a replay books
+``pt_capture_cache_hits_total``; a call that captures books a miss,
+``first_trace`` or ``signature_change``, and one that falls back another,
+with its reason (the JAX package's reason strings); each graph recorded
+is one compile (``record_compile("captured_step(<fn>)")``), the JAX
+package's compile of the step.  The CPU's eager path books nothing.
+
 Collectives: a step whose ``groups`` (the process groups of
 :mod:`..distributed.collective` its collectives run on) are NCCL groups
 records them into its graph.  gloo's collectives run on the host, which
@@ -76,6 +83,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from ..observability.telemetry import get_telemetry
 from ..ops import add_launch_counts, launch_counts, set_launch_counts
 from ..ops import fusion_pass
 
@@ -367,14 +375,18 @@ class CapturedStep:
             self._fall_back("unsupported_args", None)
             return self._fn(*args, **kwargs)
         entry = self._cache.get(key)
+        tel = get_telemetry()
         if entry is not None:
             self.stats["hits"] += 1
+            tel.capture_cache_hit()
             tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
             for buf, x in zip(entry.inputs, tensors):
                 buf.copy_(x)
             entry.replay()
             return entry.cloned_outputs()
         self.stats["misses"] += 1
+        tel.capture_cache_miss("first_trace" if not self._cache
+                               else "signature_change")
         self._fallback_reason = self.stats["fallback"] = None
         return self._capture(key, struct, leaves, args, kwargs, found,
                              modules, device)
@@ -408,6 +420,13 @@ class CapturedStep:
         self._cache[key] = entry
         self.stats["compiles"] += 1
         self.capture_seconds += entry.capture_s
+        # the sentinel's signature: the tensors' shapes and dtypes (what
+        # churns in a recompile storm), not the modules' identities
+        name = getattr(self._fn, "__name__", type(self._fn).__name__)
+        sig = ",".join(f"{tuple(x.shape)}:{x.dtype}" for x in leaves
+                       if isinstance(x, torch.Tensor))
+        get_telemetry().record_compile(f"captured_step({name})",
+                                       f"sig={sig}")
         return result
 
     def _count_rewrites(self, before: dict) -> None:
@@ -421,6 +440,7 @@ class CapturedStep:
 
     def _fall_back(self, reason: str, exc: Optional[BaseException]) -> None:
         self._fallback_reason = self.stats["fallback"] = reason
+        get_telemetry().capture_cache_miss(reason)
         if not self._warned:
             self._warned = True
             name = getattr(self._fn, "__qualname__", repr(self._fn))

@@ -16,6 +16,8 @@ a unit, all at once with the other libraries, then linked.
  - A failed compile raises with nvcc's output; nothing falls back.
  - Every C entry returns ``cudaGetLastError()`` after its launch, and
    :func:`check` raises on a non-zero status.
+ - Each library compiled is one compile of the telemetry
+   (``record_compile("nvcc:<name>")``); a library already built is not.
 
 Nothing here runs at import: the first CUDA tensor that reaches a
 kernel wrapper builds and loads its library.
@@ -30,6 +32,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+from ..observability.telemetry import get_telemetry
 
 __all__ = ["SOURCES", "UNITS", "BUILD_DIR", "NVCC_FLAGS", "build", "load",
            "check"]
@@ -132,6 +136,7 @@ def build(names: Iterable[str] = SOURCES, *, verbose: bool = False
             continue
         os.replace(tmp, out)
         result[name] = (out, log)
+        get_telemetry().record_compile(f"nvcc:{name}", out.name)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return result

@@ -64,6 +64,7 @@ import os
 import torch
 import torch.fx as fx
 
+from ..observability.telemetry import get_telemetry
 from . import fused_kernels as fk
 
 __all__ = ["PATTERNS", "Cluster", "FusedModule", "fusion_enabled",
@@ -107,6 +108,14 @@ def summary():
     return {"rewrites": dict(_stats["rewrites"]),
             "fallbacks": dict(_stats["fallbacks"]),
             "traces": _stats["traces"]}
+
+
+def _note_rewrite(pattern):
+    """One cluster rewritten: the stats and ``pt_fusion_rewrites_total``
+    (the port has no fallback route, so ``pt_fusion_fallbacks_total``
+    stays empty)."""
+    _stats["rewrites"][pattern] = _stats["rewrites"].get(pattern, 0) + 1
+    get_telemetry().fusion_rewrite(pattern)
 
 
 # -- the trace -----------------------------------------------------------------
@@ -458,8 +467,7 @@ class FusedModule(torch.nn.Module):
             self._graphs[key] = gm
             _stats["traces"] += 1
             for cl in clusters:
-                _stats["rewrites"][cl.pattern] = \
-                    _stats["rewrites"].get(cl.pattern, 0) + 1
+                _note_rewrite(cl.pattern)
         return gm(*bound.arguments.values())
 
 

@@ -9,6 +9,8 @@ handler (exit 143), and serves until told to stop.  Serve settings come
 from the ``PT_SERVE_*`` environment (:class:`.engine.ServeConfig`), over
 the directory's ``serve_config.json`` with ``--model``.  A directory's
 server reloads newer weight generations on ``POST /v1/reload``.
+Telemetry is on unless ``--no-telemetry``: ``GET /metrics`` serves the
+``pt_serve_*`` series.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ def parse_args(argv=None):
     ap.add_argument("--drain-budget", type=float, default=None,
                     help="SIGTERM drain budget; default "
                          "ServeConfig.drain_s / PT_SERVE_DRAIN_S")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="skip enabling metrics/compile-watch")
     return ap.parse_args(argv)
 
 
@@ -65,6 +69,10 @@ def main(argv=None):
         print("exactly one of --model / --spec is required",
               file=sys.stderr)
         return 2
+
+    if not args.no_telemetry:
+        from ..observability.telemetry import get_telemetry
+        get_telemetry().enable()
 
     from . import (ModelSpec, ServeConfig, ServingEngine, init_params,
                    load_engine)

@@ -32,10 +32,12 @@ TF32 off for matrix products and cuDNN.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import threading
+import weakref
 from dataclasses import asdict, dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +46,8 @@ import torch
 
 from ..device import resolve_device
 from ..jit import CapturedGraph, capture_enabled, capture_stream
+from ..observability.metrics import get_registry
+from ..observability.telemetry import get_telemetry
 from .kv_cache import NULL_PAGE, PagePool, kv_page_budget
 from .model import ModelSpec, decode_step, params_from_numpy, prefill_step
 
@@ -56,6 +60,27 @@ __all__ = ["ServeConfig", "ServingEngine", "PRECISIONS",
            "SERVE_CONFIG_NAME"]
 
 SERVE_CONFIG_NAME = "serve_config.json"
+
+# above 0 while an engine in the process is inside its build: an armed
+# engine ignores those compiles (a second engine coming up is not a
+# request-path compile)
+_AOT_BUILD_DEPTH = 0
+_AOT_BUILD_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def aot_build_phase():
+    """Mark the enclosed work as a sanctioned build: engine construction
+    runs in one, so its bucket compiles do not count as request-path
+    compiles on a live engine."""
+    global _AOT_BUILD_DEPTH
+    with _AOT_BUILD_LOCK:
+        _AOT_BUILD_DEPTH += 1
+    try:
+        yield
+    finally:
+        with _AOT_BUILD_LOCK:
+            _AOT_BUILD_DEPTH -= 1
 
 
 def _buckets(v: str) -> Tuple[int, ...]:
@@ -211,6 +236,15 @@ class ServingEngine:
     def __init__(self, spec: ModelSpec, params, config: ServeConfig = None,
                  *, device=None, weights_step: Optional[int] = None,
                  checkpoint_manager=None):
+        with aot_build_phase():
+            self._build(spec, params, config, device, weights_step,
+                        checkpoint_manager)
+        self._arm_sentinel()
+        from .scheduler import ContinuousScheduler
+        self.scheduler = ContinuousScheduler(self)
+
+    def _build(self, spec, params, config, device, weights_step,
+               checkpoint_manager):
         self.spec = spec
         self.checkpoint_manager = checkpoint_manager
         self.device = resolve_device(device)
@@ -232,16 +266,14 @@ class ServingEngine:
             for name, t in self._prepare_params(params).items()}
         self._weights_step = weights_step
         self._weights_lock = threading.Lock()
-        # no capture happens on a request path; the key stays in
-        # /healthz for the clients that read it
+        # compiles seen after warm-up (a request-path compile: /healthz
+        # degrades)
         self.unexpected_compiles = 0
         self.compiled_programs = 0
         #: ("prefill" | "decode", bucket) -> its captured graph
         self._graphs: Dict[Tuple[str, int], _Bucket] = {}
         self.capture_seconds = 0.0
         self._warmup()
-        from .scheduler import ContinuousScheduler
-        self.scheduler = ContinuousScheduler(self)
 
     def _prepare_params(self, params):
         """Carry an incoming weight dict onto the device at the engine's
@@ -282,6 +314,7 @@ class ServingEngine:
                               stream, pool)
             else:
                 self._prefill_padded(host["tokens"], 1, host["page_table"])
+            self._account_compile(f"serve_prefill_s{s}{self._suffix()}")
         for b in self.config.decode_buckets:
             host = {"tokens": np.zeros((b,), np.int32),
                     "positions": np.zeros((b,), np.int32),
@@ -292,6 +325,7 @@ class ServingEngine:
             else:
                 self._decode_padded(host["tokens"], host["positions"],
                                     host["page_tables"])
+            self._account_compile(f"serve_decode_b{b}{self._suffix()}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.compiled_programs = (len(self.config.prefill_buckets)
@@ -299,6 +333,47 @@ class ServingEngine:
         logger.info("serve buckets warmed: prefill %s, decode %s, %d graphs",
                     list(self.config.prefill_buckets),
                     list(self.config.decode_buckets), len(self._graphs))
+
+    def _suffix(self) -> str:
+        prec = self.config.precision
+        return "" if prec == "fp32" else f"_{prec}"
+
+    @staticmethod
+    def _account_compile(name: str) -> None:
+        """A bucket built (its warm-up and, on the card, its graph): one
+        compile, the JAX engine's ahead-of-time build of the bucket."""
+        get_telemetry().record_compile(name, signature="aot-build")
+
+    def _arm_sentinel(self) -> None:
+        """From here on (after the warm-up), a compile anywhere in the
+        process is a request-path compile: counted and /healthz degraded.
+        The listener holds the engine weakly (an engine nobody closes is
+        still freed) and leaves once it is."""
+        tel = get_telemetry()
+        tel.ensure_compile_watch()
+        ref = weakref.ref(self)
+
+        def listener(name, signature=""):
+            engine = ref()
+            if engine is None:
+                tel.remove_compile_listener(listener)
+            else:
+                engine._on_compile_event(name, signature)
+        self._compile_listener = listener
+        tel.add_compile_listener(listener)
+
+    def _on_compile_event(self, name: str, signature: str = "") -> None:
+        if _AOT_BUILD_DEPTH > 0:
+            return
+        self.unexpected_compiles += 1
+        logger.warning(
+            "unexpected request-path compile: %s; the serve ladder should "
+            "cover every shape; /healthz now degraded", name)
+        if get_telemetry().enabled:
+            get_registry().counter(
+                "pt_serve_unexpected_compiles_total",
+                "Compiles observed after serve warmup (SLO alarm)",
+                labelnames=("fn",)).inc(fn=name)
 
     def _capture(self, kind, size, host, fn, stream, pool) -> None:
         """Warm up and capture one bucket over static buffers made from
@@ -331,7 +406,9 @@ class ServingEngine:
         return nxt
 
     def close(self) -> None:
-        """Stop the scheduler's background loop, if one runs."""
+        """Stop the scheduler's background loop, if one runs, and the
+        compile listener."""
+        get_telemetry().remove_compile_listener(self._compile_listener)
         self.scheduler.stop()
 
     # -- request path ---------------------------------------------------------
@@ -490,8 +567,8 @@ class ServingEngine:
             kv_consistent = False
         h = {
             # degraded while draining (load balancers must stop routing
-            # here), on a tripped hang watchdog, or a page-pool
-            # invariant violation
+            # here), on any request-path compile, a tripped hang
+            # watchdog, or a page-pool invariant violation
             "ok": (self.unexpected_compiles == 0 and not draining
                    and not hang and kv_consistent),
             "draining": draining,

@@ -6,7 +6,11 @@ bound at import):
 
  - ``GET  /healthz``      engine + scheduler health; 503 once the hang
                           watchdog fired, the page pool is inconsistent,
-                          or the engine is draining
+                          a compile was seen after warm-up, or the
+                          engine is draining
+ - ``GET  /metrics``      the telemetry registry's Prometheus text (the
+                          ``pt_serve_*`` series and the rest; empty
+                          while telemetry is off)
  - ``POST /v1/generate``  ``{"tokens": [...], "max_new_tokens": N,
                           "deadline_ms": D}`` -> ``{"tokens": [...]}``;
                           429 + ``Retry-After`` on saturation/shed,
@@ -43,11 +47,15 @@ import threading
 import time
 from typing import Optional
 
+from ..observability.metrics import get_registry
+from ..observability.telemetry import get_telemetry
+
 logger = logging.getLogger("paddle_tpu_torch.serving")
 
 __all__ = ["ServeHTTPServer", "install_drain_handler", "DRAIN_EXIT_CODE"]
 
 _CTYPE_JSON = "application/json"
+_CTYPE_METRICS = "text/plain; version=0.0.4; charset=utf-8"
 
 # 128 + SIGTERM: the exit status a supervisor reads as "asked to stop,
 # stopped cleanly" after a graceful drain
@@ -114,13 +122,17 @@ class ServeHTTPServer:
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
                 try:
-                    if path == "/healthz":
+                    if path == "/metrics":
+                        self._send(200, _CTYPE_METRICS,
+                                   get_registry().prometheus_text()
+                                   .encode("utf-8"))
+                    elif path == "/healthz":
                         health = engine.healthz()
                         self._send_json(200 if health.get("ok") else 503,
                                         health)
                     else:
                         self._send(404, "text/plain; charset=utf-8",
-                                   b"not found; try /healthz "
+                                   b"not found; try /healthz /metrics "
                                    b"/v1/generate\n")
                 except Exception as e:
                     logger.warning("serve endpoint error on %s: %s",
@@ -217,6 +229,7 @@ class ServeHTTPServer:
                 err = stream._error
                 if err is None:
                     wall = time.monotonic() - t0
+                    _book_http_latency(wall)
                     self._send_json(200, {
                         "tokens": [int(t) for t in stream.tokens],
                         "request_id": stream.request_id,
@@ -256,7 +269,7 @@ class ServeHTTPServer:
                 daemon=True)
             self._reload_thread.start()
         logger.info("serve endpoint on http://%s:%d (/v1/generate, "
-                    "/v1/cancel, /v1/reload, /healthz)",
+                    "/v1/cancel, /v1/reload, /healthz, /metrics)",
                     self._host, self.port)
         return self
 
@@ -298,6 +311,16 @@ class ServeHTTPServer:
             self._reload_thread = None
         self.engine.scheduler.stop()
         self.port = None
+
+
+def _book_http_latency(seconds: float) -> None:
+    """The wall time of one ``/v1/generate`` (queueing included);
+    nothing while telemetry is off."""
+    if not get_telemetry().enabled:
+        return
+    get_registry().histogram(
+        "pt_serve_http_request_seconds",
+        "Wall time of /v1/generate requests").observe(seconds)
 
 
 def install_drain_handler(server: ServeHTTPServer, *,

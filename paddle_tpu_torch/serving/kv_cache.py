@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability.metrics import get_registry
+from ..observability.telemetry import get_telemetry
 
 __all__ = ["PagePool", "KVPoolExhausted", "NULL_PAGE", "kv_page_budget"]
 
@@ -119,11 +121,13 @@ class PagePool:
                     f"reserve({n_pages}): only "
                     f"{len(self._free) - self._reserved} unreserved pages")
             self._reserved += n_pages
+        self._gauges()
 
     def release_reservation(self, n_pages: int) -> None:
         """Return unused promised pages (sequence finished early)."""
         with self._lock:
             self._reserved = max(0, self._reserved - n_pages)
+        self._gauges()
 
     # -- alloc / free -------------------------------------------------------
 
@@ -148,6 +152,7 @@ class PagePool:
             used = self.usable_pages - len(self._free)
             self.stats["high_watermark"] = max(
                 self.stats["high_watermark"], used)
+        self._gauges()
         return ids
 
     def free(self, page_ids: Sequence[int]) -> None:
@@ -162,6 +167,7 @@ class PagePool:
                     raise ValueError(f"double free of page {pid}")
                 self._free.append(pid)
             self.stats["frees"] += len(page_ids)
+        self._gauges()
 
     def check_consistency(self, expect_all_free: bool = False) -> None:
         """Invariant check: no duplicate or lost pages.
@@ -196,6 +202,28 @@ class PagePool:
                 max(1, self.usable_pages),
                 **self.stats,
             }
+
+    # -- metrics ------------------------------------------------------------
+
+    def _gauges(self) -> None:
+        """``pt_serve_kv_pages{state}`` and ``pt_serve_kv_utilization``;
+        nothing while telemetry is off (the registry stays empty then)."""
+        if not get_telemetry().enabled:
+            return
+        with self._lock:
+            free = len(self._free)
+            reserved = self._reserved
+        g = get_registry().gauge(
+            "pt_serve_kv_pages",
+            "Serve KV page-pool occupancy by state",
+            labelnames=("state",))
+        g.set(self.usable_pages - free, state="used")
+        g.set(free, state="free")
+        g.set(reserved, state="reserved")
+        get_registry().gauge(
+            "pt_serve_kv_utilization",
+            "Fraction of usable KV pages in use").set(
+            (self.usable_pages - free) / max(1, self.usable_pages))
 
     def null_padded_table(self, page_ids: Sequence[int],
                           max_pages: int) -> np.ndarray:

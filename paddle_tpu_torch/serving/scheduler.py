@@ -48,6 +48,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..observability.metrics import get_registry
+from ..observability.telemetry import get_telemetry
 from .kv_cache import KVPoolExhausted
 
 logger = logging.getLogger("paddle_tpu_torch.serving")
@@ -110,6 +112,7 @@ class GenerationStream:
         self.max_new_tokens = max_new_tokens
         self.tokens: List[int] = []
         self.submitted_ts = time.monotonic()
+        self.finished_ts: Optional[float] = None
         self.deadline = deadline        # absolute time.monotonic(), or None
         self.cancel_cause: Optional[str] = None
         self._done = threading.Event()
@@ -145,7 +148,15 @@ class GenerationStream:
             raise self._error
         return self.tokens
 
+    @property
+    def latency(self) -> Optional[float]:
+        """Seconds from submit to the finish; None until finished."""
+        if self.finished_ts is None:
+            return None
+        return self.finished_ts - self.submitted_ts
+
     def _finish(self, error: Optional[BaseException] = None) -> None:
+        self.finished_ts = time.monotonic()
         self._error = error
         self._done.set()
 
@@ -224,6 +235,8 @@ class ContinuousScheduler:
             inflight = len(self._queue) + len(self._active)
             if inflight >= cfg.max_inflight:
                 self.stats["refused_inflight"] += 1
+                self._book("pt_serve_admission_refusals_total",
+                           kind="counter", reason="inflight_cap")
                 raise EngineSaturated(
                     f"{inflight} requests in flight (cap "
                     f"{cfg.max_inflight})")
@@ -251,11 +264,14 @@ class ContinuousScheduler:
             st._sched = self
             self._queue.append(st)
             self.stats["submitted"] += 1
+            self._book("pt_serve_requests_total", kind="counter")
+            self._gauges_locked()
             self._cv.notify()
         return st
 
     def _shed_locked(self, reason: str) -> None:
         self.stats["shed"] += 1
+        self._book("pt_serve_shed_total", kind="counter", reason=reason)
 
     def _completion_eta_locked(self, max_new: int) -> Optional[float]:
         """Seconds until a request submitted NOW would finish, from the
@@ -288,12 +304,14 @@ class ContinuousScheduler:
                 if st.request_id == request_id:
                     self._queue.remove(st)
                     self._finish_evicted_locked(st, cause)
+                    self._gauges_locked()
                     return True
             for a in self._active:
                 if a.stream.request_id == request_id:
                     self._active.remove(a)
                     self._release_locked(a)
                     self._finish_evicted_locked(a.stream, cause)
+                    self._gauges_locked()
                     return True
         return False
 
@@ -308,6 +326,7 @@ class ContinuousScheduler:
         st.cancel_cause = cause
         if cause == "deadline":
             self.stats["deadline_exceeded"] += 1
+            self._book("pt_serve_deadline_exceeded_total", kind="counter")
             err: BaseException = DeadlineExceeded(
                 f"request {st.request_id} missed its deadline after "
                 f"{len(st.tokens)}/{st.max_new_tokens} tokens")
@@ -316,6 +335,7 @@ class ContinuousScheduler:
                 f"request {st.request_id} cancelled ({cause})",
                 cause=cause)
         self.stats["cancelled"] += 1
+        self._book("pt_serve_cancelled_total", kind="counter", cause=cause)
         st._finish(error=err)
 
     def _expire_queue_locked(self) -> None:
@@ -350,6 +370,7 @@ class ContinuousScheduler:
             self._admit_locked()
             worked = self._decode_locked()
             self.stats["steps"] += 1 if worked else 0
+            self._gauges_locked()
             return worked or bool(self._queue)
 
     def _admit_locked(self) -> None:
@@ -362,6 +383,8 @@ class ContinuousScheduler:
                 # head-of-line blocking is deliberate: skipping ahead
                 # would starve large requests under sustained load
                 self.stats["refused_kv"] += 1
+                self._book("pt_serve_admission_refusals_total",
+                           kind="counter", reason="kv_headroom")
                 break
             self._queue.popleft()
             try:
@@ -381,11 +404,14 @@ class ContinuousScheduler:
                 pool.free(page_ids)
                 pool.release_reservation(reserved_left)
                 self.stats["failed"] += 1
+                self._book("pt_serve_request_failures_total",
+                           kind="counter", stage="prefill")
                 st._finish(error=exc)
                 logger.exception("prefill failed for request %d",
                                  st.request_id)
                 continue
             st.tokens.append(first)
+            self._book("pt_serve_tokens_total", kind="counter")
             self.stats["tokens_generated"] += 1
             act = _Active(st, page_ids, page_table, pos=len(st.prompt),
                           last_token=first, reserved_left=reserved_left)
@@ -436,6 +462,8 @@ class ContinuousScheduler:
         bucket = self.engine.decode_bucket_for(n)
         self.stats["occupancy_sum"] += n / bucket
         self.stats["occupancy_steps"] += 1
+        self._book("pt_serve_batch_occupancy", kind="gauge",
+                   value=n / bucket)
         still = []
         for a, t in zip(self._active, nxt):
             try:
@@ -443,6 +471,7 @@ class ContinuousScheduler:
                 a.last_token = int(t)
                 a.stream.tokens.append(int(t))
                 self.stats["tokens_generated"] += 1
+                self._book("pt_serve_tokens_total", kind="counter")
                 if self._is_finished(a):
                     self._retire_locked(a)
                 else:
@@ -452,6 +481,8 @@ class ContinuousScheduler:
                 # neighbours keep decoding and its pages come back
                 self._release_locked(a)
                 self.stats["failed"] += 1
+                self._book("pt_serve_request_failures_total",
+                           kind="counter", stage="step")
                 a.stream._finish(error=exc)
                 logger.exception("step bookkeeping failed for request %d",
                                  a.stream.request_id)
@@ -462,6 +493,8 @@ class ContinuousScheduler:
         for a in self._active:
             self._release_locked(a)
             self.stats["failed"] += 1
+            self._book("pt_serve_request_failures_total",
+                       kind="counter", stage="decode")
             a.stream._finish(error=exc)
         logger.exception("decode step failed; %d requests failed, pages "
                          "released", len(self._active))
@@ -481,6 +514,10 @@ class ContinuousScheduler:
             pool.release_reservation(a.reserved_left)
         a.stream._finish()
         self.stats["completed"] += 1
+        lat = a.stream.latency
+        self._book("pt_serve_request_latency_seconds", kind="histogram",
+                   value=lat)
+        self._book("pt_serve_completed_total", kind="counter")
 
     # -- loop management -----------------------------------------------------
 
@@ -583,8 +620,10 @@ class ContinuousScheduler:
                 self._active.remove(a)
                 self._release_locked(a)
                 self._finish_evicted_locked(a.stream, "drain")
+            self._gauges_locked()
         dur = time.monotonic() - t0
         self.stats["drain_seconds"] = dur
+        self._book("pt_serve_drain_seconds", kind="gauge", value=dur)
         logger.info("graceful drain %s in %.3fs",
                     "completed" if clean else
                     "cut short (budget exhausted)", dur)
@@ -643,6 +682,7 @@ class ContinuousScheduler:
             "serve hang watchdog tripped: decode step in flight for "
             "%.3fs (threshold %.3fs); active batch %s",
             stuck, threshold, rids)
+        self._book("pt_serve_hang_watchdog_trips_total", kind="counter")
         if mode == "exit":
             logger.error("PT_SERVE_WATCHDOG=exit: fast-exiting %d for "
                          "supervisor restart", WATCHDOG_EXIT_CODE)
@@ -664,3 +704,59 @@ class ContinuousScheduler:
                 **{k: v for k, v in self.stats.items()
                    if k not in ("occupancy_sum",)},
             }
+
+    # -- metrics -------------------------------------------------------------
+
+    def _gauges_locked(self) -> None:
+        self._book("pt_serve_queue_depth", kind="gauge",
+                   value=len(self._queue))
+        self._book("pt_serve_active_sequences", kind="gauge",
+                   value=len(self._active))
+
+    def _book(self, name: str, *, kind: str, value: float = 1.0,
+              **labels) -> None:
+        """One sample of the serve series ``name``; nothing while
+        telemetry is off (the registry stays empty then)."""
+        if not get_telemetry().enabled:
+            return
+        reg = get_registry()
+        help_ = _METRIC_HELP.get(name, "")
+        if kind == "counter":
+            reg.counter(name, help_,
+                        labelnames=tuple(labels)).inc(value, **labels)
+        elif kind == "gauge":
+            reg.gauge(name, help_,
+                      labelnames=tuple(labels)).set(value, **labels)
+        else:
+            reg.histogram(name, help_,
+                          labelnames=tuple(labels)).observe(value, **labels)
+
+
+_METRIC_HELP = {
+    "pt_serve_requests_total": "Requests accepted by the serve scheduler",
+    "pt_serve_completed_total": "Requests completed",
+    "pt_serve_admission_refusals_total":
+        "Admissions refused, by reason (inflight_cap|kv_headroom)",
+    "pt_serve_shed_total":
+        "Requests shed at admission, by reason "
+        "(deadline_infeasible|queue_full|draining)",
+    "pt_serve_cancelled_total":
+        "Requests evicted before completing, by cause "
+        "(client|timeout|deadline|disconnect|drain)",
+    "pt_serve_deadline_exceeded_total":
+        "Requests that missed their deadline (shed or evicted)",
+    "pt_serve_drain_seconds":
+        "Wall time of the last graceful drain",
+    "pt_serve_request_failures_total":
+        "Requests failed by an exception in the step loop, by stage "
+        "(prefill|decode|step)",
+    "pt_serve_hang_watchdog_trips_total":
+        "Hang-watchdog trips (decode step exceeded Nx rolling p99)",
+    "pt_serve_tokens_total": "Tokens generated by the serve engine",
+    "pt_serve_queue_depth": "Requests waiting for admission",
+    "pt_serve_active_sequences": "Sequences resident in the decode batch",
+    "pt_serve_batch_occupancy":
+        "Active rows / decode bucket size of the last step",
+    "pt_serve_request_latency_seconds":
+        "End-to-end request latency (submit to last token)",
+}

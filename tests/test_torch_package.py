@@ -91,7 +91,17 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
         "          'distributed.auto_parallel.engine',\n"
         "          'distributed.auto_parallel.cluster',\n"
         "          'distributed.fleet.role_maker', 'distributed.fleet.util',\n"
-        "          'cost_model', 'cost_model.parallel_cost'):\n"
+        "          'cost_model', 'cost_model.parallel_cost',\n"
+        "          'observability', 'observability.logs',\n"
+        "          'observability.metrics', 'observability.events',\n"
+        "          'observability.server', 'observability.telemetry',\n"
+        "          'distributed.utils', 'distributed.fleet.utils',\n"
+        "          'distributed.fleet.data_generator',\n"
+        "          'distributed.fleet.dataset', 'distributed.auto_tuner',\n"
+        "          'distributed.auto_tuner.prune',\n"
+        "          'distributed.auto_tuner.recorder',\n"
+        "          'distributed.auto_tuner.search',\n"
+        "          'distributed.auto_tuner.tuner'):\n"
         "    assert 'paddle_tpu_torch.' + m in names, (m, names)\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print(len(names), bad)\n")
@@ -141,7 +151,19 @@ def test_package_sources_name_no_jax_and_no_reference_module():
               "incubate/distributed/models/moe/__init__.py",
               "incubate/distributed/models/moe/functional.py",
               "incubate/distributed/models/moe/gate.py",
-              "incubate/distributed/models/moe/moe_layer.py"):
+              "incubate/distributed/models/moe/moe_layer.py",
+              "observability/__init__.py", "observability/logs.py",
+              "observability/metrics.py", "observability/events.py",
+              "observability/server.py", "observability/telemetry.py",
+              "distributed/utils/__init__.py",
+              "distributed/fleet/utils/__init__.py",
+              "distributed/fleet/data_generator.py",
+              "distributed/fleet/dataset.py",
+              "distributed/auto_tuner/__init__.py",
+              "distributed/auto_tuner/prune.py",
+              "distributed/auto_tuner/recorder.py",
+              "distributed/auto_tuner/search.py",
+              "distributed/auto_tuner/tuner.py"):
         assert PKG / m in sources, m
     for path in sources:
         text = path.read_text()
@@ -432,8 +454,14 @@ def test_http_generate_healthz_and_cancel(params):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _post(base + path, {"tokens": "nope"})
             assert ei.value.code == 400
+        # /metrics answers with the registry's text (empty while
+        # telemetry is off); an unknown route is still 404
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith(
+                "text/plain; version=0.0.4")
         with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(base + "/metrics", timeout=30)
+            urllib.request.urlopen(base + "/nope", timeout=30)
         assert ei.value.code == 404
     finally:
         srv.stop()
